@@ -1,0 +1,455 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run (nonzero exit, no result line):
+
+1. device  — print the card's name and power limit (``nvidia-smi``) and
+   require CUDA with capability (9, 0);
+2. build   — compile every kernel of the serving path from the sources
+   in this checkout (one ``nvcc`` per source, in parallel);
+3. kernels — call each kernel's wrapper on the card at the serving
+   path's shapes and hold it against its plain PyTorch version: the
+   BLSTM layer (K1 port) at bf16 tolerance 2e-2 (normalised by the
+   plain output's max-abs), the beam frame step (K5 port) bit-identical
+   under the max semiring and within 1e-5 under sum; time each with CUDA
+   events beside its plain version and its bytes/operations bound;
+4. serve   — the full-width ``swb2000-blstm`` AsrServer (6 BLSTM layers
+   of 512 per direction, vocab 32000, random weights from seed 0)
+   serves 8 synthetic utterances to completion with every launch counter
+   set to 0 just before and read just after; then a second run with
+   top-C pruning (C = 16) serves 4 more.  The parked posteriors of one
+   request are held against the plain forward;
+5. profile — 4 requests once more under torch.profiler: device time by
+   kernel and the device's busy share of the wall time.
+
+The last two lines are ``{"kernels": [...]}`` and
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+sys.path.insert(0, str(HERE / "src"))
+
+# NVIDIA H100 SXM data sheet, dense, at the full 700 W power limit
+PEAK_BYTES_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
+
+K1_TOL = 2e-2            # bf16 forward (docs/kernels.md §Oracle tolerances)
+K5_SUM_TOL = 1e-5        # sum semiring: logaddexp in another order
+SEED = 0
+
+
+def _fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def _time_ms(fn, iters: int, warmup: int = 2) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _bound(nbytes: float, ops: float, peak_ops: float):
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _norm_err(got, want) -> tuple:
+    got, want = got.float(), want.float()
+    abs_err = float((got - want).abs().max())
+    return abs_err, abs_err / (float(want.abs().max()) + 1e-8)
+
+
+# ---------------------------------------------------------------- phase 1
+def phase_device():
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if smi.returncode != 0:
+        _fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    print(smi.stdout.strip(), flush=True)
+    cap = torch.cuda.get_device_capability(0)
+    print(f"[device] {torch.cuda.get_device_name(0)} capability {cap} "
+          f"count {torch.cuda.device_count()} torch {torch.__version__} "
+          f"cuda {torch.version.cuda}", flush=True)
+    if tuple(cap) != (9, 0):
+        _fail(f"need compute capability (9, 0), got {cap}")
+
+
+# ---------------------------------------------------------------- phase 2
+def phase_build():
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    secs = build.build()
+    print(f"[build] {sorted(secs)} built in "
+          f"{time.perf_counter() - t0:.1f}s (per library: "
+          f"{ {k: round(v, 1) for k, v in secs.items()} })", flush=True)
+    for name in build.SOURCES:
+        log = build.log_path(name)
+        if log.exists():
+            for line in log.read_text(errors="replace").splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"[ptxas {name}] {line.strip()}", flush=True)
+
+
+# ---------------------------------------------------------------- phase 3
+def _k1_inputs(B, T, D, H, lengths, gen):
+    import torch
+
+    dev = torch.device("cuda")
+
+    def w(*shape, scale):
+        return (torch.randn(*shape, generator=gen) * scale).to(
+            dev, torch.bfloat16)
+
+    ws = []
+    for _ in range(2):
+        ws += [w(D, 4 * H, scale=D ** -0.5), w(H, 4 * H, scale=H ** -0.5),
+               (torch.randn(4 * H, generator=gen) * 0.1).to(dev)]
+    x = w(B, T, D, scale=1.0)
+    return ws, x, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+
+def _cudnn_blstm(ws, x, lengths):
+    """One cuDNN bidirectional LSTM call over a packed batch with the same
+    weights (forget bias +1 folded into the input bias): the library
+    yardstick, timed only here and used nowhere in the port."""
+    import torch
+    from torch.nn.utils.rnn import pack_padded_sequence
+
+    wxf, whf, bf, wxb, whb, bb = ws
+    D, H = x.shape[-1], whf.shape[0]
+    lstm = torch.nn.LSTM(D, H, batch_first=True, bidirectional=True).to(
+        x.device, torch.bfloat16)
+    with torch.no_grad():
+        for sfx, (wx, wh, b) in (("", (wxf, whf, bf)),
+                                 ("_reverse", (wxb, whb, bb))):
+            bias = b.clone()
+            bias[H:2 * H] += 1.0
+            getattr(lstm, f"weight_ih_l0{sfx}").copy_(wx.t())
+            getattr(lstm, f"weight_hh_l0{sfx}").copy_(wh.t())
+            getattr(lstm, f"bias_ih_l0{sfx}").copy_(bias)
+            getattr(lstm, f"bias_hh_l0{sfx}").zero_()
+    packed = pack_padded_sequence(x, lengths.cpu(), batch_first=True,
+                                  enforce_sorted=False)
+
+    def call():
+        with torch.no_grad():
+            return lstm(packed)
+    return call
+
+
+def check_k1(gen):
+    import torch
+
+    from repro_torch.kernels import lstm_cell
+    from repro_torch.kernels.ref import blstm_layer_ref
+
+    T, H = 256, 512
+    cases = [(1, 260, (173,)), (1, 1024, (256,)),
+             (4, 260, (256, 200, 77, 1)), (4, 1024, (256, 131, 40, 9))]
+    worst, entry = 0.0, None
+    for B, D, lens in cases:
+        ws, x, lengths = _k1_inputs(B, T, D, H, lens, gen)
+        got = lstm_cell.blstm_layer(*ws, x, lengths)
+        torch.cuda.synchronize()
+        want = blstm_layer_ref(*ws, x, lengths)
+        abs_err, norm = _norm_err(got, want)
+        for b, n in enumerate(lens):
+            if got[b, n:].any():
+                _fail(f"K1 B={B} D={D}: padded frames of row {b} not zero")
+        print(f"[K1] blstm_layer B={B} T={T} D={D} H={H} lengths={lens}: "
+              f"max_abs_err {abs_err:.3g}, normalised {norm:.3g} "
+              f"(tol {K1_TOL})", flush=True)
+        if not norm <= K1_TOL:
+            _fail(f"K1 B={B} D={D} disagrees with its plain version: "
+                  f"normalised error {norm}")
+        worst = max(worst, abs_err)
+        if (B, D) != (1, 1024):
+            continue
+        # the admission path's shape for layers 1..5: time it
+        ms = _time_ms(lambda: lstm_cell.blstm_layer(*ws, x, lengths), 10)
+        plain_ms = _time_ms(lambda: blstm_layer_ref(*ws, x, lengths), 2,
+                            warmup=1)
+        try:
+            library_ms = _time_ms(_cudnn_blstm(ws, x, lengths), 10)
+        except RuntimeError as e:        # no cuDNN kernel for these types
+            print(f"[K1] library (cuDNN LSTM) not timed: {e}", flush=True)
+            library_ms = None
+        n_valid = int(sum(lens))
+        nbytes = (B * T * D * 2 + 2 * (D * 4 * H * 2 + H * 4 * H * 2
+                                       + 4 * H * 4)
+                  + B * 4 + B * T * 2 * H * 2)
+        ops = 2 * (2 * n_valid * D * 4 * H + 2 * n_valid * H * 4 * H)
+        bound_ms, bound_by = _bound(nbytes, ops, PEAK_BF16_FLOPS)
+        entry = dict(name="blstm_layer", route="cuda",
+                     source="src/repro_torch/kernels/csrc/lstm_fwd.cu",
+                     replaces="src/repro/kernels/lstm_cell.py:498",
+                     ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, library_ms=library_ms,
+                     shape=f"B={B} T={T} D={D} H={H}")
+        print(f"[K1] B={B} D={D}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+              f"ms, library {library_ms} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by})", flush=True)
+    entry["max_abs_err"] = worst
+    return entry
+
+
+def _k5_states(B, K, V, gen):
+    """Beam states the serving path meets: a few frames into a decode of
+    peaked posteriors, plus fresh beams capped at length 0 (one live
+    candidate per row, so later passes repeat a taken index)."""
+    import torch
+
+    from repro_torch.decode import beam as DB
+
+    dev = torch.device("cuda")
+    st = DB.init_state(B, K, 64, dev)
+    for _ in range(6):
+        lp = torch.log_softmax(
+            torch.randn(B, V, generator=gen).to(dev) * 3.0, dim=-1)
+        sel, npb, npnb = DB.frame_step_scores(
+            lp, st.p_b, st.p_nb, st.last, st.phash, st.lens, blank=0,
+            max_len=64, semiring="max")
+        st = DB.apply_selection(st, sel, npb, npnb, blank=0, vocab=V)
+    fresh = DB.init_state(B, K, 64, dev)
+    return [("mid-utterance", st, 64), ("fewer-live-than-beam", fresh, 0)]
+
+
+def check_k5(gen):
+    import torch
+
+    from repro_torch.decode import beam as DB
+    from repro_torch.decode import kernel as DK
+
+    B, K, V = 4, 8, 32000
+    dev = torch.device("cuda")
+    logp = torch.log_softmax(torch.randn(B, V, generator=gen).to(dev) * 3.0,
+                             dim=-1).contiguous()
+    entries = {}
+    for topc in (0, 16):
+        worst = 0.0
+        for semiring in ("max", "sum"):
+            for label, st, max_len in _k5_states(B, K, V, gen):
+                args = (logp, st.p_b, st.p_nb, st.last, st.phash, st.lens)
+                kw = dict(blank=0, max_len=max_len, semiring=semiring)
+                got = DK.beam_frame_step(*args, topc=topc, **kw)
+                torch.cuda.synchronize()
+                want = (DB.frame_step_scores_topc(*args, topc=topc, **kw)
+                        if topc else DB.frame_step_scores(*args, **kw))
+                if not torch.equal(got[0], want[0]):
+                    _fail(f"K5 topc={topc} {semiring} {label}: sel "
+                          f"{got[0].tolist()} != {want[0].tolist()}")
+                err = max(float((g - w).abs().max())
+                          for g, w in zip(got[1:], want[1:]))
+                tol = 0.0 if semiring == "max" else K5_SUM_TOL
+                ok = (all(torch.equal(g, w) for g, w in
+                          zip(got[1:], want[1:])) if semiring == "max"
+                      else all(torch.allclose(g, w, rtol=tol, atol=tol)
+                               for g, w in zip(got[1:], want[1:])))
+                print(f"[K5] beam_frame_step topc={topc} {semiring} "
+                      f"{label}: sel equal, score max_abs_err {err:.3g} "
+                      f"(tol {tol})", flush=True)
+                if not ok:
+                    _fail(f"K5 topc={topc} {semiring} {label}: scores "
+                          f"disagree (max_abs_err {err})")
+                worst = max(worst, err)
+        st = _k5_states(B, K, V, gen)[0][1]
+        args = (logp, st.p_b, st.p_nb, st.last, st.phash, st.lens)
+        kw = dict(blank=0, max_len=64, semiring="max")
+        ms = _time_ms(lambda: DK.beam_frame_step(*args, topc=topc, **kw), 50)
+        plain = ((lambda: DB.frame_step_scores_topc(*args, topc=topc, **kw))
+                 if topc else (lambda: DB.frame_step_scores(*args, **kw)))
+        plain_ms = _time_ms(plain, 5)
+        nbytes = B * V * 4 + B * K * 4 * 5 + B * K * 4 * 3
+        ops = (B * V + B * K * (topc + 1) * 2) if topc else B * K * V * 2
+        bound_ms, bound_by = _bound(nbytes, ops, PEAK_F32_FLOPS)
+        name = "beam_frame_step_topc" if topc else "beam_frame_step"
+        entries[name] = dict(
+            name=name, route="cuda",
+            source="src/repro_torch/decode/csrc/beam_step.cu",
+            replaces="src/repro/decode/kernel.py:123", max_abs_err=worst,
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None, shape=f"B={B} K={K} V={V} C={topc}")
+        print(f"[K5] topc={topc}: kernel {ms:.4f} ms, plain {plain_ms:.3f} "
+              f"ms, bound {bound_ms:.5f} ms ({bound_by})", flush=True)
+    return entries
+
+
+# ---------------------------------------------------------------- phase 4
+def _serve(cfg, *, requests, topc):
+    import torch
+
+    from repro_torch.decode import kernel as DK
+    from repro_torch.kernels import lstm_cell
+    from repro_torch.launch.serve import AsrServer, asr_requests, serve_all
+
+    server = AsrServer(cfg, slots=4, max_frames=256, chunk=8, beam=8,
+                       seed=SEED, topc=topc)
+    pending = asr_requests(cfg, requests=requests, seq_len=256, seed=SEED)
+    torch.cuda.synchronize()
+    lstm_cell.launches = 0
+    DK.launches = 0
+    t0 = time.perf_counter()
+    finished, wave_s = serve_all(server, pending)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {"blstm_layer": lstm_cell.launches,
+              "beam_frame_step_topc" if topc else "beam_frame_step":
+              DK.launches}
+    return server, pending, finished, wave_s, dt, counts
+
+
+def phase_serve():
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lstm as LS
+
+    cfg = get_arch("swb2000-blstm")
+    launches = {}
+    for requests, topc in ((8, 0), (4, 16)):
+        server, pending, finished, wave_s, dt, counts = _serve(
+            cfg, requests=requests, topc=topc)
+        got = sorted(rid for rid, _ in finished)
+        if got != [rid for rid, _ in pending]:
+            _fail(f"served {got}, expected every one of {len(pending)}")
+        for name, n in counts.items():
+            if n <= 0:
+                _fail(f"kernel {name} was never launched on the main path")
+            launches.setdefault(name, n)     # each kernel's first path
+        frames = sum(len(f) for _, f in pending)
+        toks = sum(len(h) for _, h in finished)
+        if any(h and (min(h) < 0 or max(h) >= cfg.vocab)
+               for _, h in finished):
+            _fail("a hypothesis holds a token outside the vocabulary")
+        print(f"[serve] topc={topc}: {len(finished)} requests, {frames} "
+              f"frames, {toks} tokens, {len(wave_s)} waves in {dt:.3f}s: "
+              f"{frames / dt:.1f} frames/s, {toks / dt:.1f} tokens/s, mean "
+              f"wave {1e3 * float(np.mean(wave_s)):.2f} ms; launches "
+              f"{counts}", flush=True)
+    # parked posteriors of the last request admitted to slot 0 against the
+    # plain forward (on the CPU, from the same weights)
+    rid = [r for k, r, kw in server.events
+           if k == "admit" and kw["slot"] == 0][-1]
+    feats = dict(pending)[rid]
+    n = len(feats)
+    padded = np.zeros((1, server.max_frames, cfg.input_dim), np.float32)
+    padded[0, :n] = feats
+    want = LS.forward(cfg, _to_cpu(server.params), torch.from_numpy(padded),
+                      torch.tensor([n], dtype=torch.int32), device="cpu")[0]
+    got = server.logits[0].cpu()
+    if not torch.isfinite(got).all() or got.shape != want.shape:
+        _fail(f"parked logits not finite or shape {tuple(got.shape)}")
+    abs_err, norm = _norm_err(got, want)
+    print(f"[serve] parked logits of request {rid} ({n} frames) vs plain "
+          f"forward: max_abs_err {abs_err:.3g}, normalised {norm:.3g} "
+          f"(tol {K1_TOL})", flush=True)
+    if not norm <= K1_TOL:
+        _fail(f"parked logits disagree with the plain forward: {norm}")
+    return launches
+
+
+def phase_profile():
+    """Where the serving time goes: the main path once more (4 requests)
+    under torch.profiler, device time by kernel and the device's busy
+    share of the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, _, _, dt, _ = _serve(get_arch("swb2000-blstm"), requests=4,
+                                   topc=0)
+    # device-side events only: a CPU op's device time repeats the time of
+    # the kernels it launched
+    rows = sorted(((e.device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.device_time_total > 0), reverse=True)
+    if not rows:
+        print("[profile] the profiler recorded no device events: device "
+              "busy share not measured", flush=True)
+        return
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    print(f"[profile] serve 4 requests: wall {1e3 * dt:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / (1e3 * dt):.1f}%)",
+          flush=True)
+    for us, n, key in rows[:8]:
+        print(f"[profile]   {us / 1e3:9.2f} ms  {n:6d}x  {key[:70]}",
+              flush=True)
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.cpu()
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError as e:
+        _fail(f"torch is not importable: {e}")
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is false")
+    try:
+        import repro_torch  # noqa: F401
+    except ImportError as e:
+        _fail(f"the port is not importable from {HERE / 'src'}: {e}")
+    t_start = time.perf_counter()
+    try:
+        phase_device()
+        phase_build()
+        gen = torch.Generator().manual_seed(SEED)
+        k1 = check_k1(gen)
+        k5 = check_k5(gen)
+        launches = phase_serve()
+        phase_profile()
+    except SystemExit:
+        raise
+    except Exception:                    # any phase failing fails the run
+        traceback.print_exc()
+        _fail("a phase raised")
+    kernels = [k1, k5["beam_frame_step"], k5["beam_frame_step_topc"]]
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    print(f"[total] {time.perf_counter() - t_start:.1f}s", flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,5 @@
+"""Synthetic data of the port (numpy only)."""
+from repro_torch.data.pipeline import (  # noqa: F401
+    SyntheticASRDataset,
+    make_dataset,
+)

@@ -1,0 +1,110 @@
+"""Synthetic utterances for the paper's BLSTM acoustic model — the port's
+own copy of ``SyntheticASRDataset`` and the lstm branch of
+``make_dataset`` from ``repro/data/pipeline.py``.
+
+Numpy only, with the reference's draw order, so the same seed gives the
+same utterances byte for byte.  Features come from per-class Gaussian
+clusters with Zipf-distributed class priors (CD-state occupancy is very
+uneven).  With ``var_len=True`` every batch carries ``lengths``
+(lognormal utterance lengths, features and labels zeroed beyond them);
+``bucket=True`` sorts utterances by length inside a shuffle window of
+``bucket_window`` batches and pads each batch to its own rounded max.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+
+def _rng(seed, step):
+    return np.random.default_rng(np.uint64(seed * 1_000_003 + step))
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+@dataclass
+class SyntheticASRDataset:
+    """Frame-classification data: ``batch_at(step)`` returns ``features``
+    (B, T, D) f32, ``labels`` (B, T) i32 and, with ``var_len``,
+    ``lengths`` (B,) i32."""
+
+    input_dim: int
+    n_classes: int
+    seq_len: int
+    batch: int
+    seed: int = 0
+    n_effective_classes: int = 64   # rank of the learnable structure
+    var_len: bool = False
+    min_len: int = 4
+    len_sigma: float = 0.6          # lognormal spread of utterance lengths
+    bucket: bool = False            # sort-within-shuffle-window batching
+    bucket_window: int = 16         # shuffle window, in batches
+    pad_multiple: int = 8           # bucketed Tpad rounds up to this
+
+    def __post_init__(self):
+        r = np.random.default_rng(self.seed)
+        k = min(self.n_effective_classes, self.n_classes)
+        self.centroids = r.normal(size=(k, self.input_dim)).astype(np.float32)
+        pri = 1.0 / np.arange(1, k + 1)
+        self.priors = pri / pri.sum()
+        self.k = k
+        self._wcache = None          # (window_idx, lens, feats, cls)
+
+    def _window(self, w: int):
+        """All utterances of shuffle window ``w``, a pure function of
+        (seed, w)."""
+        if self._wcache is not None and self._wcache[0] == w:
+            return self._wcache[1:]
+        N = self.bucket_window * self.batch
+        r = np.random.default_rng((np.uint64(self.seed), np.uint64(w), 2))
+        med = max(self.min_len, int(0.6 * self.seq_len))
+        lens = np.clip(
+            np.rint(r.lognormal(np.log(med), self.len_sigma, size=N)),
+            self.min_len, self.seq_len).astype(np.int32)
+        cls = r.choice(self.k, size=(N, self.seq_len), p=self.priors)
+        feats = (self.centroids[cls]
+                 + 0.5 * r.normal(size=(N, self.seq_len,
+                                        self.input_dim))).astype(np.float32)
+        valid = np.arange(self.seq_len)[None, :] < lens[:, None]
+        feats *= valid[..., None]
+        cls = np.where(valid, cls, 0).astype(np.int32)
+        self._wcache = (w, lens, feats, cls)
+        return lens, feats, cls
+
+    def batch_at(self, step: int):
+        if not self.var_len:
+            r = _rng(self.seed, step)
+            cls = r.choice(self.k, size=(self.batch, self.seq_len),
+                           p=self.priors)
+            feats = (self.centroids[cls]
+                     + 0.5 * r.normal(size=(self.batch, self.seq_len,
+                                            self.input_dim))
+                     ).astype(np.float32)
+            return {"features": feats, "labels": cls.astype(np.int32)}
+
+        w, j = divmod(step, self.bucket_window)
+        lens, feats, cls = self._window(w)
+        order = (np.argsort(lens, kind="stable") if self.bucket
+                 else np.arange(len(lens)))
+        rows = order[j * self.batch:(j + 1) * self.batch]
+        blens = lens[rows]
+        tpad = (min(self.seq_len,
+                    _round_up(int(blens.max()), self.pad_multiple))
+                if self.bucket else self.seq_len)
+        return {"features": feats[rows, :tpad],
+                "labels": cls[rows, :tpad],
+                "lengths": blens}
+
+
+def make_dataset(cfg, *, seq_len: int, batch: int, seed: int = 0,
+                 var_len: bool = False, bucket: bool = False):
+    """The utterance dataset of an lstm-family ArchConfig."""
+    if cfg.family != "lstm":
+        raise ValueError(f"only the lstm family is ported, not "
+                         f"{cfg.family!r}")
+    return SyntheticASRDataset(cfg.input_dim, cfg.vocab, seq_len, batch,
+                               seed=seed, var_len=var_len or bucket,
+                               bucket=bucket)

@@ -1,0 +1,71 @@
+"""Parameter trees: specs, seeded init, and weights carried over from JAX.
+
+Parameters are plain nested dicts of tensors under the reference's tree
+keys (``layers/layer_i/{fwd,bwd}/{wx,wh,b}``, ``bottleneck``,
+``softmax_w``, ``softmax_b``), so a JAX parameter tree converted to numpy
+loads one-to-one through :func:`from_jax_params`.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+class ParamSpec(NamedTuple):
+    """Shape + dtype + init recipe of one parameter (the fields of
+    ``repro.sharding.ParamSpec`` that init reads)."""
+
+    shape: tuple
+    dtype: str = "bfloat16"
+    init: str = "normal"          # normal | zeros | lecun
+    init_scale: float = 0.02
+
+
+def _init_one(ps: ParamSpec, gen: torch.Generator) -> torch.Tensor:
+    """``sharding.init_param`` semantics: draws in f32, then casts."""
+    dtype = _DTYPES[ps.dtype]
+    if ps.init == "zeros":
+        return torch.zeros(ps.shape, dtype=dtype)
+    z = torch.randn(ps.shape, generator=gen, dtype=torch.float32)
+    if ps.init == "lecun":
+        fan_in = ps.shape[0] if len(ps.shape) >= 1 else 1
+        return (z * (1.0 / np.sqrt(max(fan_in, 1)))).to(dtype)
+    if ps.init == "normal":
+        return (z * ps.init_scale).to(dtype)
+    raise ValueError(f"unknown init {ps.init!r}")
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, tree[k]) for k in sorted(tree)}
+    return fn(tree)
+
+
+def init_params(spec_tree, seed: int, device) -> dict:
+    """Materialise a spec tree from one CPU ``torch.Generator`` seeded with
+    ``seed`` (leaves drawn in sorted-key order), then move it to
+    ``device``.  The numbers differ from ``jax.random`` for the same seed;
+    carry JAX weights over with :func:`from_jax_params` where they must
+    agree."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return _map_tree(lambda ps: _init_one(ps, gen).to(device), spec_tree)
+
+
+def _to_tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":        # ml_dtypes' bf16: reinterpret
+        return torch.from_numpy(
+            np.ascontiguousarray(a).view(np.int16).copy()).view(
+                torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def from_jax_params(tree, device="cpu") -> dict:
+    """A JAX parameter tree whose leaves were converted to numpy
+    (``jax.tree.map(np.asarray, params)``) -> the port's parameter dict,
+    same keys, same dtypes (bf16 bits carried exactly), on ``device``."""
+    return _map_tree(lambda a: _to_tensor(a).to(device), tree)

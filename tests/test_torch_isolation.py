@@ -1,0 +1,88 @@
+"""The port stands alone: no module of ``repro_torch`` (nor
+``chip_smoke.py``) imports ``jax`` or the JAX package, and its entry
+points refuse to run on the CPU unless asked to."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def test_no_jax_or_repro_imports():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    bad = [(str(f.relative_to(ROOT)), m) for f in files
+           for m in _imported_modules(f) if _forbidden(m)]
+    assert not bad, bad
+
+
+def test_import_leaves_jax_and_repro_unloaded():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.launch.serve, repro_torch.params\n"
+        "import repro_torch.decode.kernel, repro_torch.kernels.lstm_cell\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'repro')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_gpu(no_gpu):
+    from repro_torch.configs import get_arch
+    from repro_torch.decode.beam import beam_search
+    from repro_torch.launch.serve import AsrServer, main
+    from repro_torch.models.lstm import forward, param_specs
+    from repro_torch.params import init_params
+
+    cfg = get_arch("swb2000-blstm").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AsrServer(cfg, slots=1, max_frames=8, chunk=4)
+    params = init_params(param_specs(cfg), seed=0, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        forward(cfg, params, np.zeros((1, 4, cfg.input_dim), np.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        beam_search(np.zeros((1, 4, 5), np.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--reduced", "--requests", "1"])
+    # explicitly asked for, the CPU works
+    out = forward(cfg, params, np.zeros((1, 4, cfg.input_dim), np.float32),
+                  device="cpu")
+    assert out.shape == (1, 4, cfg.vocab)
+
+
+def test_kernel_device_probe_rejects_cpu_tensors():
+    from repro_torch.device import require_kernel_device, resolve_device
+
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        require_kernel_device(torch.zeros(1))
+    assert resolve_device("cpu") == torch.device("cpu")
