@@ -7,14 +7,17 @@ Phases, each of which fails the run (nonzero exit, no result line):
 
 1. device  — print the card's name and power limit (``nvidia-smi``) and
    require CUDA with capability (9, 0);
-2. build   — compile every kernel of the serving path from the sources
-   in this checkout (one ``nvcc`` per source, in parallel);
-3. kernels — call each kernel's wrapper on the card at the serving
-   path's shapes and hold it against its plain PyTorch version: the
-   BLSTM layer (K1 port) at bf16 tolerance 2e-2 (normalised by the
-   plain output's max-abs), the beam frame step (K5 port) bit-identical
-   under the max semiring and within 1e-5 under sum; time each with CUDA
-   events beside its plain version and its bytes/operations bound;
+2. build   — compile every kernel of the serving and training paths from
+   the sources in this checkout (one ``nvcc`` per source, in parallel);
+3. kernels — call each kernel's wrapper on the card at its path's shapes
+   and hold it against its plain PyTorch version: the BLSTM layer (K1
+   port) and its stashing variant at bf16 tolerance 2e-2 (normalised by
+   the plain output's max-abs; the stash variant's y bit-identical to
+   the inference variant's), the backward (K2 port: dx, dWx, dWh, db) at
+   2e-2, 16 learners in one launch bit-identical to 16 launches of one,
+   the beam frame step (K5 port) bit-identical under the max semiring
+   and within 1e-5 under sum; time each with CUDA events beside its
+   plain version, its bytes/operations bound and a library call;
 4. serve   — the full-width ``swb2000-blstm`` AsrServer (6 BLSTM layers
    of 512 per direction, vocab 32000, random weights from seed 0)
    serves 8 synthetic utterances to completion with every launch counter
@@ -22,7 +25,14 @@ Phases, each of which fails the run (nonzero exit, no result line):
    top-C pruning (C = 16) serves 4 more.  The parked posteriors of one
    request are held against the plain forward;
 5. profile — 4 requests once more under torch.profiler: device time by
-   kernel and the device's busy share of the wall time.
+   kernel and the device's busy share of the wall time;
+6. train   — the paper's §V training setup at full width: ad_psgd over
+   16 learners, global batch 256, T = 21, variable-length utterances,
+   2 warm-up and 10 timed steps with the launch counters set to 0 just
+   before and read just after; loss per step, ms per step, valid
+   frames/s; one step's loss and gradients of the kernel path held
+   against the plain path at 2e-2 (normalised); a non-finite loss fails;
+7. train profile — one more step under torch.profiler.
 
 The last two lines are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
@@ -156,6 +166,7 @@ def _cudnn_blstm(ws, x, lengths):
             getattr(lstm, f"weight_hh_l0{sfx}").copy_(wh.t())
             getattr(lstm, f"bias_ih_l0{sfx}").copy_(bias)
             getattr(lstm, f"bias_hh_l0{sfx}").zero_()
+    lstm.flatten_parameters()
     packed = pack_padded_sequence(x, lengths.cpu(), batch_first=True,
                                   enforce_sorted=False)
 
@@ -219,6 +230,233 @@ def check_k1(gen):
               f"({bound_by})", flush=True)
     entry["max_abs_err"] = worst
     return entry
+
+
+# Training shapes of the main path: 16 learners x 16 rows (global batch
+# 256, the paper's §V setup), T = 21 frames, layers 1..5 (D = 2H = 1024)
+TRAIN_L, TRAIN_B, TRAIN_T, TRAIN_D, TRAIN_H = 16, 16, 21, 1024, 512
+
+
+def _stacked_inputs(L, B, T, D, H, gen, var_len):
+    """Weights, x and lengths with a leading learner axis of L."""
+    import torch
+
+    dev = torch.device("cuda")
+
+    def w(*shape, scale):
+        return (torch.randn(*shape, generator=gen) * scale).to(
+            dev, torch.bfloat16)
+
+    ws = []
+    for _ in range(2):
+        ws += [w(L, D, 4 * H, scale=D ** -0.5), w(L, H, 4 * H, scale=H ** -0.5),
+               (torch.randn(L, 4 * H, generator=gen) * 0.1).to(dev)]
+    x = w(L, B, T, D, scale=1.0)
+    if var_len:
+        lens = torch.randint(1, T + 1, (L, B), generator=gen)
+        lens[:, 0] = T
+        lens[0, -1] = 0                  # an empty row
+    else:
+        lens = torch.full((L, B), T)
+    return ws, x, lens.to(dev, torch.int32)
+
+
+def _cudnn_blstm_train(x, ws):
+    """One cuDNN bidirectional bf16 LSTM over all the learners' rows with
+    the first learner's weights (a library call takes one weight set):
+    returns (forward with autograd, backward of one saved forward) — the
+    yardsticks of the stash forward and of K2, timed only here, used
+    nowhere in the port."""
+    import torch
+
+    L, B, T, D = x.shape
+    H = ws[1].shape[-2]
+    lstm = torch.nn.LSTM(D, H, batch_first=True, bidirectional=True).to(
+        x.device, torch.bfloat16)
+    with torch.no_grad():
+        for sfx, (wx, wh, b) in (("", ws[:3]), ("_reverse", ws[3:])):
+            bias = b[0].clone()
+            bias[H:2 * H] += 1.0
+            getattr(lstm, f"weight_ih_l0{sfx}").copy_(wx[0].t())
+            getattr(lstm, f"weight_hh_l0{sfx}").copy_(wh[0].t())
+            getattr(lstm, f"bias_ih_l0{sfx}").copy_(bias)
+            getattr(lstm, f"bias_hh_l0{sfx}").zero_()
+    lstm.flatten_parameters()
+    xin = x.reshape(L * B, T, D).detach().requires_grad_(True)
+
+    def fwd():
+        return lstm(xin)[0]
+    out = fwd()
+    dy = torch.randn_like(out)
+
+    def bwd():
+        torch.autograd.grad(out, [xin] + list(lstm.parameters()), dy,
+                            retain_graph=True)
+    return fwd, bwd
+
+
+def _library_ms(make, what):
+    try:
+        return make()
+    except RuntimeError as e:            # no cuDNN kernel for these types
+        print(f"[{what}] library (cuDNN LSTM) not timed: {e}", flush=True)
+        return None
+
+
+def check_k1_stash(gen):
+    """K1's stashing variant vs its plain version; y bit-identical to the
+    inference variant; 16 learners in one launch equal to 16 launches of
+    one."""
+    import torch
+
+    from repro_torch.kernels import lstm_cell as LC
+
+    L, B, T, D, H = TRAIN_L, TRAIN_B, TRAIN_T, TRAIN_D, TRAIN_H
+    worst = 0.0
+    for var_len in (False, True):
+        ws, x, lens = _stacked_inputs(2, B, T, D, H, gen, var_len)
+        for stash in ("float32", "bfloat16"):
+            got = LC.blstm_layer_train(*ws, x, lens, stash=stash)
+            torch.cuda.synchronize()
+            want = LC.blstm_layer_train(*ws, x, lens, stash=stash,
+                                        plain=True)
+            errs = []
+            for name, g, w_ in zip(("y", "acts", "cseq"), got, want):
+                abs_err, norm = _norm_err(g, w_)
+                errs.append(f"{name} {norm:.3g}")
+                if not norm <= K1_TOL:
+                    _fail(f"K1-stash {stash} var_len={var_len}: {name} "
+                          f"disagrees with its plain version: {norm}")
+                worst = max(worst, abs_err)
+            y_inf = LC.blstm_layer(*ws, x, lens)
+            if not torch.equal(got[0], y_inf):
+                _fail(f"K1-stash {stash}: y is not bit-identical to the "
+                      f"inference variant")
+            for l in range(2):
+                for b in range(B):
+                    if got[0][l, b, int(lens[l, b]):].any():
+                        _fail("K1-stash: padded frames of y not zero")
+            print(f"[K1-stash] L=2 B={B} T={T} D={D} H={H} stash={stash} "
+                  f"var_len={var_len}: normalised errors {', '.join(errs)} "
+                  f"(tol {K1_TOL}); y bit-identical to inference",
+                  flush=True)
+    # the main path's shape: 16 learners in one launch
+    ws, x, lens = _stacked_inputs(L, B, T, D, H, gen, True)
+    got = LC.blstm_layer_train(*ws, x, lens)
+    for l in range(L):
+        one = LC.blstm_layer_train(*(w[l:l + 1].contiguous() for w in ws),
+                                   x[l:l + 1].contiguous(),
+                                   lens[l:l + 1].contiguous())
+        same = torch.equal(got[0][l], one[0][0]) and all(
+            torch.equal(g[:, l], o[:, 0]) for g, o in zip(got[1:], one[1:]))
+        if not same:
+            _fail(f"K1-stash: learner {l} of a 16-learner launch differs "
+                  f"from its own launch")
+    print(f"[K1-stash] {L} learners in one launch == {L} one-learner "
+          f"launches (bit-identical)", flush=True)
+    ms = _time_ms(lambda: LC.blstm_layer_train(*ws, x, lens), 10)
+    plain_ms = _time_ms(lambda: LC.blstm_layer_train(*ws, x, lens,
+                                                     plain=True), 3,
+                        warmup=1)
+    lib = _library_ms(lambda: _cudnn_blstm_train(x, ws)[0], "K1-stash")
+    library_ms = None if lib is None else _time_ms(lib, 10)
+    n_valid = int(lens.sum())
+    nbytes = (L * B * T * D * 2 + L * 2 * (D * 4 * H * 2 + H * 4 * H * 2
+                                           + 4 * H * 4)
+              + L * B * 4 + L * B * T * 2 * H * 2 + 2 * L * B * T * 5 * H * 4)
+    ops = 2 * (2 * n_valid * D * 4 * H + 2 * n_valid * H * 4 * H)
+    bound_ms, bound_by = _bound(nbytes, ops, PEAK_BF16_FLOPS)
+    print(f"[K1-stash] L={L} B={B} T={T} D={D} H={H}: kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms, library {library_ms} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+    return dict(name="blstm_layer_train", route="cuda",
+                source="src/repro_torch/kernels/csrc/lstm_fwd.cu",
+                replaces="src/repro/kernels/lstm_cell.py:498",
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                shape=f"L={L} B={B} T={T} D={D} H={H} f32 stash")
+
+
+def check_k2(gen):
+    """K2 vs its plain version (dx, dWx, dWh, db); 16 learners in one
+    launch equal to 16 launches of one."""
+    import torch
+
+    from repro_torch.kernels import lstm_cell as LC
+
+    L, B, T, D, H = TRAIN_L, TRAIN_B, TRAIN_T, TRAIN_D, TRAIN_H
+
+    def run(ws, x, lens, dy, stash, plain=False):
+        y, acts, cseq = LC.blstm_layer_train(*ws, x, lens, stash=stash)
+        return LC.blstm_layer_bwd(ws[0], ws[1], ws[3], ws[4], x, y, acts,
+                                  cseq, dy, lens, plain=plain)
+
+    worst = 0.0
+    for var_len in (False, True):
+        ws, x, lens = _stacked_inputs(2, B, T, D, H, gen, var_len)
+        dy = torch.randn(2, B, T, 2 * H, generator=gen).to(
+            x.device, torch.bfloat16)
+        for stash in ("float32", "bfloat16"):
+            dx, grads = run(ws, x, lens, dy, stash)
+            torch.cuda.synchronize()
+            dx_w, grads_w = run(ws, x, lens, dy, stash, plain=True)
+            pairs = [("dx", dx, dx_w)] + [
+                (f"{n}_{d}", g, w_) for d in range(2)
+                for n, g, w_ in zip(("dwx", "dwh", "db"), grads[d],
+                                    grads_w[d])]
+            errs = []
+            for name, g, w_ in pairs:
+                abs_err, norm = _norm_err(g, w_)
+                errs.append(f"{name} {norm:.3g}")
+                if not norm <= K1_TOL:
+                    _fail(f"K2 {stash} var_len={var_len}: {name} disagrees "
+                          f"with its plain version: {norm}")
+                worst = max(worst, abs_err)
+            print(f"[K2] L=2 B={B} T={T} D={D} H={H} stash={stash} "
+                  f"var_len={var_len}: normalised errors {', '.join(errs)} "
+                  f"(tol {K1_TOL})", flush=True)
+    ws, x, lens = _stacked_inputs(L, B, T, D, H, gen, True)
+    dy = torch.randn(L, B, T, 2 * H, generator=gen).to(x.device,
+                                                        torch.bfloat16)
+    y, acts, cseq = LC.blstm_layer_train(*ws, x, lens)
+    args = (ws[0], ws[1], ws[3], ws[4], x, y, acts, cseq, dy, lens)
+    dx, grads = LC.blstm_layer_bwd(*args)
+    for l in range(L):
+        one = [a[l:l + 1].contiguous() for a in args[:6]] + [
+            acts[:, l:l + 1].contiguous(), cseq[:, l:l + 1].contiguous(),
+            dy[l:l + 1].contiguous(), lens[l:l + 1].contiguous()]
+        dx1, grads1 = LC.blstm_layer_bwd(*one)
+        same = torch.equal(dx[l], dx1[0]) and all(
+            torch.equal(g[l], g1[0]) for d in range(2)
+            for g, g1 in zip(grads[d], grads1[d]))
+        if not same:
+            _fail(f"K2: learner {l} of a 16-learner launch differs from "
+                  f"its own launch")
+    print(f"[K2] {L} learners in one launch == {L} one-learner launches "
+          f"(bit-identical)", flush=True)
+    ms = _time_ms(lambda: LC.blstm_layer_bwd(*args), 10)
+    plain_ms = _time_ms(lambda: LC.blstm_layer_bwd(*args, plain=True), 3,
+                        warmup=1)
+    lib = _library_ms(lambda: _cudnn_blstm_train(x, ws)[1], "K2")
+    library_ms = None if lib is None else _time_ms(lib, 10)
+    n_valid = int(lens.sum())
+    nbytes = (L * B * T * 2 * H * 2 * 2            # dy, y
+              + 2 * L * B * T * 5 * H * 4          # f32 stash
+              + L * B * T * D * 2 * 2              # x, dx
+              + L * 2 * (D * 4 * H + H * 4 * H) * 2    # wx, wh
+              + L * B * 4
+              + L * 2 * (D * 4 * H + H * 4 * H + 4 * H) * 4)   # f32 dW, db
+    ops = 2 * (2 * n_valid * 4 * H * (H + D + D + H) + n_valid * 4 * H)
+    bound_ms, bound_by = _bound(nbytes, ops, PEAK_F32_FLOPS)
+    print(f"[K2] L={L} B={B} T={T} D={D} H={H}: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, library {library_ms} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+    return dict(name="blstm_layer_bwd", route="cuda",
+                source="src/repro_torch/kernels/csrc/lstm_bwd.cu",
+                replaces="src/repro/kernels/lstm_cell.py:656",
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                shape=f"L={L} B={B} T={T} D={D} H={H} f32 stash")
 
 
 def _k5_states(B, K, V, gen):
@@ -409,6 +647,142 @@ def phase_profile():
               flush=True)
 
 
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+
+
+def _train_counts():
+    from repro_torch.kernels import lstm_cell as LC
+
+    return {"blstm_layer_train": LC.stash_launches,
+            "blstm_layer_bwd": LC.bwd_launches}
+
+
+def _zero_counts():
+    from repro_torch.decode import kernel as DK
+    from repro_torch.kernels import lstm_cell as LC
+
+    LC.launches = LC.stash_launches = LC.bwd_launches = 0
+    DK.launches = 0
+
+
+def phase_train():
+    """The paper's §V training setup at full width: ad_psgd over 16
+    learners, global batch 256, T = 21, variable-length utterances;
+    warm-up steps, then timed steps, all with the launch counters set to
+    0 just before and read just after.  Then one step's loss and
+    gradients of the kernel path against the plain path on the card."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import strategies as ST
+    from repro_torch.data import make_dataset
+    from repro_torch.launch.train import run, setup_training, timing_line
+    from repro_torch.models import lstm as LS
+
+    cfg = get_arch("swb2000-blstm")
+    dev = torch.device("cuda")
+    L, batch, T = TRAIN_L, TRAIN_L * TRAIN_B, TRAIN_T
+    t0 = time.perf_counter()
+    state, step, meta = setup_training(cfg, strategy_name="ad_psgd",
+                                       n_learners=L, seed=SEED)
+    ds = make_dataset(cfg, seq_len=T, batch=batch, seed=SEED, var_len=True)
+    torch.cuda.synchronize()
+    n_params = sum(w[0].numel() for w in ST._leaves(state["params"]))
+    print(f"[train] {cfg.name}: {n_params / 1e6:.1f} M params per learner, "
+          f"{L} learners, ad_psgd, batch {batch}, T={T}, var-len; set-up "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    state, metrics, records = run(state, step, ds, steps=steps, device=dev,
+                                  log_every=1, label="[train] ")
+    counts = _train_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name, n in counts.items():
+        if n <= 0:
+            _fail(f"kernel {name} was never launched on the training path")
+    losses = [float(r[3]) for r in records]
+    if not all(math.isfinite(v) for v in losses):
+        _fail(f"non-finite training loss: {losses}")
+    timed = records[TRAIN_WARMUP:]
+    ms = 1e3 * sum(r[0] for r in timed) / len(timed)
+    fps = sum(r[1] for r in timed) / sum(r[0] for r in timed)
+    print(f"[train] {timing_line(records)}", flush=True)
+    print(f"[train] {len(timed)} timed steps: {ms:.2f} ms/step, {fps:.1f} "
+          f"valid frames/s; launches {counts} over {steps} steps "
+          f"({ {k: v / steps for k, v in counts.items()} } per step); peak "
+          f"device memory {peak_gb:.2f} GiB", flush=True)
+
+    # one step's loss and gradients, kernel path vs plain path, at the
+    # parameters the next ad_psgd step takes its gradient at
+    lb = ST.split_learner_batch(
+        {k: torch.as_tensor(v).to(dev)
+         for k, v in ds.batch_at(steps).items()}, L)
+    loss, grads = ST._value_and_grad(meta["loss_fn"], state["prev_params"],
+                                     lb)
+    plain_fn = lambda p, b: LS.loss_train(cfg, p, b, device=dev, plain=True)
+    loss_w, grads_w = ST._value_and_grad(plain_fn, state["prev_params"], lb)
+    if not torch.isfinite(loss).all():
+        _fail("non-finite loss in the gradient check")
+    loss_err = float(((loss - loss_w).abs() / loss_w.abs()).max())
+    worst, where = 0.0, None
+    for (key, g), w_ in zip(_named_leaves(grads), ST._leaves(grads_w)):
+        if not torch.isfinite(g).all():
+            _fail(f"non-finite gradient {key}")
+        _, norm = _norm_err(g, w_)
+        if norm > worst:
+            worst, where = norm, key
+    print(f"[train] kernel vs plain path, one step at 16 learners: loss "
+          f"relative error {loss_err:.3g}, worst normalised gradient error "
+          f"{worst:.3g} ({where}) (tol {K1_TOL})", flush=True)
+    if not (loss_err <= K1_TOL and worst <= K1_TOL):
+        _fail("the kernel path's loss or gradients disagree with the "
+              "plain path")
+    del grads, grads_w
+    return state, step, ds, counts, steps, ms
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from _named_leaves(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def phase_train_profile(state, step, ds, start):
+    """Where the training time goes: one step under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.train import run
+
+    dev = torch.device("cuda")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, records = run(state, step, ds, steps=1, device=dev,
+                            start=start)
+    rows = sorted(((e.device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.device_time_total > 0), reverse=True)
+    wall_ms = 1e3 * records[0][0]
+    if not rows:
+        print("[train-profile] the profiler recorded no device events: "
+              "device busy share not measured", flush=True)
+        return
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    print(f"[train-profile] one ad_psgd step: wall {wall_ms:.1f} ms, device "
+          f"busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%)",
+          flush=True)
+    for us, n, key in rows[:10]:
+        print(f"[train-profile]   {us / 1e3:9.2f} ms  {n:6d}x  {key[:70]}",
+              flush=True)
+
+
 def _to_cpu(tree):
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
@@ -432,15 +806,23 @@ def main() -> int:
         phase_build()
         gen = torch.Generator().manual_seed(SEED)
         k1 = check_k1(gen)
+        k1s = check_k1_stash(gen)
+        k2 = check_k2(gen)
         k5 = check_k5(gen)
         launches = phase_serve()
         phase_profile()
+        state, step, ds, counts, steps, _ = phase_train()
+        phase_train_profile(state, step, ds, steps)
     except SystemExit:
         raise
     except Exception:                    # any phase failing fails the run
         traceback.print_exc()
         _fail("a phase raised")
-    kernels = [k1, k5["beam_frame_step"], k5["beam_frame_step_topc"]]
+    for k in (k1s, k2):
+        k["launches_per_step"] = counts[k["name"]] / steps
+    launches.update(counts)
+    kernels = [k1, k1s, k2, k5["beam_frame_step"],
+               k5["beam_frame_step_topc"]]
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(f"[total] {time.perf_counter() - t_start:.1f}s", flush=True)

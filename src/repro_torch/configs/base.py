@@ -30,13 +30,29 @@ class ArchConfig:
     beam_len_norm: float = 0.0      # final ranking: score / max(len,1)**a
     beam_topc: int = 0              # per-frame top-C pruning (0 = off)
 
+    # BLSTM training kernels (kernels/lstm_cell.py): residual stash
+    # precision ('float32' | 'bfloat16'); sequence-chunked recompute
+    # (0 = per-step stash; K != 0 is not ported yet, ROADMAP queue 1)
+    lstm_stash_dtype: str = "float32"
+    lstm_seq_chunk: int = 0
+
+    # distribution defaults (core/strategies.py)
+    train_strategy: str = "sd_psgd"
+    n_learners: int = 16
+    # mixing topology / wire codec overrides; "" = the strategy's default
+    comm_topology: str = ""
+    comm_wire: str = ""
+
     param_dtype: str = "bfloat16"
+    microbatches: int = 4     # gradient-accumulation microbatches for train
 
     def reduced(self) -> "ArchConfig":
         """The reference's smoke-test variant: 2 layers, d_model <= 256,
-        vocab <= 512, hidden 64, bottleneck 32."""
+        vocab <= 512, hidden 64, bottleneck 32, 2 learners, 1
+        microbatch."""
         changes = dict(n_layers=2, d_model=min(self.d_model, 256),
-                       vocab=min(self.vocab, 512))
+                       vocab=min(self.vocab, 512), n_learners=2,
+                       microbatches=1)
         if self.lstm_hidden:
             changes["lstm_hidden"] = 64
             changes["lstm_bottleneck"] = 32

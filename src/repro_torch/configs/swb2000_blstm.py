@@ -20,5 +20,8 @@ SWB2000_BLSTM = register(
         input_dim=260,
         beam_width=8,
         beam_semiring="max",
+        train_strategy="ad_psgd",
+        n_learners=16,
+        microbatches=1,
     )
 )

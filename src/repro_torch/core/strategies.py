@@ -1,0 +1,353 @@
+"""Distributed training strategies (the paper's contribution, §IV-V) — the
+port of the non-elastic step of ``repro.core.strategies``.
+
+All strategies are expressed in the decentralized formalism of paper
+Eq. 14 (W_{k+1} = W_k·T − α·g(Φ_k, ξ_k)):
+
+==================  ==========  =========  ===========================
+name                T (mixing)  Φ_k        paper reference
+==================  ==========  =========  ===========================
+sc_psgd             allreduce   W_k        §IV-B1 sync centralized, one
+                                           replica (plain data-parallel
+                                           SGD, Eq. 13 equivalence)
+sc_psgd_replicated  T_u         W_k        the same over stacked replicas
+sd_psgd             T_1 ring    W_k        §IV-C sync decentralized
+ad_psgd             T_1 ring    W_{k-1}    §IV-C async decentralized:
+                                           one-step-stale gradients
+downpour            T_u         W_{k-1}    §IV-B2 async centralized
+bmuf                block T_u   W_k local  §IV-B1 blockwise model-update
+                                           filtering
+==================  ==========  =========  ===========================
+
+The learners are a stacked leading axis of every parameter leaf, on one
+card.  Where the reference ``jax.vmap``s the per-learner gradient over
+that axis (``strategies.py:366-367``), the port computes every learner's
+loss in one pass whose kernels carry the learner axis on their grid, and
+takes the gradient of the summed losses: each learner's loss depends
+only on its own slice of the parameters, so that is each learner's own
+gradient.  AD-PSGD's asynchrony is modeled as the reference models it,
+as bounded staleness: the gradient is evaluated at the previous iterate
+while the current one is mixed.
+
+Variable-length batches (a ``lengths`` key) are aggregated with frame
+weights: each learner's masked-mean gradient is scaled by its
+valid-frame share, so uniform mixing equals the global masked gradient.
+
+Not ported yet: the hring, ad_psgd_q8 and ad_psgd_exp rows (they raise,
+naming ROADMAP.md queue 1, items 2 and 3) and the elastic step (item
+6).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.core.transport import Transport
+from repro_torch.optim.optimizers import Optimizer, tree_map
+
+
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from _leaves(tree[k])
+    else:
+        yield tree
+
+
+def _unflatten(tree, it):
+    if isinstance(tree, dict):
+        return {k: _unflatten(tree[k], it) for k in tree}
+    return next(it)
+
+
+def split_learner_batch(batch, n_learners: int):
+    """(B, ...) -> (L, B/L, ...) on every input leaf; raises a ValueError
+    naming the key when B is not a multiple of the learner count."""
+    if n_learners < 1:
+        raise ValueError(
+            f"n_learners={n_learners}: cannot split a batch over an empty "
+            f"learner set — at least one learner must be active")
+
+    def one(key, x):
+        B = x.shape[0]
+        if B % n_learners != 0:
+            raise ValueError(
+                f"global batch size B={B} (batch key {key!r}) is not "
+                f"divisible by n_learners={n_learners}; every batch leaf "
+                f"needs leading dim a multiple of the learner count so "
+                f"each learner gets an equal shard (got remainder "
+                f"{B % n_learners})")
+        return x.reshape(n_learners, B // n_learners, *x.shape[1:])
+
+    return {k: one(k, v) for k, v in batch.items()}
+
+
+def _valid_frames(batch):
+    """(L,) valid-frame counts per learner, or None for rectangular
+    batches."""
+    if "lengths" in batch:
+        lens = batch["lengths"].float()
+        return lens.sum(dim=tuple(range(1, lens.dim())))
+    return None
+
+
+def _value_and_grad(loss_fn, params, batch):
+    """Per-learner losses (L,) and their gradients, stacked like params."""
+    leaves = [w.detach().requires_grad_(True) for w in _leaves(params)]
+    loss = loss_fn(_unflatten(params, iter(leaves)), batch)
+    grads = torch.autograd.grad(loss.sum(), leaves)
+    return loss.detach(), _unflatten(params, iter(grads))
+
+
+def _accumulated_grad(loss_fn, params, batch, n_micro: int):
+    """Gradient with optional microbatch accumulation (memory knob).
+
+    When the batch carries ``lengths``, microbatches are combined with
+    frame weights (each microbatch's masked-mean loss/grad scaled by its
+    valid-frame count) so the result equals the masked mean over the
+    whole batch, not the mean-of-means; the accumulated gradient is
+    f32."""
+    if n_micro <= 1:
+        return _value_and_grad(loss_fn, params, batch)
+
+    def slice_micro(x):
+        # split on the MINOR position of each learner's batch dim
+        # (strided microbatches), as the reference does
+        L, B = x.shape[:2]
+        return x.reshape(L, B // n_micro, n_micro, *x.shape[2:]).movedim(
+            2, 0)
+
+    mb = {k: slice_micro(v) for k, v in batch.items()}
+    weighted = "lengths" in batch
+    acc = tree_map(lambda w: torch.zeros(w.shape, dtype=torch.float32,
+                                         device=w.device), params)
+    loss_acc = wsum = 0.0
+    for i in range(n_micro):
+        mbatch = {k: v[i] for k, v in mb.items()}
+        loss, g = _value_and_grad(loss_fn, params, mbatch)
+        w = (_valid_frames(mbatch) if weighted
+             else torch.ones_like(loss))
+        acc = tree_map(lambda a, b: a + _per_learner(w, a) * b.float(),
+                       acc, g)
+        loss_acc = loss_acc + w * loss
+        wsum = wsum + w
+    scale = 1.0 / torch.clamp(wsum, min=1e-6)
+    return loss_acc * scale, tree_map(lambda x: x * _per_learner(scale, x),
+                                      acc)
+
+
+def _per_learner(v, like):
+    """(L,) -> broadcastable against a stacked leaf."""
+    return v.reshape((-1,) + (1,) * (like.dim() - 1))
+
+
+def consensus_distance(params):
+    """Mean L2 distance of learner replicas from their average — the
+    consensus diagnostic for decentralized SGD (paper §IV-C)."""
+    num = den = 0.0
+    for w in _leaves(params):
+        if w.dim() == 0 or w.shape[0] == 1:
+            den = den + 1.0
+            continue
+        wf = w.float()
+        num = num + torch.sum(torch.square(wf - wf.mean(0, keepdim=True)))
+        den = den + wf.numel()
+    return torch.sqrt(torch.as_tensor(num / den))
+
+
+# ---------------------------------------------------------------------------
+# Strategy definitions
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Strategy:
+    """A distributed training strategy built around paper Eq. 14;
+    ``topology``/``wire`` name its default Transport."""
+
+    name: str
+    topology: str
+    wire: str = "f32"
+    stale: bool = False         # gradients at W_{k-1} (async modeling)
+    replicated: bool = True     # params carry a leading learner axis
+    block_size: int = 0         # >0: BMUF block length (in steps)
+    block_momentum: float = 0.9
+    block_lr: float = 1.0
+
+
+STRATEGIES = {
+    "sc_psgd": Strategy("sc_psgd", topology="uniform", replicated=False),
+    "sc_psgd_replicated": Strategy("sc_psgd_replicated", topology="uniform"),
+    "sd_psgd": Strategy("sd_psgd", topology="ring"),
+    "ad_psgd": Strategy("ad_psgd", topology="ring", stale=True),
+    "downpour": Strategy("downpour", topology="uniform", stale=True),
+    # BMUF mixes only at block boundaries; 'uniform' is the block sync
+    "bmuf": Strategy("bmuf", topology="uniform", block_size=16),
+}
+NOT_PORTED = ("hring", "ad_psgd_q8", "ad_psgd_exp")
+
+
+def get_strategy(name: str) -> Strategy:
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"strategy {name!r} needs a topology or wire codec that is not "
+            f"ported yet: ROADMAP.md queue 1, items 2 and 3")
+    return STRATEGIES[name]
+
+
+def default_transport(strategy: Strategy) -> Transport:
+    return Transport(topology=strategy.topology, wire=strategy.wire)
+
+
+def transport_from_cfg(cfg, strategy: Strategy) -> Transport:
+    """Resolve the ``comm_*`` knobs of an ArchConfig against the strategy
+    defaults (empty string = keep the strategy default)."""
+    return Transport(topology=cfg.comm_topology or strategy.topology,
+                     wire=cfg.comm_wire or strategy.wire)
+
+
+# ---------------------------------------------------------------------------
+# Train state / step builder
+# ---------------------------------------------------------------------------
+
+def _clone(tree):
+    return tree_map(torch.clone, tree)
+
+
+def _learner_dim(params) -> int:
+    return next(_leaves(params)).shape[0]
+
+
+def init_state(strategy: Strategy, params, optimizer: Optimizer,
+               transport: Optional[Transport] = None):
+    """params: already stacked with the learner dim if
+    strategy.replicated.  ``step`` is a host int."""
+    L = _learner_dim(params) if strategy.replicated else None
+    state = {
+        "params": params,
+        "opt": optimizer.init(params, L if L and L > 1 else None),
+        "step": 0,
+    }
+    # distinct buffers, never aliases of params
+    if strategy.stale:
+        state["prev_params"] = _clone(params)
+    if strategy.block_size:
+        state["anchor"] = _clone(params)
+        state["block_mom"] = tree_map(
+            lambda w: torch.zeros(w.shape, dtype=torch.float32,
+                                  device=w.device), params)
+    return state
+
+
+def stack_for_learners(params, n_learners: int):
+    """Replicate freshly-initialized params into the stacked learner axis
+    (real copies: the kernels take contiguous operands)."""
+    return tree_map(lambda w: w.unsqueeze(0).expand(
+        (n_learners,) + tuple(w.shape)).contiguous(), params)
+
+
+def average_learners(params):
+    """Collapse replicas to the consensus model (for eval/checkpoint)."""
+    return tree_map(lambda w: w.float().mean(0).to(w.dtype), params)
+
+
+def _to_device(batch, device):
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def make_train_step(strategy: Strategy, loss_fn: Callable,
+                    optimizer: Optimizer, lr_schedule: Callable, *,
+                    n_learners: int = 1, microbatches: int = 1,
+                    transport: Optional[Transport] = None):
+    """Build the train step ``step(state, batch) -> (state', metrics)``.
+
+    ``loss_fn(params, batch) -> (L,)`` takes stacked params and a batch
+    split over learners (L, B/L, ...), and returns each learner's loss.
+    The batch (numpy arrays or tensors, flat (B, ...)) is moved to the
+    parameters' device.  Batches carrying ``lengths`` get frame-weighted
+    aggregation, and the reported loss is the frame-weighted mean.
+    Replicated steps report ``wire_bytes``, the analytic bytes each
+    learner sends this step."""
+    transport = transport if transport is not None \
+        else default_transport(strategy)
+    mix = (transport.make_mixer(n_learners) if strategy.replicated
+           else None)
+
+    def grad_one(params, batch):
+        return _accumulated_grad(loss_fn, params, batch, microbatches)
+
+    def step(state, batch):
+        lr = lr_schedule(state["step"])
+        device = next(_leaves(state["params"])).device
+        batch = _to_device(batch, device)
+        metrics = {}
+
+        if not strategy.replicated:
+            # plain data-parallel SGD on one replica: a learner axis of 1
+            one = tree_map(lambda w: w.unsqueeze(0), state["params"])
+            loss, g = grad_one(one, {k: v.unsqueeze(0)
+                                     for k, v in batch.items()})
+            g = tree_map(lambda x: x.squeeze(0), g)
+            new_params, opt = optimizer.update(g, state["opt"],
+                                               state["params"], lr)
+            metrics["loss"] = loss[0]
+            return {"params": new_params, "opt": opt,
+                    "step": state["step"] + 1}, metrics
+
+        lbatch = split_learner_batch(batch, n_learners)
+        grad_at = state["prev_params"] if strategy.stale else state["params"]
+        loss_l, g_l = grad_one(grad_at, lbatch)
+        frames = _valid_frames(lbatch)
+        if frames is not None:
+            # frame-weighted aggregation: each learner's masked-mean
+            # gradient scaled by its valid-frame share, cast back to the
+            # gradient's dtype
+            w = frames / torch.clamp(frames.mean(), min=1e-6)
+            g_l = tree_map(lambda g: (g.float() * _per_learner(w, g)).to(
+                g.dtype), g_l)
+            metrics["loss"] = (torch.sum(loss_l * frames)
+                               / torch.clamp(frames.sum(), min=1e-6))
+        else:
+            metrics["loss"] = loss_l.mean()
+
+        wire_bytes = transport.wire_bytes(state["params"])
+        if strategy.block_size:
+            # BMUF: local SGD inside a block; blockwise model-update
+            # filtering at block boundaries
+            upd, opt = optimizer.update(g_l, state["opt"], state["params"],
+                                        lr)
+            step_no = state["step"] + 1
+            out = {"params": upd, "opt": opt, "step": step_no,
+                   "anchor": state["anchor"],
+                   "block_mom": state["block_mom"]}
+            if step_no % strategy.block_size == 0:
+                avg, _ = mix(upd, step_no, {})
+                mom = tree_map(
+                    lambda m, a, b: strategy.block_momentum * m
+                    + strategy.block_lr * (a.float() - b.float()),
+                    state["block_mom"], avg, state["anchor"])
+                new = tree_map(lambda b, m: (b.float() + m).to(b.dtype),
+                               state["anchor"], mom)
+                out.update(params=new, anchor=new, block_mom=mom)
+                metrics["wire_bytes"] = wire_bytes
+            else:
+                metrics["wire_bytes"] = 0.0
+        else:
+            # Eq. 14: the current iterate is mixed while the gradient was
+            # taken (at the previous iterate when stale)
+            mixed, _ = mix(state["params"], state["step"], {})
+            new_params, opt = optimizer.update(g_l, state["opt"], mixed, lr)
+            out = {"params": new_params, "opt": opt,
+                   "step": state["step"] + 1}
+            metrics["wire_bytes"] = wire_bytes
+
+        if strategy.stale:
+            out["prev_params"] = state["params"]
+        return out, metrics
+
+    return step

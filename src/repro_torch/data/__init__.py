@@ -1,5 +1,6 @@
 """Synthetic data of the port (numpy only)."""
 from repro_torch.data.pipeline import (  # noqa: F401
+    Prefetcher,
     SyntheticASRDataset,
     make_dataset,
 )

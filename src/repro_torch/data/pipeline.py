@@ -9,9 +9,13 @@ uneven).  With ``var_len=True`` every batch carries ``lengths``
 (lognormal utterance lengths, features and labels zeroed beyond them);
 ``bucket=True`` sorts utterances by length inside a shuffle window of
 ``bucket_window`` batches and pads each batch to its own rounded max.
+:class:`Prefetcher` synthesizes batches on a host thread ahead of the
+step that consumes them.
 """
 from __future__ import annotations
 
+import queue
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -108,3 +112,57 @@ def make_dataset(cfg, *, seq_len: int, batch: int, seed: int = 0,
     return SyntheticASRDataset(cfg.input_dim, cfg.vocab, seq_len, batch,
                                seed=seed, var_len=var_len or bucket,
                                bucket=bucket)
+
+
+class Prefetcher:
+    """Host-side prefetch thread: overlaps batch synthesis with the device
+    step, the way the paper overlaps data loading with gradient compute
+    (§IV-D 'run data loaders in multiple processes') — an own copy of
+    ``repro.data.pipeline.Prefetcher``.
+
+    Exceptions raised inside the worker are captured and re-raised from
+    :meth:`next` (after any already-synthesized batches drain), so a
+    consumer never blocks forever on a dead worker; :meth:`close` joins
+    the worker thread (bounded by ``join_timeout``)."""
+
+    def __init__(self, dataset, start_step: int = 0, depth: int = 2,
+                 join_timeout: float = 5.0):
+        self.dataset = dataset
+        self.q = queue.Queue(maxsize=depth)
+        self.step = start_step
+        self.join_timeout = join_timeout
+        self.stop = threading.Event()
+        self.error = None
+        self.thread = threading.Thread(target=self._work, daemon=True)
+        self.thread.start()
+
+    def _work(self):
+        s = self.step
+        while not self.stop.is_set():
+            try:
+                batch = self.dataset.batch_at(s)
+            except BaseException as e:       # re-raised on the consumer side
+                self.error = e
+                return
+            while not self.stop.is_set():
+                try:
+                    self.q.put(batch, timeout=0.5)
+                    s += 1
+                    break
+                except queue.Full:
+                    continue
+
+    def next(self):
+        while True:
+            try:
+                return self.q.get(timeout=0.5)
+            except queue.Empty:
+                if self.error is not None:
+                    raise RuntimeError(
+                        "prefetch worker failed") from self.error
+                if not self.thread.is_alive():
+                    raise RuntimeError("prefetch worker exited unexpectedly")
+
+    def close(self):
+        self.stop.set()
+        self.thread.join(timeout=self.join_timeout)

@@ -3,8 +3,9 @@
 Each source under ``src/repro_torch/**/csrc/`` becomes one shared
 library with a plain C interface, compiled for ``sm_90a`` into
 ``build/torch_kernels/`` at the repository root on first use.  The file
-name carries a hash of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded.  :func:`build` starts one
+name carries a hash of the source, the headers beside it (``*.cuh``) and
+the flags, so an edited source is rebuilt and a stale library is never
+loaded.  :func:`build` starts one
 ``nvcc`` per missing library, all at once, and waits for every one.
 
 Nothing here runs at import time: the CPU tests import every module of
@@ -25,6 +26,7 @@ ROOT = _PKG.parents[1]                                 # repository root
 BUILD_DIR = ROOT / "build" / "torch_kernels"
 SOURCES = {
     "lstm_fwd": _PKG / "kernels" / "csrc" / "lstm_fwd.cu",
+    "lstm_bwd": _PKG / "kernels" / "csrc" / "lstm_bwd.cu",
     "beam_step": _PKG / "decode" / "csrc" / "beam_step.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -46,8 +48,12 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = SOURCES[name].read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    src = SOURCES[name]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 

@@ -1,42 +1,51 @@
-// Fused bidirectional LSTM forward (inference), hand-written for sm_90a.
+// Fused bidirectional LSTM forward, hand-written for sm_90a.
 //
 // Replaces the TPU kernel K1: src/repro/kernels/lstm_cell.py,
-// `_make_fwd_kernel` / `_run_fwd` (pallas_call at lstm_cell.py:498), in
-// its inference variant (n_dir=2, stash=False, masked by `lengths`).  On
-// the TPU one grid step is one time step of a (B/bB, T) grid with the
-// (h, c) carry resident in VMEM; the whole gate product x_t·Wx + h·Wh sits
-// inside the step.
+// `_make_fwd_kernel` / `_run_fwd` (pallas_call at lstm_cell.py:498), with
+// n_dir=2 and masking by `lengths`, in its inference variant
+// (stash=False) and its training variant (stash=True, which also writes
+// the post-activation gates and the cell state of every step for the
+// backward, K2).  On the TPU one grid step is one time step of a
+// (B/bB, T) grid with the (h, c) carry resident in VMEM; the whole gate
+// product x_t·Wx + h·Wh sits inside the step.  Under `jax.vmap` over the
+// learners of a distributed step the learner axis becomes one more grid
+// axis; here it is one more axis of both kernels' grids.
 //
 // Two kernels here:
 //
-//  * lstm_xproj  — x·Wx for both directions over all B·T rows at once, a
-//    tiled bf16 x bf16 -> f32 GEMM with shared-memory tiles.  This half of
-//    the gate product has no recurrent dependency, so it leaves the serial
-//    loop; it is part of the TPU kernel's body, so it stays hand-written.
-//  * blstm_recur — one CTA per (batch tile, direction) walks all T steps
-//    inside the kernel, in place of the TPU's sequential grid axis.
-//    Thread j owns hidden unit j: it accumulates the four gate columns
-//    j, H+j, 2H+j, 3H+j of h_bf16·Wh, adds the x-projection and the bias,
-//    applies the activations (forget bias +1) and the mask (carry frozen,
-//    output zeroed at t >= len), and writes h, rounded to bf16, to shared
-//    memory for the next step.  Wh arrives gate-interleaved, (H, H, 4):
-//    the four weights of unit j for input k are one 8-byte load, and
-//    neighbouring threads read neighbouring 8-byte words.
+//  * lstm_xproj  — x·Wx for both directions over all B·T rows of every
+//    learner at once: the batched GEMM of gemm.cuh (bf16 operands, f32
+//    accumulation).  This half of the gate product has no recurrent
+//    dependency, so it leaves the serial loop; it is part of the TPU
+//    kernel's body, so it stays hand-written.
+//  * blstm_recur — one CTA per (batch tile, direction, learner) walks all
+//    T steps inside the kernel, in place of the TPU's sequential grid
+//    axis.  Thread j owns hidden unit j: it accumulates the four gate
+//    columns j, H+j, 2H+j, 3H+j of h_bf16·Wh, adds the x-projection and
+//    the bias, applies the activations (forget bias +1) and the mask
+//    (carry frozen, output zeroed at t >= len), writes h, rounded to
+//    bf16, to shared memory for the next step and, in the training
+//    variant, the gates i|f|g|o and the frozen c to the stash (f32 or
+//    bf16, a template parameter; y is computed by the same instructions
+//    in both variants, so it is bit-identical).  Wh arrives
+//    gate-interleaved, (H, H, 4): the four weights of unit j for input k
+//    are one 8-byte load, and neighbouring threads read neighbouring
+//    8-byte words.
 //
 // What bounds it on the H100.  At the paper's width (H=512) one
 // direction's Wh is 512 x 2048 bf16 = 2 MiB, more than one SM's 227 KB of
 // shared memory, so in this simple design every step streams Wh from L2:
-// 2 MiB per step per CTA, T·L steps in a serial chain (256 x 6 per
-// admission).  A step is bound by how fast one SM can pull 2 MiB out of
-// L2 — its share of the L2 bandwidth, and the loads it keeps in flight to
-// cover L2 latency (KU 8-byte loads per thread) — not by the card's HBM
-// rate or its tensor cores; the kernel is far above the bytes/operations
-// bound of the whole layer.  The batch tile
-// (up to 8 rows per CTA) reuses each Wh element for every row of the tile,
-// so a tile of rows costs about what one row does.  The later design
-// splits the gate columns across CTAs so that each CTA keeps its slice of
-// Wh resident in shared memory and exchanges h_t through a grid barrier
-// every step (ROADMAP.md).
+// 2 MiB per step per CTA, T·L steps in a serial chain.  A step is bound
+// by how fast one SM can pull 2 MiB out of L2 — its share of the L2
+// bandwidth, and the loads it keeps in flight to cover L2 latency (KU
+// 8-byte loads per thread) — not by the card's HBM rate or its tensor
+// cores; the kernel is far above the bytes/operations bound of the whole
+// layer.  The batch tile (up to 8 rows per CTA) reuses each Wh element
+// for every row of the tile, so a tile of rows costs about what one row
+// does.  With 16 learners the 64 MiB of distinct Wh no longer fit the
+// 50 MB L2.  The later design splits the gate columns across CTAs so that
+// each CTA keeps its slice of Wh resident in shared memory and exchanges
+// h_t through a grid barrier every step (ROADMAP.md).
 //
 // Numerics mirror `_cell_math`: gates = (x·Wx + h·Wh) + b accumulated in
 // f32, h rounded to bf16 before the product, h and c carried in f32, the
@@ -46,67 +55,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "gemm.cuh"
+
 using bf16 = __nv_bfloat16;
 
 namespace {
-
-constexpr int BM = 64;   // GEMM tile rows
-constexpr int BN = 64;   // GEMM tile columns
-constexpr int BK = 16;   // GEMM tile depth
-
-// G[dir] (M, N) f32 = X (M, D) bf16 @ W[dir] (D, N) bf16; blockIdx.z = dir.
-__global__ void __launch_bounds__(256)
-lstm_xproj_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wxf,
-                  const bf16* __restrict__ wxb, float* __restrict__ g,
-                  int M, int D, int N) {
-  __shared__ __align__(16) float As[BK][BM];   // transposed x tile
-  __shared__ __align__(16) float Bs[BK][BN];
-  const bf16* w = blockIdx.z ? wxb : wxf;
-  float* out = g + (size_t)blockIdx.z * M * N;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  float acc[4][4] = {};
-
-  for (int k0 = 0; k0 < D; k0 += BK) {
-    // 1024 elements per tile, 4 per thread, zero-filled past the edges
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int e = tid + q * 256;
-      const int ar = e / BK, ak = e % BK;            // x tile: row, depth
-      const int gr = row0 + ar, gk = k0 + ak;
-      As[ak][ar] = (gr < M && gk < D)
-                       ? __bfloat162float(x[(size_t)gr * D + gk]) : 0.f;
-      const int bk = e / BN, bc = e % BN;            // w tile: depth, col
-      const int wk = k0 + bk, wc = col0 + bc;
-      Bs[bk][bc] = (wk < D && wc < N)
-                       ? __bfloat162float(w[(size_t)wk * N + wc]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty * 4 + i;
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx * 4 + j;
-      if (c < N) out[(size_t)r * N + c] = acc[i][j];
-    }
-  }
-}
 
 __device__ __forceinline__ float sigmoidf_(float v) {
   return 1.f / (1.f + expf(-v));
@@ -133,26 +86,42 @@ __device__ __forceinline__ void fma_gates(float (&acc)[BB][4], uint2 u,
   }
 }
 
-// gx (2, B, T, 4H) f32 x-projections; wh (H, H, 4) bf16 gate-interleaved;
-// y (B, T, 2H) bf16, direction d in columns [d*H, (d+1)*H).
-// grid (ceil(B / BB), 2), block H rounded up to 32.  KU weight loads are in
-// flight per thread; fewer rows leave registers for more of them.
-template <int BB, int KU = (BB <= 2 ? 16 : 8)>
+// Stash element store: SK 1 = f32, 2 = bf16.
+template <int SK>
+__device__ __forceinline__ void store_stash(void* p, size_t i, float v) {
+  if constexpr (SK == 1) static_cast<float*>(p)[i] = v;
+  else static_cast<bf16*>(p)[i] = __float2bfloat16(v);
+}
+
+// gx (L, 2, B, T, 4H) f32 x-projections; wh (L, H, H, 4) bf16
+// gate-interleaved; b (L, 4H) f32; lengths (L, B); y (L, B, T, 2H) bf16,
+// direction d in columns [d*H, (d+1)*H).  SK > 0 also writes the stash:
+// acts (2, L, B, T, 4H) and cseq (2, L, B, T, H), direction first.
+// grid (ceil(B / BB), 2, L), block H rounded up to 32.  KU weight loads are
+// in flight per thread; fewer rows leave registers for more of them.
+template <int BB, int SK, int KU = (BB <= 2 ? 16 : 8)>
 __global__ void __launch_bounds__(MAX_H) blstm_recur_kernel(const float* __restrict__ gx,
                                    const bf16* __restrict__ whf,
                                    const bf16* __restrict__ whb,
                                    const float* __restrict__ bias_f,
                                    const float* __restrict__ bias_b,
                                    const int* __restrict__ lengths,
-                                   bf16* __restrict__ y, int B, int T, int H) {
+                                   bf16* __restrict__ y, void* __restrict__ acts,
+                                   void* __restrict__ cseq, int L, int B,
+                                   int T, int H) {
   extern __shared__ float hs[];                  // [BB][H] bf16-rounded h
   const int d = blockIdx.y;
+  const int l = blockIdx.z;
   const int b0 = blockIdx.x * BB;
-  const bf16* __restrict__ wh = d ? whb : whf;
-  const float* __restrict__ bias = d ? bias_b : bias_f;
+  const size_t G = 4 * (size_t)H;
+  const bf16* __restrict__ wh = (d ? whb : whf) + (size_t)l * H * G;
+  const float* __restrict__ bias = (d ? bias_b : bias_f) + (size_t)l * G;
+  lengths += (size_t)l * B;
+  gx += (size_t)(2 * l + d) * B * T * G;
+  y += (size_t)l * B * T * 2 * H;
+  const size_t srow = (size_t)(d * L + l) * B;   // stash row of b = 0
   const int j = threadIdx.x;
   const bool own = j < H;
-  const size_t G = 4 * (size_t)H;
 
   float h[BB], c[BB];
   int len[BB];
@@ -179,7 +148,7 @@ __global__ void __launch_bounds__(MAX_H) blstm_recur_kernel(const float* __restr
     for (int r = 0; r < BB; ++r) {
       acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
       // this step's x-projection, loaded before the product hides it
-      const size_t row = (size_t)d * B + min(b0 + r, B - 1);
+      const size_t row = min(b0 + r, B - 1);
       const float* gr = gx + (row * T + t) * G;
 #pragma unroll
       for (int g = 0; g < 4; ++g) xg[r][g] = own ? gr[g * H + j] : 0.f;
@@ -219,6 +188,14 @@ __global__ void __launch_bounds__(MAX_H) blstm_recur_kernel(const float* __restr
         y[((size_t)b * T + t) * 2 * H + (size_t)d * H + j] =
             __float2bfloat16(valid ? hn : 0.f);
         hs[r * H + j] = __bfloat162float(__float2bfloat16(h[r]));
+        if constexpr (SK != 0) {
+          const size_t st = (srow + b) * T + t;
+          store_stash<SK>(acts, st * G + j, i_);
+          store_stash<SK>(acts, st * G + H + j, f_);
+          store_stash<SK>(acts, st * G + 2 * H + j, g_);
+          store_stash<SK>(acts, st * G + 3 * H + j, o_);
+          store_stash<SK>(cseq, st * H + j, c[r]);
+        }
       }
     }
     __syncthreads();
@@ -228,41 +205,62 @@ __global__ void __launch_bounds__(MAX_H) blstm_recur_kernel(const float* __restr
 }  // namespace
 
 extern "C" int lstm_xproj(const void* x, const void* wxf, const void* wxb,
-                          void* gx, int M, int D, int N, void* stream) {
-  if (M < 1 || D < 1 || N < 1) return (int)cudaErrorInvalidValue;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, 2);
-  lstm_xproj_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)wxf, (const bf16*)wxb, (float*)gx, M, D,
-      N);
-  return (int)cudaGetLastError();
+                          void* gx, int L, int M, int D, int N, void* stream) {
+  // gx (L, 2, M, N) f32 = x (L, M, D) · wx_dir (L, D, N)
+  using lstm_gemm::Mat;
+  const Mat<bf16, false> xa{static_cast<const bf16*>(x), D};
+  const Mat<bf16, false> wf{static_cast<const bf16*>(wxf), N};
+  const Mat<bf16, false> wb{static_cast<const bf16*>(wxb), N};
+  float* g = static_cast<float*>(gx);
+  return lstm_gemm::gemm<lstm_gemm::EPI_F32>(
+      xa, xa, wf, wb, g, g + (size_t)M * N, (size_t)M * D, (size_t)D * N,
+      (size_t)2 * M * N, N, M, N, D, L, 2, (cudaStream_t)stream);
 }
 
-template <int BB>
+template <int BB, int SK>
 static void launch_recur(dim3 grid, int threads, cudaStream_t st,
                          const void* gx, const void* whf, const void* whb,
                          const void* bf, const void* bb, const void* lengths,
-                         void* y, int B, int T, int H) {
+                         void* y, void* acts, void* cseq, int L, int B,
+                         int T, int H) {
   const size_t smem = (size_t)BB * H * sizeof(float);
-  blstm_recur_kernel<BB><<<grid, threads, smem, st>>>(
+  blstm_recur_kernel<BB, SK><<<grid, threads, smem, st>>>(
       (const float*)gx, (const bf16*)whf, (const bf16*)whb,
-      (const float*)bf, (const float*)bb, (const int*)lengths, (bf16*)y, B,
-      T, H);
+      (const float*)bf, (const float*)bb, (const int*)lengths, (bf16*)y,
+      acts, cseq, L, B, T, H);
 }
 
-extern "C" int blstm_recur(const void* gx, const void* whf, const void* whb,
-                           const void* bf, const void* bb,
-                           const void* lengths, void* y, int B, int T, int H,
-                           int block_b, void* stream) {
-  if (B < 1 || T < 1 || H < 1 || H > MAX_H) return (int)cudaErrorInvalidValue;
-  const dim3 grid((B + block_b - 1) / block_b, 2);
-  const int threads = (H + 31) / 32 * 32;
-  const cudaStream_t st = (cudaStream_t)stream;
+template <int SK>
+static int launch_rows(int block_b, dim3 grid, int threads, cudaStream_t st,
+                       const void* gx, const void* whf, const void* whb,
+                       const void* bf, const void* bb, const void* lengths,
+                       void* y, void* acts, void* cseq, int L, int B, int T,
+                       int H) {
   switch (block_b) {
-    case 1: launch_recur<1>(grid, threads, st, gx, whf, whb, bf, bb, lengths, y, B, T, H); break;
-    case 2: launch_recur<2>(grid, threads, st, gx, whf, whb, bf, bb, lengths, y, B, T, H); break;
-    case 4: launch_recur<4>(grid, threads, st, gx, whf, whb, bf, bb, lengths, y, B, T, H); break;
-    case 8: launch_recur<8>(grid, threads, st, gx, whf, whb, bf, bb, lengths, y, B, T, H); break;
+    case 1: launch_recur<1, SK>(grid, threads, st, gx, whf, whb, bf, bb, lengths, y, acts, cseq, L, B, T, H); break;
+    case 2: launch_recur<2, SK>(grid, threads, st, gx, whf, whb, bf, bb, lengths, y, acts, cseq, L, B, T, H); break;
+    case 4: launch_recur<4, SK>(grid, threads, st, gx, whf, whb, bf, bb, lengths, y, acts, cseq, L, B, T, H); break;
+    case 8: launch_recur<8, SK>(grid, threads, st, gx, whf, whb, bf, bb, lengths, y, acts, cseq, L, B, T, H); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// stash_kind: 0 = inference (acts, cseq unused), 1 = f32 stash, 2 = bf16.
+extern "C" int blstm_recur(const void* gx, const void* whf, const void* whb,
+                           const void* bf, const void* bb,
+                           const void* lengths, void* y, void* acts,
+                           void* cseq, int stash_kind, int L, int B, int T,
+                           int H, int block_b, void* stream) {
+  if (L < 1 || B < 1 || T < 1 || H < 1 || H > MAX_H)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((B + block_b - 1) / block_b, 2, L);
+  const int threads = (H + 31) / 32 * 32;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (stash_kind) {
+    case 0: return launch_rows<0>(block_b, grid, threads, st, gx, whf, whb, bf, bb, lengths, y, acts, cseq, L, B, T, H);
+    case 1: return launch_rows<1>(block_b, grid, threads, st, gx, whf, whb, bf, bb, lengths, y, acts, cseq, L, B, T, H);
+    case 2: return launch_rows<2>(block_b, grid, threads, st, gx, whf, whb, bf, bb, lengths, y, acts, cseq, L, B, T, H);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,0 +1,209 @@
+"""Training launcher — the port of ``repro.launch.train`` (main path).
+
+Library entry point: :func:`setup_training` builds (state, step_fn, meta)
+for the paper's acoustic model under one strategy; :func:`run` drives the
+loop (prefetching, logging, per-step timing); the CLI wraps both.
+
+    # the paper's §V setup on the card: AD-PSGD, 16 learners, batch 256
+    PYTHONPATH=src python -m repro_torch.launch.train --arch swb2000-blstm \\
+        --learners 16 --batch 256 --var-len --steps 20 --log-every 1
+
+    # the plain PyTorch path on the CPU, reduced size
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
+        --device cpu --steps 2
+
+Not ported yet (ROADMAP.md queue 1): checkpoints and ``--resume``, fault
+plans and the elastic step, ``--trace-out``, and the ``--comm-*``
+codecs.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.core import strategies as ST
+from repro_torch.data import Prefetcher, make_dataset
+from repro_torch.device import resolve_device
+from repro_torch.models import lstm as LS
+from repro_torch.optim.optimizers import get_optimizer
+from repro_torch.optim.schedules import paper_recipe, warmup_then_anneal
+from repro_torch.params import init_params
+
+
+def setup_training(cfg, *, strategy_name: str = None, n_learners: int = None,
+                   optimizer_name: str = "sgd", lr_schedule=None,
+                   seed: int = 0, device=None):
+    """Build the train state and step for one arch.
+
+    Weights are drawn from ``seed`` (:func:`repro_torch.params.
+    init_params`) and copied to every learner.  ``device`` defaults to
+    the CUDA card and raises without one; ``device="cpu"`` runs the plain
+    PyTorch path.  The default schedule is the reference's
+    (``repro/launch/train.py:71``); microbatches and the mixing
+    transport come from ``cfg``.  ``meta["loss_fn"]`` is the per-learner
+    loss the step differentiates."""
+    dev = resolve_device(device)
+    if cfg.family != "lstm":
+        raise ValueError(f"only the lstm family is ported, not "
+                         f"{cfg.family!r}")
+    strategy = ST.get_strategy(strategy_name or cfg.train_strategy)
+    n_learners = n_learners if n_learners is not None else cfg.n_learners
+    if not strategy.replicated:
+        n_learners = 1
+    transport = ST.transport_from_cfg(cfg, strategy)
+    opt = get_optimizer(optimizer_name)
+    lr_schedule = lr_schedule or warmup_then_anneal(0.1, 0.5, 100, 10_000,
+                                                    1 / np.sqrt(2))
+
+    def loss_fn(params, batch):
+        return LS.loss_train(cfg, params, batch, device=dev)
+
+    step_fn = ST.make_train_step(
+        strategy, loss_fn, opt, lr_schedule, n_learners=n_learners,
+        microbatches=cfg.microbatches, transport=transport)
+    params = init_params(LS.param_specs(cfg), seed, dev)
+    if strategy.replicated:
+        params = ST.stack_for_learners(params, n_learners)
+    state = ST.init_state(strategy, params, opt, transport=transport)
+    meta = dict(strategy=strategy, n_learners=n_learners,
+                transport=transport, device=dev, loss_fn=loss_fn)
+    return state, step_fn, meta
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run(state, step_fn, dataset, *, steps: int, device, start: int = 0,
+        log_every: int = 0, label: str = ""):
+    """Run ``steps`` steps on prefetched batches of ``dataset``.
+
+    Prints the reference's ``step k loss ...`` line every ``log_every``
+    steps (0 = never).  Each step is timed on the host clock between two
+    ``torch.cuda.synchronize`` calls.  Returns (state, metrics of the
+    last step, per-step records (seconds, valid frames, padded frames,
+    loss))."""
+    pf = Prefetcher(dataset, start_step=start)
+    records, metrics = [], None
+    t0 = time.time()
+    try:
+        for k in range(start, start + steps):
+            batch = pf.next()
+            feats = batch["features"]
+            padded = int(feats.shape[0] * feats.shape[1])
+            valid = int(batch["lengths"].sum()) if "lengths" in batch \
+                else padded
+            _sync(device)
+            ts = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            _sync(device)
+            records.append((time.perf_counter() - ts, valid, padded,
+                            metrics["loss"]))
+            if log_every and k % log_every == 0:
+                loss = float(metrics["loss"])
+                line = f"step {k:5d} loss {loss:.4f} ({time.time() - t0:.1f}s)"
+                if "lengths" in batch:
+                    v = sum(r[1] for r in records)
+                    p = sum(r[2] for r in records)
+                    line += f" pad_eff {v / p:.2f}"
+                if "wire_bytes" in metrics:
+                    line += f" wire {float(metrics['wire_bytes']) / 2**20:.2f}MB"
+                print(label + line, flush=True)
+    finally:
+        pf.close()
+    return state, metrics, records
+
+
+def timing_line(records) -> str:
+    """First-step vs steady time: the first step also builds kernels and
+    warms allocators, so it is reported apart."""
+    first = records[0][0]
+    steady = records[1:]
+    line = f"timing: first step {1e3 * first:.1f} ms"
+    if steady:
+        secs = sum(r[0] for r in steady)
+        frames = sum(r[1] for r in steady)
+        line += (f", steady {1e3 * secs / len(steady):.1f} ms/step over "
+                 f"{len(steady)} steps, {frames / secs:.1f} valid frames/s")
+    return line
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="swb2000-blstm")
+    ap.add_argument("--strategy", default=None,
+                    choices=[None] + sorted(ST.STRATEGIES))
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq-len", type=int, default=None)
+    ap.add_argument("--batch", type=int, default=None)
+    ap.add_argument("--learners", type=int, default=None)
+    ap.add_argument("--optimizer", default="sgd",
+                    choices=["sgd", "momentum", "adam"])
+    ap.add_argument("--reduced", action="store_true",
+                    help="smoke-scale variant of the arch (CPU-friendly)")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--stash-dtype", default="",
+                    choices=["", "float32", "bfloat16"],
+                    help="BLSTM residual-stash dtype (bfloat16 halves the "
+                         "gate/cell stash)")
+    ap.add_argument("--seq-chunk", type=int, default=0,
+                    help="sequence-chunked recompute (not ported yet: "
+                         "only 0 runs)")
+    ap.add_argument("--var-len", action="store_true",
+                    help="variable-length utterances: batches carry a "
+                         "'lengths' key, loss/BLSTM/aggregation mask "
+                         "padded frames")
+    ap.add_argument("--bucket", action="store_true",
+                    help="length-bucketed batching (implies --var-len)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="default: the CUDA card (raises without one); "
+                         "'cpu' runs the plain PyTorch path")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    changes = {}
+    if args.stash_dtype:
+        changes["lstm_stash_dtype"] = args.stash_dtype
+    if args.seq_chunk:
+        changes["lstm_seq_chunk"] = args.seq_chunk
+    if changes:
+        cfg = dataclasses.replace(cfg, **changes)
+    seq_len = args.seq_len or 21
+    n_learners = (args.learners if args.learners is not None
+                  else cfg.n_learners)
+    strategy = ST.get_strategy(args.strategy or cfg.train_strategy)
+    if not strategy.replicated:
+        n_learners = 1
+    batch = args.batch or max(8, 2 * n_learners)
+
+    state, step_fn, meta = setup_training(
+        cfg, strategy_name=strategy.name, n_learners=n_learners,
+        optimizer_name=args.optimizer, seed=args.seed, device=device,
+        lr_schedule=paper_recipe(steps_per_epoch=max(args.steps // 16, 1),
+                                 base_lr=0.05, peak_lr=0.2))
+    ds = make_dataset(cfg, seq_len=seq_len, batch=batch, seed=args.seed,
+                      var_len=args.var_len or args.bucket,
+                      bucket=args.bucket)
+    t0 = time.time()
+    state, metrics, records = run(state, step_fn, ds, steps=args.steps,
+                                  device=device, log_every=args.log_every)
+    if metrics is not None:
+        print(f"final loss {float(metrics['loss']):.6f}")
+    print(f"done: {args.steps} steps in {time.time() - t0:.1f}s "
+          f"[{meta['strategy'].name}, L={meta['n_learners']}, {device}]")
+    if records:
+        print(timing_line(records), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,6 @@
 """The paper's acoustic model: 6-layer bi-directional LSTM with a linear
 bottleneck and a 32,000-way CD-HMM-state softmax (Cui et al. §V) — the
-port of ``repro.models.lstm`` (inference forward).
+port of ``repro.models.lstm`` (forward and training loss).
 
 Variable-length utterances follow the reference's ``lengths`` contract:
 on padded steps (t >= lengths[b]) the (h, c) carry is frozen and the
@@ -12,7 +12,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.lstm_cell import blstm_layer
+from repro_torch.kernels.lstm_cell import blstm_layer, blstm_sequence
+from repro_torch.kernels.ref import blstm_layer_ref
+from repro_torch.models.common import cross_entropy, sequence_mask
 from repro_torch.params import ParamSpec
 
 
@@ -43,24 +45,75 @@ def param_specs(cfg) -> dict:
     }
 
 
-def forward(cfg, params, features, lengths=None, *, device=None):
-    """features (B, T, input_dim) -> logits (B, T, vocab) f32.
+def _layer_weights(p):
+    return (p["fwd"]["wx"], p["fwd"]["wh"], p["fwd"]["b"],
+            p["bwd"]["wx"], p["bwd"]["wh"], p["bwd"]["b"])
+
+
+def _rows(x, w):
+    """x (..., K) @ w (K, N), or per learner x (L, B, T, K) @ w (L, K, N):
+    one batched product over each learner's B*T rows."""
+    if w.dim() == 2:
+        return torch.matmul(x, w)
+    L, B, T, K = x.shape
+    return torch.bmm(x.reshape(L, B * T, K), w).reshape(L, B, T, -1)
+
+
+def forward(cfg, params, features, lengths=None, *, device=None,
+            plain=False):
+    """features (B, T, input_dim) -> logits (B, T, vocab) f32; or, over
+    stacked learners, params with a leading (L,) axis on every leaf and
+    features (L, B/L, T, input_dim) -> (L, B/L, T, vocab).
 
     The BLSTM stack runs layer by layer through the fused bidirectional
-    kernel (``kernels.lstm_cell.blstm_layer``), as the reference's
-    full-width inference does (``repro/kernels/lstm_cell.py:1199-1204``);
-    the bottleneck and softmax are plain matrix products, outside any
-    kernel in the reference too.  ``device`` (default: the CUDA card,
-    see :func:`repro_torch.device.resolve_device`) must be where
-    ``params`` lie; features and lengths are moved there."""
+    kernels, as the reference's full-width path does
+    (``repro/kernels/lstm_cell.py:1199-1204`` primal,
+    ``:1268-1303`` under a gradient): when a weight requires a gradient,
+    through the differentiable :func:`~repro_torch.kernels.lstm_cell.blstm_sequence`
+    (K1's stashing variant and K2, honouring ``cfg.lstm_stash_dtype``);
+    otherwise through the inference kernel.  The bottleneck and softmax
+    are plain matrix products, outside any kernel in the reference too.
+    ``device`` (default: the CUDA card, see
+    :func:`repro_torch.device.resolve_device`) must be where ``params``
+    lie; features and lengths are moved there.  ``plain=True`` runs the
+    plain PyTorch layers on any device (the oracle)."""
     dev = resolve_device(device)
     x = torch.as_tensor(features, device=dev).to(torch.bfloat16)
     if lengths is not None:
         lengths = torch.as_tensor(lengths, device=dev)
     for i in range(cfg.n_layers):
-        p = params["layers"][f"layer_{i}"]
-        x = blstm_layer(p["fwd"]["wx"], p["fwd"]["wh"], p["fwd"]["b"],
-                        p["bwd"]["wx"], p["bwd"]["wh"], p["bwd"]["b"],
-                        x, lengths)
-    x = torch.matmul(x, params["bottleneck"])
-    return torch.matmul(x, params["softmax_w"]).float() + params["softmax_b"]
+        ws = _layer_weights(params["layers"][f"layer_{i}"])
+        if torch.is_grad_enabled() and any(w.requires_grad for w in ws):
+            one = x.dim() == 3              # one model: a learner axis of 1
+            y = blstm_sequence(
+                *(w.unsqueeze(0) if one else w for w in ws),
+                x.unsqueeze(0) if one else x,
+                lengths.unsqueeze(0) if one and lengths is not None
+                else lengths,
+                stash_dtype=cfg.lstm_stash_dtype,
+                seq_chunk=cfg.lstm_seq_chunk, plain=plain)
+            x = y.squeeze(0) if one else y
+        elif plain:
+            x = blstm_layer_ref(*ws, x, lengths)
+        else:
+            x = blstm_layer(*ws, x, lengths)
+    x = _rows(x, params["bottleneck"])
+    b = params["softmax_b"]
+    if b.dim() == 2:                        # (L, V) against (L, B, T, V)
+        b = b[:, None, None]
+    return _rows(x, params["softmax_w"]).float() + b
+
+
+def loss_train(cfg, params, batch, *, device=None, plain=False):
+    """Frame-level CE (``repro.models.lstm.loss_train``).  If the batch
+    carries ``lengths``, padded frames are excluded and the loss
+    normalises by the valid-frame count.  Over stacked learners (features
+    (L, B/L, T, D)) it returns the (L,) per-learner losses."""
+    lengths = batch.get("lengths")
+    logits = forward(cfg, params, batch["features"], lengths,
+                     device=device, plain=plain)
+    labels = torch.as_tensor(batch["labels"], device=logits.device)
+    mask = (None if lengths is None else sequence_mask(
+        torch.as_tensor(lengths, device=logits.device), logits.shape[-2]))
+    return cross_entropy(logits, labels, mask=mask,
+                         per_learner=logits.dim() == 4)

@@ -3,7 +3,8 @@
 Parameters are plain nested dicts of tensors under the reference's tree
 keys (``layers/layer_i/{fwd,bwd}/{wx,wh,b}``, ``bottleneck``,
 ``softmax_w``, ``softmax_b``), so a JAX parameter tree converted to numpy
-loads one-to-one through :func:`from_jax_params`.
+loads one-to-one through :func:`from_jax_params`, and a JAX train state
+through :func:`from_jax_state`.
 """
 from __future__ import annotations
 
@@ -69,3 +70,30 @@ def from_jax_params(tree, device="cpu") -> dict:
     (``jax.tree.map(np.asarray, params)``) -> the port's parameter dict,
     same keys, same dtypes (bf16 bits carried exactly), on ``device``."""
     return _map_tree(lambda a: _to_tensor(a).to(device), tree)
+
+
+def _state_tree(tree, device):
+    if isinstance(tree, dict):
+        return {k: _state_tree(tree[k], device) for k in sorted(tree)}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_state_tree(v, device) for v in tree)
+    return _to_tensor(tree).to(device)
+
+
+def from_jax_state(state, device="cpu") -> dict:
+    """A JAX train state whose leaves were converted to numpy
+    (``jax.tree.map(np.asarray, state)`` of ``repro.core.strategies.
+    init_state``) -> the port's state: ``params``, ``prev_params``,
+    ``anchor``, ``block_mom`` and ``opt`` as tensors on ``device`` (bf16
+    bits carried exactly, an empty optimizer state kept as ``()``), and
+    ``step`` as a host int."""
+    out = {}
+    for key, value in state.items():
+        if key == "step":
+            out[key] = int(np.asarray(value))
+        elif key in ("params", "prev_params", "anchor", "block_mom", "opt"):
+            out[key] = _state_tree(value, device)
+        else:
+            raise ValueError(f"state key {key!r} has no counterpart in the "
+                             f"port (elastic and comm state are not ported)")
+    return out

@@ -62,6 +62,113 @@ def test_blstm_layer_kernel_matches_plain(cuda, B, T, D, H, lengths):
             assert not got[b, n:].any()
 
 
+def _stacked(cuda, L, B, T, D, H, lengths, seed):
+    g = torch.Generator().manual_seed(seed)
+
+    def w(*shape, scale=0.3):
+        return (torch.randn(*shape, generator=g) * scale).to(
+            cuda, torch.bfloat16)
+
+    ws = []
+    for _ in range(2):
+        ws += [w(L, D, 4 * H), w(L, H, 4 * H),
+               (torch.randn(L, 4 * H, generator=g) * 0.1).to(cuda)]
+    x = w(L, B, T, D, scale=1.0)
+    lens = (None if lengths is None
+            else torch.tensor(lengths, dtype=torch.int32, device=cuda))
+    return ws, x, lens
+
+
+def _norm_err(got, want):
+    scale = float(want.float().abs().max()) + 1e-8
+    return float((got.float() - want.float()).abs().max()) / scale
+
+
+# odd shapes: B not a multiple of the tile, H < 512 and not a multiple of
+# 32, T = 1, a length-0 row, three learners
+TRAIN_SHAPES = [
+    (1, 3, 7, 12, 16, None),
+    (3, 3, 7, 12, 16, [(7, 4, 1), (0, 7, 3), (2, 2, 2)]),
+    (2, 5, 1, 40, 48, [(1, 0, 1, 1, 1), (1, 1, 0, 1, 1)]),
+    (3, 9, 5, 33, 100, [(5, 1, 2, 3, 4, 5, 5, 4, 0)] * 3),
+]
+
+
+@pytest.mark.parametrize("stash", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L,B,T,D,H,lengths", TRAIN_SHAPES)
+def test_blstm_stash_kernel_matches_plain(cuda, L, B, T, D, H, lengths,
+                                          stash):
+    from repro_torch.kernels import lstm_cell
+
+    ws, x, lens = _stacked(cuda, L, B, T, D, H, lengths, seed=B * 10 + H)
+    before = lstm_cell.stash_launches
+    got = lstm_cell.blstm_layer_train(*ws, x, lens, stash=stash)
+    torch.cuda.synchronize()
+    assert lstm_cell.stash_launches == before + 1
+    want = lstm_cell.blstm_layer_train(*ws, x, lens, stash=stash,
+                                       plain=True)
+    for g_, w_ in zip(got, want):
+        assert g_.dtype == w_.dtype and g_.shape == w_.shape
+        assert _norm_err(g_, w_) <= BF16_TOL
+    assert torch.equal(got[0], lstm_cell.blstm_layer(*ws, x, lens))
+    if lengths is not None:
+        for l, row in enumerate(lengths):
+            for b, n in enumerate(row):
+                assert not got[0][l, b, n:].any()
+
+
+@pytest.mark.parametrize("stash", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L,B,T,D,H,lengths", TRAIN_SHAPES)
+def test_blstm_bwd_kernel_matches_plain(cuda, L, B, T, D, H, lengths, stash):
+    from repro_torch.kernels import lstm_cell
+
+    ws, x, lens = _stacked(cuda, L, B, T, D, H, lengths, seed=B * 10 + H + 1)
+    g = torch.Generator().manual_seed(H)
+    dy = torch.randn(L, B, T, 2 * H, generator=g).to(cuda, torch.bfloat16)
+    y, acts, cseq = lstm_cell.blstm_layer_train(*ws, x, lens, stash=stash)
+    args = (ws[0], ws[1], ws[3], ws[4], x, y, acts, cseq, dy, lens)
+    before = lstm_cell.bwd_launches
+    dx, grads = lstm_cell.blstm_layer_bwd(*args)
+    torch.cuda.synchronize()
+    assert lstm_cell.bwd_launches == before + 1
+    dx_w, grads_w = lstm_cell.blstm_layer_bwd(*args, plain=True)
+    assert dx.dtype == torch.bfloat16 and _norm_err(dx, dx_w) <= BF16_TOL
+    for d in range(2):
+        for g_, w_ in zip(grads[d], grads_w[d]):
+            assert g_.dtype == torch.float32 and g_.shape == w_.shape
+            assert _norm_err(g_, w_) <= BF16_TOL
+    if lengths is not None:           # padded steps get no dx
+        for l, row in enumerate(lengths):
+            for b, n in enumerate(row):
+                assert not dx[l, b, n:].any()
+
+
+def test_train_step_on_card_matches_plain(cuda):
+    """Reduced-width ad_psgd step: the kernel path's loss and gradients
+    against the plain path on the card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import strategies as ST
+    from repro_torch.data import make_dataset
+    from repro_torch.launch.train import setup_training
+    from repro_torch.models.lstm import loss_train
+
+    cfg = get_arch("swb2000-blstm").reduced()
+    state, step, meta = setup_training(cfg, n_learners=3)
+    batch = make_dataset(cfg, seq_len=9, batch=6, seed=0,
+                         var_len=True).batch_at(0)
+    lb = ST.split_learner_batch(
+        {k: torch.as_tensor(v).to(cuda) for k, v in batch.items()}, 3)
+    loss, grads = ST._value_and_grad(meta["loss_fn"], state["params"], lb)
+    loss_w, grads_w = ST._value_and_grad(
+        lambda p, b: loss_train(cfg, p, b, device=cuda, plain=True),
+        state["params"], lb)
+    assert torch.allclose(loss, loss_w, rtol=BF16_TOL)
+    for g_, w_ in zip(ST._leaves(grads), ST._leaves(grads_w)):
+        assert _norm_err(g_, w_) <= BF16_TOL
+    state, metrics = step(state, batch)
+    assert torch.isfinite(metrics["loss"])
+
+
 def _state(cuda, B, K, V, U, frames, seed):
     from repro_torch.decode import beam as DB
 

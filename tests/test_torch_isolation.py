@@ -42,6 +42,9 @@ def test_import_leaves_jax_and_repro_unloaded():
         "import sys\n"
         "import repro_torch, repro_torch.launch.serve, repro_torch.params\n"
         "import repro_torch.decode.kernel, repro_torch.kernels.lstm_cell\n"
+        "import repro_torch.launch.train, repro_torch.core.strategies\n"
+        "import repro_torch.core.mixing, repro_torch.core.transport\n"
+        "import repro_torch.optim.optimizers, repro_torch.optim.schedules\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'repro')]\n"
         "print(bad)\n"
@@ -78,6 +81,21 @@ def test_entry_points_raise_without_gpu(no_gpu):
     out = forward(cfg, params, np.zeros((1, 4, cfg.input_dim), np.float32),
                   device="cpu")
     assert out.shape == (1, 4, cfg.vocab)
+
+
+def test_training_entry_points_raise_without_gpu(no_gpu):
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import main, setup_training
+
+    cfg = get_arch("swb2000-blstm").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        setup_training(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--reduced", "--steps", "1"])
+    state, step, meta = setup_training(cfg, device="cpu")
+    assert meta["device"] == torch.device("cpu")
+    leaf = state["params"]["layers"]["layer_0"]["fwd"]["wx"]
+    assert leaf.device.type == "cpu" and leaf.shape[0] == cfg.n_learners
 
 
 def test_kernel_device_probe_rejects_cpu_tensors():
