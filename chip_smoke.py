@@ -32,7 +32,29 @@ Phases, each of which fails the run (nonzero exit, no result line):
    before and read just after; loss per step, ms per step, valid
    frames/s; one step's loss and gradients of the kernel path held
    against the plain path at 2e-2 (normalised); a non-finite loss fails;
-7. train profile — one more step under torch.profiler.
+7. train profile — one more step under torch.profiler;
+8. lm kernels — the LM slice's kernels at its serving shapes against
+   their plain versions: decode attention (K7 port), canonical and delta,
+   at B = 8, S = 1024, 5 KV heads of 3 queries, E = 64, bf16, over pos
+   0, tile edges and S - 1 and a window, at 2e-2 (normalised); the paged
+   kernel (K8 port) over a shuffled 512-page pool of 16 positions with
+   padded tables at 2e-2, and bit-identical to K7 at block_s = 16 on
+   contiguous pages; argmax (K6 port) on (8, 49152) bf16 logits with
+   planted ties and NaN, bit for bit; each timed beside its plain
+   version, its byte bound and a library call;
+9. lm-serve — the full-width ``smollm-360m`` (32 layers, d 960, 15 heads
+   over 5 KV heads, vocab 49152, random weights from seed 0) dense
+   ``Server``: 16 requests (prompt lengths 64-496 drawn with seed 0,
+   a 64-token shared prefix), 8 slots, max_len 1024, 64 new tokens each,
+   with the launch counters set to 0 just before and read just after;
+   decoded tokens/s, mean wave ms, prefill ms per request, peak device
+   memory; one request's prefill and first 8 decode logits against the
+   plain path (teacher-forced) at 2e-2; one preempt -> restore held
+   bit-identical to the uninterrupted run;
+10. lm profile — 4 requests under torch.profiler;
+11. lm-serve paged — the same requests through ``PagedServer`` (pages of
+    16, a 512-page pool): tokens/s, peak sharing ratio, COW count and
+    shared hits, and how many requests decode the dense run's tokens.
 
 The last two lines are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
@@ -78,6 +100,29 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, kernel: str, iters: int = 50) -> float:
+    """Device time of one launch of the CUDA kernel whose name contains
+    ``kernel``, averaged over ``iters`` calls under torch.profiler (the
+    event timing of back-to-back calls also counts the wrapper's host
+    time whenever the host is the slower side); None if the profiler saw
+    no such kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and kernel in e.key]
+    if not rows:
+        return None
+    return sum(e.device_time_total for e in rows) / 1e3 / iters
 
 
 def _bound(nbytes: float, ops: float, peak_ops: float):
@@ -783,6 +828,485 @@ def phase_train_profile(state, step, ds, start):
               flush=True)
 
 
+# ---------------------------------------------------------------- phase 8
+# The LM slice's serving shapes: 8 slots of a 1024-position cache at
+# smollm-360m's 5 KV heads of M = 3 queries, E = 64; pages of 16.
+LM_B, LM_S, LM_KV, LM_M, LM_E, LM_P = 8, 1024, 5, 3, 64, 16
+LM_POOL = LM_B * LM_S // LM_P
+LM_REQUESTS, LM_MAX_NEW, LM_SHARED = 16, 64, 64
+LM_TIMED_POS = 511
+
+
+def _lm_attn_inputs(gen, B, S, n_pages=None):
+    import torch
+
+    dev = torch.device("cuda")
+    cache = (n_pages, LM_P) if n_pages else (B, S)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen).to(dev, torch.bfloat16)
+
+    return (r(B, 1, LM_KV * LM_M, LM_E), r(*cache, LM_KV, LM_E),
+            r(*cache, LM_KV, LM_E), r(B, 1, LM_KV, LM_E),
+            r(B, 1, LM_KV, LM_E))
+
+
+def _attn_bytes_ops(B, rows):
+    """Bytes a delta call must move (q, the ``rows`` admitted cache rows
+    of K and V, the new column, the output) and its f32 operations."""
+    H = LM_KV * LM_M
+    nbytes = (2 * B * H * LM_E * 2 + 2 * B * rows * LM_KV * LM_E * 2
+              + 2 * B * LM_KV * LM_E * 2)
+    ops = 4 * B * (rows + 1) * H * LM_E
+    return nbytes, ops
+
+
+def _sdpa(q, kc, vc, pos):
+    """One scaled_dot_product_attention call over the whole cache with the
+    canonical mask t <= pos (the library yardstick; used nowhere in the
+    port)."""
+    import torch
+    import torch.nn.functional as F
+
+    S = kc.shape[1]
+    qt = q.transpose(1, 2)                               # (B, H, 1, E)
+    kt = kc.transpose(1, 2).contiguous()                 # (B, KV, S, E)
+    vt = vc.transpose(1, 2).contiguous()
+    mask = (torch.arange(S, device=q.device) <= pos)[None, None, None]
+
+    def call():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
+    return call
+
+
+def _library_attn_ms(q, kc, vc, pos, what):
+    try:
+        return _time_ms(_sdpa(q, kc, vc, pos), 50)
+    except RuntimeError as e:        # no SDPA backend for these inputs
+        print(f"[{what}] library (scaled_dot_product_attention) not timed: "
+              f"{e}", flush=True)
+        return None
+
+
+def check_k7(gen):
+    import torch
+
+    from repro_torch.kernels import decode_attention as DA
+
+    q, kc, vc, kn, vn = _lm_attn_inputs(gen, LM_B, LM_S)
+    tile = DA.auto_block_s(LM_S)
+    worst = 0.0
+    cases = [(pos, None) for pos in (0, tile - 1, tile, LM_TIMED_POS,
+                                     LM_S - 1)] + [(700, 100)]
+    for delta in (False, True):
+        kw = dict(k_new=kn, v_new=vn) if delta else {}
+        for pos, window in cases:
+            got = DA.decode_attention(q, kc, vc, pos, window=window, **kw)
+            torch.cuda.synchronize()
+            want = DA.decode_attention_ref(q, kc, vc, pos, window=window,
+                                           **kw)
+            abs_err, norm = _norm_err(got, want)
+            if not norm <= K1_TOL:
+                _fail(f"K7 delta={delta} pos={pos} window={window}: "
+                      f"normalised error {norm}")
+            worst = max(worst, abs_err)
+        print(f"[K7] decode_attention B={LM_B} S={LM_S} KV={LM_KV} M={LM_M} "
+              f"E={LM_E} delta={delta} tile {tile}: pos/window {cases} "
+              f"within {K1_TOL} (worst max_abs_err {worst:.3g})", flush=True)
+    kw = dict(k_new=kn, v_new=vn)
+    pos = LM_TIMED_POS
+    ms = _time_ms(lambda: DA.decode_attention(q, kc, vc, pos, **kw), 200)
+    plain_ms = _time_ms(lambda: DA.decode_attention_ref(q, kc, vc, pos,
+                                                        **kw), 20)
+    library_ms = _library_attn_ms(q, kc, vc, pos, "K7")
+    one = [t[:1].contiguous() for t in (q, kc, vc, kn, vn)]
+    ms_b1 = _time_ms(lambda: DA.decode_attention(
+        one[0], one[1], one[2], pos, k_new=one[3], v_new=one[4]), 200)
+    dev_ms = _device_ms(lambda: DA.decode_attention(q, kc, vc, pos, **kw),
+                        "decode_attn_kernel")
+    dev_b1 = _device_ms(lambda: DA.decode_attention(
+        one[0], one[1], one[2], pos, k_new=one[3], v_new=one[4]),
+        "decode_attn_kernel")
+    nbytes, ops = _attn_bytes_ops(LM_B, pos)
+    bound_ms, bound_by = _bound(nbytes, ops, PEAK_F32_FLOPS)
+    print(f"[K7] B={LM_B} pos={pos} delta: kernel {ms:.4f} ms (B=1: "
+          f"{ms_b1:.4f} ms), device time per launch {dev_ms} ms (B=1: "
+          f"{dev_b1} ms), plain {plain_ms:.4f} ms, library {library_ms} "
+          f"ms, bound {bound_ms:.5f} ms ({bound_by})", flush=True)
+    return dict(name="decode_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/decode_attention.cu",
+                replaces="src/repro/kernels/decode_attention.py:216",
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                shape=f"B={LM_B} S={LM_S} KV={LM_KV} M={LM_M} E={LM_E} "
+                      f"pos={pos} delta tile={tile}")
+
+
+def check_k8(gen):
+    import torch
+
+    from repro_torch.kernels import decode_attention as DA
+
+    dev = torch.device("cuda")
+    W = LM_S // LM_P
+    q, kp, vp, kn, vn = _lm_attn_inputs(gen, LM_B, None, n_pages=LM_POOL)
+    perm = torch.randperm(LM_POOL, generator=gen)
+    used = 36                         # pages of a 560-position request
+    tbl = torch.randint(0, LM_POOL, (LM_B, W), generator=gen)
+    tbl[:, :used] = perm[:LM_B * used].reshape(LM_B, used)
+    tbl = tbl.to(dev, torch.int32)
+    worst = 0.0
+    for delta in (False, True):
+        kw = dict(k_new=kn, v_new=vn) if delta else {}
+        for pos, window in ((0, None), (15, None), (16, None),
+                            (LM_TIMED_POS, None), (used * LM_P - 1, None),
+                            (500, 100)):
+            got = DA.paged_decode_attention(q, kp, vp, tbl, pos,
+                                            window=window, **kw)
+            torch.cuda.synchronize()
+            want = DA.paged_decode_attention_ref(q, kp, vp, tbl, pos,
+                                                 window=window, **kw)
+            abs_err, norm = _norm_err(got, want)
+            if not norm <= K1_TOL:
+                _fail(f"K8 delta={delta} pos={pos}: normalised error {norm}")
+            worst = max(worst, abs_err)
+    # contiguous pages: the paged kernel equals the dense one at block_s = P
+    _, kc, vc, _, _ = _lm_attn_inputs(gen, LM_B, LM_S)
+    ctbl = torch.arange(LM_POOL, device=dev,
+                        dtype=torch.int32).reshape(LM_B, W)
+    kcp = kc.reshape(LM_POOL, LM_P, LM_KV, LM_E)
+    vcp = vc.reshape(LM_POOL, LM_P, LM_KV, LM_E)
+    for delta in (False, True):
+        kw = dict(k_new=kn, v_new=vn) if delta else {}
+        for pos in (0, 16, LM_TIMED_POS, LM_S - 1):
+            dense = DA.decode_attention(q, kc, vc, pos, block_s=LM_P, **kw)
+            paged = DA.paged_decode_attention(q, kcp, vcp, ctbl, pos, **kw)
+            if not torch.equal(dense, paged):
+                _fail(f"K8 is not bit-identical to K7 at block_s={LM_P} "
+                      f"(delta={delta}, pos={pos})")
+    print(f"[K8] paged_decode_attention B={LM_B} pool={LM_POOL}x{LM_P} "
+          f"W={W} shuffled, padded: within {K1_TOL} (worst max_abs_err "
+          f"{worst:.3g}); bit-identical to K7 at block_s={LM_P} on "
+          f"contiguous pages", flush=True)
+    kw = dict(k_new=kn, v_new=vn)
+    pos = LM_TIMED_POS
+    ms = _time_ms(lambda: DA.paged_decode_attention(q, kp, vp, tbl, pos,
+                                                    **kw), 200)
+    plain_ms = _time_ms(lambda: DA.paged_decode_attention_ref(
+        q, kp, vp, tbl, pos, **kw), 20)
+    ms_k7_16 = _time_ms(lambda: DA.decode_attention(
+        q, kc, vc, pos, block_s=LM_P, **kw), 200)
+    library_ms = _library_attn_ms(q, DA.gather_pages(kp, tbl),
+                                  DA.gather_pages(vp, tbl), pos, "K8")
+    dev_ms = _device_ms(lambda: DA.paged_decode_attention(
+        q, kp, vp, tbl, pos, **kw), "decode_attn_kernel")
+    nbytes, ops = _attn_bytes_ops(LM_B, pos)
+    nbytes += LM_B * (pos // LM_P + 1) * 4                # table entries
+    bound_ms, bound_by = _bound(nbytes, ops, PEAK_F32_FLOPS)
+    print(f"[K8] B={LM_B} pos={pos} delta: kernel {ms:.4f} ms (K7 at "
+          f"block_s={LM_P}: {ms_k7_16:.4f} ms), device time per launch "
+          f"{dev_ms} ms, plain {plain_ms:.4f} ms, "
+          f"library {library_ms} ms (over the gathered cache), bound "
+          f"{bound_ms:.5f} ms ({bound_by})", flush=True)
+    return dict(name="paged_decode_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/decode_attention.cu",
+                replaces="src/repro/kernels/decode_attention.py:294",
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                shape=f"B={LM_B} pool={LM_POOL}x{LM_P} W={W} KV={LM_KV} "
+                      f"M={LM_M} E={LM_E} pos={pos} delta")
+
+
+def check_k6(gen):
+    import torch
+
+    from repro_torch.decode import kernel as DK
+
+    B, V = LM_B, 49152
+    x = torch.randn(B, V, generator=gen)
+    x[1, [7, 4096, V - 1]] = 6.0                 # a three-way tie
+    x[2, [100, 30000]] = float("nan")           # the first NaN wins
+    x[2, 5] = float("inf")
+    x[3] = float("-inf")
+    x[4] = torch.round(x[4] * 2) / 2            # many ties
+    x = x.to("cuda", torch.bfloat16)
+    got = DK.argmax_tokens(x)
+    torch.cuda.synchronize()
+    want = DK.argmax_ref(x)
+    if not torch.equal(got, want):
+        _fail(f"K6 argmax {got.tolist()} != plain {want.tolist()}")
+    if got[1] != 7 or got[2] != 100 or got[3] != 0:
+        _fail(f"K6 ties/NaN/-inf rows gave {got[1:4].tolist()}")
+    print(f"[K6] argmax_tokens ({B}, {V}) bf16, ties + NaN + -inf rows: "
+          f"bit-identical to the plain version {got.tolist()}", flush=True)
+    ms = _time_ms(lambda: DK.argmax_tokens(x), 200)
+    plain_ms = _time_ms(lambda: DK.argmax_ref(x), 200)
+    library_ms = _time_ms(lambda: torch.argmax(x, dim=-1), 200)
+    dev_ms = _device_ms(lambda: DK.argmax_tokens(x), "argmax_kernel")
+    bound_ms, bound_by = _bound(B * V * 2 + B * 4, B * V, PEAK_F32_FLOPS)
+    print(f"[K6] kernel {ms:.4f} ms, device time per launch {dev_ms} ms, "
+          f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by})", flush=True)
+    return dict(name="argmax_tokens", route="cuda",
+                source="src/repro_torch/decode/csrc/argmax.cu",
+                replaces="src/repro/decode/kernel.py:158", max_abs_err=0.0,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms,
+                shape=f"B={B} V={V} bf16")
+
+
+# ---------------------------------------------------------------- phase 9
+def _lm_counts():
+    from repro_torch.decode import kernel as DK
+    from repro_torch.kernels import decode_attention as DA
+
+    return {"decode_attention": DA.launches,
+            "paged_decode_attention": DA.paged_launches,
+            "argmax_tokens": DK.argmax_launches}
+
+
+def _zero_lm_counts():
+    from repro_torch.decode import kernel as DK
+    from repro_torch.kernels import decode_attention as DA
+
+    DA.launches = DA.paged_launches = DK.argmax_launches = 0
+
+
+def _lm_pending(cfg, requests=LM_REQUESTS):
+    import numpy as np
+
+    from repro_torch.launch.serve import lm_requests
+
+    lengths = np.random.default_rng(SEED).integers(64, 497, size=requests)
+    return lm_requests(cfg, [int(n) for n in lengths],
+                       shared_prefix=LM_SHARED, seed=SEED)
+
+
+def _lm_run(server, pending, max_new):
+    """Serve ``pending`` once with the launch counters set to 0 just
+    before and read just after."""
+    import torch
+
+    from repro_torch.launch.serve import serve_lm
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_lm_counts()
+    t0 = time.perf_counter()
+    finished, admit_s, wave_s, occ = serve_lm(server, pending, max_new)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return dict(finished), admit_s, wave_s, occ, dt, _lm_counts()
+
+
+def _lm_report(tag, cfg, pending, finished, admit_s, wave_s, occ, dt,
+               counts, max_new):
+    import numpy as np
+    import torch
+
+    if sorted(finished) != [rid for rid, _ in pending]:
+        _fail(f"{tag}: served {sorted(finished)}, expected all of "
+              f"{len(pending)}")
+    for rid, toks in finished.items():
+        if len(toks) != max_new or min(toks) < 0 or max(toks) >= cfg.vocab:
+            _fail(f"{tag}: request {rid} decoded {len(toks)} tokens, or "
+                  f"one outside the vocabulary")
+    n_tok = sum(len(t) for t in finished.values())
+    print(f"[{tag}] {len(finished)} requests, {n_tok} tokens, "
+          f"{len(wave_s)} waves in {dt:.3f}s: {n_tok / dt:.1f} decoded "
+          f"tokens/s, mean wave {1e3 * float(np.mean(wave_s)):.2f} ms, "
+          f"prefill {1e3 * float(np.mean(admit_s)):.2f} ms per request, "
+          f"occupancy {occ:.2f}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+          f"launches {counts}", flush=True)
+
+
+def _teacher_forced_logits(server, prompt, tokens, steps):
+    """Last-token logits of the prefill and of ``steps`` decode steps fed
+    ``tokens`` (one request, batch 1), as (steps + 1, V) f32."""
+    import torch
+
+    dev = torch.device("cuda")
+    logits, cache = server.model.prefill_fn(
+        server.params, {"tokens": torch.as_tensor(prompt[None]).to(dev)},
+        cache_len=server.max_len)
+    out = [logits[:, -1].float()]
+    for i in range(steps):
+        tok = torch.tensor([[tokens[i]]], dtype=torch.int32, device=dev)
+        logits, cache = server.model.decode_fn(server.params, cache, tok,
+                                               len(prompt) + i)
+        out.append(logits[:, -1].float())
+    return torch.cat(out)
+
+
+def _check_lm_against_plain(server, pending, finished):
+    """One request's prefill and first 8 decode logits, teacher-forced
+    with its served tokens, kernel path vs plain path (the decode
+    attention wrapper swapped for its plain version) on the card."""
+    from unittest import mock
+
+    from repro_torch.kernels import decode_attention as DA
+
+    def errors(rid, prompt):
+        toks = finished[rid]
+        got = _teacher_forced_logits(server, prompt, toks, 8)
+        with mock.patch.object(DA, "decode_attention",
+                               DA.decode_attention_ref):
+            want = _teacher_forced_logits(server, prompt, toks, 8)
+        return [_norm_err(g, w)[1] for g, w in zip(got, want)]
+
+    rid, prompt = min(pending, key=lambda r: len(r[1]))
+    errs = errors(rid, prompt)
+    print(f"[lm-serve] request {rid} ({len(prompt)} prompt tokens) "
+          f"teacher-forced, kernel vs plain path, normalised logits error "
+          f"(tol {K1_TOL}): prefill {errs[0]:.3g}, decode steps 1-8 "
+          f"{[round(e, 5) for e in errs[1:]]}; served first tokens "
+          f"{finished[rid][:9]}", flush=True)
+    if not max(errs) <= K1_TOL:
+        _fail(f"lm-serve logits disagree with the plain path: {errs}")
+    worst = {r: round(max(errors(r, p)), 5) for r, p in pending}
+    print(f"[lm-serve] the same check for every request (not held): "
+          f"worst per request {worst}", flush=True)
+
+
+def _check_lm_preempt(server, pending):
+    """Two requests that never share a position; request A is preempted
+    after 3 waves and restored after 1: both decode bit for bit as in
+    the uninterrupted run."""
+    (ra, pa), (rb, pb) = pending[0], pending[1]
+    if abs(len(pa) - len(pb)) < 2:      # B runs one wave ahead after the
+        pb = pb[:len(pa) - 2]            # preemption: never aligned
+
+    def run(preempt_at):
+        server.reset()
+        server.admit(ra, pa, 16)
+        server.admit(rb, pb, 16)
+        fin = []
+        for i in range(40):
+            if i == preempt_at:
+                snap = server.preempt(ra)
+                fin += server.step()
+                if not server.restore(snap):
+                    _fail("lm-serve: restore found no free slot")
+            fin += server.step()
+            if not server.active.any():
+                break
+        return dict(fin)
+
+    base, pre = run(-1), run(3)
+    print(f"[lm-serve] preempt -> restore: request {ra} and {rb} "
+          f"bit-identical to the uninterrupted run: {base == pre}",
+          flush=True)
+    if base != pre or len(base) != 2:
+        _fail("lm-serve: a preempted request decoded other tokens")
+
+
+def phase_lm_serve():
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import Server
+
+    cfg = get_arch("smollm-360m")
+    t0 = time.perf_counter()
+    server = Server(cfg, slots=LM_B, max_len=LM_S, seed=SEED)
+    pending = _lm_pending(cfg)
+    # warm-up: one short request (cuBLAS handles and workspaces)
+    server.admit(-1, pending[0][1][:64], 4)
+    while server.active.any():
+        server.step()
+    server.reset()
+    print(f"[lm-serve] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, vocab "
+          f"{cfg.vocab}; prompt lengths {[len(p) for _, p in pending]}; "
+          f"set-up {time.perf_counter() - t0:.1f}s", flush=True)
+    finished, admit_s, wave_s, occ, dt, counts = _lm_run(server, pending,
+                                                         LM_MAX_NEW)
+    for name in ("decode_attention", "argmax_tokens"):
+        if counts[name] <= 0:
+            _fail(f"kernel {name} was never launched on the lm-serve path")
+    _lm_report("lm-serve", cfg, pending, finished, admit_s, wave_s, occ, dt,
+               counts, LM_MAX_NEW)
+    _check_lm_against_plain(server, pending, finished)
+    _check_lm_preempt(server, pending)
+    return server, pending, finished, counts
+
+
+def _first_difference(server, pending, dense, paged):
+    """Print how many requests decode the dense run's tokens; for the
+    first that does not, the position and the dense path's top-2 logit
+    margin there (teacher-forced with the dense tokens, through the
+    dense cache layout of ``server``'s model and weights, which are the
+    dense run's)."""
+    import torch
+
+    agree = [rid for rid in dense if dense[rid] == paged.get(rid)]
+    print(f"[lm-paged] {len(agree)} of {len(dense)} requests decode the "
+          f"dense run's tokens", flush=True)
+    for rid, prompt in pending:
+        if rid in agree:
+            continue
+        i = next(j for j, (a, b) in enumerate(zip(dense[rid], paged[rid]))
+                 if a != b)
+        logits = _teacher_forced_logits(server, prompt, dense[rid], i)[-1]
+        top = torch.topk(logits, 2).values
+        print(f"[lm-paged] request {rid} first differs at generated token "
+              f"{i} (dense {dense[rid][i]}, paged {paged[rid][i]}); top-2 "
+              f"logit margin there {float(top[0] - top[1]):.4g}",
+              flush=True)
+        return
+
+
+def phase_lm_paged(pending, dense):
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import PagedServer
+
+    cfg = get_arch("smollm-360m")
+    server = PagedServer(cfg, pool_pages=LM_POOL, page_size=LM_P,
+                         max_len=LM_S, seed=SEED)
+    finished, admit_s, wave_s, occ, dt, counts = _lm_run(server, pending,
+                                                         LM_MAX_NEW)
+    for name in ("paged_decode_attention", "argmax_tokens"):
+        if counts[name] <= 0:
+            _fail(f"kernel {name} was never launched on the paged path")
+    _lm_report("lm-paged", cfg, pending, finished, admit_s, wave_s, occ, dt,
+               counts, LM_MAX_NEW)
+    print(f"[lm-paged] pool {server.pool.n_pages} pages x {LM_P}: peak "
+          f"sharing_ratio {server.peak_sharing:.3f}, cow "
+          f"{server.pool.n_cow}, shared_hits {server.pool.n_shared_hits}",
+          flush=True)
+    if server.pool.n_shared_hits <= 0 or server.pool.pages_in_use != 0:
+        _fail("lm-paged: no prefix page was shared, or pages leaked")
+    _first_difference(server, pending, dense, finished)
+    return counts
+
+
+def phase_lm_profile(server, pending):
+    """Where the LM serving time goes: 4 requests (16 new tokens each)
+    under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    server.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, wave_s, _, dt, _ = _lm_run(server, pending[:4], 16)
+    rows = sorted(((e.device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.device_time_total > 0), reverse=True)
+    if not rows:
+        print("[lm-profile] the profiler recorded no device events: device "
+              "busy share not measured", flush=True)
+        return
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    print(f"[lm-profile] serve 4 requests x 16 tokens: wall {1e3 * dt:.1f} "
+          f"ms, {len(wave_s)} waves, device busy {busy_ms:.1f} ms "
+          f"({100 * busy_ms / (1e3 * dt):.1f}%)", flush=True)
+    for us, n, key in rows[:12]:
+        print(f"[lm-profile]   {us / 1e3:9.2f} ms  {n:6d}x  {key[:70]}",
+              flush=True)
+
+
 def _to_cpu(tree):
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
@@ -813,6 +1337,12 @@ def main() -> int:
         phase_profile()
         state, step, ds, counts, steps, _ = phase_train()
         phase_train_profile(state, step, ds, steps)
+        del state, step, ds
+        k7, k8, k6 = check_k7(gen), check_k8(gen), check_k6(gen)
+        lm_server, lm_pending, dense, lm_counts = phase_lm_serve()
+        phase_lm_profile(lm_server, lm_pending)
+        del lm_server
+        paged_counts = phase_lm_paged(lm_pending, dense)
     except SystemExit:
         raise
     except Exception:                    # any phase failing fails the run
@@ -821,8 +1351,12 @@ def main() -> int:
     for k in (k1s, k2):
         k["launches_per_step"] = counts[k["name"]] / steps
     launches.update(counts)
+    launches["decode_attention"] = lm_counts["decode_attention"]
+    launches["argmax_tokens"] = lm_counts["argmax_tokens"]
+    launches["paged_decode_attention"] = paged_counts["paged_decode_attention"]
+    k6["launches_paged"] = paged_counts["argmax_tokens"]
     kernels = [k1, k1s, k2, k5["beam_frame_step"],
-               k5["beam_frame_step_topc"]]
+               k5["beam_frame_step_topc"], k6, k7, k8]
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(f"[total] {time.perf_counter() - t_start:.1f}s", flush=True)

@@ -1,5 +1,5 @@
 """Architecture configuration: the port's own copy of the fields of
-``repro.configs.base.ArchConfig`` that the lstm family reads.
+``repro.configs.base.ArchConfig`` that the lstm and dense families read.
 
 Configs are frozen dataclasses so they compare and hash by value.
 """
@@ -13,11 +13,28 @@ class ArchConfig:
     """One selectable architecture (``--arch <name>``)."""
 
     name: str
-    family: str               # only "lstm" is ported so far
+    family: str               # "lstm" | "dense" (the families ported)
     n_layers: int
     d_model: int
     vocab: int
     citation: str = ""
+
+    # decoder-only transformer (the dense family)
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    d_ff: int = 0
+    head_dim: int = 0         # 0 -> derived as d_model // n_heads
+    rope_theta: float = 10_000.0
+    norm: str = "rmsnorm"     # rmsnorm | layernorm | none
+    act: str = "swiglu"       # swiglu | gelu
+    use_bias: bool = False
+    tie_embeddings: bool = True
+    # sliding-window attention (0 = full); the layers that keep global
+    # attention when a window is active; the documented long-context
+    # variant of full-attention archs
+    window: int = 0
+    window_for_long: int = 8192
+    global_attn_layers: tuple = ()
 
     # lstm acoustic model (the paper's own architecture)
     lstm_hidden: int = 0      # per-direction hidden size
@@ -43,16 +60,37 @@ class ArchConfig:
     comm_topology: str = ""
     comm_wire: str = ""
 
+    # serving KV-cache layout (launch/serve.py --cache): 'dense' per-slot
+    # max_len rows | 'paged' shared page pool with prompt-prefix sharing
+    # and COW; cache positions per page under 'paged'
+    cache_mode: str = "dense"
+    page_size: int = 16
+
     param_dtype: str = "bfloat16"
     microbatches: int = 4     # gradient-accumulation microbatches for train
 
+    def __post_init__(self):
+        if self.head_dim == 0 and self.n_heads:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    @property
+    def supports_decode(self) -> bool:
+        return self.family != "lstm"   # frame classifier has no decode loop
+
     def reduced(self) -> "ArchConfig":
         """The reference's smoke-test variant: 2 layers, d_model <= 256,
-        vocab <= 512, hidden 64, bottleneck 32, 2 learners, 1
+        <= 4 heads, <= 2 KV heads, head_dim max(d // heads, 8), d_ff <=
+        512, vocab <= 512, hidden 64, bottleneck 32, 2 learners, 1
         microbatch."""
-        changes = dict(n_layers=2, d_model=min(self.d_model, 256),
+        d = min(self.d_model, 256)
+        heads = min(self.n_heads, 4) or self.n_heads
+        kv = min(self.n_kv_heads, 2) or self.n_kv_heads
+        changes = dict(n_layers=2, d_model=d, n_heads=heads, n_kv_heads=kv,
+                       head_dim=max(d // max(heads, 1), 8) if heads else 0,
+                       d_ff=min(self.d_ff, 512) if self.d_ff else 0,
                        vocab=min(self.vocab, 512), n_learners=2,
-                       microbatches=1)
+                       microbatches=1,
+                       window=min(self.window, 64) if self.window else 0)
         if self.lstm_hidden:
             changes["lstm_hidden"] = 64
             changes["lstm_bottleneck"] = 32

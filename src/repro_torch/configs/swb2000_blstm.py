@@ -15,6 +15,8 @@ SWB2000_BLSTM = register(
         d_model=1024,          # LSTM cells per layer (512 per direction)
         vocab=32000,           # CD-HMM state targets
         citation="Cui et al., IEEE Signal Processing Magazine 2020, §V",
+        norm="none",
+        tie_embeddings=False,
         lstm_hidden=512,       # per direction
         lstm_bottleneck=256,
         input_dim=260,

@@ -1,12 +1,17 @@
-"""The CTC prefix-beam frame step: the wrapper of the K5 port.
+"""The CTC prefix-beam frame step and the LM token selector: the wrappers
+of the K5 and K6 ports.
 
 ``beam_frame_step`` has the contract of ``repro.decode.kernel
 .beam_frame_step``: same inputs, and ``(sel, new_pb, new_pnb)``
 bit-identical to ``beam.frame_step_scores`` (or to
 ``beam.frame_step_scores_topc`` when ``0 < topc < V``) under the max
-semiring.  On a CUDA tensor it launches ``csrc/beam_step.cu`` and counts
-one launch; on a CPU tensor it runs the plain version.  It never falls
-back from the card to the plain path.
+semiring.  ``argmax_tokens`` has the contract of ``repro.decode.kernel
+.argmax_tokens``: (B, V) logits -> (B,) int32, bit-identical to
+``jnp.argmax`` of the f32-cast rows (first index on ties, the first NaN
+wins).  On a CUDA tensor each launches its kernel (``csrc/beam_step.cu``,
+``csrc/argmax.cu``) and counts one launch (``launches``,
+``argmax_launches``); on a CPU tensor it runs the plain version.
+Neither falls back from the card to the plain path.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from repro_torch.device import require_kernel_device
 from repro_torch.kernels import build
 
 launches = 0          # kernel launches (one per beam_frame_step on the card)
+argmax_launches = 0   # K6 launches (one per argmax_tokens on the card)
 
 MAX_BEAM = 16                   # per-parent tables in the kernel's smem
 SMEM_BYTES = 220 * 1024         # dynamic shared memory the kernel may ask
@@ -96,3 +102,34 @@ def beam_frame_step(logp, p_b, p_nb, last, phash, plen, *, blank: int,
         raise RuntimeError(f"beam_step launch failed: cudaError {rc}")
     launches += 1
     return sel, new_pb, new_pnb
+
+
+def argmax_ref(logits):
+    """The plain token selector: argmax of the f32-cast rows (torch's
+    argmax also takes the first maximum and treats NaN as the maximum)."""
+    return torch.argmax(logits.float(), dim=-1).to(torch.int32)
+
+
+def argmax_tokens(logits):
+    """(B, V) bf16 or f32 logits -> (B,) int32 token ids."""
+    global argmax_launches
+    if logits.device.type == "cpu":
+        return argmax_ref(logits)
+    require_kernel_device(logits)
+    if (logits.dim() != 2 or not logits.is_contiguous()
+            or logits.dtype not in (torch.bfloat16, torch.float32)):
+        raise ValueError(f"logits: expected contiguous (B, V) bf16 or f32, "
+                         f"got {tuple(logits.shape)} {logits.dtype}")
+    B, V = logits.shape
+    out = torch.empty(B, dtype=torch.int32, device=logits.device)
+    lib = build.load("argmax")
+    if lib.argmax_rows.argtypes is None:
+        lib.argmax_rows.argtypes = [_P, _P, _I, _I, _I, _P]
+        lib.argmax_rows.restype = _I
+    rc = lib.argmax_rows(logits.data_ptr(), out.data_ptr(), B, V,
+                         int(logits.dtype == torch.float32),
+                         torch.cuda.current_stream(logits.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"argmax launch failed: cudaError {rc}")
+    argmax_launches += 1
+    return out

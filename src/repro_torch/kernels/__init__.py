@@ -1,2 +1,3 @@
-"""Hand-written CUDA kernels of the port, their wrappers, plain versions
-(``ref.py``) and the ``nvcc``/ctypes loader (``build.py``)."""
+"""Hand-written CUDA kernels of the port, their wrappers and plain
+versions (``ref.py`` for the BLSTM, beside the wrapper elsewhere) and the
+``nvcc``/ctypes loader (``build.py``)."""

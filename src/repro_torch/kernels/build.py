@@ -28,6 +28,8 @@ SOURCES = {
     "lstm_fwd": _PKG / "kernels" / "csrc" / "lstm_fwd.cu",
     "lstm_bwd": _PKG / "kernels" / "csrc" / "lstm_bwd.cu",
     "beam_step": _PKG / "decode" / "csrc" / "beam_step.cu",
+    "decode_attention": _PKG / "kernels" / "csrc" / "decode_attention.cu",
+    "argmax": _PKG / "decode" / "csrc" / "argmax.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

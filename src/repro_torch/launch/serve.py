@@ -1,21 +1,34 @@
-"""Streaming-ASR serving of the paper's acoustic model — the port of the
-ASR half of ``repro/launch/serve.py``.
+"""Batched serving launcher of the port: continuous-batching decode loops
+— the port of ``repro/launch/serve.py``.
 
-Requests are variable-length utterances.  Admission runs the BLSTM
-forward once over the utterance (masked to its valid frames) and parks
-its CD-state posteriors on the device; every decode wave then advances
-all active slots by ``chunk`` frames through ONE batched
-:class:`repro_torch.decode.BeamState`, the streaming carry of the CTC
-prefix beam search.  On the card the forward runs the fused BLSTM kernel
-and each frame the beam-step kernel; with ``device="cpu"`` both run
-their plain PyTorch versions.
+Two request families share the slot-pool pattern (admit into free slots,
+advance all active slots together, free and refill on completion):
 
-The server keeps the reference's slot-pool duck contract (``admit``,
+* **LM** (the dense decoder family, e.g. ``smollm-360m``): admission
+  prefills the prompt (plain torch attention) and emits the first token;
+  every decode wave advances the active requests one token through the
+  model's ``decode_step``, whose per-layer attention is the decode-
+  attention kernel (K7 port) over the dense KV cache of :class:`Server`,
+  or the paged kernel (K8 port) over the shared page pool of
+  :class:`PagedServer`, and whose token selection is the argmax kernel
+  (K6 port).
+* **ASR** (the paper's lstm family): requests are variable-length
+  utterances.  Admission runs the BLSTM forward once over the utterance
+  (masked to its valid frames) and parks its CD-state posteriors on the
+  device; every decode wave then advances all active slots by ``chunk``
+  frames through ONE batched :class:`repro_torch.decode.BeamState`, the
+  streaming carry of the CTC prefix beam search, on the fused BLSTM and
+  beam-step kernels.
+
+With ``device="cpu"`` every kernel runs its plain PyTorch version.  The
+servers keep the reference's slot-pool duck contract (``admit``,
 ``submit``, ``step``, ``step_wave``, ``preempt``, ``restore``, ``reset``,
 ``events``): admission returns a typed :class:`AdmitResult`, and a
 preempted-then-restored request decodes bit for bit like an
 uninterrupted one.
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+        --requests 8 --slots 4 --prompt-len 128 --max-len 256 --max-new 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch swb2000-blstm \
         --requests 8 --slots 4 --prompt-len 256 --max-len 256
 """
@@ -30,54 +43,54 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.data import make_dataset
 from repro_torch.decode import beam as DC
+from repro_torch.decode.kernel import argmax_tokens
 from repro_torch.device import resolve_device
+from repro_torch.models import build_model
 from repro_torch.models import lstm as LS
-from repro_torch.params import init_params
+from repro_torch.params import init_params, zeros_from_specs
 from repro_torch.serving.admission import (NO_BUDGET, OK, POOL_FULL,
                                            PROMPT_TOO_LONG, AdmitResult,
                                            prompt_capacity)
+from repro_torch.serving.kvpool import PagePool, cdiv
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
-class AsrServer:
-    """Streaming-ASR slot pool (``repro.launch.serve.AsrServer``).
+def select_tokens(logits) -> list:
+    """(B, V) logits -> B host ints: one argmax kernel launch and one host
+    copy for the whole group."""
+    return argmax_tokens(logits.contiguous()).cpu().tolist()
 
-    The parked posteriors are one (slots, max_frames, V) f32 tensor on
-    the device; ``preempt`` snapshots a slot's row and beam state to the
-    host.  Weights are drawn from ``seed`` (:func:`init_params`); assign
-    ``server.params`` to serve other weights (e.g. carried over from JAX
-    with :func:`repro_torch.params.from_jax_params`)."""
 
-    emits_on_admit = False        # the first progress comes on a wave
+class _Events:
+    """The structured per-request event stream of every server, and the
+    host -> device copy of its int32 bookkeeping (tokens, slots, pages)."""
 
-    def __init__(self, cfg, *, slots: int, max_frames: int, chunk: int,
-                 beam: int = 0, seed: int = 0, topc: int = None,
-                 device=None, verbose: bool = False):
-        self.device = resolve_device(device)
-        self.cfg = cfg
-        self.slots = slots
-        self.max_frames = max_frames
-        self.chunk = chunk
-        self.beam = beam or cfg.beam_width
-        self.semiring = cfg.beam_semiring
-        self.len_norm = cfg.beam_len_norm
-        self.topc = cfg.beam_topc if topc is None else topc
-        self.verbose = verbose
-        self.params = init_params(LS.param_specs(cfg), seed, self.device)
-        self.logits = torch.zeros((slots, max_frames, cfg.vocab),
-                                  dtype=torch.float32, device=self.device)
-        self.lens = np.zeros(slots, np.int32)     # valid frames per slot
-        self.pos = np.zeros(slots, np.int32)      # frames consumed
-        self.active = np.zeros(slots, bool)
-        self.req_ids = [-1] * slots
-        self.events = []
-        self.state = DC.init_state(slots, self.beam, max_frames, self.device)
+    def _on_device(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.int32)).to(self.device)
 
-    # ------------------------------------------------------------ slots
     def _event(self, kind: str, rid: int, **kw):
         self.events.append((kind, rid, kw))
         if self.verbose:
             extra = "".join(f" {k}={v}" for k, v in kw.items())
             print(f"[req] {kind} rid={rid}{extra}", flush=True)
+
+
+class _SlotPool(_Events):
+    """Shared slot-pool bookkeeping: the rid -> slot map and the event
+    stream."""
+
+    emits_on_admit = False        # the first progress comes on a wave
+
+    def __init__(self, slots: int, verbose: bool = False):
+        self.slots = slots
+        self.active = np.zeros(slots, bool)
+        self.req_ids = [-1] * slots
+        self.events = []
+        self.verbose = verbose
 
     def _free_slot(self) -> int:
         free = np.where(~self.active)[0]
@@ -89,6 +102,442 @@ class AsrServer:
                 return int(slot)
         raise KeyError(f"request {rid} is not active in the pool")
 
+    def active_requests(self):
+        return [self.req_ids[s] for s in np.where(self.active)[0]]
+
+
+class Server(_SlotPool):
+    """LM continuous batching over a stacked dense KV cache
+    (``repro.launch.serve.Server``).
+
+    The cache is {'attn': {'k', 'v'}}, each (L, slots, max_len, KV, E)
+    bf16 on the device.  Weights are drawn from ``seed``
+    (:func:`init_params`); assign ``server.params`` to serve other
+    weights (e.g. carried over from JAX with
+    :func:`repro_torch.params.from_jax_params`)."""
+
+    emits_on_admit = True      # prefill emits the first token at admission
+
+    def __init__(self, cfg, *, slots: int, max_len: int, seed: int = 0,
+                 batched: bool = True, device=None, verbose: bool = False):
+        if not cfg.supports_decode:
+            raise ValueError(f"{cfg.name} has no LM decode loop")
+        super().__init__(slots, verbose)
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.model = build_model(cfg)
+        self.max_len = max_len
+        self.batched = batched
+        self.params = init_params(self.model.param_specs(), seed,
+                                  self.device)
+        self.cache = zeros_from_specs(self.model.cache_specs(slots, max_len),
+                                      self.device)
+        self.pos = np.zeros(slots, np.int32)          # next write position
+        self.tokens = np.zeros((slots, 1), np.int32)  # last emitted token
+        self.budget = np.zeros(slots, np.int32)
+        self.outputs = [[] for _ in range(slots)]
+
+    # ------------------------------------------------------------------
+    def admit(self, req_id: int, prompt, max_new: int) -> AdmitResult:
+        """Claim a free slot, prefill, emit the first token.  Typed
+        rejection: ``pool_full`` (retryable), ``prompt_too_long`` (one of
+        the slot's max_len positions is reserved for the first generated
+        token) or ``no_budget`` (max_new <= 0)."""
+        prompt = np.asarray(prompt)
+        if len(prompt) > prompt_capacity(self.max_len, "lm"):
+            self._event("reject", req_id, reason=PROMPT_TOO_LONG,
+                        prompt=len(prompt))
+            return AdmitResult(PROMPT_TOO_LONG)
+        if max_new <= 0:
+            self._event("reject", req_id, reason=NO_BUDGET)
+            return AdmitResult(NO_BUDGET)
+        slot = self._free_slot()
+        if slot < 0:
+            return AdmitResult(POOL_FULL)
+        logits, row = self.model.prefill_fn(
+            self.params, {"tokens": self._on_device(prompt[None, :])},
+            cache_len=self.max_len)
+        for name in ("k", "v"):
+            self.cache["attn"][name][:, slot] = row["attn"][name][:, 0]
+        nxt = select_tokens(logits[:, -1])[0]
+        self.pos[slot] = len(prompt)
+        self.tokens[slot, 0] = nxt
+        self.active[slot] = True
+        self.budget[slot] = max_new - 1
+        self.outputs[slot] = [nxt]
+        self.req_ids[slot] = req_id
+        self._event("admit", req_id, slot=slot, prompt=len(prompt))
+        return AdmitResult(OK, slot)
+
+    # ----------------------------------------------------- duck contract
+    def submit(self, req, payload) -> AdmitResult:
+        return self.admit(req.rid, payload, req.max_new)
+
+    def step_wave(self):
+        """One decode wave: ``(completed, progressed_rids, work)`` —
+        every active slot advances one token, so work = active count."""
+        progressed = self.active_requests()
+        done = self.step()
+        return done, progressed, len(progressed)
+
+    def preempt(self, rid: int):
+        """Evict ``rid``: snapshot its cache row to the host plus the
+        position/budget/output bookkeeping, free the slot."""
+        slot = self._slot_of(rid)
+        snap = {
+            "rid": rid,
+            "pos": int(self.pos[slot]),
+            "token": int(self.tokens[slot, 0]),
+            "budget": int(self.budget[slot]),
+            "outputs": list(self.outputs[slot]),
+            "row": _tree_map(lambda c: c[:, slot:slot + 1].cpu(),
+                             self.cache),
+        }
+        self.active[slot] = False
+        self.req_ids[slot] = -1
+        self._event("preempt", rid, slot=slot, pos=snap["pos"])
+        return snap
+
+    def restore(self, snap) -> AdmitResult:
+        """Resume a preempted request in any free slot; the cache row
+        round-trips exactly, so the continued decode is bit-identical to
+        the uninterrupted one."""
+        slot = self._free_slot()
+        if slot < 0:
+            return AdmitResult(POOL_FULL)
+        for name in ("k", "v"):
+            self.cache["attn"][name][:, slot:slot + 1] = \
+                snap["row"]["attn"][name].to(self.device)
+        self.pos[slot] = snap["pos"]
+        self.tokens[slot, 0] = snap["token"]
+        self.budget[slot] = snap["budget"]
+        self.outputs[slot] = list(snap["outputs"])
+        self.active[slot] = True
+        self.req_ids[slot] = snap["rid"]
+        self._event("restore", snap["rid"], slot=slot, pos=snap["pos"])
+        return AdmitResult(OK, slot)
+
+    def reset(self):
+        """Clear every slot (weights and cache buffers are kept)."""
+        for c in self.cache["attn"].values():
+            c.zero_()
+        self.pos[:] = 0
+        self.active[:] = False
+        self.tokens[:] = 0
+        self.budget[:] = 0
+        self.outputs = [[] for _ in range(self.slots)]
+        self.req_ids = [-1] * self.slots
+        self.events.clear()
+
+    # ------------------------------------------------------------------
+    def _decode(self, group, pos: int) -> list:
+        """Decode the slots of ``group`` (all at ``pos``) as ONE batched
+        call; returns their next tokens.  Contiguous slots decode on views
+        of the cache, so the new column is written in place; other groups
+        gather their rows and scatter the new column back."""
+        toks = self._on_device(self.tokens[group])
+        lo = group[0]
+        if list(group) == list(range(lo, lo + len(group))):
+            rows = _tree_map(lambda c: c[:, lo:lo + len(group)], self.cache)
+            logits, _ = self.model.decode_fn(self.params, rows, toks, pos)
+        else:
+            idx = self._on_device(group).long()
+            rows = _tree_map(lambda c: c[:, idx], self.cache)
+            logits, rows = self.model.decode_fn(self.params, rows, toks, pos)
+            for name in ("k", "v"):
+                self.cache["attn"][name][:, idx, pos] = \
+                    rows["attn"][name][:, :, pos]
+        return select_tokens(logits[:, -1])
+
+    def step(self):
+        """Advance every active slot by one token.
+
+        Slots are grouped by cache position and each group decodes as ONE
+        batched call — bit-identical to the per-slot decode
+        (``batched=False``, the reference loop) wherever the batched
+        products round as the per-row ones do (the CPU tests hold it)."""
+        if not self.batched:
+            return self._step_sequential()
+        done = []
+        active = np.where(self.active)[0]
+        for p in sorted({int(self.pos[s]) for s in active}):
+            group = [int(s) for s in active if self.pos[s] == p]
+            for slot, nxt in zip(group, self._decode(group, p)):
+                self._advance_slot(slot, nxt, done)
+        return done
+
+    def _step_sequential(self):
+        done = []
+        for slot in np.where(self.active)[0]:
+            slot = int(slot)
+            nxt = self._decode([slot], int(self.pos[slot]))[0]
+            self._advance_slot(slot, nxt, done)
+        return done
+
+    def _advance_slot(self, slot: int, nxt: int, done):
+        self.outputs[slot].append(nxt)
+        self.tokens[slot, 0] = nxt
+        self.pos[slot] += 1
+        self.budget[slot] -= 1
+        if self.budget[slot] <= 0 or self.pos[slot] >= self.max_len - 1:
+            self.active[slot] = False
+            rid = self.req_ids[slot]
+            done.append((rid, list(self.outputs[slot])))
+            self._event("done", rid, slot=slot,
+                        tokens=len(self.outputs[slot]))
+
+
+class PagedServer(_Events):
+    """LM continuous batching over a PAGED KV cache (``--cache paged``;
+    ``repro.launch.serve.PagedServer``).
+
+    Same duck contract and decode loop as :class:`Server`, but the
+    physical cache is one shared pool of ``pool_pages`` pages of
+    ``page_size`` positions, and capacity is the page budget, not a slot
+    count.  Host-side bookkeeping (refcounts, the prompt-prefix trie,
+    COW) lives in :class:`repro_torch.serving.kvpool.PagePool`; this
+    class owns the device page arrays and applies the pool's decisions:
+
+    * **admit** — pages are reserved eagerly (all-or-nothing).  Worst-case
+      demand beyond the whole pool is the terminal ``no_budget``; too few
+      free pages right now is the retryable ``pool_full``.  Prefill runs
+      over the prompt with its cache padded to whole pages, and only the
+      OWNED pages are written: trie-shared prefix pages already hold the
+      bytes.
+    * **step** — equal-position groups decode as one batched call through
+      the paged kernel, the requests' page tables stacked into a (Bg, W)
+      table; W is the widest request's page count rounded up to a power
+      of two.  Before the wave's cache write, ``pool.ensure_writable``
+      COWs any shared page (a device page copy here).
+    * **preempt/restore** — the snapshot is the table's pages on the host;
+      restore re-allocates through the trie and writes the owned pages.
+    """
+
+    emits_on_admit = True
+
+    def __init__(self, cfg, *, pool_pages: int, page_size: int,
+                 max_len: int, seed: int = 0, share: bool = True,
+                 device=None, verbose: bool = False):
+        if not cfg.supports_decode:
+            raise ValueError(f"{cfg.name} has no LM decode loop")
+        if max_len % page_size:
+            raise ValueError(f"max_len {max_len} must be a multiple of "
+                             f"page_size {page_size}")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.model = build_model(cfg)
+        self.max_len = max_len
+        self.page_size = page_size
+        self.table_w = cdiv(max_len, page_size)
+        self.pool = PagePool(pool_pages, page_size, seed=seed, share=share)
+        self.events = []
+        self.verbose = verbose
+        self.peak_sharing = 0.0
+        self.params = init_params(self.model.param_specs(), seed,
+                                  self.device)
+        pages = zeros_from_specs(self.model.page_specs(pool_pages, page_size),
+                                 self.device)
+        self.k_pages = pages["attn"]["k"]
+        self.v_pages = pages["attn"]["v"]
+        self.reqs = {}    # rid -> {pos, token, budget, outputs, ...}
+
+    @property
+    def active(self):
+        """In-flight mask (one entry per live request, not per slot)."""
+        return np.ones(len(self.reqs), bool)
+
+    def active_requests(self):
+        return list(self.reqs)
+
+    def occupancy(self) -> float:
+        return self.pool.pages_in_use / self.pool.n_pages
+
+    # ------------------------------------------------------------------
+    def admit(self, req_id: int, prompt, max_new: int) -> AdmitResult:
+        """Page-budget admission.  Typed rejection: ``prompt_too_long``,
+        ``no_budget`` (max_new <= 0, or worst-case page demand beyond the
+        whole pool: terminal), ``pool_full`` (too few free pages now:
+        retryable)."""
+        prompt = np.asarray(prompt)
+        plen = len(prompt)
+        if plen > prompt_capacity(self.max_len, "lm"):
+            self._event("reject", req_id, reason=PROMPT_TOO_LONG,
+                        prompt=plen)
+            return AdmitResult(PROMPT_TOO_LONG)
+        total = min(plen + max_new, self.max_len)
+        if max_new <= 0 or self.pool.pages_for(total) > self.pool.n_pages:
+            self._event("reject", req_id, reason=NO_BUDGET,
+                        pages=self.pool.pages_for(max(total, 0)),
+                        pool=self.pool.n_pages)
+            return AdmitResult(NO_BUDGET)
+        alloc = self.pool.alloc_request(req_id, prompt, total)
+        if alloc is None:
+            return AdmitResult(POOL_FULL)
+        P = self.page_size
+        logits, row = self.model.prefill_fn(
+            self.params, {"tokens": self._on_device(prompt[None, :])},
+            cache_len=cdiv(plen, P) * P)
+        self._write_owned(row, alloc.table, alloc.owned,
+                          n_pages=cdiv(plen, P))
+        nxt = select_tokens(logits[:, -1])[0]
+        self.reqs[req_id] = {
+            "pos": plen, "token": nxt, "budget": max_new - 1,
+            "outputs": [nxt], "prompt": tuple(int(t) for t in prompt),
+            "total": total,
+        }
+        self.peak_sharing = max(self.peak_sharing, self.pool.sharing_ratio)
+        self._event("admit", req_id, prompt=plen,
+                    pages=alloc.n_pages, shared=alloc.n_shared,
+                    in_use=self.pool.pages_in_use)
+        return AdmitResult(OK, 0)
+
+    def _write_owned(self, row, table, owned, n_pages):
+        """Scatter an (L, 1, n_pages * P, KV, E) prefill row into the
+        OWNED physical pages of the first ``n_pages`` table entries."""
+        own = [j for j in range(n_pages) if owned[j]]
+        if not own:
+            return
+        phys = self._on_device([table[j] for j in own]).long()
+        P = self.page_size
+        for name, pool in (("k", self.k_pages), ("v", self.v_pages)):
+            arr = row["attn"][name]
+            L, _, pp, KV, E = arr.shape
+            pool[:, phys] = arr[:, 0].reshape(L, pp // P, P, KV, E)[:, own]
+
+    # ----------------------------------------------------- duck contract
+    def submit(self, req, payload) -> AdmitResult:
+        return self.admit(req.rid, payload, req.max_new)
+
+    def step_wave(self):
+        progressed = self.active_requests()
+        done = self.step()
+        return done, progressed, len(progressed)
+
+    def preempt(self, rid: int):
+        """Evict ``rid``: snapshot its table's pages to the host plus the
+        bookkeeping, release the pages to the pool."""
+        r = self.reqs.pop(rid)
+        table = self.pool.table_of(rid)
+        idx = self._on_device(table).long()
+        snap = {
+            "rid": rid, "pos": r["pos"], "token": r["token"],
+            "budget": r["budget"], "outputs": list(r["outputs"]),
+            "prompt": r["prompt"], "total": r["total"],
+            "pages_k": self.k_pages[:, idx].cpu(),
+            "pages_v": self.v_pages[:, idx].cpu(),
+        }
+        self.pool.free_request(rid)
+        self._event("preempt", rid, pos=r["pos"], pages=len(table))
+        return snap
+
+    def restore(self, snap) -> AdmitResult:
+        """Resume a preempted request: re-allocate through the trie
+        (prompt pages may re-share; pages holding decode output never do)
+        and write the snapshot into the owned pages."""
+        rid = snap["rid"]
+        alloc = self.pool.alloc_request(rid, snap["prompt"], snap["total"],
+                                        written_upto=snap["pos"])
+        if alloc is None:
+            return AdmitResult(POOL_FULL)
+        own = [j for j in range(alloc.n_pages) if alloc.owned[j]]
+        if own:
+            phys = self._on_device([alloc.table[j] for j in own]).long()
+            self.k_pages[:, phys] = snap["pages_k"][:, own].to(self.device)
+            self.v_pages[:, phys] = snap["pages_v"][:, own].to(self.device)
+        self.reqs[rid] = {k: snap[k] for k in
+                          ("pos", "token", "budget", "prompt", "total")}
+        self.reqs[rid]["outputs"] = list(snap["outputs"])
+        self.peak_sharing = max(self.peak_sharing, self.pool.sharing_ratio)
+        self._event("restore", rid, pos=snap["pos"], shared=alloc.n_shared)
+        return AdmitResult(OK, 0)
+
+    def reset(self):
+        self.pool.reset()
+        self.k_pages.zero_()
+        self.v_pages.zero_()
+        self.reqs.clear()
+        self.events.clear()
+        self.peak_sharing = 0.0
+
+    # ------------------------------------------------------------------
+    def step(self):
+        """Advance every in-flight request one token: equal-position
+        groups share one batched decode (the dense server's grouping and
+        finish rules, so outputs equal its outputs given equal logits);
+        shared pages COW before the wave's cache write."""
+        done = []
+        P = self.page_size
+        for p in sorted({r["pos"] for r in self.reqs.values()}):
+            group = [rid for rid, r in self.reqs.items() if r["pos"] == p]
+            for rid in group:    # COW before the device write at p
+                moved = self.pool.ensure_writable(rid, p)
+                if moved is not None:
+                    src, dst = moved
+                    self.k_pages[:, dst] = self.k_pages[:, src]
+                    self.v_pages[:, dst] = self.v_pages[:, src]
+                    self._event("cow", rid, pos=p, src=src, dst=dst)
+            # attend only the pages the group can reach: the widest
+            # request's page count, rounded up to a power of two
+            w_need = max(cdiv(self.reqs[rid]["total"], P) for rid in group)
+            w_use = min(self.table_w, 1 << max(w_need - 1, 0).bit_length())
+            tbl = np.zeros((len(group), w_use), np.int32)
+            for i, rid in enumerate(group):
+                t = self.pool.table_of(rid)
+                tbl[i, :len(t)] = t[:w_use]
+            toks = self._on_device([[self.reqs[rid]["token"]]
+                                    for rid in group])
+            logits, _ = self.model.decode_fn(
+                self.params, {"attn": {"k": self.k_pages,
+                                       "v": self.v_pages}},
+                toks, p, page_table=self._on_device(tbl), page_size=P)
+            for rid, nxt in zip(group, select_tokens(logits[:, -1])):
+                self._advance(rid, nxt, done)
+        return done
+
+    def _advance(self, rid, nxt: int, done):
+        r = self.reqs[rid]
+        r["outputs"].append(nxt)
+        r["token"] = nxt
+        r["pos"] += 1
+        r["budget"] -= 1
+        # the dense Server's finish rule -> identical outputs
+        if r["budget"] <= 0 or r["pos"] >= self.max_len - 1:
+            done.append((rid, list(r["outputs"])))
+            self._event("done", rid, tokens=len(r["outputs"]),
+                        in_use=self.pool.pages_in_use)
+            self.pool.free_request(rid)
+            del self.reqs[rid]
+
+
+class AsrServer(_SlotPool):
+    """Streaming-ASR slot pool (``repro.launch.serve.AsrServer``).
+
+    The parked posteriors are one (slots, max_frames, V) f32 tensor on
+    the device; ``preempt`` snapshots a slot's row and beam state to the
+    host.  Weights are drawn from ``seed`` (:func:`init_params`); assign
+    ``server.params`` to serve other weights (e.g. carried over from JAX
+    with :func:`repro_torch.params.from_jax_params`)."""
+
+    def __init__(self, cfg, *, slots: int, max_frames: int, chunk: int,
+                 beam: int = 0, seed: int = 0, topc: int = None,
+                 device=None, verbose: bool = False):
+        self.device = resolve_device(device)
+        super().__init__(slots, verbose)
+        self.cfg = cfg
+        self.max_frames = max_frames
+        self.chunk = chunk
+        self.beam = beam or cfg.beam_width
+        self.semiring = cfg.beam_semiring
+        self.len_norm = cfg.beam_len_norm
+        self.topc = cfg.beam_topc if topc is None else topc
+        self.params = init_params(LS.param_specs(cfg), seed, self.device)
+        self.logits = torch.zeros((slots, max_frames, cfg.vocab),
+                                  dtype=torch.float32, device=self.device)
+        self.lens = np.zeros(slots, np.int32)     # valid frames per slot
+        self.pos = np.zeros(slots, np.int32)      # frames consumed
+        self.state = DC.init_state(slots, self.beam, max_frames, self.device)
+
+    # ------------------------------------------------------------ slots
     def _slot_mask(self, slot: int) -> torch.Tensor:
         mask = torch.zeros(self.slots, dtype=torch.bool, device=self.device)
         mask[slot] = True
@@ -245,27 +694,84 @@ def asr_requests(cfg, *, requests: int, seq_len: int, seed: int = 0):
             for i in range(requests)]
 
 
+def lm_requests(cfg, lengths, *, shared_prefix: int = 0, seed: int = 0):
+    """Synthetic LM prompts [(rid, tokens)], one per entry of ``lengths``:
+    a common prefix of ``shared_prefix`` tokens, then random tokens (the
+    reference CLI's draw order for equal lengths)."""
+    rng = np.random.default_rng(seed)
+    shared = min([shared_prefix, *lengths])
+    prefix = rng.integers(0, cfg.vocab, size=shared)
+    return [(i, np.concatenate([prefix, rng.integers(0, cfg.vocab,
+                                                     size=n - shared)]))
+            for i, n in enumerate(lengths)]
+
+
+def serve_lm(server, pending, max_new: int):
+    """Admit ``pending`` [(rid, prompt), ...] as capacity frees up and
+    decode until every request finishes.  Returns ``finished`` [(rid,
+    tokens)], the wall seconds of each admission (prefill + first token)
+    and of each decode wave (both end in a host read of their tokens),
+    and the mean occupancy per wave (slots, or pool pages when paged)."""
+    pending = list(pending)
+    finished, admit_s, wave_s, occ = [], [], [], 0.0
+    paged = isinstance(server, PagedServer)
+    while pending or server.active.any():
+        while pending:
+            t0 = time.perf_counter()
+            res = server.admit(pending[0][0], pending[0][1], max_new)
+            if res.reason == POOL_FULL:
+                break
+            admit_s.append(time.perf_counter() - t0)
+            pending.pop(0)      # admitted, or rejected for good
+        occ += server.occupancy() if paged else float(server.active.mean())
+        t0 = time.perf_counter()
+        finished += server.step()
+        wave_s.append(time.perf_counter() - t0)
+    return finished, admit_s, wave_s, occ / max(len(wave_s), 1)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="swb2000-blstm")
+    ap.add_argument("--arch", default="smollm-360m")
     ap.add_argument("--reduced", action="store_true",
-                    help="serve the reference's smoke-test width "
-                         "(2 layers, hidden 64, vocab 512)")
+                    help="serve the reference's smoke-test width (2 "
+                         "layers, d_model <= 256, vocab <= 512; lstm: "
+                         "hidden 64)")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--slots", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=16,
-                    help="nominal utterance frames per request (clamped "
-                         "to --max-len)")
+                    help="prompt tokens (LM) / nominal utterance frames "
+                         "(ASR) per request (clamped to --max-len)")
+    ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=64,
-                    help="max utterance frames per slot")
+                    help="cache capacity (LM) / max utterance frames "
+                         "(ASR) per slot")
+    ap.add_argument("--cache", default="", choices=["", "dense", "paged"],
+                    help="LM KV-cache layout: dense per-slot rows or the "
+                         "paged page-pool server with prompt-prefix "
+                         "sharing (default: cfg.cache_mode)")
+    ap.add_argument("--page-size", type=int, default=0,
+                    help="cache positions per KV page in --cache paged "
+                         "(0 = cfg.page_size; must divide --max-len)")
+    ap.add_argument("--pool-pages", type=int, default=0,
+                    help="physical pages in the paged pool (0 = the "
+                         "dense-equivalent memory: slots * max_len / "
+                         "page_size)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="LM mode: length of a common prompt prefix shared "
+                         "by all requests (0 = fully random prompts)")
+    ap.add_argument("--sequential", action="store_true",
+                    help="LM mode: decode active slots one at a time "
+                         "instead of batching equal-position groups")
     ap.add_argument("--chunk-frames", type=int, default=8,
-                    help="frames decoded per wave (the streaming chunk of "
-                         "the beam-state carry)")
+                    help="ASR mode: frames decoded per wave (the streaming "
+                         "chunk of the beam-state carry)")
     ap.add_argument("--beam-width", type=int, default=0,
-                    help="CTC prefix-beam width (0 = cfg beam_width)")
+                    help="ASR mode: CTC prefix-beam width (0 = cfg "
+                         "beam_width)")
     ap.add_argument("--beam-topc", type=int, default=-1,
-                    help="per-frame top-C vocab pruning of the beam "
-                         "candidate grid (0 = off, -1 = cfg beam_topc)")
+                    help="ASR mode: per-frame top-C vocab pruning of the "
+                         "beam candidate grid (0 = off, -1 = cfg beam_topc)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the plain PyTorch path)")
@@ -274,6 +780,44 @@ def main(argv=None):
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.family == "lstm":
+        return _main_asr(cfg, args)
+
+    cache_mode = args.cache or cfg.cache_mode
+    if cache_mode == "paged":
+        page = args.page_size or cfg.page_size
+        pool_pages = args.pool_pages or args.slots * cdiv(args.max_len, page)
+        server = PagedServer(cfg, pool_pages=pool_pages, page_size=page,
+                             max_len=args.max_len, device=args.device,
+                             verbose=True)
+    else:
+        server = Server(cfg, slots=args.slots, max_len=args.max_len,
+                        batched=not args.sequential, device=args.device,
+                        verbose=True)
+    plen = min(args.prompt_len, prompt_capacity(args.max_len, "lm"))
+    pending = lm_requests(cfg, [plen] * args.requests,
+                          shared_prefix=args.shared_prefix)
+    t0 = time.perf_counter()
+    finished, _, wave_s, occ = serve_lm(server, pending, args.max_new)
+    dt = time.perf_counter() - t0
+    toks = sum(len(o) for _, o in finished)
+    print(f"served {len(finished)} requests on {server.device}, {toks} "
+          f"tokens, {len(wave_s)} decode waves in {dt:.2f}s "
+          f"({toks / dt:.1f} tok/s, occupancy {occ:.2f}, mean wave "
+          f"{1e3 * float(np.mean(wave_s)):.2f} ms)")
+    if cache_mode == "paged":
+        print(f"[kv] pool={server.pool.n_pages} pages x "
+              f"{server.page_size} positions, peak "
+              f"sharing_ratio={server.peak_sharing:.3f}, "
+              f"cow={server.pool.n_cow}, "
+              f"shared_hits={server.pool.n_shared_hits}")
+    for rid, out in finished:
+        print(f"  req {rid}: {out[:8]}{'...' if len(out) > 8 else ''}")
+
+
+def _main_asr(cfg, args):
+    """Streaming-ASR serving of synthetic utterances from the data
+    pipeline's length distribution, chunked beam decode."""
     seq_len = min(args.prompt_len, prompt_capacity(args.max_len, "asr"))
     pending = asr_requests(cfg, requests=args.requests, seq_len=seq_len)
     server = AsrServer(cfg, slots=args.slots, max_frames=args.max_len,

@@ -1,1 +1,3 @@
-"""Model families of the port (the paper's BLSTM acoustic model so far)."""
+"""Model families of the port: the paper's BLSTM acoustic model and the
+dense decoder-only transformer."""
+from repro_torch.models.api import Model, build_model  # noqa: F401

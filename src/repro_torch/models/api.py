@@ -1,0 +1,56 @@
+"""Model facade: one interface over the ported families — the port of
+``repro.models.api`` for the dense and lstm families.
+
+``build_model(cfg)`` returns a :class:`Model` exposing ``param_specs()``,
+``prefill_fn`` / ``decode_fn`` (dense serving steps over a dense or paged
+KV cache), ``cache_specs(batch, cache_len)`` and ``page_specs(n_pages,
+page_size)``.  The lstm family has parameters but no decode loop; its
+ASR server calls ``models/lstm.py`` directly.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import lstm as LS
+from repro_torch.models import transformer as TF
+
+
+@dataclass(frozen=True)
+class Model:
+    cfg: ArchConfig
+
+    def param_specs(self):
+        if self.cfg.family == "lstm":
+            return LS.param_specs(self.cfg)
+        return TF.param_specs(self.cfg)
+
+    def _decoder(self):
+        if not self.cfg.supports_decode:
+            raise ValueError(f"{self.cfg.name} ({self.cfg.family}) has no "
+                             f"prefill/decode loop")
+
+    def prefill_fn(self, params, batch, *, cache_len: int = 0):
+        self._decoder()
+        return TF.prefill(self.cfg, params, batch["tokens"],
+                          cache_len=cache_len)
+
+    def decode_fn(self, params, cache, tokens, pos, *, page_table=None,
+                  page_size: int = 0):
+        self._decoder()
+        return TF.decode_step(self.cfg, params, cache, tokens, pos,
+                              page_table=page_table, page_size=page_size)
+
+    def cache_specs(self, batch: int, cache_len: int):
+        self._decoder()
+        return TF.cache_specs(self.cfg, batch, cache_len)
+
+    def page_specs(self, n_pages: int, page_size: int):
+        """Paged decode-state specs (one shared page pool; serve.py
+        ``--cache paged``)."""
+        self._decoder()
+        return TF.page_specs(self.cfg, n_pages, page_size)
+
+
+def build_model(cfg: ArchConfig) -> Model:
+    return Model(cfg)

@@ -1,0 +1,218 @@
+"""Grouped-query attention — the port of ``repro.models.attention`` for the
+dense decoder (the GSPMD-only ``seq_shard`` modes are not carried: the
+port runs on one card).
+
+* ``attn_seq``    — full-sequence (prefill): the reference's plain
+  q-chunked path, in torch ops (bf16 products, f32 softmax, p cast to
+  the value dtype before p·v).
+* ``attn_decode`` / ``attn_decode_delta`` — the single-token step
+  against a dense cache (B, S, KV, E) or, with ``page_table``, a page
+  pool (n_pages, P, KV, E).  Both go through the decode-attention
+  wrappers of ``repro_torch.kernels.decode_attention`` (the K7 and K8
+  ports on the card, their plain versions on the CPU); the delta variant
+  attends over the old cache plus the new token's column, so the cache is
+  written once per step, after the layer loop.
+* ``attn_decode_ref`` / ``attn_decode_delta_ref`` — the reference's jnp
+  decode math op for op (bf16 products, scores cast to f32, softmax in
+  f32, p cast back to bf16), used by the tests.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import decode_attention as DA
+from repro_torch.models.common import apply_rope, rotate
+from repro_torch.params import ParamSpec
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Params and projections
+# ---------------------------------------------------------------------------
+
+def attn_param_specs(cfg, *, dtype=None) -> dict:
+    dt = dtype or cfg.param_dtype
+    d, H, KV, E = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "wq": ParamSpec((d, H, E), dt, "lecun"),
+        "wk": ParamSpec((d, KV, E), dt, "lecun"),
+        "wv": ParamSpec((d, KV, E), dt, "lecun"),
+        "wo": ParamSpec((H, E, d), dt, "lecun"),
+    }
+    if cfg.use_bias:
+        p["bq"] = ParamSpec((H, E), "float32", "zeros")
+        p["bk"] = ParamSpec((KV, E), "float32", "zeros")
+        p["bv"] = ParamSpec((KV, E), "float32", "zeros")
+        p["bo"] = ParamSpec((d,), "float32", "zeros")
+    return p
+
+
+def qkv_project(cfg, p, xq, xkv, positions_q=None, positions_kv=None, *,
+                rope=None):
+    """x (B, S, d) -> q (B, S, H, E), k and v (B, S, KV, E), each one
+    matmul against the (d, heads * E) view of its weight.  ``rope`` is a
+    precomputed (sin, cos) pair (:func:`~repro_torch.models.common.
+    rope_angles`) applied to q and k in place of ``positions_*``."""
+    B, Sq, d = xq.shape
+    Skv = xkv.shape[1]
+    H, KV, E = p["wq"].shape[1], p["wk"].shape[1], p["wq"].shape[2]
+    q = (xq @ p["wq"].reshape(d, H * E)).view(B, Sq, H, E)
+    k = (xkv @ p["wk"].reshape(d, KV * E)).view(B, Skv, KV, E)
+    v = (xkv @ p["wv"].reshape(d, KV * E)).view(B, Skv, KV, E)
+    if "bq" in p:
+        q = (q.float() + p["bq"]).to(q.dtype)
+        k = (k.float() + p["bk"]).to(k.dtype)
+        v = (v.float() + p["bv"]).to(v.dtype)
+    if rope is not None:
+        return rotate(q, *rope), rotate(k, *rope), v
+    if positions_q is not None:
+        q = apply_rope(q, positions_q, cfg.rope_theta)
+    if positions_kv is not None:
+        k = apply_rope(k, positions_kv, cfg.rope_theta)
+    return q, k, v
+
+
+def out_project(p, o):
+    """o (B, S, H, E) -> (B, S, d) through the (H * E, d) view of wo."""
+    B, S, H, E = o.shape
+    y = o.reshape(B, S, H * E) @ p["wo"].reshape(H * E, -1)
+    if "bo" in p:
+        y = (y.float() + p["bo"]).to(y.dtype)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence attention (prefill)
+# ---------------------------------------------------------------------------
+
+def attn_seq(q, k, v, *, causal: bool, window=None, q_chunk: int = 512,
+             pos_offset: int = 0):
+    """q (B, Sq, H, E), k/v (B, Sk, KV, E) -> (B, Sq, H, E).  A window >=
+    Sk is full attention.  Sq must be a multiple of min(q_chunk, Sq)."""
+    B, Sq, H, E = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G, M = KV, H // KV
+    scale = 1.0 / np.sqrt(E)
+    k_pos = torch.arange(Sk, device=q.device)
+    qg = q.reshape(B, Sq, G, M, E)
+    q_chunk = min(q_chunk, Sq)
+    n_chunks = Sq // q_chunk
+    assert n_chunks * q_chunk == Sq, (Sq, q_chunk)
+    outs = []
+    for i in range(n_chunks):
+        qs = qg[:, i * q_chunk:(i + 1) * q_chunk]
+        s = torch.einsum("bcgme,btge->bgmct", qs, k).float() * scale
+        if causal:
+            q_pos = pos_offset + i * q_chunk + torch.arange(q_chunk,
+                                                            device=q.device)
+            ok = q_pos[:, None] >= k_pos[None, :]
+            if window is not None:
+                ok = ok & (q_pos[:, None] - k_pos[None, :] < window)
+            s = torch.where(ok[None, None, None], s,
+                            torch.full_like(s, NEG_INF))
+        p = torch.softmax(s, dim=-1).to(v.dtype)
+        outs.append(torch.einsum("bgmct,btge->bcgme", p, v))
+    o = outs[0] if n_chunks == 1 else torch.cat(outs, dim=1)
+    return o.reshape(B, Sq, G * M, E)
+
+
+# ---------------------------------------------------------------------------
+# Decode step
+# ---------------------------------------------------------------------------
+
+def attn_decode(q, k_cache, v_cache, pos, *, window=None, page_table=None):
+    """q (B, 1, H, E); caches (B, S, KV, E) already holding the new token
+    at ``pos`` (or page pools read through ``page_table`` (B, W)).
+    Positions > pos and outside the window are masked."""
+    q = q.contiguous()
+    if page_table is not None:
+        return DA.paged_decode_attention(q, k_cache, v_cache, page_table,
+                                         pos, window=window)
+    return DA.decode_attention(q, k_cache, v_cache, pos, window=window)
+
+
+def attn_decode_delta(q, k_cache, v_cache, k_new, v_new, pos, *,
+                      window=None, page_table=None):
+    """Decode without writing the cache first: attend over the old cache
+    (positions < pos) plus the new token's column ``k_new``/``v_new``
+    (B, 1, KV, E).  Equal to writing the token and calling
+    :func:`attn_decode`; the pages are only read here."""
+    q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
+    if page_table is not None:
+        return DA.paged_decode_attention(q, k_cache, v_cache, page_table,
+                                         pos, window=window, k_new=k_new,
+                                         v_new=v_new)
+    return DA.decode_attention(q, k_cache, v_cache, pos, window=window,
+                               k_new=k_new, v_new=v_new)
+
+
+def attn_decode_ref(q, k_cache, v_cache, pos, *, window=None):
+    """The reference's jnp ``attn_decode`` math (dense cache) in torch
+    ops."""
+    B, _, H, E = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(B, KV, H // KV, E)
+    s = torch.einsum("bgme,btge->bgmt", qg, k_cache).float() / np.sqrt(E)
+    t = torch.arange(S, device=q.device)
+    ok = t <= pos
+    if window is not None:
+        ok = ok & (pos - t < window)
+    s = torch.where(ok[None, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    o = torch.einsum("bgmt,btge->bgme", p, v_cache)
+    return o.reshape(B, 1, H, E)
+
+
+def attn_decode_delta_ref(q, k_cache, v_cache, k_new, v_new, pos, *,
+                          window=None):
+    """The reference's jnp ``attn_decode_delta`` math (dense cache) in
+    torch ops."""
+    B, _, H, E = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(B, KV, H // KV, E)
+    s_old = torch.einsum("bgme,btge->bgmt", qg, k_cache).float() / np.sqrt(E)
+    t = torch.arange(S, device=q.device)
+    ok = t < pos                      # strictly old positions
+    if window is not None:
+        ok = ok & (pos - t < window)
+    s_old = torch.where(ok[None, None, None], s_old,
+                        torch.full_like(s_old, NEG_INF))
+    s_new = (torch.einsum("bgme,bge->bgm", qg, k_new[:, 0]).float()
+             / np.sqrt(E))[..., None]
+    s = torch.cat([s_old, s_new], dim=-1)
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    o = (torch.einsum("bgmt,btge->bgme", p[..., :S], v_cache)
+         + p[..., S:] * v_new[:, 0][:, :, None, :])
+    return o.reshape(B, 1, H, E)
+
+
+def write_new_token(cache, new, pos, *, layer_stacked: bool = True):
+    """Write the new token column in place: cache (L, B, S, KV, E) [or
+    (B, S, KV, E)], new (L, B, 1, KV, E) [or (B, 1, KV, E)], at ``pos``.
+    The reference returns an updated copy; the port updates the cache it
+    is given (one column instead of a copy of the whole cache)."""
+    if layer_stacked:
+        cache[:, :, pos] = new[:, :, 0].to(cache.dtype)
+    else:
+        cache[:, pos] = new[:, 0].to(cache.dtype)
+    return cache
+
+
+def write_new_token_paged(cache, new, page_table, pos, page_size: int):
+    """Paged counterpart of :func:`write_new_token`, in place: cache is
+    the pool (L, n_pages, P, KV, E), new (L, B, 1, KV, E); request b's
+    column lands at ``(page_table[b, pos // P], pos % P)``.  The target
+    page is exclusively owned (copy-on-write runs first, host-side)."""
+    page_ids = page_table[:, pos // page_size].long()          # (B,)
+    cache[:, page_ids, pos % page_size] = new[:, :, 0].to(cache.dtype)
+    return cache
+
+
+def update_cache(cache, new, pos):
+    """cache (B, S, KV, E), new (B, 1, KV, E) -> a copy with the column
+    at ``pos`` replaced (the reference's functional update)."""
+    out = cache.clone()
+    out[:, pos] = new[:, 0].to(cache.dtype)
+    return out

@@ -1,7 +1,86 @@
-"""Shared model helpers."""
+"""Shared model helpers: norms, RoPE, activations, masks and the loss —
+the port of ``repro.models.common``."""
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from repro_torch.params import ParamSpec
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def norm_spec(cfg, dim=None) -> dict:
+    """f32 scale (ones), plus a zero bias for LayerNorm."""
+    dim = dim if dim is not None else cfg.d_model
+    if cfg.norm == "layernorm":
+        return {"scale": ParamSpec((dim,), "float32", "ones"),
+                "bias": ParamSpec((dim,), "float32", "zeros")}
+    return {"scale": ParamSpec((dim,), "float32", "ones")}
+
+
+def apply_norm(p, x, eps: float = 1e-5):
+    """RMSNorm, or LayerNorm when ``p`` has a bias; f32 inside, the input
+    dtype out."""
+    xf = x.float()
+    if "bias" in p:
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = torch.square(xf - mu).mean(dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    else:
+        ms = torch.square(xf).mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps) * p["scale"]
+    return y.to(x.dtype)
+
+
+def rmsnorm(x, scale=None, eps: float = 1e-5):
+    xf = x.float()
+    y = xf * torch.rsqrt(torch.square(xf).mean(dim=-1, keepdim=True) + eps)
+    if scale is not None:
+        y = y * scale
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary positions, activations
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+
+
+def rope_angles(positions, head_dim: int, theta: float):
+    """(sin, cos) of the rotary angles for ``positions`` (..., S), each
+    (..., S, 1, E/2) f32.  A forward computes them once and every layer
+    rotates its q and k with them."""
+    # rope_freqs in torch ops on the positions' device: no host-to-device
+    # copy (which would synchronise the stream) on the decode path
+    ar = torch.arange(0, head_dim, 2, dtype=torch.float64,
+                      device=positions.device)
+    freqs = (1.0 / (theta ** (ar / head_dim))).float()
+    ang = (positions[..., None].float() * freqs)[..., None, :]
+    return torch.sin(ang), torch.cos(ang)
+
+
+def rotate(x, sin, cos):
+    """Rotate the two halves of E (the reference's non-interleaved
+    layout) of x (..., S, H, E) in f32; x's dtype out."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope(x, positions, theta: float):
+    """x (..., S, H, E); positions broadcastable to (..., S)."""
+    if theta <= 0:
+        return x
+    return rotate(x, *rope_angles(positions, x.shape[-1], theta))
+
+
+def gelu(x):
+    return torch.nn.functional.gelu(x, approximate="tanh")
 
 
 def sequence_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:

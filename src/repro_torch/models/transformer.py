@@ -1,0 +1,225 @@
+"""Decoder-only transformer: the dense family of ``repro.models.
+transformer`` — parameter specs, the sequence forward (prefill), the
+one-token decode step, and the KV-cache layouts (dense rows or a page
+pool).
+
+Layers are stacked along a leading axis L, as the reference stacks them
+for ``lax.scan``; here a Python loop walks them (no remat: inference
+only).  The decode step keeps the reference's shape: each layer attends
+over the OLD cache plus the new token's column (``attn_decode_delta``),
+and the new K/V of all layers land in ONE stacked write after the loop.
+The other families (moe, ssm, hybrid, vlm) raise ``NotImplementedError``
+naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models import attention as A
+from repro_torch.models import ffn as F
+from repro_torch.models.common import apply_norm, norm_spec, rope_angles
+from repro_torch.params import ParamSpec
+
+GLOBAL_WINDOW = np.int32(2 ** 30)   # "window" meaning full attention
+
+
+def _require_dense(cfg):
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported (ROADMAP queue 1, 'Other "
+            f"families'); the port's transformer covers the dense family")
+
+
+# ---------------------------------------------------------------------------
+# Param specs
+# ---------------------------------------------------------------------------
+
+def layer_param_specs(cfg) -> dict:
+    _require_dense(cfg)
+    return {"ln1": norm_spec(cfg), "attn": A.attn_param_specs(cfg),
+            "ln2": norm_spec(cfg), "mlp": F.ffn_param_specs(cfg)}
+
+
+def _stack(spec_tree, n):
+    """Prepend the layer axis.  A lecun weight keeps its own fan-in (the
+    first axis of the per-layer shape) as an explicit normal scale: the
+    reference's stacked lecun takes its fan-in from the layer axis
+    (scale 1/sqrt(L)), which makes random-init attention near one-hot."""
+    if isinstance(spec_tree, dict):
+        return {k: _stack(v, n) for k, v in spec_tree.items()}
+    ps = spec_tree
+    init, scale = ps.init, ps.init_scale
+    if init == "lecun":
+        init, scale = "normal", float(1.0 / np.sqrt(max(ps.shape[0], 1)))
+    return ParamSpec((n,) + tuple(ps.shape), ps.dtype, init, scale)
+
+
+def param_specs(cfg) -> dict:
+    d, V = cfg.d_model, cfg.vocab
+    p = {
+        "embed": ParamSpec((V, d), cfg.param_dtype, "normal", 0.02),
+        "layers": _stack(layer_param_specs(cfg), cfg.n_layers),
+        "final_norm": norm_spec(cfg),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = ParamSpec((d, V), cfg.param_dtype, "normal", 0.02)
+    return p
+
+
+def layer_windows(cfg, seq_len: int, *, long_context: bool = False):
+    """Per-layer attention window array (n_layers,) int32."""
+    w = cfg.window
+    if long_context and w == 0:
+        w = cfg.window_for_long   # documented sliding-window variant
+    if w == 0:
+        return np.full((cfg.n_layers,), GLOBAL_WINDOW, np.int32)
+    ws = np.full((cfg.n_layers,), w, np.int32)
+    for i in cfg.global_attn_layers:
+        if i < cfg.n_layers:
+            ws[i] = GLOBAL_WINDOW
+    return ws
+
+
+def _rope(cfg, positions):
+    """The rotary (sin, cos) every layer shares, or None without RoPE."""
+    if cfg.rope_theta <= 0:
+        return None
+    return rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+
+
+def _layer(tree, i):
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# ---------------------------------------------------------------------------
+# Sequence forward (prefill)
+# ---------------------------------------------------------------------------
+
+def forward_seq(cfg, params, x, *, collect_cache: bool = False,
+                cache_len: int = 0):
+    """x (B, S, d) embedded inputs -> (hidden, cache); the cache is the
+    stacked (k, v), each (L, B, max(S, cache_len), KV, E), or () without
+    ``collect_cache`` (the dense family has no auxiliary loss)."""
+    _require_dense(cfg)
+    B, S, _ = x.shape
+    windows = layer_windows(cfg, S)
+    rope = _rope(cfg, torch.arange(S, device=x.device)[None, :])
+    x = x.to(torch.bfloat16)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        p = _layer(params["layers"], i)
+        h = apply_norm(p["ln1"], x)
+        q, k, v = A.qkv_project(cfg, p["attn"], h, h, rope=rope)
+        o = A.attn_seq(q, k, v, causal=True, window=int(windows[i]))
+        x = x + A.out_project(p["attn"], o)
+        if collect_cache:
+            k, v = _pad_cache(k, v, cache_len)
+            ks.append(k)
+            vs.append(v)
+        x = x + F.ffn_apply(cfg, p["mlp"], apply_norm(p["ln2"], x))
+        x = x.to(torch.bfloat16)
+    cache = (torch.stack(ks), torch.stack(vs)) if collect_cache else ()
+    return x, cache
+
+
+def _pad_cache(k, v, cache_len):
+    """Grow prefill K/V to the serving cache length (zero-padded tail)."""
+    if cache_len and cache_len > k.shape[1]:
+        pad = (0, 0, 0, 0, 0, cache_len - k.shape[1])
+        k = torch.nn.functional.pad(k, pad)
+        v = torch.nn.functional.pad(v, pad)
+    return k, v
+
+
+# ---------------------------------------------------------------------------
+# Embedding / logits
+# ---------------------------------------------------------------------------
+
+def embed_tokens(cfg, params, tokens):
+    return params["embed"][tokens.long()].to(torch.bfloat16)
+
+
+def logits_fn(cfg, params, x):
+    if cfg.tie_embeddings:
+        return x @ params["embed"].T
+    return x @ params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# Serving: cache layouts, prefill, decode
+# ---------------------------------------------------------------------------
+
+def cache_specs(cfg, batch: int, cache_len: int) -> dict:
+    """Stacked per-layer dense KV cache: k, v (L, batch, cache_len, KV, E)
+    bf16."""
+    _require_dense(cfg)
+    shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"attn": {"k": ParamSpec(shape, "bfloat16", "zeros"),
+                     "v": ParamSpec(shape, "bfloat16", "zeros")}}
+
+
+def page_specs(cfg, n_pages: int, page_size: int) -> dict:
+    """Paged KV cache: ONE pool of physical pages shared by every
+    in-flight request, k, v (L, n_pages, page_size, KV, E) bf16."""
+    _require_dense(cfg)
+    shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    return {"attn": {"k": ParamSpec(shape, "bfloat16", "zeros"),
+                     "v": ParamSpec(shape, "bfloat16", "zeros")}}
+
+
+def decode_step(cfg, params, cache, tokens, pos: int, *, page_table=None,
+                page_size: int = 0):
+    """One-token decode.  tokens (B, 1) int, pos the host int position of
+    the new token.  Returns (logits (B, 1, V), cache).
+
+    ``page_table`` (B, W) int32 selects the paged layout: cache['attn']
+    k/v are page pools (L, n_pages, P, KV, E) and the new column lands in
+    the table's page for ``pos``.  The cache tensors are written in place
+    (one column per layer, after the layer loop) and returned."""
+    _require_dense(cfg)
+    paged = page_table is not None
+    kc, vc = cache["attn"]["k"], cache["attn"]["v"]
+    S_cache = page_table.shape[-1] * page_size if paged else kc.shape[2]
+    windows = layer_windows(cfg, S_cache)
+    x = embed_tokens(cfg, params, tokens)
+    rope = _rope(cfg, torch.full((tokens.shape[0], 1), int(pos),
+                                 device=x.device))
+    k_new, v_new = [], []
+    for i in range(cfg.n_layers):
+        p = _layer(params["layers"], i)
+        h = apply_norm(p["ln1"], x)
+        q, k, v = A.qkv_project(cfg, p["attn"], h, h, rope=rope)
+        o = A.attn_decode_delta(q, kc[i], vc[i], k, v, pos,
+                                window=int(windows[i]),
+                                page_table=page_table)
+        x = x + A.out_project(p["attn"], o)
+        x = x + F.ffn_apply(cfg, p["mlp"], apply_norm(p["ln2"], x))
+        x = x.to(torch.bfloat16)
+        k_new.append(k)
+        v_new.append(v)
+    # ONE stacked write of the new token column per step
+    k_new, v_new = torch.stack(k_new), torch.stack(v_new)
+    if paged:
+        A.write_new_token_paged(kc, k_new, page_table, pos, page_size)
+        A.write_new_token_paged(vc, v_new, page_table, pos, page_size)
+    else:
+        A.write_new_token(kc, k_new, pos)
+        A.write_new_token(vc, v_new, pos)
+    x = apply_norm(params["final_norm"], x)
+    return logits_fn(cfg, params, x), cache
+
+
+def prefill(cfg, params, tokens, *, cache_len: int = 0):
+    """Full-context forward of tokens (B, S) -> (last-token logits
+    (B, 1, V), the decode cache {'attn': {'k', 'v'}} of length
+    max(S, cache_len))."""
+    x = embed_tokens(cfg, params, tokens)
+    cache_len = cache_len or x.shape[1]
+    x, (k, v) = forward_seq(cfg, params, x, collect_cache=True,
+                               cache_len=cache_len)
+    x = apply_norm(params["final_norm"], x)
+    logits = logits_fn(cfg, params, x[:, -1:, :])
+    return logits, {"attn": {"k": k, "v": v}}

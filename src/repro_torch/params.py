@@ -1,10 +1,12 @@
 """Parameter trees: specs, seeded init, and weights carried over from JAX.
 
 Parameters are plain nested dicts of tensors under the reference's tree
-keys (``layers/layer_i/{fwd,bwd}/{wx,wh,b}``, ``bottleneck``,
-``softmax_w``, ``softmax_b``), so a JAX parameter tree converted to numpy
-loads one-to-one through :func:`from_jax_params`, and a JAX train state
-through :func:`from_jax_state`.
+keys — the BLSTM's ``layers/layer_i/{fwd,bwd}/{wx,wh,b}``,
+``bottleneck``, ``softmax_w``, ``softmax_b``; the transformer's
+layer-stacked ``layers/{ln1,attn,ln2,mlp}/...`` (leading axis L),
+``embed`` and ``final_norm`` — so a JAX parameter tree converted to
+numpy loads one-to-one through :func:`from_jax_params`, and a JAX train
+state through :func:`from_jax_state`.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ class ParamSpec(NamedTuple):
 
     shape: tuple
     dtype: str = "bfloat16"
-    init: str = "normal"          # normal | zeros | lecun
+    init: str = "normal"          # normal | zeros | ones | lecun
     init_scale: float = 0.02
 
 
@@ -31,6 +33,8 @@ def _init_one(ps: ParamSpec, gen: torch.Generator) -> torch.Tensor:
     dtype = _DTYPES[ps.dtype]
     if ps.init == "zeros":
         return torch.zeros(ps.shape, dtype=dtype)
+    if ps.init == "ones":
+        return torch.ones(ps.shape, dtype=dtype)
     z = torch.randn(ps.shape, generator=gen, dtype=torch.float32)
     if ps.init == "lecun":
         fan_in = ps.shape[0] if len(ps.shape) >= 1 else 1
@@ -54,6 +58,12 @@ def init_params(spec_tree, seed: int, device) -> dict:
     agree."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
     return _map_tree(lambda ps: _init_one(ps, gen).to(device), spec_tree)
+
+
+def zeros_from_specs(spec_tree, device) -> dict:
+    """Zero tensors of a spec tree on ``device`` (decode-state buffers)."""
+    return _map_tree(lambda ps: torch.zeros(ps.shape, dtype=_DTYPES[ps.dtype],
+                                            device=device), spec_tree)
 
 
 def _to_tensor(a) -> torch.Tensor:

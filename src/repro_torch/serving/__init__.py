@@ -1,1 +1,1 @@
-"""Serving helpers of the port (typed admission so far)."""
+"""Serving helpers of the port: typed admission and the KV page pool."""

@@ -249,3 +249,152 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+# ---------------------------------------------------------------------------
+# the LM slice: K7 / K8 decode attention and K6 argmax
+# ---------------------------------------------------------------------------
+
+def _attn_inputs(cuda, B, S, KV, M, E, seed, n_pages=None, P=None):
+    g = torch.Generator().manual_seed(seed)
+    cache = (n_pages, P) if n_pages else (B, S)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g).to(cuda, torch.bfloat16)
+
+    return (r(B, 1, KV * M, E), r(*cache, KV, E), r(*cache, KV, E),
+            r(B, 1, KV, E), r(B, 1, KV, E))
+
+
+@pytest.mark.parametrize("delta", [False, True])
+@pytest.mark.parametrize("B,S,KV,M,E,block_s,window", [
+    (2, 40, 2, 3, 64, 16, None),       # smollm's group, ragged last tile
+    (3, 33, 5, 3, 64, 16, 7),          # a window, S not a tile multiple
+    (1, 300, 1, 16, 128, 128, None),   # the widest group the kernel takes
+    (2, 64, 4, 1, 32, 64, 5),          # M = 1, one tile
+    (2, 70, 2, 5, 256, 32, None),      # E = 256
+    (8, 1024, 5, 3, 64, None, None),   # the serve shape, default tile
+])
+def test_decode_attention_kernel_matches_plain(cuda, delta, B, S, KV, M, E,
+                                               block_s, window):
+    from repro_torch.kernels import decode_attention as DA
+
+    q, kc, vc, kn, vn = _attn_inputs(cuda, B, S, KV, M, E, seed=S + M)
+    kw = dict(k_new=kn, v_new=vn) if delta else {}
+    tile = block_s or DA.auto_block_s(S)
+    for pos in sorted({0, tile - 1, tile, S // 2, S - 1}):
+        before = DA.launches
+        got = DA.decode_attention(q, kc, vc, pos, window=window,
+                                  block_s=block_s, **kw)
+        torch.cuda.synchronize()
+        assert DA.launches == before + 1
+        want = DA.decode_attention_ref(q, kc, vc, pos, window=window, **kw)
+        assert got.dtype == torch.bfloat16 and got.shape == q.shape
+        assert _norm_err(got, want) <= BF16_TOL, (pos, _norm_err(got, want))
+
+
+@pytest.mark.parametrize("delta", [False, True])
+@pytest.mark.parametrize("M,E,P", [(3, 64, 16), (2, 32, 8), (4, 128, 32)])
+def test_paged_kernel_matches_plain(cuda, delta, M, E, P):
+    """A shuffled pool, table rows padded with arbitrary valid ids past
+    each request's pages (never read), and one out-of-range pad id."""
+    from repro_torch.kernels import decode_attention as DA
+
+    B, KV, W, n_pages, used = 3, 2, 12, 64, 9
+    q, kp, vp, kn, vn = _attn_inputs(cuda, B, None, KV, M, E, seed=P,
+                                     n_pages=n_pages, P=P)
+    g = torch.Generator().manual_seed(P)
+    perm = torch.randperm(n_pages, generator=g)
+    tbl = torch.randint(0, n_pages, (B, W), generator=g)
+    tbl[:, :used] = perm[:B * used].reshape(B, used)
+    tbl[0, -1] = n_pages + 5
+    tbl = tbl.to(cuda, torch.int32)
+    kw = dict(k_new=kn, v_new=vn) if delta else {}
+    for pos in (0, P - 1, P, 5 * P + 3, used * P - 1):
+        for window in (None, 2 * P + 1):
+            before = DA.paged_launches
+            got = DA.paged_decode_attention(q, kp, vp, tbl, pos,
+                                            window=window, **kw)
+            torch.cuda.synchronize()
+            assert DA.paged_launches == before + 1
+            want = DA.paged_decode_attention_ref(q, kp, vp, tbl, pos,
+                                                 window=window, **kw)
+            assert _norm_err(got, want) <= BF16_TOL, (pos, window)
+
+
+@pytest.mark.parametrize("delta", [False, True])
+def test_paged_kernel_equals_dense_kernel_at_page_tile(cuda, delta):
+    """Contiguous pages through the paged kernel equal the dense kernel at
+    block_s = P, bit for bit (one tile walk)."""
+    from repro_torch.kernels import decode_attention as DA
+
+    B, KV, M, E, P, W = 4, 5, 3, 64, 16, 8
+    q, kc, vc, kn, vn = _attn_inputs(cuda, B, W * P, KV, M, E, seed=17)
+    kp = kc.reshape(B * W, P, KV, E)
+    vp = vc.reshape(B * W, P, KV, E)
+    tbl = torch.arange(B * W, device=cuda, dtype=torch.int32).reshape(B, W)
+    kw = dict(k_new=kn, v_new=vn) if delta else {}
+    for pos in (0, 15, 16, 77, W * P - 1):
+        for window in (None, 20):
+            dense = DA.decode_attention(q, kc, vc, pos, window=window,
+                                        block_s=P, **kw)
+            paged = DA.paged_decode_attention(q, kp, vp, tbl, pos,
+                                              window=window, **kw)
+            assert torch.equal(dense, paged), (pos, window)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("V", [61, 512, 4099, 49152])
+def test_argmax_kernel_matches_plain_bit_for_bit(cuda, dtype, V):
+    from repro_torch.decode import kernel as DK
+
+    g = torch.Generator().manual_seed(V)
+    x = torch.randn(9, V, generator=g)
+    x[1, [5, 17, V - 1]] = 9.0                  # a three-way tie
+    x[2, [3, V // 2]] = float("nan")            # the first NaN wins
+    x[2, 10] = float("inf")
+    x[3] = float("-inf")
+    x[4] = 0.0
+    x[4, [7, 8]] = -0.0
+    x[5, V - 1] = float("inf")
+    x[6] = torch.round(x[6] * 4) / 4            # many ties in bf16
+    x[7, 0] = float("nan")
+    x = x.to(cuda, dtype)
+    for rows in (x, x[1:8].contiguous()):       # also an unaligned row base
+        before = DK.argmax_launches
+        got = DK.argmax_tokens(rows)
+        torch.cuda.synchronize()
+        assert DK.argmax_launches == before + 1
+        assert torch.equal(got, DK.argmax_ref(rows)), (got, DK.argmax_ref(rows))
+
+
+def test_lm_servers_on_card_match_cpu(cuda):
+    """Reduced smollm-360m: the card's first-token logits agree with the
+    CPU's at bf16 tolerance, and both servers finish every request through
+    the three kernels."""
+    from repro_torch.configs import get_arch
+    from repro_torch.decode import kernel as DK
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.launch.serve import (PagedServer, Server, lm_requests,
+                                          serve_lm)
+
+    cfg = get_arch("smollm-360m").reduced()
+    pending = lm_requests(cfg, [5, 9, 5, 12])
+    cpu = Server(cfg, slots=2, max_len=32, device="cpu")
+    gpu = Server(cfg, slots=2, max_len=32)
+    gpu.params = _to(cpu.params, cuda)
+    want, _ = cpu.model.prefill_fn(cpu.params, {"tokens": torch.as_tensor(
+        pending[1][1][None])}, cache_len=32)
+    got, _ = gpu.model.prefill_fn(gpu.params, {"tokens": torch.as_tensor(
+        pending[1][1][None]).to(cuda)}, cache_len=32)
+    assert _norm_err(got.cpu(), want) <= BF16_TOL
+    counts = (DA.launches, DA.paged_launches, DK.argmax_launches)
+    fin, _, _, _ = serve_lm(gpu, pending, 6)
+    paged = PagedServer(cfg, pool_pages=16, page_size=4, max_len=32)
+    paged.params = gpu.params
+    fin_p, _, _, _ = serve_lm(paged, pending, 6)
+    assert sorted(dict(fin)) == sorted(dict(fin_p)) == [0, 1, 2, 3]
+    assert all(len(t) == 6 and all(0 <= x < cfg.vocab for x in t)
+               for t in list(dict(fin).values()) + list(dict(fin_p).values()))
+    now = (DA.launches, DA.paged_launches, DK.argmax_launches)
+    assert all(n > c for n, c in zip(now, counts))

@@ -45,6 +45,9 @@ def test_import_leaves_jax_and_repro_unloaded():
         "import repro_torch.launch.train, repro_torch.core.strategies\n"
         "import repro_torch.core.mixing, repro_torch.core.transport\n"
         "import repro_torch.optim.optimizers, repro_torch.optim.schedules\n"
+        "import repro_torch.models.transformer, repro_torch.models.api\n"
+        "import repro_torch.kernels.decode_attention\n"
+        "import repro_torch.serving.kvpool, repro_torch.configs.smollm_360m\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'repro')]\n"
         "print(bad)\n"
@@ -104,3 +107,39 @@ def test_kernel_device_probe_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         require_kernel_device(torch.zeros(1))
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_lm_entry_points_raise_without_gpu(no_gpu):
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import PagedServer, Server, main
+
+    cfg = get_arch("smollm-360m").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Server(cfg, slots=1, max_len=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PagedServer(cfg, pool_pages=4, page_size=4, max_len=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--arch", "smollm-360m", "--reduced", "--requests", "1"])
+    server = Server(cfg, slots=1, max_len=8, device="cpu")
+    assert server.cache["attn"]["k"].device.type == "cpu"
+
+
+def test_lm_kernel_wrappers_take_the_plain_path_only_on_cpu():
+    """A CPU tensor runs the plain version; anything else must reach the
+    kernel's device checks, never the plain path."""
+    from repro_torch.decode import kernel as DK
+    from repro_torch.kernels import decode_attention as DA
+
+    q = torch.zeros(1, 1, 2, 8, dtype=torch.bfloat16)
+    kc = torch.zeros(1, 4, 1, 8, dtype=torch.bfloat16)
+    before = (DA.launches, DA.paged_launches, DK.argmax_launches)
+    assert DA.decode_attention(q, kc, kc, 2).shape == q.shape
+    tbl = torch.zeros(1, 1, dtype=torch.int32)
+    assert DA.paged_decode_attention(q, kc, kc, tbl, 2).shape == q.shape
+    assert DK.argmax_tokens(torch.zeros(2, 5)).tolist() == [0, 0]
+    assert (DA.launches, DA.paged_launches, DK.argmax_launches) == before
+    meta = torch.zeros(1, 1, 2, 8, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        DA.decode_attention(meta, kc, kc, 2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        DK.argmax_tokens(torch.zeros(2, 5, device="meta"))

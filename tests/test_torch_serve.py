@@ -155,8 +155,8 @@ def test_dataset_byte_equal_to_jax():
 
 
 def test_cli_serves_on_cpu(capsys):
-    TS.main(["--reduced", "--device", "cpu", "--requests", "2", "--slots",
-             "2", "--prompt-len", "12", "--max-len", "12", "--beam-width",
-             "2"])
+    TS.main(["--arch", "swb2000-blstm", "--reduced", "--device", "cpu",
+             "--requests", "2", "--slots", "2", "--prompt-len", "12",
+             "--max-len", "12", "--beam-width", "2"])
     out = capsys.readouterr().out
     assert "served 2 requests on cpu" in out
