@@ -33,6 +33,24 @@ Phases, each of which fails the run (nonzero exit, no result line):
    frames/s; one step's loss and gradients of the kernel path held
    against the plain path at 2e-2 (normalised); a non-finite loss fails;
 7. train profile — one more step under torch.profiler;
+7a. k3 — the long-utterance slice's kernels against their plain versions
+   and against the unchunked pair: K1's chunk-entry variant and the
+   chunked-recompute backward (K3 port) at 4 learners x 2 rows, T = 300,
+   K = 64 (T padded to 320), D = 1024, H = 512, var-len with a length-1
+   row, f32 and bf16 stash: K1-chunk's y bit-identical to K1-stash's, its
+   entry carries and K3's dx, dWx, dWh, db within 2e-2 of the plain
+   versions, and with an f32 stash K3's gradients within 2e-5 normalised
+   of K2's on the same input; each timed at the train-long layer shape
+   beside its plain version, its bound and a cuDNN LSTM call;
+7b. train-long — full-width ``swb2000-blstm``, ad_psgd over 16 learners,
+   global batch 32, T = 2000 (lognormal var-len, median 1200) with
+   ``seq_chunk = -1`` (K = 256): 1 warm-up and 3 timed steps chunked,
+   then 1 warm-up and 2 timed steps unchunked, each with the launch
+   counters set to 0 just before and read just after (chunked: K1-chunk
+   and K3 6 times per step, K1-stash and K2 never); ms/step, valid
+   frames/s, peak device memory and the stash accounting of each; then
+   one step's loss and per-layer f32 gradients chunked against unchunked
+   at 2e-5 normalised; one more step of each under torch.profiler;
 8. lm kernels — the LM slice's kernels at its serving shapes against
    their plain versions: decode attention (K7 port), canonical and delta,
    at B = 8, S = 1024, 5 KV heads of 3 queries, E = 64, bf16, over pos
@@ -125,9 +143,13 @@ def _device_ms(fn, kernel: str, iters: int = 50) -> float:
     return sum(e.device_time_total for e in rows) / 1e3 / iters
 
 
-def _bound(nbytes: float, ops: float, peak_ops: float):
+def _bound(nbytes: float, ops, peak_ops: float = None):
+    """The larger of the byte time and the operation time, in ms.  ``ops``
+    is a count at ``peak_ops``, or a list of (count, peak) pairs when the
+    work mixes operand types, each at the peak of its own type."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = ops / peak_ops * 1e3
+    parts = [(ops, peak_ops)] if peak_ops is not None else ops
+    t_ops = sum(n / peak for n, peak in parts) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -707,6 +729,7 @@ def _zero_counts():
     from repro_torch.kernels import lstm_cell as LC
 
     LC.launches = LC.stash_launches = LC.bwd_launches = 0
+    LC.chunk_launches = LC.chunked_bwd_launches = 0
     DK.launches = 0
 
 
@@ -797,7 +820,7 @@ def _named_leaves(tree, prefix=""):
         yield prefix, tree
 
 
-def phase_train_profile(state, step, ds, start):
+def phase_train_profile(state, step, ds, start, tag="train-profile"):
     """Where the training time goes: one step under torch.profiler."""
     import torch
     from torch.autograd import DeviceType
@@ -816,16 +839,367 @@ def phase_train_profile(state, step, ds, start):
                    and e.device_time_total > 0), reverse=True)
     wall_ms = 1e3 * records[0][0]
     if not rows:
-        print("[train-profile] the profiler recorded no device events: "
-              "device busy share not measured", flush=True)
+        print(f"[{tag}] the profiler recorded no device events: device "
+              f"busy share not measured", flush=True)
         return
     busy_ms = sum(r[0] for r in rows) / 1e3
-    print(f"[train-profile] one ad_psgd step: wall {wall_ms:.1f} ms, device "
-          f"busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%)",
-          flush=True)
+    print(f"[{tag}] one ad_psgd step: wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%)", flush=True)
     for us, n, key in rows[:10]:
-        print(f"[train-profile]   {us / 1e3:9.2f} ms  {n:6d}x  {key[:70]}",
+        print(f"[{tag}]   {us / 1e3:9.2f} ms  {n:6d}x  {key[:70]}",
               flush=True)
+
+
+# ---------------------------------------------------------------- phase 7a
+# The long-utterance slice (--seq-chunk): the train-long layer shape is 16
+# learners x 2 rows, T = 2000, layers 1..5 (D = 2H = 1024), K = 256.
+LONG_L, LONG_ROWS, LONG_T, LONG_K = 16, 2, 2000, 256
+LONG_BATCH = LONG_L * LONG_ROWS
+LONG_WARMUP, LONG_STEPS, LONG_UNCHUNKED_STEPS = 1, 3, 2
+K3_VS_K2_TOL = 2e-5      # the reference's chunked-vs-unchunked contract
+
+
+def _long_inputs(gen, L, B, T, D, H, K):
+    """Stacked inputs with var-len rows: a length-1 row, rows that end
+    before the last chunk, and full rows."""
+    import torch
+
+    ws, x, _ = _stacked_inputs(L, B, T, D, H, gen, False)
+    lens = torch.randint(1, T + 1, (L, B), generator=gen)
+    lens[:, 0] = T
+    lens[0, -1] = 1
+    lens[-1, -1] = T - K - 7            # whole masked chunks in reverse
+    return ws, x, lens.to(x.device, torch.int32)
+
+
+def _chunked_bound(L, B, T, D, H, K, n_valid, fwd):
+    """(bytes, [(operations, peak of their type)]) the K1-chunk forward
+    (``fwd``) or K3 must move and do at this shape, counting valid frames
+    only."""
+    n = -(-T // K)
+    weights = L * 2 * (D * 4 * H * 2 + H * 4 * H * 2 + 4 * H * 4)
+    carries = 2 * L * B * n * 2 * H * 4
+    act = L * B * T * 2 * H * 2                       # y or dy (bf16)
+    # x·Wx and h·Wh of both directions: bf16 operands
+    recur = 2 * (2 * n_valid * 4 * H * (D + H))
+    if fwd:
+        nbytes = L * B * T * D * 2 + weights + L * B * 4 + act + carries
+        return nbytes, [(recur, PEAK_BF16_FLOPS)]
+    nbytes = (2 * L * B * T * D * 2 + 2 * act + carries + weights + L * B * 4
+              + L * 2 * (D * 4 * H + H * 4 * H + 4 * H) * 4)
+    # the replay's recur, then K2's products on f32 dgates (dh, dx, dWx,
+    # dWh) and db
+    k2 = 2 * (2 * n_valid * 4 * H * (H + D + D + H) + n_valid * 4 * H)
+    return nbytes, [(recur, PEAK_BF16_FLOPS), (k2, PEAK_F32_FLOPS)]
+
+
+def check_k3(gen):
+    """K1's chunk-entry variant and K3 against their plain versions and
+    against K1-stash / K2; then each timed at the train-long layer shape."""
+    import torch
+
+    from repro_torch.kernels import lstm_cell as LC
+
+    L, B, T, D, H, K = 4, 2, 300, TRAIN_D, TRAIN_H, 64
+    ws, x, lens = _long_inputs(gen, L, B, T, D, H, K)
+    dy = torch.randn(L, B, T, 2 * H, generator=gen).to(x.device,
+                                                        torch.bfloat16)
+    for stash in ("float32", "bfloat16"):
+        got = LC.blstm_layer_train_chunked(*ws, x, lens, chunk=K, stash=stash)
+        torch.cuda.synchronize()
+        want = LC.blstm_layer_train_chunked(*ws, x, lens, chunk=K,
+                                            stash=stash, plain=True)
+        errs = []
+        for name, g, w_ in _chunked_pairs("K1-chunk", got, want):
+            norm = _norm_err(g, w_)[1]
+            errs.append(f"{name} {norm:.3g}")
+            if not norm <= K1_TOL:
+                _fail(f"K1-chunk {stash}: {name} disagrees with its plain "
+                      f"version: {norm}")
+        y_stash, acts, cseq = LC.blstm_layer_train(*ws, x, lens, stash=stash)
+        if not torch.equal(got[0], y_stash):
+            _fail(f"K1-chunk {stash}: y is not bit-identical to K1-stash's")
+        for l in range(L):
+            for b in range(B):
+                if got[0][l, b, int(lens[l, b]):].any():
+                    _fail("K1-chunk: padded frames of y not zero")
+        print(f"[K1-chunk] L={L} B={B} T={T} K={K} D={D} H={H} stash={stash} "
+              f"lengths {lens.tolist()}: normalised errors {', '.join(errs)} "
+              f"(tol {K1_TOL}); y bit-identical to K1-stash", flush=True)
+        y, hb, cb = got
+        args = (*ws, x, y, hb, cb, dy, lens)
+        dx, grads = LC.blstm_layer_bwd_chunked(*args, chunk=K)
+        torch.cuda.synchronize()
+        want = LC.blstm_layer_bwd_chunked(*args, chunk=K, plain=True)
+        errs = []
+        for name, g, w_ in _chunked_pairs("K3", (dx, grads), want):
+            norm = _norm_err(g, w_)[1]
+            errs.append(f"{name} {norm:.3g}")
+            if not norm <= K1_TOL:
+                _fail(f"K3 {stash}: {name} disagrees with its plain version: "
+                      f"{norm}")
+        print(f"[K3] L={L} B={B} T={T} K={K} D={D} H={H} stash={stash}: "
+              f"normalised errors vs plain {', '.join(errs)} (tol {K1_TOL})",
+              flush=True)
+        if stash != "float32":
+            continue
+        dx2, grads2 = LC.blstm_layer_bwd(ws[0], ws[1], ws[3], ws[4], x, y,
+                                         acts, cseq, dy, lens)
+        errs = {name: _norm_err(g, w_)[1] for name, g, w_ in
+                _chunked_pairs("K3", (dx, grads), (dx2, grads2))}
+        print(f"[K3] vs K2 on the same input (f32 stash): normalised errors "
+              f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} } (tol "
+              f"{K3_VS_K2_TOL}); dx bit-identical {torch.equal(dx, dx2)}",
+              flush=True)
+        if not max(errs.values()) <= K3_VS_K2_TOL:
+            _fail(f"K3's gradients are not within {K3_VS_K2_TOL} of K2's")
+    return _time_chunked(gen)
+
+
+def _timed_call(fn):
+    """(ms, result) of one call of ``fn``, timed with CUDA events."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def _chunked_pairs(tag, got, want):
+    """Named (kernel, plain) output pairs of K1-chunk (y, hb, cb) or of K3
+    (dx and each direction's dwx, dwh, db)."""
+    if tag == "K1-chunk":
+        return list(zip(("y", "hb", "cb"), got, want))
+    (dx, grads), (dx_w, grads_w) = got, want
+    return [("dx", dx, dx_w)] + [
+        (f"{n}_{d}", g, w_) for d in range(2)
+        for n, g, w_ in zip(("dwx", "dwh", "db"), grads[d], grads_w[d])]
+
+
+def _time_chunked(gen):
+    """K1-chunk and K3 at the train-long layer shape: each held against
+    its plain version on the same inputs and timed beside it, its bound
+    and cuDNN's bf16 LSTM."""
+    import torch
+
+    from repro_torch.kernels import lstm_cell as LC
+
+    L, B, T, D, H, K = LONG_L, LONG_ROWS, LONG_T, TRAIN_D, TRAIN_H, LONG_K
+    ws, x, lens = _long_inputs(gen, L, B, T, D, H, K)
+    dy = torch.randn(L, B, T, 2 * H, generator=gen).to(x.device,
+                                                        torch.bfloat16)
+    n_valid = int(lens.sum())
+    fwd = lambda: LC.blstm_layer_train_chunked(*ws, x, lens, chunk=K)
+    y, hb, cb = fwd()
+    bwd_args = (*ws, x, y, hb, cb, dy, lens)
+    lib = _library_ms(lambda: _cudnn_blstm_train(x, ws), "K3")
+    entries = []
+    for name, fn, plain, lib_fn, tag, src, line in (
+            ("blstm_layer_train_chunked", fwd,
+             lambda: LC.blstm_layer_train_chunked(*ws, x, lens, chunk=K,
+                                                  plain=True),
+             None if lib is None else lib[0], "K1-chunk", "lstm_fwd.cu", 498),
+            ("blstm_layer_bwd_chunked",
+             lambda: LC.blstm_layer_bwd_chunked(*bwd_args, chunk=K),
+             lambda: LC.blstm_layer_bwd_chunked(*bwd_args, chunk=K,
+                                                plain=True),
+             None if lib is None else lib[1], "K3", "lstm_bwd_chunked.cu",
+             823)):
+        got = fn()
+        plain_ms, want = _timed_call(plain)
+        worst, errs = 0.0, []
+        for n, g, w_ in _chunked_pairs(tag, got, want):
+            abs_err, norm = _norm_err(g, w_)
+            errs.append(f"{n} {norm:.3g}")
+            if not norm <= K1_TOL:
+                _fail(f"{tag} at the train-long shape: {n} disagrees with "
+                      f"its plain version: {norm}")
+            worst = max(worst, abs_err)
+        del got, want
+        ms = _time_ms(fn, 3, warmup=0)
+        library_ms = None if lib_fn is None else _time_ms(lib_fn, 3)
+        nbytes, ops = _chunked_bound(L, B, T, D, H, K, n_valid,
+                                     tag == "K1-chunk")
+        bound_ms, bound_by = _bound(nbytes, ops)
+        print(f"[{tag}] L={L} B={B} T={T} K={K} D={D} H={H} var-len "
+              f"({n_valid} valid frames): normalised errors vs plain "
+              f"{', '.join(errs)} (tol {K1_TOL}); kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, library {library_ms} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+        entries.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{src}",
+            replaces=f"src/repro/kernels/lstm_cell.py:{line}",
+            max_abs_err=worst, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library_ms,
+            shape=f"L={L} B={B} T={T} K={K} D={D} H={H} f32 stash"))
+    return entries
+
+
+def _long_counts():
+    from repro_torch.kernels import lstm_cell as LC
+
+    return {"blstm_layer_train_chunked": LC.chunk_launches,
+            "blstm_layer_bwd_chunked": LC.chunked_bwd_launches,
+            "blstm_layer_train": LC.stash_launches,
+            "blstm_layer_bwd": LC.bwd_launches}
+
+
+def _long_run(cfg, ds, label, warmup, timed):
+    """One train-long run: set-up, warm-up and timed steps with the
+    counters set to 0 just before and read just after."""
+    import math
+
+    import torch
+
+    from repro_torch.launch.train import run, setup_training, stash_line
+
+    dev = torch.device("cuda")
+    state, step, _ = setup_training(cfg, strategy_name="ad_psgd",
+                                    n_learners=LONG_L, seed=SEED)
+    print(f"[train-long {label}] {stash_line(cfg, LONG_BATCH, LONG_T)}",
+          flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    steps = warmup + timed
+    state, _, records = run(state, step, ds, steps=steps, device=dev,
+                            log_every=1, label=f"[train-long {label}] ")
+    counts = _long_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(r[3]) for r in records]
+    if not all(math.isfinite(v) for v in losses):
+        _fail(f"train-long {label}: non-finite loss {losses}")
+    t = records[warmup:]
+    ms = 1e3 * sum(r[0] for r in t) / len(t)
+    fps = sum(r[1] for r in t) / sum(r[0] for r in t)
+    print(f"[train-long {label}] {len(t)} timed steps: {ms:.2f} ms/step, "
+          f"{fps:.1f} valid frames/s ({sum(r[1] for r in t)} valid of "
+          f"{sum(r[2] for r in t)} frames); peak device memory "
+          f"{peak_gb:.2f} GiB; launches {counts} over {steps} steps",
+          flush=True)
+    phase_train_profile(state, step, ds, steps,
+                        tag=f"train-long-profile {label}")
+    return state, counts, steps, dict(ms=ms, fps=fps, peak_gb=peak_gb)
+
+
+def _recorded_layer_grads(loss_fn, params, lb, which):
+    """Loss and the per-layer f32 gradients (dx, dWx, dWh, db of each
+    direction) that the wrapper ``which`` returned in one backward."""
+    from unittest import mock
+
+    from repro_torch.core import strategies as ST
+    from repro_torch.kernels import lstm_cell as LC
+
+    rec = []
+    orig = getattr(LC, which)
+
+    def recording(*a, **kw):
+        dx, grads = orig(*a, **kw)
+        rec.append([dx] + [g for d in grads for g in d])
+        return dx, grads
+
+    with mock.patch.object(LC, which, recording):
+        loss, grads = ST._value_and_grad(loss_fn, params, lb)
+    return loss, grads, rec
+
+
+def phase_train_long():
+    """Long utterances at full width: the chunked run, the unchunked run
+    at the same batch, then one step's gradients of the two against each
+    other."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import strategies as ST
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels.lstm_cell import chunk_length
+    from repro_torch.models import lstm as LS
+
+    cfg = get_arch("swb2000-blstm")
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    ds = make_dataset(cfg, seq_len=LONG_T, batch=LONG_BATCH, seed=SEED,
+                      var_len=True)
+    ds.batch_at(0)
+    print(f"[train-long] {cfg.name}: ad_psgd, {LONG_L} learners, batch "
+          f"{LONG_BATCH}, T={LONG_T} var-len (lognormal, median "
+          f"{int(0.6 * LONG_T)}); data set-up {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    chunked = dataclasses.replace(cfg, lstm_seq_chunk=-1)
+    K = chunk_length(LONG_T, -1)
+    if K != LONG_K:
+        _fail(f"seq_chunk -1 resolved to K={K} at T={LONG_T}, not {LONG_K}")
+    results, counts = {}, {}
+    for label, c, timed in (("chunked", chunked, LONG_STEPS),
+                            ("unchunked", cfg, LONG_UNCHUNKED_STEPS)):
+        state, n, steps, res = _long_run(c, ds, label, LONG_WARMUP, timed)
+        results[label], counts[label] = res, n
+        per_run = cfg.n_layers * steps          # one launch per layer-step
+        want_chunked = per_run if label == "chunked" else 0
+        want = {"blstm_layer_train_chunked": want_chunked,
+                "blstm_layer_bwd_chunked": want_chunked,
+                "blstm_layer_train": per_run - want_chunked,
+                "blstm_layer_bwd": per_run - want_chunked}
+        if n != want:
+            _fail(f"train-long {label}: launches {n}, expected {want}")
+        if label == "chunked":
+            params = state["prev_params"]
+        del state
+    print(f"[train-long] chunked / unchunked: ms/step "
+          f"{results['chunked']['ms'] / results['unchunked']['ms']:.3f}x, "
+          f"peak memory {results['chunked']['peak_gb']:.2f} vs "
+          f"{results['unchunked']['peak_gb']:.2f} GiB (lower by "
+          f"{results['unchunked']['peak_gb'] - results['chunked']['peak_gb']:.2f}"
+          f" GiB)", flush=True)
+
+    # one step's loss and gradients, chunked vs unchunked, same weights
+    lb = ST.split_learner_batch(
+        {k: torch.as_tensor(v).to(dev)
+         for k, v in ds.batch_at(LONG_WARMUP + LONG_STEPS).items()}, LONG_L)
+    loss_c, grads_c, rec_c = _recorded_layer_grads(
+        lambda p, b: LS.loss_train(chunked, p, b, device=dev), params, lb,
+        "blstm_layer_bwd_chunked")
+    loss_u, grads_u, rec_u = _recorded_layer_grads(
+        lambda p, b: LS.loss_train(cfg, p, b, device=dev), params, lb,
+        "blstm_layer_bwd")
+    if not (torch.isfinite(loss_c).all()
+            and len(rec_c) == len(rec_u) == cfg.n_layers):
+        _fail("train-long: non-finite loss or missing layer gradients")
+    loss_err = float(((loss_c - loss_u).abs() / loss_u.abs()).max())
+    names = ["dx"] + [f"{n}_{d}" for d in range(2)
+                      for n in ("dwx", "dwh", "db")]
+    worst, where = 0.0, None
+    for i, (a, b) in enumerate(zip(rec_c, rec_u)):
+        for name, g, w_ in zip(names, a, b):
+            if g is None:               # layer 0 takes no dx
+                continue
+            if not torch.isfinite(g).all():
+                _fail(f"train-long: non-finite gradient {name} (layer "
+                      f"{cfg.n_layers - 1 - i})")
+            _, norm = _norm_err(g, w_)
+            if norm > worst:
+                worst, where = norm, f"layer {cfg.n_layers - 1 - i} {name}"
+    param_worst = max(_norm_err(g, w_)[1] for g, w_ in
+                      zip(ST._leaves(grads_c), ST._leaves(grads_u)))
+    print(f"[train-long] one step at {LONG_L} learners, chunked vs unchunked "
+          f"(f32 stash): loss relative error {loss_err:.3g}, worst "
+          f"normalised f32 layer gradient error {worst:.3g} ({where}) (tol "
+          f"{K3_VS_K2_TOL}); parameter gradients (bf16 weights) worst "
+          f"{param_worst:.3g} (tol {K1_TOL})", flush=True)
+    if not (loss_err <= K3_VS_K2_TOL and worst <= K3_VS_K2_TOL
+            and param_worst <= K1_TOL):
+        _fail("train-long: the chunked gradients disagree with the "
+              "unchunked ones")
+    return counts["chunked"], LONG_WARMUP + LONG_STEPS
 
 
 # ---------------------------------------------------------------- phase 8
@@ -1338,6 +1712,8 @@ def main() -> int:
         state, step, ds, counts, steps, _ = phase_train()
         phase_train_profile(state, step, ds, steps)
         del state, step, ds
+        k1c, k3 = check_k3(gen)
+        long_counts, long_steps = phase_train_long()
         k7, k8, k6 = check_k7(gen), check_k8(gen), check_k6(gen)
         lm_server, lm_pending, dense, lm_counts = phase_lm_serve()
         phase_lm_profile(lm_server, lm_pending)
@@ -1355,7 +1731,10 @@ def main() -> int:
     launches["argmax_tokens"] = lm_counts["argmax_tokens"]
     launches["paged_decode_attention"] = paged_counts["paged_decode_attention"]
     k6["launches_paged"] = paged_counts["argmax_tokens"]
-    kernels = [k1, k1s, k2, k5["beam_frame_step"],
+    for k in (k1c, k3):
+        k["launches_per_step"] = long_counts[k["name"]] / long_steps
+        launches[k["name"]] = long_counts[k["name"]]
+    kernels = [k1, k1s, k2, k1c, k3, k5["beam_frame_step"],
                k5["beam_frame_step_topc"], k6, k7, k8]
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -49,7 +49,7 @@ class ArchConfig:
 
     # BLSTM training kernels (kernels/lstm_cell.py): residual stash
     # precision ('float32' | 'bfloat16'); sequence-chunked recompute
-    # (0 = per-step stash; K != 0 is not ported yet, ROADMAP queue 1)
+    # (0 = per-step stash; K > 0 frames per chunk, -1 = auto)
     lstm_stash_dtype: str = "float32"
     lstm_seq_chunk: int = 0
 

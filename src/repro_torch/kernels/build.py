@@ -27,6 +27,7 @@ BUILD_DIR = ROOT / "build" / "torch_kernels"
 SOURCES = {
     "lstm_fwd": _PKG / "kernels" / "csrc" / "lstm_fwd.cu",
     "lstm_bwd": _PKG / "kernels" / "csrc" / "lstm_bwd.cu",
+    "lstm_bwd_chunked": _PKG / "kernels" / "csrc" / "lstm_bwd_chunked.cu",
     "beam_step": _PKG / "decode" / "csrc" / "beam_step.cu",
     "decode_attention": _PKG / "kernels" / "csrc" / "decode_attention.cu",
     "argmax": _PKG / "decode" / "csrc" / "argmax.cu",

@@ -14,7 +14,9 @@
 // f32, and the backward's operands are f32 dgates, so no bf16 tensor-core
 // path reproduces it).  A and B are *views*: a functor returns logical
 // element (r, c) as f32, so one kernel serves row-major, transposed and
-// time-shifted operands.  Tiles are 128 x 128 x 8, 256 threads, 8 x 8
+// time-shifted operands, or the rows of one K-frame chunk of every
+// sequence (the chunked backward K3), whose output rows map back to the
+// frames they came from.  Tiles are 128 x 128 x 8, 256 threads, 8 x 8
 // outputs a thread, shared-memory tiles double-buffered with the next
 // tile's global loads held in registers across the compute.  Elements
 // outside M, N or K read as zero.
@@ -42,6 +44,7 @@ enum Epilogue {
   EPI_F32 = 0,       // C f32 = acc
   EPI_BF16 = 1,      // C bf16 = bf16(acc)
   EPI_ADD_BF16 = 2,  // C bf16 = bf16(f32(C) + f32(bf16(acc)))
+  EPI_ACC_F32 = 3,   // C f32 += acc (a sum over several launches)
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -83,10 +86,64 @@ struct ShiftedRows {
   }
 };
 
+// One K-frame chunk of the B sequences of one learner, (B*T, ld) in
+// memory: chunk row i = b*K + k is frame t0 + k of sequence b, zero at
+// frames >= T.  TRANS = false: logical (i, m); TRANS = true: (m, i).
+template <bool TRANS>
+struct ChunkRows {
+  const bf16* p;
+  long ld;
+  int T, K, t0;
+  static constexpr bool kRowContig = TRANS;
+  __device__ __forceinline__ float at(int r, int c) const {
+    const int i = TRANS ? c : r, m = TRANS ? r : c;
+    const int t = t0 + i % K;
+    if (t >= T) return 0.f;
+    return to_f(p[((size_t)(i / K) * T + t) * ld + m]);
+  }
+  __device__ __forceinline__ ChunkRows offset(size_t n) const {
+    return {p + n, ld, T, K, t0};
+  }
+};
+
+// ShiftedRows over one chunk: A(m, i) = y at frame t0 + i % K + shift of
+// sequence i / K (zero outside [0, T)), and a row of ones at m == H.
+struct ShiftedChunkRows {
+  const bf16* p;
+  long ld;
+  int T, K, t0, shift, H;
+  static constexpr bool kRowContig = true;
+  __device__ __forceinline__ float at(int m, int i) const {
+    if (m == H) return 1.f;
+    const int t = t0 + i % K + shift;
+    if (t < 0 || t >= T) return 0.f;
+    return __bfloat162float(p[((size_t)(i / K) * T + t) * ld + m]);
+  }
+  __device__ __forceinline__ ShiftedChunkRows offset(size_t n) const {
+    return {p + n, ld, T, K, t0, shift, H};
+  }
+};
+
+// Where output row r of C lies (-1: not stored).  DenseRows: row r.
+// ChunkOut: chunk row r = b*K + k is frame t0 + k of sequence b of a
+// (B*T, ldc) output; frames >= T are dropped.
+struct DenseRows {
+  __device__ __forceinline__ long operator()(int r) const { return r; }
+};
+struct ChunkOut {
+  int T, K, t0;
+  __device__ __forceinline__ long operator()(int r) const {
+    const int t = t0 + r % K;
+    return t < T ? (long)(r / K) * T + t : -1;
+  }
+};
+
 template <int EPI>
 struct OutT { using type = bf16; };
 template <>
 struct OutT<EPI_F32> { using type = float; };
+template <>
+struct OutT<EPI_ACC_F32> { using type = float; };
 
 // Tile coordinates of the q-th element a thread loads: along the
 // contiguous index for neighbouring threads.
@@ -135,11 +192,12 @@ __device__ __forceinline__ void store_tiles(float (*as)[BM + PAD],
 
 // grid (ceil(N / BN), ceil(M / BM), L * ndir).  Operand z of direction d
 // and learner l: (d ? a1 : a0).offset(l * sa), likewise b, and C at
-// (d ? c1 : c0) + l * sc with row stride ldc.
-template <class A, class B, int EPI>
+// (d ? c1 : c0) + l * sc with row stride ldc, row r stored at rows(r).
+template <class A, class B, int EPI, class O>
 __global__ void __launch_bounds__(THREADS)
 gemm_kernel(A a0, A a1, B b0, B b1, void* c0, void* c1, size_t sa,
-            size_t sb, size_t sc, int ldc, int M, int N, int K, int ndir) {
+            size_t sb, size_t sc, int ldc, int M, int N, int K, int ndir,
+            O rows) {
   using CT = typename OutT<EPI>::type;
   __shared__ __align__(16) float As[2][BK][BM + PAD];
   __shared__ __align__(16) float Bs[2][BK][BN + PAD];
@@ -180,13 +238,17 @@ gemm_kernel(A a0, A a1, B b0, B b1, void* c0, void* c1, size_t sa,
   for (int i = 0; i < 8; ++i) {
     const int r = row0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
     if (r >= M) continue;
+    const long orow = rows(r);
+    if (orow < 0) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int cc = col0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
       if (cc >= N) continue;
-      CT* out = c + (size_t)r * ldc + cc;
+      CT* out = c + (size_t)orow * ldc + cc;
       if constexpr (EPI == EPI_F32) {
         *out = acc[i][j];
+      } else if constexpr (EPI == EPI_ACC_F32) {
+        *out += acc[i][j];
       } else if constexpr (EPI == EPI_BF16) {
         *out = __float2bfloat16(acc[i][j]);
       } else {
@@ -197,14 +259,14 @@ gemm_kernel(A a0, A a1, B b0, B b1, void* c0, void* c1, size_t sa,
   }
 }
 
-template <int EPI, class A, class B>
+template <int EPI, class A, class B, class O = DenseRows>
 int gemm(A a0, A a1, B b0, B b1, void* c0, void* c1, size_t sa, size_t sb,
          size_t sc, int ldc, int M, int N, int K, int L, int ndir,
-         cudaStream_t st) {
+         cudaStream_t st, O rows = O{}) {
   if (M < 1 || N < 1 || K < 1 || L < 1) return (int)cudaErrorInvalidValue;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, L * ndir);
-  gemm_kernel<A, B, EPI><<<grid, THREADS, 0, st>>>(
-      a0, a1, b0, b1, c0, c1, sa, sb, sc, ldc, M, N, K, ndir);
+  gemm_kernel<A, B, EPI, O><<<grid, THREADS, 0, st>>>(
+      a0, a1, b0, b1, c0, c1, sa, sb, sc, ldc, M, N, K, ndir, rows);
   return (int)cudaGetLastError();
 }
 

@@ -22,7 +22,8 @@
 //    of its row in one 8-byte load, and neighbouring threads read
 //    neighbouring words.  With `lengths`, dh and dc are zeroed on padded
 //    steps (so their dgates are zero) and the carries pass through
-//    (lstm_cell.py:570-575, :592-596).
+//    (lstm_cell.py:570-575, :592-596).  The kernel lives in
+//    lstm_recur.cuh, which the chunked backward K3 shares.
 //  * lstm_bwd_dx — dx = dgates_f·Wx_fᵀ rounded to bf16, plus
 //    dgates_b·Wx_bᵀ rounded to bf16, summed in f32 and rounded again
 //    (lstm_cell.py:949, :1050): two launches of the batched GEMM of
@@ -46,184 +47,42 @@
 #include <cuda_runtime.h>
 
 #include "gemm.cuh"
+#include "lstm_recur.cuh"
 
 using bf16 = __nv_bfloat16;
 
-namespace {
-
-constexpr int MAX_H = 512;   // one thread per hidden unit, one CTA
-
-// Stash element load: SK 1 = f32, 2 = bf16.
-template <int SK>
-__device__ __forceinline__ float load_stash(const void* p, size_t i) {
-  if constexpr (SK == 1) return static_cast<const float*>(p)[i];
-  else return __bfloat162float(static_cast<const bf16*>(p)[i]);
-}
-
-// acc[r] += Σ_q dg[r][4c + q] * Wh[j, 4c + q] for the 4 weights in `u`;
-// `dgc` points at dg[0][4c] in shared memory (row stride G).
-template <int BB>
-__device__ __forceinline__ void fma_row(float (&acc)[BB], uint2 u,
-                                        const float* dgc, size_t G) {
-  const __nv_bfloat162 w01 = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-  const __nv_bfloat162 w23 = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-  const float w0 = __low2float(w01), w1 = __high2float(w01);
-  const float w2 = __low2float(w23), w3 = __high2float(w23);
-#pragma unroll
-  for (int r = 0; r < BB; ++r) {
-    const float4 g = *reinterpret_cast<const float4*>(dgc + r * G);
-    acc[r] += g.x * w0 + g.y * w1 + g.z * w2 + g.w * w3;
-  }
-}
-
-// dy (L, B, T, 2H) bf16 (direction d in columns [d*H, (d+1)*H)); acts
+// stash_kind: 1 = f32 stash, 2 = bf16 stash.  dy (L, B, T, 2H) bf16; acts
 // (2, L, B, T, 4H) and cseq (2, L, B, T, H) in the stash dtype; wh4
-// (L, H, H, 4) bf16 per direction, laid out as above; lengths (L, B);
-// dg (2, L, B, T, 4H) f32 out.  grid (ceil(B / BB), 2, L), block H
-// rounded up to 32, dynamic shared memory BB * 4H floats.
-template <int BB, int SK, int KU = 8>
-__global__ void __launch_bounds__(MAX_H) lstm_bwd_recur_kernel(
-    const bf16* __restrict__ dy, const void* __restrict__ acts,
-    const void* __restrict__ cseq, const bf16* __restrict__ whf,
-    const bf16* __restrict__ whb, const int* __restrict__ lengths,
-    float* __restrict__ dg, int L, int B, int T, int H) {
-  extern __shared__ __align__(16) float dgs[];   // [BB][4H] this step's dgates
-  const int d = blockIdx.y;
-  const int l = blockIdx.z;
-  const int b0 = blockIdx.x * BB;
-  const size_t G = 4 * (size_t)H;
-  const bf16* __restrict__ wh = (d ? whb : whf) + (size_t)l * H * G;
-  lengths += (size_t)l * B;
-  dy += (size_t)l * B * T * 2 * H + (size_t)d * H;
-  const size_t srow = (size_t)(d * L + l) * B;   // stash/dgates row of b = 0
-  const int j = threadIdx.x;
-  const bool own = j < H;
-
-  float dh_c[BB], dc_c[BB];
-  int len[BB];
-#pragma unroll
-  for (int r = 0; r < BB; ++r) {
-    dh_c[r] = 0.f;
-    dc_c[r] = 0.f;
-    len[r] = (b0 + r < B) ? lengths[b0 + r] : 0;
-  }
-
-  for (int s = 0; s < T; ++s) {
-    // the recurrence step undone now, and the one before it
-    const int t = d ? s : T - 1 - s;
-    const int tp = d ? t + 1 : t - 1;
-    const bool boundary = s == T - 1;
-    bool vm[BB];
-#pragma unroll
-    for (int r = 0; r < BB; ++r) {
-      const int b = b0 + r;
-      vm[r] = t < len[r];
-      if (!own) continue;
-      float* sg = dgs + r * G + j;
-      if (b >= B) {
-        sg[0] = sg[H] = sg[2 * H] = sg[3 * H] = 0.f;
-        continue;
-      }
-      const size_t st = (srow + b) * T + t;
-      const float i_ = load_stash<SK>(acts, st * G + j);
-      const float f_ = load_stash<SK>(acts, st * G + H + j);
-      const float g_ = load_stash<SK>(acts, st * G + 2 * H + j);
-      const float o_ = load_stash<SK>(acts, st * G + 3 * H + j);
-      const float c = load_stash<SK>(cseq, st * H + j);
-      const float cp =
-          boundary ? 0.f : load_stash<SK>(cseq, ((srow + b) * T + tp) * H + j);
-      float dh = __bfloat162float(dy[((size_t)b * T + t) * 2 * H + j]) + dh_c[r];
-      const float tc = tanhf(c);
-      float dc = dh * o_ * (1.f - tc * tc) + dc_c[r];
-      if (!vm[r]) {
-        dh = 0.f;
-        dc = 0.f;
-      }
-      const float di = dc * g_ * i_ * (1.f - i_);
-      const float df = dc * cp * f_ * (1.f - f_);
-      const float dgg = dc * i_ * (1.f - g_ * g_);
-      const float dob = dh * tc * o_ * (1.f - o_);
-      float* out = dg + st * G + j;
-      out[0] = di;
-      out[H] = df;
-      out[2 * H] = dgg;
-      out[3 * H] = dob;
-      sg[0] = di;
-      sg[H] = df;
-      sg[2 * H] = dgg;
-      sg[3 * H] = dob;
-      if (vm[r]) dc_c[r] = dc * f_;      // padded step: the carry passes
-    }
-    __syncthreads();                     // every dgates write precedes the read
-    if (own) {
-      float acc[BB];
-#pragma unroll
-      for (int r = 0; r < BB; ++r) acc[r] = 0.f;
-      const uint2* __restrict__ w4 = reinterpret_cast<const uint2*>(wh) + j;
-      int c4 = 0;
-      for (; c4 + KU <= H; c4 += KU) {
-        uint2 u[KU];                     // KU loads in flight per thread
-#pragma unroll
-        for (int q = 0; q < KU; ++q) u[q] = __ldg(w4 + (size_t)(c4 + q) * H);
-#pragma unroll
-        for (int q = 0; q < KU; ++q) fma_row<BB>(acc, u[q], dgs + 4 * (c4 + q), G);
-      }
-      for (; c4 < H; ++c4)
-        fma_row<BB>(acc, __ldg(w4 + (size_t)c4 * H), dgs + 4 * c4, G);
-#pragma unroll
-      for (int r = 0; r < BB; ++r)
-        if (vm[r]) dh_c[r] = acc[r];
-    }
-    __syncthreads();                     // every read precedes the next write
-  }
-}
-
-template <int BB, int SK>
-int launch_recur(dim3 grid, int threads, cudaStream_t st, const void* dy,
-                 const void* acts, const void* cseq, const void* whf,
-                 const void* whb, const void* lengths, void* dg, int L, int B,
-                 int T, int H) {
-  const size_t smem = (size_t)BB * 4 * H * sizeof(float);
-  auto kernel = lstm_bwd_recur_kernel<BB, SK>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, threads, smem, st>>>(
-      (const bf16*)dy, acts, cseq, (const bf16*)whf, (const bf16*)whb,
-      (const int*)lengths, (float*)dg, L, B, T, H);
-  return (int)cudaGetLastError();
-}
-
-template <int SK>
-int launch_rows(int block_b, dim3 grid, int threads, cudaStream_t st,
-                const void* dy, const void* acts, const void* cseq,
-                const void* whf, const void* whb, const void* lengths,
-                void* dg, int L, int B, int T, int H) {
-  switch (block_b) {
-    case 1: return launch_recur<1, SK>(grid, threads, st, dy, acts, cseq, whf, whb, lengths, dg, L, B, T, H);
-    case 2: return launch_recur<2, SK>(grid, threads, st, dy, acts, cseq, whf, whb, lengths, dg, L, B, T, H);
-    case 4: return launch_recur<4, SK>(grid, threads, st, dy, acts, cseq, whf, whb, lengths, dg, L, B, T, H);
-    case 8: return launch_recur<8, SK>(grid, threads, st, dy, acts, cseq, whf, whb, lengths, dg, L, B, T, H);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace
-
-// stash_kind: 1 = f32 stash, 2 = bf16 stash.
+// (L, H, H, 4) bf16 per direction with W4[c, j, q] = Wh[j, 4c + q];
+// lengths (L, B); dg (2, L, B, T, 4H) f32 out.
 extern "C" int lstm_bwd_recur(const void* dy, const void* acts,
                               const void* cseq, const void* whf,
                               const void* whb, const void* lengths, void* dg,
                               int stash_kind, int L, int B, int T, int H,
                               int block_b, void* stream) {
+  using lstm_recur::BwdArgs;
+  using lstm_recur::launch_bwd_rows;
+  using lstm_recur::MAX_H;
   if (L < 1 || B < 1 || T < 1 || H < 1 || H > MAX_H)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((B + block_b - 1) / block_b, 2, L);
-  const int threads = (H + 31) / 32 * 32;
+  BwdArgs a{};
+  a.dy = static_cast<const bf16*>(dy);
+  a.acts = acts;
+  a.cseq = cseq;
+  a.whf = static_cast<const bf16*>(whf);
+  a.whb = static_cast<const bf16*>(whb);
+  a.lengths = static_cast<const int*>(lengths);
+  a.dg = static_cast<float*>(dg);
+  a.L = L;
+  a.B = B;
+  a.T = T;
+  a.H = H;
+  a.K = T;
+  a.n = 1;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (stash_kind) {
-    case 1: return launch_rows<1>(block_b, grid, threads, st, dy, acts, cseq, whf, whb, lengths, dg, L, B, T, H);
-    case 2: return launch_rows<2>(block_b, grid, threads, st, dy, acts, cseq, whf, whb, lengths, dg, L, B, T, H);
+    case 1: return launch_bwd_rows<1, 0>(block_b, a, st);
+    case 2: return launch_bwd_rows<2, 0>(block_b, a, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

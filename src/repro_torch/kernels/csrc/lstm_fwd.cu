@@ -3,9 +3,12 @@
 // Replaces the TPU kernel K1: src/repro/kernels/lstm_cell.py,
 // `_make_fwd_kernel` / `_run_fwd` (pallas_call at lstm_cell.py:498), with
 // n_dir=2 and masking by `lengths`, in its inference variant
-// (stash=False) and its training variant (stash=True, which also writes
+// (stash=False), its training variant (stash=True, which also writes
 // the post-activation gates and the cell state of every step for the
-// backward, K2).  On the TPU one grid step is one time step of a
+// backward, K2) and its chunk-entry variant (stash=True, chunk=K,
+// lstm_cell.py:394-404: only the (h, c) carry entering every K-step chunk
+// of the padded time axis, for the chunked-recompute backward K3 in
+// lstm_bwd_chunked.cu; no per-step stash is allocated or written).  On the TPU one grid step is one time step of a
 // (B/bB, T) grid with the (h, c) carry resident in VMEM; the whole gate
 // product x_t·Wx + h·Wh sits inside the step.  Under `jax.vmap` over the
 // learners of a distributed step the learner axis becomes one more grid
@@ -26,8 +29,11 @@
 //    (carry frozen, output zeroed at t >= len), writes h, rounded to
 //    bf16, to shared memory for the next step and, in the training
 //    variant, the gates i|f|g|o and the frozen c to the stash (f32 or
-//    bf16, a template parameter; y is computed by the same instructions
-//    in both variants, so it is bit-identical).  Wh arrives
+//    bf16, a template parameter), in the chunk-entry variant the f32 (h,
+//    c) carry, rounded to the stash dtype, before each chunk's first step;
+//    y is computed by the same instructions in every variant, so it is
+//    bit-identical.  The kernel lives in lstm_recur.cuh, which K3 shares
+//    to replay a chunk with the same instructions.  Wh arrives
 //    gate-interleaved, (H, H, 4): the four weights of unit j for input k
 //    are one 8-byte load, and neighbouring threads read neighbouring
 //    8-byte words.
@@ -56,153 +62,9 @@
 #include <cuda_runtime.h>
 
 #include "gemm.cuh"
+#include "lstm_recur.cuh"
 
 using bf16 = __nv_bfloat16;
-
-namespace {
-
-__device__ __forceinline__ float sigmoidf_(float v) {
-  return 1.f / (1.f + expf(-v));
-}
-
-constexpr int MAX_H = 512;   // one thread per hidden unit, one CTA
-
-// acc[r][g] += h[r][k] * Wh[k, g*H + j] for the 4 gates packed in `u`;
-// `hk` points at h[0][k] in shared memory (row stride H).
-template <int BB>
-__device__ __forceinline__ void fma_gates(float (&acc)[BB][4], uint2 u,
-                                          const float* hk, int H) {
-  const __nv_bfloat162 w01 = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-  const __nv_bfloat162 w23 = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-  const float w0 = __low2float(w01), w1 = __high2float(w01);
-  const float w2 = __low2float(w23), w3 = __high2float(w23);
-#pragma unroll
-  for (int r = 0; r < BB; ++r) {
-    const float hv = hk[r * H];
-    acc[r][0] += hv * w0;
-    acc[r][1] += hv * w1;
-    acc[r][2] += hv * w2;
-    acc[r][3] += hv * w3;
-  }
-}
-
-// Stash element store: SK 1 = f32, 2 = bf16.
-template <int SK>
-__device__ __forceinline__ void store_stash(void* p, size_t i, float v) {
-  if constexpr (SK == 1) static_cast<float*>(p)[i] = v;
-  else static_cast<bf16*>(p)[i] = __float2bfloat16(v);
-}
-
-// gx (L, 2, B, T, 4H) f32 x-projections; wh (L, H, H, 4) bf16
-// gate-interleaved; b (L, 4H) f32; lengths (L, B); y (L, B, T, 2H) bf16,
-// direction d in columns [d*H, (d+1)*H).  SK > 0 also writes the stash:
-// acts (2, L, B, T, 4H) and cseq (2, L, B, T, H), direction first.
-// grid (ceil(B / BB), 2, L), block H rounded up to 32.  KU weight loads are
-// in flight per thread; fewer rows leave registers for more of them.
-template <int BB, int SK, int KU = (BB <= 2 ? 16 : 8)>
-__global__ void __launch_bounds__(MAX_H) blstm_recur_kernel(const float* __restrict__ gx,
-                                   const bf16* __restrict__ whf,
-                                   const bf16* __restrict__ whb,
-                                   const float* __restrict__ bias_f,
-                                   const float* __restrict__ bias_b,
-                                   const int* __restrict__ lengths,
-                                   bf16* __restrict__ y, void* __restrict__ acts,
-                                   void* __restrict__ cseq, int L, int B,
-                                   int T, int H) {
-  extern __shared__ float hs[];                  // [BB][H] bf16-rounded h
-  const int d = blockIdx.y;
-  const int l = blockIdx.z;
-  const int b0 = blockIdx.x * BB;
-  const size_t G = 4 * (size_t)H;
-  const bf16* __restrict__ wh = (d ? whb : whf) + (size_t)l * H * G;
-  const float* __restrict__ bias = (d ? bias_b : bias_f) + (size_t)l * G;
-  lengths += (size_t)l * B;
-  gx += (size_t)(2 * l + d) * B * T * G;
-  y += (size_t)l * B * T * 2 * H;
-  const size_t srow = (size_t)(d * L + l) * B;   // stash row of b = 0
-  const int j = threadIdx.x;
-  const bool own = j < H;
-
-  float h[BB], c[BB];
-  int len[BB];
-#pragma unroll
-  for (int r = 0; r < BB; ++r) {
-    h[r] = 0.f;
-    c[r] = 0.f;
-    len[r] = (b0 + r < B) ? lengths[b0 + r] : 0;
-    if (own) hs[r * H + j] = 0.f;
-  }
-  float bi = 0.f, bfg = 0.f, bg = 0.f, bo = 0.f;
-  if (own) {
-    bi = bias[j];
-    bfg = bias[H + j];
-    bg = bias[2 * H + j];
-    bo = bias[3 * H + j];
-  }
-  __syncthreads();
-
-  for (int s = 0; s < T; ++s) {
-    const int t = d ? T - 1 - s : s;
-    float acc[BB][4], xg[BB][4];
-#pragma unroll
-    for (int r = 0; r < BB; ++r) {
-      acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
-      // this step's x-projection, loaded before the product hides it
-      const size_t row = min(b0 + r, B - 1);
-      const float* gr = gx + (row * T + t) * G;
-#pragma unroll
-      for (int g = 0; g < 4; ++g) xg[r][g] = own ? gr[g * H + j] : 0.f;
-    }
-    if (own) {
-      // wh4[k * H + j] holds the 4 gate weights of unit j for input k
-      const uint2* __restrict__ wh4 =
-          reinterpret_cast<const uint2*>(wh) + j;
-      int k = 0;
-      for (; k + KU <= H; k += KU) {
-        uint2 u[KU];                     // KU loads in flight per thread
-#pragma unroll
-        for (int q = 0; q < KU; ++q) u[q] = __ldg(wh4 + (size_t)(k + q) * H);
-#pragma unroll
-        for (int q = 0; q < KU; ++q) fma_gates<BB>(acc, u[q], hs + k + q, H);
-      }
-      for (; k < H; ++k) fma_gates<BB>(acc, __ldg(wh4 + (size_t)k * H),
-                                       hs + k, H);
-    }
-    __syncthreads();                    // every read of hs precedes the write
-    if (own) {
-#pragma unroll
-      for (int r = 0; r < BB; ++r) {
-        const int b = b0 + r;
-        if (b >= B) continue;
-        const float i_ = sigmoidf_((xg[r][0] + acc[r][0]) + bi);
-        const float f_ = sigmoidf_(((xg[r][1] + acc[r][1]) + bfg) + 1.f);
-        const float g_ = tanhf((xg[r][2] + acc[r][2]) + bg);
-        const float o_ = sigmoidf_((xg[r][3] + acc[r][3]) + bo);
-        const float cn = f_ * c[r] + i_ * g_;
-        const float hn = o_ * tanhf(cn);
-        const bool valid = t < len[r];
-        if (valid) {                    // frozen carry on padded steps
-          c[r] = cn;
-          h[r] = hn;
-        }
-        y[((size_t)b * T + t) * 2 * H + (size_t)d * H + j] =
-            __float2bfloat16(valid ? hn : 0.f);
-        hs[r * H + j] = __bfloat162float(__float2bfloat16(h[r]));
-        if constexpr (SK != 0) {
-          const size_t st = (srow + b) * T + t;
-          store_stash<SK>(acts, st * G + j, i_);
-          store_stash<SK>(acts, st * G + H + j, f_);
-          store_stash<SK>(acts, st * G + 2 * H + j, g_);
-          store_stash<SK>(acts, st * G + 3 * H + j, o_);
-          store_stash<SK>(cseq, st * H + j, c[r]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-}  // namespace
 
 extern "C" int lstm_xproj(const void* x, const void* wxf, const void* wxb,
                           void* gx, int L, int M, int D, int N, void* stream) {
@@ -217,50 +79,51 @@ extern "C" int lstm_xproj(const void* x, const void* wxf, const void* wxb,
       (size_t)2 * M * N, N, M, N, D, L, 2, (cudaStream_t)stream);
 }
 
-template <int BB, int SK>
-static void launch_recur(dim3 grid, int threads, cudaStream_t st,
-                         const void* gx, const void* whf, const void* whb,
-                         const void* bf, const void* bb, const void* lengths,
-                         void* y, void* acts, void* cseq, int L, int B,
-                         int T, int H) {
-  const size_t smem = (size_t)BB * H * sizeof(float);
-  blstm_recur_kernel<BB, SK><<<grid, threads, smem, st>>>(
-      (const float*)gx, (const bf16*)whf, (const bf16*)whb,
-      (const float*)bf, (const float*)bb, (const int*)lengths, (bf16*)y,
-      acts, cseq, L, B, T, H);
-}
-
-template <int SK>
-static int launch_rows(int block_b, dim3 grid, int threads, cudaStream_t st,
-                       const void* gx, const void* whf, const void* whb,
-                       const void* bf, const void* bb, const void* lengths,
-                       void* y, void* acts, void* cseq, int L, int B, int T,
-                       int H) {
-  switch (block_b) {
-    case 1: launch_recur<1, SK>(grid, threads, st, gx, whf, whb, bf, bb, lengths, y, acts, cseq, L, B, T, H); break;
-    case 2: launch_recur<2, SK>(grid, threads, st, gx, whf, whb, bf, bb, lengths, y, acts, cseq, L, B, T, H); break;
-    case 4: launch_recur<4, SK>(grid, threads, st, gx, whf, whb, bf, bb, lengths, y, acts, cseq, L, B, T, H); break;
-    case 8: launch_recur<8, SK>(grid, threads, st, gx, whf, whb, bf, bb, lengths, y, acts, cseq, L, B, T, H); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-// stash_kind: 0 = inference (acts, cseq unused), 1 = f32 stash, 2 = bf16.
+// stash_kind: 0 = inference (acts, cseq unused), 1 = f32 stash, 2 = bf16
+// stash, 3 = f32 chunk-entry carries, 4 = bf16 ones (acts and cseq are then
+// the (2, L, B, ceil(T / K), H) h and c carries).  gx (L, 2, B, T, 4H) f32;
+// wh (L, H, H, 4) bf16 gate-interleaved; b (L, 4H) f32; lengths (L, B);
+// y (L, B, T, 2H) bf16.
 extern "C" int blstm_recur(const void* gx, const void* whf, const void* whb,
                            const void* bf, const void* bb,
                            const void* lengths, void* y, void* acts,
                            void* cseq, int stash_kind, int L, int B, int T,
-                           int H, int block_b, void* stream) {
+                           int H, int K, int block_b, void* stream) {
+  using lstm_recur::FWD;
+  using lstm_recur::FWD_ENTRY;
+  using lstm_recur::FWD_STASH;
+  using lstm_recur::FwdArgs;
+  using lstm_recur::launch_fwd_rows;
+  using lstm_recur::MAX_H;
   if (L < 1 || B < 1 || T < 1 || H < 1 || H > MAX_H)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((B + block_b - 1) / block_b, 2, L);
-  const int threads = (H + 31) / 32 * 32;
+  const bool entry = stash_kind == 3 || stash_kind == 4;
+  if (entry && K < 1) return (int)cudaErrorInvalidValue;
+  FwdArgs a{};
+  a.gx = static_cast<const float*>(gx);
+  a.whf = static_cast<const bf16*>(whf);
+  a.whb = static_cast<const bf16*>(whb);
+  a.bias_f = static_cast<const float*>(bf);
+  a.bias_b = static_cast<const float*>(bb);
+  a.lengths = static_cast<const int*>(lengths);
+  a.y = static_cast<bf16*>(y);
+  a.acts = entry ? nullptr : acts;
+  a.cseq = entry ? nullptr : cseq;
+  a.hb = entry ? acts : nullptr;
+  a.cb = entry ? cseq : nullptr;
+  a.L = L;
+  a.B = B;
+  a.T = T;
+  a.H = H;
+  a.K = entry ? K : T;
+  a.n = (T + a.K - 1) / a.K;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (stash_kind) {
-    case 0: return launch_rows<0>(block_b, grid, threads, st, gx, whf, whb, bf, bb, lengths, y, acts, cseq, L, B, T, H);
-    case 1: return launch_rows<1>(block_b, grid, threads, st, gx, whf, whb, bf, bb, lengths, y, acts, cseq, L, B, T, H);
-    case 2: return launch_rows<2>(block_b, grid, threads, st, gx, whf, whb, bf, bb, lengths, y, acts, cseq, L, B, T, H);
+    case 0: return launch_fwd_rows<FWD, 0>(block_b, a, st);
+    case 1: return launch_fwd_rows<FWD_STASH, 1>(block_b, a, st);
+    case 2: return launch_fwd_rows<FWD_STASH, 2>(block_b, a, st);
+    case 3: return launch_fwd_rows<FWD_ENTRY, 1>(block_b, a, st);
+    case 4: return launch_fwd_rows<FWD_ENTRY, 2>(block_b, a, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

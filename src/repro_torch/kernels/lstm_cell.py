@@ -1,19 +1,29 @@
-"""Fused bidirectional LSTM layer: the wrappers of the K1 and K2 ports.
+"""Fused bidirectional LSTM layer: the wrappers of the K1, K2 and K3 ports.
 
 * ``blstm_layer`` — the inference forward, counterpart of
   ``repro.kernels.lstm_cell._run_fwd`` with ``n_dir=2, stash=False``;
 * ``blstm_layer_train`` — K1's stashing variant (``stash=True``), which
   also writes the post-activation gates and the cell states;
 * ``blstm_layer_bwd`` — K2, ``_run_bwd`` for both directions;
+* ``blstm_layer_train_chunked`` — K1's chunk-entry variant
+  (``stash=True, seq_chunk=K``), which keeps only the (h, c) carry
+  entering every K-step chunk;
+* ``blstm_layer_bwd_chunked`` — K3, ``_run_bwd_chunked`` for both
+  directions: per chunk, replay the forward from its entry carry, then
+  the reverse steps;
 * ``blstm_sequence`` — the differentiable layer, a
-  ``torch.autograd.Function`` over the two, mirroring
-  ``_blstm_vjp_fwd``/``_blstm_vjp_bwd`` (``lstm_cell.py:1026-1050``).
+  ``torch.autograd.Function`` over a forward and its backward (the
+  stashing pair, or with ``seq_chunk`` the chunked pair), mirroring
+  ``_blstm_vjp_fwd``/``_blstm_vjp_bwd`` (``lstm_cell.py:1026-1050``);
+* ``chunk_length`` and ``stash_bytes`` — the chunk-length rule and the
+  residual-stash accounting of the reference.
 
 Every tensor may carry a leading learner axis (x (L, B, T, D), weights
 (L, D, 4H), ..., lengths (L, B)): the learners are one more axis of each
 kernel's grid, as ``jax.vmap`` of a ``pallas_call`` is.  On CUDA tensors
-the wrappers launch the kernels of ``csrc/lstm_fwd.cu`` and
-``csrc/lstm_bwd.cu`` and count their launches; on CPU tensors, or with
+the wrappers launch the kernels of ``csrc/lstm_fwd.cu``,
+``csrc/lstm_bwd.cu`` and ``csrc/lstm_bwd_chunked.cu`` and count their
+launches; on CPU tensors, or with
 ``plain=True`` (the oracle a check asks for by name), they run the plain
 versions of ``kernels.ref``.  They never fall back from the card to the
 plain path.
@@ -26,16 +36,72 @@ import torch
 
 from repro_torch.device import require_kernel_device
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import (blstm_layer_ref, lstm_direction_bwd_ref,
+from repro_torch.kernels.ref import (blstm_layer_ref,
+                                     lstm_direction_bwd_chunked_ref,
+                                     lstm_direction_bwd_ref,
+                                     lstm_direction_chunk_fwd_ref,
                                      lstm_direction_train_ref, stash_dtype)
 
 launches = 0          # blstm_layer calls that launched the inference kernel
 stash_launches = 0    # blstm_layer_train calls that launched the stash kernel
 bwd_launches = 0      # blstm_layer_bwd calls that launched K2
+chunk_launches = 0    # blstm_layer_train_chunked calls that launched K1-chunk
+chunked_bwd_launches = 0   # blstm_layer_bwd_chunked calls that launched K3
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _STASH_KIND = {torch.float32: 1, torch.bfloat16: 2}
+_ENTRY_KIND = {torch.float32: 3, torch.bfloat16: 4}
+
+
+def chunk_length(T: int, seq_chunk: int) -> int:
+    """The chunk length K that ``seq_chunk`` selects at sequence length T
+    (``auto_tile``'s rule for K, ``repro/kernels/lstm_cell.py:246-291``):
+    an explicit K > 0 is clamped to T; a negative value (-1, auto)
+    starts at min(256, next_pow2(T)) and halves while the time padding it
+    induces, round_up(T, K) - T, exceeds T/8, down to 16 frames.  The
+    time axis is then padded to a multiple of K.
+
+    ``auto_tile`` first halves K (and the batch tile) until the TPU
+    kernels' VMEM estimate fits its budget; that rule describes the TPU's
+    scratch memory and has no meaning here: K3 keeps its chunk buffers in
+    device memory and its batch tile is the recurrence kernels'
+    (:func:`block_rows`).  So at the paper's width the port's K can be
+    larger than the reference's; T = 2000 gives K = 256, T_pad = 2048."""
+    if not seq_chunk:
+        raise ValueError("seq_chunk 0 selects the per-step stash, no chunk")
+    T = max(T, 1)
+    if seq_chunk > 0:
+        return min(seq_chunk, T)
+    K = min(256, 1 << (T - 1).bit_length())
+    while K > 16 and (-T % K) * 8 > T:     # -T % K: the frames of padding
+        K //= 2
+    return K
+
+
+def stash_bytes(B: int, T: int, H: int, *, n_dir: int = 1,
+                stash_itemsize: int = 4, seq_chunk: int = 0) -> int:
+    """Residual-stash bytes of the training forward (``repro.kernels.
+    lstm_cell.stash_bytes``, ``:216``).  Unchunked: the post-activation
+    gates (4H) and the cell state (H) per (row, step).  Chunked (a
+    resolved K > 0): only the (h, c) chunk-entry carries, 2H per (row,
+    chunk), ceil(T / K) chunks after time padding."""
+    if seq_chunk and seq_chunk > 0:
+        n_chunks = -(-T // seq_chunk)
+        return n_dir * B * n_chunks * 2 * H * stash_itemsize
+    return n_dir * B * T * 5 * H * stash_itemsize
+
+
+def chunk_lengths(x, lengths):
+    """The lengths of the chunked path, which is always masked: T for
+    every row of a dense input, else ``lengths`` clipped to T, as int32
+    of shape ``x.shape[:-2]`` (``lstm_cell.py:918-934``)."""
+    T = x.shape[-2]
+    if lengths is None:
+        return torch.full(x.shape[:-2], T, dtype=torch.int32,
+                          device=x.device)
+    return torch.clamp(lengths.to(device=x.device, dtype=torch.int32),
+                       max=T)
 
 
 def _fwd_lib():
@@ -43,7 +109,7 @@ def _fwd_lib():
     if lib.lstm_xproj.argtypes is None:
         lib.lstm_xproj.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
         lib.lstm_xproj.restype = _I
-        lib.blstm_recur.argtypes = [_P] * 9 + [_I] * 6 + [_P]
+        lib.blstm_recur.argtypes = [_P] * 9 + [_I] * 7 + [_P]
         lib.blstm_recur.restype = _I
     return lib
 
@@ -57,6 +123,14 @@ def _bwd_lib():
         lib.lstm_bwd_dx.restype = _I
         lib.lstm_bwd_dw.argtypes = [_P] * 5 + [_I] * 6 + [_P]
         lib.lstm_bwd_dw.restype = _I
+    return lib
+
+
+def _bwd_chunked_lib():
+    lib = build.load("lstm_bwd_chunked")
+    if lib.lstm_bwd_chunked.argtypes is None:
+        lib.lstm_bwd_chunked.argtypes = [_P] * 23 + [_I] * 8 + [_P]
+        lib.lstm_bwd_chunked.restype = _I
     return lib
 
 
@@ -114,9 +188,26 @@ def _prepare(ws, x, lengths):
     return L, B, T, D, H, lens
 
 
-def _forward_kernel(ws, x, lengths, sdt):
+def _fwd_layout(wh):
+    """(L, H, 4H) -> (L, H, H, 4) gate-interleaved for the forward
+    recurrence: unit j's 4 weights for input k adjacent."""
+    L, H = wh.shape[0], wh.shape[1]
+    return wh.view(L, H, 4, H).transpose(2, 3).contiguous()
+
+
+def _bwd_layout(wh):
+    """(L, H, 4H) -> (L, H, H, 4) for the reverse recurrence:
+    W4[c4, j, q] = Wh[j, 4*c4 + q], so thread j reads the 4 weights of
+    its row for 4 adjacent gate columns in one 8-byte load."""
+    L, H = wh.shape[0], wh.shape[1]
+    return wh.view(L, H, H, 4).transpose(1, 2).contiguous()
+
+
+def _forward_kernel(ws, x, lengths, sdt, chunk=0):
     """K1 on the card: ``lstm_xproj`` (x·Wx, all learners and both
-    directions) then ``blstm_recur`` (with the stash when ``sdt``)."""
+    directions) then ``blstm_recur`` (with the per-step stash when
+    ``sdt``, or with ``chunk`` > 0 the chunk-entry carries in ``sdt``).
+    Returns (y, acts, cseq), or (y, hb, cb) when chunked."""
     require_kernel_device(x)
     L, B, T, D, H, lens = _prepare(ws, x, lengths)
     dev = x.device
@@ -128,20 +219,25 @@ def _forward_kernel(ws, x, lengths, sdt):
         x.data_ptr(), wxf.data_ptr(), wxb.data_ptr(), gx.data_ptr(), L,
         B * T, D, 4 * H, stream))
     y = torch.empty(L, B, T, 2 * H, dtype=torch.bfloat16, device=dev)
-    if sdt is None:
-        acts = cseq = None
-    else:
+    if chunk:                       # (h, c) entering each chunk
+        n = -(-T // chunk)
+        acts = torch.empty(2, L, B, n, H, dtype=sdt, device=dev)
+        cseq = torch.empty(2, L, B, n, H, dtype=sdt, device=dev)
+        kind = _ENTRY_KIND[sdt]
+    elif sdt is not None:           # gates and c of every step
         acts = torch.empty(2, L, B, T, 4 * H, dtype=sdt, device=dev)
         cseq = torch.empty(2, L, B, T, H, dtype=sdt, device=dev)
-    # gate-interleaved (L, H, H, 4): unit j's 4 weights for input k adjacent
-    whf4, whb4 = (wh.view(L, H, 4, H).transpose(2, 3).contiguous()
-                  for wh in (whf, whb))
+        kind = _STASH_KIND[sdt]
+    else:
+        acts = cseq = None
+        kind = 0
+    whf4, whb4 = _fwd_layout(whf), _fwd_layout(whb)
     _launch("blstm_recur", lib.blstm_recur(
         gx.data_ptr(), whf4.data_ptr(), whb4.data_ptr(), bf.data_ptr(),
         bb.data_ptr(), lens.data_ptr(), y.data_ptr(),
         acts.data_ptr() if acts is not None else None,
         cseq.data_ptr() if cseq is not None else None,
-        _STASH_KIND.get(sdt, 0), L, B, T, H, block_rows(B), stream))
+        kind, L, B, T, H, chunk, block_rows(B), stream))
     return y, acts, cseq
 
 
@@ -218,10 +314,7 @@ def blstm_layer_bwd(wxf, whf, wxb, whb, x, y, acts, cseq, dy, lengths=None,
         raise ValueError(f"stash dtype {sdt} is not one the kernel takes")
     lib = _bwd_lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    # (L, H, H, 4): W4[c4, j, q] = Wh[j, 4*c4 + q], so thread j reads the
-    # 4 weights of its row for 4 adjacent gate columns in one 8-byte load
-    whf4, whb4 = (wh.view(L, H, H, 4).transpose(1, 2).contiguous()
-                  for wh in (whf, whb))
+    whf4, whb4 = _bwd_layout(whf), _bwd_layout(whb)
     dg = torch.empty(2, L, B, T, 4 * H, dtype=torch.float32, device=dev)
     _launch("lstm_bwd_recur", lib.lstm_bwd_recur(
         dy.data_ptr(), acts.data_ptr(), cseq.data_ptr(), whf4.data_ptr(),
@@ -245,31 +338,153 @@ def blstm_layer_bwd(wxf, whf, wxb, whb, x, y, acts, cseq, dy, lengths=None,
                 for d in range(2)]
 
 
+def blstm_layer_train_chunked(wxf, whf, bf, wxb, whb, bb, x, lengths=None,
+                              *, chunk, stash="float32", plain=False):
+    """K1's chunk-entry variant over stacked operands (x (L, B, T, D),
+    ...), with ``chunk`` the resolved chunk length K (:func:`chunk_length`):
+    returns ``y`` (L, B, T, 2H) bf16 and ``hb``, ``cb`` (2, L, B, n, H)
+    in the ``stash`` dtype, n = ceil(T / K) — the (h, c) carry entering
+    recurrence steps 0, K, 2K, ... of the padded time axis, direction
+    first, in recurrence order.  No per-step stash is allocated.
+    ``lengths`` (None: T for every row) masks as in
+    :func:`blstm_layer_train`, whose ``y`` this is bit for bit."""
+    global chunk_launches
+    sdt = stash_dtype(stash)
+    lens = chunk_lengths(x, lengths)
+    if plain or x.device.type == "cpu":
+        outs = [lstm_direction_chunk_fwd_ref(wx, wh, b, x, lens, chunk=chunk,
+                                             reverse=bool(d), stash=stash)
+                for d, (wx, wh, b) in enumerate(((wxf, whf, bf),
+                                                 (wxb, whb, bb)))]
+        return (torch.cat([outs[0][0], outs[1][0]], dim=-1),
+                torch.stack([outs[0][1], outs[1][1]]),
+                torch.stack([outs[0][2], outs[1][2]]))
+    if chunk < 1:
+        raise ValueError(f"chunk must be a resolved K > 0, got {chunk}")
+    out = _forward_kernel([wxf, whf, bf, wxb, whb, bb], x, lens, sdt,
+                          chunk=chunk)
+    chunk_launches += 1
+    return out
+
+
+def blstm_layer_bwd_chunked(wxf, whf, bf, wxb, whb, bb, x, y, hb, cb, dy,
+                            lengths=None, *, chunk, need_dx=True,
+                            plain=False):
+    """K3 for both directions against the entry carries of
+    :func:`blstm_layer_train_chunked`: dy (L, B, T, 2H) -> (dx (L, B, T, D)
+    in x's dtype or None, ((dwx, dwh, db) f32 per direction)), as
+    :func:`blstm_layer_bwd` returns them.
+
+    On the card one call runs the chunk loop of
+    ``csrc/lstm_bwd_chunked.cu``; its scratch is chunk-sized (gx, gates
+    and dgates (2, L, B, K, 4H) f32, c (2, L, B, K, H)), and h_{t-1} for
+    dWh is read from ``y``."""
+    global chunked_bwd_launches
+    H = whf.shape[-2]
+    lens = chunk_lengths(x, lengths)
+    if plain or x.device.type == "cpu":
+        dxs, grads = [], []
+        for d, (wx, wh, b) in enumerate(((wxf, whf, bf), (wxb, whb, bb))):
+            dxd, dwx, dwh, db = lstm_direction_bwd_chunked_ref(
+                wx, wh, b, x, dy[..., d * H:(d + 1) * H], hb[d], cb[d],
+                lens, chunk=chunk, reverse=bool(d))
+            dxs.append(dxd)
+            grads.append((dwx, dwh, db))
+        dx = (dxs[0].float() + dxs[1].float()).to(x.dtype) if need_dx \
+            else None
+        return dx, grads
+    require_kernel_device(x)
+    L, B, T, D, H, lens = _prepare([wxf, whf, bf, wxb, whb, bb], x, lens)
+    dev = x.device
+    if chunk < 1:
+        raise ValueError(f"chunk must be a resolved K > 0, got {chunk}")
+    n = -(-T // chunk)
+    sdt = hb.dtype
+    if sdt not in _STASH_KIND:
+        raise ValueError(f"carry dtype {sdt} is not one the kernel takes")
+    _check("y", y, (L, B, T, 2 * H), torch.bfloat16, dev)
+    _check("dy", dy, (L, B, T, 2 * H), torch.bfloat16, dev)
+    _check("hb", hb, (2, L, B, n, H), sdt, dev)
+    _check("cb", cb, (2, L, B, n, H), sdt, dev)
+    lib = _bwd_chunked_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    f32 = dict(dtype=torch.float32, device=dev)
+    G = 4 * H
+    gx = torch.empty(L, 2, B * chunk, G, **f32)
+    acts = torch.empty(2, L, B, chunk, G, **f32)
+    cseq = torch.empty(2, L, B, chunk, H, **f32)
+    dg = torch.empty(2, L, B, chunk, G, **f32)
+    dh = torch.zeros(2, L, B, H, **f32)
+    dc = torch.zeros(2, L, B, H, **f32)
+    dx = (torch.zeros(L, B, T, D, dtype=x.dtype, device=dev) if need_dx
+          else None)
+    dwx = torch.zeros(2, L, D, G, **f32)
+    # rows 0..H-1: dWh = h_prev^T dgates; row H: db = 1^T dgates
+    dwhb = torch.zeros(2, L, H + 1, G, **f32)
+    # held in locals: a temporary's block would go back to the allocator
+    # as soon as its pointer is taken
+    whs = [_fwd_layout(whf), _fwd_layout(whb), _bwd_layout(whf),
+           _bwd_layout(whb)]
+    _launch("lstm_bwd_chunked", lib.lstm_bwd_chunked(
+        x.data_ptr(), y.data_ptr(), dy.data_ptr(), hb.data_ptr(),
+        cb.data_ptr(), wxf.data_ptr(), wxb.data_ptr(),
+        *(w.data_ptr() for w in whs),
+        bf.data_ptr(), bb.data_ptr(), lens.data_ptr(), gx.data_ptr(),
+        acts.data_ptr(), cseq.data_ptr(), dg.data_ptr(), dh.data_ptr(),
+        dc.data_ptr(), dx.data_ptr() if dx is not None else None,
+        dwx.data_ptr(), dwhb.data_ptr(), _STASH_KIND[sdt], L, B, T, D, H,
+        chunk, block_rows(B), stream))
+    chunked_bwd_launches += 1
+    return dx, [(dwx[d], dwhb[d, :, :H], dwhb[d, :, H].contiguous())
+                for d in range(2)]
+
+
 class _BlstmSequence(torch.autograd.Function):
-    """The layer's VJP (``_blstm_vjp_fwd``/``_blstm_vjp_bwd``): the
-    stashing forward saves y, acts and cseq; the backward runs K2 and
-    casts dWx, dWh to the weight dtype, db staying f32."""
+    """The layer's VJP (``_blstm_vjp_fwd``/``_blstm_vjp_bwd``).  With
+    ``chunk`` 0 the stashing forward saves y, acts and cseq and the
+    backward runs K2; with a chunk length K the chunk-entry forward saves
+    x, y, the lengths of the chunked path and the (h, c) entry carries
+    (never a per-step stash) and the backward runs K3.  dWx, dWh are cast
+    to the weight dtype, db stays f32."""
 
     @staticmethod
-    def forward(ctx, wxf, whf, bf, wxb, whb, bb, x, lengths, stash, plain):
-        y, acts, cseq = blstm_layer_train(wxf, whf, bf, wxb, whb, bb, x,
-                                          lengths, stash=stash, plain=plain)
-        ctx.save_for_backward(wxf, whf, wxb, whb, x, y, acts, cseq, lengths)
-        ctx.plain = plain
+    def forward(ctx, wxf, whf, bf, wxb, whb, bb, x, lengths, stash, chunk,
+                plain):
+        ctx.plain, ctx.chunk = plain, chunk
         ctx.bias_dtypes = (bf.dtype, bb.dtype)
+        if chunk:
+            lens = chunk_lengths(x, lengths)
+            y, hb, cb = blstm_layer_train_chunked(
+                wxf, whf, bf, wxb, whb, bb, x, lens, chunk=chunk,
+                stash=stash, plain=plain)
+            ctx.save_for_backward(wxf, whf, bf, wxb, whb, bb, x, y, hb, cb,
+                                  lens)
+        else:
+            y, acts, cseq = blstm_layer_train(wxf, whf, bf, wxb, whb, bb, x,
+                                              lengths, stash=stash,
+                                              plain=plain)
+            ctx.save_for_backward(wxf, whf, wxb, whb, x, y, acts, cseq,
+                                  lengths)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        wxf, whf, wxb, whb, x, y, acts, cseq, lengths = ctx.saved_tensors
-        dx, grads = blstm_layer_bwd(
-            wxf, whf, wxb, whb, x, y, acts, cseq, dy.contiguous(), lengths,
-            need_dx=ctx.needs_input_grad[6], plain=ctx.plain)
+        need_dx = ctx.needs_input_grad[6]
+        if ctx.chunk:
+            wxf, whf, bf, wxb, whb, bb, x, y, hb, cb, lens = ctx.saved_tensors
+            dx, grads = blstm_layer_bwd_chunked(
+                wxf, whf, bf, wxb, whb, bb, x, y, hb, cb, dy.contiguous(),
+                lens, chunk=ctx.chunk, need_dx=need_dx, plain=ctx.plain)
+        else:
+            wxf, whf, wxb, whb, x, y, acts, cseq, lengths = ctx.saved_tensors
+            dx, grads = blstm_layer_bwd(
+                wxf, whf, wxb, whb, x, y, acts, cseq, dy.contiguous(),
+                lengths, need_dx=need_dx, plain=ctx.plain)
         (dwxf, dwhf, dbf), (dwxb, dwhb, dbb) = grads
         return (dwxf.to(wxf.dtype), dwhf.to(whf.dtype),
                 dbf.to(ctx.bias_dtypes[0]), dwxb.to(wxb.dtype),
                 dwhb.to(whb.dtype), dbb.to(ctx.bias_dtypes[1]), dx,
-                None, None, None)
+                None, None, None, None)
 
 
 def blstm_sequence(wxf, whf, bf, wxb, whb, bb, x, lengths=None, *,
@@ -277,12 +492,10 @@ def blstm_sequence(wxf, whf, bf, wxb, whb, bb, x, lengths=None, *,
     """Differentiable bidirectional layer over stacked operands: x
     (L, B, T, D) bf16 -> (L, B, T, 2H) bf16 (``repro.kernels.lstm_cell.
     blstm_sequence`` with a learner axis).  ``stash_dtype`` ('float32' |
-    'bfloat16') sets the residual-stash precision; ``plain=True`` runs
-    the plain versions on any device (the oracle)."""
-    if seq_chunk:
-        raise NotImplementedError(
-            "seq_chunk != 0 (the chunked-recompute backward K3 and K1's "
-            "chunk-entry variant) is not ported yet: ROADMAP.md queue 1, "
-            "item 1")
+    'bfloat16') sets the residual-stash precision; ``seq_chunk`` (K > 0
+    frames, or -1 for auto, :func:`chunk_length`) selects the chunked
+    pair, K1's chunk-entry variant and K3, whose stash is O(T/K);
+    ``plain=True`` runs the plain versions on any device (the oracle)."""
+    chunk = chunk_length(x.shape[-2], seq_chunk) if seq_chunk else 0
     return _BlstmSequence.apply(wxf, whf, bf, wxb, whb, bb, x, lengths,
-                                stash_dtype or "float32", plain)
+                                stash_dtype or "float32", chunk, plain)

@@ -41,6 +41,30 @@ def _steps(T: int, reverse: bool):
     return range(T - 1, -1, -1) if reverse else range(T)
 
 
+def _cell(gx_t, h, c, whf, bf):
+    """One LSTM cell step (``_cell_math``): gate order i|f|g|o, forget
+    bias +1, the recurrent h rounded to bf16 before the product, f32
+    throughout.  Returns (i, f, g, o, c_new, h_new)."""
+    H = whf.shape[-2]
+    hx = h.to(torch.bfloat16).float()
+    gates = gx_t + hx @ whf + bf
+    i = torch.sigmoid(gates[..., 0 * H:1 * H])
+    f = torch.sigmoid(gates[..., 1 * H:2 * H] + 1.0)
+    g = torch.tanh(gates[..., 2 * H:3 * H])
+    o = torch.sigmoid(gates[..., 3 * H:4 * H])
+    c_new = f * c + i * g
+    return i, f, g, o, c_new, o * torch.tanh(c_new)
+
+
+def _pad_time(a, Tp: int):
+    """Zero-pad axis -2 (time) of ``a`` to ``Tp`` steps."""
+    T = a.shape[-2]
+    if T == Tp:
+        return a
+    pad = a.new_zeros(*a.shape[:-2], Tp - T, a.shape[-1])
+    return torch.cat([a, pad], dim=-2)
+
+
 def lstm_direction_train_ref(wx, wh, b, x, lengths=None, *, reverse=False,
                              stash="float32"):
     """One LSTM direction with the training stash: returns ``y`` (B, T, H)
@@ -69,14 +93,7 @@ def lstm_direction_train_ref(wx, wh, b, x, lengths=None, *, reverse=False,
     acts = torch.empty(*lead, T, 4 * H, dtype=sdt, device=x.device)
     cseq = torch.empty(*lead, T, H, dtype=sdt, device=x.device)
     for t in _steps(T, reverse):
-        hx = h.to(torch.bfloat16).float()
-        gates = gx[..., t, :] + hx @ whf + bf
-        i = torch.sigmoid(gates[..., 0 * H:1 * H])
-        f = torch.sigmoid(gates[..., 1 * H:2 * H] + 1.0)
-        g = torch.tanh(gates[..., 2 * H:3 * H])
-        o = torch.sigmoid(gates[..., 3 * H:4 * H])
-        c_new = f * c + i * g
-        h_new = o * torch.tanh(c_new)
+        i, f, g, o, c_new, h_new = _cell(gx[..., t, :], h, c, whf, bf)
         if lengths is None:
             c, h, out = c_new, h_new, h_new
         else:
@@ -168,3 +185,131 @@ def lstm_direction_bwd_ref(wx, wh, x, y, acts, cseq, dy, lengths=None, *,
     dwh = hprev.flatten(-3, -2).transpose(-1, -2) @ rows
     db = rows.sum(-2)
     return dx, dwx, dwh, db
+
+
+def lstm_direction_chunk_fwd_ref(wx, wh, b, x, lengths, *, chunk,
+                                 reverse=False, stash="float32"):
+    """One LSTM direction with the chunk-entry stash of
+    ``_make_fwd_kernel(chunk=K)`` (``lstm_cell.py:394-404``): returns
+    ``y`` (B, T, H) bf16 and ``hb``, ``cb`` (B, n, H) in the ``stash``
+    dtype, n = ceil(T / K): the (h, c) carry entering recurrence step
+    r·K, in recurrence order (the reverse direction's chunk 0 holds its
+    first steps, the last frames).
+
+    x is zero-padded to T_pad = n·K frames and the masked recurrence runs
+    over all of them, as the reference's chunked path does; ``lengths``
+    (never None here: the caller synthesizes T for dense input) is at
+    most T, so the padded frames are masked steps and ``y`` is
+    :func:`lstm_direction_train_ref`'s."""
+    sdt = stash_dtype(stash)
+    T = x.shape[-2]
+    H = wh.shape[-2]
+    K = chunk
+    n = -(-T // K)
+    Tp = n * K
+    gx = _pad_time(x, Tp).float() @ _per_time(wx).float()
+    whf = wh.float()
+    bf = _per_row(b).float()
+    lead = x.shape[:-2]
+    h = torch.zeros(*lead, H, dtype=torch.float32, device=x.device)
+    c = torch.zeros_like(h)
+    y = torch.zeros(*lead, Tp, H, dtype=torch.bfloat16, device=x.device)
+    hb = torch.empty(*lead, n, H, dtype=sdt, device=x.device)
+    cb = torch.empty(*lead, n, H, dtype=sdt, device=x.device)
+    for s, t in enumerate(_steps(Tp, reverse)):
+        if s % K == 0:
+            hb[..., s // K, :] = h.to(sdt)
+            cb[..., s // K, :] = c.to(sdt)
+        i, f, g, o, c_new, h_new = _cell(gx[..., t, :], h, c, whf, bf)
+        v = (t < lengths)[..., None]
+        c = torch.where(v, c_new, c)
+        h = torch.where(v, h_new, h)
+        y[..., t, :] = torch.where(v, h_new, torch.zeros_like(h_new)).to(
+            torch.bfloat16)
+    return y[..., :T, :], hb, cb
+
+
+def lstm_direction_bwd_chunked_ref(wx, wh, b, x, dy, hb, cb, lengths, *,
+                                   chunk, reverse=False):
+    """The plain K3: one direction's chunked-recompute backward against
+    the entry carries of :func:`lstm_direction_chunk_fwd_ref`.  Returns
+    dx (rounded to x's dtype), dWx, dWh and db in f32.
+
+    Mirrors ``_make_bwd_chunked_kernel`` (``lstm_cell.py:684-801``): the
+    recurrence chunks are visited in reverse (chunk n-1 first, in both
+    directions); each one replays the forward from its entry carry,
+    rebuilding the gates, c_{t-1} and the bf16-rounded h_{t-1} of its K
+    steps, then runs :func:`lstm_direction_bwd_ref`'s reverse steps
+    against them with (dh, dc) carried in from the later chunk.  The
+    chunk's dx, x^T·dgates, h_prev^T·dgates and Σ dgates are taken once
+    per chunk and the weight gradients summed over chunks in f32.  Only
+    chunk-sized buffers live across a chunk; the forward direction's
+    recurrence chunk r covers frames [rK, (r+1)K) of the padded time
+    axis, the reverse direction's [T_pad-(r+1)K, T_pad-rK)."""
+    T = x.shape[-2]
+    H = wh.shape[-2]
+    K = chunk
+    n = hb.shape[-2]
+    Tp = n * K
+    if n != -(-T // K):
+        raise ValueError(f"{n} entry carries for T={T}, K={K}")
+    xp = _pad_time(x, Tp)
+    dyp = _pad_time(dy, Tp)
+    wxf = _per_time(wx).float()
+    whf = wh.float()
+    bf = _per_row(b).float()
+    lead = x.shape[:-2]
+    zero = torch.zeros(*lead, H, dtype=torch.float32, device=x.device)
+    dh_c, dc_c = zero, zero
+    dwx = torch.zeros(wx.shape, dtype=torch.float32, device=x.device)
+    dwh = torch.zeros(wh.shape, dtype=torch.float32, device=x.device)
+    db = torch.zeros(b.shape, dtype=torch.float32, device=x.device)
+    dx = torch.empty(*lead, Tp, x.shape[-1], dtype=x.dtype, device=x.device)
+    order = list(_steps(Tp, reverse))
+    for r in range(n - 1, -1, -1):
+        times = order[r * K:(r + 1) * K]          # recurrence order
+        lo = min(times)                            # the chunk's frames
+        xc = xp[..., lo:lo + K, :].float()
+        gx = xc @ wxf
+        acts = torch.empty(*lead, K, 4 * H, dtype=torch.float32,
+                           device=x.device)
+        c_after = torch.empty(*lead, K, H, dtype=torch.float32,
+                              device=x.device)
+        c_prev = torch.empty_like(c_after)
+        h_prev = torch.empty_like(c_after)
+        h = hb[..., r, :].float()
+        c = cb[..., r, :].float()
+        for t in times:                            # phase 1: replay
+            k = t - lo
+            h_prev[..., k, :] = h.to(torch.bfloat16).float()
+            c_prev[..., k, :] = c
+            i, f, g, o, c_new, h_new = _cell(gx[..., k, :], h, c, whf, bf)
+            v = (t < lengths)[..., None]
+            c = torch.where(v, c_new, c)
+            h = torch.where(v, h_new, h)
+            acts[..., k, :] = torch.cat([i, f, g, o], dim=-1)
+            c_after[..., k, :] = c
+        dg = torch.empty_like(acts)
+        for t in reversed(times):                  # phase 2: reverse steps
+            k = t - lo
+            i, f, g, o = (acts[..., k, q * H:(q + 1) * H] for q in range(4))
+            cp = c_prev[..., k, :]
+            dh = dyp[..., t, :].float() + dh_c
+            tc = torch.tanh(c_after[..., k, :])
+            dc = dh * o * (1.0 - tc * tc) + dc_c
+            v = (t < lengths)[..., None]
+            dh = torch.where(v, dh, zero)
+            dc = torch.where(v, dc, zero)
+            dgk = torch.cat([dc * g * i * (1.0 - i),
+                             dc * cp * f * (1.0 - f),
+                             dc * i * (1.0 - g * g),
+                             dh * tc * o * (1.0 - o)], dim=-1)
+            dg[..., k, :] = dgk
+            dh_c = torch.where(v, dgk @ whf.transpose(-1, -2), dh_c)
+            dc_c = torch.where(v, dc * f, dc_c)
+        dx[..., lo:lo + K, :] = (dg @ wxf.transpose(-1, -2)).to(x.dtype)
+        rows = dg.flatten(-3, -2)                  # (..., B*K, 4H)
+        dwx += xc.flatten(-3, -2).transpose(-1, -2) @ rows
+        dwh += h_prev.flatten(-3, -2).transpose(-1, -2) @ rows
+        db += rows.sum(-2)
+    return dx[..., :T, :], dwx, dwh, db

@@ -8,6 +8,11 @@ loop (prefetching, logging, per-step timing); the CLI wraps both.
     PYTHONPATH=src python -m repro_torch.launch.train --arch swb2000-blstm \\
         --learners 16 --batch 256 --var-len --steps 20 --log-every 1
 
+    # long utterances: sequence-chunked recompute (K = 256 at T = 2000)
+    PYTHONPATH=src python -m repro_torch.launch.train --arch swb2000-blstm \\
+        --learners 16 --batch 32 --seq-len 2000 --var-len --seq-chunk -1 \\
+        --steps 4 --log-every 1
+
     # the plain PyTorch path on the CPU, reduced size
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
         --device cpu --steps 2
@@ -29,6 +34,7 @@ from repro_torch.configs import get_arch
 from repro_torch.core import strategies as ST
 from repro_torch.data import Prefetcher, make_dataset
 from repro_torch.device import resolve_device
+from repro_torch.kernels.lstm_cell import chunk_length, stash_bytes
 from repro_torch.models import lstm as LS
 from repro_torch.optim.optimizers import get_optimizer
 from repro_torch.optim.schedules import paper_recipe, warmup_then_anneal
@@ -73,6 +79,29 @@ def setup_training(cfg, *, strategy_name: str = None, n_learners: int = None,
     meta = dict(strategy=strategy, n_learners=n_learners,
                 transport=transport, device=dev, loss_fn=loss_fn)
     return state, step_fn, meta
+
+
+def stash_line(cfg, batch: int, seq_len: int) -> str:
+    """The residual stash of one training forward over the global batch:
+    the resolved chunk length and the bytes per BLSTM layer from
+    :func:`~repro_torch.kernels.lstm_cell.stash_bytes` (the reference's
+    ``kernel/stash_bytes`` gauge, ``repro/launch/train.py:318-327``,
+    taken at the per-direction width and the resolved K), beside what the
+    per-step stash would hold."""
+    itemsize = 2 if cfg.lstm_stash_dtype == "bfloat16" else 4
+    kw = dict(n_dir=2, stash_itemsize=itemsize)
+    full = stash_bytes(batch, seq_len, cfg.lstm_hidden, **kw)
+    if not cfg.lstm_seq_chunk:
+        return (f"stash: per-step ({cfg.lstm_stash_dtype}), {full} B per "
+                f"layer, {cfg.n_layers * full / 2**20:.2f} MiB over "
+                f"{cfg.n_layers} layers")
+    K = chunk_length(seq_len, cfg.lstm_seq_chunk)
+    per = stash_bytes(batch, seq_len, cfg.lstm_hidden, seq_chunk=K, **kw)
+    return (f"stash: seq_chunk K={K} (T={seq_len}, T_pad="
+            f"{-(-seq_len // K) * K}, {cfg.lstm_stash_dtype} entry "
+            f"carries), {per} B per layer, "
+            f"{cfg.n_layers * per / 2**20:.2f} MiB over {cfg.n_layers} "
+            f"layers (per-step stash: {cfg.n_layers * full / 2**20:.2f} MiB)")
 
 
 def _sync(device):
@@ -153,8 +182,13 @@ def main(argv=None):
                     help="BLSTM residual-stash dtype (bfloat16 halves the "
                          "gate/cell stash)")
     ap.add_argument("--seq-chunk", type=int, default=0,
-                    help="sequence-chunked recompute (not ported yet: "
-                         "only 0 runs)")
+                    help="sequence-chunked recompute for long utterances: "
+                         "K > 0 frames per chunk (clamped to T), -1 = auto "
+                         "(min(256, next pow2 of T), halved while padding "
+                         "exceeds T/8); the training forward then stashes "
+                         "only the chunk-entry (h, c) carries and the "
+                         "backward re-runs each chunk (0 = per-step "
+                         "stash)")
     ap.add_argument("--var-len", action="store_true",
                     help="variable-length utterances: batches carry a "
                          "'lengths' key, loss/BLSTM/aggregation mask "
@@ -191,6 +225,7 @@ def main(argv=None):
         optimizer_name=args.optimizer, seed=args.seed, device=device,
         lr_schedule=paper_recipe(steps_per_epoch=max(args.steps // 16, 1),
                                  base_lr=0.05, peak_lr=0.2))
+    print(stash_line(cfg, batch, seq_len), flush=True)
     ds = make_dataset(cfg, seq_len=seq_len, batch=batch, seed=args.seed,
                       var_len=args.var_len or args.bucket,
                       bucket=args.bucket)

@@ -145,13 +145,6 @@ def test_bwd_ref_zero_on_padded_steps():
             torch.float32
 
 
-def test_seq_chunk_is_not_ported_yet():
-    ws, x = _inputs(5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlc.blstm_sequence(*(_t(w).unsqueeze(0) for w in ws),
-                           _t(x).unsqueeze(0), seq_chunk=4)
-
-
 def test_stash_dtype_names():
     assert tref.stash_dtype(None) == torch.float32
     assert tref.stash_dtype("bfloat16") == torch.bfloat16
