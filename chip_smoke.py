@@ -72,7 +72,30 @@ Phases, each of which fails the run (nonzero exit, no result line):
 10. lm profile — 4 requests under torch.profiler;
 11. lm-serve paged — the same requests through ``PagedServer`` (pages of
     16, a 512-page pool): tokens/s, peak sharing ratio, COW count and
-    shared hits, and how many requests decode the dense run's tokens.
+    shared hits, and how many requests decode the dense run's tokens;
+12. k9 — the chunked SSD scan (K9 port) against its plain version
+    ``ssd_plain`` at a small shape (G < H) and at the full-width serving
+    shape (B = 1, 32 heads of P = 64, N = 128, one B/C group, Q = 256,
+    S = 700: the last chunk ragged): y within 2e-2 and the state within
+    1e-4 (normalised); timed beside its plain version and its operation
+    bound (no library call computes chunked SSD);
+13. ssm-serve — the full-width ``mamba2-370m`` (48 layers, d 1024,
+    d_inner 2048 as 32 SSM heads of 64, state 128, chunk 256, vocab
+    50,280, random weights from seed 0) ``Server``: 16 requests (prompt
+    lengths 64-960 drawn with seed 0, the first forced to 700), 8 slots,
+    max_len 1024, 32 new tokens each, with the counters set to 0 just
+    before and read just after (K9 48 times per admission, K6 per
+    equal-position group); tokens/s, mean wave ms, prefill ms, peak
+    memory; for the 700-token request, each of its 48 K9 launches against
+    ``ssd_plain`` on the layer's own inputs (2e-2 / 1e-4), and its
+    prefill and first 8 decode logits against the plain path
+    (teacher-forced) at 2e-2 through the first 4 layers — through all 48
+    they are printed, not held (random-init depth amplifies any f32
+    rounding difference: tools/ssd_precision.py);
+    one preempt -> restore held bit-identical to the uninterrupted run;
+14. ssm profile — 4 requests under torch.profiler, admissions (prefill)
+    and decode waves as two windows: each one's share of the wall time,
+    the device's busy share and the top kernels.
 
 The last two lines are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
@@ -141,6 +164,34 @@ def _device_ms(fn, kernel: str, iters: int = 50) -> float:
     if not rows:
         return None
     return sum(e.device_time_total for e in rows) / 1e3 / iters
+
+
+def _profile_window(fn, tag):
+    """Run ``fn`` under torch.profiler: (its result, wall ms of the
+    window, device busy ms, rows of (device us, count, kernel) by device
+    time), or None, said under ``tag``, when the profiler recorded no
+    device events.  Device activity only: CPU op events would repeat
+    their kernels' device time, and over a host-bound decode window their
+    hundreds of thousands took ``key_averages`` about a minute."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = sorted(((e.device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.device_time_total > 0), reverse=True)
+    if not rows:
+        print(f"[{tag}] the profiler recorded no device events: device "
+              f"busy share not measured", flush=True)
+        return None
+    return out, wall_ms, sum(r[0] for r in rows) / 1e3, rows
 
 
 def _bound(nbytes: float, ops, peak_ops: float = None):
@@ -686,26 +737,14 @@ def phase_profile():
     """Where the serving time goes: the main path once more (4 requests)
     under torch.profiler, device time by kernel and the device's busy
     share of the wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs import get_arch
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, _, _, _, dt, _ = _serve(get_arch("swb2000-blstm"), requests=4,
-                                   topc=0)
-    # device-side events only: a CPU op's device time repeats the time of
-    # the kernels it launched
-    rows = sorted(((e.device_time_total, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.device_time_total > 0), reverse=True)
-    if not rows:
-        print("[profile] the profiler recorded no device events: device "
-              "busy share not measured", flush=True)
+    got = _profile_window(lambda: _serve(get_arch("swb2000-blstm"),
+                                         requests=4, topc=0), "profile")
+    if got is None:
         return
-    busy_ms = sum(r[0] for r in rows) / 1e3
+    served, _, busy_ms, rows = got
+    dt = served[4]
     print(f"[profile] serve 4 requests: wall {1e3 * dt:.1f} ms, device busy "
           f"{busy_ms:.1f} ms ({100 * busy_ms / (1e3 * dt):.1f}%)",
           flush=True)
@@ -823,26 +862,16 @@ def _named_leaves(tree, prefix=""):
 def phase_train_profile(state, step, ds, start, tag="train-profile"):
     """Where the training time goes: one step under torch.profiler."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.train import run
 
     dev = torch.device("cuda")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, _, records = run(state, step, ds, steps=1, device=dev,
-                            start=start)
-    rows = sorted(((e.device_time_total, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.device_time_total > 0), reverse=True)
-    wall_ms = 1e3 * records[0][0]
-    if not rows:
-        print(f"[{tag}] the profiler recorded no device events: device "
-              f"busy share not measured", flush=True)
+    got = _profile_window(lambda: run(state, step, ds, steps=1, device=dev,
+                                      start=start), tag)
+    if got is None:
         return
-    busy_ms = sum(r[0] for r in rows) / 1e3
+    (_, _, records), _, busy_ms, rows = got
+    wall_ms = 1e3 * records[0][0]
     print(f"[{tag}] one ad_psgd step: wall {wall_ms:.1f} ms, device busy "
           f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%)", flush=True)
     for us, n, key in rows[:10]:
@@ -1539,12 +1568,12 @@ def _check_lm_against_plain(server, pending, finished):
           f"{finished[rid][:9]}", flush=True)
     if not max(errs) <= K1_TOL:
         _fail(f"lm-serve logits disagree with the plain path: {errs}")
-    worst = {r: round(max(errors(r, p)), 5) for r, p in pending}
-    print(f"[lm-serve] the same check for every request (not held): "
-          f"worst per request {worst}", flush=True)
+    worst = {r: round(max(errors(r, p)), 5) for r, p in pending[:4]}
+    print(f"[lm-serve] the same check for the first 4 requests (not "
+          f"held): worst per request {worst}", flush=True)
 
 
-def _check_lm_preempt(server, pending):
+def _check_lm_preempt(server, pending, tag="lm-serve"):
     """Two requests that never share a position; request A is preempted
     after 3 waves and restored after 1: both decode bit for bit as in
     the uninterrupted run."""
@@ -1562,18 +1591,18 @@ def _check_lm_preempt(server, pending):
                 snap = server.preempt(ra)
                 fin += server.step()
                 if not server.restore(snap):
-                    _fail("lm-serve: restore found no free slot")
+                    _fail(f"{tag}: restore found no free slot")
             fin += server.step()
             if not server.active.any():
                 break
         return dict(fin)
 
     base, pre = run(-1), run(3)
-    print(f"[lm-serve] preempt -> restore: request {ra} and {rb} "
+    print(f"[{tag}] preempt -> restore: request {ra} and {rb} "
           f"bit-identical to the uninterrupted run: {base == pre}",
           flush=True)
     if base != pre or len(base) != 2:
-        _fail("lm-serve: a preempted request decoded other tokens")
+        _fail(f"{tag}: a preempted request decoded other tokens")
 
 
 def phase_lm_serve():
@@ -1657,28 +1686,281 @@ def phase_lm_paged(pending, dense):
 def phase_lm_profile(server, pending):
     """Where the LM serving time goes: 4 requests (16 new tokens each)
     under torch.profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     server.reset()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, _, wave_s, _, dt, _ = _lm_run(server, pending[:4], 16)
-    rows = sorted(((e.device_time_total, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and e.device_time_total > 0), reverse=True)
-    if not rows:
-        print("[lm-profile] the profiler recorded no device events: device "
-              "busy share not measured", flush=True)
+    got = _profile_window(lambda: _lm_run(server, pending[:4], 16),
+                          "lm-profile")
+    if got is None:
         return
-    busy_ms = sum(r[0] for r in rows) / 1e3
+    (_, _, wave_s, _, dt, _), _, busy_ms, rows = got
     print(f"[lm-profile] serve 4 requests x 16 tokens: wall {1e3 * dt:.1f} "
           f"ms, {len(wave_s)} waves, device busy {busy_ms:.1f} ms "
           f"({100 * busy_ms / (1e3 * dt):.1f}%)", flush=True)
     for us, n, key in rows[:12]:
         print(f"[lm-profile]   {us / 1e3:9.2f} ms  {n:6d}x  {key[:70]}",
               flush=True)
+
+
+# --------------------------------------------------------------- phase 12
+# The ssm slice's serving shape: mamba2-370m's 32 heads of P = 64, state
+# N = 128 in one B/C group, chunk 256; a 700-token prompt leaves a ragged
+# last chunk of 188.
+SSM_H, SSM_P, SSM_N, SSM_Q, SSM_S = 32, 64, 128, 256, 700
+SSM_REQUESTS, SSM_MAX_NEW, SSM_RAGGED = 16, 32, 700
+SSM_Y_TOL, SSM_STATE_TOL = 2e-2, 1e-4
+SSM_CUT = 8              # layers of the held end-to-end logits check
+SSM_PROFILE_NEW = 8      # new tokens per request in the ssm profile
+
+
+def _ssd_inputs(gen, B, S, H, P, G, N):
+    import torch
+
+    dev = torch.device("cuda")
+    x = torch.randn(B, S, H, P, generator=gen).to(dev, torch.bfloat16)
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, H, generator=gen) - 2.0).to(dev)
+    A = (-torch.exp(torch.rand(H, generator=gen) * 2.7)).to(dev)
+    Bm = torch.randn(B, S, G, N, generator=gen).to(dev, torch.bfloat16)
+    Cm = torch.randn(B, S, G, N, generator=gen).to(dev, torch.bfloat16)
+    return x, dt, A, Bm, Cm
+
+
+def _ssd_bytes_ops(B, S, H, P, G, N, Q):
+    """Bytes an SSD call must move (x, dt, A, B, C in; y, state out) and
+    the operations its chunks need, as (count, peak) pairs: per chunk of
+    L rows and head, the causal pairs k <= q only (L (L + 1) / 2 of them),
+    whose C.B^T scores have bf16 operands (products exact in f32: the
+    bf16 tensor-core peak), L (L + 1) N; the weights times x in f32,
+    L (L + 1) P; and the carried state in and out, 4 L N P f32."""
+    nbytes = (2 * B * S * H * P * 2 + B * S * H * 4 + H * 4
+              + 2 * B * S * G * N * 2 + B * H * N * P * 4)
+    scores = f32 = 0
+    for c0 in range(0, S, Q):
+        L = min(Q, S - c0)
+        scores += B * H * L * (L + 1) * N
+        f32 += B * H * (L * (L + 1) * P + 4 * L * N * P)
+    return nbytes, [(scores, PEAK_BF16_FLOPS), (f32, PEAK_F32_FLOPS)]
+
+
+def check_k9(gen):
+    import torch
+
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.kernels.ref import ssd_plain
+
+    worst = 0.0
+    shapes = [(2, 100, 4, 32, 2, 64, 32),                   # small, G < H
+              (1, SSM_S, SSM_H, SSM_P, 1, SSM_N, SSM_Q)]    # serving shape
+    for B, S, H, P, G, N, Q in shapes:
+        args = _ssd_inputs(gen, B, S, H, P, G, N)
+        y, h = SSD.ssd(*args, chunk=Q)
+        torch.cuda.synchronize()
+        want_y, want_h = ssd_plain(*args, chunk=Q)
+        (ey, ny), (eh, nh) = _norm_err(y, want_y), _norm_err(h, want_h)
+        if not (ny <= SSM_Y_TOL and nh <= SSM_STATE_TOL):
+            _fail(f"K9 B={B} S={S} H={H} P={P} G={G} N={N} Q={Q}: "
+                  f"normalised error y {ny}, state {nh}")
+        worst = max(worst, ey)
+        print(f"[K9] ssd B={B} S={S} H={H} P={P} G={G} N={N} Q={Q}: y "
+              f"{ny:.3g} (tol {SSM_Y_TOL}), state {nh:.3g} (tol "
+              f"{SSM_STATE_TOL}) normalised, max_abs_err y {ey:.3g} state "
+              f"{eh:.3g}", flush=True)
+    ms = _time_ms(lambda: SSD.ssd(*args, chunk=Q), 50)
+    plain_ms = _time_ms(lambda: ssd_plain(*args, chunk=Q), 10)
+    nbytes, ops = _ssd_bytes_ops(B, S, H, P, G, N, Q)
+    bound_ms, bound_by = _bound(nbytes, ops)
+    print(f"[K9] B={B} S={S} (last chunk {S % Q or Q}) H={H} P={P} N={N} "
+          f"Q={Q}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"none, bound {bound_ms:.5f} ms ({bound_by}: "
+          f"{ops[0][0] / 1e9:.3f} GFLOP bf16 scores, {ops[1][0] / 1e9:.3f} "
+          f"GFLOP f32, {nbytes / 1e6:.2f} MB)", flush=True)
+    return dict(name="ssd_scan", route="cuda",
+                source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+                replaces="src/repro/kernels/ssd_scan.py:103",
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                shape=f"B={B} S={S} H={H} P={P} G={G} N={N} Q={Q} bf16")
+
+
+# --------------------------------------------------------------- phase 13
+def _ssm_counts():
+    from repro_torch.decode import kernel as DK
+    from repro_torch.kernels import ssd_scan as SSD
+
+    return {"ssd_scan": SSD.launches, "argmax_tokens": DK.argmax_launches}
+
+
+def _ssm_pending(cfg):
+    """16 prompts of 64-960 tokens drawn with the seed; the first is
+    forced to 700 (> 256 and not a multiple of it: a ragged chunk)."""
+    import numpy as np
+
+    from repro_torch.launch.serve import lm_requests
+
+    lengths = np.random.default_rng(SEED).integers(64, 961,
+                                                   size=SSM_REQUESTS)
+    lengths[0] = SSM_RAGGED
+    return lm_requests(cfg, [int(n) for n in lengths], seed=SEED)
+
+
+def _ssm_run(server, pending, max_new):
+    """Serve ``pending`` once with the K9 and K6 counters set to 0 just
+    before and read just after."""
+    import torch
+
+    from repro_torch.decode import kernel as DK
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.launch.serve import serve_lm
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    SSD.launches = DK.argmax_launches = 0
+    t0 = time.perf_counter()
+    finished, admit_s, wave_s, occ = serve_lm(server, pending, max_new)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return dict(finished), admit_s, wave_s, occ, dt, _ssm_counts()
+
+
+def _layer_cut(server, n_layers):
+    """The served model and weights cut to their first ``n_layers``
+    layers (a stand-in for ``server`` in ``_teacher_forced_logits``)."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    from repro_torch.models import build_model
+
+    def cut(tree):
+        if isinstance(tree, dict):
+            return {k: cut(v) for k, v in tree.items()}
+        return tree[:n_layers]
+
+    cfg = dataclasses.replace(server.cfg, n_layers=n_layers)
+    params = dict(server.params, layers=cut(server.params["layers"]))
+    return SimpleNamespace(model=build_model(cfg), params=params,
+                           max_len=server.max_len)
+
+
+def _check_ssm_against_plain(server, pending, finished):
+    """Kernel path vs plain path (the SSD wrapper swapped for
+    ``ssd_plain``) on the card, for the ragged 700-token request:
+
+    * every one of its 48 K9 launches held against ``ssd_plain`` on that
+      layer's own inputs (y within 2e-2, the state within 1e-4);
+    * its prefill and first 8 decode logits, teacher-forced with its
+      served tokens, held at 2e-2 through the first SSM_CUT layers of the
+      served model.  Not all 48: at random init the stack amplifies a
+      handful of bf16 roundings of y that any two f32 SSDs make apart, so
+      that past 8 layers ``ssd_plain`` and an f64 evaluation of the exact
+      recurrence drift apart as well (``tools/ssd_precision.py``
+      measures both by depth)."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.kernels.ref import ssd_plain
+
+    rid, prompt = pending[0]
+    toks = finished[rid]
+    real, per_layer = SSD.ssd, []
+
+    def both(x, dt, A, Bm, Cm, *, chunk):
+        y, h = real(x, dt, A, Bm, Cm, chunk=chunk)
+        py, ph = ssd_plain(x, dt, A, Bm, Cm, chunk=chunk)
+        per_layer.append((_norm_err(y, py)[1], _norm_err(h, ph)[1]))
+        return y, h
+
+    with mock.patch.object(SSD, "ssd", both):
+        server.model.prefill_fn(server.params, {"tokens": torch.as_tensor(
+            prompt[None]).to("cuda")})
+    wy, wh = max(e[0] for e in per_layer), max(e[1] for e in per_layer)
+    print(f"[ssm-serve] request {rid} ({len(prompt)} prompt tokens, last "
+          f"chunk {len(prompt) % SSM_Q}): each of its {len(per_layer)} K9 "
+          f"launches vs ssd_plain on the layer's own inputs, worst "
+          f"normalised y {wy:.3g} (tol {SSM_Y_TOL}), state {wh:.3g} (tol "
+          f"{SSM_STATE_TOL})", flush=True)
+    if len(per_layer) != server.cfg.n_layers or not (
+            wy <= SSM_Y_TOL and wh <= SSM_STATE_TOL):
+        _fail(f"ssm-serve: a K9 launch disagrees with ssd_plain on its "
+              f"layer's inputs: {per_layer}")
+
+    srv = _layer_cut(server, SSM_CUT)
+    got = _teacher_forced_logits(srv, prompt, toks, 8)
+    with mock.patch.object(SSD, "ssd", ssd_plain):
+        want = _teacher_forced_logits(srv, prompt, toks, 8)
+    cut = [_norm_err(g, w)[1] for g, w in zip(got, want)]
+    print(f"[ssm-serve] teacher-forced logits through the first {SSM_CUT} "
+          f"layers, kernel vs plain path, normalised (tol {SSM_Y_TOL}): "
+          f"prefill {cut[0]:.3g}, decode steps 1-8 "
+          f"{[round(e, 5) for e in cut[1:]]}; served first tokens "
+          f"{toks[:9]}", flush=True)
+    if not max(cut) <= SSM_Y_TOL:
+        _fail(f"ssm-serve logits disagree with the plain path: {cut}")
+
+
+def phase_ssm_serve():
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import Server
+
+    cfg = get_arch("mamba2-370m")
+    t0 = time.perf_counter()
+    server = Server(cfg, slots=LM_B, max_len=LM_S, seed=SEED)
+    pending = _ssm_pending(cfg)
+    # warm-up: one short request (cuBLAS handles, the K9 library)
+    server.admit(-1, pending[0][1][:64], 4)
+    while server.active.any():
+        server.step()
+    server.reset()
+    d_inner = cfg.ssm.expand * cfg.d_model
+    print(f"[ssm-serve] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"d_inner {d_inner} as {d_inner // cfg.ssm.head_dim} heads of "
+          f"{cfg.ssm.head_dim}, state {cfg.ssm.state_dim}, chunk "
+          f"{cfg.ssm.chunk}, vocab {cfg.vocab}; {LM_B} slots, max_len "
+          f"{LM_S}; prompt lengths {[len(p) for _, p in pending]}; set-up "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    finished, admit_s, wave_s, occ, dt, counts = _ssm_run(server, pending,
+                                                          SSM_MAX_NEW)
+    want = cfg.n_layers * len(pending)
+    if counts["ssd_scan"] != want:
+        _fail(f"K9 launched {counts['ssd_scan']} times on the ssm-serve "
+              f"path, expected {cfg.n_layers} per admission = {want}")
+    if counts["argmax_tokens"] <= 0:
+        _fail("kernel argmax_tokens was never launched on the ssm-serve "
+              "path")
+    _lm_report("ssm-serve", cfg, pending, finished, admit_s, wave_s, occ, dt,
+               counts, SSM_MAX_NEW)
+    _check_ssm_against_plain(server, pending, finished)
+    _check_lm_preempt(server, pending, tag="ssm-serve")
+    return server, pending, counts
+
+
+def phase_ssm_profile(server, pending):
+    """Where the ssm serving time goes: 4 requests, their admissions
+    (prefill) and their decode waves (SSM_PROFILE_NEW new tokens each)
+    profiled as two windows."""
+    server.reset()
+
+    def admit():
+        for rid, prompt in pending[:4]:
+            server.admit(rid, prompt, SSM_PROFILE_NEW)
+
+    def decode():
+        while server.active.any():
+            server.step()
+
+    pre = _profile_window(admit, "ssm-profile")
+    dec = pre and _profile_window(decode, "ssm-profile")
+    if not dec:
+        return
+    total = pre[1] + dec[1]
+    for tag, (_, wall, busy, rows) in (("prefill", pre), ("decode", dec)):
+        print(f"[ssm-profile] {tag}: wall {wall:.1f} ms "
+              f"({100 * wall / total:.1f}% of the 4-request run), device "
+              f"busy {busy:.1f} ms ({100 * busy / wall:.1f}%), host-bound "
+              f"rest {wall - busy:.1f} ms", flush=True)
+        for us, n, key in rows[:8]:
+            print(f"[ssm-profile]   {tag} {us / 1e3:9.2f} ms  {n:6d}x  "
+                  f"{key[:64]}", flush=True)
 
 
 def _to_cpu(tree):
@@ -1699,26 +1981,45 @@ def main() -> int:
     except ImportError as e:
         _fail(f"the port is not importable from {HERE / 'src'}: {e}")
     t_start = time.perf_counter()
+
+    def done(phase):
+        print(f"[time] {phase} done at {time.perf_counter() - t_start:.1f}s",
+              flush=True)
+
     try:
         phase_device()
         phase_build()
+        done("build")
         gen = torch.Generator().manual_seed(SEED)
         k1 = check_k1(gen)
         k1s = check_k1_stash(gen)
         k2 = check_k2(gen)
         k5 = check_k5(gen)
+        done("kernels")
         launches = phase_serve()
         phase_profile()
+        done("serve")
         state, step, ds, counts, steps, _ = phase_train()
         phase_train_profile(state, step, ds, steps)
         del state, step, ds
+        done("train")
         k1c, k3 = check_k3(gen)
         long_counts, long_steps = phase_train_long()
+        done("train-long")
         k7, k8, k6 = check_k7(gen), check_k8(gen), check_k6(gen)
         lm_server, lm_pending, dense, lm_counts = phase_lm_serve()
+        done("lm-serve")
         phase_lm_profile(lm_server, lm_pending)
         del lm_server
+        done("lm-profile")
         paged_counts = phase_lm_paged(lm_pending, dense)
+        done("lm-paged")
+        k9 = check_k9(gen)
+        ssm_server, ssm_pending, ssm_counts = phase_ssm_serve()
+        done("ssm-serve")
+        phase_ssm_profile(ssm_server, ssm_pending)
+        del ssm_server
+        done("ssm-profile")
     except SystemExit:
         raise
     except Exception:                    # any phase failing fails the run
@@ -1731,11 +2032,14 @@ def main() -> int:
     launches["argmax_tokens"] = lm_counts["argmax_tokens"]
     launches["paged_decode_attention"] = paged_counts["paged_decode_attention"]
     k6["launches_paged"] = paged_counts["argmax_tokens"]
+    k6["launches_ssm"] = ssm_counts["argmax_tokens"]
+    launches["ssd_scan"] = ssm_counts["ssd_scan"]
+    k9["launches_per_admission"] = ssm_counts["ssd_scan"] / SSM_REQUESTS
     for k in (k1c, k3):
         k["launches_per_step"] = long_counts[k["name"]] / long_steps
         launches[k["name"]] = long_counts[k["name"]]
     kernels = [k1, k1s, k2, k1c, k3, k5["beam_frame_step"],
-               k5["beam_frame_step_topc"], k6, k7, k8]
+               k5["beam_frame_step_topc"], k6, k7, k8, k9]
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(f"[total] {time.perf_counter() - t_start:.1f}s", flush=True)

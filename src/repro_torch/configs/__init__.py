@@ -1,8 +1,13 @@
-"""Architecture registry of the port (the lstm and dense families)."""
+"""Architecture registry of the port (the lstm, dense and ssm families)."""
 from repro_torch.configs.base import (  # noqa: F401
     ARCH_REGISTRY,
     ArchConfig,
+    SSMConfig,
     get_arch,
     register,
 )
-from repro_torch.configs import smollm_360m, swb2000_blstm  # noqa: F401
+from repro_torch.configs import (  # noqa: F401
+    mamba2_370m,
+    smollm_360m,
+    swb2000_blstm,
+)

@@ -1,11 +1,25 @@
 """Architecture configuration: the port's own copy of the fields of
-``repro.configs.base.ArchConfig`` that the lstm and dense families read.
+``repro.configs.base.ArchConfig`` (and of its ``SSMConfig``) that the
+lstm, dense and ssm families read.
 
 Configs are frozen dataclasses so they compare and hash by value.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 style SSD (state space duality) block configuration."""
+
+    state_dim: int            # N, per-head SSM state size
+    head_dim: int = 64        # P, channels per SSM head
+    expand: int = 2           # d_inner = expand * d_model
+    n_groups: int = 1         # B/C groups (like GQA for SSM)
+    conv_width: int = 4       # depthwise causal conv width
+    chunk: int = 256          # SSD chunk length
 
 
 @dataclass(frozen=True)
@@ -13,7 +27,7 @@ class ArchConfig:
     """One selectable architecture (``--arch <name>``)."""
 
     name: str
-    family: str               # "lstm" | "dense" (the families ported)
+    family: str               # "lstm" | "dense" | "ssm" (the families ported)
     n_layers: int
     d_model: int
     vocab: int
@@ -35,6 +49,9 @@ class ArchConfig:
     window: int = 0
     window_for_long: int = 8192
     global_attn_layers: tuple = ()
+
+    # attention-free SSM family (models/ssm.py)
+    ssm: Optional[SSMConfig] = None
 
     # lstm acoustic model (the paper's own architecture)
     lstm_hidden: int = 0      # per-direction hidden size
@@ -81,7 +98,8 @@ class ArchConfig:
         """The reference's smoke-test variant: 2 layers, d_model <= 256,
         <= 4 heads, <= 2 KV heads, head_dim max(d // heads, 8), d_ff <=
         512, vocab <= 512, hidden 64, bottleneck 32, 2 learners, 1
-        microbatch."""
+        microbatch; an SSM keeps state_dim <= 16 with head_dim 16 and
+        chunk 16."""
         d = min(self.d_model, 256)
         heads = min(self.n_heads, 4) or self.n_heads
         kv = min(self.n_kv_heads, 2) or self.n_kv_heads
@@ -91,6 +109,10 @@ class ArchConfig:
                        vocab=min(self.vocab, 512), n_learners=2,
                        microbatches=1,
                        window=min(self.window, 64) if self.window else 0)
+        if self.ssm is not None:
+            changes["ssm"] = replace(self.ssm,
+                                     state_dim=min(self.ssm.state_dim, 16),
+                                     head_dim=16, chunk=16)
         if self.lstm_hidden:
             changes["lstm_hidden"] = 64
             changes["lstm_bottleneck"] = 32

@@ -31,6 +31,7 @@ SOURCES = {
     "beam_step": _PKG / "decode" / "csrc" / "beam_step.cu",
     "decode_attention": _PKG / "kernels" / "csrc" / "decode_attention.cu",
     "argmax": _PKG / "decode" / "csrc" / "argmax.cu",
+    "ssd_scan": _PKG / "kernels" / "csrc" / "ssd_scan.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -313,3 +313,101 @@ def lstm_direction_bwd_chunked_ref(wx, wh, b, x, dy, hb, cb, lengths, *,
         dwh += h_prev.flatten(-3, -2).transpose(-1, -2) @ rows
         db += rows.sum(-2)
     return dx[..., :T, :], dwx, dwh, db
+
+
+# ---------------------------------------------------------------------------
+# SSD (mamba-2 state-space duality)
+# ---------------------------------------------------------------------------
+
+def expand_groups(a, H: int):
+    """B/C per group (..., G, N) -> per head (..., H, N): head h reads
+    group h // (H // G), the reference's ``jnp.repeat`` over the group
+    axis."""
+    G = a.shape[-2]
+    if H % G:
+        raise ValueError(f"{H} heads do not split into {G} B/C groups")
+    return a if G == H else a.repeat_interleave(H // G, dim=-2)
+
+
+def ssd_ref(x, dt, A, Bm, Cm):
+    """Exact token-by-token SSM recurrence (``repro.kernels.ref.ssd_ref``).
+
+    x (B, S, H, P), dt (B, S, H), A (H,), Bm/Cm (B, S, G, N) with G
+    dividing H.  h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t^T; y_t = C_t . h_t.
+    Returns (y (B, S, H, P) in x's dtype, h_final (B, H, N, P) f32)."""
+    Bsz, S, H, P = x.shape
+    xf, dtf = x.float(), dt.float()
+    Bf, Cf = expand_groups(Bm.float(), H), expand_groups(Cm.float(), H)
+    h = torch.zeros(Bsz, H, Bf.shape[-1], P, dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for t in range(S):
+        dA = torch.exp(dtf[:, t] * A)                              # (B, H)
+        h = (dA[:, :, None, None] * h
+             + torch.einsum("bhn,bh,bhp->bhnp", Bf[:, t], dtf[:, t],
+                            xf[:, t]))
+        ys.append(torch.einsum("bhn,bhnp->bhp", Cf[:, t], h))
+    return torch.stack(ys, dim=1).to(x.dtype), h
+
+
+def _segsum(a):
+    """a (B, Q, H) -> (B, H, Q, Q): sum of a over the steps k+1..q at
+    [q, k] for k <= q, -inf above the diagonal.  Each entry is a cumsum of
+    exactly its own terms, so its f32 error is relative to itself — not to
+    the chunk-level cumsum, which at mamba2's decay rates reaches some
+    -4000 (the segment-sum form of arXiv:2405.21060's minimal SSD)."""
+    Bsz, Q, H = a.shape
+    a = a.permute(0, 2, 1)[..., None].expand(Bsz, H, Q, Q)   # [.., d, e] = a_d
+    strict = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=a.device),
+                        diagonal=-1)
+    seg = torch.cumsum(a.masked_fill(~strict, 0.0), dim=-2)
+    causal = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=a.device))
+    return seg.masked_fill(~causal, -torch.inf)
+
+
+def ssd_plain(x, dt, A, Bm, Cm, *, chunk: int):
+    """The chunked SSD algorithm that the reference's Pallas kernel
+    computes (``repro/kernels/ssd_scan.py`` ``_ssd_kernel``), all in f32:
+    within a chunk of Q = min(chunk, S) steps the quadratic
+    (C B^T * decay * dt) x product, across chunks the carried state.  The
+    decay exponents are segment sums (``_segsum``; the Pallas kernel
+    subtracts chunk-level cumsums, ~1e-4 off at mamba2's decay rates) and
+    exp of a masked (q < k) exponent is exp(-inf) = 0, never an overflow.
+
+    x (B, S, H, P), dt (B, S, H) f32, A (H,), Bm/Cm (B, S, G, N) with G
+    dividing H (head h reads group h // (H // G)).  A ragged last chunk
+    is padded with zero dt, which is exact: such a step neither decays
+    nor feeds the state, and its y rows are dropped.  Returns (y
+    (B, S, H, P) in x's dtype, rounded once; the final state (B, H, N,
+    P) f32)."""
+    Bsz, S, H, P = x.shape
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    xf, dtf = x.float(), dt.float()
+    Bf, Cf = expand_groups(Bm.float(), H), expand_groups(Cm.float(), H)
+    if pad:
+        zp = lambda a: torch.nn.functional.pad(        # noqa: E731
+            a, (0, 0) * (a.dim() - 2) + (0, pad))
+        xf, dtf, Bf, Cf = zp(xf), zp(dtf), zp(Bf), zp(Cf)
+    A = A.float()
+    N = Bf.shape[-1]
+    h = torch.zeros(Bsz, H, N, P, dtype=torch.float32, device=x.device)
+    ys = []
+    for c0 in range(0, S + pad, Q):
+        x_, dt_ = xf[:, c0:c0 + Q], dtf[:, c0:c0 + Q]
+        B_, C_ = Bf[:, c0:c0 + Q], Cf[:, c0:c0 + Q]
+        dA = dt_ * A                                               # (B, Q, H)
+        scores = torch.einsum("bqhn,bkhn->bhqk", C_, B_)
+        w = (scores * torch.exp(_segsum(dA))
+             * dt_.permute(0, 2, 1)[:, :, None, :])               # (B,H,q,k)
+        y = torch.einsum("bhqk,bkhp->bqhp", w, x_)
+        y = y + (torch.einsum("bqhn,bhnp->bqhp", C_, h)
+                 * torch.exp(torch.cumsum(dA, dim=1))[..., None])
+        # the sum of dA after each step: a reversed exclusive cumsum
+        after = torch.flip(torch.cumsum(torch.flip(dA, [1]), dim=1), [1])
+        after = torch.nn.functional.pad(after[:, 1:], (0, 0, 0, 1))
+        in_decay = torch.exp(after) * dt_                          # (B, Q, H)
+        h = (torch.exp(dA.sum(dim=1))[:, :, None, None] * h
+             + torch.einsum("bkhn,bkh,bkhp->bhnp", B_, in_decay, x_))
+        ys.append(y)
+    return torch.cat(ys, dim=1)[:, :S].to(x.dtype), h

@@ -4,14 +4,17 @@
 Two request families share the slot-pool pattern (admit into free slots,
 advance all active slots together, free and refill on completion):
 
-* **LM** (the dense decoder family, e.g. ``smollm-360m``): admission
-  prefills the prompt (plain torch attention) and emits the first token;
-  every decode wave advances the active requests one token through the
-  model's ``decode_step``, whose per-layer attention is the decode-
+* **LM** (the dense decoder family, e.g. ``smollm-360m``, and the
+  attention-free ssm family, e.g. ``mamba2-370m``): admission prefills
+  the prompt and emits the first token; every decode wave advances the
+  active requests one token through the model's ``decode_step``, and
+  selects tokens with the argmax kernel (K6 port).  The dense family's
+  prefill attention is plain torch; its decode attention is the decode-
   attention kernel (K7 port) over the dense KV cache of :class:`Server`,
   or the paged kernel (K8 port) over the shared page pool of
-  :class:`PagedServer`, and whose token selection is the argmax kernel
-  (K6 port).
+  :class:`PagedServer`.  The ssm family's prefill runs the chunked SSD
+  scan (K9 port) in every layer; its decode advances per-slot conv
+  windows and SSM states in plain torch ops, in :class:`Server` only.
 * **ASR** (the paper's lstm family): requests are variable-length
   utterances.  Admission runs the BLSTM forward once over the utterance
   (masked to its valid frames) and parks its CD-state posteriors on the
@@ -29,6 +32,8 @@ uninterrupted one.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
         --requests 8 --slots 4 --prompt-len 128 --max-len 256 --max-new 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
+        --requests 8 --slots 4 --prompt-len 300 --max-len 512 --max-new 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch swb2000-blstm \
         --requests 8 --slots 4 --prompt-len 256 --max-len 256
 """
@@ -57,6 +62,15 @@ def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def _tree_pairs(dst, src):
+    """The (dst, src) leaf pairs of two trees of one structure."""
+    if isinstance(dst, dict):
+        for k in dst:
+            yield from _tree_pairs(dst[k], src[k])
+    else:
+        yield dst, src
 
 
 def select_tokens(logits) -> list:
@@ -107,11 +121,14 @@ class _SlotPool(_Events):
 
 
 class Server(_SlotPool):
-    """LM continuous batching over a stacked dense KV cache
+    """LM continuous batching over a stacked decode-state cache
     (``repro.launch.serve.Server``).
 
-    The cache is {'attn': {'k', 'v'}}, each (L, slots, max_len, KV, E)
-    bf16 on the device.  Weights are drawn from ``seed``
+    The cache is a tree whose leaves carry (L, slots, ...) on the device:
+    {'attn': {'k', 'v'}}, each (L, slots, max_len, KV, E) bf16, for the
+    dense family; {'ssm': {'conv': {'x', 'B', 'C'}, 'h'}} for the ssm
+    family.  Admission, preemption and restore move a slot's row of every
+    leaf.  Weights are drawn from ``seed``
     (:func:`init_params`); assign ``server.params`` to serve other
     weights (e.g. carried over from JAX with
     :func:`repro_torch.params.from_jax_params`)."""
@@ -157,8 +174,8 @@ class Server(_SlotPool):
         logits, row = self.model.prefill_fn(
             self.params, {"tokens": self._on_device(prompt[None, :])},
             cache_len=self.max_len)
-        for name in ("k", "v"):
-            self.cache["attn"][name][:, slot] = row["attn"][name][:, 0]
+        for dst, src in _tree_pairs(self.cache, row):
+            dst[:, slot] = src[:, 0]
         nxt = select_tokens(logits[:, -1])[0]
         self.pos[slot] = len(prompt)
         self.tokens[slot, 0] = nxt
@@ -205,9 +222,8 @@ class Server(_SlotPool):
         slot = self._free_slot()
         if slot < 0:
             return AdmitResult(POOL_FULL)
-        for name in ("k", "v"):
-            self.cache["attn"][name][:, slot:slot + 1] = \
-                snap["row"]["attn"][name].to(self.device)
+        for dst, src in _tree_pairs(self.cache, snap["row"]):
+            dst[:, slot:slot + 1] = src.to(self.device)
         self.pos[slot] = snap["pos"]
         self.tokens[slot, 0] = snap["token"]
         self.budget[slot] = snap["budget"]
@@ -219,8 +235,7 @@ class Server(_SlotPool):
 
     def reset(self):
         """Clear every slot (weights and cache buffers are kept)."""
-        for c in self.cache["attn"].values():
-            c.zero_()
+        _tree_map(torch.Tensor.zero_, self.cache)
         self.pos[:] = 0
         self.active[:] = False
         self.tokens[:] = 0
@@ -233,8 +248,9 @@ class Server(_SlotPool):
     def _decode(self, group, pos: int) -> list:
         """Decode the slots of ``group`` (all at ``pos``) as ONE batched
         call; returns their next tokens.  Contiguous slots decode on views
-        of the cache, so the new column is written in place; other groups
-        gather their rows and scatter the new column back."""
+        of the cache, so the step writes in place; other groups gather
+        their rows and scatter back what the step wrote: the new KV column,
+        or the whole ssm rows."""
         toks = self._on_device(self.tokens[group])
         lo = group[0]
         if list(group) == list(range(lo, lo + len(group))):
@@ -244,9 +260,13 @@ class Server(_SlotPool):
             idx = self._on_device(group).long()
             rows = _tree_map(lambda c: c[:, idx], self.cache)
             logits, rows = self.model.decode_fn(self.params, rows, toks, pos)
-            for name in ("k", "v"):
-                self.cache["attn"][name][:, idx, pos] = \
-                    rows["attn"][name][:, :, pos]
+            if "attn" in rows:
+                for name in ("k", "v"):
+                    self.cache["attn"][name][:, idx, pos] = \
+                        rows["attn"][name][:, :, pos]
+            if "ssm" in rows:
+                for dst, src in _tree_pairs(self.cache["ssm"], rows["ssm"]):
+                    dst[:, idx] = src
         return select_tokens(logits[:, -1])
 
     def step(self):
@@ -311,6 +331,8 @@ class PagedServer(_Events):
       COWs any shared page (a device page copy here).
     * **preempt/restore** — the snapshot is the table's pages on the host;
       restore re-allocates through the trie and writes the owned pages.
+
+    Attention-only: a family without a KV cache (ssm) raises ValueError.
     """
 
     emits_on_admit = True
@@ -320,6 +342,9 @@ class PagedServer(_Events):
                  device=None, verbose: bool = False):
         if not cfg.supports_decode:
             raise ValueError(f"{cfg.name} has no LM decode loop")
+        if cfg.family != "dense":
+            raise ValueError(f"paged KV cache needs an attention-only "
+                             f"family, got {cfg.family}")
         if max_len % page_size:
             raise ValueError(f"max_len {max_len} must be a multiple of "
                              f"page_size {page_size}")
@@ -732,7 +757,9 @@ def serve_lm(server, pending, max_new: int):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--arch", default="smollm-360m",
+                    help="smollm-360m (dense LM), mamba2-370m (ssm LM) or "
+                         "swb2000-blstm (ASR)")
     ap.add_argument("--reduced", action="store_true",
                     help="serve the reference's smoke-test width (2 "
                          "layers, d_model <= 256, vocab <= 512; lstm: "
@@ -787,9 +814,12 @@ def main(argv=None):
     if cache_mode == "paged":
         page = args.page_size or cfg.page_size
         pool_pages = args.pool_pages or args.slots * cdiv(args.max_len, page)
-        server = PagedServer(cfg, pool_pages=pool_pages, page_size=page,
-                             max_len=args.max_len, device=args.device,
-                             verbose=True)
+        try:
+            server = PagedServer(cfg, pool_pages=pool_pages, page_size=page,
+                                 max_len=args.max_len, device=args.device,
+                                 verbose=True)
+        except ValueError as e:
+            ap.error(f"--cache paged: {e}")
     else:
         server = Server(cfg, slots=args.slots, max_len=args.max_len,
                         batched=not args.sequential, device=args.device,

@@ -1,3 +1,3 @@
-"""Model families of the port: the paper's BLSTM acoustic model and the
-dense decoder-only transformer."""
+"""Model families of the port: the paper's BLSTM acoustic model, the
+dense decoder-only transformer and the attention-free Mamba-2 stack."""
 from repro_torch.models.api import Model, build_model  # noqa: F401

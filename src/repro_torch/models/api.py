@@ -1,10 +1,11 @@
 """Model facade: one interface over the ported families — the port of
-``repro.models.api`` for the dense and lstm families.
+``repro.models.api`` for the dense, ssm and lstm families.
 
 ``build_model(cfg)`` returns a :class:`Model` exposing ``param_specs()``,
-``prefill_fn`` / ``decode_fn`` (dense serving steps over a dense or paged
-KV cache), ``cache_specs(batch, cache_len)`` and ``page_specs(n_pages,
-page_size)``.  The lstm family has parameters but no decode loop; its
+``prefill_fn`` / ``decode_fn`` (serving steps: the dense family over a
+dense or paged KV cache, the ssm family over per-slot conv windows and
+SSM states), ``cache_specs(batch, cache_len)`` and ``page_specs(n_pages,
+page_size)`` (attention-only: ValueError for the ssm family).  The lstm family has parameters but no decode loop; its
 ASR server calls ``models/lstm.py`` directly.
 """
 from __future__ import annotations
@@ -47,7 +48,7 @@ class Model:
 
     def page_specs(self, n_pages: int, page_size: int):
         """Paged decode-state specs (one shared page pool; serve.py
-        ``--cache paged``)."""
+        ``--cache paged``); ValueError for a family without attention."""
         self._decoder()
         return TF.page_specs(self.cfg, n_pages, page_size)
 

@@ -1,15 +1,17 @@
-"""Decoder-only transformer: the dense family of ``repro.models.
+"""Decoder-only stack: the dense and ssm families of ``repro.models.
 transformer`` — parameter specs, the sequence forward (prefill), the
-one-token decode step, and the KV-cache layouts (dense rows or a page
-pool).
+one-token decode step, and the decode-state layouts (dense KV rows or a
+page pool for the dense family; per-slot conv windows and SSM states for
+the ssm family).
 
 Layers are stacked along a leading axis L, as the reference stacks them
 for ``lax.scan``; here a Python loop walks them (no remat: inference
-only).  The decode step keeps the reference's shape: each layer attends
-over the OLD cache plus the new token's column (``attn_decode_delta``),
-and the new K/V of all layers land in ONE stacked write after the loop.
-The other families (moe, ssm, hybrid, vlm) raise ``NotImplementedError``
-naming their ROADMAP item.
+only).  The dense decode step keeps the reference's shape: each layer
+attends over the OLD cache plus the new token's column
+(``attn_decode_delta``), and the new K/V of all layers land in ONE
+stacked write after the loop.  The ssm decode step replaces each layer's
+state rows in place.  The other families (moe, hybrid, vlm) raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -18,17 +20,31 @@ import torch
 
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
+from repro_torch.models import ssm as SM
 from repro_torch.models.common import apply_norm, norm_spec, rope_angles
 from repro_torch.params import ParamSpec
 
 GLOBAL_WINDOW = np.int32(2 ** 30)   # "window" meaning full attention
 
 
-def _require_dense(cfg):
-    if cfg.family != "dense":
+PORTED_FAMILIES = ("dense", "ssm")
+
+
+def _require_ported(cfg):
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported (ROADMAP queue 1, 'Other "
-            f"families'); the port's transformer covers the dense family")
+            f"families'); the port's transformer covers the dense and ssm "
+            f"families")
+
+
+def _require_attention(cfg):
+    """The paged KV cache holds attention keys and values: the ssm
+    family's state is per-slot O(1) and has nothing to page."""
+    _require_ported(cfg)
+    if cfg.family != "dense":
+        raise ValueError(f"paged KV cache needs an attention-only family, "
+                         f"got {cfg.family}")
 
 
 # ---------------------------------------------------------------------------
@@ -36,7 +52,9 @@ def _require_dense(cfg):
 # ---------------------------------------------------------------------------
 
 def layer_param_specs(cfg) -> dict:
-    _require_dense(cfg)
+    _require_ported(cfg)
+    if cfg.family == "ssm":
+        return {"ln1": norm_spec(cfg), "ssm": SM.ssm_param_specs(cfg)}
     return {"ln1": norm_spec(cfg), "attn": A.attn_param_specs(cfg),
             "ln2": norm_spec(cfg), "mlp": F.ffn_param_specs(cfg)}
 
@@ -45,7 +63,8 @@ def _stack(spec_tree, n):
     """Prepend the layer axis.  A lecun weight keeps its own fan-in (the
     first axis of the per-layer shape) as an explicit normal scale: the
     reference's stacked lecun takes its fan-in from the layer axis
-    (scale 1/sqrt(L)), which makes random-init attention near one-hot."""
+    (scale 1/sqrt(L)), which makes random-init attention near one-hot
+    (and every ssm projection and conv kernel as large)."""
     if isinstance(spec_tree, dict):
         return {k: _stack(v, n) for k, v in spec_tree.items()}
     ps = spec_tree
@@ -100,10 +119,14 @@ def _layer(tree, i):
 
 def forward_seq(cfg, params, x, *, collect_cache: bool = False,
                 cache_len: int = 0):
-    """x (B, S, d) embedded inputs -> (hidden, cache); the cache is the
-    stacked (k, v), each (L, B, max(S, cache_len), KV, E), or () without
-    ``collect_cache`` (the dense family has no auxiliary loss)."""
-    _require_dense(cfg)
+    """x (B, S, d) embedded inputs -> (hidden, cache).  Without
+    ``collect_cache`` the cache is ().  The dense cache is the stacked
+    (k, v), each (L, B, max(S, cache_len), KV, E); the ssm cache is the
+    stacked (conv_state {'x', 'B', 'C'}, ssm_state), each with a leading
+    L.  Neither family has an auxiliary loss."""
+    _require_ported(cfg)
+    if cfg.family == "ssm":
+        return _forward_seq_ssm(cfg, params, x, collect_cache)
     B, S, _ = x.shape
     windows = layer_windows(cfg, S)
     rope = _rope(cfg, torch.arange(S, device=x.device)[None, :])
@@ -123,6 +146,23 @@ def forward_seq(cfg, params, x, *, collect_cache: bool = False,
         x = x.to(torch.bfloat16)
     cache = (torch.stack(ks), torch.stack(vs)) if collect_cache else ()
     return x, cache
+
+
+def _forward_seq_ssm(cfg, params, x, collect_cache):
+    x = x.to(torch.bfloat16)
+    convs, hs = [], []
+    for i in range(cfg.n_layers):
+        p = _layer(params["layers"], i)
+        o, (conv, h_ssm) = SM.mamba2_seq(cfg, p["ssm"],
+                                         apply_norm(p["ln1"], x))
+        x = (x + o).to(torch.bfloat16)
+        if collect_cache:
+            convs.append(conv)
+            hs.append(h_ssm)
+    if not collect_cache:
+        return x, ()
+    conv = {k: torch.stack([c[k] for c in convs]) for k in convs[0]}
+    return x, (conv, torch.stack(hs))
 
 
 def _pad_cache(k, v, cache_len):
@@ -153,18 +193,30 @@ def logits_fn(cfg, params, x):
 # ---------------------------------------------------------------------------
 
 def cache_specs(cfg, batch: int, cache_len: int) -> dict:
-    """Stacked per-layer dense KV cache: k, v (L, batch, cache_len, KV, E)
-    bf16."""
-    _require_dense(cfg)
+    """Stacked per-layer decode state: the dense KV cache {'attn': {'k',
+    'v'}} (L, batch, cache_len, KV, E) bf16, or the ssm state {'ssm':
+    {'conv': {'x', 'B', 'C'}, 'h'}} with a leading L (cache_len unused:
+    the state is O(1) per slot)."""
+    _require_ported(cfg)
+    if cfg.family == "ssm":
+        return {"ssm": _stack_state(SM.ssm_cache_specs(cfg, batch),
+                                    cfg.n_layers)}
     shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
     return {"attn": {"k": ParamSpec(shape, "bfloat16", "zeros"),
                      "v": ParamSpec(shape, "bfloat16", "zeros")}}
 
 
+def _stack_state(spec_tree, n):
+    if isinstance(spec_tree, dict):
+        return {k: _stack_state(v, n) for k, v in spec_tree.items()}
+    return spec_tree._replace(shape=(n,) + tuple(spec_tree.shape))
+
+
 def page_specs(cfg, n_pages: int, page_size: int) -> dict:
     """Paged KV cache: ONE pool of physical pages shared by every
-    in-flight request, k, v (L, n_pages, page_size, KV, E) bf16."""
-    _require_dense(cfg)
+    in-flight request, k, v (L, n_pages, page_size, KV, E) bf16.
+    Attention-only families: ValueError for the ssm family."""
+    _require_attention(cfg)
     shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
     return {"attn": {"k": ParamSpec(shape, "bfloat16", "zeros"),
                      "v": ParamSpec(shape, "bfloat16", "zeros")}}
@@ -177,9 +229,15 @@ def decode_step(cfg, params, cache, tokens, pos: int, *, page_table=None,
 
     ``page_table`` (B, W) int32 selects the paged layout: cache['attn']
     k/v are page pools (L, n_pages, P, KV, E) and the new column lands in
-    the table's page for ``pos``.  The cache tensors are written in place
-    (one column per layer, after the layer loop) and returned."""
-    _require_dense(cfg)
+    the table's page for ``pos`` (dense family only: ValueError for ssm).
+    The cache tensors are written in place — the dense family's new
+    column once per layer after the layer loop, the ssm family's conv
+    windows and states replaced whole per layer — and returned."""
+    _require_ported(cfg)
+    if page_table is not None:
+        _require_attention(cfg)
+    if cfg.family == "ssm":
+        return _decode_step_ssm(cfg, params, cache, tokens)
     paged = page_table is not None
     kc, vc = cache["attn"]["k"], cache["attn"]["v"]
     S_cache = page_table.shape[-1] * page_size if paged else kc.shape[2]
@@ -212,14 +270,37 @@ def decode_step(cfg, params, cache, tokens, pos: int, *, page_table=None,
     return logits_fn(cfg, params, x), cache
 
 
+def _decode_step_ssm(cfg, params, cache, tokens):
+    """The ssm family's step: position-free, so ``pos`` plays no part."""
+    st = cache["ssm"]
+    x = embed_tokens(cfg, params, tokens)
+    for i in range(cfg.n_layers):
+        p = _layer(params["layers"], i)
+        conv_i = {k: v[i] for k, v in st["conv"].items()}
+        o, (conv, h) = SM.mamba2_step(cfg, p["ssm"],
+                                      apply_norm(p["ln1"], x), conv_i,
+                                      st["h"][i])
+        x = (x + o).to(torch.bfloat16)
+        for k, v in conv.items():
+            conv_i[k].copy_(v)
+        st["h"][i].copy_(h)
+    x = apply_norm(params["final_norm"], x)
+    return logits_fn(cfg, params, x), cache
+
+
 def prefill(cfg, params, tokens, *, cache_len: int = 0):
     """Full-context forward of tokens (B, S) -> (last-token logits
-    (B, 1, V), the decode cache {'attn': {'k', 'v'}} of length
-    max(S, cache_len))."""
+    (B, 1, V), the decode cache): {'attn': {'k', 'v'}} of length
+    max(S, cache_len) for the dense family, {'ssm': {'conv', 'h'}} for
+    the ssm family."""
     x = embed_tokens(cfg, params, tokens)
     cache_len = cache_len or x.shape[1]
-    x, (k, v) = forward_seq(cfg, params, x, collect_cache=True,
-                               cache_len=cache_len)
+    x, caches = forward_seq(cfg, params, x, collect_cache=True,
+                            cache_len=cache_len)
     x = apply_norm(params["final_norm"], x)
     logits = logits_fn(cfg, params, x[:, -1:, :])
+    if cfg.family == "ssm":
+        conv, h = caches
+        return logits, {"ssm": {"conv": conv, "h": h}}
+    k, v = caches
     return logits, {"attn": {"k": k, "v": v}}

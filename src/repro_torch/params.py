@@ -3,7 +3,8 @@
 Parameters are plain nested dicts of tensors under the reference's tree
 keys — the BLSTM's ``layers/layer_i/{fwd,bwd}/{wx,wh,b}``,
 ``bottleneck``, ``softmax_w``, ``softmax_b``; the transformer's
-layer-stacked ``layers/{ln1,attn,ln2,mlp}/...`` (leading axis L),
+layer-stacked ``layers/{ln1,attn,ln2,mlp}/...`` or, for the ssm family,
+``layers/{ln1,ssm}/...`` (leading axis L),
 ``embed`` and ``final_norm`` — so a JAX parameter tree converted to
 numpy loads one-to-one through :func:`from_jax_params`, and a JAX train
 state through :func:`from_jax_state`.
@@ -24,7 +25,7 @@ class ParamSpec(NamedTuple):
 
     shape: tuple
     dtype: str = "bfloat16"
-    init: str = "normal"          # normal | zeros | ones | lecun
+    init: str = "normal"          # normal | zeros | ones | lecun | small_a_log
     init_scale: float = 0.02
 
 
@@ -35,6 +36,10 @@ def _init_one(ps: ParamSpec, gen: torch.Generator) -> torch.Tensor:
         return torch.zeros(ps.shape, dtype=dtype)
     if ps.init == "ones":
         return torch.ones(ps.shape, dtype=dtype)
+    if ps.init == "small_a_log":
+        # mamba2 A_log: the log of A drawn uniformly from [1, 16)
+        u = torch.rand(ps.shape, generator=gen, dtype=torch.float32)
+        return torch.log(1.0 + 15.0 * u).to(dtype)
     z = torch.randn(ps.shape, generator=gen, dtype=torch.float32)
     if ps.init == "lecun":
         fan_in = ps.shape[0] if len(ps.shape) >= 1 else 1

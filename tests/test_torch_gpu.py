@@ -477,3 +477,80 @@ def test_lm_servers_on_card_match_cpu(cuda):
                for t in list(dict(fin).values()) + list(dict(fin_p).values()))
     now = (DA.launches, DA.paged_launches, DK.argmax_launches)
     assert all(n > c for n, c in zip(now, counts))
+
+
+def _ssd_inputs(cuda, B, S, H, P, G, N, seed, dtype=torch.bfloat16):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, S, H, P, generator=g).to(cuda, dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, H, generator=g)).to(cuda)
+    A = (-torch.exp(0.5 * torch.randn(H, generator=g))).to(cuda)
+    Bm = torch.randn(B, S, G, N, generator=g).to(cuda, dtype)
+    Cm = torch.randn(B, S, G, N, generator=g).to(cuda, dtype)
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+    (1, 40, 3, 16, 3, 8, 16),         # ragged last chunk
+    (2, 7, 2, 16, 2, 16, 16),         # S < Q
+    (3, 100, 4, 24, 2, 12, 32),       # G < H, P not a multiple of 16
+    (2, 129, 8, 64, 1, 128, 64),      # one group, the full state width
+    (1, 300, 2, 32, 1, 128, 256),     # the full chunk, ragged
+])
+def test_ssd_kernel_matches_plain(cuda, dtype, B, S, H, P, G, N, chunk):
+    """K9 against ``ssd_plain`` on the same inputs: both compute in f32, so
+    y agrees within one rounding of its type (2e-2 normalised for bf16,
+    1e-5 for f32) and the f32 state within 1e-4 normalised (sums in
+    another order)."""
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.kernels.ref import ssd_plain
+
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, B, S, H, P, G, N, seed=S + N,
+                                   dtype=dtype)
+    before = ssd_scan.launches
+    y, h = ssd_scan.ssd(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    want_y, want_h = ssd_plain(x, dt, A, Bm, Cm, chunk=chunk)
+    assert y.dtype == dtype and h.dtype == torch.float32
+    tol = BF16_TOL if dtype == torch.bfloat16 else 1e-5
+    assert _norm_err(y, want_y) <= tol
+    assert _norm_err(h, want_h) <= 1e-4
+
+
+def test_ssd_kernel_at_full_width_prefill(cuda):
+    """mamba2-370m's prefill shape: B = 1, H 32, P 64, N 128, one group,
+    Q 256, a 700-token prompt (the last chunk ragged)."""
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.kernels.ref import ssd_plain
+
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, 1, 700, 32, 64, 1, 128, seed=1)
+    y, h = ssd_scan.ssd(x, dt, A, Bm, Cm, chunk=256)
+    torch.cuda.synchronize()
+    want_y, want_h = ssd_plain(x, dt, A, Bm, Cm, chunk=256)
+    assert _norm_err(y, want_y) <= BF16_TOL
+    assert _norm_err(h, want_h) <= 1e-4
+
+
+def test_ssm_server_on_card_matches_cpu(cuda):
+    """Reduced mamba2-370m: the card's prefill logits agree with the CPU's
+    at bf16 tolerance for a ragged prompt, and the server finishes every
+    request with K9 launched once per layer per admission."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.launch.serve import Server, lm_requests, serve_lm
+
+    cfg = get_arch("mamba2-370m").reduced()
+    pending = lm_requests(cfg, [5, 20, 2, 33])
+    cpu = Server(cfg, slots=2, max_len=64, device="cpu")
+    gpu = Server(cfg, slots=2, max_len=64)
+    gpu.params = _to(cpu.params, cuda)
+    tokens = torch.as_tensor(pending[1][1][None])
+    want, _ = cpu.model.prefill_fn(cpu.params, {"tokens": tokens})
+    got, _ = gpu.model.prefill_fn(gpu.params, {"tokens": tokens.to(cuda)})
+    assert _norm_err(got.cpu(), want) <= BF16_TOL
+    before = ssd_scan.launches
+    fin, _, _, _ = serve_lm(gpu, pending, 6)
+    assert sorted(dict(fin)) == [0, 1, 2, 3]
+    assert ssd_scan.launches - before == cfg.n_layers * len(pending)
