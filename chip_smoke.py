@@ -57,28 +57,42 @@ Phases, each of which fails the run (nonzero exit, no result line):
    0, tile edges and S - 1 and a window, at 2e-2 (normalised); the paged
    kernel (K8 port) over a shuffled 512-page pool of 16 positions with
    padded tables at 2e-2, and bit-identical to K7 at block_s = 16 on
-   contiguous pages; argmax (K6 port) on (8, 49152) bf16 logits with
+   contiguous pages; K7 again at hymba-1.5b's decode shape (S = 2048,
+   M = 5, window 1024); argmax (K6 port) on (8, 49152) bf16 logits with
    planted ties and NaN, bit for bit; each timed beside its plain
-   version, its byte bound and a library call;
+   version, its byte bound and a library call, and per launch with the
+   host's dispatch taken out (``_device_ms``: back-to-back launches
+   replayed from one CUDA graph, set beside torch.profiler's sum);
+8a. k11 — the flash-attention kernel (K11 port) against its plain
+   version ``flash_attention_plain`` at 2e-2 (normalised; every value
+   finite) at hymba-1.5b's prefill shape (B = 1, S = 1500, 25 heads over
+   5 KV heads, E = 64; window 1024 and global), smollm-360m's (15 heads,
+   S = 600), Sq = 1, a ragged E = 32 case, q_offset > 0 with Sk > Sq
+   (windowed and global), non-causal with Sk < Sq, and M = 8 at E = 128;
+   the three serving shapes timed (eager, and graph-replayed per
+   launch) beside their plain version, their operation bound and
+   scaled_dot_product_attention;
 9. lm-serve — the full-width ``smollm-360m`` (32 layers, d 960, 15 heads
    over 5 KV heads, vocab 49152, random weights from seed 0) dense
-   ``Server``: 16 requests (prompt lengths 64-496 drawn with seed 0,
-   a 64-token shared prefix), 8 slots, max_len 1024, 64 new tokens each,
-   with the launch counters set to 0 just before and read just after;
-   decoded tokens/s, mean wave ms, prefill ms per request, peak device
-   memory; one request's prefill and first 8 decode logits against the
-   plain path (teacher-forced) at 2e-2; one preempt -> restore held
-   bit-identical to the uninterrupted run;
+   ``Server``: 16 requests (prompt lengths 64-960 drawn with seed 0, the
+   second forced to 600, a 64-token shared prefix), 8 slots, max_len
+   1024, 64 new tokens each, with the launch counters set to 0 just
+   before and read just after (K11 32 times per admission); decoded
+   tokens/s, mean wave ms, prefill ms per request, peak device memory;
+   the shortest and the 600-token request's prefill and first 8 decode
+   logits against the plain path (teacher-forced) at 2e-2; one preempt
+   -> restore held bit-identical to the uninterrupted run;
 10. lm profile — 4 requests under torch.profiler;
 11. lm-serve paged — the same requests through ``PagedServer`` (pages of
     16, a 512-page pool): tokens/s, peak sharing ratio, COW count and
     shared hits, and how many requests decode the dense run's tokens;
 12. k9 — the chunked SSD scan (K9 port) against its plain version
-    ``ssd_plain`` at a small shape (G < H) and at the full-width serving
-    shape (B = 1, 32 heads of P = 64, N = 128, one B/C group, Q = 256,
-    S = 700: the last chunk ragged): y within 2e-2 and the state within
-    1e-4 (normalised); timed beside its plain version and its operation
-    bound (no library call computes chunked SSD);
+    ``ssd_plain`` at a small shape (G < H) and at the two full-width
+    serving shapes (mamba2-370m: B = 1, 32 heads of P = 64, N = 128, one
+    B/C group, Q = 256, S = 700, the last chunk ragged; hymba-1.5b: 50
+    heads of 64, N = 16, S = 1500): y within 2e-2 and the state within
+    1e-4 (normalised); each serving shape timed beside its plain version
+    and its operation bound (no library call computes chunked SSD);
 13. ssm-serve — the full-width ``mamba2-370m`` (48 layers, d 1024,
     d_inner 2048 as 32 SSM heads of 64, state 128, chunk 256, vocab
     50,280, random weights from seed 0) ``Server``: 16 requests (prompt
@@ -95,7 +109,23 @@ Phases, each of which fails the run (nonzero exit, no result line):
     one preempt -> restore held bit-identical to the uninterrupted run;
 14. ssm profile — 4 requests under torch.profiler, admissions (prefill)
     and decode waves as two windows: each one's share of the wall time,
-    the device's busy share and the top kernels.
+    the device's busy share and the top kernels;
+15. hybrid-serve — the full-width ``hymba-1.5b`` (32 layers, d 1600, 25
+    heads over 5 KV heads, window 1024 with global layers 0, 15 and 31,
+    an SSM branch of 50 heads of 64 with state 16, vocab 32,001, random
+    weights from seed 0) ``Server``: 16 requests (prompt lengths 64-2000
+    drawn with seed 0, the first forced to 1500), 8 slots, max_len 2048,
+    24 new tokens each, with the counters set to 0 just before and read
+    just after (K11 and K9 32 times per admission, K7 32 times per decode
+    call, K6 once per admission and per decode call); tokens/s, mean wave
+    ms, prefill ms, peak memory; for the 1500-token request each of its
+    32 K11 launches against ``flash_attention_plain`` and each K9 launch
+    against ``ssd_plain`` on the layer's own inputs, and its prefill and
+    first 8 decode logits against the plain path (every kernel swapped
+    for its plain version; teacher-forced) held at 2e-2 through the first
+    4 layers and printed through all 32; one preempt -> restore held
+    bit-identical;
+16. hybrid profile — as 14, for the hybrid server.
 
 The last two lines are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
@@ -143,12 +173,49 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, kernel: str, iters: int = 50) -> float:
-    """Device time of one launch of the CUDA kernel whose name contains
-    ``kernel``, averaged over ``iters`` calls under torch.profiler (the
-    event timing of back-to-back calls also counts the wrapper's host
-    time whenever the host is the slower side); None if the profiler saw
-    no such kernel."""
+def _device_ms(fn, iters: int = 50, reps: int = 5) -> float:
+    """Device time of one call of ``fn`` with the host's dispatch taken
+    out: ``iters`` back-to-back calls captured into one CUDA graph, the
+    graph replayed ``reps`` times between two CUDA events, the elapsed
+    time over iters * reps.  (``_time_ms`` times eager calls, which also
+    counts the wrapper's host time whenever the host is the slower side.)
+    ``fn`` must launch on the current stream and synchronise nothing, as
+    the kernel wrappers do; None, said, if the capture fails."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                              # libraries loaded outside capture
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            for _ in range(iters):
+                fn()
+    except RuntimeError as e:
+        print(f"[device-ms] CUDA graph capture failed, not measured: {e}",
+              flush=True)
+        return None
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
+
+
+def _profiler_ms(fn, kernel: str, iters: int = 50) -> float:
+    """The device time of one launch of the kernel whose name contains
+    ``kernel`` as torch.profiler sums it over ``iters`` eager calls (this
+    script's "device time per launch" before the CUDA-graph replay), kept
+    to set beside :func:`_device_ms`; None if the profiler saw no such
+    kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -164,6 +231,10 @@ def _device_ms(fn, kernel: str, iters: int = 50) -> float:
     if not rows:
         return None
     return sum(e.device_time_total for e in rows) / 1e3 / iters
+
+
+def _ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
 
 
 def _profile_window(fn, tag):
@@ -1238,6 +1309,7 @@ LM_B, LM_S, LM_KV, LM_M, LM_E, LM_P = 8, 1024, 5, 3, 64, 16
 LM_POOL = LM_B * LM_S // LM_P
 LM_REQUESTS, LM_MAX_NEW, LM_SHARED = 16, 64, 64
 LM_TIMED_POS = 511
+LM_RAGGED = 600
 
 
 def _lm_attn_inputs(gen, B, S, n_pages=None):
@@ -1326,24 +1398,87 @@ def check_k7(gen):
     one = [t[:1].contiguous() for t in (q, kc, vc, kn, vn)]
     ms_b1 = _time_ms(lambda: DA.decode_attention(
         one[0], one[1], one[2], pos, k_new=one[3], v_new=one[4]), 200)
-    dev_ms = _device_ms(lambda: DA.decode_attention(q, kc, vc, pos, **kw),
-                        "decode_attn_kernel")
-    dev_b1 = _device_ms(lambda: DA.decode_attention(
-        one[0], one[1], one[2], pos, k_new=one[3], v_new=one[4]),
-        "decode_attn_kernel")
+    call = lambda: DA.decode_attention(q, kc, vc, pos, **kw)  # noqa: E731
+    call_b1 = lambda: DA.decode_attention(  # noqa: E731
+        one[0], one[1], one[2], pos, k_new=one[3], v_new=one[4])
+    dev_ms, dev_b1 = _device_ms(call), _device_ms(call_b1)
+    prof_ms = _profiler_ms(call, "decode_attn_kernel")
+    prof_b1 = _profiler_ms(call_b1, "decode_attn_kernel")
     nbytes, ops = _attn_bytes_ops(LM_B, pos)
     bound_ms, bound_by = _bound(nbytes, ops, PEAK_F32_FLOPS)
     print(f"[K7] B={LM_B} pos={pos} delta: kernel {ms:.4f} ms (B=1: "
-          f"{ms_b1:.4f} ms), device time per launch {dev_ms} ms (B=1: "
-          f"{dev_b1} ms), plain {plain_ms:.4f} ms, library {library_ms} "
-          f"ms, bound {bound_ms:.5f} ms ({bound_by})", flush=True)
+          f"{ms_b1:.4f} ms) eager; graph-replayed per launch "
+          f"{_ms(dev_ms)} (B=1: {_ms(dev_b1)}), profiler per launch "
+          f"{_ms(prof_ms)} (B=1: {_ms(prof_b1)}); plain {plain_ms:.4f} "
+          f"ms, library {library_ms} ms, bound {bound_ms:.5f} ms "
+          f"({bound_by})", flush=True)
     return dict(name="decode_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention.py:216",
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                device_ms=dev_ms, device_ms_b1=dev_b1,
                 shape=f"B={LM_B} S={LM_S} KV={LM_KV} M={LM_M} E={LM_E} "
-                      f"pos={pos} delta tile={tile}")
+                      f"pos={pos} delta tile={tile}", **_check_k7_hybrid(gen))
+
+
+# hymba-1.5b's decode attention (the hybrid-serve phase): 8 slots of a
+# 2048-position cache, 5 KV heads of M = 5 queries, E = 64, and the
+# windowed layers' 1024-position window.
+HYB_B, HYB_CACHE, HYB_KV, HYB_M, HYB_E, HYB_WINDOW = 8, 2048, 5, 5, 64, 1024
+HYB_TIMED_POS = 1600
+
+
+def _check_k7_hybrid(gen):
+    """K7 at hymba-1.5b's decode shape against its plain version, over pos
+    at and around the window's edge, canonical and delta; the delta call
+    timed at pos 1600 (1023 cache rows inside the window).  Returns the
+    fields this adds to K7's entry."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as DA
+
+    B, S, KV, M, E, W = (HYB_B, HYB_CACHE, HYB_KV, HYB_M, HYB_E,
+                         HYB_WINDOW)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen).to("cuda", torch.bfloat16)
+
+    q, kc, vc, kn, vn = (r(B, 1, KV * M, E), r(B, S, KV, E), r(B, S, KV, E),
+                         r(B, 1, KV, E), r(B, 1, KV, E))
+    worst = 0.0
+    for delta in (False, True):
+        kw = dict(k_new=kn, v_new=vn) if delta else {}
+        for pos in (0, W - 1, W, HYB_TIMED_POS, S - 1):
+            got = DA.decode_attention(q, kc, vc, pos, window=W, **kw)
+            torch.cuda.synchronize()
+            want = DA.decode_attention_ref(q, kc, vc, pos, window=W, **kw)
+            abs_err, norm = _norm_err(got, want)
+            if not norm <= K1_TOL:
+                _fail(f"K7 (hymba shape) delta={delta} pos={pos}: "
+                      f"normalised error {norm}")
+            worst = max(worst, abs_err)
+    pos = HYB_TIMED_POS
+
+    def call():
+        return DA.decode_attention(q, kc, vc, pos, window=W, k_new=kn,
+                                   v_new=vn)
+
+    ms, dev_ms = _time_ms(call, 200), _device_ms(call)
+    rows = W - 1                        # old rows inside the window
+    nbytes = (2 * B * KV * M * E * 2 + 2 * B * rows * KV * E * 2
+              + 2 * B * KV * E * 2)
+    bound_ms, bound_by = _bound(nbytes, 4 * B * (rows + 1) * KV * M * E,
+                                PEAK_F32_FLOPS)
+    print(f"[K7] hymba shape B={B} S={S} KV={KV} M={M} E={E} window {W}: "
+          f"pos 0..{S - 1} canonical and delta within {K1_TOL} (worst "
+          f"max_abs_err {worst:.3g}); delta at pos {pos}: kernel "
+          f"{ms:.4f} ms eager, graph-replayed per launch {_ms(dev_ms)}, "
+          f"bound {bound_ms:.5f} ms ({bound_by})", flush=True)
+    return dict(ms_hymba=ms, device_ms_hymba=dev_ms,
+                bound_ms_hymba=bound_ms, max_abs_err_hymba=worst,
+                shape_hymba=f"B={B} S={S} KV={KV} M={M} E={E} pos={pos} "
+                            f"window={W} delta")
 
 
 def check_k8(gen):
@@ -1402,14 +1537,17 @@ def check_k8(gen):
         q, kc, vc, pos, block_s=LM_P, **kw), 200)
     library_ms = _library_attn_ms(q, DA.gather_pages(kp, tbl),
                                   DA.gather_pages(vp, tbl), pos, "K8")
-    dev_ms = _device_ms(lambda: DA.paged_decode_attention(
-        q, kp, vp, tbl, pos, **kw), "decode_attn_kernel")
+    call = lambda: DA.paged_decode_attention(  # noqa: E731
+        q, kp, vp, tbl, pos, **kw)
+    dev_ms = _device_ms(call)
+    prof_ms = _profiler_ms(call, "decode_attn_kernel")
     nbytes, ops = _attn_bytes_ops(LM_B, pos)
     nbytes += LM_B * (pos // LM_P + 1) * 4                # table entries
     bound_ms, bound_by = _bound(nbytes, ops, PEAK_F32_FLOPS)
-    print(f"[K8] B={LM_B} pos={pos} delta: kernel {ms:.4f} ms (K7 at "
-          f"block_s={LM_P}: {ms_k7_16:.4f} ms), device time per launch "
-          f"{dev_ms} ms, plain {plain_ms:.4f} ms, "
+    print(f"[K8] B={LM_B} pos={pos} delta: kernel {ms:.4f} ms eager (K7 at "
+          f"block_s={LM_P}: {ms_k7_16:.4f} ms); graph-replayed per launch "
+          f"{_ms(dev_ms)}, profiler per launch {_ms(prof_ms)}; plain "
+          f"{plain_ms:.4f} ms, "
           f"library {library_ms} ms (over the gathered cache), bound "
           f"{bound_ms:.5f} ms ({bound_by})", flush=True)
     return dict(name="paged_decode_attention", route="cuda",
@@ -1417,6 +1555,7 @@ def check_k8(gen):
                 replaces="src/repro/kernels/decode_attention.py:294",
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                device_ms=dev_ms,
                 shape=f"B={LM_B} pool={LM_POOL}x{LM_P} W={W} KV={LM_KV} "
                       f"M={LM_M} E={LM_E} pos={pos} delta")
 
@@ -1446,42 +1585,199 @@ def check_k6(gen):
     ms = _time_ms(lambda: DK.argmax_tokens(x), 200)
     plain_ms = _time_ms(lambda: DK.argmax_ref(x), 200)
     library_ms = _time_ms(lambda: torch.argmax(x, dim=-1), 200)
-    dev_ms = _device_ms(lambda: DK.argmax_tokens(x), "argmax_kernel")
+    dev_ms = _device_ms(lambda: DK.argmax_tokens(x))
+    prof_ms = _profiler_ms(lambda: DK.argmax_tokens(x), "argmax_kernel")
     bound_ms, bound_by = _bound(B * V * 2 + B * 4, B * V, PEAK_F32_FLOPS)
-    print(f"[K6] kernel {ms:.4f} ms, device time per launch {dev_ms} ms, "
-          f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+    print(f"[K6] kernel {ms:.4f} ms eager; graph-replayed per launch "
+          f"{_ms(dev_ms)}, profiler per launch {_ms(prof_ms)}; plain "
+          f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
           f"{bound_ms:.5f} ms ({bound_by})", flush=True)
     return dict(name="argmax_tokens", route="cuda",
                 source="src/repro_torch/decode/csrc/argmax.cu",
                 replaces="src/repro/decode/kernel.py:158", max_abs_err=0.0,
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, device_ms=dev_ms,
                 bound_by=bound_by, library_ms=library_ms,
                 shape=f"B={B} V={V} bf16")
+
+
+# --------------------------------------------------------------- phase 8a
+# The flash-attention kernel (K11 port): the prefill attention of the
+# dense and hybrid families.  hymba-1.5b's serving shape is a B = 1
+# prefill of 1500 tokens (past the 1024-position window, a multiple of
+# neither 512 nor 256) with 25 query heads over 5 KV heads, E = 64.
+HYB_S, HYB_H = 1500, 25
+K11_TOL = 2e-2           # the bf16 output's rounding (docs/kernels.md)
+GLOBAL = 2 ** 30         # the model's GLOBAL_WINDOW
+K11_CASES = [
+    # tag, B, Sq, Sk, H, KV, E, causal, window, q_offset, timed
+    ("hymba windowed", 1, HYB_S, HYB_S, HYB_H, HYB_KV, 64, True, HYB_WINDOW,
+     0, True),
+    ("hymba global", 1, HYB_S, HYB_S, HYB_H, HYB_KV, 64, True, GLOBAL, 0,
+     True),
+    ("smollm-360m", 1, 600, 600, 15, 5, 64, True, GLOBAL, 0, True),
+    ("ragged Sq=1", 2, 1, 1, 4, 2, 64, True, 0, 0, False),
+    ("ragged E=32", 3, 77, 77, 6, 2, 32, True, 16, 0, False),
+    ("q_offset", 2, 100, 700, HYB_H, HYB_KV, 64, True, 256, 600, False),
+    ("q_offset global", 1, 37, 300, 15, 5, 64, True, 0, 263, False),
+    ("non-causal", 2, 333, 290, 8, 2, 64, False, 0, 0, False),
+    ("M=8 E=128 windowed", 1, 777, 777, 8, 1, 128, True, 128, 0, False),
+    ("M=8 E=128 global", 1, 777, 777, 8, 1, 128, True, 0, 0, False),
+]
+
+
+def _attn_pairs(Sq, Sk, causal, window, q_offset):
+    """The (query position, key) pairs one head admits."""
+    import numpy as np
+
+    if not causal:
+        return Sq * Sk
+    p = q_offset + np.arange(Sq)
+    hi = np.minimum(p, Sk - 1)
+    lo = np.maximum(p - window + 1, 0) if 0 < window < GLOBAL else 0
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _flash_bytes_ops(B, Sq, Sk, H, KV, E, causal, window, q_offset):
+    """Bytes a call must move (q, k, v in and o out, bf16) and its
+    operations: 4E per admitted pair and query head (q.k and p.v), all on
+    bf16 operands at the bf16 tensor-core peak."""
+    nbytes = 2 * (2 * B * Sq * H * E + 2 * B * Sk * KV * E)
+    return nbytes, 4 * E * B * H * _attn_pairs(Sq, Sk, causal, window,
+                                                q_offset)
+
+
+def _sdpa_prefill(q, k, v, causal, window, q_offset):
+    """The library yardstick (used nowhere in the port): one
+    scaled_dot_product_attention call with the library's GQA grouping,
+    ``is_causal`` for a global prefill, else a boolean mask."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    Sq, Sk = q.shape[1], k.shape[1]
+    kw = {}
+    full = window <= 0 or window >= GLOBAL
+    if causal and full and q_offset == 0 and Sq == Sk:
+        kw["is_causal"] = True
+    elif causal:
+        qp = q_offset + torch.arange(Sq, device=q.device)
+        kp = torch.arange(Sk, device=q.device)
+        ok = qp[:, None] >= kp[None, :]
+        if not full:
+            ok &= qp[:, None] - kp[None, :] < window
+        kw["attn_mask"] = ok
+
+    def call():
+        return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                              **kw)
+    return call
+
+
+def check_k11(gen):
+    """K11 against ``flash_attention_plain`` at every case of K11_CASES
+    (2e-2 normalised, every value finite); the timed ones beside their
+    plain version, their bound and SDPA."""
+    import math
+
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.ref import flash_attention_plain
+
+    worst, rows = 0.0, {}
+    for tag, B, Sq, Sk, H, KV, E, causal, window, q_offset, timed in \
+            K11_CASES:
+        def r(*shape):
+            return torch.randn(*shape, generator=gen).to("cuda",
+                                                         torch.bfloat16)
+
+        q, k, v = r(B, Sq, H, E), r(B, Sk, KV, E), r(B, Sk, KV, E)
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        before = FA.launches
+        got = FA.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if FA.launches != before + 1:
+            _fail(f"K11 {tag}: the wrapper did not launch the kernel")
+        want = flash_attention_plain(q, k, v, **kw)
+        abs_err, norm = _norm_err(got, want)
+        if not (norm <= K11_TOL and bool(torch.isfinite(got).all())):
+            _fail(f"K11 {tag}: normalised error {norm} (tol {K11_TOL}), or "
+                  f"a value that is not finite")
+        worst = max(worst, abs_err)
+        ctas = B * KV * math.ceil(Sq * H // KV / FA.ROWS)
+        line = (f"[K11] {tag}: B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} E={E} "
+                f"causal={causal} window={window} q_offset={q_offset} "
+                f"({ctas} CTAs): normalised error {norm:.3g} (tol "
+                f"{K11_TOL}), max_abs_err {abs_err:.3g}")
+        if timed:
+            call = lambda: FA.flash_attention(q, k, v, **kw)  # noqa: E731
+            ms, dev_ms = _time_ms(call, 50), _device_ms(call)
+            plain_ms = _time_ms(lambda: flash_attention_plain(q, k, v, **kw),
+                                5)
+            try:
+                sdpa = _sdpa_prefill(q, k, v, causal, window, q_offset)
+                library_ms, library_dev = _time_ms(sdpa, 50), _device_ms(sdpa)
+            except (RuntimeError, TypeError) as e:    # no SDPA backend
+                print(f"[K11] {tag}: library not timed: {e}", flush=True)
+                library_ms = library_dev = None
+            nbytes, ops = _flash_bytes_ops(B, Sq, Sk, H, KV, E, causal,
+                                           window, q_offset)
+            bound_ms, bound_by = _bound(nbytes, ops, PEAK_BF16_FLOPS)
+            rows[tag] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                             library_ms=library_ms,
+                             library_device_ms=library_dev,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             shape=f"B={B} S={Sq} H={H} KV={KV} E={E} "
+                                   f"window={window} bf16")
+            line += (f"; kernel {ms:.4f} ms eager, graph-replayed per "
+                     f"launch {_ms(dev_ms)}, plain {plain_ms:.4f} ms, "
+                     f"library {_ms(library_ms)} eager, "
+                     f"{_ms(library_dev)} graph-replayed, bound "
+                     f"{bound_ms:.5f} ms ({bound_by}: {ops / 1e9:.3f} GFLOP, "
+                     f"{nbytes / 1e6:.2f} MB), roofline share "
+                     f"{bound_ms / (dev_ms or ms):.3f}")
+        print(line, flush=True)
+    extra = {f"{k}_global": v for k, v in rows["hymba global"].items()}
+    extra.update({f"{k}_smollm": v for k, v in rows["smollm-360m"].items()})
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:119",
+                max_abs_err=worst, **rows["hymba windowed"], **extra)
 
 
 # ---------------------------------------------------------------- phase 9
 def _lm_counts():
     from repro_torch.decode import kernel as DK
     from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SSD
 
     return {"decode_attention": DA.launches,
             "paged_decode_attention": DA.paged_launches,
-            "argmax_tokens": DK.argmax_launches}
+            "argmax_tokens": DK.argmax_launches,
+            "flash_attention": FA.launches, "ssd_scan": SSD.launches}
 
 
 def _zero_lm_counts():
     from repro_torch.decode import kernel as DK
     from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SSD
 
     DA.launches = DA.paged_launches = DK.argmax_launches = 0
+    FA.launches = SSD.launches = 0
 
 
 def _lm_pending(cfg, requests=LM_REQUESTS):
+    """16 prompts of 64-960 tokens drawn with the seed, sharing a 64-token
+    prefix; the second forced to LM_RAGGED = 600 (past 512 and no
+    multiple of it: a length the 512-row chunked prefill once refused)."""
     import numpy as np
 
     from repro_torch.launch.serve import lm_requests
 
-    lengths = np.random.default_rng(SEED).integers(64, 497, size=requests)
+    lengths = np.random.default_rng(SEED).integers(64, 961, size=requests)
+    lengths[1] = LM_RAGGED
     return lm_requests(cfg, [int(n) for n in lengths],
                        shared_prefix=LM_SHARED, seed=SEED)
 
@@ -1543,31 +1839,49 @@ def _teacher_forced_logits(server, prompt, tokens, steps):
     return torch.cat(out)
 
 
-def _check_lm_against_plain(server, pending, finished):
-    """One request's prefill and first 8 decode logits, teacher-forced
-    with its served tokens, kernel path vs plain path (the decode
-    attention wrapper swapped for its plain version) on the card."""
+def _plain_kernels():
+    """Every LM kernel wrapper swapped for its plain version: the prefill
+    attention (K11), the SSD scan (K9) and the decode attention (K7)."""
+    from contextlib import ExitStack
     from unittest import mock
 
     from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.kernels.ref import flash_attention_plain, ssd_plain
 
+    stack = ExitStack()
+    for mod, name, plain in ((FA, "flash_attention", flash_attention_plain),
+                             (SSD, "ssd", ssd_plain),
+                             (DA, "decode_attention",
+                              DA.decode_attention_ref)):
+        stack.enter_context(mock.patch.object(mod, name, plain))
+    return stack
+
+
+def _check_lm_against_plain(server, pending, finished):
+    """The shortest request's and the 600-token request's prefill and
+    first 8 decode logits, teacher-forced with their served tokens, kernel
+    path vs plain path (K11 and K7 swapped for their plain versions) on
+    the card, held at 2e-2."""
     def errors(rid, prompt):
         toks = finished[rid]
         got = _teacher_forced_logits(server, prompt, toks, 8)
-        with mock.patch.object(DA, "decode_attention",
-                               DA.decode_attention_ref):
+        with _plain_kernels():
             want = _teacher_forced_logits(server, prompt, toks, 8)
         return [_norm_err(g, w)[1] for g, w in zip(got, want)]
 
-    rid, prompt = min(pending, key=lambda r: len(r[1]))
-    errs = errors(rid, prompt)
-    print(f"[lm-serve] request {rid} ({len(prompt)} prompt tokens) "
-          f"teacher-forced, kernel vs plain path, normalised logits error "
-          f"(tol {K1_TOL}): prefill {errs[0]:.3g}, decode steps 1-8 "
-          f"{[round(e, 5) for e in errs[1:]]}; served first tokens "
-          f"{finished[rid][:9]}", flush=True)
-    if not max(errs) <= K1_TOL:
-        _fail(f"lm-serve logits disagree with the plain path: {errs}")
+    held = [min(pending, key=lambda r: len(r[1]))]
+    held += [r for r in pending if len(r[1]) == LM_RAGGED][:1]
+    for rid, prompt in held:
+        errs = errors(rid, prompt)
+        print(f"[lm-serve] request {rid} ({len(prompt)} prompt tokens) "
+              f"teacher-forced, kernel vs plain path, normalised logits "
+              f"error (tol {K1_TOL}): prefill {errs[0]:.3g}, decode steps "
+              f"1-8 {[round(e, 5) for e in errs[1:]]}; served first tokens "
+              f"{finished[rid][:9]}", flush=True)
+        if not max(errs) <= K1_TOL:
+            _fail(f"lm-serve logits disagree with the plain path: {errs}")
     worst = {r: round(max(errors(r, p)), 5) for r, p in pending[:4]}
     print(f"[lm-serve] the same check for the first 4 requests (not "
           f"held): worst per request {worst}", flush=True)
@@ -1605,6 +1919,14 @@ def _check_lm_preempt(server, pending, tag="lm-serve"):
         _fail(f"{tag}: a preempted request decoded other tokens")
 
 
+def _expect_prefill_launches(tag, cfg, pending, counts):
+    """K11 once per attention layer of every admission."""
+    want = cfg.n_layers * len(pending)
+    if counts["flash_attention"] != want:
+        _fail(f"{tag}: K11 launched {counts['flash_attention']} times, "
+              f"expected {cfg.n_layers} per admission = {want}")
+
+
 def phase_lm_serve():
     from repro_torch.configs import get_arch
     from repro_torch.launch.serve import Server
@@ -1627,6 +1949,7 @@ def phase_lm_serve():
     for name in ("decode_attention", "argmax_tokens"):
         if counts[name] <= 0:
             _fail(f"kernel {name} was never launched on the lm-serve path")
+    _expect_prefill_launches("lm-serve", cfg, pending, counts)
     _lm_report("lm-serve", cfg, pending, finished, admit_s, wave_s, occ, dt,
                counts, LM_MAX_NEW)
     _check_lm_against_plain(server, pending, finished)
@@ -1671,6 +1994,7 @@ def phase_lm_paged(pending, dense):
     for name in ("paged_decode_attention", "argmax_tokens"):
         if counts[name] <= 0:
             _fail(f"kernel {name} was never launched on the paged path")
+    _expect_prefill_launches("lm-paged", cfg, pending, counts)
     _lm_report("lm-paged", cfg, pending, finished, admit_s, wave_s, occ, dt,
                counts, LM_MAX_NEW)
     print(f"[lm-paged] pool {server.pool.n_pages} pages x {LM_P}: peak "
@@ -1708,7 +2032,7 @@ SSM_H, SSM_P, SSM_N, SSM_Q, SSM_S = 32, 64, 128, 256, 700
 SSM_REQUESTS, SSM_MAX_NEW, SSM_RAGGED = 16, 32, 700
 SSM_Y_TOL, SSM_STATE_TOL = 2e-2, 1e-4
 SSM_CUT = 8              # layers of the held end-to-end logits check
-SSM_PROFILE_NEW = 8      # new tokens per request in the ssm profile
+PROFILE_NEW = 8          # new tokens per request in the two-window profiles
 
 
 def _ssd_inputs(gen, B, S, H, P, G, N):
@@ -1749,7 +2073,9 @@ def check_k9(gen):
 
     worst = 0.0
     shapes = [(2, 100, 4, 32, 2, 64, 32),                   # small, G < H
-              (1, SSM_S, SSM_H, SSM_P, 1, SSM_N, SSM_Q)]    # serving shape
+              (1, SSM_S, SSM_H, SSM_P, 1, SSM_N, SSM_Q),    # mamba2-370m
+              (1, HYB_S, 50, 64, 1, 16, 256)]               # hymba-1.5b
+    timed = []
     for B, S, H, P, G, N, Q in shapes:
         args = _ssd_inputs(gen, B, S, H, P, G, N)
         y, h = SSD.ssd(*args, chunk=Q)
@@ -1764,21 +2090,28 @@ def check_k9(gen):
               f"{ny:.3g} (tol {SSM_Y_TOL}), state {nh:.3g} (tol "
               f"{SSM_STATE_TOL}) normalised, max_abs_err y {ey:.3g} state "
               f"{eh:.3g}", flush=True)
-    ms = _time_ms(lambda: SSD.ssd(*args, chunk=Q), 50)
-    plain_ms = _time_ms(lambda: ssd_plain(*args, chunk=Q), 10)
-    nbytes, ops = _ssd_bytes_ops(B, S, H, P, G, N, Q)
-    bound_ms, bound_by = _bound(nbytes, ops)
-    print(f"[K9] B={B} S={S} (last chunk {S % Q or Q}) H={H} P={P} N={N} "
-          f"Q={Q}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-          f"none, bound {bound_ms:.5f} ms ({bound_by}: "
-          f"{ops[0][0] / 1e9:.3f} GFLOP bf16 scores, {ops[1][0] / 1e9:.3f} "
-          f"GFLOP f32, {nbytes / 1e6:.2f} MB)", flush=True)
+        if B == 1:                                  # the serving shapes
+            ms = _time_ms(lambda: SSD.ssd(*args, chunk=Q), 50)
+            plain_ms = _time_ms(lambda: ssd_plain(*args, chunk=Q), 10)
+            nbytes, ops = _ssd_bytes_ops(B, S, H, P, G, N, Q)
+            bound_ms, bound_by = _bound(nbytes, ops)
+            print(f"[K9] B={B} S={S} (last chunk {S % Q or Q}) H={H} P={P} "
+                  f"N={N} Q={Q}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                  f"ms, library none, bound {bound_ms:.5f} ms ({bound_by}: "
+                  f"{ops[0][0] / 1e9:.3f} GFLOP bf16 scores, "
+                  f"{ops[1][0] / 1e9:.3f} GFLOP f32, {nbytes / 1e6:.2f} MB)",
+                  flush=True)
+            timed.append((ms, plain_ms, bound_ms, bound_by,
+                          f"B={B} S={S} H={H} P={P} G={G} N={N} Q={Q} bf16"))
+    (ms, plain_ms, bound_ms, bound_by, shape), hyb = timed
     return dict(name="ssd_scan", route="cuda",
                 source="src/repro_torch/kernels/csrc/ssd_scan.cu",
                 replaces="src/repro/kernels/ssd_scan.py:103",
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                shape=f"B={B} S={S} H={H} P={P} G={G} N={N} Q={Q} bf16")
+                shape=shape, ms_hymba=hyb[0], plain_ms_hymba=hyb[1],
+                bound_ms_hymba=hyb[2], bound_by_hymba=hyb[3],
+                shape_hymba=hyb[4])
 
 
 # --------------------------------------------------------------- phase 13
@@ -1934,33 +2267,167 @@ def phase_ssm_serve():
     return server, pending, counts
 
 
-def phase_ssm_profile(server, pending):
-    """Where the ssm serving time goes: 4 requests, their admissions
-    (prefill) and their decode waves (SSM_PROFILE_NEW new tokens each)
-    profiled as two windows."""
+def phase_two_window_profile(server, pending, tag):
+    """Where the serving time goes: 4 requests, their admissions (prefill)
+    and their decode waves (PROFILE_NEW new tokens each) profiled as two
+    windows."""
     server.reset()
 
     def admit():
         for rid, prompt in pending[:4]:
-            server.admit(rid, prompt, SSM_PROFILE_NEW)
+            server.admit(rid, prompt, PROFILE_NEW)
 
     def decode():
         while server.active.any():
             server.step()
 
-    pre = _profile_window(admit, "ssm-profile")
-    dec = pre and _profile_window(decode, "ssm-profile")
+    pre = _profile_window(admit, tag)
+    dec = pre and _profile_window(decode, tag)
     if not dec:
         return
     total = pre[1] + dec[1]
-    for tag, (_, wall, busy, rows) in (("prefill", pre), ("decode", dec)):
-        print(f"[ssm-profile] {tag}: wall {wall:.1f} ms "
+    for part, (_, wall, busy, rows) in (("prefill", pre), ("decode", dec)):
+        print(f"[{tag}] {part}: wall {wall:.1f} ms "
               f"({100 * wall / total:.1f}% of the 4-request run), device "
               f"busy {busy:.1f} ms ({100 * busy / wall:.1f}%), host-bound "
               f"rest {wall - busy:.1f} ms", flush=True)
         for us, n, key in rows[:8]:
-            print(f"[ssm-profile]   {tag} {us / 1e3:9.2f} ms  {n:6d}x  "
+            print(f"[{tag}]   {part} {us / 1e3:9.2f} ms  {n:6d}x  "
                   f"{key[:64]}", flush=True)
+
+
+# --------------------------------------------------------------- phase 15
+# The hybrid slice: the full-width hymba-1.5b Server, 8 slots of 2048
+# positions (HYB_B, HYB_CACHE); the first prompt HYB_S = 1500 tokens.
+HYB_REQUESTS, HYB_MAX_NEW = 16, 24
+HYB_CUT = 4              # layers of the held end-to-end logits check
+
+
+def _hybrid_pending(cfg):
+    """16 prompts of 64-2000 tokens drawn with the seed; the first forced
+    to 1500 (past the 1024-position window, a multiple of neither 512
+    nor 256)."""
+    import numpy as np
+
+    from repro_torch.launch.serve import lm_requests
+
+    lengths = np.random.default_rng(SEED).integers(64, 2001,
+                                                   size=HYB_REQUESTS)
+    lengths[0] = HYB_S
+    return lm_requests(cfg, [int(n) for n in lengths], seed=SEED)
+
+
+def _check_hybrid_against_plain(server, pending, finished):
+    """Kernel path vs plain path on the card, for the 1500-token request:
+
+    * every one of its 32 K11 launches held against
+      ``flash_attention_plain`` on that layer's own q, k, v (2e-2), and
+      every K9 launch against ``ssd_plain`` (2e-2 y, 1e-4 state);
+    * its prefill and first 8 decode logits, teacher-forced with its
+      served tokens, every kernel swapped for its plain version, held at
+      2e-2 through the first HYB_CUT layers; through all 32 the distance
+      is printed, not held (random-init depth amplifies any rounding
+      difference, as ``_check_ssm_against_plain`` says)."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.kernels.ref import flash_attention_plain, ssd_plain
+
+    rid, prompt = pending[0]
+    toks = finished[rid]
+    real_fa, real_ssd, attn, ssd = FA.flash_attention, SSD.ssd, [], []
+
+    def fa_both(q, k, v, **kw):
+        o = real_fa(q, k, v, **kw)
+        attn.append(_norm_err(o, flash_attention_plain(q, k, v, **kw))[1])
+        return o
+
+    def ssd_both(x, dt, A, Bm, Cm, *, chunk):
+        y, h = real_ssd(x, dt, A, Bm, Cm, chunk=chunk)
+        py, ph = ssd_plain(x, dt, A, Bm, Cm, chunk=chunk)
+        ssd.append((_norm_err(y, py)[1], _norm_err(h, ph)[1]))
+        return y, h
+
+    with mock.patch.object(FA, "flash_attention", fa_both), \
+            mock.patch.object(SSD, "ssd", ssd_both):
+        server.model.prefill_fn(server.params, {"tokens": torch.as_tensor(
+            prompt[None]).to("cuda")})
+    wy, wh = max(e[0] for e in ssd), max(e[1] for e in ssd)
+    print(f"[hybrid-serve] request {rid} ({len(prompt)} prompt tokens): "
+          f"each of its {len(attn)} K11 launches vs flash_attention_plain "
+          f"on the layer's own q/k/v, worst normalised {max(attn):.3g} "
+          f"(tol {K11_TOL}; per layer {[round(e, 5) for e in attn]}); each "
+          f"of its {len(ssd)} K9 launches vs ssd_plain, worst y {wy:.3g} "
+          f"(tol {SSM_Y_TOL}), state {wh:.3g} (tol {SSM_STATE_TOL})",
+          flush=True)
+    L = server.cfg.n_layers
+    if len(attn) != L or len(ssd) != L or not (
+            max(attn) <= K11_TOL and wy <= SSM_Y_TOL
+            and wh <= SSM_STATE_TOL):
+        _fail(f"hybrid-serve: a K11 or K9 launch disagrees with its plain "
+              f"version on its layer's inputs: {attn}, {ssd}")
+
+    for srv, held in ((_layer_cut(server, HYB_CUT), True), (server, False)):
+        got = _teacher_forced_logits(srv, prompt, toks, 8)
+        with _plain_kernels():
+            want = _teacher_forced_logits(srv, prompt, toks, 8)
+        errs = [_norm_err(g, w)[1] for g, w in zip(got, want)]
+        n = srv.model.cfg.n_layers
+        print(f"[hybrid-serve] teacher-forced logits through {n} layers, "
+              f"kernel vs plain path, normalised: prefill {errs[0]:.3g}, "
+              f"decode steps 1-8 {[round(e, 5) for e in errs[1:]]} "
+              f"({'held at ' + str(K1_TOL) if held else 'not held'}); "
+              f"served first tokens {toks[:9]}", flush=True)
+        if held and not max(errs) <= K1_TOL:
+            _fail(f"hybrid-serve logits disagree with the plain path "
+                  f"through {n} layers: {errs}")
+
+
+def phase_hybrid_serve():
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import Server
+
+    cfg = get_arch("hymba-1.5b")
+    t0 = time.perf_counter()
+    server = Server(cfg, slots=HYB_B, max_len=HYB_CACHE, seed=SEED)
+    pending = _hybrid_pending(cfg)
+    # warm-up: one short request (cuBLAS handles, the kernel libraries)
+    server.admit(-1, pending[0][1][:64], 4)
+    while server.active.any():
+        server.step()
+    server.reset()
+    d_inner = cfg.ssm.expand * cfg.d_model
+    print(f"[hybrid-serve] {cfg.name}: {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV "
+          f"heads, window {cfg.window} (global layers "
+          f"{cfg.global_attn_layers}), SSM d_inner {d_inner} as "
+          f"{d_inner // cfg.ssm.head_dim} heads of {cfg.ssm.head_dim}, state "
+          f"{cfg.ssm.state_dim}, vocab {cfg.vocab}; {HYB_B} slots, max_len "
+          f"{HYB_CACHE}, {HYB_MAX_NEW} new tokens; prompt lengths "
+          f"{[len(p) for _, p in pending]}; set-up "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    finished, admit_s, wave_s, occ, dt, counts = _lm_run(server, pending,
+                                                         HYB_MAX_NEW)
+    calls = counts["decode_attention"] // cfg.n_layers
+    for name, want in (("flash_attention", cfg.n_layers * len(pending)),
+                       ("ssd_scan", cfg.n_layers * len(pending)),
+                       ("decode_attention", cfg.n_layers * calls),
+                       ("argmax_tokens", calls + len(pending))):
+        if counts[name] != want or not calls:
+            _fail(f"hybrid-serve: {name} launched {counts[name]} times, "
+                  f"expected {want} ({len(pending)} admissions, {calls} "
+                  f"decode calls)")
+    _lm_report("hybrid-serve", cfg, pending, finished, admit_s, wave_s, occ,
+               dt, counts, HYB_MAX_NEW)
+    print(f"[hybrid-serve] {calls} decode calls; the {HYB_S}-token "
+          f"request's admission (prefill + first token) "
+          f"{1e3 * admit_s[0]:.2f} ms", flush=True)
+    _check_hybrid_against_plain(server, pending, finished)
+    _check_lm_preempt(server, pending, tag="hybrid-serve")
+    return server, pending, counts
 
 
 def _to_cpu(tree):
@@ -2007,6 +2474,7 @@ def main() -> int:
         long_counts, long_steps = phase_train_long()
         done("train-long")
         k7, k8, k6 = check_k7(gen), check_k8(gen), check_k6(gen)
+        k11 = check_k11(gen)
         lm_server, lm_pending, dense, lm_counts = phase_lm_serve()
         done("lm-serve")
         phase_lm_profile(lm_server, lm_pending)
@@ -2017,9 +2485,14 @@ def main() -> int:
         k9 = check_k9(gen)
         ssm_server, ssm_pending, ssm_counts = phase_ssm_serve()
         done("ssm-serve")
-        phase_ssm_profile(ssm_server, ssm_pending)
+        phase_two_window_profile(ssm_server, ssm_pending, "ssm-profile")
         del ssm_server
         done("ssm-profile")
+        hyb_server, hyb_pending, hyb_counts = phase_hybrid_serve()
+        done("hybrid-serve")
+        phase_two_window_profile(hyb_server, hyb_pending, "hybrid-profile")
+        del hyb_server
+        done("hybrid-profile")
     except SystemExit:
         raise
     except Exception:                    # any phase failing fails the run
@@ -2035,11 +2508,16 @@ def main() -> int:
     k6["launches_ssm"] = ssm_counts["argmax_tokens"]
     launches["ssd_scan"] = ssm_counts["ssd_scan"]
     k9["launches_per_admission"] = ssm_counts["ssd_scan"] / SSM_REQUESTS
+    launches["flash_attention"] = hyb_counts["flash_attention"]
+    k11["launches_dense"] = lm_counts["flash_attention"]
+    k11["launches_paged"] = paged_counts["flash_attention"]
+    for k in (k6, k7, k9):
+        k["launches_hybrid"] = hyb_counts[k["name"]]
     for k in (k1c, k3):
         k["launches_per_step"] = long_counts[k["name"]] / long_steps
         launches[k["name"]] = long_counts[k["name"]]
     kernels = [k1, k1s, k2, k1c, k3, k5["beam_frame_step"],
-               k5["beam_frame_step_topc"], k6, k7, k8, k9]
+               k5["beam_frame_step_topc"], k6, k7, k8, k9, k11]
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(f"[total] {time.perf_counter() - t_start:.1f}s", flush=True)

@@ -1,4 +1,5 @@
-"""Architecture registry of the port (the lstm, dense and ssm families)."""
+"""Architecture registry of the port (the lstm, dense, ssm and hybrid
+families)."""
 from repro_torch.configs.base import (  # noqa: F401
     ARCH_REGISTRY,
     ArchConfig,
@@ -7,6 +8,7 @@ from repro_torch.configs.base import (  # noqa: F401
     register,
 )
 from repro_torch.configs import (  # noqa: F401
+    hymba_1_5b,
     mamba2_370m,
     smollm_360m,
     swb2000_blstm,

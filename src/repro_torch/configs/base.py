@@ -1,6 +1,6 @@
 """Architecture configuration: the port's own copy of the fields of
 ``repro.configs.base.ArchConfig`` (and of its ``SSMConfig``) that the
-lstm, dense and ssm families read.
+lstm, dense, ssm and hybrid families read.
 
 Configs are frozen dataclasses so they compare and hash by value.
 """
@@ -27,7 +27,7 @@ class ArchConfig:
     """One selectable architecture (``--arch <name>``)."""
 
     name: str
-    family: str               # "lstm" | "dense" | "ssm" (the families ported)
+    family: str               # "lstm" | "dense" | "ssm" | "hybrid" (ported)
     n_layers: int
     d_model: int
     vocab: int
@@ -50,7 +50,8 @@ class ArchConfig:
     window_for_long: int = 8192
     global_attn_layers: tuple = ()
 
-    # attention-free SSM family (models/ssm.py)
+    # the SSM block of the ssm family and of the hybrid family's layers
+    # (models/ssm.py)
     ssm: Optional[SSMConfig] = None
 
     # lstm acoustic model (the paper's own architecture)

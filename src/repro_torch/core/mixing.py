@@ -12,7 +12,8 @@ allreduce realization of a parameter server (Eq. 13).  The collective
 forms act on parameter trees stacked over a leading learner axis; the
 explicit matrices exist for analysis and tests.  The hierarchical and
 exponential topologies and the elastic matrices are not ported yet
-(ROADMAP.md queue 1, items 3 and 6).
+(ROADMAP.md queue 1, "Topologies and strategies not yet ported" and
+"Recovery and elastic training").
 """
 from __future__ import annotations
 

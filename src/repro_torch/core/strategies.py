@@ -34,8 +34,9 @@ weights: each learner's masked-mean gradient is scaled by its
 valid-frame share, so uniform mixing equals the global masked gradient.
 
 Not ported yet: the hring, ad_psgd_q8 and ad_psgd_exp rows (they raise,
-naming ROADMAP.md queue 1, items 2 and 3) and the elastic step (item
-6).
+naming ROADMAP.md queue 1's "Topologies and strategies not yet
+ported" and "Wire codecs and bucketing") and the elastic step
+("Recovery and elastic training").
 """
 from __future__ import annotations
 
@@ -196,7 +197,8 @@ def get_strategy(name: str) -> Strategy:
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"strategy {name!r} needs a topology or wire codec that is not "
-            f"ported yet: ROADMAP.md queue 1, items 2 and 3")
+            f"ported yet: ROADMAP.md queue 1, 'Topologies and strategies not "
+            f"yet ported' and 'Wire codecs and bucketing'")
     return STRATEGIES[name]
 
 

@@ -9,8 +9,9 @@ port holds the exact-arithmetic (f32-wire, unbucketed) ``ring`` and
 exactly as the reference's fast path does (``transport.py:257-297``),
 and ``wire_bytes``, the analytic bytes each learner sends per round.
 Every other topology, wire codec or bucketing raises
-``NotImplementedError`` naming its ROADMAP.md item (queue 1, items 2 and
-3).
+``NotImplementedError`` naming its ROADMAP.md item by title (queue 1:
+"Topologies and strategies not yet ported", "Wire codecs and
+bucketing").
 """
 from __future__ import annotations
 
@@ -23,8 +24,9 @@ from repro_torch.core import mixing
 TOPOLOGIES = ("none", "uniform", "ring", "hierarchical", "exp")
 WIRES = ("f32", "bf16", "int8", "topk")
 _PORTED_TOPOLOGIES = ("uniform", "ring")
-_TOPOLOGY_TODO = "not ported yet: ROADMAP.md queue 1, item 2"
-_WIRE_TODO = "not ported yet: ROADMAP.md queue 1, item 3"
+_TOPOLOGY_TODO = ("not ported yet: ROADMAP.md queue 1, 'Topologies and "
+                  "strategies not yet ported'")
+_WIRE_TODO = "not ported yet: ROADMAP.md queue 1, 'Wire codecs and bucketing'"
 
 
 def _ring_sends(G: int) -> float:

@@ -1,0 +1,110 @@
+"""Causal or sliding-window GQA flash attention: the wrapper of the K11
+port, the prefill attention of the dense and hybrid families.
+
+``flash_attention`` has the contract of ``repro.kernels.flash_attention.
+flash_attention``: q (B, Sq, H, E), k/v (B, Sk, KV, E) -> (B, Sq, H, E)
+in q's dtype, GQA groups of M = H / KV query heads per KV head, query row
+s at position ``q_offset + s``; with ``causal`` it admits key t <= that
+position and, with a ``window`` > 0, position - t < window (a window past
+every position, such as the model's ``GLOBAL_WINDOW``, is full
+attention; without ``causal`` the window plays no part, as in the
+reference).  Scores, softmax and accumulator are f32.  One extension: any
+Sq and Sk are accepted (the Pallas kernel asserts Sq % block_q == 0).
+
+On a CUDA tensor it launches ``csrc/flash_attention.cu`` and counts one
+launch (``launches``); on a CPU tensor it runs the plain version
+(``ref.flash_attention_plain``).  It never falls back from the card to
+the plain path.  The kernel keeps p f32 to 2^-16 in p·v (two bf16 terms
+through the tensor cores), so it matches the all-f32 plain version up to
+summation order: the tolerance is the bf16 output's, 2e-2 normalised.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.device import require_kernel_device
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import flash_attention_plain
+
+launches = 0          # K11 launches (one per flash_attention on the card)
+
+HEAD_DIMS = (32, 64, 128)     # the kernel's instantiations of E
+ROWS = 64                     # (position, head) rows of q per CTA
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def kernel_window(window, *, causal: bool, q_offset: int, Sq: int) -> int:
+    """The window as the kernel takes it: 0 (none) without ``causal``, for
+    a window <= 0 or None, and for a window past every query position —
+    so the model's ``GLOBAL_WINDOW`` = 2**30 never enters the kernel's
+    position arithmetic."""
+    w = 0 if window is None else int(window)
+    if not causal or w <= 0 or w >= q_offset + Sq:
+        return 0
+    return w
+
+
+def _check(q, k, v, window, q_offset):
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"expected q (B,Sq,H,E), k/v (B,Sk,KV,E); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, Sq, H, E = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != E or KV < 1 or H % KV:
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)} (H a multiple of KV)")
+    if Sq < 1 or Sk < 1 or q_offset < 0:
+        raise ValueError(f"need Sq, Sk >= 1 and q_offset >= 0; got Sq={Sq}, "
+                         f"Sk={Sk}, q_offset={q_offset}")
+    if E not in HEAD_DIMS:
+        raise ValueError(f"head_dim {E} is not one of the kernel's "
+                         f"{HEAD_DIMS}")
+    if window and q_offset + Sq - window >= Sk:
+        raise ValueError(f"window {window}: query position "
+                         f"{q_offset + Sq - 1} admits no key of {Sk}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=0,
+                    q_offset: int = 0):
+    """q (B, Sq, H, E) bf16, k/v (B, Sk, KV, E) bf16 -> (B, Sq, H, E)."""
+    global launches
+    q_offset = int(q_offset)
+    if q.device.type == "cpu":
+        return flash_attention_plain(
+            q, k, v, causal=causal, q_offset=q_offset,
+            window=0 if window is None else int(window))
+    win = kernel_window(window, causal=causal, q_offset=q_offset,
+                        Sq=q.shape[1])
+    _check(q, k, v, win, q_offset)
+    require_kernel_device(q)
+    B, Sq, H, E = q.shape
+    dev = q.device
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if (t.dtype != torch.bfloat16 or t.device != dev
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{name}: expected a contiguous, 16-byte "
+                             f"aligned bf16 tensor on {dev}, got {t.dtype} "
+                             f"on {t.device} (contiguous: "
+                             f"{t.is_contiguous()})")
+    Sk, KV = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lib = build.load("flash_attention")
+    if lib.flash_attention.argtypes is None:
+        lib.flash_attention.argtypes = ([_P] * 4 + [_I] * 9
+                                        + [ctypes.c_float, _P])
+        lib.flash_attention.restype = _I
+    rc = lib.flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk,
+        KV, H // KV, E, int(bool(causal)), win, q_offset,
+        float(np.float32(1.0 / np.sqrt(E))),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc:
+        raise RuntimeError(f"flash_attention launch failed: cudaError {rc}")
+    launches += 1
+    return out

@@ -411,3 +411,34 @@ def ssd_plain(x, dt, A, Bm, Cm, *, chunk: int):
              + torch.einsum("bkhn,bkh,bkhp->bhnp", B_, in_decay, x_))
         ys.append(y)
     return torch.cat(ys, dim=1)[:, :S].to(x.dtype), h
+
+
+# ---------------------------------------------------------------------------
+# flash attention (K11)
+# ---------------------------------------------------------------------------
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                          q_offset: int = 0):
+    """The function of the flash-attention kernel in torch ops
+    (``repro.kernels.ref.attention_ref``): q (B, Sq, H, E), k/v (B, Sk,
+    KV, E) -> (B, Sq, H, E) in q's dtype, GQA groups of M = H / KV query
+    heads per KV head, f32 scores, softmax and p·v.  With ``causal`` query
+    row s sits at position ``q_offset + s`` and admits key t <= it; a
+    ``window`` > 0 also requires position - t < window (a window past
+    every position is full attention).  Masked scores are -1e30, as the
+    reference's; any Sq and Sk."""
+    B, Sq, H, E = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    M = H // KV
+    qg = q.reshape(B, Sq, KV, M, E).float()
+    s = torch.einsum("bsgme,btge->bgmst", qg, k.float()) / float(E) ** 0.5
+    if causal:
+        q_pos = q_offset + torch.arange(Sq, device=q.device)
+        k_pos = torch.arange(Sk, device=q.device)
+        ok = q_pos[:, None] >= k_pos[None, :]
+        if window > 0:
+            ok = ok & (q_pos[:, None] - k_pos[None, :] < window)
+        s = torch.where(ok[None, None, None], s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bgmst,btge->bsgme", p, v.float())
+    return o.reshape(B, Sq, H, E).to(q.dtype)

@@ -4,17 +4,19 @@
 Two request families share the slot-pool pattern (admit into free slots,
 advance all active slots together, free and refill on completion):
 
-* **LM** (the dense decoder family, e.g. ``smollm-360m``, and the
-  attention-free ssm family, e.g. ``mamba2-370m``): admission prefills
-  the prompt and emits the first token; every decode wave advances the
-  active requests one token through the model's ``decode_step``, and
-  selects tokens with the argmax kernel (K6 port).  The dense family's
-  prefill attention is plain torch; its decode attention is the decode-
-  attention kernel (K7 port) over the dense KV cache of :class:`Server`,
-  or the paged kernel (K8 port) over the shared page pool of
-  :class:`PagedServer`.  The ssm family's prefill runs the chunked SSD
-  scan (K9 port) in every layer; its decode advances per-slot conv
-  windows and SSM states in plain torch ops, in :class:`Server` only.
+* **LM** (the dense decoder family, e.g. ``smollm-360m``, the
+  attention-free ssm family, e.g. ``mamba2-370m``, and the hybrid
+  family, e.g. ``hymba-1.5b``, whose layers run both): admission
+  prefills the prompt and emits the first token; every decode wave
+  advances the active requests one token through the model's
+  ``decode_step``, and selects tokens with the argmax kernel (K6 port).
+  Prefill attention is the flash-attention kernel (K11 port), any prompt
+  length up to ``max_len - 1``; decode attention is the decode-attention
+  kernel (K7 port) over the dense KV cache of :class:`Server`, or the
+  paged kernel (K8 port) over the shared page pool of
+  :class:`PagedServer` (dense family only).  The SSM blocks' prefill
+  runs the chunked SSD scan (K9 port) in every layer; their decode
+  advances per-slot conv windows and SSM states in plain torch ops.
 * **ASR** (the paper's lstm family): requests are variable-length
   utterances.  Admission runs the BLSTM forward once over the utterance
   (masked to its valid frames) and parks its CD-state posteriors on the
@@ -127,8 +129,8 @@ class Server(_SlotPool):
     The cache is a tree whose leaves carry (L, slots, ...) on the device:
     {'attn': {'k', 'v'}}, each (L, slots, max_len, KV, E) bf16, for the
     dense family; {'ssm': {'conv': {'x', 'B', 'C'}, 'h'}} for the ssm
-    family.  Admission, preemption and restore move a slot's row of every
-    leaf.  Weights are drawn from ``seed``
+    family; both for the hybrid family.  Admission, preemption and
+    restore move a slot's row of every leaf.  Weights are drawn from ``seed``
     (:func:`init_params`); assign ``server.params`` to serve other
     weights (e.g. carried over from JAX with
     :func:`repro_torch.params.from_jax_params`)."""
@@ -250,7 +252,7 @@ class Server(_SlotPool):
         call; returns their next tokens.  Contiguous slots decode on views
         of the cache, so the step writes in place; other groups gather
         their rows and scatter back what the step wrote: the new KV column,
-        or the whole ssm rows."""
+        the whole ssm rows, or both (the hybrid family)."""
         toks = self._on_device(self.tokens[group])
         lo = group[0]
         if list(group) == list(range(lo, lo + len(group))):
@@ -332,7 +334,8 @@ class PagedServer(_Events):
     * **preempt/restore** — the snapshot is the table's pages on the host;
       restore re-allocates through the trie and writes the owned pages.
 
-    Attention-only: a family without a KV cache (ssm) raises ValueError.
+    Attention-only: a family with per-slot SSM state (ssm, hybrid)
+    raises ValueError.
     """
 
     emits_on_admit = True
@@ -758,8 +761,8 @@ def serve_lm(server, pending, max_new: int):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-360m",
-                    help="smollm-360m (dense LM), mamba2-370m (ssm LM) or "
-                         "swb2000-blstm (ASR)")
+                    help="smollm-360m (dense LM), mamba2-370m (ssm LM), "
+                         "hymba-1.5b (hybrid LM) or swb2000-blstm (ASR)")
     ap.add_argument("--reduced", action="store_true",
                     help="serve the reference's smoke-test width (2 "
                          "layers, d_model <= 256, vocab <= 512; lstm: "

@@ -2,9 +2,13 @@
 dense decoder (the GSPMD-only ``seq_shard`` modes are not carried: the
 port runs on one card).
 
-* ``attn_seq``    — full-sequence (prefill): the reference's plain
+* ``attn_seq``    — full-sequence attention: the reference's plain
   q-chunked path, in torch ops (bf16 products, f32 softmax, p cast to
-  the value dtype before p·v).
+  the value dtype before p·v), with a masked ragged last chunk where the
+  reference asserts Sq % q_chunk == 0.
+* ``attn_prefill`` — the model's causal prefill attention: on the card
+  the flash-attention kernel (the K11 port, any prompt length), on the
+  CPU ``attn_seq``, the reference model's own prefill math.
 * ``attn_decode`` / ``attn_decode_delta`` — the single-token step
   against a dense cache (B, S, KV, E) or, with ``page_table``, a page
   pool (n_pages, P, KV, E).  Both go through the decode-attention
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.models.common import apply_rope, rotate
 from repro_torch.params import ParamSpec
 
@@ -90,7 +95,9 @@ def out_project(p, o):
 def attn_seq(q, k, v, *, causal: bool, window=None, q_chunk: int = 512,
              pos_offset: int = 0):
     """q (B, Sq, H, E), k/v (B, Sk, KV, E) -> (B, Sq, H, E).  A window >=
-    Sk is full attention.  Sq must be a multiple of min(q_chunk, Sq)."""
+    Sk is full attention.  Any Sq: the last of the q_chunk-row chunks may
+    be shorter (each row's softmax is its own, so the chunking changes no
+    value)."""
     B, Sq, H, E = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G, M = KV, H // KV
@@ -98,15 +105,13 @@ def attn_seq(q, k, v, *, causal: bool, window=None, q_chunk: int = 512,
     k_pos = torch.arange(Sk, device=q.device)
     qg = q.reshape(B, Sq, G, M, E)
     q_chunk = min(q_chunk, Sq)
-    n_chunks = Sq // q_chunk
-    assert n_chunks * q_chunk == Sq, (Sq, q_chunk)
     outs = []
-    for i in range(n_chunks):
-        qs = qg[:, i * q_chunk:(i + 1) * q_chunk]
+    for c0 in range(0, Sq, q_chunk):
+        qs = qg[:, c0:c0 + q_chunk]
         s = torch.einsum("bcgme,btge->bgmct", qs, k).float() * scale
         if causal:
-            q_pos = pos_offset + i * q_chunk + torch.arange(q_chunk,
-                                                            device=q.device)
+            q_pos = pos_offset + c0 + torch.arange(qs.shape[1],
+                                                   device=q.device)
             ok = q_pos[:, None] >= k_pos[None, :]
             if window is not None:
                 ok = ok & (q_pos[:, None] - k_pos[None, :] < window)
@@ -114,8 +119,21 @@ def attn_seq(q, k, v, *, causal: bool, window=None, q_chunk: int = 512,
                             torch.full_like(s, NEG_INF))
         p = torch.softmax(s, dim=-1).to(v.dtype)
         outs.append(torch.einsum("bgmct,btge->bcgme", p, v))
-    o = outs[0] if n_chunks == 1 else torch.cat(outs, dim=1)
+    o = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return o.reshape(B, Sq, G * M, E)
+
+
+def attn_prefill(q, k, v, *, window=None):
+    """Causal self-attention of a prompt: q (B, S, H, E), k/v (B, S, KV,
+    E) -> (B, S, H, E); ``window`` None or past S is full attention.  On
+    the card the K11 kernel (``kernels.flash_attention``: f32 p·v); on the
+    CPU :func:`attn_seq` (p rounded to bf16 before p·v, as the
+    reference's).  A branch on the device, not a fallback: the card never
+    runs ``attn_seq``."""
+    if q.device.type == "cpu":
+        return attn_seq(q, k, v, causal=True, window=window)
+    return FA.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal=True, window=window)
 
 
 # ---------------------------------------------------------------------------

@@ -1,16 +1,20 @@
-"""Decoder-only stack: the dense and ssm families of ``repro.models.
-transformer`` — parameter specs, the sequence forward (prefill), the
-one-token decode step, and the decode-state layouts (dense KV rows or a
-page pool for the dense family; per-slot conv windows and SSM states for
-the ssm family).
+"""Decoder-only stack: the dense, ssm and hybrid families of
+``repro.models.transformer`` — parameter specs, the sequence forward
+(prefill), the one-token decode step, and the decode-state layouts
+(dense KV rows or a page pool for the dense family; per-slot conv
+windows and SSM states for the ssm family; both halves, KV rows and SSM
+states, for the hybrid family).
 
 Layers are stacked along a leading axis L, as the reference stacks them
 for ``lax.scan``; here a Python loop walks them (no remat: inference
-only).  The dense decode step keeps the reference's shape: each layer
-attends over the OLD cache plus the new token's column
-(``attn_decode_delta``), and the new K/V of all layers land in ONE
-stacked write after the loop.  The ssm decode step replaces each layer's
-state rows in place.  The other families (moe, hybrid, vlm) raise
+only).  Prefill attention is ``attention.attn_prefill`` (the K11 kernel
+on the card).  A hybrid layer runs attention and the Mamba-2 block on
+the same normed input and adds the mean of their rmsnormed outputs
+(Hymba's fusion) before its FFN.  The decode step keeps the reference's
+shape: each attention layer attends over the OLD cache plus the new
+token's column (``attn_decode_delta``), and the new K/V of all layers
+land in ONE stacked write after the loop; each SSM block's state rows
+are replaced in place.  The other families (moe, vlm) raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -21,26 +25,29 @@ import torch
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
 from repro_torch.models import ssm as SM
-from repro_torch.models.common import apply_norm, norm_spec, rope_angles
+from repro_torch.models.common import (apply_norm, norm_spec, rmsnorm,
+                                       rope_angles)
 from repro_torch.params import ParamSpec
 
 GLOBAL_WINDOW = np.int32(2 ** 30)   # "window" meaning full attention
 
 
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def _require_ported(cfg):
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported (ROADMAP queue 1, 'Other "
-            f"families'); the port's transformer covers the dense and ssm "
-            f"families")
+            f"family {cfg.family!r} is not ported (ROADMAP queue 1, 'The "
+            f"MoE family' and 'Other families'); the port's transformer "
+            f"covers the dense, ssm and hybrid families")
 
 
 def _require_attention(cfg):
-    """The paged KV cache holds attention keys and values: the ssm
-    family's state is per-slot O(1) and has nothing to page."""
+    """The paged KV cache holds attention keys and values only: the ssm
+    family's state is per-slot O(1) and has nothing to page, and the
+    hybrid family's per-slot SSM state is refused with it, as the
+    reference refuses every family that is not attention-only."""
     _require_ported(cfg)
     if cfg.family != "dense":
         raise ValueError(f"paged KV cache needs an attention-only family, "
@@ -55,8 +62,12 @@ def layer_param_specs(cfg) -> dict:
     _require_ported(cfg)
     if cfg.family == "ssm":
         return {"ln1": norm_spec(cfg), "ssm": SM.ssm_param_specs(cfg)}
-    return {"ln1": norm_spec(cfg), "attn": A.attn_param_specs(cfg),
-            "ln2": norm_spec(cfg), "mlp": F.ffn_param_specs(cfg)}
+    p = {"ln1": norm_spec(cfg), "attn": A.attn_param_specs(cfg)}
+    if cfg.family == "hybrid":
+        p["ssm"] = SM.ssm_param_specs(cfg)
+    p["ln2"] = norm_spec(cfg)
+    p["mlp"] = F.ffn_param_specs(cfg)
+    return p
 
 
 def _stack(spec_tree, n):
@@ -113,6 +124,16 @@ def _layer(tree, i):
     return tree[i]
 
 
+def _hybrid_combine(attn_out, ssm_out):
+    """Hymba's fusion: each branch's output rmsnormed (no scale), then
+    their mean."""
+    return 0.5 * (rmsnorm(attn_out) + rmsnorm(ssm_out))
+
+
+def _stack_conv(convs):
+    return {k: torch.stack([c[k] for c in convs]) for k in convs[0]}
+
+
 # ---------------------------------------------------------------------------
 # Sequence forward (prefill)
 # ---------------------------------------------------------------------------
@@ -123,29 +144,42 @@ def forward_seq(cfg, params, x, *, collect_cache: bool = False,
     ``collect_cache`` the cache is ().  The dense cache is the stacked
     (k, v), each (L, B, max(S, cache_len), KV, E); the ssm cache is the
     stacked (conv_state {'x', 'B', 'C'}, ssm_state), each with a leading
-    L.  Neither family has an auxiliary loss."""
+    L; the hybrid cache is ((k, v), conv_state, ssm_state).  No family
+    here has an auxiliary loss."""
     _require_ported(cfg)
     if cfg.family == "ssm":
         return _forward_seq_ssm(cfg, params, x, collect_cache)
+    hybrid = cfg.family == "hybrid"
     B, S, _ = x.shape
     windows = layer_windows(cfg, S)
     rope = _rope(cfg, torch.arange(S, device=x.device)[None, :])
     x = x.to(torch.bfloat16)
-    ks, vs = [], []
+    ks, vs, convs, hs = [], [], [], []
     for i in range(cfg.n_layers):
         p = _layer(params["layers"], i)
         h = apply_norm(p["ln1"], x)
         q, k, v = A.qkv_project(cfg, p["attn"], h, h, rope=rope)
-        o = A.attn_seq(q, k, v, causal=True, window=int(windows[i]))
-        x = x + A.out_project(p["attn"], o)
+        o = A.out_project(p["attn"], A.attn_prefill(q, k, v,
+                                                    window=int(windows[i])))
+        if hybrid:
+            o_ssm, (conv, h_ssm) = SM.mamba2_seq(cfg, p["ssm"], h)
+            o = _hybrid_combine(o, o_ssm).to(x.dtype)
+        x = x + o
         if collect_cache:
             k, v = _pad_cache(k, v, cache_len)
             ks.append(k)
             vs.append(v)
+            if hybrid:
+                convs.append(conv)
+                hs.append(h_ssm)
         x = x + F.ffn_apply(cfg, p["mlp"], apply_norm(p["ln2"], x))
         x = x.to(torch.bfloat16)
-    cache = (torch.stack(ks), torch.stack(vs)) if collect_cache else ()
-    return x, cache
+    if not collect_cache:
+        return x, ()
+    kv = (torch.stack(ks), torch.stack(vs))
+    if hybrid:
+        return x, (kv, _stack_conv(convs), torch.stack(hs))
+    return x, kv
 
 
 def _forward_seq_ssm(cfg, params, x, collect_cache):
@@ -161,8 +195,7 @@ def _forward_seq_ssm(cfg, params, x, collect_cache):
             hs.append(h_ssm)
     if not collect_cache:
         return x, ()
-    conv = {k: torch.stack([c[k] for c in convs]) for k in convs[0]}
-    return x, (conv, torch.stack(hs))
+    return x, (_stack_conv(convs), torch.stack(hs))
 
 
 def _pad_cache(k, v, cache_len):
@@ -194,16 +227,20 @@ def logits_fn(cfg, params, x):
 
 def cache_specs(cfg, batch: int, cache_len: int) -> dict:
     """Stacked per-layer decode state: the dense KV cache {'attn': {'k',
-    'v'}} (L, batch, cache_len, KV, E) bf16, or the ssm state {'ssm':
+    'v'}} (L, batch, cache_len, KV, E) bf16, the ssm state {'ssm':
     {'conv': {'x', 'B', 'C'}, 'h'}} with a leading L (cache_len unused:
-    the state is O(1) per slot)."""
+    the state is O(1) per slot), or both for the hybrid family."""
     _require_ported(cfg)
-    if cfg.family == "ssm":
-        return {"ssm": _stack_state(SM.ssm_cache_specs(cfg, batch),
-                                    cfg.n_layers)}
-    shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"attn": {"k": ParamSpec(shape, "bfloat16", "zeros"),
-                     "v": ParamSpec(shape, "bfloat16", "zeros")}}
+    specs = {}
+    if cfg.family != "ssm":
+        shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads,
+                 cfg.head_dim)
+        specs["attn"] = {"k": ParamSpec(shape, "bfloat16", "zeros"),
+                         "v": ParamSpec(shape, "bfloat16", "zeros")}
+    if cfg.family != "dense":
+        specs["ssm"] = _stack_state(SM.ssm_cache_specs(cfg, batch),
+                                    cfg.n_layers)
+    return specs
 
 
 def _stack_state(spec_tree, n):
@@ -215,7 +252,8 @@ def _stack_state(spec_tree, n):
 def page_specs(cfg, n_pages: int, page_size: int) -> dict:
     """Paged KV cache: ONE pool of physical pages shared by every
     in-flight request, k, v (L, n_pages, page_size, KV, E) bf16.
-    Attention-only families: ValueError for the ssm family."""
+    Attention-only families: ValueError for the ssm and hybrid
+    families."""
     _require_attention(cfg)
     shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
     return {"attn": {"k": ParamSpec(shape, "bfloat16", "zeros"),
@@ -229,15 +267,16 @@ def decode_step(cfg, params, cache, tokens, pos: int, *, page_table=None,
 
     ``page_table`` (B, W) int32 selects the paged layout: cache['attn']
     k/v are page pools (L, n_pages, P, KV, E) and the new column lands in
-    the table's page for ``pos`` (dense family only: ValueError for ssm).
-    The cache tensors are written in place — the dense family's new
-    column once per layer after the layer loop, the ssm family's conv
-    windows and states replaced whole per layer — and returned."""
+    the table's page for ``pos`` (dense family only: ValueError for ssm
+    and hybrid).  The cache tensors are written in place — the new K/V
+    column once for all layers after the layer loop, the conv windows and
+    SSM states replaced whole per layer — and returned."""
     _require_ported(cfg)
     if page_table is not None:
         _require_attention(cfg)
     if cfg.family == "ssm":
         return _decode_step_ssm(cfg, params, cache, tokens)
+    hybrid = cfg.family == "hybrid"
     paged = page_table is not None
     kc, vc = cache["attn"]["k"], cache["attn"]["v"]
     S_cache = page_table.shape[-1] * page_size if paged else kc.shape[2]
@@ -250,10 +289,12 @@ def decode_step(cfg, params, cache, tokens, pos: int, *, page_table=None,
         p = _layer(params["layers"], i)
         h = apply_norm(p["ln1"], x)
         q, k, v = A.qkv_project(cfg, p["attn"], h, h, rope=rope)
-        o = A.attn_decode_delta(q, kc[i], vc[i], k, v, pos,
-                                window=int(windows[i]),
-                                page_table=page_table)
-        x = x + A.out_project(p["attn"], o)
+        o = A.out_project(p["attn"], A.attn_decode_delta(
+            q, kc[i], vc[i], k, v, pos, window=int(windows[i]),
+            page_table=page_table))
+        if hybrid:
+            o = _hybrid_combine(o, _ssm_step(cfg, p, cache, i, h)).to(x.dtype)
+        x = x + o
         x = x + F.ffn_apply(cfg, p["mlp"], apply_norm(p["ln2"], x))
         x = x.to(torch.bfloat16)
         k_new.append(k)
@@ -270,20 +311,26 @@ def decode_step(cfg, params, cache, tokens, pos: int, *, page_table=None,
     return logits_fn(cfg, params, x), cache
 
 
+def _ssm_step(cfg, p, cache, i, h):
+    """Layer i's Mamba-2 block one token on: its conv window and SSM
+    state rows of ``cache['ssm']`` replaced in place; the block's output
+    (B, 1, d)."""
+    st = cache["ssm"]
+    conv_i = {k: v[i] for k, v in st["conv"].items()}
+    o, (conv, h_ssm) = SM.mamba2_step(cfg, p["ssm"], h, conv_i, st["h"][i])
+    for k, v in conv.items():
+        conv_i[k].copy_(v)
+    st["h"][i].copy_(h_ssm)
+    return o
+
+
 def _decode_step_ssm(cfg, params, cache, tokens):
     """The ssm family's step: position-free, so ``pos`` plays no part."""
-    st = cache["ssm"]
     x = embed_tokens(cfg, params, tokens)
     for i in range(cfg.n_layers):
         p = _layer(params["layers"], i)
-        conv_i = {k: v[i] for k, v in st["conv"].items()}
-        o, (conv, h) = SM.mamba2_step(cfg, p["ssm"],
-                                      apply_norm(p["ln1"], x), conv_i,
-                                      st["h"][i])
+        o = _ssm_step(cfg, p, cache, i, apply_norm(p["ln1"], x))
         x = (x + o).to(torch.bfloat16)
-        for k, v in conv.items():
-            conv_i[k].copy_(v)
-        st["h"][i].copy_(h)
     x = apply_norm(params["final_norm"], x)
     return logits_fn(cfg, params, x), cache
 
@@ -292,7 +339,7 @@ def prefill(cfg, params, tokens, *, cache_len: int = 0):
     """Full-context forward of tokens (B, S) -> (last-token logits
     (B, 1, V), the decode cache): {'attn': {'k', 'v'}} of length
     max(S, cache_len) for the dense family, {'ssm': {'conv', 'h'}} for
-    the ssm family."""
+    the ssm family, both for the hybrid family."""
     x = embed_tokens(cfg, params, tokens)
     cache_len = cache_len or x.shape[1]
     x, caches = forward_seq(cfg, params, x, collect_cache=True,
@@ -302,5 +349,9 @@ def prefill(cfg, params, tokens, *, cache_len: int = 0):
     if cfg.family == "ssm":
         conv, h = caches
         return logits, {"ssm": {"conv": conv, "h": h}}
+    if cfg.family == "hybrid":
+        (k, v), conv, h = caches
+        return logits, {"attn": {"k": k, "v": v},
+                        "ssm": {"conv": conv, "h": h}}
     k, v = caches
     return logits, {"attn": {"k": k, "v": v}}

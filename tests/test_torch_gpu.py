@@ -554,3 +554,115 @@ def test_ssm_server_on_card_matches_cpu(cuda):
     fin, _, _, _ = serve_lm(gpu, pending, 6)
     assert sorted(dict(fin)) == [0, 1, 2, 3]
     assert ssd_scan.launches - before == cfg.n_layers * len(pending)
+
+
+# ---------------------------------------------------------------------------
+# the hybrid slice: K11 flash attention, the hybrid server
+# ---------------------------------------------------------------------------
+
+def _flash_inputs(cuda, B, Sq, Sk, H, KV, E, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(*s, generator=g).to(cuda, torch.bfloat16)
+            for s in ((B, Sq, H, E), (B, Sk, KV, E), (B, Sk, KV, E))]
+
+
+def _check_flash(cuda, B, Sq, Sk, H, KV, E, causal, window, q_offset, seed):
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.ref import flash_attention_plain
+
+    q, k, v = _flash_inputs(cuda, B, Sq, Sk, H, KV, E, seed)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = FA.launches
+    got = FA.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert FA.launches == before + 1
+    want = flash_attention_plain(q, k, v, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    assert _norm_err(got, want) <= BF16_TOL
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,E,causal,window,q_offset", [
+    (1, 1, 1, 4, 2, 64, True, 0, 0),           # one query
+    (2, 37, 37, 6, 2, 64, True, 0, 0),         # ragged Sq, M = 3
+    (1, 100, 100, 10, 2, 64, True, 16, 0),     # windowed, M = 5
+    (1, 130, 500, 25, 5, 64, True, 64, 370),   # q_offset, Sk > Sq
+    (1, 50, 90, 4, 1, 64, True, 0, 40),        # q_offset, global
+    (2, 90, 70, 8, 2, 64, False, 0, 0),        # non-causal, Sk < Sq
+    (1, 200, 200, 8, 1, 128, True, 64, 0),     # M = 8, E = 128
+    (1, 65, 65, 3, 3, 32, True, 0, 0),         # MHA, E = 32
+    (1, 300, 300, 25, 5, 64, True, 2 ** 30, 0),  # GLOBAL_WINDOW
+])
+def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, KV, E,
+                                              causal, window, q_offset):
+    """K11 against ``flash_attention_plain`` (all f32; the kernel keeps p
+    to 2^-16 in p.v): within one bf16 rounding of the output."""
+    _check_flash(cuda, B, Sq, Sk, H, KV, E, causal, window, q_offset,
+                 seed=Sq + H)
+
+
+@pytest.mark.parametrize("Sq,H,window", [
+    (1500, 25, 1024),         # hymba-1.5b, a windowed layer
+    (1500, 25, 2 ** 30),      # hymba-1.5b, a global layer
+    (600, 15, 2 ** 30),       # smollm-360m
+])
+def test_flash_attention_kernel_at_serving_shapes(cuda, Sq, H, window):
+    _check_flash(cuda, 1, Sq, Sq, H, 5, 64, True, window, 0, seed=1)
+
+
+def test_flash_attention_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = _flash_inputs(cuda, 1, 16, 16, 4, 2, 64, seed=2)
+    with pytest.raises(ValueError, match="bf16"):
+        FA.flash_attention(q.float(), k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        FA.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           k, v)
+    q48, k48, v48 = _flash_inputs(cuda, 1, 16, 16, 4, 2, 48, seed=3)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        FA.flash_attention(q48, k48, v48)
+
+
+def test_hybrid_server_on_card_matches_cpu(cuda):
+    """Reduced hymba-1.5b: the card's prefill logits agree with the CPU's
+    at bf16 tolerance for a prompt past the window, and the server
+    finishes every request with K11 and K9 launched once per layer per
+    admission."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.launch.serve import Server, lm_requests, serve_lm
+
+    cfg = get_arch("hymba-1.5b").reduced()
+    pending = lm_requests(cfg, [5, 100, 2, 70])
+    cpu = Server(cfg, slots=2, max_len=128, device="cpu")
+    gpu = Server(cfg, slots=2, max_len=128)
+    gpu.params = _to(cpu.params, cuda)
+    tokens = torch.as_tensor(pending[1][1][None])
+    want, _ = cpu.model.prefill_fn(cpu.params, {"tokens": tokens})
+    got, _ = gpu.model.prefill_fn(gpu.params, {"tokens": tokens.to(cuda)})
+    assert _norm_err(got.cpu(), want) <= BF16_TOL
+    before = (FA.launches, ssd_scan.launches)
+    fin, _, _, _ = serve_lm(gpu, pending, 6)
+    assert sorted(dict(fin)) == [0, 1, 2, 3]
+    n = cfg.n_layers * len(pending)
+    assert (FA.launches - before[0], ssd_scan.launches - before[1]) == (n, n)
+
+
+def test_lm_servers_on_card_admit_a_600_token_prompt(cuda):
+    """Reduced smollm-360m at max_len 1024: both servers admit a
+    600-token prompt (K11 takes any length) and decode it."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import (PagedServer, Server, lm_requests,
+                                          serve_lm)
+
+    cfg = get_arch("smollm-360m").reduced()
+    pending = lm_requests(cfg, [600, 37])
+    dense = Server(cfg, slots=2, max_len=1024)
+    paged = PagedServer(cfg, pool_pages=128, page_size=16, max_len=1024)
+    paged.params = dense.params
+    for server in (dense, paged):
+        fin, _, _, _ = serve_lm(server, pending, 4)
+        assert sorted(dict(fin)) == [0, 1]
+        assert all(len(t) == 4 for t in dict(fin).values())

@@ -50,6 +50,8 @@ def test_import_leaves_jax_and_repro_unloaded():
         "import repro_torch.serving.kvpool, repro_torch.configs.smollm_360m\n"
         "import repro_torch.models.ssm, repro_torch.kernels.ssd_scan\n"
         "import repro_torch.configs.mamba2_370m\n"
+        "import repro_torch.kernels.flash_attention\n"
+        "import repro_torch.configs.hymba_1_5b\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'repro')]\n"
         "print(bad)\n"
