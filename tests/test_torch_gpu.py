@@ -579,7 +579,12 @@ def _check_flash(cuda, B, Sq, Sk, H, KV, E, causal, window, q_offset, seed):
     want = flash_attention_plain(q, k, v, **kw)
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     assert bool(torch.isfinite(got).all())
-    assert _norm_err(got, want) <= BF16_TOL
+    # each (position, head) row over its own largest value: a tensor-wide
+    # scale is set by rows that see one key and would hide a row of a
+    # thousand keys that is off by one of them
+    err = (got.float() - want.float()).abs().amax(-1)
+    scale = want.float().abs().amax(-1) + 1e-6
+    assert float((err / scale).max()) <= BF16_TOL
 
 
 @pytest.mark.parametrize("B,Sq,Sk,H,KV,E,causal,window,q_offset", [
