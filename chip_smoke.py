@@ -128,7 +128,34 @@ Phases, each of which fails the run (nonzero exit, no result line):
     for its plain version; teacher-forced) held at 2e-2 through the first
     4 layers and printed through all 32; one preempt -> restore held
     bit-identical;
-16. hybrid profile — as 14, for the hybrid server.
+16. hybrid profile — as 14, for the hybrid server;
+17. k10 — the fused dense-MoE kernel (K10 port) against its plain version
+    ``moe_dense_plain`` at 2e-2 of each token row's largest value (every
+    value finite) at granite-moe-3b-a800m's d 1536, 40 experts of d_ff
+    512, top-8: T = 1, 8, 700 and 1500, every router weight non-zero, one
+    expert never selected, and a small gelu case; 5 rows of the T = 700
+    call launched alone at T = 1 bit-identical to the same rows; the check
+    shown to reject the plain version without the last expert; T = 8 and
+    T = 700 timed (eager, and graph-replayed per launch) beside their
+    plain version, their bound and a three-bmm yardstick (not one call);
+18. moe-serve — the full-width ``granite-moe-3b-a800m`` (32 layers, d
+    1536, 24 heads over 8 KV heads, 40 experts of 512, top-8, vocab
+    49,155, random weights from seed 0 drawn on the card) ``Server``: 16
+    requests (prompt lengths 64-960 drawn with seed 0, the first forced to
+    700, a 64-token shared prefix), 8 slots, max_len 1024, 24 new tokens
+    each, with the counters set to 0 just before and read just after (K10
+    and K11 32 times per admission, K10 and K7 32 times per decode call,
+    K6 once per admission and per decode call); tokens/s, mean wave ms,
+    prefill ms, peak memory; for the 700-token request each of its 32 K10
+    launches against ``moe_dense_plain`` on the layer's own inputs, and
+    its prefill and first 8 decode logits against the plain path held at
+    2e-2 through the first 4 layers and printed through all 32, with the
+    top-8 selections that differ between the two paths and the smallest
+    router margin among them; one preempt -> restore held bit-identical;
+19. moe profile — as 14, for the moe server;
+20. moe-paged — the same requests through ``PagedServer`` (pages of 16, a
+    512-page pool): K8 32 times per decode call, and how many requests
+    decode the dense run's tokens.
 
 The last two lines are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
@@ -1842,20 +1869,24 @@ def _teacher_forced_logits(server, prompt, tokens, steps):
 
 def _plain_kernels():
     """Every LM kernel wrapper swapped for its plain version: the prefill
-    attention (K11), the SSD scan (K9) and the decode attention (K7)."""
+    attention (K11), the SSD scan (K9), the decode attention (K7) and the
+    fused dense MoE (K10)."""
     from contextlib import ExitStack
     from unittest import mock
 
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import moe_dense as MD
     from repro_torch.kernels import ssd_scan as SSD
-    from repro_torch.kernels.ref import flash_attention_plain, ssd_plain
+    from repro_torch.kernels.ref import (flash_attention_plain,
+                                         moe_dense_plain, ssd_plain)
 
     stack = ExitStack()
     for mod, name, plain in ((FA, "flash_attention", flash_attention_plain),
                              (SSD, "ssd", ssd_plain),
                              (DA, "decode_attention",
-                              DA.decode_attention_ref)):
+                              DA.decode_attention_ref),
+                             (MD, "moe_dense", moe_dense_plain)):
         stack.enter_context(mock.patch.object(mod, name, plain))
     return stack
 
@@ -2432,6 +2463,370 @@ def phase_hybrid_serve():
     return server, pending, counts
 
 
+# --------------------------------------------------------------- phase 17
+# The MoE slice: granite-moe-3b-a800m's FFN, d 1536, 40 experts of d_ff
+# 512, top-8 under the dense router (K10 port).
+MOE_D, MOE_E, MOE_F, MOE_K = 1536, 40, 512, 8
+K10_TOL = 2e-2           # a token row's bf16 output rounding
+MOE_NEVER = 17           # the expert the "never selected" case leaves out
+K10_ROWS = (0, 63, 64, 345, 699)   # rows launched alone at T = 1
+K10_CASES = [
+    # tag, T, d, E, f, top-k, act, router weights, timed
+    ("T=1", 1, MOE_D, MOE_E, MOE_F, MOE_K, "swiglu", "topk", False),
+    ("T=8 decode", 8, MOE_D, MOE_E, MOE_F, MOE_K, "swiglu", "topk", True),
+    ("T=700 prefill", 700, MOE_D, MOE_E, MOE_F, MOE_K, "swiglu", "topk",
+     True),
+    ("T=1500", 1500, MOE_D, MOE_E, MOE_F, MOE_K, "swiglu", "topk", False),
+    ("gelu small", 37, 256, 4, 128, 2, "gelu", "topk", False),
+    ("every weight non-zero", 64, MOE_D, MOE_E, MOE_F, MOE_K, "swiglu",
+     "all", False),
+    ("one expert never selected", 300, MOE_D, MOE_E, MOE_F, MOE_K,
+     "swiglu", "skip", False),
+]
+MOE_REQUESTS, MOE_MAX_NEW, MOE_RAGGED = 16, 24, 700
+MOE_CUT = 4              # layers of the held end-to-end logits check
+
+
+def _moe_weights(gen, d, E, f):
+    """wi/wg (E, d, f) and wo (E, f, d) bf16 on the card at the model's
+    init scales (1/sqrt of the contracted axis)."""
+    import torch
+
+    def r(*shape, fan):
+        return (torch.randn(*shape, generator=gen) / fan ** 0.5).to(
+            "cuda", torch.bfloat16)
+    return r(E, d, f, fan=d), r(E, d, f, fan=d), r(E, f, d, fan=f)
+
+
+def _router_weights(gen, T, E, k, mode):
+    """(T, E) f32 combine weights: the renormalised top-k of a softmax
+    ("topk"), with expert MOE_NEVER never among them ("skip"), or the
+    whole softmax, every weight non-zero ("all")."""
+    import torch
+
+    logits = torch.randn(T, E, generator=gen)
+    if mode == "skip":
+        logits[:, MOE_NEVER] = -float("inf")
+    probs = torch.softmax(logits, dim=-1)
+    if mode != "all":
+        top, idx = torch.topk(probs, k, dim=-1)
+        probs = torch.zeros_like(probs).scatter_(
+            -1, idx, top / top.sum(-1, keepdim=True))
+    return probs.to("cuda")
+
+
+def _moe_bytes_ops(T, d, E, f):
+    """Bytes a call must move (x, the router weights and every expert's
+    wi, wg, wo in; y out) and its operations: 2 x 3 d f per token and
+    expert, bf16 products at the bf16 peak."""
+    nbytes = 2 * T * d + 4 * T * E + 2 * 3 * E * d * f + 2 * T * d
+    return nbytes, 6 * T * E * d * f
+
+
+def _moe_yardstick(x, w, wi, wg, wo):
+    """A library yardstick, not one call that computes the function (used
+    nowhere in the port): three torch.bmm over the expert axis (the
+    (E, T, f) hidden in device memory) and the elementwise ops."""
+    import torch
+
+    def call():
+        xb = x.expand(wi.shape[0], *x.shape)
+        h = torch.bmm(xb, wi)
+        a = torch.nn.functional.silu(torch.bmm(xb, wg)) * h
+        ye = torch.bmm(a, wo)
+        return (ye.float() * w.T[:, :, None]).sum(0).to(x.dtype)
+    return call
+
+
+def check_k10(gen):
+    """K10 against ``moe_dense_plain`` at every case of K10_CASES (2e-2 of
+    each token row's largest value, :func:`_row_err`; every value finite);
+    5 rows of the T = 700 call launched alone at T = 1 bit-identical to
+    the same rows of the big call; the check must reject the plain version
+    without the last expert; T = 8 and T = 700 timed beside their plain
+    version, their bound and a three-bmm yardstick."""
+    import torch
+
+    from repro_torch.kernels import moe_dense as MD
+    from repro_torch.kernels.ref import moe_dense_plain
+
+    full = _moe_weights(gen, MOE_D, MOE_E, MOE_F)
+    worst, rows = 0.0, {}
+    for tag, T, d, E, f, k, act, mode, timed in K10_CASES:
+        wi, wg, wo = full if (d, E, f) == (MOE_D, MOE_E, MOE_F) else \
+            _moe_weights(gen, d, E, f)
+        x = torch.randn(T, d, generator=gen).to("cuda", torch.bfloat16)
+        w = _router_weights(gen, T, E, k, mode)
+        before = MD.launches
+        got = MD.moe_dense(x, w, wi, wg, wo, act=act)
+        torch.cuda.synchronize()
+        if MD.launches != before + 1:
+            _fail(f"K10 {tag}: the wrapper did not launch the kernel")
+        want = moe_dense_plain(x, w, wi, wg, wo, act=act)
+        abs_err, norm = _row_err(got, want)
+        if not (norm <= K10_TOL and bool(torch.isfinite(got).all())):
+            _fail(f"K10 {tag}: row-normalised error {norm} (tol {K10_TOL}), "
+                  f"or a value that is not finite")
+        worst = max(worst, abs_err)
+        line = (f"[K10] {tag}: T={T} d={d} E={E} f={f} top-{k} {act} "
+                f"({mode} weights; {16 if T <= 16 else 64}-row tiles, "
+                f"{f // 64} x {MD.expert_groups(E)} x "
+                f"{-(-T // (16 if T <= 16 else 64))} CTAs): row-normalised "
+                f"error {norm:.3g} (tol {K10_TOL}; tensor-normalised "
+                f"{_norm_err(got, want)[1]:.3g}), max_abs_err {abs_err:.3g}")
+        if T == 700:
+            alone = [torch.equal(MD.moe_dense(x[r:r + 1], w[r:r + 1], wi, wg,
+                                              wo, act=act), got[r:r + 1])
+                     for r in K10_ROWS]
+            short = moe_dense_plain(x, w[:, :-1], wi[:-1], wg[:-1], wo[:-1],
+                                    act=act)
+            seen = _row_err(short, want)[1]
+            line += (f"; rows {K10_ROWS} launched alone at T=1 "
+                     f"bit-identical: {alone}; the plain version without "
+                     f"the last expert: row-normalised {seen:.3g}")
+            if not all(alone):
+                _fail(f"K10 {tag}: a row launched alone differs from the "
+                      f"same row of the T={T} call: {alone}")
+            if not seen > K10_TOL:
+                _fail(f"K10 {tag}: the check cannot tell a missing expert "
+                      f"({seen} <= {K10_TOL})")
+        if timed:
+            call = lambda: MD.moe_dense(x, w, wi, wg, wo, act=act)  # noqa
+            ms, dev_ms = _time_ms(call, 50), _device_ms(call, iters=20)
+            plain_ms = _time_ms(
+                lambda: moe_dense_plain(x, w, wi, wg, wo, act=act), 5)
+            yard = _moe_yardstick(x, w, wi, wg, wo)
+            yard_ms, yard_dev = _time_ms(yard, 20), _device_ms(yard, iters=10)
+            nbytes, ops = _moe_bytes_ops(T, d, E, f)
+            bound_ms, bound_by = _bound(nbytes, ops, PEAK_BF16_FLOPS)
+            rows[T] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                           library_ms=None, yardstick_ms=yard_ms,
+                           yardstick_device_ms=yard_dev,
+                           yardstick="3 torch.bmm + elementwise (not one "
+                                     "call)",
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           shape=f"T={T} d={d} E={E} f={f} top-{k} bf16")
+            line += (f"; kernel {ms:.4f} ms eager, graph-replayed per launch "
+                     f"{_ms(dev_ms)}, plain {plain_ms:.4f} ms, yardstick "
+                     f"(3 bmm + elementwise, not one call) {yard_ms:.4f} ms "
+                     f"eager, {_ms(yard_dev)} graph-replayed, bound "
+                     f"{bound_ms:.5f} ms ({bound_by}: {ops / 1e9:.3f} GFLOP, "
+                     f"{nbytes / 1e6:.2f} MB), roofline share "
+                     f"{bound_ms / (dev_ms or ms):.3f}")
+        print(line, flush=True)
+    extra = {f"{k}_decode": v for k, v in rows[8].items()}
+    return dict(name="moe_dense", route="cuda",
+                source="src/repro_torch/kernels/csrc/moe_dense.cu",
+                replaces="src/repro/kernels/moe_dense.py:72",
+                max_abs_err=worst, **rows[700], **extra)
+
+
+# --------------------------------------------------------------- phase 18
+def _moe_pending(cfg):
+    """16 prompts of 64-960 tokens drawn with the seed, sharing a 64-token
+    prefix; the first forced to 700 (no multiple of 64: a ragged K10 and
+    K11 tile)."""
+    import numpy as np
+
+    from repro_torch.launch.serve import lm_requests
+
+    lengths = np.random.default_rng(SEED).integers(64, 961,
+                                                   size=MOE_REQUESTS)
+    lengths[0] = MOE_RAGGED
+    return lm_requests(cfg, [int(n) for n in lengths],
+                       shared_prefix=LM_SHARED, seed=SEED)
+
+
+def _moe_counts():
+    from repro_torch.kernels import moe_dense as MD
+
+    return dict(_lm_counts(), moe_dense=MD.launches)
+
+
+def _moe_run(server, pending, max_new):
+    """``_lm_run`` with the K10 counter set to 0 as well."""
+    from repro_torch.kernels import moe_dense as MD
+
+    MD.launches = 0
+    finished, admit_s, wave_s, occ, dt, _ = _lm_run(server, pending, max_new)
+    return finished, admit_s, wave_s, occ, dt, _moe_counts()
+
+
+def _expect_moe_launches(tag, cfg, pending, counts, decode_kernel):
+    """K10 once per layer of every admission and of every decode call, K11
+    once per layer of every admission, the decode kernel once per layer
+    of every decode call, K6 once per admission and per decode call.
+    Returns the number of decode calls."""
+    L, n = cfg.n_layers, len(pending)
+    calls = counts[decode_kernel] // L
+    for name, want in (("moe_dense", L * (n + calls)),
+                       ("flash_attention", L * n),
+                       (decode_kernel, L * calls),
+                       ("argmax_tokens", calls + n)):
+        if counts[name] != want or not calls:
+            _fail(f"{tag}: {name} launched {counts[name]} times, expected "
+                  f"{want} ({n} admissions, {calls} decode calls)")
+    return calls
+
+
+def _route_recorder(log):
+    """A stand-in for ``moe.route`` that records each call's (probs, top-k
+    indices)."""
+    from repro_torch.models import moe as M
+
+    real = M.route
+
+    def record(cfg, p, xg):
+        probs, top_w, top_idx = real(cfg, p, xg)
+        log.append((probs.reshape(-1, probs.shape[-1]),
+                    top_idx.reshape(-1, top_idx.shape[-1])))
+        return probs, top_w, top_idx
+    return record
+
+
+def _selection_changes(got, want, k):
+    """(top-k sets that differ, sets compared, the smallest margin between
+    the k-th and (k+1)-th probability of the kernel path among them)."""
+    import torch
+
+    differ, total, margin = 0, 0, None
+    for (pg, ig), (_, iw) in zip(got, want):
+        bad = (ig.sort(-1).values != iw.sort(-1).values).any(-1)
+        total += len(bad)
+        differ += int(bad.sum())
+        if bad.any():
+            top = torch.topk(pg[bad], k + 1, dim=-1).values
+            m = float((top[:, k - 1] - top[:, k]).min())
+            margin = m if margin is None else min(margin, m)
+    return differ, total, margin
+
+
+def _check_moe_against_plain(server, pending, finished):
+    """Kernel path vs plain path on the card, for the 700-token request:
+
+    * every one of its 32 K10 launches held against ``moe_dense_plain`` on
+      that layer's own inputs (2e-2 of each token row's largest value);
+    * its prefill and first 8 decode logits, teacher-forced with its
+      served tokens, every kernel swapped for its plain version, held at
+      2e-2 through the first MOE_CUT layers; through all 32 the distance
+      is printed, not held (random-init depth amplifies any rounding
+      difference, and a top-8 selection that flips moves a token's FFN by
+      a whole expert), with the number of top-8 selections that differ
+      between the two paths and the smallest router margin among them."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.kernels import moe_dense as MD
+    from repro_torch.kernels.ref import moe_dense_plain
+    from repro_torch.models import moe as M
+
+    rid, prompt = pending[0]
+    toks = finished[rid]
+    real, errs = MD.moe_dense, []
+
+    def both(x, w, wi, wg, wo, *, act):
+        y = real(x, w, wi, wg, wo, act=act)
+        errs.append(_row_err(y, moe_dense_plain(x, w, wi, wg, wo,
+                                                act=act))[1])
+        return y
+
+    with mock.patch.object(MD, "moe_dense", both):
+        server.model.prefill_fn(server.params, {"tokens": torch.as_tensor(
+            prompt[None]).to("cuda")})
+    print(f"[moe-serve] request {rid} ({len(prompt)} prompt tokens): each "
+          f"of its {len(errs)} K10 launches vs moe_dense_plain on the "
+          f"layer's own inputs, worst row-normalised {max(errs):.3g} (tol "
+          f"{K10_TOL}; per layer {[round(e, 5) for e in errs]})", flush=True)
+    if len(errs) != server.cfg.n_layers or not max(errs) <= K10_TOL:
+        _fail(f"moe-serve: a K10 launch disagrees with moe_dense_plain on "
+              f"its layer's inputs: {errs}")
+
+    k = server.cfg.moe.top_k
+    for srv, held in ((_layer_cut(server, MOE_CUT), True), (server, False)):
+        got_r, want_r = [], []
+        with mock.patch.object(M, "route", _route_recorder(got_r)):
+            got = _teacher_forced_logits(srv, prompt, toks, 8)
+        with _plain_kernels(), mock.patch.object(M, "route",
+                                                 _route_recorder(want_r)):
+            want = _teacher_forced_logits(srv, prompt, toks, 8)
+        errs = [_norm_err(g, w)[1] for g, w in zip(got, want)]
+        differ, total, margin = _selection_changes(got_r, want_r, k)
+        n = srv.model.cfg.n_layers
+        print(f"[moe-serve] teacher-forced logits through {n} layers, "
+              f"kernel vs plain path, normalised: prefill {errs[0]:.3g}, "
+              f"decode steps 1-8 {[round(e, 5) for e in errs[1:]]} "
+              f"({'held at ' + str(K1_TOL) if held else 'not held'}); "
+              f"top-{k} selections that differ: {differ} of {total} "
+              f"(token, layer) pairs, smallest margin among them "
+              f"{'none' if margin is None else f'{margin:.3g}'}; served "
+              f"first tokens {toks[:9]}", flush=True)
+        if held and not max(errs) <= K1_TOL:
+            _fail(f"moe-serve logits disagree with the plain path through "
+                  f"{n} layers: {errs}")
+
+
+def phase_moe_serve():
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import Server
+
+    cfg = get_arch("granite-moe-3b-a800m")
+    t0 = time.perf_counter()
+    server = Server(cfg, slots=LM_B, max_len=LM_S, seed=SEED)
+    pending = _moe_pending(cfg)
+    # warm-up: one short request (cuBLAS handles, the kernel libraries)
+    server.admit(-1, pending[0][1][:64], 4)
+    while server.active.any():
+        server.step()
+    server.reset()
+    m = cfg.moe
+    print(f"[moe-serve] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, "
+          f"{m.num_experts} experts of d_ff {m.d_ff_expert}, top-{m.top_k} "
+          f"({m.router_impl} router), vocab {cfg.vocab}; {LM_B} slots, "
+          f"max_len {LM_S}, {MOE_MAX_NEW} new tokens; prompt lengths "
+          f"{[len(p) for _, p in pending]}; set-up "
+          f"{time.perf_counter() - t0:.1f}s (weights drawn on the card)",
+          flush=True)
+    finished, admit_s, wave_s, occ, dt, counts = _moe_run(server, pending,
+                                                          MOE_MAX_NEW)
+    calls = _expect_moe_launches("moe-serve", cfg, pending, counts,
+                                 "decode_attention")
+    _lm_report("moe-serve", cfg, pending, finished, admit_s, wave_s, occ, dt,
+               counts, MOE_MAX_NEW)
+    print(f"[moe-serve] {calls} decode calls; the {MOE_RAGGED}-token "
+          f"request's admission (prefill + first token) "
+          f"{1e3 * admit_s[0]:.2f} ms", flush=True)
+    _check_moe_against_plain(server, pending, finished)
+    _check_lm_preempt(server, pending, tag="moe-serve")
+    return server, pending, finished, counts
+
+
+def phase_moe_paged(pending, dense):
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import PagedServer
+
+    cfg = get_arch("granite-moe-3b-a800m")
+    server = PagedServer(cfg, pool_pages=LM_POOL, page_size=LM_P,
+                         max_len=LM_S, seed=SEED)
+    finished, admit_s, wave_s, occ, dt, counts = _moe_run(server, pending,
+                                                          MOE_MAX_NEW)
+    _expect_moe_launches("moe-paged", cfg, pending, counts,
+                         "paged_decode_attention")
+    _lm_report("moe-paged", cfg, pending, finished, admit_s, wave_s, occ, dt,
+               counts, MOE_MAX_NEW)
+    print(f"[moe-paged] pool {server.pool.n_pages} pages x {LM_P}: peak "
+          f"sharing_ratio {server.peak_sharing:.3f}, cow "
+          f"{server.pool.n_cow}, shared_hits {server.pool.n_shared_hits}",
+          flush=True)
+    if server.pool.pages_in_use != 0:
+        _fail("moe-paged: pages leaked")
+    agree = [rid for rid in dense if dense[rid] == finished.get(rid)]
+    print(f"[moe-paged] {len(agree)} of {len(dense)} requests decode the "
+          f"dense run's tokens", flush=True)
+    return counts
+
+
 def _to_cpu(tree):
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
@@ -2495,6 +2890,15 @@ def main() -> int:
         phase_two_window_profile(hyb_server, hyb_pending, "hybrid-profile")
         del hyb_server
         done("hybrid-profile")
+        k10 = check_k10(gen)
+        done("k10")
+        moe_server, moe_pending, moe_fin, moe_counts = phase_moe_serve()
+        done("moe-serve")
+        phase_two_window_profile(moe_server, moe_pending, "moe-profile")
+        del moe_server
+        done("moe-profile")
+        moe_paged_counts = phase_moe_paged(moe_pending, moe_fin)
+        done("moe-paged")
     except SystemExit:
         raise
     except Exception:                    # any phase failing fails the run
@@ -2515,11 +2919,16 @@ def main() -> int:
     k11["launches_paged"] = paged_counts["flash_attention"]
     for k in (k6, k7, k9):
         k["launches_hybrid"] = hyb_counts[k["name"]]
+    launches["moe_dense"] = moe_counts["moe_dense"]
+    k10["launches_paged"] = moe_paged_counts["moe_dense"]
+    for k in (k6, k7, k11):
+        k["launches_moe"] = moe_counts[k["name"]]
+    k8["launches_moe"] = moe_paged_counts["paged_decode_attention"]
     for k in (k1c, k3):
         k["launches_per_step"] = long_counts[k["name"]] / long_steps
         launches[k["name"]] = long_counts[k["name"]]
     kernels = [k1, k1s, k2, k1c, k3, k5["beam_frame_step"],
-               k5["beam_frame_step_topc"], k6, k7, k8, k9, k11]
+               k5["beam_frame_step_topc"], k6, k7, k8, k9, k10, k11]
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(f"[total] {time.perf_counter() - t_start:.1f}s", flush=True)

@@ -1,6 +1,6 @@
 """Architecture configuration: the port's own copy of the fields of
-``repro.configs.base.ArchConfig`` (and of its ``SSMConfig``) that the
-lstm, dense, ssm and hybrid families read.
+``repro.configs.base.ArchConfig`` (and of its ``MoEConfig`` and
+``SSMConfig``) that the lstm, dense, moe, ssm and hybrid families read.
 
 Configs are frozen dataclasses so they compare and hash by value.
 """
@@ -8,6 +8,21 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace
 from typing import Optional
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts block configuration."""
+
+    num_experts: int
+    top_k: int
+    d_ff_expert: int          # hidden dim of each expert FFN
+    shared_expert: bool = False
+    shared_d_ff: int = 0
+    capacity_factor: float = 1.25
+    router_impl: str = "dispatch"   # "dispatch" (capacity one-hot) | "dense"
+    aux_loss_weight: float = 0.01
+    router_group: int = 4096        # tokens per routing group for dispatch
 
 
 @dataclass(frozen=True)
@@ -27,7 +42,7 @@ class ArchConfig:
     """One selectable architecture (``--arch <name>``)."""
 
     name: str
-    family: str               # "lstm" | "dense" | "ssm" | "hybrid" (ported)
+    family: str               # "lstm" | "dense" | "moe" | "ssm" | "hybrid"
     n_layers: int
     d_model: int
     vocab: int
@@ -50,6 +65,8 @@ class ArchConfig:
     window_for_long: int = 8192
     global_attn_layers: tuple = ()
 
+    # the MoE FFN of the moe family's layers (models/moe.py)
+    moe: Optional[MoEConfig] = None
     # the SSM block of the ssm family and of the hybrid family's layers
     # (models/ssm.py)
     ssm: Optional[SSMConfig] = None
@@ -86,6 +103,9 @@ class ArchConfig:
 
     param_dtype: str = "bfloat16"
     microbatches: int = 4     # gradient-accumulation microbatches for train
+    # the dense MoE branch's CPU math: weight the hidden activations by the
+    # router and contract (experts, ff) jointly (models/moe.py)
+    moe_dense_fused: bool = False
 
     def __post_init__(self):
         if self.head_dim == 0 and self.n_heads:
@@ -99,8 +119,9 @@ class ArchConfig:
         """The reference's smoke-test variant: 2 layers, d_model <= 256,
         <= 4 heads, <= 2 KV heads, head_dim max(d // heads, 8), d_ff <=
         512, vocab <= 512, hidden 64, bottleneck 32, 2 learners, 1
-        microbatch; an SSM keeps state_dim <= 16 with head_dim 16 and
-        chunk 16."""
+        microbatch; an MoE keeps <= 4 experts, top-k <= 2, d_ff_expert and
+        shared_d_ff <= 128 and routing groups of 64; an SSM keeps
+        state_dim <= 16 with head_dim 16 and chunk 16."""
         d = min(self.d_model, 256)
         heads = min(self.n_heads, 4) or self.n_heads
         kv = min(self.n_kv_heads, 2) or self.n_kv_heads
@@ -110,6 +131,12 @@ class ArchConfig:
                        vocab=min(self.vocab, 512), n_learners=2,
                        microbatches=1,
                        window=min(self.window, 64) if self.window else 0)
+        if self.moe is not None:
+            changes["moe"] = replace(
+                self.moe, num_experts=min(self.moe.num_experts, 4),
+                top_k=min(self.moe.top_k, 2),
+                d_ff_expert=min(self.moe.d_ff_expert, 128),
+                shared_d_ff=min(self.moe.shared_d_ff, 128), router_group=64)
         if self.ssm is not None:
             changes["ssm"] = replace(self.ssm,
                                      state_dim=min(self.ssm.state_dim, 16),

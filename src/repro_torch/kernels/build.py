@@ -33,6 +33,7 @@ SOURCES = {
     "argmax": _PKG / "decode" / "csrc" / "argmax.cu",
     "ssd_scan": _PKG / "kernels" / "csrc" / "ssd_scan.cu",
     "flash_attention": _PKG / "kernels" / "csrc" / "flash_attention.cu",
+    "moe_dense": _PKG / "kernels" / "csrc" / "moe_dense.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

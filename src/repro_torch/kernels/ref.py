@@ -442,3 +442,29 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bgmst,btge->bsgme", p, v.float())
     return o.reshape(B, Sq, H, E).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# fused dense MoE (K10)
+# ---------------------------------------------------------------------------
+
+def moe_dense_plain(x, router_w, wi, wg, wo, *, act: str = "swiglu"):
+    """The function of the fused dense-MoE kernel in torch ops
+    (``repro.kernels.ref.moe_dense_ref``): y = Σ_e router_w[:, e] ·
+    ffn_e(x) for x (T, d), router_w (T, E) (0 for experts not selected),
+    wi/wg (E, d, f), wo (E, f, d) -> (T, d) in x's dtype.  The products
+    x·wi, x·wg and h·wo return x's dtype; silu(g)·h (``act="swiglu"``) or
+    the tanh-approximated gelu(h) (``act="gelu"``) is taken in f32 and the
+    hidden rounded once to x's dtype before wo; the sum over experts is
+    f32, weighted by the f32 router weights, and rounded once."""
+    h = torch.einsum("td,edf->tef", x, wi)
+    if act == "swiglu":
+        g = torch.einsum("td,edf->tef", x, wg)
+        h = torch.nn.functional.silu(g.float()) * h.float()
+    elif act == "gelu":
+        h = torch.nn.functional.gelu(h.float(), approximate="tanh")
+    else:
+        raise ValueError(f"act {act!r}: expected 'swiglu' or 'gelu'")
+    ye = torch.einsum("tef,efd->ted", h.to(x.dtype), wo)
+    return torch.einsum("ted,te->td", ye.float(),
+                        router_w.float()).to(x.dtype)

@@ -4,17 +4,20 @@
 Two request families share the slot-pool pattern (admit into free slots,
 advance all active slots together, free and refill on completion):
 
-* **LM** (the dense decoder family, e.g. ``smollm-360m``, the
-  attention-free ssm family, e.g. ``mamba2-370m``, and the hybrid
-  family, e.g. ``hymba-1.5b``, whose layers run both): admission
-  prefills the prompt and emits the first token; every decode wave
-  advances the active requests one token through the model's
-  ``decode_step``, and selects tokens with the argmax kernel (K6 port).
-  Prefill attention is the flash-attention kernel (K11 port), any prompt
-  length up to ``max_len - 1``; decode attention is the decode-attention
-  kernel (K7 port) over the dense KV cache of :class:`Server`, or the
-  paged kernel (K8 port) over the shared page pool of
-  :class:`PagedServer` (dense family only).  The SSM blocks' prefill
+* **LM** (the dense decoder family, e.g. ``smollm-360m``, the moe
+  family, e.g. ``granite-moe-3b-a800m``, whose FFNs are mixtures of
+  experts, the attention-free ssm family, e.g. ``mamba2-370m``, and the
+  hybrid family, e.g. ``hymba-1.5b``, whose layers run attention and SSM
+  heads side by side): admission prefills the prompt and emits the first
+  token; every decode wave advances the active requests one token
+  through the model's ``decode_step``, and selects tokens with the
+  argmax kernel (K6 port).  Prefill attention is the flash-attention
+  kernel (K11 port), any prompt length up to ``max_len - 1``; decode
+  attention is the decode-attention kernel (K7 port) over the dense KV
+  cache of :class:`Server`, or the paged kernel (K8 port) over the
+  shared page pool of :class:`PagedServer` (attention-only families:
+  dense and moe).  A moe layer's dense-router FFN is the fused dense-MoE
+  kernel (K10 port), in prefill and in decode.  The SSM blocks' prefill
   runs the chunked SSD scan (K9 port) in every layer; their decode
   advances per-slot conv windows and SSM states in plain torch ops.
 * **ASR** (the paper's lstm family): requests are variable-length
@@ -36,6 +39,9 @@ uninterrupted one.
         --requests 8 --slots 4 --prompt-len 128 --max-len 256 --max-new 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
         --requests 8 --slots 4 --prompt-len 300 --max-len 512 --max-new 32
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch granite-moe-3b-a800m --requests 16 --slots 8 \
+        --prompt-len 700 --max-len 1024 --max-new 24 [--cache paged]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch swb2000-blstm \
         --requests 8 --slots 4 --prompt-len 256 --max-len 256
 """
@@ -54,11 +60,25 @@ from repro_torch.decode.kernel import argmax_tokens
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.models import lstm as LS
-from repro_torch.params import init_params, zeros_from_specs
+from repro_torch.models.transformer import ATTENTION_ONLY
+from repro_torch.params import init_params, param_bytes, zeros_from_specs
 from repro_torch.serving.admission import (NO_BUDGET, OK, POOL_FULL,
                                            PROMPT_TOO_LONG, AdmitResult,
                                            prompt_capacity)
 from repro_torch.serving.kvpool import PagePool, cdiv
+
+CARD_BYTES = 80e9     # one H100's device memory
+
+
+def require_weights_fit(model):
+    """ValueError when the model's weights alone exceed one card's memory
+    (llama4-scout-17b-a16e at full width: ~214 GB of bf16)."""
+    nbytes = param_bytes(model.param_specs())
+    if nbytes > CARD_BYTES:
+        raise ValueError(
+            f"{model.cfg.name}: {nbytes / 1e9:.1f} GB of weights do not fit "
+            f"one {CARD_BYTES / 1e9:.0f} GB card; serve it with --reduced")
+
 
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
@@ -128,12 +148,13 @@ class Server(_SlotPool):
 
     The cache is a tree whose leaves carry (L, slots, ...) on the device:
     {'attn': {'k', 'v'}}, each (L, slots, max_len, KV, E) bf16, for the
-    dense family; {'ssm': {'conv': {'x', 'B', 'C'}, 'h'}} for the ssm
-    family; both for the hybrid family.  Admission, preemption and
-    restore move a slot's row of every leaf.  Weights are drawn from ``seed``
-    (:func:`init_params`); assign ``server.params`` to serve other
-    weights (e.g. carried over from JAX with
-    :func:`repro_torch.params.from_jax_params`)."""
+    dense and moe families; {'ssm': {'conv': {'x', 'B', 'C'}, 'h'}} for
+    the ssm family; both for the hybrid family.  Admission, preemption
+    and restore move a slot's row of every leaf.  Weights are drawn from
+    ``seed`` on the server's device (:func:`init_params`); a model whose
+    weights exceed one card is refused (:func:`require_weights_fit`).
+    Assign ``server.params`` to serve other weights (e.g. carried over
+    from JAX with :func:`repro_torch.params.from_jax_params`)."""
 
     emits_on_admit = True      # prefill emits the first token at admission
 
@@ -142,9 +163,10 @@ class Server(_SlotPool):
         if not cfg.supports_decode:
             raise ValueError(f"{cfg.name} has no LM decode loop")
         super().__init__(slots, verbose)
-        self.device = resolve_device(device)
         self.cfg = cfg
         self.model = build_model(cfg)
+        require_weights_fit(self.model)
+        self.device = resolve_device(device)
         self.max_len = max_len
         self.batched = batched
         self.params = init_params(self.model.param_specs(), seed,
@@ -334,8 +356,8 @@ class PagedServer(_Events):
     * **preempt/restore** — the snapshot is the table's pages on the host;
       restore re-allocates through the trie and writes the owned pages.
 
-    Attention-only: a family with per-slot SSM state (ssm, hybrid)
-    raises ValueError.
+    Attention-only (the dense and moe families): a family with per-slot
+    SSM state (ssm, hybrid) raises ValueError.
     """
 
     emits_on_admit = True
@@ -345,15 +367,16 @@ class PagedServer(_Events):
                  device=None, verbose: bool = False):
         if not cfg.supports_decode:
             raise ValueError(f"{cfg.name} has no LM decode loop")
-        if cfg.family != "dense":
+        if cfg.family not in ATTENTION_ONLY:
             raise ValueError(f"paged KV cache needs an attention-only "
                              f"family, got {cfg.family}")
         if max_len % page_size:
             raise ValueError(f"max_len {max_len} must be a multiple of "
                              f"page_size {page_size}")
-        self.device = resolve_device(device)
         self.cfg = cfg
         self.model = build_model(cfg)
+        require_weights_fit(self.model)
+        self.device = resolve_device(device)
         self.max_len = max_len
         self.page_size = page_size
         self.table_w = cdiv(max_len, page_size)
@@ -761,8 +784,10 @@ def serve_lm(server, pending, max_new: int):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-360m",
-                    help="smollm-360m (dense LM), mamba2-370m (ssm LM), "
-                         "hymba-1.5b (hybrid LM) or swb2000-blstm (ASR)")
+                    help="smollm-360m (dense LM), granite-moe-3b-a800m or "
+                         "llama4-scout-17b-a16e (moe LM; llama4 --reduced "
+                         "only), mamba2-370m (ssm LM), hymba-1.5b (hybrid "
+                         "LM) or swb2000-blstm (ASR)")
     ap.add_argument("--reduced", action="store_true",
                     help="serve the reference's smoke-test width (2 "
                          "layers, d_model <= 256, vocab <= 512; lstm: "
@@ -824,9 +849,12 @@ def main(argv=None):
         except ValueError as e:
             ap.error(f"--cache paged: {e}")
     else:
-        server = Server(cfg, slots=args.slots, max_len=args.max_len,
-                        batched=not args.sequential, device=args.device,
-                        verbose=True)
+        try:
+            server = Server(cfg, slots=args.slots, max_len=args.max_len,
+                            batched=not args.sequential, device=args.device,
+                            verbose=True)
+        except ValueError as e:
+            ap.error(str(e))
     plen = min(args.prompt_len, prompt_capacity(args.max_len, "lm"))
     pending = lm_requests(cfg, [plen] * args.requests,
                           shared_prefix=args.shared_prefix)

@@ -1,14 +1,16 @@
 """Model facade: one interface over the ported families — the port of
-``repro.models.api`` for the dense, ssm, hybrid and lstm families.
+``repro.models.api`` for the dense, moe, ssm, hybrid and lstm families.
 
 ``build_model(cfg)`` returns a :class:`Model` exposing ``param_specs()``,
-``prefill_fn`` / ``decode_fn`` (serving steps: the dense family over a
-dense or paged KV cache, the ssm family over per-slot conv windows and
-SSM states, the hybrid family over both: a dense KV cache and the SSM
-states), ``cache_specs(batch, cache_len)`` and ``page_specs(n_pages,
-page_size)`` (attention-only: ValueError for the ssm and hybrid
-families).  The lstm family has parameters but no decode loop; its ASR
-server calls ``models/lstm.py`` directly.
+``prefill_fn`` / ``decode_fn`` (serving steps: the dense and moe
+families over a dense or paged KV cache — a moe layer's FFN is a mixture
+of experts, the fused dense-MoE kernel on the card under the dense
+router — the ssm family over per-slot conv windows and SSM states, the
+hybrid family over both: a dense KV cache and the SSM states),
+``cache_specs(batch, cache_len)`` and ``page_specs(n_pages, page_size)``
+(attention-only: ValueError for the ssm and hybrid families).  The lstm
+family has parameters but no decode loop; its ASR server calls
+``models/lstm.py`` directly.
 """
 from __future__ import annotations
 

@@ -1,20 +1,23 @@
-"""Decoder-only stack: the dense, ssm and hybrid families of
+"""Decoder-only stack: the dense, moe, ssm and hybrid families of
 ``repro.models.transformer`` — parameter specs, the sequence forward
 (prefill), the one-token decode step, and the decode-state layouts
-(dense KV rows or a page pool for the dense family; per-slot conv
-windows and SSM states for the ssm family; both halves, KV rows and SSM
-states, for the hybrid family).
+(dense KV rows or a page pool for the dense and moe families; per-slot
+conv windows and SSM states for the ssm family; both halves, KV rows and
+SSM states, for the hybrid family).
 
 Layers are stacked along a leading axis L, as the reference stacks them
 for ``lax.scan``; here a Python loop walks them (no remat: inference
 only).  Prefill attention is ``attention.attn_prefill`` (the K11 kernel
 on the card).  A hybrid layer runs attention and the Mamba-2 block on
 the same normed input and adds the mean of their rmsnormed outputs
-(Hymba's fusion) before its FFN.  The decode step keeps the reference's
-shape: each attention layer attends over the OLD cache plus the new
-token's column (``attn_decode_delta``), and the new K/V of all layers
-land in ONE stacked write after the loop; each SSM block's state rows
-are replaced in place.  The other families (moe, vlm) raise
+(Hymba's fusion) before its FFN.  A moe layer's FFN is
+``moe.moe_apply`` (the K10 kernel on the card under the dense router);
+its auxiliary loss is discarded, as the reference's decode discards it.
+The decode step keeps the reference's shape: each attention layer
+attends over the OLD cache plus the new token's column
+(``attn_decode_delta``), and the new K/V of all layers land in ONE
+stacked write after the loop; each SSM block's state rows are replaced
+in place.  The other families (encdec, vlm) raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as SM
 from repro_torch.models.common import (apply_norm, norm_spec, rmsnorm,
                                        rope_angles)
@@ -32,24 +36,26 @@ from repro_torch.params import ParamSpec
 GLOBAL_WINDOW = np.int32(2 ** 30)   # "window" meaning full attention
 
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+ATTENTION_ONLY = ("dense", "moe")
 
 
 def _require_ported(cfg):
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported (ROADMAP queue 1, 'The "
-            f"MoE family' and 'Other families'); the port's transformer "
-            f"covers the dense, ssm and hybrid families")
+            f"family {cfg.family!r} is not ported (ROADMAP queue 1, 'Other "
+            f"families'); the port's transformer covers the dense, moe, "
+            f"ssm and hybrid families")
 
 
 def _require_attention(cfg):
     """The paged KV cache holds attention keys and values only: the ssm
     family's state is per-slot O(1) and has nothing to page, and the
     hybrid family's per-slot SSM state is refused with it, as the
-    reference refuses every family that is not attention-only."""
+    reference refuses every family that is not attention-only (dense and
+    moe here)."""
     _require_ported(cfg)
-    if cfg.family != "dense":
+    if cfg.family not in ATTENTION_ONLY:
         raise ValueError(f"paged KV cache needs an attention-only family, "
                          f"got {cfg.family}")
 
@@ -66,7 +72,10 @@ def layer_param_specs(cfg) -> dict:
     if cfg.family == "hybrid":
         p["ssm"] = SM.ssm_param_specs(cfg)
     p["ln2"] = norm_spec(cfg)
-    p["mlp"] = F.ffn_param_specs(cfg)
+    if cfg.family == "moe":
+        p["moe"] = M.moe_param_specs(cfg)
+    else:
+        p["mlp"] = F.ffn_param_specs(cfg)
     return p
 
 
@@ -130,6 +139,15 @@ def _hybrid_combine(attn_out, ssm_out):
     return 0.5 * (rmsnorm(attn_out) + rmsnorm(ssm_out))
 
 
+def _ffn(cfg, p, x):
+    """The layer's FFN on its normed input: the dense FFN, or the moe
+    family's mixture of experts (its auxiliary loss discarded)."""
+    h = apply_norm(p["ln2"], x)
+    if cfg.family == "moe":
+        return M.moe_apply(cfg, p["moe"], h)[0]
+    return F.ffn_apply(cfg, p["mlp"], h)
+
+
 def _stack_conv(convs):
     return {k: torch.stack([c[k] for c in convs]) for k in convs[0]}
 
@@ -144,8 +162,8 @@ def forward_seq(cfg, params, x, *, collect_cache: bool = False,
     ``collect_cache`` the cache is ().  The dense cache is the stacked
     (k, v), each (L, B, max(S, cache_len), KV, E); the ssm cache is the
     stacked (conv_state {'x', 'B', 'C'}, ssm_state), each with a leading
-    L; the hybrid cache is ((k, v), conv_state, ssm_state).  No family
-    here has an auxiliary loss."""
+    L; the hybrid cache is ((k, v), conv_state, ssm_state).  The moe
+    family's auxiliary loss is not returned (inference only)."""
     _require_ported(cfg)
     if cfg.family == "ssm":
         return _forward_seq_ssm(cfg, params, x, collect_cache)
@@ -172,7 +190,7 @@ def forward_seq(cfg, params, x, *, collect_cache: bool = False,
             if hybrid:
                 convs.append(conv)
                 hs.append(h_ssm)
-        x = x + F.ffn_apply(cfg, p["mlp"], apply_norm(p["ln2"], x))
+        x = x + _ffn(cfg, p, x)
         x = x.to(torch.bfloat16)
     if not collect_cache:
         return x, ()
@@ -227,9 +245,10 @@ def logits_fn(cfg, params, x):
 
 def cache_specs(cfg, batch: int, cache_len: int) -> dict:
     """Stacked per-layer decode state: the dense KV cache {'attn': {'k',
-    'v'}} (L, batch, cache_len, KV, E) bf16, the ssm state {'ssm':
-    {'conv': {'x', 'B', 'C'}, 'h'}} with a leading L (cache_len unused:
-    the state is O(1) per slot), or both for the hybrid family."""
+    'v'}} (L, batch, cache_len, KV, E) bf16 for the dense and moe
+    families, the ssm state {'ssm': {'conv': {'x', 'B', 'C'}, 'h'}} with a
+    leading L (cache_len unused: the state is O(1) per slot), or both for
+    the hybrid family."""
     _require_ported(cfg)
     specs = {}
     if cfg.family != "ssm":
@@ -237,7 +256,7 @@ def cache_specs(cfg, batch: int, cache_len: int) -> dict:
                  cfg.head_dim)
         specs["attn"] = {"k": ParamSpec(shape, "bfloat16", "zeros"),
                          "v": ParamSpec(shape, "bfloat16", "zeros")}
-    if cfg.family != "dense":
+    if cfg.family in ("ssm", "hybrid"):
         specs["ssm"] = _stack_state(SM.ssm_cache_specs(cfg, batch),
                                     cfg.n_layers)
     return specs
@@ -252,8 +271,8 @@ def _stack_state(spec_tree, n):
 def page_specs(cfg, n_pages: int, page_size: int) -> dict:
     """Paged KV cache: ONE pool of physical pages shared by every
     in-flight request, k, v (L, n_pages, page_size, KV, E) bf16.
-    Attention-only families: ValueError for the ssm and hybrid
-    families."""
+    Attention-only families (dense, moe): ValueError for the ssm and
+    hybrid families."""
     _require_attention(cfg)
     shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
     return {"attn": {"k": ParamSpec(shape, "bfloat16", "zeros"),
@@ -267,8 +286,8 @@ def decode_step(cfg, params, cache, tokens, pos: int, *, page_table=None,
 
     ``page_table`` (B, W) int32 selects the paged layout: cache['attn']
     k/v are page pools (L, n_pages, P, KV, E) and the new column lands in
-    the table's page for ``pos`` (dense family only: ValueError for ssm
-    and hybrid).  The cache tensors are written in place — the new K/V
+    the table's page for ``pos`` (attention-only families: ValueError for
+    ssm and hybrid).  The cache tensors are written in place — the new K/V
     column once for all layers after the layer loop, the conv windows and
     SSM states replaced whole per layer — and returned."""
     _require_ported(cfg)
@@ -295,7 +314,7 @@ def decode_step(cfg, params, cache, tokens, pos: int, *, page_table=None,
         if hybrid:
             o = _hybrid_combine(o, _ssm_step(cfg, p, cache, i, h)).to(x.dtype)
         x = x + o
-        x = x + F.ffn_apply(cfg, p["mlp"], apply_norm(p["ln2"], x))
+        x = x + _ffn(cfg, p, x)
         x = x.to(torch.bfloat16)
         k_new.append(k)
         v_new.append(v)
@@ -338,8 +357,8 @@ def _decode_step_ssm(cfg, params, cache, tokens):
 def prefill(cfg, params, tokens, *, cache_len: int = 0):
     """Full-context forward of tokens (B, S) -> (last-token logits
     (B, 1, V), the decode cache): {'attn': {'k', 'v'}} of length
-    max(S, cache_len) for the dense family, {'ssm': {'conv', 'h'}} for
-    the ssm family, both for the hybrid family."""
+    max(S, cache_len) for the dense and moe families, {'ssm': {'conv',
+    'h'}} for the ssm family, both for the hybrid family."""
     x = embed_tokens(cfg, params, tokens)
     cache_len = cache_len or x.shape[1]
     x, caches = forward_seq(cfg, params, x, collect_cache=True,

@@ -3,7 +3,8 @@
 Parameters are plain nested dicts of tensors under the reference's tree
 keys — the BLSTM's ``layers/layer_i/{fwd,bwd}/{wx,wh,b}``,
 ``bottleneck``, ``softmax_w``, ``softmax_b``; the transformer's
-layer-stacked ``layers/{ln1,attn,ln2,mlp}/...`` or, for the ssm family,
+layer-stacked ``layers/{ln1,attn,ln2,mlp}/...``, for the moe family
+``layers/{ln1,attn,ln2,moe}/...``, for the ssm family
 ``layers/{ln1,ssm}/...`` (leading axis L),
 ``embed`` and ``final_norm`` — so a JAX parameter tree converted to
 numpy loads one-to-one through :func:`from_jax_params`, and a JAX train
@@ -30,22 +31,24 @@ class ParamSpec(NamedTuple):
 
 
 def _init_one(ps: ParamSpec, gen: torch.Generator) -> torch.Tensor:
-    """``sharding.init_param`` semantics: draws in f32, then casts."""
-    dtype = _DTYPES[ps.dtype]
+    """``sharding.init_param`` semantics: draws in f32 on the generator's
+    device, then casts."""
+    dtype, dev = _DTYPES[ps.dtype], gen.device
     if ps.init == "zeros":
-        return torch.zeros(ps.shape, dtype=dtype)
+        return torch.zeros(ps.shape, dtype=dtype, device=dev)
     if ps.init == "ones":
-        return torch.ones(ps.shape, dtype=dtype)
+        return torch.ones(ps.shape, dtype=dtype, device=dev)
     if ps.init == "small_a_log":
         # mamba2 A_log: the log of A drawn uniformly from [1, 16)
-        u = torch.rand(ps.shape, generator=gen, dtype=torch.float32)
+        u = torch.rand(ps.shape, generator=gen, dtype=torch.float32,
+                       device=dev)
         return torch.log(1.0 + 15.0 * u).to(dtype)
-    z = torch.randn(ps.shape, generator=gen, dtype=torch.float32)
+    z = torch.randn(ps.shape, generator=gen, dtype=torch.float32, device=dev)
     if ps.init == "lecun":
         fan_in = ps.shape[0] if len(ps.shape) >= 1 else 1
-        return (z * (1.0 / np.sqrt(max(fan_in, 1)))).to(dtype)
+        return z.mul_(1.0 / np.sqrt(max(fan_in, 1))).to(dtype)
     if ps.init == "normal":
-        return (z * ps.init_scale).to(dtype)
+        return z.mul_(ps.init_scale).to(dtype)
     raise ValueError(f"unknown init {ps.init!r}")
 
 
@@ -56,13 +59,22 @@ def _map_tree(fn, tree):
 
 
 def init_params(spec_tree, seed: int, device) -> dict:
-    """Materialise a spec tree from one CPU ``torch.Generator`` seeded with
-    ``seed`` (leaves drawn in sorted-key order), then move it to
-    ``device``.  The numbers differ from ``jax.random`` for the same seed;
-    carry JAX weights over with :func:`from_jax_params` where they must
-    agree."""
-    gen = torch.Generator(device="cpu").manual_seed(seed)
-    return _map_tree(lambda ps: _init_one(ps, gen).to(device), spec_tree)
+    """Materialise a spec tree on ``device`` from one ``torch.Generator``
+    there, seeded with ``seed`` (leaves drawn in sorted-key order): a
+    model's billions of weights are drawn on the card, not the host.  The
+    same seed gives other numbers on the CPU and on the card, and other
+    numbers than ``jax.random``; carry weights over with
+    :func:`from_jax_params` (or ``.to``) where they must agree."""
+    gen = torch.Generator(device=torch.device(device)).manual_seed(seed)
+    return _map_tree(lambda ps: _init_one(ps, gen), spec_tree)
+
+
+def param_bytes(spec_tree) -> int:
+    """The bytes a spec tree's tensors take, from shapes and dtypes."""
+    if isinstance(spec_tree, dict):
+        return sum(param_bytes(v) for v in spec_tree.values())
+    n = int(np.prod(spec_tree.shape, dtype=np.int64))
+    return n * _DTYPES[spec_tree.dtype].itemsize
 
 
 def zeros_from_specs(spec_tree, device) -> dict:

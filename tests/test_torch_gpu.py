@@ -671,3 +671,127 @@ def test_lm_servers_on_card_admit_a_600_token_prompt(cuda):
         fin, _, _, _ = serve_lm(server, pending, 4)
         assert sorted(dict(fin)) == [0, 1]
         assert all(len(t) == 4 for t in dict(fin).values())
+
+
+# ---------------------------------------------------------------------------
+# the moe slice: K10 fused dense MoE, the moe servers
+# ---------------------------------------------------------------------------
+
+def _moe_inputs(cuda, T, d, E, f, k, mode, seed):
+    """x, the (T, E) router weights (renormalised top-k; "all": the whole
+    softmax; "skip": expert 1 never selected) and wi/wg/wo at the model's
+    init scales, on the card."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(T, d, generator=g).to(cuda, torch.bfloat16)
+    wi = (torch.randn(E, d, f, generator=g) / d ** 0.5).to(cuda,
+                                                           torch.bfloat16)
+    wg = (torch.randn(E, d, f, generator=g) / d ** 0.5).to(cuda,
+                                                           torch.bfloat16)
+    wo = (torch.randn(E, f, d, generator=g) / f ** 0.5).to(cuda,
+                                                           torch.bfloat16)
+    logits = torch.randn(T, E, generator=g)
+    if mode == "skip":
+        logits[:, 1] = -float("inf")
+    w = torch.softmax(logits, -1)
+    if mode != "all":
+        top, idx = torch.topk(w, k, -1)
+        w = torch.zeros_like(w).scatter_(-1, idx,
+                                         top / top.sum(-1, keepdim=True))
+    return x, w.to(cuda), wi, wg, wo
+
+
+def _row_normalised(got, want):
+    """Each token row's max error over its own largest value."""
+    err = (got.float() - want.float()).abs().amax(-1)
+    return float((err / (want.float().abs().amax(-1) + 1e-6)).max())
+
+
+@pytest.mark.parametrize("T,d,E,f,k,act,mode", [
+    (1, 1536, 40, 512, 8, "swiglu", "topk"),     # granite, one token
+    (8, 1536, 40, 512, 8, "swiglu", "topk"),     # a full decode wave
+    (700, 1536, 40, 512, 8, "swiglu", "topk"),   # ragged against 64 rows
+    (37, 256, 4, 128, 2, "gelu", "topk"),        # reduced granite, gelu
+    (64, 1536, 40, 512, 8, "swiglu", "all"),     # every weight non-zero
+    (300, 1536, 40, 512, 8, "swiglu", "skip"),   # one expert never used
+    (20, 512, 5, 256, 2, "swiglu", "topk"),      # 3 groups, the last of 1
+])
+def test_moe_dense_kernel_matches_plain(cuda, T, d, E, f, k, act, mode):
+    """K10 against ``moe_dense_plain`` (whose products round to bf16 as
+    the reference oracle's do): within one bf16 rounding of each token
+    row's largest value; every value finite."""
+    from repro_torch.kernels import moe_dense as MD
+    from repro_torch.kernels.ref import moe_dense_plain
+
+    x, w, wi, wg, wo = _moe_inputs(cuda, T, d, E, f, k, mode, seed=T + E)
+    before = MD.launches
+    got = MD.moe_dense(x, w, wi, wg, wo, act=act)
+    torch.cuda.synchronize()
+    assert MD.launches == before + 1
+    want = moe_dense_plain(x, w, wi, wg, wo, act=act)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert bool(torch.isfinite(got).all())
+    assert _row_normalised(got, want) <= BF16_TOL
+
+
+def test_moe_dense_rows_do_not_depend_on_T(cuda):
+    """Each token's output is bit-identical whatever T is and whichever
+    tokens share its tile: rows of a T = 700 call (64-row tiles) launched
+    alone (16-row tiles) and in a T = 9 call."""
+    from repro_torch.kernels import moe_dense as MD
+
+    x, w, wi, wg, wo = _moe_inputs(cuda, 700, 1536, 40, 512, 8, "topk", 5)
+    full = MD.moe_dense(x, w, wi, wg, wo)
+    for r in (0, 15, 16, 64, 345, 699):
+        assert torch.equal(MD.moe_dense(x[r:r + 1], w[r:r + 1], wi, wg, wo),
+                           full[r:r + 1]), r
+    assert torch.equal(MD.moe_dense(x[100:109], w[100:109], wi, wg, wo),
+                       full[100:109])
+
+
+def test_moe_dense_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels import moe_dense as MD
+
+    x, w, wi, wg, wo = _moe_inputs(cuda, 8, 256, 4, 128, 2, "topk", 6)
+    with pytest.raises(ValueError, match="x: expected"):
+        MD.moe_dense(x.float(), w, wi, wg, wo)
+    with pytest.raises(ValueError, match="router_w: expected"):
+        MD.moe_dense(x, w.to(torch.bfloat16), wi, wg, wo)
+    with pytest.raises(ValueError, match="contiguous"):
+        MD.moe_dense(x, w, wi.transpose(1, 2).contiguous().transpose(1, 2),
+                     wg, wo)
+    x2, w2, wi2, wg2, wo2 = _moe_inputs(cuda, 8, 256, 4, 96, 2, "topk", 7)
+    with pytest.raises(ValueError, match="d_ff 96"):
+        MD.moe_dense(x2, w2, wi2, wg2, wo2)
+    x3, w3, wi3, wg3, wo3 = _moe_inputs(cuda, 8, 320, 4, 128, 2, "topk", 8)
+    with pytest.raises(ValueError, match="d_model 320"):
+        MD.moe_dense(x3, w3, wi3, wg3, wo3)
+
+
+def test_moe_servers_on_card_match_cpu(cuda):
+    """Reduced granite-moe-3b-a800m: the card's prefill logits agree with
+    the CPU's at bf16 tolerance, and both servers finish every request
+    with K10 launched once per layer of every admission and every decode
+    call."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import moe_dense as MD
+    from repro_torch.launch.serve import (PagedServer, Server, lm_requests,
+                                          serve_lm)
+
+    cfg = get_arch("granite-moe-3b-a800m").reduced()
+    pending = lm_requests(cfg, [5, 70, 2, 33], shared_prefix=2)
+    cpu = Server(cfg, slots=2, max_len=128, device="cpu")
+    gpu = Server(cfg, slots=2, max_len=128)
+    gpu.params = _to(cpu.params, cuda)
+    tokens = torch.as_tensor(pending[1][1][None])
+    want, _ = cpu.model.prefill_fn(cpu.params, {"tokens": tokens})
+    got, _ = gpu.model.prefill_fn(gpu.params, {"tokens": tokens.to(cuda)})
+    assert _norm_err(got.cpu(), want) <= BF16_TOL
+    paged = PagedServer(cfg, pool_pages=64, page_size=4, max_len=128)
+    paged.params = gpu.params
+    for server in (gpu, paged):
+        before = MD.launches
+        fin, admit_s, wave_s, _ = serve_lm(server, pending, 6)
+        assert sorted(dict(fin)) == [0, 1, 2, 3]
+        assert all(len(t) == 6 for t in dict(fin).values())
+        calls = MD.launches - before - cfg.n_layers * len(pending)
+        assert calls > 0 and calls % cfg.n_layers == 0

@@ -52,6 +52,9 @@ def test_import_leaves_jax_and_repro_unloaded():
         "import repro_torch.configs.mamba2_370m\n"
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.configs.hymba_1_5b\n"
+        "import repro_torch.models.moe, repro_torch.kernels.moe_dense\n"
+        "import repro_torch.configs.granite_moe_3b_a800m\n"
+        "import repro_torch.configs.llama4_scout_17b_a16e\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'repro')]\n"
         "print(bad)\n"
@@ -147,3 +150,35 @@ def test_lm_kernel_wrappers_take_the_plain_path_only_on_cpu():
         DA.decode_attention(meta, kc, kc, 2)
     with pytest.raises(ValueError, match="CUDA tensor"):
         DK.argmax_tokens(torch.zeros(2, 5, device="meta"))
+
+
+def test_moe_entry_points_raise_without_gpu(no_gpu):
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import PagedServer, Server, main
+
+    cfg = get_arch("granite-moe-3b-a800m").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Server(cfg, slots=1, max_len=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PagedServer(cfg, pool_pages=4, page_size=4, max_len=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--arch", "granite-moe-3b-a800m", "--reduced", "--requests",
+              "1"])
+    server = Server(cfg, slots=1, max_len=8, device="cpu")
+    assert server.params["layers"]["moe"]["wi"].device.type == "cpu"
+
+
+def test_moe_kernel_wrapper_takes_the_plain_path_only_on_cpu():
+    """K10's wrapper: a CPU tensor runs the plain version, anything else
+    must reach the kernel's device checks, never the plain path."""
+    from repro_torch.kernels import moe_dense as MD
+
+    x = torch.zeros(3, 64, dtype=torch.bfloat16)
+    w = torch.zeros(3, 2)
+    wi = torch.zeros(2, 64, 64, dtype=torch.bfloat16)
+    before = MD.launches
+    assert MD.moe_dense(x, w, wi, wi, wi).shape == x.shape
+    assert MD.launches == before
+    meta = [t.to("meta") for t in (x, w, wi)]
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        MD.moe_dense(meta[0], meta[1], meta[2], meta[2], meta[2])

@@ -146,7 +146,7 @@ def test_init_params_ones_and_windows(models):
 
 def test_other_families_raise():
     cfg = dataclasses.replace(get_arch("smollm-360m").reduced(),
-                              family="moe")
+                              family="vlm")
     with pytest.raises(NotImplementedError, match="Other families"):
         build_model(cfg).param_specs()
 

@@ -145,7 +145,7 @@ def test_init_small_a_log_and_per_layer_fan_in(models):
 
 def test_other_families_and_paged_ssm_raise(models):
     tcfg, tm, tp = models[1], models[3], models[5]
-    for fam in ("moe", "vlm"):
+    for fam in ("encdec", "vlm"):
         with pytest.raises(NotImplementedError, match="Other families"):
             build_model(dataclasses.replace(tcfg, family=fam)).param_specs()
     with pytest.raises(ValueError, match="attention-only"):
