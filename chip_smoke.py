@@ -2515,12 +2515,16 @@ def _router_weights(gen, T, E, k, mode):
     return probs.to("cuda")
 
 
-def _moe_bytes_ops(T, d, E, f):
-    """Bytes a call must move (x, the router weights and every expert's
-    wi, wg, wo in; y out) and its operations: 2 x 3 d f per token and
-    expert, bf16 products at the bf16 peak."""
-    nbytes = 2 * T * d + 4 * T * E + 2 * 3 * E * d * f + 2 * T * d
-    return nbytes, 6 * T * E * d * f
+def _moe_bytes_ops(w, d, f):
+    """What this call's router weights w (T, E) need: x and w in, y out,
+    and wi, wg, wo of every expert that some token weights (an expert
+    with no non-zero weight adds nothing to y); 2 x 3 d f operations per
+    non-zero (token, expert) weight, bf16 products at the bf16 peak."""
+    T, E = w.shape
+    nz = w != 0
+    experts = int(nz.any(dim=0).sum())
+    nbytes = 2 * T * d + 4 * T * E + 2 * 3 * experts * d * f + 2 * T * d
+    return nbytes, 6 * int(nz.sum()) * d * f, experts
 
 
 def _moe_yardstick(x, w, wi, wg, wo):
@@ -2597,7 +2601,7 @@ def check_k10(gen):
                 lambda: moe_dense_plain(x, w, wi, wg, wo, act=act), 5)
             yard = _moe_yardstick(x, w, wi, wg, wo)
             yard_ms, yard_dev = _time_ms(yard, 20), _device_ms(yard, iters=10)
-            nbytes, ops = _moe_bytes_ops(T, d, E, f)
+            nbytes, ops, used = _moe_bytes_ops(w, d, f)
             bound_ms, bound_by = _bound(nbytes, ops, PEAK_BF16_FLOPS)
             rows[T] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                            library_ms=None, yardstick_ms=yard_ms,
@@ -2610,8 +2614,10 @@ def check_k10(gen):
                      f"{_ms(dev_ms)}, plain {plain_ms:.4f} ms, yardstick "
                      f"(3 bmm + elementwise, not one call) {yard_ms:.4f} ms "
                      f"eager, {_ms(yard_dev)} graph-replayed, bound "
-                     f"{bound_ms:.5f} ms ({bound_by}: {ops / 1e9:.3f} GFLOP, "
-                     f"{nbytes / 1e6:.2f} MB), roofline share "
+                     f"{bound_ms:.5f} ms ({bound_by}: {ops / 1e9:.3f} GFLOP "
+                     f"of the non-zero weights, {nbytes / 1e6:.2f} MB with "
+                     f"the {used} of {E} experts some token weights), "
+                     f"roofline share "
                      f"{bound_ms / (dev_ms or ms):.3f}")
         print(line, flush=True)
     extra = {f"{k}_decode": v for k, v in rows[8].items()}

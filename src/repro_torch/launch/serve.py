@@ -67,17 +67,21 @@ from repro_torch.serving.admission import (NO_BUDGET, OK, POOL_FULL,
                                            prompt_capacity)
 from repro_torch.serving.kvpool import PagePool, cdiv
 
-CARD_BYTES = 80e9     # one H100's device memory
+H100_BYTES = 80e9     # the card the port serves on, for a CPU run
 
 
-def require_weights_fit(model):
-    """ValueError when the model's weights alone exceed one card's memory
-    (llama4-scout-17b-a16e at full width: ~214 GB of bf16)."""
+def require_weights_fit(model, device: torch.device):
+    """ValueError when the model's weights alone exceed the memory of the
+    card that would serve them: the CUDA device's own, or on the CPU (which
+    runs the card's path at small widths) one H100's.  llama4-scout-17b-a16e
+    at full width holds ~214 GB of bf16."""
     nbytes = param_bytes(model.param_specs())
-    if nbytes > CARD_BYTES:
+    cap = (torch.cuda.get_device_properties(device).total_memory
+           if device.type == "cuda" else H100_BYTES)
+    if nbytes > cap:
         raise ValueError(
             f"{model.cfg.name}: {nbytes / 1e9:.1f} GB of weights do not fit "
-            f"one {CARD_BYTES / 1e9:.0f} GB card; serve it with --reduced")
+            f"one {cap / 1e9:.0f} GB card; serve it with --reduced")
 
 
 def _tree_map(fn, tree):
@@ -151,8 +155,7 @@ class Server(_SlotPool):
     dense and moe families; {'ssm': {'conv': {'x', 'B', 'C'}, 'h'}} for
     the ssm family; both for the hybrid family.  Admission, preemption
     and restore move a slot's row of every leaf.  Weights are drawn from
-    ``seed`` on the server's device (:func:`init_params`); a model whose
-    weights exceed one card is refused (:func:`require_weights_fit`).
+    ``seed`` on the server's device (:func:`init_params`).
     Assign ``server.params`` to serve other weights (e.g. carried over
     from JAX with :func:`repro_torch.params.from_jax_params`)."""
 
@@ -165,7 +168,6 @@ class Server(_SlotPool):
         super().__init__(slots, verbose)
         self.cfg = cfg
         self.model = build_model(cfg)
-        require_weights_fit(self.model)
         self.device = resolve_device(device)
         self.max_len = max_len
         self.batched = batched
@@ -375,7 +377,6 @@ class PagedServer(_Events):
                              f"page_size {page_size}")
         self.cfg = cfg
         self.model = build_model(cfg)
-        require_weights_fit(self.model)
         self.device = resolve_device(device)
         self.max_len = max_len
         self.page_size = page_size
@@ -838,20 +839,25 @@ def main(argv=None):
     if cfg.family == "lstm":
         return _main_asr(cfg, args)
 
+    device = resolve_device(args.device)
+    try:
+        require_weights_fit(build_model(cfg), device)
+    except ValueError as e:
+        ap.error(str(e))
     cache_mode = args.cache or cfg.cache_mode
     if cache_mode == "paged":
         page = args.page_size or cfg.page_size
         pool_pages = args.pool_pages or args.slots * cdiv(args.max_len, page)
         try:
             server = PagedServer(cfg, pool_pages=pool_pages, page_size=page,
-                                 max_len=args.max_len, device=args.device,
+                                 max_len=args.max_len, device=device,
                                  verbose=True)
         except ValueError as e:
             ap.error(f"--cache paged: {e}")
     else:
         try:
             server = Server(cfg, slots=args.slots, max_len=args.max_len,
-                            batched=not args.sequential, device=args.device,
+                            batched=not args.sequential, device=device,
                             verbose=True)
         except ValueError as e:
             ap.error(str(e))

@@ -16,8 +16,9 @@ the CPU it is the reference model's own einsum math per routing group
 the ``moe_dense_fused`` variant).
 
 The optional shared expert (llama4-scout) adds a SwiGLU or GELU FFN over
-every token, in plain torch ops.  Every path returns ``(y, aux)`` with
-the Switch-transformer load-balance loss ``aux``.
+every token, in plain torch ops.  ``moe_apply`` returns ``(y, aux)`` with
+the Switch-transformer load-balance loss ``aux``; ``moe_ffn``, which the
+transformer calls, returns ``y`` alone and builds no loss.
 """
 from __future__ import annotations
 
@@ -96,18 +97,15 @@ def _group_size(router_group: int, T: int) -> int:
     return g
 
 
-def moe_apply(cfg, p, x):
-    """x (B, S, d) -> (y (B, S, d) in x's dtype, aux loss (f32 scalar))."""
+def _routed(cfg, p, x):
+    """x (B, S, d) -> (y (B, S, d) in x's dtype, router probs (n_g, g, E),
+    top-k expert indices (n_g, g, k))."""
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
     g_sz = _group_size(m.router_group, T)
-    n_g = T // g_sz
-    xg = x.reshape(n_g, g_sz, d)
+    xg = x.reshape(T // g_sz, g_sz, d)
     probs, top_w, top_idx = route(cfg, p, xg)
-    onehot = torch.nn.functional.one_hot(top_idx, m.num_experts).float()
-    aux = _aux_loss(probs, onehot.amax(dim=2), m.num_experts)
-
     if m.router_impl == "dense":
         # the combine weight of each (token, expert): its top-k weight
         # where selected, else 0
@@ -118,13 +116,27 @@ def moe_apply(cfg, p, x):
             y = MD.moe_dense(x.reshape(T, d).contiguous(), w_te.reshape(T, -1),
                              p["wi"], p["wg"], p["wo"], act=cfg.act)
     else:
-        y = _dispatch(cfg, p, xg, top_w, onehot)
+        y = _dispatch(cfg, p, xg, top_w, top_idx)
     y = y.reshape(B, S, d)
     if m.shared_expert:
         h = x @ p["shared_wi"]
         h = _act(cfg, h, lambda: x @ p["shared_wg"])
         y = y + h @ p["shared_wo"]
-    return y, aux
+    return y, probs, top_idx
+
+
+def moe_ffn(cfg, p, x):
+    """x (B, S, d) -> y (B, S, d) in x's dtype: the layer's FFN, without
+    the auxiliary loss (the serving path's call)."""
+    return _routed(cfg, p, x)[0]
+
+
+def moe_apply(cfg, p, x):
+    """x (B, S, d) -> (y (B, S, d) in x's dtype, aux loss (f32 scalar))."""
+    y, probs, top_idx = _routed(cfg, p, x)
+    E = cfg.moe.num_experts
+    onehot = torch.nn.functional.one_hot(top_idx, E)
+    return y, _aux_loss(probs, onehot.amax(dim=2), E)
 
 
 def _dense_groups(cfg, p, xg, w_te):
@@ -145,12 +157,13 @@ def _dense_groups(cfg, p, xg, w_te):
     return torch.stack(out)
 
 
-def _dispatch(cfg, p, xg, top_w, onehot):
+def _dispatch(cfg, p, xg, top_w, top_idx):
     """GShard capacity routing: a (token, k) slot takes the next free
     position in its expert's buffer of ``cap`` in (token, k) order within
     the group; slots past ``cap`` are dropped."""
     m = cfg.moe
     n_g, g_sz, _ = xg.shape
+    onehot = torch.nn.functional.one_hot(top_idx, m.num_experts).float()
     cap = max(int(g_sz * m.top_k * m.capacity_factor / m.num_experts), 1)
     flat = onehot.reshape(n_g, g_sz * m.top_k, m.num_experts)
     pos = (torch.cumsum(flat, dim=1) - flat).reshape(onehot.shape)

@@ -11,8 +11,8 @@ only).  Prefill attention is ``attention.attn_prefill`` (the K11 kernel
 on the card).  A hybrid layer runs attention and the Mamba-2 block on
 the same normed input and adds the mean of their rmsnormed outputs
 (Hymba's fusion) before its FFN.  A moe layer's FFN is
-``moe.moe_apply`` (the K10 kernel on the card under the dense router);
-its auxiliary loss is discarded, as the reference's decode discards it.
+``moe.moe_ffn`` (the K10 kernel on the card under the dense router);
+its auxiliary loss is not built, as the reference's decode discards it.
 The decode step keeps the reference's shape: each attention layer
 attends over the OLD cache plus the new token's column
 (``attn_decode_delta``), and the new K/V of all layers land in ONE
@@ -141,10 +141,10 @@ def _hybrid_combine(attn_out, ssm_out):
 
 def _ffn(cfg, p, x):
     """The layer's FFN on its normed input: the dense FFN, or the moe
-    family's mixture of experts (its auxiliary loss discarded)."""
+    family's mixture of experts (no auxiliary loss: serving discards it)."""
     h = apply_norm(p["ln2"], x)
     if cfg.family == "moe":
-        return M.moe_apply(cfg, p["moe"], h)[0]
+        return M.moe_ffn(cfg, p["moe"], h)
     return F.ffn_apply(cfg, p["mlp"], h)
 
 

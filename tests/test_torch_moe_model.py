@@ -300,23 +300,26 @@ def test_llama4_moe_blocks_match_jax_on_prefill_activations(llama4, S):
     """Every layer's MoE block (the dispatch router and the shared expert)
     on the activations of the port's own prefill — 96 runs past layer 1's
     64-position window — against ``repro.models.moe.moe_apply`` on the
-    same input."""
+    same input; the transformer's ``moe_ffn`` gives ``moe_apply``'s y bit
+    for bit."""
     jcfg, tcfg, _, tm, jp, tp = llama4[:6]
     prompts = _prompts(2, S, jcfg.vocab, seed=S)
     seen = []
-    real = TM.moe_apply
+    real = TM.moe_ffn
 
     def record(cfg, p, x):
-        y, aux = real(cfg, p, x)
-        seen.append((x, y, aux))
-        return y, aux
+        y = real(cfg, p, x)
+        seen.append((x, y, p))
+        return y
 
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(TM, "moe_apply", record)
+        mp.setattr(TM, "moe_ffn", record)
         tm.prefill_fn(tp, {"tokens": torch.from_numpy(prompts)},
                       cache_len=CACHE)
     assert len(seen) == tcfg.n_layers
-    for i, (x, y, aux) in enumerate(seen):
+    for i, (x, y_ffn, tl) in enumerate(seen):
+        y, aux = TM.moe_apply(tcfg, tl, x)
+        assert torch.equal(y, y_ffn), i
         jl = jax.tree.map(lambda a: a[i], jp["layers"]["moe"])
         yj, aj = JM.moe_apply(jcfg, jl, jnp.asarray(
             x.float().numpy(), jnp.bfloat16))

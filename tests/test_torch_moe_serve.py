@@ -202,3 +202,20 @@ def test_cli_serves_reduced_llama4_and_refuses_its_full_width(capsys):
             TS.main(["--arch", LLAMA4, "--device", "cpu"] + extra)
         err = capsys.readouterr().err
         assert "GB of weights do not fit one 80 GB card" in err
+
+
+def test_weights_fit_follows_the_card_in_use(monkeypatch):
+    """On a CUDA device the limit is that card's own memory: the full-width
+    granite's 6.6 GB fit an H100 (and the CPU's stand-in for one) but not
+    a 4 GB card."""
+    from repro_torch.models import build_model
+
+    class Props:
+        total_memory = 4e9
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: Props)
+    model = build_model(get_arch(GRANITE))
+    with pytest.raises(ValueError, match="do not fit one 4 GB card"):
+        TS.require_weights_fit(model, torch.device("cuda"))
+    TS.require_weights_fit(model, torch.device("cpu"))
