@@ -18,12 +18,22 @@ Phases, each of which fails the run (nonzero exit, no result line):
    the beam frame step (K5 port) bit-identical under the max semiring
    and within 1e-5 under sum; time each with CUDA events beside its
    plain version, its bytes/operations bound and a library call;
+3a. k4 — the fused BLSTM stack (K4 port, one launch for every layer)
+   against its plain version ``blstm_stack_plain`` at 2e-2 of each
+   utterance's largest value (every value finite) and bit-identical to
+   the loop of K1 launches, at the serving admission's shape (B = 1, T =
+   256, 6 layers of 512, D0 = 260), evaluate's (B = 8, T = 256, var-len
+   with a length-1 row) and a small ragged one (B = 5 in a tile of 8, H =
+   16, 3 layers); both full-width shapes timed (eager, and one launch
+   replayed from a CUDA graph) beside the K1 loop, the plain version, the
+   bound and cuDNN's 6-layer bidirectional LSTM;
 4. serve   — the full-width ``swb2000-blstm`` AsrServer (6 BLSTM layers
    of 512 per direction, vocab 32000, random weights from seed 0)
    serves 8 synthetic utterances to completion with every launch counter
-   set to 0 just before and read just after; then a second run with
-   top-C pruning (C = 16) serves 4 more.  The parked posteriors of one
-   request are held against the plain forward;
+   set to 0 just before and read just after (K4 once per admission, K1
+   never); then a second run with top-C pruning (C = 16) serves 4 more.
+   The parked posteriors of one request are held against the plain
+   forward;
 5. profile — 4 requests once more under torch.profiler: device time by
    kernel and the device's busy share of the wall time;
 6. train   — the paper's §V training setup at full width: ad_psgd over
@@ -33,7 +43,20 @@ Phases, each of which fails the run (nonzero exit, no result line):
    frames/s; one step's loss and gradients of the kernel path held
    against the plain path at 2e-2 (normalised); a non-finite loss fails;
 7. train profile — one more step under torch.profiler;
-7a. k3 — the long-utterance slice's kernels against their plain versions
+7a. evaluate — the 16-learner state the train phase ended with is saved
+   through the port's ``checkpoint.save`` into a temporary directory
+   (bytes and seconds printed), then ``launch.evaluate.main`` scores it:
+   ``--arch swb2000-blstm --strategy ad_psgd --learners 16 --batches 4
+   --batch 8 --seq-len 256 --var-len --beam-width 8 --decode-chunk 8``,
+   with the counters set to 0 just before and read just after (K4 once
+   per forward, warm-up included; K1 never; K5 once per decoded frame);
+   on the first batch the consensus logits are held bit-identical to the
+   per-layer K1 loop and within 2e-2 per utterance of the plain forward,
+   and the final K5 beam state (every slot's prefix and scores) equal to
+   the plain beam decode's on the same logits on the card (max semiring:
+   K5 is bit-exact there); its six CSV
+   rows (no quality claim: 12 steps of synthetic data);
+7b. k3 — the long-utterance slice's kernels against their plain versions
    and against the unchunked pair: K1's chunk-entry variant and the
    chunked-recompute backward (K3 port) at 4 learners x 2 rows, T = 300,
    K = 64 (T padded to 320), D = 1024, H = 512, var-len with a length-1
@@ -42,7 +65,7 @@ Phases, each of which fails the run (nonzero exit, no result line):
    versions, and with an f32 stash K3's gradients within 2e-5 normalised
    of K2's on the same input; each timed at the train-long layer shape
    beside its plain version, its bound and a cuDNN LSTM call;
-7b. train-long — full-width ``swb2000-blstm``, ad_psgd over 16 learners,
+7c. train-long — full-width ``swb2000-blstm``, ad_psgd over 16 learners,
    global batch 32, T = 2000 (lognormal var-len, median 1200) with
    ``seq_chunk = -1`` (K = 256): 1 warm-up and 3 timed steps chunked,
    then 1 warm-up and 2 timed steps unchunked, each with the launch
@@ -354,26 +377,27 @@ def _k1_inputs(B, T, D, H, lengths, gen):
     return ws, x, torch.tensor(lengths, dtype=torch.int32, device=dev)
 
 
-def _cudnn_blstm(ws, x, lengths):
-    """One cuDNN bidirectional LSTM call over a packed batch with the same
-    weights (forget bias +1 folded into the input bias): the library
-    yardstick, timed only here and used nowhere in the port."""
+def _cudnn_stack(layers, x, lengths):
+    """One call of a ``len(layers)``-layer cuDNN bidirectional LSTM over a
+    packed batch with the same weights (forget bias +1 folded into the
+    input bias): the library yardstick, timed only here and used nowhere
+    in the port."""
     import torch
     from torch.nn.utils.rnn import pack_padded_sequence
 
-    wxf, whf, bf, wxb, whb, bb = ws
-    D, H = x.shape[-1], whf.shape[0]
-    lstm = torch.nn.LSTM(D, H, batch_first=True, bidirectional=True).to(
-        x.device, torch.bfloat16)
+    D, H = x.shape[-1], layers[0][1].shape[0]
+    lstm = torch.nn.LSTM(D, H, num_layers=len(layers), batch_first=True,
+                         bidirectional=True).to(x.device, torch.bfloat16)
     with torch.no_grad():
-        for sfx, (wx, wh, b) in (("", (wxf, whf, bf)),
-                                 ("_reverse", (wxb, whb, bb))):
-            bias = b.clone()
-            bias[H:2 * H] += 1.0
-            getattr(lstm, f"weight_ih_l0{sfx}").copy_(wx.t())
-            getattr(lstm, f"weight_hh_l0{sfx}").copy_(wh.t())
-            getattr(lstm, f"bias_ih_l0{sfx}").copy_(bias)
-            getattr(lstm, f"bias_hh_l0{sfx}").zero_()
+        for k, (wxf, whf, bf, wxb, whb, bb) in enumerate(layers):
+            for sfx, (wx, wh, b) in (("", (wxf, whf, bf)),
+                                     ("_reverse", (wxb, whb, bb))):
+                bias = b.clone()
+                bias[H:2 * H] += 1.0
+                getattr(lstm, f"weight_ih_l{k}{sfx}").copy_(wx.t())
+                getattr(lstm, f"weight_hh_l{k}{sfx}").copy_(wh.t())
+                getattr(lstm, f"bias_ih_l{k}{sfx}").copy_(bias)
+                getattr(lstm, f"bias_hh_l{k}{sfx}").zero_()
     lstm.flatten_parameters()
     packed = pack_padded_sequence(x, lengths.cpu(), batch_first=True,
                                   enforce_sorted=False)
@@ -417,7 +441,7 @@ def check_k1(gen):
         plain_ms = _time_ms(lambda: blstm_layer_ref(*ws, x, lengths), 2,
                             warmup=1)
         try:
-            library_ms = _time_ms(_cudnn_blstm(ws, x, lengths), 10)
+            library_ms = _time_ms(_cudnn_stack([ws], x, lengths), 10)
         except RuntimeError as e:        # no cuDNN kernel for these types
             print(f"[K1] library (cuDNN LSTM) not timed: {e}", flush=True)
             library_ms = None
@@ -748,6 +772,123 @@ def check_k5(gen):
     return entries
 
 
+# K4 at the serving admission's shape (B = 1, T = 256, a 173-frame
+# utterance) and evaluate's (B = 8, T = 256, var-len with a length-1 row);
+# a small ragged case (B = 5 in a tile of 8, H = 16, 3 layers) first
+K4_CASES = [(5, 9, 12, 16, 3, (9, 4, 1, 9, 6)),
+            (1, 256, 260, 512, 6, (173,)),
+            (8, 256, 260, 512, 6, (256, 240, 199, 150, 97, 64, 12, 1))]
+
+
+def _stack_inputs(n_layers, B, T, D0, H, lengths, gen):
+    """Random layers (``_k1_inputs``' scales) of a stack: layer 0 reads
+    D0 features, the others 2H; x and lengths."""
+    layers, x, lens = [], None, None
+    D = D0
+    for k in range(n_layers):
+        ws, xk, lk = _k1_inputs(B, T, D, H, lengths, gen)
+        layers.append(ws)
+        if k == 0:
+            x, lens = xk, lk
+        D = 2 * H
+    return layers, x, lens
+
+
+def _stack_bytes_ops(layers, x, lengths):
+    """K4's bound: x, every weight and bias, the lengths and y once; the
+    x- and h-products of the valid frames (every layer, both
+    directions) at the bf16 peak."""
+    B, T, _ = x.shape
+    H = layers[0][1].shape[0]
+    n_valid = int(lengths.sum())
+    nbytes = (x.numel() * 2 + B * 4 + B * T * 2 * H * 2
+              + sum(w.numel() * w.element_size() for ws in layers
+                    for w in ws))
+    ops = sum(2 * 2 * n_valid * (ws[0].shape[0] + H) * 4 * H
+              for ws in layers)
+    return nbytes, ops
+
+
+def _row_norm_err(got, want) -> tuple:
+    """(max abs error, worst per-utterance error over that utterance's
+    largest |want|): a length-1 row is held at its own scale."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs().flatten(1).amax(1)
+    return (float(diff.max()),
+            float((diff / (want.abs().flatten(1).amax(1) + 1e-6)).max()))
+
+
+def check_k4(gen):
+    """The fused stack (K4 port) against its plain version (2e-2 per
+    utterance, every value finite) and bit-identical to the per-layer K1
+    loop; both full-width shapes timed (eager, and one launch replayed
+    from a CUDA graph) beside the K1 loop, the plain version, the bound
+    and cuDNN's stacked bidirectional LSTM.  The K1 launches of the loop
+    are comparisons, not the main path: the counters are restored."""
+    import torch
+
+    from repro_torch.kernels import lstm_cell as LC
+    from repro_torch.kernels.ref import blstm_stack_plain
+
+    saved = (LC.launches, LC.stack_launches)
+    worst, timings = 0.0, {}
+    for B, T, D0, H, n_layers, lens in K4_CASES:
+        layers, x, lengths = _stack_inputs(n_layers, B, T, D0, H, lens, gen)
+        got = LC.blstm_stack(layers, x, lengths)
+        torch.cuda.synchronize()
+
+        def loop():
+            y = x
+            for ws in layers:
+                y = LC.blstm_layer(*ws, y, lengths)
+            return y
+        same = torch.equal(got, loop())
+        want = blstm_stack_plain(layers, x, lengths)
+        abs_err, norm = _row_norm_err(got, want)
+        shape = f"B={B} T={T} D0={D0} H={H} L={n_layers}"
+        print(f"[K4] blstm_stack {shape} lengths={lens}: bit-identical to "
+              f"the K1 loop {same}; vs plain max_abs_err {abs_err:.3g}, "
+              f"worst per-utterance {norm:.3g} (tol {K1_TOL})", flush=True)
+        if not torch.isfinite(got).all():
+            _fail(f"K4 {shape}: non-finite output")
+        if not same:
+            _fail(f"K4 {shape} is not bit-identical to the per-layer loop")
+        if not norm <= K1_TOL:
+            _fail(f"K4 {shape} disagrees with its plain version: {norm}")
+        for b, n in enumerate(lens):
+            if got[b, n:].any():
+                _fail(f"K4 {shape}: padded frames of row {b} not zero")
+        worst = max(worst, abs_err)
+        if H != 512:
+            continue
+        ms = _time_ms(lambda: LC.blstm_stack(layers, x, lengths), 5)
+        dev_ms = _device_ms(lambda: LC.blstm_stack(layers, x, lengths),
+                            iters=3, reps=2)
+        loop_ms = _time_ms(loop, 5)
+        loop_dev_ms = _device_ms(loop, iters=3, reps=2)
+        plain_ms = _time_ms(lambda: blstm_stack_plain(layers, x, lengths),
+                            1, warmup=1)
+        library_ms = _library_ms(lambda: _time_ms(
+            _cudnn_stack(layers, x, lengths), 5), "K4")
+        bound_ms, bound_by = _bound(*_stack_bytes_ops(layers, x, lengths),
+                                    PEAK_BF16_FLOPS)
+        timings[B] = dict(ms=ms, device_ms=dev_ms, k1_loop_ms=loop_ms,
+                          k1_loop_device_ms=loop_dev_ms, plain_ms=plain_ms,
+                          library_ms=library_ms, bound_ms=bound_ms,
+                          bound_by=bound_by)
+        print(f"[K4] {shape}: kernel {ms:.3f} ms (device {_ms(dev_ms)}), "
+              f"K1 loop {loop_ms:.3f} ms (device {_ms(loop_dev_ms)}), plain "
+              f"{plain_ms:.1f} ms, library {library_ms} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+    LC.launches, LC.stack_launches = saved
+    serve, ev = timings[1], timings[8]
+    return dict(name="blstm_stack", route="cuda",
+                source="src/repro_torch/kernels/csrc/lstm_stack.cu",
+                replaces="src/repro/kernels/lstm_cell.py:1238",
+                max_abs_err=worst, **serve, evaluate_shape=ev,
+                shape="B=1 T=256 D0=260 H=512 L=6")
+
+
 # ---------------------------------------------------------------- phase 4
 def _serve(cfg, *, requests, topc):
     import torch
@@ -760,13 +901,13 @@ def _serve(cfg, *, requests, topc):
                        seed=SEED, topc=topc)
     pending = asr_requests(cfg, requests=requests, seq_len=256, seed=SEED)
     torch.cuda.synchronize()
-    lstm_cell.launches = 0
-    DK.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     finished, wave_s = serve_all(server, pending)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = {"blstm_layer": lstm_cell.launches,
+    counts = {"blstm_stack": lstm_cell.stack_launches,
+              "blstm_layer": lstm_cell.launches,
               "beam_frame_step_topc" if topc else "beam_frame_step":
               DK.launches}
     return server, pending, finished, wave_s, dt, counts
@@ -787,6 +928,10 @@ def phase_serve():
         got = sorted(rid for rid, _ in finished)
         if got != [rid for rid, _ in pending]:
             _fail(f"served {got}, expected every one of {len(pending)}")
+        admits = sum(1 for kind, _, _ in server.events if kind == "admit")
+        if (counts.pop("blstm_layer"), counts["blstm_stack"]) != (0, admits):
+            _fail(f"serve: {counts} launches for {admits} admissions: the "
+                  f"stack kernel runs once per admission, K1 never")
         for name, n in counts.items():
             if n <= 0:
                 _fail(f"kernel {name} was never launched on the main path")
@@ -858,7 +1003,7 @@ def _zero_counts():
     from repro_torch.kernels import lstm_cell as LC
 
     LC.launches = LC.stash_launches = LC.bwd_launches = 0
-    LC.chunk_launches = LC.chunked_bwd_launches = 0
+    LC.chunk_launches = LC.chunked_bwd_launches = LC.stack_launches = 0
     DK.launches = 0
 
 
@@ -970,6 +1115,142 @@ def phase_train_profile(state, step, ds, start, tag="train-profile"):
 
 
 # ---------------------------------------------------------------- phase 7a
+EVAL_ARGS = ["--arch", "swb2000-blstm", "--strategy", "ad_psgd",
+             "--learners", "16", "--batches", "4", "--batch", "8",
+             "--seq-len", "256", "--var-len", "--beam-width", "8",
+             "--decode-chunk", "8"]
+
+
+def phase_evaluate(state):
+    """Recognition scoring of the train phase's 16-learner state: saved
+    through the port's checkpoint module, restored and scored by the
+    evaluate CLI with the counters set to 0 just before and read just
+    after; then the first batch's logits held bit-identical to the
+    per-layer K1 loop and within 2e-2 of the plain forward, and its final
+    K5 beam state (every slot's prefix and scores) equal to the plain
+    beam decode's.  Returns the launch counts of the run and the K1
+    launches of the loop check."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import checkpoint as CK
+    from repro_torch import decode as DC
+    from repro_torch.configs import get_arch
+    from repro_torch.decode import beam as DB
+    from repro_torch.decode import kernel as DK
+    from repro_torch.kernels import lstm_cell as LC
+    from repro_torch.launch import evaluate as EV
+    from repro_torch.models import lstm as LS
+
+    cfg = get_arch("swb2000-blstm")
+    with tempfile.TemporaryDirectory() as ck:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = Path(CK.save(ck, state["step"], state))
+        secs = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in path.iterdir())
+        print(f"[evaluate] checkpoint of step {state['step']} (16 learners, "
+              f"ad_psgd): {nbytes} bytes saved in {secs:.2f}s", flush=True)
+        # record what the CLI's forward and decode return, batch by batch
+        calls, finals = [], []
+        forward, finalize = LS.forward, DC.finalize
+
+        def rec_forward(*a, **kw):
+            out = forward(*a, **kw)
+            calls.append((a, out))
+            return out
+
+        def rec_finalize(st, **kw):
+            finals.append(st)
+            return finalize(st, **kw)
+        LS.forward, DC.finalize = rec_forward, rec_finalize
+        try:
+            torch.cuda.synchronize()
+            _zero_counts()
+            t0 = time.perf_counter()
+            m = EV.main(EVAL_ARGS + ["--ckpt-dir", ck])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = {"blstm_stack": LC.stack_launches,
+                      "blstm_layer": LC.launches,
+                      "beam_frame_step": DK.launches}
+        finally:
+            LS.forward, DC.finalize = forward, finalize
+    frames = sum(a[2].shape[1] for a, _ in calls)
+    print(f"[evaluate] {len(calls)} forwards (warm-up included), restore "
+          f"and scoring in {dt:.2f}s; the {len(calls) - 1} timed batches: "
+          f"forward {1e3 * m['forward_s']:.1f} ms, decode "
+          f"{1e3 * m['decode_s']:.1f} ms; launches {counts}", flush=True)
+    if counts != {"blstm_stack": len(calls), "blstm_layer": 0,
+                  "beam_frame_step": frames}:
+        _fail(f"evaluate launches {counts}: expected K4 once per forward "
+              f"({len(calls)}), K1 never, K5 once per decoded frame "
+              f"({frames})")
+    (_, params, feats, lengths), logits = calls[0]
+    if not torch.isfinite(logits).all() or logits.shape != (
+            feats.shape[0], feats.shape[1], cfg.vocab):
+        _fail(f"evaluate logits not finite or shape {tuple(logits.shape)}")
+
+    def k1_loop(layers, x, lens):
+        for ws in layers:
+            x = LC.blstm_layer(*ws, x, lens)
+        return x
+    stack = LS.blstm_stack
+    LS.blstm_stack = k1_loop
+    try:
+        LC.launches = 0
+        with torch.no_grad():
+            loop = LS.forward(cfg, params, feats, lengths,
+                              device=lengths.device)
+        k1_launches = LC.launches
+    finally:
+        LS.blstm_stack = stack
+    with torch.no_grad():
+        plain = LS.forward(cfg, params, feats, lengths,
+                           device=lengths.device, plain=True)
+    abs_err, norm = _row_norm_err(logits, plain)
+    same = torch.equal(logits, loop)
+    print(f"[evaluate] first batch ({feats.shape[0]} x {feats.shape[1]}, "
+          f"lengths {lengths.tolist()}): consensus logits bit-identical to "
+          f"the per-layer K1 loop {same} ({k1_launches} K1 launches); vs "
+          f"plain max_abs_err {abs_err:.3g}, worst per-utterance "
+          f"{norm:.3g} (tol {K1_TOL})", flush=True)
+    if not same:
+        _fail("evaluate: the stack's logits differ from the K1 loop's")
+    if not norm <= K1_TOL:
+        _fail(f"evaluate logits disagree with the plain forward: {norm}")
+    # the whole final beam state of the first batch (every slot, not only
+    # the best hypothesis) against the plain decode of the same logits on
+    # the card: the same decode with K5's plain frame step in its place
+    # (on the CPU, log_softmax rounds the log-probabilities apart)
+    state = finals[0]
+    kernel_step = DK.beam_frame_step
+
+    def plain_step(*a, topc=0, **kw):
+        return DB.frame_step_scores(*a, **kw)
+    DK.beam_frame_step = plain_step
+    try:
+        want = DC.decode_chunk(
+            DC.init_state(feats.shape[0], state.p_b.shape[1],
+                          feats.shape[1], logits.device), logits, lengths,
+            blank=0, semiring="max")
+    finally:
+        DK.beam_frame_step = kernel_step
+    diff = [f for f in state._fields
+            if not torch.equal(getattr(state, f), getattr(want, f))]
+    toks, lens, _ = finalize(state)
+    print(f"[evaluate] K5 beam state of the first batch vs the plain beam "
+          f"decode: fields that differ {diff}; {int(state.lens.sum())} "
+          f"tokens over its {state.lens.numel()} beam slots, "
+          f"{int(lens.sum())} in the best hypotheses", flush=True)
+    if diff:
+        _fail(f"evaluate: K5's beam state differs from the plain decode in "
+              f"{diff}")
+    return counts, k1_launches
+
+
+# ---------------------------------------------------------------- phase 7b
 # The long-utterance slice (--seq-chunk): the train-long layer shape is 16
 # learners x 2 rows, T = 2000, layers 1..5 (D = 2H = 1024), K = 256.
 LONG_L, LONG_ROWS, LONG_T, LONG_K = 16, 2, 2000, 256
@@ -2865,14 +3146,17 @@ def main() -> int:
         k1s = check_k1_stash(gen)
         k2 = check_k2(gen)
         k5 = check_k5(gen)
+        k4 = check_k4(gen)
         done("kernels")
         launches = phase_serve()
         phase_profile()
         done("serve")
         state, step, ds, counts, steps, _ = phase_train()
         phase_train_profile(state, step, ds, steps)
-        del state, step, ds
         done("train")
+        eval_counts, k1_check_launches = phase_evaluate(state)
+        del state, step, ds
+        done("evaluate")
         k1c, k3 = check_k3(gen)
         long_counts, long_steps = phase_train_long()
         done("train-long")
@@ -2913,6 +3197,16 @@ def main() -> int:
     for k in (k1s, k2):
         k["launches_per_step"] = counts[k["name"]] / steps
     launches.update(counts)
+    # K4 is the forward of every serve admission (B = 1, the entry's own
+    # times) and of evaluate (B = 8, its ``evaluate_shape``): each count
+    # stands beside its shape's times.  K1's inference variant runs on no
+    # main path now (serve and evaluate hold it at 0); the launches of the
+    # loop K4 is held to are a check and stand apart
+    k4["evaluate_shape"]["launches"] = eval_counts["blstm_stack"]
+    launches["blstm_layer"] = eval_counts["blstm_layer"]
+    k1["launches_check"] = k1_check_launches
+    k5["beam_frame_step"]["launches_evaluate"] = \
+        eval_counts["beam_frame_step"]
     launches["decode_attention"] = lm_counts["decode_attention"]
     launches["argmax_tokens"] = lm_counts["argmax_tokens"]
     launches["paged_decode_attention"] = paged_counts["paged_decode_attention"]
@@ -2933,7 +3227,7 @@ def main() -> int:
     for k in (k1c, k3):
         k["launches_per_step"] = long_counts[k["name"]] / long_steps
         launches[k["name"]] = long_counts[k["name"]]
-    kernels = [k1, k1s, k2, k1c, k3, k5["beam_frame_step"],
+    kernels = [k1, k1s, k2, k1c, k3, k4, k5["beam_frame_step"],
                k5["beam_frame_step_topc"], k6, k7, k8, k9, k10, k11]
     for k in kernels:
         k["launches"] = launches[k["name"]]

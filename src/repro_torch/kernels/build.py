@@ -28,6 +28,7 @@ SOURCES = {
     "lstm_fwd": _PKG / "kernels" / "csrc" / "lstm_fwd.cu",
     "lstm_bwd": _PKG / "kernels" / "csrc" / "lstm_bwd.cu",
     "lstm_bwd_chunked": _PKG / "kernels" / "csrc" / "lstm_bwd_chunked.cu",
+    "lstm_stack": _PKG / "kernels" / "csrc" / "lstm_stack.cu",
     "beam_step": _PKG / "decode" / "csrc" / "beam_step.cu",
     "decode_attention": _PKG / "kernels" / "csrc" / "decode_attention.cu",
     "argmax": _PKG / "decode" / "csrc" / "argmax.cu",

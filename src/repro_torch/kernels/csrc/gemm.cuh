@@ -19,7 +19,10 @@
 // frames they came from.  Tiles are 128 x 128 x 8, 256 threads, 8 x 8
 // outputs a thread, shared-memory tiles double-buffered with the next
 // tile's global loads held in registers across the compute.  Elements
-// outside M, N or K read as zero.
+// outside M, N or K read as zero.  One tile is the `__device__` routine
+// `gemm_tile`: `gemm_kernel` runs it once per block, and the fused stack
+// K4 (lstm_stack.cu) in each 256-thread half of its blocks, so K4's
+// x-projections are the very bits of K1's `lstm_xproj`.
 //
 // What bounds it: at the training shapes (M, N, K in the hundreds to
 // thousands) the products are compute-bound on the f32 CUDA cores
@@ -161,11 +164,11 @@ __device__ __forceinline__ void b_coords(int e, int& k, int& n) {
 template <class A, class B>
 __device__ __forceinline__ void load_tiles(const A& a, const B& b, int row0,
                                            int col0, int k0, int M, int N,
-                                           int K, float (&ra)[4],
+                                           int K, int tid, float (&ra)[4],
                                            float (&rb)[4]) {
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    const int e = threadIdx.x + q * THREADS;
+    const int e = tid + q * THREADS;
     int m, k, n;
     a_coords<A>(e, m, k);
     ra[q] = (row0 + m < M && k0 + k < K) ? a.at(row0 + m, k0 + k) : 0.f;
@@ -176,12 +179,12 @@ __device__ __forceinline__ void load_tiles(const A& a, const B& b, int row0,
 
 template <class A, class B>
 __device__ __forceinline__ void store_tiles(float (*as)[BM + PAD],
-                                            float (*bs)[BN + PAD],
+                                            float (*bs)[BN + PAD], int tid,
                                             const float (&ra)[4],
                                             const float (&rb)[4]) {
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    const int e = threadIdx.x + q * THREADS;
+    const int e = tid + q * THREADS;
     int m, k, n;
     a_coords<A>(e, m, k);
     as[k][m] = ra[q];
@@ -190,40 +193,60 @@ __device__ __forceinline__ void store_tiles(float (*as)[BM + PAD],
   }
 }
 
-// grid (ceil(N / BN), ceil(M / BM), L * ndir).  Operand z of direction d
-// and learner l: (d ? a1 : a0).offset(l * sa), likewise b, and C at
-// (d ? c1 : c0) + l * sc with row stride ldc, row r stored at rows(r).
+// The barrier of one 256-thread tile: bar 0 is the whole block
+// (__syncthreads, gemm_kernel's 256 threads); bar > 0 is named barrier
+// `bar` over 256 threads, so that a larger block (the fused stack K4,
+// lstm_stack.cu) runs one tile in each 256-thread half without ever
+// passing a block-wide barrier from half of its threads.
+__device__ __forceinline__ void tile_sync(int bar) {
+  if (bar == 0)
+    __syncthreads();
+  else
+    asm volatile("bar.sync %0, %1;" ::"r"(bar), "n"(THREADS) : "memory");
+}
+
+// Shared memory of one tile, double-buffered.
+struct TileSmem {
+  float as[2][BK][BM + PAD];
+  float bs[2][BK][BN + PAD];
+};
+
+// One BM x BN output tile of the batched product, computed by the 256
+// threads tid = 0..255 that share barrier `bar` and the shared tiles `sm`.
+// (bx, by, bz) are the tile's column, row and operand-pair index: operand
+// z of direction d and learner l is (d ? a1 : a0).offset(l * sa), likewise
+// b, and C at (d ? c1 : c0) + l * sc with row stride ldc, row r stored at
+// rows(r).  The k-loop order and the FMA sequence of every output element
+// depend on nothing else, so any caller computes the same bits.
 template <class A, class B, int EPI, class O>
-__global__ void __launch_bounds__(THREADS)
-gemm_kernel(A a0, A a1, B b0, B b1, void* c0, void* c1, size_t sa,
-            size_t sb, size_t sc, int ldc, int M, int N, int K, int ndir,
-            O rows) {
+__device__ __forceinline__ void gemm_tile(
+    A a0, A a1, B b0, B b1, void* c0, void* c1, size_t sa, size_t sb,
+    size_t sc, int ldc, int M, int N, int K, int ndir, O rows, int bx,
+    int by, int bz, int tid, int bar, TileSmem& sm) {
   using CT = typename OutT<EPI>::type;
-  __shared__ __align__(16) float As[2][BK][BM + PAD];
-  __shared__ __align__(16) float Bs[2][BK][BN + PAD];
-  const int d = blockIdx.z % ndir;
-  const int l = blockIdx.z / ndir;
+  const int d = bz % ndir;
+  const int l = bz / ndir;
   const A a = (d ? a1 : a0).offset((size_t)l * sa);
   const B b = (d ? b1 : b0).offset((size_t)l * sb);
   CT* c = static_cast<CT*>(d ? c1 : c0) + (size_t)l * sc;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+  const int tx = tid % 16, ty = tid / 16;
+  const int row0 = by * BM, col0 = bx * BN;
 
   float acc[8][8] = {};
   float ra[4], rb[4];
-  load_tiles(a, b, row0, col0, 0, M, N, K, ra, rb);
-  store_tiles<A, B>(As[0], Bs[0], ra, rb);
-  __syncthreads();
+  load_tiles(a, b, row0, col0, 0, M, N, K, tid, ra, rb);
+  store_tiles<A, B>(sm.as[0], sm.bs[0], tid, ra, rb);
+  tile_sync(bar);
   for (int k0 = 0, cur = 0; k0 < K; k0 += BK, cur ^= 1) {
     const bool more = k0 + BK < K;
-    if (more) load_tiles(a, b, row0, col0, k0 + BK, M, N, K, ra, rb);
+    if (more) load_tiles(a, b, row0, col0, k0 + BK, M, N, K, tid, ra, rb);
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
       // rows ty*4 + {0..3} and 64 + ty*4 + {0..3}; columns likewise
-      const float4 a0v = *reinterpret_cast<const float4*>(&As[cur][kk][ty * 4]);
-      const float4 a1v = *reinterpret_cast<const float4*>(&As[cur][kk][64 + ty * 4]);
-      const float4 b0v = *reinterpret_cast<const float4*>(&Bs[cur][kk][tx * 4]);
-      const float4 b1v = *reinterpret_cast<const float4*>(&Bs[cur][kk][64 + tx * 4]);
+      const float4 a0v = *reinterpret_cast<const float4*>(&sm.as[cur][kk][ty * 4]);
+      const float4 a1v = *reinterpret_cast<const float4*>(&sm.as[cur][kk][64 + ty * 4]);
+      const float4 b0v = *reinterpret_cast<const float4*>(&sm.bs[cur][kk][tx * 4]);
+      const float4 b1v = *reinterpret_cast<const float4*>(&sm.bs[cur][kk][64 + tx * 4]);
       const float av[8] = {a0v.x, a0v.y, a0v.z, a0v.w, a1v.x, a1v.y, a1v.z, a1v.w};
       const float bv[8] = {b0v.x, b0v.y, b0v.z, b0v.w, b1v.x, b1v.y, b1v.z, b1v.w};
 #pragma unroll
@@ -231,8 +254,8 @@ gemm_kernel(A a0, A a1, B b0, B b1, void* c0, void* c1, size_t sa,
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] += av[i] * bv[j];
     }
-    if (more) store_tiles<A, B>(As[cur ^ 1], Bs[cur ^ 1], ra, rb);
-    __syncthreads();
+    if (more) store_tiles<A, B>(sm.as[cur ^ 1], sm.bs[cur ^ 1], tid, ra, rb);
+    tile_sync(bar);
   }
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -257,6 +280,18 @@ gemm_kernel(A a0, A a1, B b0, B b1, void* c0, void* c1, size_t sa,
       }
     }
   }
+}
+
+// grid (ceil(N / BN), ceil(M / BM), L * ndir): one tile per block.
+template <class A, class B, int EPI, class O>
+__global__ void __launch_bounds__(THREADS)
+gemm_kernel(A a0, A a1, B b0, B b1, void* c0, void* c1, size_t sa,
+            size_t sb, size_t sc, int ldc, int M, int N, int K, int ndir,
+            O rows) {
+  __shared__ __align__(16) TileSmem sm;
+  gemm_tile<A, B, EPI, O>(a0, a1, b0, b1, c0, c1, sa, sb, sc, ldc, M, N, K,
+                          ndir, rows, blockIdx.x, blockIdx.y, blockIdx.z,
+                          threadIdx.x, 0, sm);
 }
 
 template <int EPI, class A, class B, class O = DenseRows>

@@ -103,24 +103,46 @@ __device__ __forceinline__ void fma_gates(float (&acc)[BB][4], uint2 u,
   }
 }
 
-// grid (ceil(B / BB), 2, L), block H rounded up to 32, dynamic shared
-// memory BB * H floats.  KU weight loads are in flight per thread; fewer
-// rows leave registers for more of them.  y, the stash and the replayed
-// gates come from the same instructions in every mode.
-// The arguments are FwdArgs' fields, passed one by one as `__restrict__`
-// kernel parameters (likewise BwdArgs' for the reverse kernel).
-template <int BB, int MODE, int SD, int KU = (BB <= 2 ? 16 : 8)>
-__global__ void __launch_bounds__(MAX_H, 1) blstm_recur_kernel(
-    const float* __restrict__ gx, const bf16* __restrict__ whf,
-    const bf16* __restrict__ whb, const float* __restrict__ bias_f,
-    const float* __restrict__ bias_b, const int* __restrict__ lengths,
-    bf16* __restrict__ y, void* __restrict__ acts, void* __restrict__ cseq,
-    void* __restrict__ hb, void* __restrict__ cb, int L, int B, int T, int H,
-    int K, int n, int chunk) {
+// Which work item a block walks: the block's own grid coordinates
+// (GridItem: one item per block, read from blockIdx where it is used, so
+// that ptxas keeps them in uniform registers as a kernel of its own does),
+// or coordinates a persistent block computed (LoopItem).
+struct GridItem {
+  __device__ __forceinline__ int tile() const { return blockIdx.x; }
+  __device__ __forceinline__ int dir() const { return blockIdx.y; }
+  __device__ __forceinline__ int learner() const { return blockIdx.z; }
+};
+struct LoopItem {
+  int t, d, l;
+  __device__ __forceinline__ int tile() const { return t; }
+  __device__ __forceinline__ int dir() const { return d; }
+  __device__ __forceinline__ int learner() const { return l; }
+};
+
+// The forward recurrence of one work item: batch tile `item.tile()` (rows
+// tile*BB ..), direction d, learner l, walked by every thread of the block
+// (thread j owns hidden unit j < H; the others join the barriers), with
+// the first BB * H floats of the block's dynamic shared memory as `hs`,
+// the bf16-rounded h of the step (declared here, so that its loads and
+// stores address shared memory directly).  KU weight loads are in flight per
+// thread; fewer rows leave registers for more of them.  y, the stash and
+// the replayed gates come from the same instructions in every mode, and
+// in every kernel that calls this: K1 and K3's replay (blstm_recur_kernel,
+// one item per block) and the fused stack K4 (lstm_stack.cu, items looped
+// over a persistent grid).  The pointers carry no `__restrict__` here: K4
+// writes gx and the layer input inside the same launch, so their loads
+// must not become read-only-cache loads; the weights are read with __ldg.
+template <int BB, int MODE, int SD, class Item,
+          int KU = (BB <= 2 ? 16 : 8)>
+__device__ __forceinline__ void blstm_recur_item(
+    const float* gx, const bf16* whf, const bf16* whb, const float* bias_f,
+    const float* bias_b, const int* lengths, bf16* y, void* acts,
+    void* cseq, void* hb, void* cb, int L, int B, int T, int H, int K,
+    int n, int chunk, Item item) {
   extern __shared__ float hs[];                  // [BB][H] bf16-rounded h
-  const int d = blockIdx.y;
-  const int l = blockIdx.z;
-  const int b0 = blockIdx.x * BB;
+  const int d = item.dir();
+  const int l = item.learner();
+  const int b0 = item.tile() * BB;
   const size_t G = 4 * (size_t)H;
   const bf16* __restrict__ wh = (d ? whb : whf) + (size_t)l * H * G;
   const float* __restrict__ bias = (d ? bias_b : bias_f) + (size_t)l * G;
@@ -242,6 +264,23 @@ __global__ void __launch_bounds__(MAX_H, 1) blstm_recur_kernel(
     }
     __syncthreads();
   }
+}
+
+// grid (ceil(B / BB), 2, L), block H rounded up to 32, dynamic shared
+// memory BB * H floats: one work item per block.  The arguments are
+// FwdArgs' fields, passed one by one as `__restrict__` kernel parameters
+// (likewise BwdArgs' for the reverse kernel).
+template <int BB, int MODE, int SD>
+__global__ void __launch_bounds__(MAX_H, 1) blstm_recur_kernel(
+    const float* __restrict__ gx, const bf16* __restrict__ whf,
+    const bf16* __restrict__ whb, const float* __restrict__ bias_f,
+    const float* __restrict__ bias_b, const int* __restrict__ lengths,
+    bf16* __restrict__ y, void* __restrict__ acts, void* __restrict__ cseq,
+    void* __restrict__ hb, void* __restrict__ cb, int L, int B, int T, int H,
+    int K, int n, int chunk) {
+  blstm_recur_item<BB, MODE, SD>(gx, whf, whb, bias_f, bias_b, lengths, y,
+                                 acts, cseq, hb, cb, L, B, T, H, K, n, chunk,
+                                 GridItem{});
 }
 
 template <int BB, int MODE, int SD>

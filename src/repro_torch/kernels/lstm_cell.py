@@ -11,6 +11,9 @@
 * ``blstm_layer_bwd_chunked`` — K3, ``_run_bwd_chunked`` for both
   directions: per chunk, replay the forward from its entry carry, then
   the reverse steps;
+* ``blstm_stack`` — K4, the whole L-layer stack in one launch
+  (``repro.kernels.lstm_cell._stack_primal``), inference only,
+  bit-identical to the loop of ``blstm_layer``;
 * ``blstm_sequence`` — the differentiable layer, a
   ``torch.autograd.Function`` over a forward and its backward (the
   stashing pair, or with ``seq_chunk`` the chunked pair), mirroring
@@ -22,8 +25,8 @@ Every tensor may carry a leading learner axis (x (L, B, T, D), weights
 (L, D, 4H), ..., lengths (L, B)): the learners are one more axis of each
 kernel's grid, as ``jax.vmap`` of a ``pallas_call`` is.  On CUDA tensors
 the wrappers launch the kernels of ``csrc/lstm_fwd.cu``,
-``csrc/lstm_bwd.cu`` and ``csrc/lstm_bwd_chunked.cu`` and count their
-launches; on CPU tensors, or with
+``csrc/lstm_bwd.cu``, ``csrc/lstm_bwd_chunked.cu`` and
+``csrc/lstm_stack.cu`` and count their launches; on CPU tensors, or with
 ``plain=True`` (the oracle a check asks for by name), they run the plain
 versions of ``kernels.ref``.  They never fall back from the card to the
 plain path.
@@ -36,7 +39,7 @@ import torch
 
 from repro_torch.device import require_kernel_device
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import (blstm_layer_ref,
+from repro_torch.kernels.ref import (blstm_layer_ref, blstm_stack_plain,
                                      lstm_direction_bwd_chunked_ref,
                                      lstm_direction_bwd_ref,
                                      lstm_direction_chunk_fwd_ref,
@@ -47,6 +50,7 @@ stash_launches = 0    # blstm_layer_train calls that launched the stash kernel
 bwd_launches = 0      # blstm_layer_bwd calls that launched K2
 chunk_launches = 0    # blstm_layer_train_chunked calls that launched K1-chunk
 chunked_bwd_launches = 0   # blstm_layer_bwd_chunked calls that launched K3
+stack_launches = 0    # blstm_stack calls that launched K4
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -134,6 +138,16 @@ def _bwd_chunked_lib():
     return lib
 
 
+def _stack_lib():
+    lib = build.load("lstm_stack")
+    if lib.lstm_stack.argtypes is None:
+        arr = ctypes.POINTER(ctypes.c_void_p)
+        lib.lstm_stack.argtypes = ([_P] + [arr] * 6 + [_P] * 6 + [_I] * 7
+                                   + [_P])
+        lib.lstm_stack.restype = _I
+    return lib
+
+
 def _check(name, t, shape, dtype, device):
     if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
         raise ValueError(f"{name}: expected {tuple(shape)} {dtype}, got "
@@ -164,6 +178,17 @@ def _stacked(ws, x, lengths):
     return ws, x.unsqueeze(0), lengths, lambda t: t.squeeze(0)
 
 
+def _check_weights(ws, L, D, H, dev, tag=""):
+    for d, (wx, wh, b) in (("fwd", ws[:3]), ("bwd", ws[3:])):
+        _check(f"{tag}{d}.wx", wx, (L, D, 4 * H), torch.bfloat16, dev)
+        _check(f"{tag}{d}.wh", wh, (L, H, 4 * H), torch.bfloat16, dev)
+        if b is not None:
+            _check(f"{tag}{d}.b", b, (L, 4 * H), torch.float32, dev)
+    if H > 512:
+        raise ValueError(f"the recurrence kernels run one thread per "
+                         f"hidden unit in one CTA; H={H} > 512")
+
+
 def _prepare(ws, x, lengths):
     """Check the stacked operands of one launch (biases may be None where
     the kernel takes none); returns (L, B, T, D, H, lengths as contiguous
@@ -172,14 +197,7 @@ def _prepare(ws, x, lengths):
     H = ws[1].shape[-2]
     dev = x.device
     _check("x", x, (L, B, T, D), torch.bfloat16, dev)
-    for tag, (wx, wh, b) in (("fwd", ws[:3]), ("bwd", ws[3:])):
-        _check(f"{tag}.wx", wx, (L, D, 4 * H), torch.bfloat16, dev)
-        _check(f"{tag}.wh", wh, (L, H, 4 * H), torch.bfloat16, dev)
-        if b is not None:
-            _check(f"{tag}.b", b, (L, 4 * H), torch.float32, dev)
-    if H > 512:
-        raise ValueError(f"the recurrence kernels run one thread per "
-                         f"hidden unit in one CTA; H={H} > 512")
+    _check_weights(ws, L, D, H, dev)
     if lengths is None:
         lens = torch.full((L, B), T, dtype=torch.int32, device=dev)
     else:
@@ -256,6 +274,68 @@ def blstm_layer(wxf, whf, bf, wxb, whb, bb, x, lengths=None):
     y, _, _ = _forward_kernel(ws, xs, ls, None)
     launches += 1
     return squeeze(y)
+
+
+MAX_STACK_LAYERS = 16    # lstm_stack.cu's MAX_LAYERS
+
+
+def blstm_stack(layers, x, lengths=None):
+    """The whole BLSTM stack, inference only: x (B, T, D0) bf16 ->
+    (B, T, 2H) bf16, or the same with a leading learner axis on x, on
+    every weight and on ``lengths``.  ``layers`` is a sequence of
+    ``(wxf, whf, bf, wxb, whb, bb)`` as :func:`blstm_layer` takes them;
+    layer 0 reads x, layer k > 0 the (.., 2H) output of layer k - 1.
+
+    On a CUDA tensor one launch of K4 (``csrc/lstm_stack.cu``) runs every
+    layer, bit-identical to the loop of :func:`blstm_layer` (the
+    reference's contract for its fused stack, ``lstm_cell.py:1318-1320``);
+    it never falls back to that loop.  On a CPU tensor it runs
+    :func:`~repro_torch.kernels.ref.blstm_stack_plain`."""
+    global stack_launches
+    if x.device.type == "cpu":
+        return blstm_stack_plain(layers, x, lengths)
+    require_kernel_device(x)
+    layers = [list(ws) for ws in layers]
+    if not 1 <= len(layers) <= MAX_STACK_LAYERS:
+        raise ValueError(f"the stack kernel takes 1..{MAX_STACK_LAYERS} "
+                         f"layers, got {len(layers)}")
+    for k, ws in enumerate(layers):
+        if ws[2] is None or ws[5] is None:
+            raise ValueError(f"layer {k}: the stack kernel adds both "
+                             f"directions' biases; got None")
+    one = x.dim() == 3                  # one model: a learner axis of 1
+    if one:
+        layers = [[w.unsqueeze(0) for w in ws] for ws in layers]
+        x = x.unsqueeze(0)
+        lengths = None if lengths is None else lengths.unsqueeze(0)
+    L, B, T, D0, H, lens = _prepare(layers[0], x, lengths)
+    dev = x.device
+    for k, ws in enumerate(layers[1:], 1):
+        # layer k reads the (L, B, T, 2H) output of layer k - 1
+        _check_weights(ws, L, 2 * H, H, dev, tag=f"layer {k} ")
+    lib = _stack_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # every tensor whose pointer the launch takes is held in a local
+    whf4 = [_fwd_layout(ws[1]) for ws in layers]
+    whb4 = [_fwd_layout(ws[4]) for ws in layers]
+
+    def ptrs(i, ts=None):
+        ts = ts or [ws[i] for ws in layers]
+        return (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
+
+    gx = torch.empty(L, 2, B * T, 4 * H, dtype=torch.float32, device=dev)
+    bufs = [torch.empty(L, B, T, 2 * H, dtype=torch.bfloat16, device=dev)
+            for _ in range(min(len(layers) - 1, 2))]
+    barrier = torch.zeros(1, dtype=torch.int32, device=dev)
+    y = torch.empty(L, B, T, 2 * H, dtype=torch.bfloat16, device=dev)
+    buf_ptrs = [b.data_ptr() for b in bufs] + [None] * (2 - len(bufs))
+    _launch("lstm_stack", lib.lstm_stack(
+        x.data_ptr(), ptrs(0), ptrs(3), ptrs(None, whf4), ptrs(None, whb4),
+        ptrs(2), ptrs(5), lens.data_ptr(), gx.data_ptr(), *buf_ptrs,
+        barrier.data_ptr(), y.data_ptr(), len(layers), L, B, T, D0, H,
+        block_rows(B), stream))
+    stack_launches += 1
+    return y.squeeze(0) if one else y
 
 
 def blstm_layer_train(wxf, whf, bf, wxb, whb, bb, x, lengths=None, *,

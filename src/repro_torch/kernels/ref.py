@@ -124,6 +124,16 @@ def blstm_layer_ref(wxf, whf, bf, wxb, whb, bb, x, lengths=None):
         dim=-1)
 
 
+def blstm_stack_plain(layers, x, lengths=None):
+    """The plain fused stack (K4's plain version): the per-layer loop of
+    :func:`blstm_layer_ref`, each layer consuming the previous layer's
+    (..., T, 2H) output (``repro.kernels.ref.blstm_stack_ref``).
+    ``layers`` is a sequence of ``(wxf, whf, bf, wxb, whb, bb)``."""
+    for ws in layers:
+        x = blstm_layer_ref(*ws, x, lengths)
+    return x
+
+
 def lstm_direction_bwd_ref(wx, wh, x, y, acts, cseq, dy, lengths=None, *,
                            reverse=False):
     """The plain K2: one direction's backward against the stash of

@@ -13,13 +13,17 @@ loop (prefetching, logging, per-step timing); the CLI wraps both.
         --learners 16 --batch 32 --seq-len 2000 --var-len --seq-chunk -1 \\
         --steps 4 --log-every 1
 
-    # the plain PyTorch path on the CPU, reduced size
+    # the plain PyTorch path on the CPU, reduced size, with checkpoints
+    # in a fresh directory (a checkpoint found there is restored)
+    CK=$(mktemp -d)
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
-        --device cpu --steps 2
+        --device cpu --steps 2 --ckpt-dir "$CK" --ckpt-every 2
 
-Not ported yet (ROADMAP.md queue 1): checkpoints and ``--resume``, fault
-plans and the elastic step, ``--trace-out``, and the ``--comm-*``
-codecs.
+``--ckpt-dir`` restores the latest checkpoint there at start, when one
+exists, and the step count goes on from it; ``--ckpt-every`` saves every
+that many steps; ``--resume`` requires a checkpoint.  Not ported yet
+(ROADMAP.md queue 1): fault plans and the elastic step, ``--trace-out``,
+and the ``--comm-*`` codecs.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import restore, save
 from repro_torch.configs import get_arch
 from repro_torch.core import strategies as ST
 from repro_torch.data import Prefetcher, make_dataset
@@ -110,11 +115,15 @@ def _sync(device):
 
 
 def run(state, step_fn, dataset, *, steps: int, device, start: int = 0,
-        log_every: int = 0, label: str = ""):
-    """Run ``steps`` steps on prefetched batches of ``dataset``.
+        log_every: int = 0, label: str = "", ckpt_dir: str = "",
+        ckpt_every: int = 0):
+    """Run ``steps`` steps, numbered from ``start``, on prefetched batches
+    of ``dataset`` (the data is a pure function of the step number, so a
+    run restored at ``start`` sees the batches an uninterrupted one would).
 
     Prints the reference's ``step k loss ...`` line every ``log_every``
-    steps (0 = never).  Each step is timed on the host clock between two
+    steps (0 = never), and saves the state to ``ckpt_dir`` after every
+    ``ckpt_every``-th step (0 = never).  Each step is timed on the host clock between two
     ``torch.cuda.synchronize`` calls.  Returns (state, metrics of the
     last step, per-step records (seconds, valid frames, padded frames,
     loss))."""
@@ -144,6 +153,8 @@ def run(state, step_fn, dataset, *, steps: int, device, start: int = 0,
                 if "wire_bytes" in metrics:
                     line += f" wire {float(metrics['wire_bytes']) / 2**20:.2f}MB"
                 print(label + line, flush=True)
+            if ckpt_dir and ckpt_every and (k + 1) % ckpt_every == 0:
+                save(ckpt_dir, k + 1, state)
     finally:
         pf.close()
     return state, metrics, records
@@ -195,6 +206,11 @@ def main(argv=None):
                          "padded frames")
     ap.add_argument("--bucket", action="store_true",
                     help="length-bucketed batching (implies --var-len)")
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--resume", action="store_true",
+                    help="require and restore the latest checkpoint in "
+                         "--ckpt-dir; fails if nothing to resume")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card (raises without one); "
@@ -225,13 +241,27 @@ def main(argv=None):
         optimizer_name=args.optimizer, seed=args.seed, device=device,
         lr_schedule=paper_recipe(steps_per_epoch=max(args.steps // 16, 1),
                                  base_lr=0.05, peak_lr=0.2))
+    if args.resume and not args.ckpt_dir:
+        raise SystemExit("--resume needs --ckpt-dir")
+    start = 0
+    if args.ckpt_dir:
+        try:
+            state, start = restore(args.ckpt_dir, state)
+            print(f"restored checkpoint at step {start}")
+        except FileNotFoundError:
+            if args.resume:
+                raise SystemExit(
+                    f"--resume: no checkpoint under {args.ckpt_dir}")
     print(stash_line(cfg, batch, seq_len), flush=True)
     ds = make_dataset(cfg, seq_len=seq_len, batch=batch, seed=args.seed,
                       var_len=args.var_len or args.bucket,
                       bucket=args.bucket)
     t0 = time.time()
     state, metrics, records = run(state, step_fn, ds, steps=args.steps,
-                                  device=device, log_every=args.log_every)
+                                  device=device, start=start,
+                                  log_every=args.log_every,
+                                  ckpt_dir=args.ckpt_dir,
+                                  ckpt_every=args.ckpt_every)
     if metrics is not None:
         print(f"final loss {float(metrics['loss']):.6f}")
     print(f"done: {args.steps} steps in {time.time() - t0:.1f}s "

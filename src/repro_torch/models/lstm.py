@@ -12,8 +12,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.lstm_cell import blstm_layer, blstm_sequence
-from repro_torch.kernels.ref import blstm_layer_ref
+from repro_torch.kernels.lstm_cell import blstm_sequence, blstm_stack
+from repro_torch.kernels.ref import blstm_stack_plain
 from repro_torch.models.common import cross_entropy, sequence_mask
 from repro_torch.params import ParamSpec
 
@@ -65,15 +65,18 @@ def forward(cfg, params, features, lengths=None, *, device=None,
     stacked learners, params with a leading (L,) axis on every leaf and
     features (L, B/L, T, input_dim) -> (L, B/L, T, vocab).
 
-    The BLSTM stack runs layer by layer through the fused bidirectional
-    kernels, as the reference's full-width path does
-    (``repro/kernels/lstm_cell.py:1199-1204`` primal,
-    ``:1268-1303`` under a gradient): when a weight requires a gradient,
-    through the differentiable :func:`~repro_torch.kernels.lstm_cell.blstm_sequence`
-    (K1's stashing variant and K2, honouring ``cfg.lstm_stash_dtype``);
-    otherwise through the inference kernel.  The bottleneck and softmax
-    are plain matrix products, outside any kernel in the reference too.
-    ``device`` (default: the CUDA card, see
+    Without a gradient the whole BLSTM stack is one launch of the fused
+    stack kernel K4 (:func:`~repro_torch.kernels.lstm_cell.blstm_stack`),
+    as the reference's ``forward`` runs ``blstm_stack``
+    (``repro/models/lstm.py:155-164``), bit-identical to the per-layer
+    inference loop.  When a weight requires a gradient it runs layer by
+    layer through the differentiable
+    :func:`~repro_torch.kernels.lstm_cell.blstm_sequence` (K1's stashing
+    variant and K2, or with ``cfg.lstm_seq_chunk`` K1-chunk and K3,
+    honouring ``cfg.lstm_stash_dtype``), as the reference's custom VJP
+    does (``repro/kernels/lstm_cell.py:1268-1303``).  The bottleneck and
+    softmax are plain matrix products, outside any kernel in the
+    reference too.  ``device`` (default: the CUDA card, see
     :func:`repro_torch.device.resolve_device`) must be where ``params``
     lie; features and lengths are moved there.  ``plain=True`` runs the
     plain PyTorch layers on any device (the oracle)."""
@@ -81,22 +84,24 @@ def forward(cfg, params, features, lengths=None, *, device=None,
     x = torch.as_tensor(features, device=dev).to(torch.bfloat16)
     if lengths is not None:
         lengths = torch.as_tensor(lengths, device=dev)
-    for i in range(cfg.n_layers):
-        ws = _layer_weights(params["layers"][f"layer_{i}"])
-        if torch.is_grad_enabled() and any(w.requires_grad for w in ws):
-            one = x.dim() == 3              # one model: a learner axis of 1
-            y = blstm_sequence(
-                *(w.unsqueeze(0) if one else w for w in ws),
-                x.unsqueeze(0) if one else x,
-                lengths.unsqueeze(0) if one and lengths is not None
-                else lengths,
+    layers = [_layer_weights(params["layers"][f"layer_{i}"])
+              for i in range(cfg.n_layers)]
+    if torch.is_grad_enabled() and any(w.requires_grad for ws in layers
+                                       for w in ws):
+        one = x.dim() == 3                  # one model: a learner axis of 1
+        if one:
+            x = x.unsqueeze(0)
+            lengths = None if lengths is None else lengths.unsqueeze(0)
+        for ws in layers:
+            x = blstm_sequence(
+                *(w.unsqueeze(0) if one else w for w in ws), x, lengths,
                 stash_dtype=cfg.lstm_stash_dtype,
                 seq_chunk=cfg.lstm_seq_chunk, plain=plain)
-            x = y.squeeze(0) if one else y
-        elif plain:
-            x = blstm_layer_ref(*ws, x, lengths)
-        else:
-            x = blstm_layer(*ws, x, lengths)
+        x = x.squeeze(0) if one else x
+    elif plain:
+        x = blstm_stack_plain(layers, x, lengths)
+    else:
+        x = blstm_stack(layers, x, lengths)
     x = _rows(x, params["bottleneck"])
     b = params["softmax_b"]
     if b.dim() == 2:                        # (L, V) against (L, B, T, V)

@@ -84,6 +84,88 @@ def _norm_err(got, want):
     return float((got.float() - want.float()).abs().max()) / scale
 
 
+# K4: the stack in one launch, bit-identical to the loop of K1 launches;
+# B in a ragged tile, H not a multiple of 32, a length-0 row, learners
+STACK_SHAPES = [
+    (0, 5, 9, 12, 16, 3, (9, 4, 1, 9, 6)),
+    (0, 1, 7, 20, 48, 2, None),
+    (0, 2, 7, 20, 48, 3, (7, 3)),
+    (0, 9, 5, 33, 100, 4, (5, 1, 2, 3, 4, 5, 5, 4, 0)),
+    (3, 3, 6, 12, 16, 3, [(6, 2, 1), (1, 6, 3), (0, 4, 6)]),
+]
+
+
+@pytest.mark.parametrize("L,B,T,D0,H,n_layers,lengths", STACK_SHAPES)
+def test_blstm_stack_kernel_matches_loop_and_plain(cuda, L, B, T, D0, H,
+                                                   n_layers, lengths):
+    from repro_torch.kernels import lstm_cell
+    from repro_torch.kernels.ref import blstm_stack_plain
+
+    g = torch.Generator().manual_seed(B * 100 + H + n_layers)
+    lead = (L,) if L else ()
+
+    def w(*shape, scale=0.3):
+        return (torch.randn(*lead, *shape, generator=g) * scale).to(
+            cuda, torch.bfloat16)
+
+    layers, D = [], D0
+    for _ in range(n_layers):
+        ws = []
+        for _ in range(2):
+            ws += [w(D, 4 * H), w(H, 4 * H),
+                   (torch.randn(*lead, 4 * H, generator=g) * 0.1).to(cuda)]
+        layers.append(ws)
+        D = 2 * H
+    x = w(B, T, D0, scale=1.0)
+    lens = (None if lengths is None
+            else torch.tensor(lengths, dtype=torch.int32, device=cuda))
+    before = (lstm_cell.stack_launches, lstm_cell.launches)
+    got = lstm_cell.blstm_stack(layers, x, lens)
+    torch.cuda.synchronize()
+    assert (lstm_cell.stack_launches, lstm_cell.launches) == \
+        (before[0] + 1, before[1])
+    loop = x
+    for ws in layers:
+        loop = lstm_cell.blstm_layer(*ws, loop, lens)
+    assert torch.equal(got, loop)
+    want = blstm_stack_plain(layers, x, lens)
+    assert torch.isfinite(got).all()
+    assert _norm_err(got, want) <= BF16_TOL
+
+
+def test_blstm_stack_rejects_a_missing_bias(cuda):
+    from repro_torch.kernels import lstm_cell
+
+    ws, x, lens = _stacked(cuda, 1, 2, 5, 12, 16, (5, 3), seed=3)
+    layers = [[w[0] for w in ws]]
+    layers[0][5] = None
+    before = lstm_cell.stack_launches
+    with pytest.raises(ValueError, match="layer 0"):
+        lstm_cell.blstm_stack(layers, x[0], lens)
+    assert lstm_cell.stack_launches == before
+
+
+def test_forward_no_grad_launches_the_stack_once(cuda):
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import lstm_cell
+    from repro_torch.models.lstm import forward, param_specs
+    from repro_torch.params import init_params
+
+    cfg = get_arch("swb2000-blstm").reduced()
+    params = init_params(param_specs(cfg), seed=0, device=cuda)
+    g = torch.Generator().manual_seed(0)
+    feats = torch.randn(3, 8, cfg.input_dim, generator=g)
+    lengths = torch.tensor([8, 5, 1], dtype=torch.int32)
+    before = (lstm_cell.stack_launches, lstm_cell.launches)
+    with torch.no_grad():
+        got = forward(cfg, params, feats, lengths)
+    torch.cuda.synchronize()
+    assert (lstm_cell.stack_launches, lstm_cell.launches) == \
+        (before[0] + 1, before[1])
+    want = forward(cfg, params, feats, lengths, plain=True)
+    assert _norm_err(got, want) <= BF16_TOL
+
+
 # odd shapes: B not a multiple of the tile, H < 512 and not a multiple of
 # 32, T = 1, a length-0 row, three learners
 TRAIN_SHAPES = [

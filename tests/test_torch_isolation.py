@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``repro_torch`` (nor
-``chip_smoke.py``) imports ``jax`` or the JAX package, and its entry
-points refuse to run on the CPU unless asked to."""
+``chip_smoke.py``) imports ``jax``, the JAX package or ``msgpack``, and
+its entry points refuse to run on the CPU unless asked to."""
 import ast
 import subprocess
 import sys
@@ -26,7 +26,7 @@ def _imported_modules(path: Path):
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "msgpack")
 
 
 def test_no_jax_or_repro_imports():
@@ -55,8 +55,10 @@ def test_import_leaves_jax_and_repro_unloaded():
         "import repro_torch.models.moe, repro_torch.kernels.moe_dense\n"
         "import repro_torch.configs.granite_moe_3b_a800m\n"
         "import repro_torch.configs.llama4_scout_17b_a16e\n"
+        "import repro_torch.launch.evaluate, repro_torch.checkpoint\n"
+        "import repro_torch.eval, repro_torch.obs\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'repro')]\n"
+        "('jax', 'repro', 'msgpack')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
@@ -182,3 +184,44 @@ def test_moe_kernel_wrapper_takes_the_plain_path_only_on_cpu():
     meta = [t.to("meta") for t in (x, w, wi)]
     with pytest.raises(ValueError, match="CUDA tensor"):
         MD.moe_dense(meta[0], meta[1], meta[2], meta[2], meta[2])
+
+
+def test_evaluate_entry_points_raise_without_gpu(no_gpu, tmp_path):
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import evaluate as TE
+    from repro_torch.launch import train as TT
+    from repro_torch.models.lstm import param_specs
+    from repro_torch.params import init_params
+
+    cfg = get_arch("swb2000-blstm").reduced()
+    ck = str(tmp_path / "ck")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TE.main(["--arch", "swb2000-blstm", "--reduced", "--ckpt-dir", ck])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TE.restore_consensus(cfg, ckpt_dir=ck)
+    params = init_params(param_specs(cfg), seed=0, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TE.evaluate_params(cfg, params, batches=1, batch=2, seq_len=4)
+    # explicitly asked for, the CPU works
+    TT.main(["--reduced", "--device", "cpu", "--steps", "1", "--log-every",
+             "0", "--ckpt-dir", ck, "--ckpt-every", "1"])
+    TE.main(["--arch", "swb2000-blstm", "--reduced", "--device", "cpu",
+             "--ckpt-dir", ck, "--batches", "1", "--seq-len", "6"])
+
+
+def test_stack_wrapper_takes_the_plain_path_only_on_cpu():
+    """K4's wrapper: a CPU tensor runs the plain version, anything else
+    must reach the kernel's device checks, never the plain path."""
+    from repro_torch.kernels import lstm_cell as LC
+
+    H, D = 8, 4
+    layers = [[torch.zeros(d, 4 * H, dtype=torch.bfloat16),
+               torch.zeros(H, 4 * H, dtype=torch.bfloat16),
+               torch.zeros(4 * H)] * 2 for d in (D, 2 * H)]
+    x = torch.zeros(2, 3, D, dtype=torch.bfloat16)
+    before = LC.stack_launches
+    assert LC.blstm_stack(layers, x).shape == (2, 3, 2 * H)
+    assert LC.stack_launches == before
+    meta = [[w.to("meta") for w in ws] for ws in layers]
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        LC.blstm_stack(meta, x.to("meta"))
