@@ -15,16 +15,22 @@ Phases, each of which fails the run (nonzero exit, no result line):
    the plain output's max-abs; the stash variant's y bit-identical to
    the inference variant's), the backward (K2 port: dx, dWx, dWh, db) at
    2e-2, 16 learners in one launch bit-identical to 16 launches of one,
-   the beam frame step (K5 port) bit-identical under the max semiring
-   and within 1e-5 under sum; time each with CUDA events beside its
-   plain version, its bytes/operations bound and a library call;
+   each with the device ms of its sub-launches (torch.profiler:
+   x-projection and recurrence; recurrence, dx and dW) and the
+   recurrences' tile rows and cluster size; the tensor-core GEMM routine
+   (x·Wx, dx unrounded, dWx, dWh, db) at the full training shape within
+   1e-5 of float64 products; the beam frame step (K5 port) bit-identical
+   under the max semiring and within 1e-5 under sum; time each with CUDA
+   events beside its plain version, its bytes/operations bound and a
+   library call;
 3a. k4 — the fused BLSTM stack (K4 port, one launch for every layer)
    against its plain version ``blstm_stack_plain`` at 2e-2 of each
    utterance's largest value (every value finite) and bit-identical to
    the loop of K1 launches, at the serving admission's shape (B = 1, T =
    256, 6 layers of 512, D0 = 260), evaluate's (B = 8, T = 256, var-len
-   with a length-1 row) and a small ragged one (B = 5 in a tile of 8, H =
-   16, 3 layers); both full-width shapes timed (eager, and one launch
+   with a length-1 row), a small ragged one (B = 5 in a tile of 8, H =
+   16, 3 layers) and B = 16, T = 21, 2 layers (the K1 loop's 16 rows in
+   two tiles, K4's in two); B = 1 and B = 8 timed (eager, and one launch
    replayed from a CUDA graph) beside the K1 loop, the plain version, the
    bound and cuDNN's 6-layer bidirectional LSTM;
 4. serve   — the full-width ``swb2000-blstm`` AsrServer (6 BLSTM layers
@@ -199,6 +205,10 @@ sys.path.insert(0, str(HERE / "src"))
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
+# f32-accurate products on the tensor cores: the least time for K2's (and
+# K3's) products on f32 dgates is one TF32 pass of the same work (the
+# kernels issue three bf16 passes of split operands, gemm.cuh)
+PEAK_TF32_FLOPS = 495e12
 
 K1_TOL = 2e-2            # bf16 forward (docs/kernels.md §Oracle tolerances)
 K5_SUM_TOL = 1e-5        # sum semiring: logaddexp in another order
@@ -293,6 +303,40 @@ def _profile_window(fn, tag):
               f"busy share not measured", flush=True)
         return None
     return out, wall_ms, sum(r[0] for r in rows) / 1e3, rows
+
+
+def _lstm_kernel_label(key: str) -> str:
+    """Which sub-launch of the BLSTM wrappers a profiler kernel name is."""
+    if "bwd_recur" in key:
+        return "lstm_bwd_recur"
+    if "blstm_recur" in key:
+        return "blstm_recur"
+    if "gemm_kernel" in key:
+        a = key.split("gemm_kernel<", 1)[-1]
+        if a.startswith("lstm_gemm::Shifted"):
+            return "lstm_bwd_dw dWh+db"
+        if a.startswith("lstm_gemm::Mat<float"):
+            return "lstm_bwd_dx"
+        if a.startswith(("lstm_gemm::Mat<__nv_bfloat16, true>",
+                         "lstm_gemm::ChunkRows<true>")):
+            return "lstm_bwd_dw dWx"
+        return "lstm_xproj"
+    return "torch ops"
+
+
+def _sub_launch_ms(fn, calls: int) -> dict:
+    """Device ms per call of each sub-launch of ``fn`` (torch.profiler
+    over ``calls`` calls after one warm-up, by `_lstm_kernel_label`), or
+    {} when the profiler records no device events."""
+    fn()
+    got = _profile_window(lambda: [fn() for _ in range(calls)], "sub-launch")
+    if got is None:
+        return {}
+    out = {}
+    for us, _, key in got[3]:
+        label = _lstm_kernel_label(key)
+        out[label] = out.get(label, 0.0) + us / 1e3 / calls
+    return out
 
 
 def _bound(nbytes: float, ops, peak_ops: float = None):
@@ -587,6 +631,11 @@ def check_k1_stash(gen):
     print(f"[K1-stash] {L} learners in one launch == {L} one-learner "
           f"launches (bit-identical)", flush=True)
     ms = _time_ms(lambda: LC.blstm_layer_train(*ws, x, lens), 10)
+    subs = _sub_launch_ms(lambda: LC.blstm_layer_train(*ws, x, lens), 5)
+    BB, C = LC._tile(B, H)
+    print(f"[K1-stash] sub-launches, device ms per call: "
+          f"{ {k: round(v, 4) for k, v in subs.items()} }; recurrence "
+          f"clusters of C={C} CTAs, tiles of BB={BB} rows", flush=True)
     plain_ms = _time_ms(lambda: LC.blstm_layer_train(*ws, x, lens,
                                                      plain=True), 3,
                         warmup=1)
@@ -606,6 +655,7 @@ def check_k1_stash(gen):
                 replaces="src/repro/kernels/lstm_cell.py:498",
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                sub_launch_ms=subs, cluster=C, block_rows=BB,
                 shape=f"L={L} B={B} T={T} D={D} H={H} f32 stash")
 
 
@@ -667,6 +717,11 @@ def check_k2(gen):
     print(f"[K2] {L} learners in one launch == {L} one-learner launches "
           f"(bit-identical)", flush=True)
     ms = _time_ms(lambda: LC.blstm_layer_bwd(*args), 10)
+    subs = _sub_launch_ms(lambda: LC.blstm_layer_bwd(*args), 5)
+    BB, C = LC._tile(B, H)
+    print(f"[K2] sub-launches, device ms per call: "
+          f"{ {k: round(v, 4) for k, v in subs.items()} }; recurrence "
+          f"clusters of C={C} CTAs, tiles of BB={BB} rows", flush=True)
     plain_ms = _time_ms(lambda: LC.blstm_layer_bwd(*args, plain=True), 3,
                         warmup=1)
     lib = _library_ms(lambda: _cudnn_blstm_train(x, ws)[1], "K2")
@@ -679,7 +734,7 @@ def check_k2(gen):
               + L * B * 4
               + L * 2 * (D * 4 * H + H * 4 * H + 4 * H) * 4)   # f32 dW, db
     ops = 2 * (2 * n_valid * 4 * H * (H + D + D + H) + n_valid * 4 * H)
-    bound_ms, bound_by = _bound(nbytes, ops, PEAK_F32_FLOPS)
+    bound_ms, bound_by = _bound(nbytes, ops, PEAK_TF32_FLOPS)
     print(f"[K2] L={L} B={B} T={T} D={D} H={H}: kernel {ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms, library {library_ms} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by})", flush=True)
@@ -688,7 +743,62 @@ def check_k2(gen):
                 replaces="src/repro/kernels/lstm_cell.py:656",
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                sub_launch_ms=subs, cluster=C, block_rows=BB,
                 shape=f"L={L} B={B} T={T} D={D} H={H} f32 stash")
+
+
+GEMM_F64_TOL = 1e-5      # split products vs float64: f32 accuracy
+
+
+def check_gemm_precision(gen):
+    """The tensor-core GEMM routine (csrc/gemm.cuh) at the full training
+    shape against float64 products on the card: x·Wx (``lstm_xproj``),
+    dx's f32 sum of both directions (``lstm_bwd_dx``'s unrounded view),
+    dWx, dWh and db (``lstm_bwd_dw``), each within 1e-5 of its largest
+    value; the f32 dgates carry full mantissas.  Returns the worst
+    normalised error of the forward's and the backward's products."""
+    import torch
+
+    from repro_torch.kernels import lstm_cell as LC
+
+    L, B, T, D, H = TRAIN_L, TRAIN_B, TRAIN_T, TRAIN_D, TRAIN_H
+    M, N = B * T, 4 * H
+    ws, x, _ = _stacked_inputs(L, B, T, D, H, gen, False)
+    wxf, wxb = ws[0], ws[3]
+    y = torch.randn(L, B, T, 2 * H, generator=gen).to(x.device,
+                                                       torch.bfloat16)
+    dg = torch.randn(2, L, M, N, generator=gen).to(x.device)
+    xm = x.double().view(L, M, D)
+    errs = {}
+    gx = LC._xproj(x.view(L, M, D), wxf, wxb)
+    errs["x.Wx"] = max(_norm_err(gx[:, d], xm @ w.double())[1]
+                       for d, w in enumerate((wxf, wxb)))
+    del gx
+    dx = LC._bwd_dx(dg, wxf, wxb, f32_out=True)
+    errs["dx"] = _norm_err(dx, dg[0].double() @ wxf.double().transpose(1, 2)
+                           + dg[1].double() @ wxb.double().transpose(1, 2))[1]
+    del dx
+    dwx, dwhb = LC._bwd_dw(x, y, dg)
+    for d in range(2):
+        errs[f"dWx_{d}"] = _norm_err(
+            dwx[d], xm.transpose(1, 2) @ dg[d].double())[1]
+        h = y[..., d * H:(d + 1) * H].double()
+        prev = torch.zeros_like(h)       # h_{t-1}: t - 1 forward, t + 1 back
+        if d == 0:
+            prev[:, :, 1:] = h[:, :, :-1]
+        else:
+            prev[:, :, :-1] = h[:, :, 1:]
+        want = prev.view(L, M, H).transpose(1, 2) @ dg[d].double()
+        errs[f"dWh_{d}"] = _norm_err(dwhb[d, :, :H], want)[1]
+        errs[f"db_{d}"] = _norm_err(dwhb[d, :, H], dg[d].double().sum(1))[1]
+    torch.cuda.synchronize()
+    print(f"[gemm-f64] L={L} M={M} D={D} N={N}: normalised errors vs "
+          f"float64 {', '.join(f'{k} {v:.3g}' for k, v in errs.items())} "
+          f"(tol {GEMM_F64_TOL})", flush=True)
+    for k, v in errs.items():
+        if not v <= GEMM_F64_TOL:
+            _fail(f"the GEMM routine's {k} is {v} from float64")
+    return errs["x.Wx"], max(v for k, v in errs.items() if k != "x.Wx")
 
 
 def _k5_states(B, K, V, gen):
@@ -773,11 +883,16 @@ def check_k5(gen):
 
 
 # K4 at the serving admission's shape (B = 1, T = 256, a 173-frame
-# utterance) and evaluate's (B = 8, T = 256, var-len with a length-1 row);
-# a small ragged case (B = 5 in a tile of 8, H = 16, 3 layers) first
+# utterance) and evaluate's (B = 8, T = 256, var-len with a length-1 row),
+# both timed; a small ragged case (B = 5 in a tile of 8, H = 16, 3 layers)
+# first; and B = 16 at T = 21, 2 layers, where the K1 loop runs two
+# 8-row tiles on clusters and K4 two 8-row items of its own
 K4_CASES = [(5, 9, 12, 16, 3, (9, 4, 1, 9, 6)),
             (1, 256, 260, 512, 6, (173,)),
-            (8, 256, 260, 512, 6, (256, 240, 199, 150, 97, 64, 12, 1))]
+            (8, 256, 260, 512, 6, (256, 240, 199, 150, 97, 64, 12, 1)),
+            (16, 21, 260, 512, 2,
+             (21, 20, 19, 17, 15, 13, 11, 9, 7, 5, 3, 2, 1, 21, 21, 8))]
+K4_TIMED = (1, 8)        # the batch sizes of the timed shapes
 
 
 def _stack_inputs(n_layers, B, T, D0, H, lengths, gen):
@@ -859,7 +974,7 @@ def check_k4(gen):
             if got[b, n:].any():
                 _fail(f"K4 {shape}: padded frames of row {b} not zero")
         worst = max(worst, abs_err)
-        if H != 512:
+        if T != 256 or B not in K4_TIMED:
             continue
         ms = _time_ms(lambda: LC.blstm_stack(layers, x, lengths), 5)
         dev_ms = _device_ms(lambda: LC.blstm_stack(layers, x, lengths),
@@ -1290,7 +1405,7 @@ def _chunked_bound(L, B, T, D, H, K, n_valid, fwd):
     # the replay's recur, then K2's products on f32 dgates (dh, dx, dWx,
     # dWh) and db
     k2 = 2 * (2 * n_valid * 4 * H * (H + D + D + H) + n_valid * 4 * H)
-    return nbytes, [(recur, PEAK_BF16_FLOPS), (k2, PEAK_F32_FLOPS)]
+    return nbytes, [(recur, PEAK_BF16_FLOPS), (k2, PEAK_TF32_FLOPS)]
 
 
 def check_k3(gen):
@@ -3145,6 +3260,7 @@ def main() -> int:
         k1 = check_k1(gen)
         k1s = check_k1_stash(gen)
         k2 = check_k2(gen)
+        k1s["f64_err"], k2["f64_err"] = check_gemm_precision(gen)
         k5 = check_k5(gen)
         k4 = check_k4(gen)
         done("kernels")

@@ -9,25 +9,29 @@
 // dWh += h_{t-1}ᵀ·dgates and db += Σ dgates into f32 output blocks that
 // stay resident for the whole grid.  Here the work splits by dependency:
 //
-//  * lstm_bwd_recur — the serial part.  One CTA per (batch tile,
-//    direction, learner) walks the T steps in reverse recurrence order
-//    (the forward direction t = T-1..0, the reverse direction t = 0..T-1;
-//    `_bwd_tmap`).  Thread j owns hidden unit j and carries dh, dc in f32
-//    registers.  Each step it reads the stashed gates i|f|g|o, c_t and
-//    c_{t-1} (zero at the boundary, `_bwd_pmap`), forms the four gate
-//    cotangents, writes them to global memory (dgates, (2, L, B, T, 4H)
-//    f32) and to shared memory, and then computes
-//    dh_{t-1}[j] = Σ_n dgates[n]·Wh[j, n].  Wh arrives as (H, H, 4) with
-//    W4[c, j, q] = Wh[j, 4c + q]: thread j reads 4 adjacent gate columns
-//    of its row in one 8-byte load, and neighbouring threads read
-//    neighbouring words.  With `lengths`, dh and dc are zeroed on padded
-//    steps (so their dgates are zero) and the carries pass through
-//    (lstm_cell.py:570-575, :592-596).  The kernel lives in
-//    lstm_recur.cuh, which the chunked backward K3 shares.
+//  * lstm_bwd_recur — the serial part, split over a thread-block cluster
+//    as the forward is (lstm_recur.cuh): one cluster of C CTAs per (batch
+//    tile of up to 8 rows, direction, learner) walks the T steps in
+//    reverse recurrence order (the forward direction t = T-1..0, the
+//    reverse direction t = 0..T-1; `_bwd_tmap`).  Thread j of CTA c owns
+//    hidden unit c·H/C + j and carries dh, dc in f32 registers.  Each step
+//    it reads the stashed gates i|f|g|o, c_t and c_{t-1} (zero at the
+//    boundary, `_bwd_pmap`), forms the four gate cotangents, writes them to
+//    global memory (dgates, (2, L, B, T, 4H) f32) and to its CTA's shared
+//    memory; the CTA copies its slice into every peer's (distributed
+//    shared memory), and behind one cluster barrier every CTA holds the
+//    step's whole dgates block and computes dh_{t-1}[j] = Σ_n dgates[n]·
+//    Wh[j, n] for its own units, reading only their rows of Wh.  Wh
+//    arrives as (H, H, 4) with W4[c, j, q] = Wh[j, 4c + q]: thread j reads
+//    4 adjacent gate columns of its row in one 8-byte load, and
+//    neighbouring threads read neighbouring words.  With `lengths`, dh and
+//    dc are zeroed on padded steps (so their dgates are zero) and the
+//    carries pass through (lstm_cell.py:570-575, :592-596).  The chunked
+//    backward K3 runs the same kernel.
 //  * lstm_bwd_dx — dx = dgates_f·Wx_fᵀ rounded to bf16, plus
 //    dgates_b·Wx_bᵀ rounded to bf16, summed in f32 and rounded again
-//    (lstm_cell.py:949, :1050): two launches of the batched GEMM of
-//    gemm.cuh, the second adding into the first's bf16 output.
+//    (lstm_cell.py:949, :1050): two launches of the batched tensor-core
+//    GEMM of gemm.cuh, the second adding into the first's bf16 output.
 //  * lstm_bwd_dw — dWx = xᵀ·dgates, and dWh = h_prevᵀ·dgates with one
 //    more row of ones, whose product is db = Σ dgates; h_prev is the
 //    stashed y shifted by one recurrence step, zero at the boundary,
@@ -35,13 +39,18 @@
 //    the recurrence, so taking them over all steps after the loop
 //    computes what the TPU kernel accumulates step by step.
 //
-// What bounds it on the H100.  The recurrence streams one direction's Wh
-// (2 MiB at H=512) from L2 every step, as the forward does: T serial steps
-// bound by one SM's L2 bandwidth.  The three products are ~113 GFLOP per
-// layer at the paper's training shape (16 learners x 16 rows x 21 frames,
-// D=1024, H=512), in f32 on the CUDA cores: they, not the recurrence, set
-// the backward's time.  The stash is read once and dgates written once and
-// read three times (171 MB per layer in f32).
+// What bounds it on the H100.  The recurrence reads one direction's Wh
+// (2 MiB at H=512) every step, 1/C of it in each CTA of a cluster, and
+// issues as many f32 FMAs as the forward's; each thread also reads the
+// step's whole dgates block from shared memory (8 rows x 4H floats at the
+// training shape's 8-row tiles).  A step takes ~65 us (PERF.md).
+// The three products are ~113 GFLOP per layer at the paper's training
+// shape (16 learners x 16 rows x 21 frames, D=1024, H=512), on the tensor
+// cores with the f32 dgates split into three bf16 parts (gemm.cuh); one
+// TF32 pass of the same work, the least time for f32-accurate products on
+// the tensor cores, would take 0.23 ms at 495 TFLOP/s.  The stash is read
+// once and dgates written once and read three times (171 MB per layer in
+// f32).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,16 +63,17 @@ using bf16 = __nv_bfloat16;
 // stash_kind: 1 = f32 stash, 2 = bf16 stash.  dy (L, B, T, 2H) bf16; acts
 // (2, L, B, T, 4H) and cseq (2, L, B, T, H) in the stash dtype; wh4
 // (L, H, H, 4) bf16 per direction with W4[c, j, q] = Wh[j, 4c + q];
-// lengths (L, B); dg (2, L, B, T, 4H) f32 out.
+// lengths (L, B); dg (2, L, B, T, 4H) f32 out.  block_b and cluster as
+// blstm_recur's (lstm_fwd.cu).
 extern "C" int lstm_bwd_recur(const void* dy, const void* acts,
                               const void* cseq, const void* whf,
                               const void* whb, const void* lengths, void* dg,
                               int stash_kind, int L, int B, int T, int H,
-                              int block_b, void* stream) {
+                              int block_b, int cluster, void* stream) {
   using lstm_recur::BwdArgs;
   using lstm_recur::launch_bwd_rows;
-  using lstm_recur::MAX_H;
-  if (L < 1 || B < 1 || T < 1 || H < 1 || H > MAX_H)
+  if (L < 1 || B < 1 || T < 1 || H < 1 ||
+      !lstm_recur::cluster_units(H, cluster))
     return (int)cudaErrorInvalidValue;
   BwdArgs a{};
   a.dy = static_cast<const bf16*>(dy);
@@ -81,15 +91,18 @@ extern "C" int lstm_bwd_recur(const void* dy, const void* acts,
   a.n = 1;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (stash_kind) {
-    case 1: return launch_bwd_rows<1, 0>(block_b, a, st);
-    case 2: return launch_bwd_rows<2, 0>(block_b, a, st);
+    case 1: return launch_bwd_rows<1, 0>(block_b, cluster, a, st);
+    case 2: return launch_bwd_rows<2, 0>(block_b, cluster, a, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// dx (L, M, D) bf16 from dg (2, L, M, N) f32 and wx_dir (L, D, N) bf16.
+// dx (L, M, D) bf16 from dg (2, L, M, N) f32 and wx_dir (L, D, N) bf16;
+// with f32_out, dx (L, M, D) f32 = the two directions' products summed in
+// f32 and never rounded (the same tiles with the f32 epilogues: the
+// precision check's view of this product).
 extern "C" int lstm_bwd_dx(const void* dg, const void* wxf, const void* wxb,
-                           void* dx, int L, int M, int D, int N,
+                           void* dx, int L, int M, int D, int N, int f32_out,
                            void* stream) {
   using lstm_gemm::Mat;
   const float* g = static_cast<const float*>(dg);
@@ -98,6 +111,13 @@ extern "C" int lstm_bwd_dx(const void* dg, const void* wxf, const void* wxb,
   const Mat<bf16, true> wb{static_cast<const bf16*>(wxb), N};
   const cudaStream_t st = (cudaStream_t)stream;
   const size_t sa = (size_t)M * N, sb = (size_t)D * N, sc = (size_t)M * D;
+  if (f32_out) {
+    const int rc = lstm_gemm::gemm<lstm_gemm::EPI_F32>(
+        gf, gf, wf, wf, dx, dx, sa, sb, sc, D, M, D, N, L, 1, st);
+    if (rc) return rc;
+    return lstm_gemm::gemm<lstm_gemm::EPI_ACC_F32>(
+        gb, gb, wb, wb, dx, dx, sa, sb, sc, D, M, D, N, L, 1, st);
+  }
   int rc = lstm_gemm::gemm<lstm_gemm::EPI_BF16>(
       gf, gf, wf, wf, dx, dx, sa, sb, sc, D, M, D, N, L, 1, st);
   if (rc) return rc;

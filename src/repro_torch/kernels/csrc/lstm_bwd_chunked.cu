@@ -20,11 +20,13 @@
 //      lstm_xproj sums it (the tile loop over D does not depend on M), so
 //      it equals the forward's x-projection bit for bit.
 //  (b) the replay: lstm_recur.cuh's forward recurrence in REPLAY mode —
-//      the very instructions K1 ran — from the entry carry, writing the
+//      the very instructions K1 ran, on the same cluster split — from the
+//      entry carry, writing the
 //      chunk's gates and c in f32 into (2, L, B, K, ·) buffers.  With an
 //      f32 stash the replayed gates and c are the unchunked stash bit for
 //      bit; with a bf16 stash the entry c is rounded, as the reference's.
-//  (c) the reverse steps: K2's recurrence (lstm_recur.cuh) over the chunk,
+//  (c) the reverse steps: K2's cluster recurrence (lstm_recur.cuh) over
+//      the chunk,
 //      (dh, dc) read from and written back to (2, L, B, H) f32 carries,
 //      c_{t-1} of the chunk's first step taken from the entry carry.
 //  (d) dx of the chunk's frames (two GEMM launches, one per direction,
@@ -44,10 +46,10 @@
 // carries 2H per row.
 //
 // What bounds it on the H100: the two serial recurrences, T_pad steps each
-// per layer, each step streaming one direction's Wh (2 MiB at H = 512)
-// from L2 into one SM, as K1 and K2 do; then the f32 SIMT GEMMs (x·Wx
-// again, dx, dWx, dWh), ~1.3x K2's products.  The extra forward
-// recurrence is the price of the O(T/K) stash.
+// per layer, each step reading one direction's Wh (2 MiB at H = 512)
+// split over a cluster of CTAs, as K1 and K2 do; then the tensor-core
+// GEMMs (x·Wx again, dx, dWx, dWh), ~1.3x K2's products.  The extra
+// forward recurrence is the price of the O(T/K) stash.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,6 +67,7 @@ using bf16 = __nv_bfloat16;
 // cseq (2, L, B, K, H), all f32.  In/out: dh, dc (2, L, B, H) f32 carries
 // (zero on entry), dx (L, B, T, D) bf16 (zero on entry, or null), dwx
 // (2, L, D, 4H) and dwhb (2, L, H + 1, 4H) f32 (zero on entry; row H: db).
+// block_b and cluster as blstm_recur's (lstm_fwd.cu).
 extern "C" int lstm_bwd_chunked(
     const void* x, const void* y, const void* dy, const void* hb,
     const void* cb, const void* wxf, const void* wxb, const void* whf4,
@@ -72,18 +75,18 @@ extern "C" int lstm_bwd_chunked(
     const void* bb, const void* lengths, void* gx, void* acts, void* cseq,
     void* dg, void* dh, void* dc, void* dx, void* dwx, void* dwhb,
     int carry_kind, int L, int B, int T, int D, int H, int K, int block_b,
-    void* stream) {
+    int cluster, void* stream) {
   using lstm_recur::BwdArgs;
   using lstm_recur::FwdArgs;
   using lstm_recur::launch_bwd_rows;
   using lstm_recur::launch_fwd_rows;
-  using lstm_recur::MAX_H;
   using lstm_recur::REPLAY;
   using lstm_gemm::ChunkOut;
   using lstm_gemm::ChunkRows;
   using lstm_gemm::Mat;
   using lstm_gemm::ShiftedChunkRows;
-  if (L < 1 || B < 1 || T < 1 || D < 1 || H < 1 || H > MAX_H || K < 1 ||
+  if (L < 1 || B < 1 || T < 1 || D < 1 || H < 1 || K < 1 ||
+      !lstm_recur::cluster_units(H, cluster) ||
       (carry_kind != 1 && carry_kind != 2))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -146,13 +149,15 @@ extern "C" int lstm_bwd_chunked(
     if (rc) return rc;
     // (b) replay the chunk from its entry carry
     fa.chunk = chunk;
-    rc = carry_kind == 1 ? launch_fwd_rows<REPLAY, 1>(block_b, fa, st)
-                         : launch_fwd_rows<REPLAY, 2>(block_b, fa, st);
+    rc = carry_kind == 1
+        ? launch_fwd_rows<REPLAY, 1>(block_b, cluster, fa, st)
+        : launch_fwd_rows<REPLAY, 2>(block_b, cluster, fa, st);
     if (rc) return rc;
     // (c) its reverse steps
     ba.chunk = chunk;
-    rc = carry_kind == 1 ? launch_bwd_rows<1, 1>(block_b, ba, st)
-                         : launch_bwd_rows<1, 2>(block_b, ba, st);
+    rc = carry_kind == 1
+        ? launch_bwd_rows<1, 1>(block_b, cluster, ba, st)
+        : launch_bwd_rows<1, 2>(block_b, cluster, ba, st);
     if (rc) return rc;
     // (d) dx, then dWx and [dWh; db]
     if (dx) {

@@ -17,41 +17,43 @@
 // Two kernels here:
 //
 //  * lstm_xproj  — x·Wx for both directions over all B·T rows of every
-//    learner at once: the batched GEMM of gemm.cuh (bf16 operands, f32
-//    accumulation).  This half of the gate product has no recurrent
-//    dependency, so it leaves the serial loop; it is part of the TPU
-//    kernel's body, so it stays hand-written.
-//  * blstm_recur — one CTA per (batch tile, direction, learner) walks all
-//    T steps inside the kernel, in place of the TPU's sequential grid
-//    axis.  Thread j owns hidden unit j: it accumulates the four gate
-//    columns j, H+j, 2H+j, 3H+j of h_bf16·Wh, adds the x-projection and
-//    the bias, applies the activations (forget bias +1) and the mask
-//    (carry frozen, output zeroed at t >= len), writes h, rounded to
-//    bf16, to shared memory for the next step and, in the training
-//    variant, the gates i|f|g|o and the frozen c to the stash (f32 or
-//    bf16, a template parameter), in the chunk-entry variant the f32 (h,
-//    c) carry, rounded to the stash dtype, before each chunk's first step;
-//    y is computed by the same instructions in every variant, so it is
-//    bit-identical.  The kernel lives in lstm_recur.cuh, which K3 shares
-//    to replay a chunk with the same instructions.  Wh arrives
+//    learner at once: the batched tensor-core GEMM of gemm.cuh (bf16
+//    operands, exact in bf16, f32 sums).  This half of the gate product
+//    has no recurrent dependency, so it leaves the serial loop; it is part
+//    of the TPU kernel's body, so it stays hand-written.
+//  * blstm_recur — the serial loop of T steps inside the kernel, in place
+//    of the TPU's sequential grid axis, split over a thread-block cluster
+//    (lstm_recur.cuh): one cluster of C CTAs per (batch tile of up to 8
+//    rows, direction, learner), CTA c owning hidden units [c·H/C,
+//    (c+1)·H/C).  Thread j of a CTA owns one unit: it accumulates the four
+//    gate columns j, H+j, 2H+j, 3H+j of h_bf16·Wh over every input k in
+//    order, adds the x-projection (loaded before the product, which hides
+//    the loads) and the bias, applies the activations (forget bias +1) and the
+//    mask (carry frozen, output zeroed at t >= len), and writes h, rounded
+//    to bf16, into its CTA's shared memory; the CTA copies its slice into
+//    every peer's (distributed shared memory) and one cluster barrier ends
+//    the step.  In the training variant it also writes the gates i|f|g|o
+//    and the frozen c to the stash (f32 or bf16, a template parameter), in
+//    the chunk-entry variant the f32 (h, c) carry, rounded to the stash
+//    dtype, before each chunk's first step; y is computed by the same
+//    instructions in every variant, so it is bit-identical, and by the
+//    same sums and cell update as the fused stack K4's items.  Wh arrives
 //    gate-interleaved, (H, H, 4): the four weights of unit j for input k
 //    are one 8-byte load, and neighbouring threads read neighbouring
 //    8-byte words.
 //
 // What bounds it on the H100.  At the paper's width (H=512) one
-// direction's Wh is 512 x 2048 bf16 = 2 MiB, more than one SM's 227 KB of
-// shared memory, so in this simple design every step streams Wh from L2:
-// 2 MiB per step per CTA, T·L steps in a serial chain.  A step is bound
-// by how fast one SM can pull 2 MiB out of L2 — its share of the L2
-// bandwidth, and the loads it keeps in flight to cover L2 latency (KU
-// 8-byte loads per thread) — not by the card's HBM rate or its tensor
-// cores; the kernel is far above the bytes/operations bound of the whole
-// layer.  The batch tile (up to 8 rows per CTA) reuses each Wh element
-// for every row of the tile, so a tile of rows costs about what one row
-// does.  With 16 learners the 64 MiB of distinct Wh no longer fit the
-// 50 MB L2.  The later design splits the gate columns across CTAs so that
-// each CTA keeps its slice of Wh resident in shared memory and exchanges
-// h_t through a grid barrier every step (ROADMAP.md).
+// direction's Wh is 512 x 2048 bf16 = 2 MiB.  At the training shape (16
+// learners x 16 rows) the recurrence runs tiles of 8 rows on clusters of
+// 2 CTAs of 256 threads (`lstm_cell.cluster_size`), 128 CTAs: each reads its
+// 1 MiB half of Wh every step (64 MiB of distinct Wh over the learners,
+// more than the 50 MB L2) and issues 537 M f32 FMAs a step over the card,
+// ~20 us at the HBM rate and ~16 us at the f32 peak; a step takes ~48 us
+// (PERF.md): the f32 product loop issues at about a third of the
+// f32 peak, and a step's weight stream does not overlap it fully.  That
+// product stays on the CUDA cores in the order of the sums before the split, so
+// that K4 stays bit-identical to the K1 loop; a tensor-core step product
+// is later work.  x·Wx is operation-bound on the tensor cores.
 //
 // Numerics mirror `_cell_math`: gates = (x·Wx + h·Wh) + b accumulated in
 // f32, h rounded to bf16 before the product, h and c carried in f32, the
@@ -74,7 +76,7 @@ extern "C" int lstm_xproj(const void* x, const void* wxf, const void* wxb,
   const Mat<bf16, false> wf{static_cast<const bf16*>(wxf), N};
   const Mat<bf16, false> wb{static_cast<const bf16*>(wxb), N};
   float* g = static_cast<float*>(gx);
-  return lstm_gemm::gemm<lstm_gemm::EPI_F32>(
+  return lstm_gemm::gemm<lstm_gemm::EPI_F32, 32>(
       xa, xa, wf, wb, g, g + (size_t)M * N, (size_t)M * D, (size_t)D * N,
       (size_t)2 * M * N, N, M, N, D, L, 2, (cudaStream_t)stream);
 }
@@ -83,19 +85,22 @@ extern "C" int lstm_xproj(const void* x, const void* wxf, const void* wxb,
 // stash, 3 = f32 chunk-entry carries, 4 = bf16 ones (acts and cseq are then
 // the (2, L, B, ceil(T / K), H) h and c carries).  gx (L, 2, B, T, 4H) f32;
 // wh (L, H, H, 4) bf16 gate-interleaved; b (L, 4H) f32; lengths (L, B);
-// y (L, B, T, 2H) bf16.
+// y (L, B, T, 2H) bf16.  block_b: rows per tile (1, 2, 4, 8 or 16);
+// cluster: CTAs per tile (1, 2, 4 or 8; H even, a multiple of 4·cluster
+// when above 1, H / cluster <= 256).
 extern "C" int blstm_recur(const void* gx, const void* whf, const void* whb,
                            const void* bf, const void* bb,
                            const void* lengths, void* y, void* acts,
                            void* cseq, int stash_kind, int L, int B, int T,
-                           int H, int K, int block_b, void* stream) {
+                           int H, int K, int block_b, int cluster,
+                           void* stream) {
   using lstm_recur::FWD;
   using lstm_recur::FWD_ENTRY;
   using lstm_recur::FWD_STASH;
   using lstm_recur::FwdArgs;
   using lstm_recur::launch_fwd_rows;
-  using lstm_recur::MAX_H;
-  if (L < 1 || B < 1 || T < 1 || H < 1 || H > MAX_H)
+  if (L < 1 || B < 1 || T < 1 || H < 1 ||
+      !lstm_recur::cluster_units(H, cluster))
     return (int)cudaErrorInvalidValue;
   const bool entry = stash_kind == 3 || stash_kind == 4;
   if (entry && K < 1) return (int)cudaErrorInvalidValue;
@@ -119,11 +124,16 @@ extern "C" int blstm_recur(const void* gx, const void* whf, const void* whb,
   a.n = (T + a.K - 1) / a.K;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (stash_kind) {
-    case 0: return launch_fwd_rows<FWD, 0>(block_b, a, st);
-    case 1: return launch_fwd_rows<FWD_STASH, 1>(block_b, a, st);
-    case 2: return launch_fwd_rows<FWD_STASH, 2>(block_b, a, st);
-    case 3: return launch_fwd_rows<FWD_ENTRY, 1>(block_b, a, st);
-    case 4: return launch_fwd_rows<FWD_ENTRY, 2>(block_b, a, st);
+    case 0:
+      return launch_fwd_rows<FWD, 0>(block_b, cluster, a, st);
+    case 1:
+      return launch_fwd_rows<FWD_STASH, 1>(block_b, cluster, a, st);
+    case 2:
+      return launch_fwd_rows<FWD_STASH, 2>(block_b, cluster, a, st);
+    case 3:
+      return launch_fwd_rows<FWD_ENTRY, 1>(block_b, cluster, a, st);
+    case 4:
+      return launch_fwd_rows<FWD_ENTRY, 2>(block_b, cluster, a, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

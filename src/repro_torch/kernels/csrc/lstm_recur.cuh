@@ -1,13 +1,17 @@
 // The serial halves of the BLSTM kernels, hand-written for sm_90a: the
-// forward recurrence (K1 and its variants, and K3's replay of one chunk)
-// and the reverse recurrence (K2, and K3's reverse steps over one chunk).
+// forward recurrence (K1 and its variants, K3's replay of one chunk, and
+// the per-layer items of the fused stack K4) and the reverse recurrence
+// (K2, and K3's reverse steps over one chunk).
 //
 // One header so that K3 (lstm_bwd_chunked.cu) replays a chunk with the very
 // instructions K1 ran (lstm_fwd.cu) and undoes it with the very
 // instructions of K2 (lstm_bwd.cu): the recomputed gates and cell states
 // are bit-identical to the stash of K1's training variant, and K3's
-// dgates to K2's.  The file notes of lstm_fwd.cu and lstm_bwd.cu say what
-// bounds each kernel on the H100.
+// dgates to K2's.  K4 (lstm_stack.cu) walks its own items
+// (`blstm_recur_item`) with the same per-unit sums and the same cell
+// update (`cell_step`), so it is bit-identical to the K1 loop.  The file
+// notes of lstm_fwd.cu and lstm_bwd.cu say what bounds each kernel on the
+// H100.
 //
 // Time indexing shared by both kernels.  A launch walks `Tg` rows per
 // batch row of its per-step arrays (gx, the stash, dgates): all T frames
@@ -19,24 +23,50 @@
 // direction [T_pad-(r+1)K, T_pad-rK) (`cmap`, lstm_cell.py:818-823).
 // Frames t >= T are never stored: they are masked steps (lengths <= T),
 // which change no carry, so a chunked launch reads them as zero.
+//
+// The cluster split (K1 and K2 and K3's recurrences).  Each (batch tile
+// of BB rows, direction, learner) is a thread-block cluster of C CTAs; CTA
+// c owns hidden units [c·U, (c+1)·U), U = H / C, with their four gate
+// columns, one thread per unit, and reads only its units' columns (the
+// forward) or rows (the reverse) of Wh: 1/C of the 2 MiB a step at H =
+// 512.  Each step's state is exchanged through distributed shared memory:
+// a CTA writes its slice into its own shared memory, copies it into every
+// peer's, and one cluster barrier (release/acquire) makes it visible.  The
+// forward double-buffers h (step s reads buffer s % 2 and fills the other,
+// so a step's copies never race the previous step's reads); the reverse
+// gathers the whole dgates block of a step into one buffer behind a split
+// arrive/wait, the arrive after its reads, the wait before the next
+// step's copies.  Each thread's sum over k (forward) and over n (reverse)
+// runs in the same order as in `blstm_recur_item` and the kernels before
+// the split, whatever C and BB: the bits do not depend on them.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace lstm_recur {
 
+namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 
-constexpr int MAX_H = 512;   // one thread per hidden unit, one CTA
+constexpr int MAX_H = 512;     // K4's block: one thread per hidden unit
+constexpr int MAX_CTA = 256;   // threads of a cluster CTA (U rounded to 32)
+constexpr int MAX_CLUSTER = 8;
 
-// Both recurrence kernels are declared __launch_bounds__(MAX_H, 1): one
-// block per SM is all a step needs.  Without the minimum, ptxas held their
-// registers to what two 512-thread blocks allow and spilled at two rows per
-// CTA; with it they ran 1.6-5.5x faster on the H100 (PERF.md, kernel table).
+// K4's recurrence runs in a 512-thread block declared
+// __launch_bounds__(MAX_H, 1): one block per SM is all a step needs.
+// Without the minimum, ptxas held the registers to what two 512-thread
+// blocks allow and spilled; with it the per-layer kernels of that design
+// ran 1.6-5.5x faster on the H100 (PERF.md, kernel table).
 
 __device__ __forceinline__ float sigmoidf_(float v) {
   return 1.f / (1.f + expf(-v));
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
 }
 
 // Stash element store and load: SD 1 = f32, 2 = bf16.
@@ -55,6 +85,64 @@ __device__ __forceinline__ float load_stash(const void* p, size_t i) {
 __device__ __forceinline__ int chunk_t0(int d, int chunk, int K, int n) {
   return d ? (n - 1 - chunk) * K : chunk * K;
 }
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Copy floats [off, off + count) of this CTA's shared buffer `buf` into
+// the same place of every peer's (count a multiple of 4, off of 4).
+__device__ __forceinline__ void push_to_peers(float* buf, size_t off,
+                                              int count, int rank, int C) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const float4* src = reinterpret_cast<const float4*>(buf + off);
+  for (int q = 1; q < C; ++q) {
+    float4* dst = reinterpret_cast<float4*>(
+        cluster.map_shared_rank(buf + off, (rank + q) % C));
+    for (int i = threadIdx.x; i < count / 4; i += blockDim.x) dst[i] = src[i];
+  }
+}
+
+template <class Kernel, class... Args>
+int launch_cluster(Kernel kernel, dim3 grid, int threads, size_t smem,
+                   int C, cudaStream_t st, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Units per CTA of a cluster of C, or 0 where C does not split H: a slice
+// must be whole float4s of every exchanged buffer, and fit one CTA.
+__host__ __forceinline__ int cluster_units(int H, int C) {
+  if (C < 1 || C > MAX_CLUSTER || (C > 1 && H % (4 * C))) return 0;
+  return H / C <= MAX_CTA ? H / C : 0;
+}
+
+// The weights of a step stream from device memory straight into
+// registers: each thread keeps WEIGHT_LOADS 8-byte loads of its unit's
+// weights in flight, each slot refilled as it is used (a rolling
+// prefetch), so a CTA of 256 threads holds 64 KB of loads in flight.  A
+// ring of cp.async stages in shared memory, refilled behind a barrier per
+// stage, ran slower at the training shape on the H100.
+constexpr int WEIGHT_LOADS = 32;
 
 // ---------------------------------------------------------------- forward
 
@@ -84,34 +172,60 @@ struct FwdArgs {
   int chunk;              // REPLAY: the recurrence chunk replayed
 };
 
-// acc[r][g] += h[r][k] * Wh[k, g*H + j] for the 4 gates packed in `u`;
-// `hk` points at h[0][k] in shared memory (row stride H).
-template <int BB>
+// One cell update (`_cell_math`): gate pre-activations (x-projection +
+// h·Wh) + bias, the activations (forget bias +1), c' = f·c + i·g and
+// h' = o·tanh(c'), each product rounded once by an explicit intrinsic, so
+// that every kernel that calls this computes the same bits.
+struct Cell {
+  float i, f, g, o, c, h;
+};
+__device__ __forceinline__ Cell cell_step(const float (&xg)[4],
+                                          const float (&acc)[4],
+                                          const float (&bias)[4], float c) {
+  Cell s;
+  s.i = sigmoidf_((xg[0] + acc[0]) + bias[0]);
+  s.f = sigmoidf_(((xg[1] + acc[1]) + bias[1]) + 1.f);
+  s.g = tanhf((xg[2] + acc[2]) + bias[2]);
+  s.o = sigmoidf_((xg[3] + acc[3]) + bias[3]);
+  s.c = __fmaf_rn(s.f, c, __fmul_rn(s.i, s.g));
+  s.h = __fmul_rn(s.o, tanhf(s.c));
+  return s;
+}
+
+// acc[r][g] += h[r][k] * Wh[k, g*H + j] for the 4 gates packed in `u`:
+// `hk` points at h[0][k] and row r's value is hk[r * rs] (K4: rs = H;
+// the cluster kernel: rs = 1, four rows per float4 load).
+template <int BB, int RS>
 __device__ __forceinline__ void fma_gates(float (&acc)[BB][4], uint2 u,
-                                          const float* hk, int H) {
+                                          const float* hk, int rs) {
   const __nv_bfloat162 w01 = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
   const __nv_bfloat162 w23 = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
   const float w0 = __low2float(w01), w1 = __high2float(w01);
   const float w2 = __low2float(w23), w3 = __high2float(w23);
+  float hv[BB];
+  if constexpr (RS == 1 && BB % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < BB; r += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(hk + r);
+      hv[r] = v.x;
+      hv[r + 1] = v.y;
+      hv[r + 2] = v.z;
+      hv[r + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < BB; ++r) hv[r] = hk[r * (RS ? RS : rs)];
+  }
 #pragma unroll
   for (int r = 0; r < BB; ++r) {
-    const float hv = hk[r * H];
-    acc[r][0] += hv * w0;
-    acc[r][1] += hv * w1;
-    acc[r][2] += hv * w2;
-    acc[r][3] += hv * w3;
+    acc[r][0] += hv[r] * w0;
+    acc[r][1] += hv[r] * w1;
+    acc[r][2] += hv[r] * w2;
+    acc[r][3] += hv[r] * w3;
   }
 }
 
-// Which work item a block walks: the block's own grid coordinates
-// (GridItem: one item per block, read from blockIdx where it is used, so
-// that ptxas keeps them in uniform registers as a kernel of its own does),
-// or coordinates a persistent block computed (LoopItem).
-struct GridItem {
-  __device__ __forceinline__ int tile() const { return blockIdx.x; }
-  __device__ __forceinline__ int dir() const { return blockIdx.y; }
-  __device__ __forceinline__ int learner() const { return blockIdx.z; }
-};
+// The work item of a persistent block of K4.
 struct LoopItem {
   int t, d, l;
   __device__ __forceinline__ int tile() const { return t; }
@@ -119,30 +233,121 @@ struct LoopItem {
   __device__ __forceinline__ int learner() const { return l; }
 };
 
-// The forward recurrence of one work item: batch tile `item.tile()` (rows
-// tile*BB ..), direction d, learner l, walked by every thread of the block
-// (thread j owns hidden unit j < H; the others join the barriers), with
-// the first BB * H floats of the block's dynamic shared memory as `hs`,
-// the bf16-rounded h of the step (declared here, so that its loads and
-// stores address shared memory directly).  KU weight loads are in flight per
-// thread; fewer rows leave registers for more of them.  y, the stash and
-// the replayed gates come from the same instructions in every mode, and
-// in every kernel that calls this: K1 and K3's replay (blstm_recur_kernel,
-// one item per block) and the fused stack K4 (lstm_stack.cu, items looped
-// over a persistent grid).  The pointers carry no `__restrict__` here: K4
-// writes gx and the layer input inside the same launch, so their loads
+// K4's forward recurrence of one work item (inference): batch tile
+// `item.tile()` (rows tile*BB ..), direction d, learner l, walked by every
+// thread of the 512-thread block (thread j owns hidden unit j < H; the
+// others join the barriers), with the first BB * H floats of the block's
+// dynamic shared memory as `hs`, the bf16-rounded h of the step.  KU weight
+// loads are in flight per thread.  The pointers carry no `__restrict__`:
+// K4 writes gx and the layer input inside the same launch, so their loads
 // must not become read-only-cache loads; the weights are read with __ldg.
-template <int BB, int MODE, int SD, class Item,
-          int KU = (BB <= 2 ? 16 : 8)>
+template <int BB, class Item, int KU = (BB <= 2 ? 16 : 8)>
 __device__ __forceinline__ void blstm_recur_item(
     const float* gx, const bf16* whf, const bf16* whb, const float* bias_f,
-    const float* bias_b, const int* lengths, bf16* y, void* acts,
-    void* cseq, void* hb, void* cb, int L, int B, int T, int H, int K,
-    int n, int chunk, Item item) {
+    const float* bias_b, const int* lengths, bf16* y, int L, int B, int T,
+    int H, Item item) {
   extern __shared__ float hs[];                  // [BB][H] bf16-rounded h
   const int d = item.dir();
   const int l = item.learner();
   const int b0 = item.tile() * BB;
+  const size_t G = 4 * (size_t)H;
+  const bf16* __restrict__ wh = (d ? whb : whf) + (size_t)l * H * G;
+  const float* __restrict__ bias = (d ? bias_b : bias_f) + (size_t)l * G;
+  lengths += (size_t)l * B;
+  gx += (size_t)(2 * l + d) * B * T * G;
+  y += (size_t)l * B * T * 2 * H;
+  const int j = threadIdx.x;
+  const bool own = j < H;
+
+  float h[BB], c[BB];
+  int len[BB];
+#pragma unroll
+  for (int r = 0; r < BB; ++r) {
+    h[r] = 0.f;
+    c[r] = 0.f;
+    len[r] = (b0 + r < B) ? lengths[b0 + r] : 0;
+    if (own) hs[r * H + j] = 0.f;
+  }
+  float bz[4] = {0.f, 0.f, 0.f, 0.f};
+  if (own) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g) bz[g] = bias[g * H + j];
+  }
+  __syncthreads();
+
+  for (int s = 0; s < T; ++s) {
+    const int t = d ? T - 1 - s : s;             // frame
+    float acc[BB][4], xg[BB][4];
+#pragma unroll
+    for (int r = 0; r < BB; ++r) {
+      acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
+      // this step's x-projection, loaded before the product hides it
+      const size_t row = min(b0 + r, B - 1);
+      const float* gr = gx + (row * T + t) * G;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) xg[r][g] = own ? gr[g * H + j] : 0.f;
+    }
+    if (own) {
+      // wh4[k * H + j] holds the 4 gate weights of unit j for input k
+      const uint2* __restrict__ wh4 =
+          reinterpret_cast<const uint2*>(wh) + j;
+      int q0 = 0;
+      for (; q0 + KU <= H; q0 += KU) {
+        uint2 u[KU];                     // KU loads in flight per thread
+#pragma unroll
+        for (int q = 0; q < KU; ++q) u[q] = __ldg(wh4 + (size_t)(q0 + q) * H);
+#pragma unroll
+        for (int q = 0; q < KU; ++q)
+          fma_gates<BB, 0>(acc, u[q], hs + q0 + q, H);
+      }
+      for (; q0 < H; ++q0)
+        fma_gates<BB, 0>(acc, __ldg(wh4 + (size_t)q0 * H), hs + q0, H);
+    }
+    __syncthreads();                    // every read of hs precedes the write
+    if (own) {
+#pragma unroll
+      for (int r = 0; r < BB; ++r) {
+        const int b = b0 + r;
+        if (b >= B) continue;
+        const Cell cs = cell_step(xg[r], acc[r], bz, c[r]);
+        const bool valid = t < len[r];
+        if (valid) {                    // frozen carry on padded steps
+          c[r] = cs.c;
+          h[r] = cs.h;
+        }
+        y[((size_t)b * T + t) * 2 * H + (size_t)d * H + j] =
+            __float2bfloat16(valid ? cs.h : 0.f);
+        hs[r * H + j] = round_bf16(h[r]);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The forward recurrence of K1 (every mode) and K3's replay: one cluster
+// of C CTAs per (batch tile, direction, learner), grid (C·ceil(B / BB), 2,
+// L), U = H / C threads per CTA (rounded up to 32); thread j of CTA c owns
+// unit c·U + j for every row of the tile.  Dynamic shared memory: h of
+// the step, bf16-rounded, for every unit, double-buffered ([2][H][BB]
+// floats) and the tile's lengths.  y, the stash and the
+// replayed gates come from the same instructions in every mode.
+template <int BB, int MODE, int SD>
+__global__ void __launch_bounds__(MAX_CTA) blstm_recur_cluster(
+    const float* __restrict__ gx, const bf16* __restrict__ whf,
+    const bf16* __restrict__ whb, const float* __restrict__ bias_f,
+    const float* __restrict__ bias_b, const int* __restrict__ lengths,
+    bf16* __restrict__ y, void* __restrict__ acts, void* __restrict__ cseq,
+    void* __restrict__ hb, void* __restrict__ cb, int L, int B, int T, int H,
+    int K, int n, int chunk, int C) {
+  constexpr int KU = WEIGHT_LOADS;
+  extern __shared__ __align__(16) float smem[];
+  const int U = H / C;
+  float* hs = smem;                              // [2][H][BB]
+  int* lens = reinterpret_cast<int*>(hs + 2 * H * BB);
+  const int rank = (int)(blockIdx.x % C);
+  const int b0 = (int)(blockIdx.x / C) * BB;
+  const int d = blockIdx.y;
+  const int l = blockIdx.z;
   const size_t G = 4 * (size_t)H;
   const bf16* __restrict__ wh = (d ? whb : whf) + (size_t)l * H * G;
   const float* __restrict__ bias = (d ? bias_b : bias_f) + (size_t)l * G;
@@ -152,17 +357,28 @@ __device__ __forceinline__ void blstm_recur_item(
   gx += (size_t)(2 * l + d) * B * Tg * G;
   if constexpr (MODE != REPLAY) y += (size_t)l * B * T * 2 * H;
   const size_t srow = (size_t)(d * L + l) * B;   // stash row of b = 0
-  const int j = threadIdx.x;
-  const bool own = j < H;
+  const int jj = threadIdx.x;
+  const int j = rank * U + jj;
+  const bool own = jj < U;
 
+  for (int r = threadIdx.x; r < BB; r += blockDim.x)
+    lens[r] = b0 + r < B ? lengths[b0 + r] : 0;
+  // h entering the first step, every unit: zero, or REPLAY's entry carry
+  for (int e = threadIdx.x; e < 2 * H * BB; e += blockDim.x) {
+    const int k = e / BB % H, r = e % BB, b = b0 + r;
+    float v = 0.f;
+    if constexpr (MODE == REPLAY) {
+      if (e < H * BB && b < B)
+        v = load_stash<SD>(hb, ((srow + b) * n + chunk) * H + k);
+    }
+    hs[e] = round_bf16(v);
+  }
   float h[BB], c[BB];
-  int len[BB];
 #pragma unroll
   for (int r = 0; r < BB; ++r) {
     const int b = b0 + r;
     h[r] = 0.f;
     c[r] = 0.f;
-    len[r] = (b < B) ? lengths[b] : 0;
     if constexpr (MODE == REPLAY) {
       if (own && b < B) {
         const size_t e = ((srow + b) * n + chunk) * H + j;
@@ -176,23 +392,26 @@ __device__ __forceinline__ void blstm_recur_item(
         store_stash<SD>(cb, (srow + b) * n * H + j, 0.f);
       }
     }
-    if (own) hs[r * H + j] = __bfloat162float(__float2bfloat16(h[r]));
   }
-  float bi = 0.f, bfg = 0.f, bg = 0.f, bo = 0.f;
+  float bz[4] = {0.f, 0.f, 0.f, 0.f};
   if (own) {
-    bi = bias[j];
-    bfg = bias[H + j];
-    bg = bias[2 * H + j];
-    bo = bias[3 * H + j];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) bz[g] = bias[g * H + j];
   }
   // FWD_ENTRY: real step s is padded recurrence step s + off (the reverse
   // direction starts with T_pad - T masked steps, which change nothing)
   const int off = (MODE == FWD_ENTRY && d) ? n * K - T : 0;
   __syncthreads();
+  if (C > 1) {                          // every peer has started
+    cluster_arrive();
+    cluster_wait();
+  }
 
   for (int s = 0; s < Tg; ++s) {
     const int k = d ? Tg - 1 - s : s;            // local row
     const int t = t0 + k;                        // frame
+    const float* hc = hs + (s & 1) * H * BB;     // h of the previous step
+    float* hn = hs + ((s & 1) ^ 1) * H * BB;     // h of this step
     if constexpr (MODE == FWD_ENTRY) {
       const int sp = s + off;
       if (own && sp > 0 && sp % K == 0) {
@@ -207,100 +426,92 @@ __device__ __forceinline__ void blstm_recur_item(
     }
     float acc[BB][4], xg[BB][4];
 #pragma unroll
-    for (int r = 0; r < BB; ++r) {
+    for (int r = 0; r < BB; ++r)
       acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
-      // this step's x-projection, loaded before the product hides it
-      const size_t row = min(b0 + r, B - 1);
-      const float* gr = gx + (row * Tg + k) * G;
-#pragma unroll
-      for (int g = 0; g < 4; ++g) xg[r][g] = own ? gr[g * H + j] : 0.f;
-    }
     if (own) {
-      // wh4[k * H + j] holds the 4 gate weights of unit j for input k
-      const uint2* __restrict__ wh4 =
-          reinterpret_cast<const uint2*>(wh) + j;
-      int q0 = 0;
-      for (; q0 + KU <= H; q0 += KU) {
-        uint2 u[KU];                     // KU loads in flight per thread
+      // this step's x-projections, loaded before the product hides them
 #pragma unroll
-        for (int q = 0; q < KU; ++q) u[q] = __ldg(wh4 + (size_t)(q0 + q) * H);
+      for (int r = 0; r < BB; ++r) {
+        const size_t row = min(b0 + r, B - 1);
+        const float* gr = gx + (row * Tg + k) * G + j;
 #pragma unroll
-        for (int q = 0; q < KU; ++q) fma_gates<BB>(acc, u[q], hs + q0 + q, H);
+        for (int q = 0; q < 4; ++q) xg[r][q] = gr[q * H];
       }
-      for (; q0 < H; ++q0) fma_gates<BB>(acc, __ldg(wh4 + (size_t)q0 * H),
-                                         hs + q0, H);
+      // wp[k * H] holds the 4 gate weights of unit j for input k
+      const uint2* __restrict__ wp = reinterpret_cast<const uint2*>(wh) + j;
+      uint2 u[KU];
+#pragma unroll
+      for (int q = 0; q < KU; ++q)
+        if (q < H) u[q] = __ldg(wp + (size_t)q * H);
+      const int Hm = H - H % KU;
+      int k0 = 0;
+      for (; k0 < Hm; k0 += KU) {
+#pragma unroll
+        for (int q = 0; q < KU; ++q) {
+          const uint2 cur = u[q];
+          if (k0 + KU + q < H) u[q] = __ldg(wp + (size_t)(k0 + KU + q) * H);
+          fma_gates<BB, 1>(acc, cur, hc + (size_t)(k0 + q) * BB, 1);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < KU; ++q)
+        if (k0 + q < H)
+          fma_gates<BB, 1>(acc, u[q], hc + (size_t)(k0 + q) * BB, 1);
     }
-    __syncthreads();                    // every read of hs precedes the write
     if (own) {
 #pragma unroll
       for (int r = 0; r < BB; ++r) {
         const int b = b0 + r;
         if (b >= B) continue;
-        const float i_ = sigmoidf_((xg[r][0] + acc[r][0]) + bi);
-        const float f_ = sigmoidf_(((xg[r][1] + acc[r][1]) + bfg) + 1.f);
-        const float g_ = tanhf((xg[r][2] + acc[r][2]) + bg);
-        const float o_ = sigmoidf_((xg[r][3] + acc[r][3]) + bo);
-        const float cn = f_ * c[r] + i_ * g_;
-        const float hn = o_ * tanhf(cn);
-        const bool valid = t < len[r];
+        const Cell cs = cell_step(xg[r], acc[r], bz, c[r]);
+        const bool valid = t < lens[r];
         if (valid) {                    // frozen carry on padded steps
-          c[r] = cn;
-          h[r] = hn;
+          c[r] = cs.c;
+          h[r] = cs.h;
         }
         if constexpr (MODE != REPLAY)
           y[((size_t)b * T + t) * 2 * H + (size_t)d * H + j] =
-              __float2bfloat16(valid ? hn : 0.f);
-        hs[r * H + j] = __bfloat162float(__float2bfloat16(h[r]));
+              __float2bfloat16(valid ? cs.h : 0.f);
+        hn[j * BB + r] = round_bf16(h[r]);
         if constexpr (MODE == FWD_STASH || MODE == REPLAY) {
           constexpr int OUT = MODE == REPLAY ? 1 : SD;
           const size_t st = (srow + b) * Tg + k;
-          store_stash<OUT>(acts, st * G + j, i_);
-          store_stash<OUT>(acts, st * G + H + j, f_);
-          store_stash<OUT>(acts, st * G + 2 * H + j, g_);
-          store_stash<OUT>(acts, st * G + 3 * H + j, o_);
+          store_stash<OUT>(acts, st * G + j, cs.i);
+          store_stash<OUT>(acts, st * G + H + j, cs.f);
+          store_stash<OUT>(acts, st * G + 2 * H + j, cs.g);
+          store_stash<OUT>(acts, st * G + 3 * H + j, cs.o);
           store_stash<OUT>(cseq, st * H + j, c[r]);
         }
       }
     }
-    __syncthreads();
+    __syncthreads();                     // this CTA's slice of h is whole
+    if (C > 1) {
+      push_to_peers(hn, (size_t)rank * U * BB, U * BB, rank, C);
+      cluster_arrive();
+      cluster_wait();
+    }
   }
 }
 
-// grid (ceil(B / BB), 2, L), block H rounded up to 32, dynamic shared
-// memory BB * H floats: one work item per block.  The arguments are
-// FwdArgs' fields, passed one by one as `__restrict__` kernel parameters
-// (likewise BwdArgs' for the reverse kernel).
 template <int BB, int MODE, int SD>
-__global__ void __launch_bounds__(MAX_H, 1) blstm_recur_kernel(
-    const float* __restrict__ gx, const bf16* __restrict__ whf,
-    const bf16* __restrict__ whb, const float* __restrict__ bias_f,
-    const float* __restrict__ bias_b, const int* __restrict__ lengths,
-    bf16* __restrict__ y, void* __restrict__ acts, void* __restrict__ cseq,
-    void* __restrict__ hb, void* __restrict__ cb, int L, int B, int T, int H,
-    int K, int n, int chunk) {
-  blstm_recur_item<BB, MODE, SD>(gx, whf, whb, bias_f, bias_b, lengths, y,
-                                 acts, cseq, hb, cb, L, B, T, H, K, n, chunk,
-                                 GridItem{});
-}
-
-template <int BB, int MODE, int SD>
-int launch_fwd(const FwdArgs& a, cudaStream_t st) {
-  const dim3 grid((a.B + BB - 1) / BB, 2, a.L);
-  const int threads = (a.H + 31) / 32 * 32;
-  const size_t smem = (size_t)BB * a.H * sizeof(float);
-  blstm_recur_kernel<BB, MODE, SD><<<grid, threads, smem, st>>>(
-      a.gx, a.whf, a.whb, a.bias_f, a.bias_b, a.lengths, a.y, a.acts, a.cseq,
-      a.hb, a.cb, a.L, a.B, a.T, a.H, a.K, a.n, a.chunk);
-  return (int)cudaGetLastError();
+int launch_fwd(const FwdArgs& a, int C, cudaStream_t st) {
+  const int U = cluster_units(a.H, C);
+  if (!U) return (int)cudaErrorInvalidValue;
+  const dim3 grid(C * ((a.B + BB - 1) / BB), 2, a.L);
+  const size_t smem = (size_t)2 * a.H * BB * sizeof(float) + BB * sizeof(int);
+  return launch_cluster(blstm_recur_cluster<BB, MODE, SD>, grid,
+                        (U + 31) / 32 * 32, smem, C, st, a.gx, a.whf, a.whb,
+                        a.bias_f, a.bias_b, a.lengths, a.y, a.acts, a.cseq,
+                        a.hb, a.cb, a.L, a.B, a.T, a.H, a.K, a.n, a.chunk, C);
 }
 
 template <int MODE, int SD>
-int launch_fwd_rows(int block_b, const FwdArgs& a, cudaStream_t st) {
+int launch_fwd_rows(int block_b, int C, const FwdArgs& a, cudaStream_t st) {
   switch (block_b) {
-    case 1: return launch_fwd<1, MODE, SD>(a, st);
-    case 2: return launch_fwd<2, MODE, SD>(a, st);
-    case 4: return launch_fwd<4, MODE, SD>(a, st);
-    case 8: return launch_fwd<8, MODE, SD>(a, st);
+    case 1: return launch_fwd<1, MODE, SD>(a, C, st);
+    case 2: return launch_fwd<2, MODE, SD>(a, C, st);
+    case 4: return launch_fwd<4, MODE, SD>(a, C, st);
+    case 8: return launch_fwd<8, MODE, SD>(a, C, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -323,38 +534,53 @@ struct BwdArgs {
 };
 
 // acc[r] += Σ_q dg[r][4c + q] * Wh[j, 4c + q] for the 4 weights in `u`;
-// `dgc` points at dg[0][4c] in shared memory (row stride G).
+// `dgc` points at the 4 dgates of group c of row 0, row r's 4 at dgc + 4r.
 template <int BB>
 __device__ __forceinline__ void fma_row(float (&acc)[BB], uint2 u,
-                                        const float* dgc, size_t G) {
+                                        const float* dgc) {
   const __nv_bfloat162 w01 = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
   const __nv_bfloat162 w23 = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
   const float w0 = __low2float(w01), w1 = __high2float(w01);
   const float w2 = __low2float(w23), w3 = __high2float(w23);
 #pragma unroll
   for (int r = 0; r < BB; ++r) {
-    const float4 g = *reinterpret_cast<const float4*>(dgc + r * G);
+    const float4 g = *reinterpret_cast<const float4*>(dgc + 4 * r);
     acc[r] += g.x * w0 + g.y * w1 + g.z * w2 + g.w * w3;
   }
 }
 
+// The reverse recurrence of K2 and K3: one cluster of C CTAs per (batch
+// tile, direction, learner), laid out as the forward's.  Each step thread
+// j of CTA c forms the four gate cotangents of unit c·U + j for every row
+// of the tile from the stash, writes them to dgates and to its CTA's
+// gather buffer, the CTA copies its slice into every peer's buffer, and
+// behind the cluster barrier every CTA holds the step's whole dgates
+// block, from which thread j computes dh_{t-1}[j] = Σ_n dgates[n]·Wh[j, n]
+// for its own unit.  Dynamic shared memory: the gather buffer, dgates n =
+// 4c + q of row r at [(c·BB + r)·4 + q] (H·BB·4 floats), and the
+// lengths.  (Two units a thread, each dgates read feeding both, ran
+// slower at the training and the long shapes on the H100.)
 // CK = 0: all T steps, (dh, dc) start at zero, c_{t-1} is zero at the
 // sequence's first step.  CK = 1 or 2: one chunk (Tg = K) whose first
 // step's c_{t-1} is its entry carry, with the (dh, dc) carries read at the
-// start and written at the end.  grid (ceil(B / BB), 2, L), block H
-// rounded up to 32, dynamic shared memory BB * 4H floats.
-template <int BB, int SD, int CK, int KU = 8>
-__global__ void __launch_bounds__(MAX_H, 1) lstm_bwd_recur_kernel(
+// start and written at the end.
+template <int BB, int SD, int CK>
+__global__ void __launch_bounds__(MAX_CTA) lstm_bwd_recur_cluster(
     const bf16* __restrict__ dy, const void* __restrict__ acts,
     const void* __restrict__ cseq, const bf16* __restrict__ whf,
     const bf16* __restrict__ whb, const int* __restrict__ lengths,
     float* __restrict__ dg, const void* __restrict__ cb,
     float* __restrict__ dhp, float* __restrict__ dcp, int L, int B, int T,
-    int H, int K, int n, int chunk) {
-  extern __shared__ __align__(16) float dgs[];   // [BB][4H] this step's dgates
+    int H, int K, int n, int chunk, int C) {
+  constexpr int KU = WEIGHT_LOADS;
+  extern __shared__ __align__(16) float smem[];
+  const int U = H / C;
+  float* dgs = smem;                             // [H][BB][4]
+  int* lens = reinterpret_cast<int*>(dgs + 4 * H * BB);
+  const int rank = (int)(blockIdx.x % C);
+  const int b0 = (int)(blockIdx.x / C) * BB;
   const int d = blockIdx.y;
   const int l = blockIdx.z;
-  const int b0 = blockIdx.x * BB;
   const size_t G = 4 * (size_t)H;
   const bf16* __restrict__ wh = (d ? whb : whf) + (size_t)l * H * G;
   lengths += (size_t)l * B;
@@ -362,18 +588,19 @@ __global__ void __launch_bounds__(MAX_H, 1) lstm_bwd_recur_kernel(
   const int Tg = CK ? K : T;
   const int t0 = CK ? chunk_t0(d, chunk, K, n) : 0;
   const size_t srow = (size_t)(d * L + l) * B;   // stash/dgates row of b = 0
-  const int j = threadIdx.x;
-  const bool own = j < H;
+  const int jj = threadIdx.x;
+  const int j = rank * U + jj;
+  const bool own = jj < U;
 
+  for (int r = threadIdx.x; r < BB; r += blockDim.x)
+    lens[r] = b0 + r < B ? lengths[b0 + r] : 0;
   float dh_c[BB], dc_c[BB], c_in[BB];
-  int len[BB];
 #pragma unroll
   for (int r = 0; r < BB; ++r) {
     const int b = b0 + r;
     dh_c[r] = 0.f;
     dc_c[r] = 0.f;
     c_in[r] = 0.f;
-    len[r] = (b < B) ? lengths[b] : 0;
     if constexpr (CK != 0) {
       if (own && b < B) {
         const size_t e = (srow + b) * H + j;
@@ -383,6 +610,8 @@ __global__ void __launch_bounds__(MAX_H, 1) lstm_bwd_recur_kernel(
       }
     }
   }
+  __syncthreads();
+  if (C > 1) cluster_arrive();          // (its wait: every peer has started)
 
   for (int v = 0; v < Tg; ++v) {
     // the recurrence step undone now, and the one before it
@@ -390,71 +619,87 @@ __global__ void __launch_bounds__(MAX_H, 1) lstm_bwd_recur_kernel(
     const int kp = d ? k + 1 : k - 1;
     const bool boundary = v == Tg - 1;
     const int t = t0 + k;
-    bool vm[BB];
+    if (own) {
 #pragma unroll
-    for (int r = 0; r < BB; ++r) {
-      const int b = b0 + r;
-      vm[r] = t < len[r];
-      if (!own) continue;
-      float* sg = dgs + r * G + j;
-      if (b >= B) {
-        sg[0] = sg[H] = sg[2 * H] = sg[3 * H] = 0.f;
-        continue;
+      for (int r = 0; r < BB; ++r) {
+        const int b = b0 + r;
+        const bool vm = t < lens[r];
+        float gates[4] = {0.f, 0.f, 0.f, 0.f};
+        if (b < B) {
+          const size_t st = (srow + b) * Tg + k;
+          const float i_ = load_stash<SD>(acts, st * G + j);
+          const float f_ = load_stash<SD>(acts, st * G + H + j);
+          const float g_ = load_stash<SD>(acts, st * G + 2 * H + j);
+          const float o_ = load_stash<SD>(acts, st * G + 3 * H + j);
+          const float c = load_stash<SD>(cseq, st * H + j);
+          const float cp = boundary
+              ? c_in[r] : load_stash<SD>(cseq, ((srow + b) * Tg + kp) * H + j);
+          const float dyv =
+              t < T ? __bfloat162float(dy[((size_t)b * T + t) * 2 * H + j])
+                    : 0.f;
+          float dh = dyv + dh_c[r];
+          const float tc = tanhf(c);
+          float dc = dh * o_ * (1.f - tc * tc) + dc_c[r];
+          if (!vm) {
+            dh = 0.f;
+            dc = 0.f;
+          }
+          gates[0] = dc * g_ * i_ * (1.f - i_);
+          gates[1] = dc * cp * f_ * (1.f - f_);
+          gates[2] = dc * i_ * (1.f - g_ * g_);
+          gates[3] = dh * tc * o_ * (1.f - o_);
+          float* out = dg + st * G + j;
+#pragma unroll
+          for (int g = 0; g < 4; ++g) out[g * H] = gates[g];
+          if (vm) dc_c[r] = dc * f_;     // padded step: the carry passes
+        }
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const int nn = g * H + j;
+          dgs[((nn >> 2) * BB + r) * 4 + (nn & 3)] = gates[g];
+        }
       }
-      const size_t st = (srow + b) * Tg + k;
-      const float i_ = load_stash<SD>(acts, st * G + j);
-      const float f_ = load_stash<SD>(acts, st * G + H + j);
-      const float g_ = load_stash<SD>(acts, st * G + 2 * H + j);
-      const float o_ = load_stash<SD>(acts, st * G + 3 * H + j);
-      const float c = load_stash<SD>(cseq, st * H + j);
-      const float cp = boundary
-          ? c_in[r] : load_stash<SD>(cseq, ((srow + b) * Tg + kp) * H + j);
-      const float dyv =
-          t < T ? __bfloat162float(dy[((size_t)b * T + t) * 2 * H + j]) : 0.f;
-      float dh = dyv + dh_c[r];
-      const float tc = tanhf(c);
-      float dc = dh * o_ * (1.f - tc * tc) + dc_c[r];
-      if (!vm[r]) {
-        dh = 0.f;
-        dc = 0.f;
-      }
-      const float di = dc * g_ * i_ * (1.f - i_);
-      const float df = dc * cp * f_ * (1.f - f_);
-      const float dgg = dc * i_ * (1.f - g_ * g_);
-      const float dob = dh * tc * o_ * (1.f - o_);
-      float* out = dg + st * G + j;
-      out[0] = di;
-      out[H] = df;
-      out[2 * H] = dgg;
-      out[3 * H] = dob;
-      sg[0] = di;
-      sg[H] = df;
-      sg[2 * H] = dgg;
-      sg[3 * H] = dob;
-      if (vm[r]) dc_c[r] = dc * f_;      // padded step: the carry passes
     }
-    __syncthreads();                     // every dgates write precedes the read
+    __syncthreads();                     // this CTA's slice of dgates is whole
+    if (C > 1) {
+      cluster_wait();                    // every peer has read the last step's
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        push_to_peers(dgs, (size_t)(g * H + rank * U) * BB, U * BB, rank, C);
+      cluster_arrive();
+      cluster_wait();                    // the whole block is everywhere
+    }
     if (own) {
       float acc[BB];
 #pragma unroll
       for (int r = 0; r < BB; ++r) acc[r] = 0.f;
-      const uint2* __restrict__ w4 = reinterpret_cast<const uint2*>(wh) + j;
-      int c4 = 0;
-      for (; c4 + KU <= H; c4 += KU) {
-        uint2 u[KU];                     // KU loads in flight per thread
+      // wp[c * H] holds Wh[j, 4c .. 4c + 3]
+      const uint2* __restrict__ wp = reinterpret_cast<const uint2*>(wh) + j;
+      uint2 u[KU];
 #pragma unroll
-        for (int q = 0; q < KU; ++q) u[q] = __ldg(w4 + (size_t)(c4 + q) * H);
+      for (int q = 0; q < KU; ++q)
+        if (q < H) u[q] = __ldg(wp + (size_t)q * H);
+      const int Hm = H - H % KU;
+      int c0 = 0;
+      for (; c0 < Hm; c0 += KU) {
 #pragma unroll
-        for (int q = 0; q < KU; ++q) fma_row<BB>(acc, u[q], dgs + 4 * (c4 + q), G);
+        for (int q = 0; q < KU; ++q) {
+          const uint2 cur = u[q];
+          if (c0 + KU + q < H) u[q] = __ldg(wp + (size_t)(c0 + KU + q) * H);
+          fma_row<BB>(acc, cur, dgs + (size_t)(c0 + q) * BB * 4);
+        }
       }
-      for (; c4 < H; ++c4)
-        fma_row<BB>(acc, __ldg(w4 + (size_t)c4 * H), dgs + 4 * c4, G);
+#pragma unroll
+      for (int q = 0; q < KU; ++q)
+        if (c0 + q < H) fma_row<BB>(acc, u[q], dgs + (size_t)(c0 + q) * BB * 4);
 #pragma unroll
       for (int r = 0; r < BB; ++r)
-        if (vm[r]) dh_c[r] = acc[r];
+        if (t < lens[r]) dh_c[r] = acc[r];
     }
+    if (C > 1) cluster_arrive();         // this CTA has read its buffer
     __syncthreads();                     // every read precedes the next write
   }
+  if (C > 1) cluster_wait();
   if constexpr (CK != 0) {
 #pragma unroll
     for (int r = 0; r < BB; ++r) {
@@ -467,27 +712,24 @@ __global__ void __launch_bounds__(MAX_H, 1) lstm_bwd_recur_kernel(
 }
 
 template <int BB, int SD, int CK>
-int launch_bwd(const BwdArgs& a, cudaStream_t st) {
-  const dim3 grid((a.B + BB - 1) / BB, 2, a.L);
-  const int threads = (a.H + 31) / 32 * 32;
-  const size_t smem = (size_t)BB * 4 * a.H * sizeof(float);
-  auto kernel = lstm_bwd_recur_kernel<BB, SD, CK>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, threads, smem, st>>>(a.dy, a.acts, a.cseq, a.whf, a.whb,
-                                       a.lengths, a.dg, a.cb, a.dh, a.dc, a.L,
-                                       a.B, a.T, a.H, a.K, a.n, a.chunk);
-  return (int)cudaGetLastError();
+int launch_bwd(const BwdArgs& a, int C, cudaStream_t st) {
+  const int U = cluster_units(a.H, C);
+  if (!U) return (int)cudaErrorInvalidValue;
+  const dim3 grid(C * ((a.B + BB - 1) / BB), 2, a.L);
+  const size_t smem = (size_t)4 * a.H * BB * sizeof(float) + BB * sizeof(int);
+  return launch_cluster(lstm_bwd_recur_cluster<BB, SD, CK>, grid,
+                        (U + 31) / 32 * 32, smem, C, st, a.dy, a.acts, a.cseq,
+                        a.whf, a.whb, a.lengths, a.dg, a.cb, a.dh, a.dc, a.L,
+                        a.B, a.T, a.H, a.K, a.n, a.chunk, C);
 }
 
 template <int SD, int CK>
-int launch_bwd_rows(int block_b, const BwdArgs& a, cudaStream_t st) {
+int launch_bwd_rows(int block_b, int C, const BwdArgs& a, cudaStream_t st) {
   switch (block_b) {
-    case 1: return launch_bwd<1, SD, CK>(a, st);
-    case 2: return launch_bwd<2, SD, CK>(a, st);
-    case 4: return launch_bwd<4, SD, CK>(a, st);
-    case 8: return launch_bwd<8, SD, CK>(a, st);
+    case 1: return launch_bwd<1, SD, CK>(a, C, st);
+    case 2: return launch_bwd<2, SD, CK>(a, C, st);
+    case 4: return launch_bwd<4, SD, CK>(a, C, st);
+    case 8: return launch_bwd<8, SD, CK>(a, C, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

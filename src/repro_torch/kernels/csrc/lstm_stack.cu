@@ -28,8 +28,10 @@
 //       256); no block-wide barrier is ever passed by half a block;
 //   (b) a grid barrier;
 //   (c) the recurrence: blocks take (batch tile, direction, learner) work
-//       items through `blstm_recur_item` (lstm_recur.cuh), the very
-//       routine of K1's `blstm_recur_kernel`, with K1's batch tile; the
+//       items through `blstm_recur_item` (lstm_recur.cuh), one thread per
+//       hidden unit summing over every input k in the order of K1's
+//       cluster recurrence, with K1's cell update (`cell_step`), so each
+//       value is K1's bit for bit whatever the tile; the
 //       masked carry is frozen and y zeroed at t >= len, so every element
 //       of the layer's output is written; layer l writes ping-pong buffer
 //       l % 2, the last layer y;
@@ -49,10 +51,11 @@
 // (B = 1), bytes: the 69.3 MB of weights of the six layers (Wx 260 or
 // 1024 x 2048 and Wh 512 x 2048 bf16, the f32 bias, per direction) read
 // once, 20.7 us; at evaluate's B = 8 the products of the valid frames (chip_smoke.py
-// computes both bounds from its inputs).  Its real limit is K1's: the serial
+// computes both bounds from its inputs).  Its real limit is the serial
 // chain of L x T recurrence steps, each streaming one direction's 2 MiB Wh
-// from L2 into one SM (2 x ceil(B / 8) SMs busy per learner), which this
-// design does not change.  It removes the L - 1 other launches of the
+// from L2 into one SM (2 x ceil(B / 8) SMs busy per learner); K1's cluster
+// split (lstm_recur.cuh), which spreads a step over several SMs, is not
+// applied to these items yet.  It removes the L - 1 other launches of the
 // per-layer loop and the host work between them, and keeps the inter-layer
 // activations (B x T x 2H bf16, 512 KB per utterance) in L2-sized buffers.
 // The barrier is what the next design needs: split each direction's 4H gate
@@ -106,6 +109,10 @@ __device__ __forceinline__ void grid_sync(unsigned int* bar) {
 }
 
 using XMat = lstm_gemm::Mat<bf16, false>;
+// K4's tiles are 16 deep: at 32 the 128-register halves spilled more; the
+// bits are those of K1's `lstm_xproj` at any depth (gemm.cuh).
+constexpr int XBK = 16;
+using XTile = lstm_gemm::Tile<XMat, XMat, XBK>;
 
 // The x-projection tile and, for 8-row batch tiles, the recurrence are
 // separate (not inlined) functions: each is register-allocated for its
@@ -122,11 +129,12 @@ __device__ __noinline__ void xproj_tile(XMat xa, XMat wf, XMat wb, float* gx,
                                         int bz) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int half = threadIdx.x / lstm_gemm::THREADS;
-  lstm_gemm::gemm_tile<XMat, XMat, lstm_gemm::EPI_F32, lstm_gemm::DenseRows>(
+  lstm_gemm::gemm_tile<XMat, XMat, lstm_gemm::EPI_F32, lstm_gemm::DenseRows,
+                       XBK>(
       xa, xa, wf, wb, gx, gx + (size_t)M * N, (size_t)M * D, (size_t)D * N,
       (size_t)2 * M * N, N, M, N, D, 2, lstm_gemm::DenseRows{}, bx, by, bz,
       threadIdx.x % lstm_gemm::THREADS, 1 + half,
-      reinterpret_cast<lstm_gemm::TileSmem*>(smem)[half]);
+      reinterpret_cast<bf16*>(smem + half * XTile::SMEM));
 }
 
 template <int BB>
@@ -135,9 +143,8 @@ __device__ __noinline__ void recur_item(const float* gx, const bf16* whf,
                                         const float* bb, const int* lengths,
                                         bf16* out, int L, int B, int T, int H,
                                         int tile, int d, int l) {
-  lstm_recur::blstm_recur_item<BB, lstm_recur::FWD, 0>(
-      gx, whf, whb, bf, bb, lengths, out, nullptr, nullptr, nullptr, nullptr,
-      L, B, T, H, T, 1, 0, lstm_recur::LoopItem{tile, d, l});
+  lstm_recur::blstm_recur_item<BB>(gx, whf, whb, bf, bb, lengths, out, L,
+                                   B, T, H, lstm_recur::LoopItem{tile, d, l});
 }
 
 template <int BB>
@@ -166,10 +173,10 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_stack_kernel(
       const int tile = w % b_tiles, d = w / b_tiles % 2;
       const int l = w / (b_tiles * 2);
       if constexpr (BB <= 4)                                // inlined
-        lstm_recur::blstm_recur_item<BB, lstm_recur::FWD, 0>(
+        lstm_recur::blstm_recur_item<BB>(
             a.gx, a.whf[layer], a.whb[layer], a.bf[layer], a.bb[layer],
-            a.lengths, out, nullptr, nullptr, nullptr, nullptr, a.L, a.B,
-            a.T, a.H, a.T, 1, 0, lstm_recur::LoopItem{tile, d, l});
+            a.lengths, out, a.L, a.B, a.T, a.H,
+            lstm_recur::LoopItem{tile, d, l});
       else
         recur_item<BB>(a.gx, a.whf[layer], a.whb[layer], a.bf[layer],
                        a.bb[layer], a.lengths, out, a.L, a.B, a.T, a.H, tile,
@@ -182,7 +189,7 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_stack_kernel(
 template <int BB>
 int launch(StackArgs& a, cudaStream_t st) {
   auto kernel = lstm_stack_kernel<BB>;
-  const size_t smem = std::max(2 * sizeof(lstm_gemm::TileSmem),
+  const size_t smem = std::max(2 * XTile::SMEM,
                                (size_t)BB * a.H * sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -218,7 +225,7 @@ int launch(StackArgs& a, cudaStream_t st) {
 // gate-interleaved, bf[k], bb[k] (L, 4H) f32 (host arrays of device
 // pointers); lengths (L, B) int32; scratch gx (L, 2, B*T, 4H) f32 and buf0,
 // buf1 (L, B, T, 2H) bf16; barrier one uint32 set to 0; y (L, B, T, 2H)
-// bf16.  block_b: the recurrence's batch tile (1, 2, 4 or 8), as K1's.
+// bf16.  block_b: the recurrence's batch tile (1, 2, 4 or 8).
 extern "C" int lstm_stack(const void* x, const void* const* wxf,
                           const void* const* wxb, const void* const* whf4,
                           const void* const* whb4, const void* const* bf,

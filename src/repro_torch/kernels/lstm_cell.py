@@ -113,7 +113,7 @@ def _fwd_lib():
     if lib.lstm_xproj.argtypes is None:
         lib.lstm_xproj.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
         lib.lstm_xproj.restype = _I
-        lib.blstm_recur.argtypes = [_P] * 9 + [_I] * 7 + [_P]
+        lib.blstm_recur.argtypes = [_P] * 9 + [_I] * 8 + [_P]
         lib.blstm_recur.restype = _I
     return lib
 
@@ -121,9 +121,9 @@ def _fwd_lib():
 def _bwd_lib():
     lib = build.load("lstm_bwd")
     if lib.lstm_bwd_recur.argtypes is None:
-        lib.lstm_bwd_recur.argtypes = [_P] * 7 + [_I] * 6 + [_P]
+        lib.lstm_bwd_recur.argtypes = [_P] * 7 + [_I] * 7 + [_P]
         lib.lstm_bwd_recur.restype = _I
-        lib.lstm_bwd_dx.argtypes = [_P] * 4 + [_I] * 4 + [_P]
+        lib.lstm_bwd_dx.argtypes = [_P] * 4 + [_I] * 5 + [_P]
         lib.lstm_bwd_dx.restype = _I
         lib.lstm_bwd_dw.argtypes = [_P] * 5 + [_I] * 6 + [_P]
         lib.lstm_bwd_dw.restype = _I
@@ -133,7 +133,7 @@ def _bwd_lib():
 def _bwd_chunked_lib():
     lib = build.load("lstm_bwd_chunked")
     if lib.lstm_bwd_chunked.argtypes is None:
-        lib.lstm_bwd_chunked.argtypes = [_P] * 23 + [_I] * 8 + [_P]
+        lib.lstm_bwd_chunked.argtypes = [_P] * 23 + [_I] * 9 + [_P]
         lib.lstm_bwd_chunked.restype = _I
     return lib
 
@@ -161,11 +161,38 @@ def _launch(name, rc):
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
 
 
+# CTAs per cluster of the recurrences (csrc/lstm_recur.cuh), each owning
+# H / C hidden units, for the forward (K1's variants, K3's replay) and the
+# reverse (K2, K3) alike; chosen by measurement at the training shape
+# (PERF.md).  tools/ab_recurrence.py times CLUSTER_SIZES.
+cluster_size = 2
+CLUSTER_SIZES = (2, 4, 8)
+MAX_UNITS = 256     # lstm_recur.cuh's MAX_CTA: units (threads) per CTA
+
+
 def block_rows(B: int) -> int:
-    """Batch rows per CTA of the recurrence kernels (each CTA streams Wh
-    once per step for all its rows, so a tile of up to 8 rows costs about
-    one)."""
+    """Batch rows per tile of the recurrence kernels: up to 8 (a cluster
+    reads Wh once a step for all its rows; 16-row tiles ran slower at the
+    training shape, PERF.md)."""
     return next(bb for bb in (1, 2, 4, 8) if bb >= min(B, 8))
+
+
+def recur_cluster(H: int, C: int) -> int:
+    """The cluster size a recurrence runs at width H: C, halved until H is
+    a multiple of 4·C (a slice is whole float4s of the exchanged buffers);
+    raises where no size leaves a CTA at most 256 units."""
+    while C > 1 and H % (4 * C):
+        C //= 2
+    if H // C > MAX_UNITS:
+        raise ValueError(f"the recurrence kernels split H={H} over a "
+                         f"cluster of CTAs of at most {MAX_UNITS} units: H "
+                         f"above {MAX_UNITS} must be a multiple of 8")
+    return C
+
+
+def _tile(B: int, H: int) -> tuple:
+    """(rows per tile, cluster size) of a recurrence launch."""
+    return block_rows(B), recur_cluster(H, cluster_size)
 
 
 def _stacked(ws, x, lengths):
@@ -185,8 +212,8 @@ def _check_weights(ws, L, D, H, dev, tag=""):
         if b is not None:
             _check(f"{tag}{d}.b", b, (L, 4 * H), torch.float32, dev)
     if H > 512:
-        raise ValueError(f"the recurrence kernels run one thread per "
-                         f"hidden unit in one CTA; H={H} > 512")
+        raise ValueError(f"the stack kernel runs one thread per hidden "
+                         f"unit in one CTA; H={H} > 512")
 
 
 def _prepare(ws, x, lengths):
@@ -221,6 +248,56 @@ def _bwd_layout(wh):
     return wh.view(L, H, H, 4).transpose(1, 2).contiguous()
 
 
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _xproj(x, wxf, wxb):
+    """``lstm_xproj`` on the card: x (L, M, D) bf16 · wx_dir (L, D, N) bf16
+    -> gx (L, 2, M, N) f32, the tensor-core GEMM of ``csrc/gemm.cuh``."""
+    require_kernel_device(x)
+    L, M, D = x.shape
+    N = wxf.shape[-1]
+    gx = torch.empty(L, 2, M, N, dtype=torch.float32, device=x.device)
+    _launch("lstm_xproj", _fwd_lib().lstm_xproj(
+        x.data_ptr(), wxf.data_ptr(), wxb.data_ptr(), gx.data_ptr(), L, M, D,
+        N, _stream(x.device)))
+    return gx
+
+
+def _bwd_dx(dg, wxf, wxb, f32_out=False):
+    """``lstm_bwd_dx`` on the card: dg (2, L, M, N) f32 and wx_dir (L, D, N)
+    bf16 -> dx (L, M, D), each direction's product rounded to bf16, summed
+    in f32 and rounded again; with ``f32_out`` the f32 sum of the two
+    products, never rounded (the precision check's view)."""
+    require_kernel_device(dg)
+    _, L, M, N = dg.shape
+    D = wxf.shape[1]
+    dx = torch.empty(L, M, D, device=dg.device,
+                     dtype=torch.float32 if f32_out else torch.bfloat16)
+    _launch("lstm_bwd_dx", _bwd_lib().lstm_bwd_dx(
+        dg.data_ptr(), wxf.data_ptr(), wxb.data_ptr(), dx.data_ptr(), L, M,
+        D, N, int(f32_out), _stream(dg.device)))
+    return dx
+
+
+def _bwd_dw(x, y, dg):
+    """``lstm_bwd_dw`` on the card: x (L, B, T, D) bf16, y (L, B, T, 2H)
+    bf16, dg (2, L, B*T, N) f32 -> dwx (2, L, D, N) and dwhb (2, L, H + 1,
+    N) f32, row H of dwhb being db = Σ dgates; h_prev is y one recurrence
+    step back (t - 1 forward, t + 1 reverse), zero at the boundary."""
+    require_kernel_device(x)
+    L, B, T, D = x.shape
+    H = y.shape[-1] // 2
+    N = dg.shape[-1]
+    dwx = torch.empty(2, L, D, N, dtype=torch.float32, device=x.device)
+    dwhb = torch.empty(2, L, H + 1, N, dtype=torch.float32, device=x.device)
+    _launch("lstm_bwd_dw", _bwd_lib().lstm_bwd_dw(
+        x.data_ptr(), y.data_ptr(), dg.data_ptr(), dwx.data_ptr(),
+        dwhb.data_ptr(), L, B, T, D, H, N, _stream(x.device)))
+    return dwx, dwhb
+
+
 def _forward_kernel(ws, x, lengths, sdt, chunk=0):
     """K1 on the card: ``lstm_xproj`` (x·Wx, all learners and both
     directions) then ``blstm_recur`` (with the per-step stash when
@@ -229,13 +306,8 @@ def _forward_kernel(ws, x, lengths, sdt, chunk=0):
     require_kernel_device(x)
     L, B, T, D, H, lens = _prepare(ws, x, lengths)
     dev = x.device
-    lib = _fwd_lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     wxf, whf, bf, wxb, whb, bb = ws
-    gx = torch.empty(L, 2, B * T, 4 * H, dtype=torch.float32, device=dev)
-    _launch("lstm_xproj", lib.lstm_xproj(
-        x.data_ptr(), wxf.data_ptr(), wxb.data_ptr(), gx.data_ptr(), L,
-        B * T, D, 4 * H, stream))
+    gx = _xproj(x.view(L, B * T, D), wxf, wxb)
     y = torch.empty(L, B, T, 2 * H, dtype=torch.bfloat16, device=dev)
     if chunk:                       # (h, c) entering each chunk
         n = -(-T // chunk)
@@ -250,12 +322,12 @@ def _forward_kernel(ws, x, lengths, sdt, chunk=0):
         acts = cseq = None
         kind = 0
     whf4, whb4 = _fwd_layout(whf), _fwd_layout(whb)
-    _launch("blstm_recur", lib.blstm_recur(
+    _launch("blstm_recur", _fwd_lib().blstm_recur(
         gx.data_ptr(), whf4.data_ptr(), whb4.data_ptr(), bf.data_ptr(),
         bb.data_ptr(), lens.data_ptr(), y.data_ptr(),
         acts.data_ptr() if acts is not None else None,
         cseq.data_ptr() if cseq is not None else None,
-        kind, L, B, T, H, chunk, block_rows(B), stream))
+        kind, L, B, T, H, chunk, *_tile(B, H), _stream(dev)))
     return y, acts, cseq
 
 
@@ -314,7 +386,6 @@ def blstm_stack(layers, x, lengths=None):
         # layer k reads the (L, B, T, 2H) output of layer k - 1
         _check_weights(ws, L, 2 * H, H, dev, tag=f"layer {k} ")
     lib = _stack_lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     # every tensor whose pointer the launch takes is held in a local
     whf4 = [_fwd_layout(ws[1]) for ws in layers]
     whb4 = [_fwd_layout(ws[4]) for ws in layers]
@@ -333,7 +404,7 @@ def blstm_stack(layers, x, lengths=None):
         x.data_ptr(), ptrs(0), ptrs(3), ptrs(None, whf4), ptrs(None, whb4),
         ptrs(2), ptrs(5), lens.data_ptr(), gx.data_ptr(), *buf_ptrs,
         barrier.data_ptr(), y.data_ptr(), len(layers), L, B, T, D0, H,
-        block_rows(B), stream))
+        block_rows(B), _stream(dev)))
     stack_launches += 1
     return y.squeeze(0) if one else y
 
@@ -392,26 +463,15 @@ def blstm_layer_bwd(wxf, whf, wxb, whb, x, y, acts, cseq, dy, lengths=None,
     _check("cseq", cseq, (2, L, B, T, H), sdt, dev)
     if sdt not in _STASH_KIND:
         raise ValueError(f"stash dtype {sdt} is not one the kernel takes")
-    lib = _bwd_lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     whf4, whb4 = _bwd_layout(whf), _bwd_layout(whb)
-    dg = torch.empty(2, L, B, T, 4 * H, dtype=torch.float32, device=dev)
-    _launch("lstm_bwd_recur", lib.lstm_bwd_recur(
+    dg = torch.empty(2, L, B * T, 4 * H, dtype=torch.float32, device=dev)
+    _launch("lstm_bwd_recur", _bwd_lib().lstm_bwd_recur(
         dy.data_ptr(), acts.data_ptr(), cseq.data_ptr(), whf4.data_ptr(),
         whb4.data_ptr(), lens.data_ptr(), dg.data_ptr(), _STASH_KIND[sdt],
-        L, B, T, H, block_rows(B), stream))
-    dx = None
-    if need_dx:
-        dx = torch.empty(L, B, T, D, dtype=x.dtype, device=dev)
-        _launch("lstm_bwd_dx", lib.lstm_bwd_dx(
-            dg.data_ptr(), wxf.data_ptr(), wxb.data_ptr(), dx.data_ptr(),
-            L, B * T, D, 4 * H, stream))
-    dwx = torch.empty(2, L, D, 4 * H, dtype=torch.float32, device=dev)
-    # rows 0..H-1: dWh = h_prev^T dgates; row H: db = 1^T dgates
-    dwhb = torch.empty(2, L, H + 1, 4 * H, dtype=torch.float32, device=dev)
-    _launch("lstm_bwd_dw", lib.lstm_bwd_dw(
-        x.data_ptr(), y.data_ptr(), dg.data_ptr(), dwx.data_ptr(),
-        dwhb.data_ptr(), L, B, T, D, H, 4 * H, stream))
+        L, B, T, H, *_tile(B, H), _stream(dev)))
+    dx = _bwd_dx(dg, wxf, wxb).view(L, B, T, D) if need_dx else None
+    # rows 0..H-1 of dwhb: dWh = h_prev^T dgates; row H: db = 1^T dgates
+    dwx, dwhb = _bwd_dw(x, y, dg)
     bwd_launches += 1
     # db is copied out so the (H + 1)-row buffer is freed once dWh is cast
     return dx, [(dwx[d], dwhb[d, :, :H], dwhb[d, :, H].contiguous())
@@ -487,7 +547,6 @@ def blstm_layer_bwd_chunked(wxf, whf, bf, wxb, whb, bb, x, y, hb, cb, dy,
     _check("hb", hb, (2, L, B, n, H), sdt, dev)
     _check("cb", cb, (2, L, B, n, H), sdt, dev)
     lib = _bwd_chunked_lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     f32 = dict(dtype=torch.float32, device=dev)
     G = 4 * H
     gx = torch.empty(L, 2, B * chunk, G, **f32)
@@ -513,7 +572,7 @@ def blstm_layer_bwd_chunked(wxf, whf, bf, wxb, whb, bb, x, y, hb, cb, dy,
         acts.data_ptr(), cseq.data_ptr(), dg.data_ptr(), dh.data_ptr(),
         dc.data_ptr(), dx.data_ptr() if dx is not None else None,
         dwx.data_ptr(), dwhb.data_ptr(), _STASH_KIND[sdt], L, B, T, D, H,
-        chunk, block_rows(B), stream))
+        chunk, *_tile(B, H), _stream(dev)))
     chunked_bwd_launches += 1
     return dx, [(dwx[d], dwhb[d, :, :H], dwhb[d, :, H].contiguous())
                 for d in range(2)]

@@ -85,13 +85,16 @@ def _norm_err(got, want):
 
 
 # K4: the stack in one launch, bit-identical to the loop of K1 launches;
-# B in a ragged tile, H not a multiple of 32, a length-0 row, learners
+# B in a ragged tile, H not a multiple of 32, a length-0 row, learners,
+# and B = 16: two 8-row tiles of K1's cluster recurrence against K4's
+# own 8-row items
 STACK_SHAPES = [
     (0, 5, 9, 12, 16, 3, (9, 4, 1, 9, 6)),
     (0, 1, 7, 20, 48, 2, None),
     (0, 2, 7, 20, 48, 3, (7, 3)),
     (0, 9, 5, 33, 100, 4, (5, 1, 2, 3, 4, 5, 5, 4, 0)),
     (3, 3, 6, 12, 16, 3, [(6, 2, 1), (1, 6, 3), (0, 4, 6)]),
+    (0, 16, 6, 20, 48, 2, (6, 5, 4, 3, 2, 1, 0, 6, 6, 5, 4, 3, 2, 1, 6, 6)),
 ]
 
 
@@ -167,12 +170,15 @@ def test_forward_no_grad_launches_the_stack_once(cuda):
 
 
 # odd shapes: B not a multiple of the tile, H < 512 and not a multiple of
-# 32, T = 1, a length-0 row, three learners
+# 32, T = 1, a length-0 row, three learners; 17 rows per learner (two
+# 8-row tiles and a ragged one of 1) split over clusters of 2 CTAs
 TRAIN_SHAPES = [
     (1, 3, 7, 12, 16, None),
     (3, 3, 7, 12, 16, [(7, 4, 1), (0, 7, 3), (2, 2, 2)]),
     (2, 5, 1, 40, 48, [(1, 0, 1, 1, 1), (1, 1, 0, 1, 1)]),
     (3, 9, 5, 33, 100, [(5, 1, 2, 3, 4, 5, 5, 4, 0)] * 3),
+    (2, 17, 5, 40, 48, [(5, 1, 2, 3, 4, 5, 5, 4, 3, 2, 1, 0, 5, 5, 2, 3, 4),
+                        (4, 3, 2, 5, 5, 0, 1, 2, 3, 4, 5, 5, 4, 3, 2, 1, 5)]),
 ]
 
 
@@ -223,6 +229,61 @@ def test_blstm_bwd_kernel_matches_plain(cuda, L, B, T, D, H, lengths, stash):
         for l, row in enumerate(lengths):
             for b, n in enumerate(row):
                 assert not dx[l, b, n:].any()
+
+
+# The tensor-core GEMM routine (csrc/gemm.cuh) through lstm_xproj,
+# lstm_bwd_dx (its unrounded f32 view) and lstm_bwd_dw, against float64
+# products: ragged M, N and K (none a multiple of the 128 x 128 x 16
+# tile), M over two row tiles, the ShiftedRows boundary (h_prev zero at
+# each sequence's first recurrence step), the ones row (db), and K = 4H =
+# 2048 for dx.  The f32 dgates enter split into three bf16 parts; a single
+# bf16 or TF32 pass would miss by ~1e-3.
+PRECISION_TOL = 1e-5
+PRECISION_SHAPES = [
+    (2, 3, 7, 40, 20),
+    (1, 17, 9, 136, 48),
+    (1, 4, 50, 1024, 512),
+]
+
+
+@pytest.mark.parametrize("L,B,T,D,H", PRECISION_SHAPES)
+def test_gemm_routine_matches_float64(cuda, L, B, T, D, H):
+    from repro_torch.kernels import lstm_cell
+
+    g = torch.Generator().manual_seed(L * 1000 + B * 10 + H)
+    M, N = B * T, 4 * H
+
+    def bf(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(
+            cuda, torch.bfloat16)
+
+    x = bf(L, B, T, D)
+    wxf, wxb = bf(L, D, N, scale=D ** -0.5), bf(L, D, N, scale=D ** -0.5)
+    y = bf(L, B, T, 2 * H)
+    dg = torch.randn(2, L, M, N, generator=g).to(cuda)
+    xm = x.double().view(L, M, D)
+    gx = lstm_cell._xproj(x.view(L, M, D), wxf, wxb)
+    for d, wx in enumerate((wxf, wxb)):
+        assert _norm_err(gx[:, d], xm @ wx.double()) <= PRECISION_TOL
+    dx = lstm_cell._bwd_dx(dg, wxf, wxb, f32_out=True)
+    want = (dg[0].double() @ wxf.double().transpose(1, 2)
+            + dg[1].double() @ wxb.double().transpose(1, 2))
+    assert dx.dtype == torch.float32 and _norm_err(dx, want) <= PRECISION_TOL
+    dwx, dwhb = lstm_cell._bwd_dw(x, y, dg)
+    for d in range(2):
+        assert _norm_err(dwx[d], xm.transpose(1, 2) @ dg[d].double()) <= \
+            PRECISION_TOL
+        h = y[..., d * H:(d + 1) * H].double()
+        prev = torch.zeros_like(h)        # h_{t-1}: t - 1 forward, t + 1 back
+        if d == 0:
+            prev[:, :, 1:] = h[:, :, :-1]
+        else:
+            prev[:, :, :-1] = h[:, :, 1:]
+        hp = torch.cat([prev.view(L, M, H),
+                        torch.ones(L, M, 1, dtype=h.dtype, device=cuda)], -1)
+        want = hp.transpose(1, 2) @ dg[d].double()
+        assert _norm_err(dwhb[d, :, :H], want[:, :H]) <= PRECISION_TOL
+        assert _norm_err(dwhb[d, :, H], want[:, H]) <= PRECISION_TOL
 
 
 # chunked shapes: K dividing T, K not dividing T (padding), K > T (auto K
