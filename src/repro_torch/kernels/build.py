@@ -43,14 +43,18 @@ BUILD_TIMEOUT_S = 900
 _LIBS: dict = {}
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str = "nvcc") -> str:
+    """The path of the CUDA toolkit's program ``name`` (``nvcc``,
+    ``cuobjdump``): under ``$CUDA_HOME/bin`` (default /usr/local/cuda),
+    else on PATH; raises where neither has it."""
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = Path(home) / "bin" / "nvcc"
+    path = Path(home) / "bin" / name
     if path.exists():
         return str(path)
-    found = shutil.which("nvcc")
+    found = shutil.which(name)
     if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME or put it on PATH)")
+        raise RuntimeError(f"{name} not found (set CUDA_HOME or put it on "
+                           f"PATH)")
     return found
 
 
@@ -81,7 +85,7 @@ def build(names=None) -> dict:
         out = lib_path(name)
         if out.exists():
             continue
-        nvcc = nvcc or _nvcc()
+        nvcc = nvcc or cuda_tool()
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,

@@ -1,0 +1,398 @@
+// Hopper (sm_90a) building blocks: shared-memory tile layouts for wgmma,
+// the wgmma products themselves, mbarriers and TMA tile loads, and the
+// host-side tensor-map encoder reached without linking libcuda.
+//
+// The flash-attention kernel K11 (flash_attention.cu) is their first
+// user; the later redesigns of gemm.cuh (the LSTM products), K9 and K10
+// are meant to build on the same pieces.  What a user has to hold to:
+//
+// * Tiles.  A bf16 tile of R rows (R a multiple of 8) and C columns is
+//   kept as C / COLS column blocks of R rows x SPAN bytes, each block
+//   dense (row r at r * SPAN) and swizzled the way wgmma and TMA expect:
+//   SPAN 128 (COLS 64, 128-byte swizzle) or SPAN 64 (COLS 32, 64-byte
+//   swizzle).  Element (r, c) sits at `tile_offset<SPAN>(R, r, c)` bytes
+//   from the tile's start, which must be 1024-byte aligned (the swizzle
+//   XORs address bits 4-6 with bits 7-9).  TMA writes this layout by
+//   itself when the tensor map has the matching swizzle and a box of
+//   COLS columns; threads that write a tile themselves (cp.async) use
+//   tile_offset.
+// * Descriptors.  `desc_kmajor` describes such a tile as a wgmma operand
+//   whose reduction (k) dimension runs along the columns: A of 64 rows,
+//   or B of N rows (B's rows are the product's output columns).  A k16
+//   step inside a column block moves the start by 32 bytes; the next
+//   block starts R * SPAN further.  `desc_nmajor` describes a tile whose
+//   rows are the reduction dimension and whose columns are B's output
+//   columns (V in attention's p·v): wgmma reads it with TRANS_B = 1; a
+//   k16 step moves the start by 16 rows, column blocks are R * SPAN apart
+//   (the leading byte offset).
+// * Products.  `Wgmma<N>::ss` multiplies two shared-memory operands,
+//   `Wgmma<N>::rs<TRANS_B>` an A held in registers in the accumulator's
+//   own layout (a bf16 pair per register: register 0 row l/4, columns
+//   2(l%4) + {0, 1}; 1 the row 8 below; 2 and 3 the same 8 columns on),
+//   so a score tile becomes the next product's A without shared memory.
+//   The accumulator of m64nN: thread t of the warpgroup holds d[4j + 2h +
+//   c] = row 16 (t / 32) + (t % 32) / 4 + 8h, column 8j + 2(t % 4) + c.
+//   Every batch is `wgmma_fence()`, the products, `wgmma_commit()`,
+//   `wgmma_wait<0>()` (or fewer in flight), with the accumulators passed
+//   through `fence_operand` around it so the compiler keeps them put.
+// * Barriers and TMA.  One thread arms a barrier with the bytes it waits
+//   for (`mbar_arrive_expect_tx`) and issues the loads (`tma_load_4d`);
+//   consumers `mbar_wait` on the phase parity.  A ring of stages needs a
+//   second barrier per stage on which consumers release it.  Call
+//   `mbar_fence_init()` and a block barrier after `mbar_init`.
+// * Tensor maps.  `encode_tiled()` returns the driver's
+//   cuTensorMapEncodeTiled through the runtime's entry-point query, so no
+//   library links libcuda; pass the map to the kernel by value as a
+//   `__grid_constant__ const CUtensorMap`.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace sm90 {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// x as lane 0 holds it: a value the compiler knows to be warp-uniform.
+// Branches around wgmma must be; a warpgroup index taken from threadIdx
+// alone is not known to be, and ptxas then serialises the products
+// (warning C7520)
+__device__ __forceinline__ int warp_uniform(int x) {
+  return __shfl_sync(0xffffffffu, x, 0);
+}
+
+// ------------------------------------------------------------ tile layout
+
+// byte offset of element (r, c) of a bf16 tile of R rows (see above)
+template <int SPAN>
+__host__ __device__ __forceinline__ uint32_t tile_offset(int R, int r,
+                                                         int c) {
+  constexpr int COLS = SPAN / 2;
+  const uint32_t off = (uint32_t)(c / COLS) * R * SPAN + r * SPAN +
+                       (c % COLS) * 2;
+  return off ^ (((off >> 7) & (SPAN / 16 - 1)) << 4);
+}
+
+// the descriptor's swizzle field: 1 for 128-byte, 2 for 64-byte
+template <int SPAN>
+__device__ __forceinline__ uint64_t desc_swizzle() {
+  return SPAN == 128 ? 1ull : 2ull;
+}
+
+__device__ __forceinline__ uint64_t desc_encode(uint32_t addr, uint32_t lbo,
+                                                uint32_t sbo,
+                                                uint64_t swizzle) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (swizzle << 62);
+}
+
+// k16 step `kk` of a tile of R rows whose columns are the reduction
+// dimension; `tile` is the tile's shared address (plus any whole-row
+// offset, a multiple of 8 rows)
+template <int SPAN>
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int R,
+                                                int kk) {
+  constexpr int STEPS = SPAN / 32;          // k16 steps per column block
+  const uint32_t addr =
+      tile + (uint32_t)(kk / STEPS) * R * SPAN + (kk % STEPS) * 32;
+  return desc_encode(addr, 16, 8 * SPAN, desc_swizzle<SPAN>());
+}
+
+// k16 step `kk` of a tile of R rows whose rows are the reduction dimension
+template <int SPAN>
+__device__ __forceinline__ uint64_t desc_nmajor(uint32_t tile, int R,
+                                                int kk) {
+  return desc_encode(tile + (uint32_t)kk * 16 * SPAN, (uint32_t)R * SPAN,
+                     8 * SPAN, desc_swizzle<SPAN>());
+}
+
+// ------------------------------------------------------------------ wgmma
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void fence_operand(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// shared-memory writes of this thread (st.shared, cp.async) made visible
+// to the async proxy that wgmma and TMA read through
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+  // d (+)= A (64 x 16, smem, K-major) * B (16 x 32, smem, K-major)
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t da,
+                                            uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
+  // d (+)= A (64 x 16, registers) * B (16 x 32, smem; TRANS_B 1: N-major)
+  template <int TRANS_B>
+  static __device__ __forceinline__ void rs(float (&d)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(accumulate), "n"(TRANS_B));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  // d (+)= A (64 x 16, smem, K-major) * B (16 x 64, smem, K-major)
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da,
+                                            uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
+  // d (+)= A (64 x 16, registers) * B (16 x 64, smem; TRANS_B 1: N-major)
+  template <int TRANS_B>
+  static __device__ __forceinline__ void rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(accumulate), "n"(TRANS_B));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  // d (+)= A (64 x 16, smem, K-major) * B (16 x 128, smem, K-major)
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da,
+                                            uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
+  // d (+)= A (64 x 16, registers) * B (16 x 128, smem; TRANS_B 1: N-major)
+  template <int TRANS_B>
+  static __device__ __forceinline__ void rs(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(accumulate), "n"(TRANS_B));
+  }
+};
+
+// --------------------------------------------------------------- mbarrier
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// spin until the barrier's phase of parity `parity` has completed (the
+// loop lives inside the asm, so the compiler sees no divergent branch)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// ------------------------------------------------------------------- TMA
+
+__device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// the box at coordinates (c0, c1, c2, c3), innermost first, into `dst`;
+// completion is counted on `bar` in bytes
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ----------------------------------------------------------- named barrier
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ------------------------------------------------------------------- host
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, or nullptr if the driver has none
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+}  // namespace sm90

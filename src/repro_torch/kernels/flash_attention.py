@@ -1,5 +1,5 @@
 """Causal or sliding-window GQA flash attention: the wrapper of the K11
-port, the prefill attention of the dense and hybrid families.
+port, the prefill attention of the dense, hybrid and MoE families.
 
 ``flash_attention`` has the contract of ``repro.kernels.flash_attention.
 flash_attention``: q (B, Sq, H, E), k/v (B, Sk, KV, E) -> (B, Sq, H, E)
@@ -14,13 +14,22 @@ Sq and Sk are accepted (the Pallas kernel asserts Sq % block_q == 0).
 On a CUDA tensor it launches ``csrc/flash_attention.cu`` and counts one
 launch (``launches``); on a CPU tensor it runs the plain version
 (``ref.flash_attention_plain``).  It never falls back from the card to
-the plain path.  The kernel keeps p f32 to 2^-16 in p·v (two bf16 terms
-through the tensor cores), so it matches the all-f32 plain version up to
-summation order: the tolerance is the bf16 output's, 2e-2 normalised.
+the plain path.  The kernel rounds p to bf16 once before p·v, as the
+reference model's prefill does, and keeps the row sum in f32: it matches
+the all-f32 plain version within the bf16 output's tolerance, 2e-2
+normalised per row (1e-2 held on the card).
+
+The work is cut by :func:`plan`, a rule of the shape and the SM count:
+items of 192 or 128 flattened (position, head) rows (three or two
+consumer warpgroups of 64 rows) or, where such items would leave SMs
+idle, of 64 rows whose key walk two warpgroups share, merged in shared
+memory.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -32,7 +41,11 @@ from repro_torch.kernels.ref import flash_attention_plain
 launches = 0          # K11 launches (one per flash_attention on the card)
 
 HEAD_DIMS = (32, 64, 128)     # the kernel's instantiations of E
-ROWS = 64                     # (position, head) rows of q per CTA
+BK = 64                       # keys per K/V tile
+# rows of an item, largest first: three consumer warpgroups of 64 rows (at
+# E <= 64 only: the accumulators of E = 128 do not fit), two, or one
+# shared by two warpgroups that walk every other key tile
+ITEM_ROWS = (192, 128, 64)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +60,32 @@ def kernel_window(window, *, causal: bool, q_offset: int, Sq: int) -> int:
     if not causal or w <= 0 or w >= q_offset + Sq:
         return 0
     return w
+
+
+class Plan(NamedTuple):
+    rows: int           # flattened (position, head) rows of an item
+    tiles: int          # row tiles of ``rows`` per (b, KV head)
+    items: int          # blocks of the launch: tiles * B * KV
+
+
+def plan(B, Sq, KV, M, E, sms) -> Plan:
+    """The launch of one call: items of the most rows of ``ITEM_ROWS``
+    whose count ``B * KV * ceil(Sq * M / rows)`` still reaches ``sms``,
+    else 64 rows, whose halved key chains fill a short grid.  At the
+    serving shapes on 132 SMs: hymba-1.5b's S = 1500 200 items of 192,
+    granite's S = 700 136 of 128, smollm-360m's S = 600 145 of 64 —
+    the fastest item size measured at each (PERF.md)."""
+    for rows in ITEM_ROWS:
+        if rows == 192 and E > 64:
+            continue
+        tiles = -(-Sq * M // rows)
+        if rows == ITEM_ROWS[-1] or tiles * B * KV >= sms:
+            return Plan(rows, tiles, tiles * B * KV)
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(q, k, v, window, q_offset):
@@ -93,16 +132,20 @@ def flash_attention(q, k, v, *, causal: bool = True, window=0,
                              f"on {t.device} (contiguous: "
                              f"{t.is_contiguous()})")
     Sk, KV = k.shape[1], k.shape[2]
+    M = H // KV
+    pl = plan(B, Sq, KV, M, E,
+              _sm_count(dev.index if dev.index is not None
+                        else torch.cuda.current_device()))
     out = torch.empty_like(q)
     lib = build.load("flash_attention")
     if lib.flash_attention.argtypes is None:
         lib.flash_attention.argtypes = ([_P] * 4 + [_I] * 9
-                                        + [ctypes.c_float, _P])
+                                        + [ctypes.c_float, _I, _P])
         lib.flash_attention.restype = _I
     rc = lib.flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk,
-        KV, H // KV, E, int(bool(causal)), win, q_offset,
-        float(np.float32(1.0 / np.sqrt(E))),
+        KV, M, E, int(bool(causal)), win, q_offset,
+        float(np.float32(1.0 / np.sqrt(E))), pl.rows,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"flash_attention launch failed: cudaError {rc}")

@@ -126,10 +126,10 @@ def attn_seq(q, k, v, *, causal: bool, window=None, q_chunk: int = 512,
 def attn_prefill(q, k, v, *, window=None):
     """Causal self-attention of a prompt: q (B, S, H, E), k/v (B, S, KV,
     E) -> (B, S, H, E); ``window`` None or past S is full attention.  On
-    the card the K11 kernel (``kernels.flash_attention``: f32 p·v); on the
-    CPU :func:`attn_seq` (p rounded to bf16 before p·v, as the
-    reference's).  A branch on the device, not a fallback: the card never
-    runs ``attn_seq``."""
+    the card the K11 kernel (``kernels.flash_attention``); on the CPU
+    :func:`attn_seq`.  Both round p to bf16 once before p·v, as the
+    reference's prefill does.  A branch on the device, not a fallback: the
+    card never runs ``attn_seq``."""
     if q.device.type == "cpu":
         return attn_seq(q, k, v, causal=True, window=window)
     return FA.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),

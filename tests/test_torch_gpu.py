@@ -740,11 +740,44 @@ def _check_flash(cuda, B, Sq, Sk, H, KV, E, causal, window, q_offset, seed):
     (1, 200, 200, 8, 1, 128, True, 64, 0),     # M = 8, E = 128
     (1, 65, 65, 3, 3, 32, True, 0, 0),         # MHA, E = 32
     (1, 300, 300, 25, 5, 64, True, 2 ** 30, 0),  # GLOBAL_WINDOW
+    # Sq * M one below, at and one above a multiple of 128 rows
+    (1, 85, 85, 6, 2, 64, True, 0, 0),         # M = 3: 255 rows
+    (1, 128, 128, 6, 2, 64, True, 0, 0),       # M = 3: 384
+    (1, 43, 43, 6, 2, 64, True, 0, 0),         # M = 3: 129
+    (1, 51, 51, 10, 2, 64, True, 0, 0),        # M = 5: 255
+    (1, 128, 128, 10, 2, 64, True, 0, 0),      # M = 5: 640
+    (1, 77, 77, 10, 2, 64, True, 0, 0),        # M = 5: 385
+    # a window edge on a 64-key tile boundary, and one key past it
+    (1, 300, 300, 10, 2, 64, True, 64, 0),
+    (1, 300, 300, 10, 2, 64, True, 65, 0),
+    # Sk a multiple of the key tile, and one past it (TMA zero-fill, mask)
+    (1, 100, 128, 6, 2, 64, False, 0, 0),
+    (1, 100, 129, 6, 2, 64, False, 0, 0),
+    # B = 2, Sk no multiple of the tile: batch 1's keys stay out of 0's
+    (2, 70, 70, 6, 2, 64, True, 0, 0),
+    (2, 50, 100, 6, 2, 64, False, 0, 0),
+    (1, 64, 300, 15, 5, 64, True, 0, 236),     # q_offset, Sk > Sq
+    # 192-row items (the plan's choice here): Sq * M one below, at and one
+    # above a multiple of 192 at M = 5, at one at M = 3 with B = 2
+    (1, 1459, 1459, 25, 5, 64, True, 0, 0),
+    (1, 1536, 1536, 25, 5, 64, True, 1024, 0),
+    (1, 1421, 1421, 25, 5, 64, True, 0, 0),
+    (2, 1024, 1024, 24, 8, 64, True, 0, 0),
+    # the plan's 64-row items (two warpgroups share the key walk): 8 heads
+    # over one KV head at S = 1500 and smollm's S = 600; granite's S = 700
+    # takes 128 rows
+    (1, 1500, 1500, 8, 1, 64, True, 0, 0),
+    (1, 600, 600, 15, 5, 64, True, 0, 0),
+    (1, 700, 700, 24, 8, 64, True, 0, 0),
+    (2, 100, 130, 6, 2, 32, True, 0, 0),       # E = 32
+    (2, 100, 130, 6, 2, 128, True, 0, 0),      # E = 128
+    (1, 300, 300, 6, 3, 128, False, 0, 0),     # E = 128, non-causal
 ])
 def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, KV, E,
                                               causal, window, q_offset):
-    """K11 against ``flash_attention_plain`` (all f32; the kernel keeps p
-    to 2^-16 in p.v): within one bf16 rounding of the output."""
+    """K11 against ``flash_attention_plain`` (all f32; the kernel rounds
+    p to bf16 once before p.v, as the reference model's prefill does):
+    within one bf16 rounding of the output."""
     _check_flash(cuda, B, Sq, Sk, H, KV, E, causal, window, q_offset,
                  seed=Sq + H)
 
@@ -756,6 +789,29 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, KV, E,
 ])
 def test_flash_attention_kernel_at_serving_shapes(cuda, Sq, H, window):
     _check_flash(cuda, 1, Sq, Sq, H, 5, 64, True, window, 0, seed=1)
+
+
+@pytest.mark.parametrize("rows", [64, 128, 192])
+@pytest.mark.parametrize("M", [3, 5])
+def test_flash_attention_kernel_every_item_size(cuda, monkeypatch, rows, M):
+    """Each item size of the launch plan, forced, with Sq * M one below,
+    at and one above a multiple of it (where M allows), causal, windowed
+    on a key-tile edge and non-causal with Sk past a tile, B = 2."""
+    from repro_torch.kernels import flash_attention as FA
+
+    def forced(B, Sq, KV, M, *rest):
+        tiles = -(-Sq * M // rows)
+        return FA.Plan(rows, tiles, tiles * B * KV)
+    monkeypatch.setattr(FA, "plan", forced)
+    for d in (-1, 0, 1):
+        ks = [k for k in range(2, 12) if (rows * k + d) % M == 0]
+        if not ks:
+            continue
+        Sq = (rows * ks[0] + d) // M
+        for causal, window, Sk in ((True, 0, Sq), (True, 64, Sq),
+                                   (False, 0, Sq + 65)):
+            _check_flash(cuda, 2, Sq, Sk, 2 * M, 2, 64, causal, window, 0,
+                         seed=Sq + rows)
 
 
 def test_flash_attention_rejects_what_it_does_not_take(cuda):
