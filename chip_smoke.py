@@ -66,11 +66,18 @@ Phases, each of which fails the run (nonzero exit, no result line):
    and against the unchunked pair: K1's chunk-entry variant and the
    chunked-recompute backward (K3 port) at 4 learners x 2 rows, T = 300,
    K = 64 (T padded to 320), D = 1024, H = 512, var-len with a length-1
-   row, f32 and bf16 stash: K1-chunk's y bit-identical to K1-stash's, its
-   entry carries and K3's dx, dWx, dWh, db within 2e-2 of the plain
-   versions, and with an f32 stash K3's gradients within 2e-5 normalised
-   of K2's on the same input; each timed at the train-long layer shape
-   beside its plain version, its bound and a cuDNN LSTM call;
+   row, f32 and bf16 stash: K1-chunk's y bit-identical to K1-stash's and
+   to K1 inference's (the streaming launch), its entry carries and
+   K3's dx, dWx, dWh, db within 2e-2 of the plain versions, and with an
+   f32 stash K3's dx bit-identical to K2's and its gradients within 2e-5
+   normalised of K2's on the same input; K1-stash on the forward
+   recurrence's plan (``lstm_cell.recur_plan``: resident Wh at this T)
+   bit-identical to the streaming launch; at the train-long layer shape
+   (16 learners x 2 rows, T = 2000, K = 256) the same y and dx identities
+   and gradient tolerance against the unchunked pair, the plans printed
+   (path, cluster size, active clusters, waves), each kernel timed with
+   the device ms of its sub-launches beside its plain version, its bound
+   and a cuDNN LSTM call;
 7c. train-long — full-width ``swb2000-blstm``, ad_psgd over 16 learners,
    global batch 32, T = 2000 (lognormal var-len, median 1200) with
    ``seq_chunk = -1`` (K = 256): 1 warm-up and 3 timed steps chunked,
@@ -637,10 +644,10 @@ def check_k1_stash(gen):
           f"launches (bit-identical)", flush=True)
     ms = _time_ms(lambda: LC.blstm_layer_train(*ws, x, lens), 10)
     subs = _sub_launch_ms(lambda: LC.blstm_layer_train(*ws, x, lens), 5)
-    BB, C = LC._tile(B, H)
+    plan, text = _recur_plan(L, B, T, H)
     print(f"[K1-stash] sub-launches, device ms per call: "
           f"{ {k: round(v, 4) for k, v in subs.items()} }; recurrence "
-          f"clusters of C={C} CTAs, tiles of BB={BB} rows", flush=True)
+          f"{text}", flush=True)
     plain_ms = _time_ms(lambda: LC.blstm_layer_train(*ws, x, lens,
                                                      plain=True), 3,
                         warmup=1)
@@ -660,8 +667,40 @@ def check_k1_stash(gen):
                 replaces="src/repro/kernels/lstm_cell.py:498",
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                sub_launch_ms=subs, cluster=C, block_rows=BB,
+                sub_launch_ms=subs, recurrence=plan,
                 shape=f"L={L} B={B} T={T} D={D} H={H} f32 stash")
+
+
+def _recur_plan(L, B, T, H):
+    """The forward recurrence's plan at this launch shape as a dict (path,
+    tile rows, cluster size; for a resident plan also the clusters the
+    card holds at once, cudaOccupancyMaxActiveClusters, and the waves of
+    clusters the launch runs in) and as printed.  Fails where a resident
+    cluster cannot be scheduled."""
+    from repro_torch.kernels import lstm_cell as LC
+
+    plan = LC.recur_plan(B, T, H)
+    info = plan._asdict()
+    text = (f"{plan.path}: clusters of C={plan.cluster} CTAs, tiles of "
+            f"BB={plan.block_rows} rows")
+    if plan.path == "resident":
+        active = LC.active_clusters(plan, H)
+        if active < 1:
+            _fail(f"a resident recurrence cluster of {plan.cluster} CTAs "
+                  f"cannot be scheduled: cudaOccupancyMaxActiveClusters "
+                  f"{active}")
+        info.update(active_clusters=active,
+                    waves=LC.recur_waves(plan, L, B, active))
+        text += (f", {active} clusters at once, {info['waves']} wave(s) of "
+                 f"{2 * L * -(-B // plan.block_rows)} clusters")
+    return info, text
+
+
+def _reverse_plan(B, H):
+    """The reverse recurrence's launch (it always streams) as a dict."""
+    from repro_torch.kernels import lstm_cell as LC
+
+    return LC.RecurPlan("stream", *LC._tile(B, H))._asdict()
 
 
 def check_k2(gen):
@@ -723,10 +762,10 @@ def check_k2(gen):
           f"(bit-identical)", flush=True)
     ms = _time_ms(lambda: LC.blstm_layer_bwd(*args), 10)
     subs = _sub_launch_ms(lambda: LC.blstm_layer_bwd(*args), 5)
-    BB, C = LC._tile(B, H)
+    plan = _reverse_plan(B, H)
     print(f"[K2] sub-launches, device ms per call: "
-          f"{ {k: round(v, 4) for k, v in subs.items()} }; recurrence "
-          f"clusters of C={C} CTAs, tiles of BB={BB} rows", flush=True)
+          f"{ {k: round(v, 4) for k, v in subs.items()} }; reverse "
+          f"recurrence {plan}", flush=True)
     plain_ms = _time_ms(lambda: LC.blstm_layer_bwd(*args, plain=True), 3,
                         warmup=1)
     lib = _library_ms(lambda: _cudnn_blstm_train(x, ws)[1], "K2")
@@ -748,7 +787,7 @@ def check_k2(gen):
                 replaces="src/repro/kernels/lstm_cell.py:656",
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                sub_launch_ms=subs, cluster=C, block_rows=BB,
+                sub_launch_ms=subs, recurrence=plan,
                 shape=f"L={L} B={B} T={T} D={D} H={H} f32 stash")
 
 
@@ -1439,13 +1478,17 @@ def check_k3(gen):
         y_stash, acts, cseq = LC.blstm_layer_train(*ws, x, lens, stash=stash)
         if not torch.equal(got[0], y_stash):
             _fail(f"K1-chunk {stash}: y is not bit-identical to K1-stash's")
+        if not torch.equal(got[0], LC.blstm_layer(*ws, x, lens)):
+            _fail(f"K1-chunk {stash}: y is not bit-identical to K1 "
+                  f"inference's (which streams Wh)")
         for l in range(L):
             for b in range(B):
                 if got[0][l, b, int(lens[l, b]):].any():
                     _fail("K1-chunk: padded frames of y not zero")
         print(f"[K1-chunk] L={L} B={B} T={T} K={K} D={D} H={H} stash={stash} "
               f"lengths {lens.tolist()}: normalised errors {', '.join(errs)} "
-              f"(tol {K1_TOL}); y bit-identical to K1-stash", flush=True)
+              f"(tol {K1_TOL}); y bit-identical to K1-stash and to K1 "
+              f"inference", flush=True)
         y, hb, cb = got
         args = (*ws, x, y, hb, cb, dy, lens)
         dx, grads = LC.blstm_layer_bwd_chunked(*args, chunk=K)
@@ -1463,17 +1506,62 @@ def check_k3(gen):
               flush=True)
         if stash != "float32":
             continue
-        dx2, grads2 = LC.blstm_layer_bwd(ws[0], ws[1], ws[3], ws[4], x, y,
-                                         acts, cseq, dy, lens)
-        errs = {name: _norm_err(g, w_)[1] for name, g, w_ in
-                _chunked_pairs("K3", (dx, grads), (dx2, grads2))}
-        print(f"[K3] vs K2 on the same input (f32 stash): normalised errors "
-              f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} } (tol "
-              f"{K3_VS_K2_TOL}); dx bit-identical {torch.equal(dx, dx2)}",
-              flush=True)
-        if not max(errs.values()) <= K3_VS_K2_TOL:
-            _fail(f"K3's gradients are not within {K3_VS_K2_TOL} of K2's")
+        bwd_args = (ws[0], ws[1], ws[3], ws[4], x, y, acts, cseq, dy, lens)
+        _k3_vs_k2((dx, grads), LC.blstm_layer_bwd(*bwd_args), "T=300")
+        # the resident forward against the streaming launch
+        with _streaming():
+            fwd_s = LC.blstm_layer_train(*ws, x, lens, stash=stash)
+        same = _bits_equal(fwd_s, (y_stash, acts, cseq))
+        print(f"[K3] K1-stash at T={T}: {_recur_plan(L, B, T, H)[1]}; y "
+              f"and stash bit-identical to the streaming launch's {same}; "
+              f"K3's replay: {_recur_plan(L, B, K, H)[1]}", flush=True)
+        if not same:
+            _fail("the resident forward recurrence's bits differ from the "
+                  "streaming one's")
     return _time_chunked(gen)
+
+
+def _bits_equal(got, want) -> bool:
+    """Whether two nests of tensors (or None) are equal bit for bit."""
+    import torch
+
+    if isinstance(got, (list, tuple)):
+        return len(got) == len(want) and all(
+            _bits_equal(g, w_) for g, w_ in zip(got, want))
+    if got is None or want is None:
+        return got is None and want is None
+    return torch.equal(got, want)
+
+
+def _streaming():
+    """The wrappers' forward recurrences on the streaming launch (clusters
+    of 2 reading Wh from device memory), whatever ``recur_plan`` picks: the
+    oracle of the resident launch's bits."""
+    from unittest import mock
+
+    from repro_torch.kernels import lstm_cell as LC
+
+    def plan(B, T, H):
+        return LC.RecurPlan("stream", *LC._tile(B, H))
+    return mock.patch.object(LC, "recur_plan", plan)
+
+
+def _k3_vs_k2(got, want, where):
+    """K3's dx bit-identical to K2's and its gradients within 2e-5 (the
+    reference's chunked-vs-unchunked contract) on the same f32 stash."""
+    import torch
+
+    errs = {name: _norm_err(g, w_)[1] for name, g, w_ in
+            _chunked_pairs("K3", got, want)}
+    same = torch.equal(got[0], want[0])
+    print(f"[K3] vs K2 on the same input at {where} (f32 stash): normalised "
+          f"errors { {k: float(f'{v:.3g}') for k, v in errs.items()} } (tol "
+          f"{K3_VS_K2_TOL}); dx bit-identical {same}", flush=True)
+    if not same:
+        _fail(f"K3's dx is not bit-identical to K2's at {where}")
+    if not max(errs.values()) <= K3_VS_K2_TOL:
+        _fail(f"K3's gradients are not within {K3_VS_K2_TOL} of K2's at "
+              f"{where}")
 
 
 def _timed_call(fn):
@@ -1517,6 +1605,22 @@ def _time_chunked(gen):
     fwd = lambda: LC.blstm_layer_train_chunked(*ws, x, lens, chunk=K)
     y, hb, cb = fwd()
     bwd_args = (*ws, x, y, hb, cb, dy, lens)
+    # the unchunked pair on the same input: y and dx bit for bit
+    y_stash, acts, cseq = LC.blstm_layer_train(*ws, x, lens)
+    if not torch.equal(y, y_stash):
+        _fail("K1-chunk at the train-long shape: y is not bit-identical to "
+              "K1-stash's")
+    _k3_vs_k2(LC.blstm_layer_bwd_chunked(*bwd_args, chunk=K),
+              LC.blstm_layer_bwd(ws[0], ws[1], ws[3], ws[4], x, y, acts, cseq,
+                                 dy, lens), "the train-long layer shape")
+    del y_stash, acts, cseq
+    (fwd_plan, fwd_text), (replay, replay_text) = (
+        _recur_plan(L, B, T, H), _recur_plan(L, B, K, H))
+    plans = {"K1-chunk": fwd_plan,
+             "K3": dict(replay=replay, reverse=_reverse_plan(B, H))}
+    print(f"[K1-chunk] train-long layer shape: y bit-identical to K1-stash's; "
+          f"recurrence {fwd_text}; K3's replay {replay_text}, its reverse "
+          f"{plans['K3']['reverse']}", flush=True)
     lib = _library_ms(lambda: _cudnn_blstm_train(x, ws), "K3")
     entries = []
     for name, fn, plain, lib_fn, tag, src, line in (
@@ -1542,6 +1646,11 @@ def _time_chunked(gen):
             worst = max(worst, abs_err)
         del got, want
         ms = _time_ms(fn, 3, warmup=0)
+        subs = _sub_launch_ms(fn, 2)
+        print(f"[{tag}] sub-launches, device ms per call (blstm_recur: the "
+              f"forward recurrence, K3's replay; lstm_bwd_recur: the "
+              f"reverse; the GEMMs: x·Wx, dx, dWx, dWh + db): "
+              f"{ {k: round(v, 3) for k, v in subs.items()} }", flush=True)
         library_ms = None if lib_fn is None else _time_ms(lib_fn, 3)
         nbytes, ops = _chunked_bound(L, B, T, D, H, K, n_valid,
                                      tag == "K1-chunk")
@@ -1557,7 +1666,8 @@ def _time_chunked(gen):
             replaces=f"src/repro/kernels/lstm_cell.py:{line}",
             max_abs_err=worst, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=library_ms,
+            library_ms=library_ms, sub_launch_ms=subs,
+            recurrence=plans[tag],
             shape=f"L={L} B={B} T={T} K={K} D={D} H={H} f32 stash"))
     return entries
 

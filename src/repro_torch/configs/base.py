@@ -103,8 +103,9 @@ class ArchConfig:
 
     param_dtype: str = "bfloat16"
     microbatches: int = 4     # gradient-accumulation microbatches for train
-    # the dense MoE branch's CPU math: weight the hidden activations by the
-    # router and contract (experts, ff) jointly (models/moe.py)
+    # the reference config's switch for its fused dense-MoE math; it selects
+    # nothing in the port (models/moe.py runs one kernel on every device)
+    # and is kept so that a config maps onto the reference's one to one
     moe_dense_fused: bool = False
 
     def __post_init__(self):

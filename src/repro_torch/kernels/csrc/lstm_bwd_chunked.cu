@@ -20,8 +20,9 @@
 //      lstm_xproj sums it (the tile loop over D does not depend on M), so
 //      it equals the forward's x-projection bit for bit.
 //  (b) the replay: lstm_recur.cuh's forward recurrence in REPLAY mode —
-//      the very instructions K1 ran, on the same cluster split — from the
-//      entry carry, writing the
+//      the same per-unit sums and cell update K1 ran, on the launch the
+//      plan picks (resident at the train-long shape) — from the entry
+//      carry, writing the
 //      chunk's gates and c in f32 into (2, L, B, K, ·) buffers.  With an
 //      f32 stash the replayed gates and c are the unchunked stash bit for
 //      bit; with a bf16 stash the entry c is rounded, as the reference's.
@@ -46,10 +47,13 @@
 // carries 2H per row.
 //
 // What bounds it on the H100: the two serial recurrences, T_pad steps each
-// per layer, each step reading one direction's Wh (2 MiB at H = 512)
-// split over a cluster of CTAs, as K1 and K2 do; then the tensor-core
-// GEMMs (x·Wx again, dx, dWx, dWh), ~1.3x K2's products.  The extra
-// forward recurrence is the price of the O(T/K) stash.
+// per layer.  At K = 256 the replay runs resident (Wh read into shared
+// memory once per chunk launch, 5 waves of 7 clusters of 16 CTAs), bound
+// by its product's issue rate (~3 us a step); the reverse steps stream
+// each step's Wh from device memory as K2's do (~36 us a step at the
+// train-long shape); then the tensor-core GEMMs (x·Wx again, dx, dWx,
+// dWh), ~1.3x K2's products.  The extra forward recurrence is the price
+// of the O(T/K) stash.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,7 +71,8 @@ using bf16 = __nv_bfloat16;
 // cseq (2, L, B, K, H), all f32.  In/out: dh, dc (2, L, B, H) f32 carries
 // (zero on entry), dx (L, B, T, D) bf16 (zero on entry, or null), dwx
 // (2, L, D, 4H) and dwhb (2, L, H + 1, 4H) f32 (zero on entry; row H: db).
-// block_b and cluster as blstm_recur's (lstm_fwd.cu).
+// The plan as blstm_recur's (lstm_fwd.cu): with resident = 1, whX4 in the
+// resident layout; the reverse streams whX4b on clusters of `cluster`.
 extern "C" int lstm_bwd_chunked(
     const void* x, const void* y, const void* dy, const void* hb,
     const void* cb, const void* wxf, const void* wxb, const void* whf4,
@@ -75,7 +80,7 @@ extern "C" int lstm_bwd_chunked(
     const void* bb, const void* lengths, void* gx, void* acts, void* cseq,
     void* dg, void* dh, void* dc, void* dx, void* dwx, void* dwhb,
     int carry_kind, int L, int B, int T, int D, int H, int K, int block_b,
-    int cluster, void* stream) {
+    int cluster, int resident, void* stream) {
   using lstm_recur::BwdArgs;
   using lstm_recur::FwdArgs;
   using lstm_recur::launch_bwd_rows;
@@ -85,9 +90,9 @@ extern "C" int lstm_bwd_chunked(
   using lstm_gemm::ChunkRows;
   using lstm_gemm::Mat;
   using lstm_gemm::ShiftedChunkRows;
+  const lstm_recur::Plan p{block_b, cluster, resident};
   if (L < 1 || B < 1 || T < 1 || D < 1 || H < 1 || K < 1 ||
-      !lstm_recur::cluster_units(H, cluster) ||
-      (carry_kind != 1 && carry_kind != 2))
+      !lstm_recur::plan_ok(H, p) || (carry_kind != 1 && carry_kind != 2))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const int n = (T + K - 1) / K;
@@ -150,8 +155,8 @@ extern "C" int lstm_bwd_chunked(
     // (b) replay the chunk from its entry carry
     fa.chunk = chunk;
     rc = carry_kind == 1
-        ? launch_fwd_rows<REPLAY, 1>(block_b, cluster, fa, st)
-        : launch_fwd_rows<REPLAY, 2>(block_b, cluster, fa, st);
+        ? launch_fwd_rows<REPLAY, 1>(p, fa, st)
+        : launch_fwd_rows<REPLAY, 2>(p, fa, st);
     if (rc) return rc;
     // (c) its reverse steps
     ba.chunk = chunk;

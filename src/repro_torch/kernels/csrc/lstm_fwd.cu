@@ -40,7 +40,11 @@
 //    same sums and cell update as the fused stack K4's items.  Wh arrives
 //    gate-interleaved, (H, H, 4): the four weights of unit j for input k
 //    are one 8-byte load, and neighbouring threads read neighbouring
-//    8-byte words.
+//    8-byte words.  That is the streaming launch; the long launches of
+//    the training variants take the resident one instead
+//    (`lstm_cell.recur_plan`; `blstm_recur_resident`: clusters of 16 CTAs
+//    holding Wh in shared memory, one thread per (unit, gate)), which
+//    computes the same bits.
 //
 // What bounds it on the H100.  At the paper's width (H=512) one
 // direction's Wh is 512 x 2048 bf16 = 2 MiB.  At the training shape (16
@@ -53,7 +57,12 @@
 // f32 peak, and a step's weight stream does not overlap it fully.  That
 // product stays on the CUDA cores in the order of the sums before the split, so
 // that K4 stays bit-identical to the K1 loop; a tensor-core step product
-// is later work.  x·Wx is operation-bound on the tensor cores.
+// is later work.  x·Wx is operation-bound on the tensor cores.  At the
+// train-long shape (16 learners x 2 rows, T = 2000) the streaming launch
+// is 64 CTAs re-reading 64 MiB of Wh from device memory every step, ~27
+// us a step; the resident launch reads Wh once and runs 5 waves of 7
+// clusters at ~3.1 us a step, its product issuing at about half an
+// instruction a cycle per warp (PERF.md §6).
 //
 // Numerics mirror `_cell_math`: gates = (x·Wx + h·Wh) + b accumulated in
 // f32, h rounded to bf16 before the product, h and c carried in f32, the
@@ -85,22 +94,26 @@ extern "C" int lstm_xproj(const void* x, const void* wxf, const void* wxb,
 // stash, 3 = f32 chunk-entry carries, 4 = bf16 ones (acts and cseq are then
 // the (2, L, B, ceil(T / K), H) h and c carries).  gx (L, 2, B, T, 4H) f32;
 // wh (L, H, H, 4) bf16 gate-interleaved; b (L, 4H) f32; lengths (L, B);
-// y (L, B, T, 2H) bf16.  block_b: rows per tile (1, 2, 4, 8 or 16);
-// cluster: CTAs per tile (1, 2, 4 or 8; H even, a multiple of 4·cluster
-// when above 1, H / cluster <= 256).
+// y (L, B, T, 2H) bf16.  The plan (lstm_recur.cuh's Plan,
+// `lstm_cell.recur_plan`): block_b rows per tile (1, 2, 4 or 8); cluster
+// (1, 2, 4 or 8; H even, a multiple of 4·cluster when above 1, H /
+// cluster <= 256); with resident = 0, clusters of `cluster` CTAs, wh
+// (L, H, H, 4) as above; with resident = 1 (not for inference), clusters
+// of 16 CTAs, wh in the resident layout (L, 16, H/2, H/16, 4, 2)
+// (`lstm_cell._res_fwd_layout`).
 extern "C" int blstm_recur(const void* gx, const void* whf, const void* whb,
                            const void* bf, const void* bb,
                            const void* lengths, void* y, void* acts,
                            void* cseq, int stash_kind, int L, int B, int T,
                            int H, int K, int block_b, int cluster,
-                           void* stream) {
+                           int resident, void* stream) {
   using lstm_recur::FWD;
   using lstm_recur::FWD_ENTRY;
   using lstm_recur::FWD_STASH;
   using lstm_recur::FwdArgs;
   using lstm_recur::launch_fwd_rows;
-  if (L < 1 || B < 1 || T < 1 || H < 1 ||
-      !lstm_recur::cluster_units(H, cluster))
+  const lstm_recur::Plan p{block_b, cluster, resident};
+  if (L < 1 || B < 1 || T < 1 || H < 1 || !lstm_recur::plan_ok(H, p))
     return (int)cudaErrorInvalidValue;
   const bool entry = stash_kind == 3 || stash_kind == 4;
   if (entry && K < 1) return (int)cudaErrorInvalidValue;
@@ -124,16 +137,33 @@ extern "C" int blstm_recur(const void* gx, const void* whf, const void* whb,
   a.n = (T + a.K - 1) / a.K;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (stash_kind) {
-    case 0:
-      return launch_fwd_rows<FWD, 0>(block_b, cluster, a, st);
-    case 1:
-      return launch_fwd_rows<FWD_STASH, 1>(block_b, cluster, a, st);
-    case 2:
-      return launch_fwd_rows<FWD_STASH, 2>(block_b, cluster, a, st);
-    case 3:
-      return launch_fwd_rows<FWD_ENTRY, 1>(block_b, cluster, a, st);
-    case 4:
-      return launch_fwd_rows<FWD_ENTRY, 2>(block_b, cluster, a, st);
+    case 0: return launch_fwd_rows<FWD, 0>(p, a, st);
+    case 1: return launch_fwd_rows<FWD_STASH, 1>(p, a, st);
+    case 2: return launch_fwd_rows<FWD_STASH, 2>(p, a, st);
+    case 3: return launch_fwd_rows<FWD_ENTRY, 1>(p, a, st);
+    case 4: return launch_fwd_rows<FWD_ENTRY, 2>(p, a, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+// How many clusters of the resident forward (tiles of block_b rows, width
+// H) the card runs at once (cudaOccupancyMaxActiveClusters), or
+// -cudaError: 0 means a cluster of 16 CTAs cannot be scheduled.
+extern "C" int blstm_recur_active_clusters(int block_b, int H) {
+  namespace R = lstm_recur;
+  const int U = R::res_units(H, block_b);
+  if (!U) return -(int)cudaErrorInvalidValue;
+  auto query = [&](auto kernel) {
+    return R::active_clusters(kernel, dim3(R::RES_CLUSTER, 2, 1),
+                              (4 * U + 31) / 32 * 32,
+                              R::res_smem(H, block_b), R::RES_CLUSTER);
+  };
+  switch (block_b) {
+    case 1: return query(R::blstm_recur_resident<1, R::REPLAY, 1>);
+    case 2: return query(R::blstm_recur_resident<2, R::REPLAY, 1>);
+    case 4: return query(R::blstm_recur_resident<4, R::REPLAY, 1>);
+    case 8: return query(R::blstm_recur_resident<8, R::REPLAY, 1>);
+    default: return -(int)cudaErrorInvalidValue;
+  }
+}
+

@@ -39,12 +39,28 @@
 // step's copies.  Each thread's sum over k (forward) and over n (reverse)
 // runs in the same order as in `blstm_recur_item` and the kernels before
 // the split, whatever C and BB: the bits do not depend on them.
+//
+// Wh resident (`blstm_recur_resident`: the long forward launches of
+// K1-stash, K1-chunk and K3's replay, `lstm_cell.recur_plan`).  The
+// streaming kernels read their share of Wh from device memory every step:
+// 64 MiB a step over 16 learners and both directions at H = 512, more
+// than the L2 holds.  The resident forward runs clusters of 16 CTAs
+// (non-portable), each CTA copying its 128 KB slice of Wh into shared
+// memory once, at the start of the launch; the launch's clusters run in
+// as many waves as the card holds at once (7 clusters on the H100).  The
+// exchange of each step's h goes through st.async stores that complete
+// the peers' mbarriers, double-buffered, with no cluster barrier inside
+// the step loop.  Every (unit, gate, row) sum keeps its order, so the bits
+// are the streaming kernel's.  A resident reverse of the same design was
+// no faster than the streaming one (PERF.md §6), so the reverse streams.
 #pragma once
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace lstm_recur {
 
@@ -54,6 +70,9 @@ using bf16 = __nv_bfloat16;
 constexpr int MAX_H = 512;     // K4's block: one thread per hidden unit
 constexpr int MAX_CTA = 256;   // threads of a cluster CTA (U rounded to 32)
 constexpr int MAX_CLUSTER = 8;
+constexpr int RES_CLUSTER = 16;        // CTAs of a resident cluster
+constexpr int MAX_RES_THREADS = 512;   // threads of a resident CTA
+constexpr int SMEM_LIMIT = 232448;     // dynamic shared memory of one CTA
 
 // K4's recurrence runs in a 512-thread block declared
 // __launch_bounds__(MAX_H, 1): one block per SM is all a step needs.
@@ -106,27 +125,108 @@ __device__ __forceinline__ void push_to_peers(float* buf, size_t off,
   }
 }
 
+// The resident forward's exchange: a thread stores its values straight
+// into each peer's shared memory with st.async, which also counts the
+// bytes on the peer's mbarrier, and a CTA waits only for the phase of its
+// own barrier that the step's bytes complete (no cluster barrier).
+// `cluster_base` is CTA `rank`'s shared-memory window (mapa of this CTA's
+// address `local`).
+__device__ __forceinline__ uint32_t cluster_base(uint32_t local, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(local), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void st_async(uint32_t addr, float v,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];\n" ::"r"(addr),
+      "r"(__float_as_uint(v)), "r"(bar)
+      : "memory");
+}
+// spin until the phase of parity `parity` of this CTA's barrier has
+// completed, acquiring at cluster scope what the peers' st.async wrote
+__device__ __forceinline__ void mbar_wait_cluster(const uint64_t* bar,
+                                                  uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], "
+      "%1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(sm90::smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Copy `bytes` (a multiple of 16) from device memory into shared memory
+// with cp.async, every thread of the block issuing its share; the caller
+// waits (cp_async_wait) before the first read.
+__device__ __forceinline__ void cp_async_block(void* dst, const void* src,
+                                               size_t bytes) {
+  const uint32_t base = (uint32_t)__cvta_generic_to_shared(dst);
+  const char* g = static_cast<const char*>(src);
+  for (size_t i = threadIdx.x; i < bytes / 16; i += blockDim.x)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     base + (uint32_t)(i * 16)),
+                 "l"(g + i * 16)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The launch configuration of a cluster kernel; clusters above the
+// portable 8 CTAs are allowed.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  template <class Kernel>
+  int init(Kernel kernel, dim3 grid, int threads, size_t smem, int C,
+           cudaStream_t st) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess && C > MAX_CLUSTER)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return 0;
+  }
+};
+
 template <class Kernel, class... Args>
 int launch_cluster(Kernel kernel, dim3 grid, int threads, size_t smem,
                    int C, cudaStream_t st, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  ClusterLaunch cl;
+  int rc = cl.init(kernel, grid, threads, smem, C, st);
+  if (rc) return rc;
+  cudaError_t err = cudaLaunchKernelEx(&cl.cfg, kernel, args...);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// How many clusters of `kernel` the card holds at once
+// (cudaOccupancyMaxActiveClusters), or -cudaError.
+template <class Kernel>
+int active_clusters(Kernel kernel, dim3 grid, int threads, size_t smem,
+                    int C) {
+  ClusterLaunch cl;
+  int rc = cl.init(kernel, grid, threads, smem, C, 0);
+  if (rc) return -rc;
+  int n = 0;
+  cudaError_t err = cudaOccupancyMaxActiveClusters(&n, kernel, &cl.cfg);
+  return err != cudaSuccess ? -(int)err : n;
 }
 
 // Units per CTA of a cluster of C, or 0 where C does not split H: a slice
@@ -134,6 +234,41 @@ int launch_cluster(Kernel kernel, dim3 grid, int threads, size_t smem,
 __host__ __forceinline__ int cluster_units(int H, int C) {
   if (C < 1 || C > MAX_CLUSTER || (C > 1 && H % (4 * C))) return 0;
   return H / C <= MAX_CTA ? H / C : 0;
+}
+
+// How a launch runs its forward recurrence (`lstm_cell.recur_plan`):
+// tiles of block_b rows; resident = 0, clusters of `cluster` CTAs
+// streaming Wh from device memory; resident = 1, clusters of RES_CLUSTER
+// CTAs holding their slice of Wh in shared memory for the whole launch
+// (Wh then in the resident layout), in as many waves of clusters as the
+// card runs at once.  The reverse recurrence always streams, on clusters
+// of `cluster`.
+struct Plan {
+  int block_b, cluster, resident;
+};
+
+// Shared memory of a resident forward CTA: its slice of Wh, h
+// double-buffered in f32, two barriers and the lengths.
+__host__ __forceinline__ size_t res_smem(int H, int BB) {
+  const size_t U = H / RES_CLUSTER;
+  return (size_t)H * U * 8 + 2 * (size_t)H * BB * 4 + 64;
+}
+// Units per CTA of a resident cluster, or 0 where H does not split: a
+// slice must be whole float4s of the exchanged h (U a multiple of 4), and
+// the CTA's slice of Wh and its buffers must fit shared memory.
+__host__ __forceinline__ int res_units(int H, int BB) {
+  if (H % (4 * RES_CLUSTER)) return 0;
+  const int U = H / RES_CLUSTER;
+  if (4 * U > MAX_RES_THREADS || res_smem(H, BB) > SMEM_LIMIT) return 0;
+  return U;
+}
+
+// Whether a plan can run at width H (block_b is checked by the launch):
+// the streaming cluster always (the reverse takes it), the resident one
+// where the forward runs resident.
+__host__ __forceinline__ bool plan_ok(int H, const Plan& p) {
+  return cluster_units(H, p.cluster) > 0 &&
+         (!p.resident || res_units(H, p.block_b) > 0);
 }
 
 // The weights of a step stream from device memory straight into
@@ -493,25 +628,305 @@ __global__ void __launch_bounds__(MAX_CTA) blstm_recur_cluster(
   }
 }
 
+// One batch of the resident forward's product: KB words of Wh (the
+// weights of inputs 2k and 2k + 1 of the thread's (unit, gate)) and h of
+// those inputs for every row, loaded together; `fma` adds them to the
+// row sums in input order, one FMA a term as every kernel here does.
+template <int BB>
+struct FwdBatch {
+  static constexpr int KB = 16 / BB;
+  uint32_t w[KB];
+  float h[KB][2 * BB];     // h[2k][0..BB), then h[2k + 1][0..BB)
+  __device__ __forceinline__ void load(const uint32_t* wp, const float* hc,
+                                       int k2, int NT) {
+#pragma unroll
+    for (int e = 0; e < KB; ++e) w[e] = wp[(size_t)(k2 + e) * NT];
+#pragma unroll
+    for (int e = 0; e < KB; ++e) {
+      const float* hk = hc + (size_t)(2 * (k2 + e)) * BB;
+      if constexpr (BB == 1) {
+        const float2 v = *reinterpret_cast<const float2*>(hk);
+        h[e][0] = v.x;
+        h[e][1] = v.y;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 2 * BB; i += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(hk + i);
+          h[e][i] = v.x;
+          h[e][i + 1] = v.y;
+          h[e][i + 2] = v.z;
+          h[e][i + 3] = v.w;
+        }
+      }
+    }
+  }
+  __device__ __forceinline__ void fma(float (&acc)[BB]) const {
+#pragma unroll
+    for (int e = 0; e < KB; ++e) {
+      const float w0 = __uint_as_float(w[e] << 16);
+      const float w1 = __uint_as_float(w[e] & 0xffff0000u);
+#pragma unroll
+      for (int r = 0; r < BB; ++r) acc[r] += h[e][r] * w0;
+#pragma unroll
+      for (int r = 0; r < BB; ++r) acc[r] += h[e][BB + r] * w1;
+    }
+  }
+};
+
+// The forward recurrence with Wh resident: one cluster of RES_CLUSTER
+// CTAs per (batch tile, direction, learner), grid (16·ceil(B / BB), 2, L)
+// in as many waves of clusters as the card holds.  CTA c owns units
+// [c·U, (c+1)·U), U = H / 16, and copies its slice of Wh (U units × 4
+// gates × H inputs, 128 KB at H = 512) into shared memory once, at the
+// start of the launch; every step then reads Wh from there.  Thread
+// 4·jj + q forms gate q of unit c·U + jj for every row of the tile: the
+// sum over k of h[r][k]·Wh[k, qH + j] runs in the order of every other
+// kernel here (k upwards, one FMA a term), so the bits are those of
+// `blstm_recur_cluster`.  Shuffles gather the unit's four gate sums and
+// thread 4·jj + q updates the cell of rows q, q + 4, ..., and stores the
+// new h of those rows, rounded to bf16 as every kernel here rounds it,
+// into buffer (s + 1) % 2 of every CTA of the cluster (itself included)
+// with st.async; step s + 1 starts when the step's H·BB·4 bytes have
+// completed this CTA's barrier for that buffer.  A peer can only write a
+// buffer again two steps later, after it has received this CTA's next h,
+// which no thread sends before its own product has read the buffer: no
+// other barrier is needed.  The product loads its operands in batches,
+// the next batch's in flight during this one's FMAs.  Dynamic shared
+// memory: the slice of Wh as words [k/2][4U] (the bf16 weights of inputs
+// k and k + 1, k even, of one (unit, gate)), h double-buffered
+// ([2][H][BB] floats), a barrier per buffer and the lengths.
 template <int BB, int MODE, int SD>
-int launch_fwd(const FwdArgs& a, int C, cudaStream_t st) {
+__global__ void __launch_bounds__(MAX_RES_THREADS, 1) blstm_recur_resident(
+    const float* __restrict__ gx, const uint32_t* __restrict__ wrf,
+    const uint32_t* __restrict__ wrb, const float* __restrict__ bias_f,
+    const float* __restrict__ bias_b, const int* __restrict__ lengths,
+    bf16* __restrict__ y, void* __restrict__ acts, void* __restrict__ cseq,
+    void* __restrict__ hb, void* __restrict__ cb, int L, int B, int T, int H,
+    int K, int n, int chunk) {
+  constexpr int C = RES_CLUSTER;
+  constexpr int RPT = (BB + 3) / 4;              // rows a thread updates
+  extern __shared__ __align__(16) float smem[];
+  const int U = H / C, NT = 4 * U, H2 = H / 2;
+  const uint32_t* ws = reinterpret_cast<const uint32_t*>(smem);
+  float* hs = smem + (size_t)H2 * NT;            // [2][H][BB]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(hs + 2 * H * BB);   // [2]
+  int* lens = reinterpret_cast<int*>(bar + 2);
+  const int rank = (int)(blockIdx.x % C);
+  const int b0 = (int)(blockIdx.x / C) * BB;
+  const int d = blockIdx.y;
+  const int l = blockIdx.z;
+  const size_t G = 4 * (size_t)H;
+  const float* __restrict__ bias = (d ? bias_b : bias_f) + (size_t)l * G;
+  lengths += (size_t)l * B;
+  const int Tg = MODE == REPLAY ? K : T;
+  const int t0 = MODE == REPLAY ? chunk_t0(d, chunk, K, n) : 0;
+  gx += (size_t)(2 * l + d) * B * Tg * G;
+  if constexpr (MODE != REPLAY) y += (size_t)l * B * T * 2 * H;
+  const size_t srow = (size_t)(d * L + l) * B;   // stash row of b = 0
+  const int tid = threadIdx.x;
+  const bool own = tid < NT;
+  const int jj = tid >> 2, q = tid & 3;          // unit, gate
+  const int j = rank * U + jj;
+  const int lane0 = (tid & 31) & ~3;             // the unit's first lane
+  // every CTA's shared-memory window, and this CTA's offsets in it
+  const uint32_t base = sm90::smem_u32(smem);
+  uint32_t peer[C];
+#pragma unroll
+  for (int p = 0; p < C; ++p) peer[p] = cluster_base(base, p);
+  const uint32_t hs_off = sm90::smem_u32(hs) - base;
+  const uint32_t bar_off = sm90::smem_u32(bar) - base;
+
+  cp_async_block(smem, (d ? wrb : wrf) + ((size_t)l * C + rank) * H2 * NT,
+                 (size_t)H2 * NT * 4);
+  if (tid == 0) {
+    sm90::mbar_init(bar, 1);
+    sm90::mbar_init(bar + 1, 1);
+    sm90::mbar_fence_init();
+  }
+  for (int r = tid; r < BB; r += blockDim.x)
+    lens[r] = b0 + r < B ? lengths[b0 + r] : 0;
+  for (int e = tid; e < 2 * H * BB; e += blockDim.x) {
+    const int k = e / BB % H, r = e % BB, b = b0 + r;
+    float v = 0.f;
+    if constexpr (MODE == REPLAY) {
+      if (e < H * BB && b < B)
+        v = load_stash<SD>(hb, ((srow + b) * n + chunk) * H + k);
+    }
+    hs[e] = round_bf16(v);
+  }
+  // thread (jj, q) carries rows q, q + 4, ... of unit j
+  float h[RPT], c[RPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int r = q + 4 * i, b = b0 + r;
+    h[i] = 0.f;
+    c[i] = 0.f;
+    const bool mine = own && r < BB && b < B;
+    if constexpr (MODE == REPLAY) {
+      if (mine) {
+        const size_t e = ((srow + b) * n + chunk) * H + j;
+        h[i] = load_stash<SD>(hb, e);
+        c[i] = load_stash<SD>(cb, e);
+      }
+    }
+    if constexpr (MODE == FWD_ENTRY) {   // chunk 0 enters with zeros
+      if (mine) {
+        store_stash<SD>(hb, (srow + b) * n * H + j, 0.f);
+        store_stash<SD>(cb, (srow + b) * n * H + j, 0.f);
+      }
+    }
+  }
+  float bz[4] = {0.f, 0.f, 0.f, 0.f};
+  if (own) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g) bz[g] = bias[g * H + j];
+  }
+  const int off = (MODE == FWD_ENTRY && d) ? n * K - T : 0;
+  cp_async_wait();
+  __syncthreads();
+  cluster_arrive();                      // every peer's barriers are set up
+  cluster_wait();
+
+  for (int s = 0; s < Tg; ++s) {
+    const int k = d ? Tg - 1 - s : s;            // local row
+    const int t = t0 + k;                        // frame
+    const int nb = (s & 1) ^ 1;                  // the buffer this step fills
+    const float* hc = hs + (s & 1) * H * BB;     // h of the previous step
+    const bool send = s + 1 < Tg;                // the last h is not read
+    if (tid == 0 && send)
+      sm90::mbar_arrive_expect_tx(bar + nb, (uint32_t)(H * BB * 4));
+    if constexpr (MODE == FWD_ENTRY) {
+      const int sp = s + off;
+      if (own && sp > 0 && sp % K == 0) {
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          const int r = q + 4 * i;
+          if (r >= BB || b0 + r >= B) continue;
+          const size_t e = ((srow + b0 + r) * n + sp / K) * H + j;
+          store_stash<SD>(hb, e, h[i]);
+          store_stash<SD>(cb, e, c[i]);
+        }
+      }
+    }
+    // this step's x-projections of the rows this thread updates, loaded
+    // before the product hides them
+    float xg[RPT][4];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int r = q + 4 * i;
+      const size_t row = min(b0 + min(r, BB - 1), B - 1);
+      const float* gr = gx + (row * Tg + k) * G + j;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) xg[i][g] = own ? gr[g * H] : 0.f;
+    }
+    // h of the previous step has arrived from every CTA
+    if (s > 0) mbar_wait_cluster(bar + (s & 1), ((s - 1) >> 1) & 1);
+    float acc[BB];
+#pragma unroll
+    for (int r = 0; r < BB; ++r) acc[r] = 0.f;
+    if (own) {
+      // batches of KB word rows (2·KB inputs), the next batch's loads in
+      // flight while this one's FMAs run (H/2 is a multiple of 2·KB)
+      const uint32_t* wp = ws + tid;
+      FwdBatch<BB> a, b;
+      a.load(wp, hc, 0, NT);
+      for (int k2 = 0; k2 < H2; k2 += 2 * FwdBatch<BB>::KB) {
+        b.load(wp, hc, k2 + FwdBatch<BB>::KB, NT);
+        a.fma(acc);
+        if (k2 + 2 * FwdBatch<BB>::KB < H2)
+          a.load(wp, hc, k2 + 2 * FwdBatch<BB>::KB, NT);
+        b.fma(acc);
+      }
+    }
+    // the unit's four gate sums of the rows this thread updates
+    float a4[RPT][4];
+#pragma unroll
+    for (int r = 0; r < BB; ++r) {
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const float v = __shfl_sync(0xffffffffu, acc[r], lane0 | g);
+        if (r % 4 == q) a4[r / 4][g] = v;
+      }
+    }
+    if (own) {
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const int r = q + 4 * i, b = b0 + r;
+        if (r >= BB || b >= B) continue;
+        const Cell cs = cell_step(xg[i], a4[i], bz, c[i]);
+        const bool valid = t < lens[r];
+        if (valid) {                    // frozen carry on padded steps
+          c[i] = cs.c;
+          h[i] = cs.h;
+        }
+        if constexpr (MODE != REPLAY)
+          y[((size_t)b * T + t) * 2 * H + (size_t)d * H + j] =
+              __float2bfloat16(valid ? cs.h : 0.f);
+        if constexpr (MODE == FWD_STASH || MODE == REPLAY) {
+          constexpr int OUT = MODE == REPLAY ? 1 : SD;
+          const size_t st = (srow + b) * Tg + k;
+          store_stash<OUT>(acts, st * G + j, cs.i);
+          store_stash<OUT>(acts, st * G + H + j, cs.f);
+          store_stash<OUT>(acts, st * G + 2 * H + j, cs.g);
+          store_stash<OUT>(acts, st * G + 3 * H + j, cs.o);
+          store_stash<OUT>(cseq, st * H + j, c[i]);
+        }
+      }
+      // h of every row of the tile (0 past B) into every CTA's buffer nb
+      const uint32_t dst = hs_off + (uint32_t)((nb * H + j) * BB) * 4;
+      const uint32_t nbar = bar_off + nb * 8;
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const int r = q + 4 * i;
+        if (!send || r >= BB) continue;
+        const float v = round_bf16(h[i]);
+#pragma unroll
+        for (int p = 0; p < C; ++p)
+          st_async(peer[p] + dst + r * 4, v, peer[p] + nbar);
+      }
+    }
+  }
+  cluster_arrive();                      // no CTA leaves while a peer works
+  cluster_wait();
+}
+
+template <int BB, int MODE, int SD>
+int launch_fwd(const FwdArgs& a, const Plan& p, cudaStream_t st) {
+  const int tiles = (a.B + BB - 1) / BB;
+  if (p.resident) {
+    if constexpr (MODE == FWD) {
+      return (int)cudaErrorInvalidValue;  // inference streams Wh
+    } else {
+      const int U = res_units(a.H, BB);
+      if (!U) return (int)cudaErrorInvalidValue;
+      return launch_cluster(
+          blstm_recur_resident<BB, MODE, SD>,
+          dim3(RES_CLUSTER * tiles, 2, a.L), (4 * U + 31) / 32 * 32,
+          res_smem(a.H, BB), RES_CLUSTER, st, a.gx,
+          reinterpret_cast<const uint32_t*>(a.whf),
+          reinterpret_cast<const uint32_t*>(a.whb), a.bias_f, a.bias_b,
+          a.lengths, a.y, a.acts, a.cseq, a.hb, a.cb, a.L, a.B, a.T, a.H,
+          a.K, a.n, a.chunk);
+    }
+  }
+  const int C = p.cluster;
   const int U = cluster_units(a.H, C);
   if (!U) return (int)cudaErrorInvalidValue;
-  const dim3 grid(C * ((a.B + BB - 1) / BB), 2, a.L);
   const size_t smem = (size_t)2 * a.H * BB * sizeof(float) + BB * sizeof(int);
-  return launch_cluster(blstm_recur_cluster<BB, MODE, SD>, grid,
-                        (U + 31) / 32 * 32, smem, C, st, a.gx, a.whf, a.whb,
-                        a.bias_f, a.bias_b, a.lengths, a.y, a.acts, a.cseq,
-                        a.hb, a.cb, a.L, a.B, a.T, a.H, a.K, a.n, a.chunk, C);
+  return launch_cluster(blstm_recur_cluster<BB, MODE, SD>,
+                        dim3(C * tiles, 2, a.L), (U + 31) / 32 * 32, smem, C,
+                        st, a.gx, a.whf, a.whb, a.bias_f, a.bias_b, a.lengths,
+                        a.y, a.acts, a.cseq, a.hb, a.cb, a.L, a.B, a.T, a.H,
+                        a.K, a.n, a.chunk, C);
 }
 
 template <int MODE, int SD>
-int launch_fwd_rows(int block_b, int C, const FwdArgs& a, cudaStream_t st) {
-  switch (block_b) {
-    case 1: return launch_fwd<1, MODE, SD>(a, C, st);
-    case 2: return launch_fwd<2, MODE, SD>(a, C, st);
-    case 4: return launch_fwd<4, MODE, SD>(a, C, st);
-    case 8: return launch_fwd<8, MODE, SD>(a, C, st);
+int launch_fwd_rows(const Plan& p, const FwdArgs& a, cudaStream_t st) {
+  switch (p.block_b) {
+    case 1: return launch_fwd<1, MODE, SD>(a, p, st);
+    case 2: return launch_fwd<2, MODE, SD>(a, p, st);
+    case 4: return launch_fwd<4, MODE, SD>(a, p, st);
+    case 8: return launch_fwd<8, MODE, SD>(a, p, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

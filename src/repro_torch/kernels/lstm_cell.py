@@ -19,7 +19,11 @@
   stashing pair, or with ``seq_chunk`` the chunked pair), mirroring
   ``_blstm_vjp_fwd``/``_blstm_vjp_bwd`` (``lstm_cell.py:1026-1050``);
 * ``chunk_length`` and ``stash_bytes`` — the chunk-length rule and the
-  residual-stash accounting of the reference.
+  residual-stash accounting of the reference;
+* ``recur_plan`` — how the training wrappers launch their forward
+  recurrences: streaming Wh from device memory (short launches, 8-row
+  tiles), or with Wh resident in the shared memory of clusters of 16
+  CTAs (long launches), the same bits either way.
 
 Every tensor may carry a leading learner axis (x (L, B, T, D), weights
 (L, D, 4H), ..., lengths (L, B)): the learners are one more axis of each
@@ -34,6 +38,7 @@ plain path.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -113,8 +118,10 @@ def _fwd_lib():
     if lib.lstm_xproj.argtypes is None:
         lib.lstm_xproj.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
         lib.lstm_xproj.restype = _I
-        lib.blstm_recur.argtypes = [_P] * 9 + [_I] * 8 + [_P]
+        lib.blstm_recur.argtypes = [_P] * 9 + [_I] * 9 + [_P]
         lib.blstm_recur.restype = _I
+        lib.blstm_recur_active_clusters.argtypes = [_I, _I]
+        lib.blstm_recur_active_clusters.restype = _I
     return lib
 
 
@@ -133,7 +140,7 @@ def _bwd_lib():
 def _bwd_chunked_lib():
     lib = build.load("lstm_bwd_chunked")
     if lib.lstm_bwd_chunked.argtypes is None:
-        lib.lstm_bwd_chunked.argtypes = [_P] * 23 + [_I] * 9 + [_P]
+        lib.lstm_bwd_chunked.argtypes = [_P] * 23 + [_I] * 10 + [_P]
         lib.lstm_bwd_chunked.restype = _I
     return lib
 
@@ -161,13 +168,22 @@ def _launch(name, rc):
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
 
 
-# CTAs per cluster of the recurrences (csrc/lstm_recur.cuh), each owning
-# H / C hidden units, for the forward (K1's variants, K3's replay) and the
-# reverse (K2, K3) alike; chosen by measurement at the training shape
-# (PERF.md).  tools/ab_recurrence.py times CLUSTER_SIZES.
+# CTAs per cluster of the streaming recurrences (csrc/lstm_recur.cuh), each
+# owning H / C hidden units, for the forward (K1's variants, K3's replay)
+# and the reverse (K2, K3) alike; chosen by measurement at the training
+# shape (PERF.md).
 cluster_size = 2
-CLUSTER_SIZES = (2, 4, 8)
 MAX_UNITS = 256     # lstm_recur.cuh's MAX_CTA: units (threads) per CTA
+# The resident forward recurrence: clusters of 16 CTAs (lstm_recur.cuh's
+# RES_CLUSTER), each holding its slice of Wh in shared memory.  Where it
+# runs, measured against the streaming launch at 16 learners on the H100
+# (tools/ab_recurrence.py --stages, PERF.md §6): it wins over 1- and
+# 2-row tiles from 4 steps on, over 4-row tiles from 16 (it loses at 4),
+# and loses by ~2x over 8-row tiles at 21 to 256 steps.
+RESIDENT_CLUSTER = 16
+SMEM_LIMIT = 232448                  # shared memory of one CTA (bytes)
+RESIDENT_MIN_STEPS = 16
+RESIDENT_MAX_ROWS = 4
 
 
 def block_rows(B: int) -> int:
@@ -178,9 +194,10 @@ def block_rows(B: int) -> int:
 
 
 def recur_cluster(H: int, C: int) -> int:
-    """The cluster size a recurrence runs at width H: C, halved until H is
-    a multiple of 4·C (a slice is whole float4s of the exchanged buffers);
-    raises where no size leaves a CTA at most 256 units."""
+    """The cluster size a streaming recurrence runs at width H: C, halved
+    until H is a multiple of 4·C (a slice is whole float4s of the
+    exchanged buffers); raises where no size leaves a CTA at most 256
+    units."""
     while C > 1 and H % (4 * C):
         C //= 2
     if H // C > MAX_UNITS:
@@ -190,9 +207,84 @@ def recur_cluster(H: int, C: int) -> int:
     return C
 
 
+def resident_smem(H: int, BB: int) -> int:
+    """Shared memory of a resident forward CTA (lstm_recur.cuh's
+    ``res_smem``): its slice of Wh (H/16 units × 4 gates × H inputs,
+    bf16), h double-buffered in f32, two barriers and the tile's
+    lengths."""
+    return H * (H // RESIDENT_CLUSTER) * 8 + 2 * H * BB * 4 + 64
+
+
+class RecurPlan(NamedTuple):
+    """How one launch runs its forward recurrence: ``path`` "stream"
+    (clusters of ``cluster`` CTAs reading Wh from device memory every
+    step) or "resident" (clusters of 16 CTAs holding Wh
+    in shared memory for the whole launch); tiles of ``block_rows`` rows.
+    The reverse recurrence (K2, K3) always streams."""
+    path: str
+    block_rows: int
+    cluster: int
+
+
+def recur_plan(B: int, T: int, H: int) -> RecurPlan:
+    """The forward recurrence launch of tiles of B rows over T steps (a
+    chunked launch: its chunk's steps) at width H.  A launch of at least
+    RESIDENT_MIN_STEPS steps over tiles of at most RESIDENT_MAX_ROWS rows
+    runs resident: each step reads Wh from shared memory instead of
+    device memory.  Other launches stream, at any H: a short one reads
+    little of Wh, and an 8-row tile's step reads each weight once for 8
+    rows while its resident product is 4x a 2-row one's.
+    Raises ValueError where a resident launch is called for and H does
+    not split into 16 slices that fit one CTA: it never falls back."""
+    BB = block_rows(B)
+    if T < RESIDENT_MIN_STEPS or BB > RESIDENT_MAX_ROWS:
+        return RecurPlan("stream", BB, recur_cluster(H, cluster_size))
+    smem = resident_smem(H, BB)
+    if H % (4 * RESIDENT_CLUSTER) or smem > SMEM_LIMIT:
+        raise ValueError(
+            f"a recurrence of {T} steps runs resident on clusters of "
+            f"{RESIDENT_CLUSTER} CTAs: H={H} must be a multiple of "
+            f"{4 * RESIDENT_CLUSTER} whose slices ({H / RESIDENT_CLUSTER:g} "
+            f"units, {smem} bytes of shared memory at {BB}-row tiles) fit "
+            f"one CTA's {SMEM_LIMIT}")
+    return RecurPlan("resident", BB, RESIDENT_CLUSTER)
+
+
+def recur_waves(plan: RecurPlan, L: int, B: int, active: int) -> int:
+    """Waves of clusters a resident launch of L learners' B rows runs in
+    when the card holds ``active`` of its clusters at once
+    (:func:`active_clusters`): 2·L·ceil(B / block_rows) clusters."""
+    return -(-2 * L * -(-B // plan.block_rows) // active)
+
+
+def _plan_args(plan: RecurPlan, H: int) -> tuple:
+    """(block_b, cluster, resident) of the C interface: ``cluster`` is the
+    streaming cluster, which the reverse recurrence always runs on."""
+    return (plan.block_rows, recur_cluster(H, cluster_size),
+            int(plan.path == "resident"))
+
+
 def _tile(B: int, H: int) -> tuple:
-    """(rows per tile, cluster size) of a recurrence launch."""
+    """(rows per tile, cluster size) of a streaming recurrence launch."""
     return block_rows(B), recur_cluster(H, cluster_size)
+
+
+def active_clusters(plan: RecurPlan, H: int) -> int:
+    """How many clusters of the resident forward recurrence at ``plan``'s
+    tile rows the card holds at once (cudaOccupancyMaxActiveClusters);
+    negative: a CUDA error."""
+    return _fwd_lib().blstm_recur_active_clusters(plan.block_rows, H)
+
+
+def _launch_recur(name, rc, plan, H):
+    """Raise on a failed launch of a forward recurrence; a resident one
+    names its cluster size and how many such clusters the card holds."""
+    if rc and plan.path == "resident":
+        raise RuntimeError(
+            f"{name} launch failed: cudaError {rc}; its clusters of "
+            f"{RESIDENT_CLUSTER} CTAs: cudaOccupancyMaxActiveClusters "
+            f"{active_clusters(plan, H)}")
+    _launch(name, rc)
 
 
 def _stacked(ws, x, lengths):
@@ -238,6 +330,22 @@ def _fwd_layout(wh):
     recurrence: unit j's 4 weights for input k adjacent."""
     L, H = wh.shape[0], wh.shape[1]
     return wh.view(L, H, 4, H).transpose(2, 3).contiguous()
+
+
+def _res_fwd_layout(wh):
+    """(L, H, 4H) -> (L, 16, H/2, U, 4, 2) for the resident forward, U =
+    H/16: [l, c, k2, jj, q, e] = Wh[2·k2 + e, q·H + c·U + jj], CTA c's
+    slice as it sits in its shared memory (one 4-byte word holds the
+    weights of inputs 2·k2 and 2·k2 + 1 of one (unit, gate))."""
+    L, H = wh.shape[0], wh.shape[1]
+    C = RESIDENT_CLUSTER
+    return wh.view(L, H // 2, 2, 4, C, H // C).permute(
+        0, 4, 1, 5, 3, 2).contiguous()
+
+
+def _recur_weights(wh, plan):
+    """Wh in the layout ``plan``'s forward recurrence reads."""
+    return _res_fwd_layout(wh) if plan.path == "resident" else _fwd_layout(wh)
 
 
 def _bwd_layout(wh):
@@ -321,13 +429,17 @@ def _forward_kernel(ws, x, lengths, sdt, chunk=0):
     else:
         acts = cseq = None
         kind = 0
-    whf4, whb4 = _fwd_layout(whf), _fwd_layout(whb)
-    _launch("blstm_recur", _fwd_lib().blstm_recur(
+    # inference (K1, which K4 is bit-identical to) always streams
+    plan = recur_plan(B, T, H) if kind else RecurPlan(
+        "stream", *_tile(B, H))
+    whf4, whb4 = _recur_weights(whf, plan), _recur_weights(whb, plan)
+    _launch_recur("blstm_recur", _fwd_lib().blstm_recur(
         gx.data_ptr(), whf4.data_ptr(), whb4.data_ptr(), bf.data_ptr(),
         bb.data_ptr(), lens.data_ptr(), y.data_ptr(),
         acts.data_ptr() if acts is not None else None,
         cseq.data_ptr() if cseq is not None else None,
-        kind, L, B, T, H, chunk, *_tile(B, H), _stream(dev)))
+        kind, L, B, T, H, chunk, *_plan_args(plan, H), _stream(dev)),
+        plan, H)
     return y, acts, cseq
 
 
@@ -562,9 +674,10 @@ def blstm_layer_bwd_chunked(wxf, whf, bf, wxb, whb, bb, x, y, hb, cb, dy,
     dwhb = torch.zeros(2, L, H + 1, G, **f32)
     # held in locals: a temporary's block would go back to the allocator
     # as soon as its pointer is taken
-    whs = [_fwd_layout(whf), _fwd_layout(whb), _bwd_layout(whf),
-           _bwd_layout(whb)]
-    _launch("lstm_bwd_chunked", lib.lstm_bwd_chunked(
+    plan = recur_plan(B, chunk, H)
+    whs = [_recur_weights(whf, plan), _recur_weights(whb, plan),
+           _bwd_layout(whf), _bwd_layout(whb)]
+    _launch_recur("lstm_bwd_chunked", lib.lstm_bwd_chunked(
         x.data_ptr(), y.data_ptr(), dy.data_ptr(), hb.data_ptr(),
         cb.data_ptr(), wxf.data_ptr(), wxb.data_ptr(),
         *(w.data_ptr() for w in whs),
@@ -572,7 +685,7 @@ def blstm_layer_bwd_chunked(wxf, whf, bf, wxb, whb, bb, x, y, hb, cb, dy,
         acts.data_ptr(), cseq.data_ptr(), dg.data_ptr(), dh.data_ptr(),
         dc.data_ptr(), dx.data_ptr() if dx is not None else None,
         dwx.data_ptr(), dwhb.data_ptr(), _STASH_KIND[sdt], L, B, T, D, H,
-        chunk, *_tile(B, H), _stream(dev)))
+        chunk, *_plan_args(plan, H), _stream(dev)), plan, H)
     chunked_bwd_launches += 1
     return dx, [(dwx[d], dwhb[d, :, :H], dwhb[d, :, H].contiguous())
                 for d in range(2)]

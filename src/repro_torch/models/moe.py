@@ -8,12 +8,14 @@ its expert's capacity is dropped), in plain torch ops.
 
 ``dense`` — every expert computed for every token and weighted by the
 token's top-k combine weight (0 for an expert not selected): exact, no
-token dropped.  On the card this is ONE launch of the fused dense-MoE
-kernel (the K10 port, ``kernels/moe_dense.py``) per call, on all T
-tokens: the (tokens, E, d_ff) hidden never reaches device memory.  On
-the CPU it is the reference model's own einsum math per routing group
-(bf16 products, the router weights rounded to bf16 in the combine, and
-the ``moe_dense_fused`` variant).
+token dropped.  It is ONE call of ``kernels/moe_dense.moe_dense`` on
+all T tokens, on every device: on the card one launch of the fused
+dense-MoE kernel (the K10 port; the (tokens, E, d_ff) hidden never
+reaches device memory), on the CPU its plain version
+``moe_dense_plain``, so both devices round the same function the same
+way.  The reference's ``moe_dense_fused`` flag (the combine weights
+rounded to bf16 and contracted jointly over experts and d_ff) selects
+nothing here: the kernel keeps the router weights in f32.
 
 The optional shared expert (llama4-scout) adds a SwiGLU or GELU FFN over
 every token, in plain torch ops.  ``moe_apply`` returns ``(y, aux)`` with
@@ -110,11 +112,8 @@ def _routed(cfg, p, x):
         # the combine weight of each (token, expert): its top-k weight
         # where selected, else 0
         w_te = torch.zeros_like(probs).scatter_(-1, top_idx, top_w)
-        if x.device.type == "cpu":
-            y = _dense_groups(cfg, p, xg, w_te)
-        else:
-            y = MD.moe_dense(x.reshape(T, d).contiguous(), w_te.reshape(T, -1),
-                             p["wi"], p["wg"], p["wo"], act=cfg.act)
+        y = MD.moe_dense(x.reshape(T, d).contiguous(), w_te.reshape(T, -1),
+                         p["wi"], p["wg"], p["wo"], act=cfg.act)
     else:
         y = _dispatch(cfg, p, xg, top_w, top_idx)
     y = y.reshape(B, S, d)
@@ -137,24 +136,6 @@ def moe_apply(cfg, p, x):
     E = cfg.moe.num_experts
     onehot = torch.nn.functional.one_hot(top_idx, E)
     return y, _aux_loss(probs, onehot.amax(dim=2), E)
-
-
-def _dense_groups(cfg, p, xg, w_te):
-    """The reference model's dense branch on the CPU, group by group."""
-    fused = cfg.moe_dense_fused
-    out = []
-    for xs, ws in zip(xg, w_te):
-        h = torch.einsum("sd,edf->esf", xs, p["wi"])
-        h = _act(cfg, h, lambda: torch.einsum("sd,edf->esf", xs, p["wg"]))
-        if fused:
-            # weight the hidden by the router and contract (experts, ff)
-            # jointly
-            hw = h * ws.T[:, :, None].to(h.dtype)
-            out.append(torch.einsum("esf,efd->sd", hw, p["wo"]))
-        else:
-            ye = torch.einsum("esf,efd->esd", h, p["wo"])
-            out.append(torch.einsum("esd,se->sd", ye, ws.to(ye.dtype)))
-    return torch.stack(out)
 
 
 def _dispatch(cfg, p, xg, top_w, top_idx):

@@ -365,6 +365,83 @@ def test_chunked_bwd_kernel_matches_plain_and_k2(cuda, L, B, T, D, H, K,
                 assert _norm_err(g_, w_) <= 2e-5
 
 
+@pytest.mark.parametrize("L,B,T,D,H,K,min_waves", [
+    (16, 2, 300, 64, 512, 64, 2),   # 32 clusters of 16 CTAs, 2-row tiles
+    (4, 3, 40, 32, 64, 16, 1),      # the reduced width, 4-row tiles
+])
+def test_resident_recurrences_in_waves_match_k1_stash_k2_and_plain(
+        cuda, L, B, T, D, H, K, min_waves):
+    """The resident forward recurrence at the full width's 16 learners x
+    2 rows, T = 300, K = 64, which runs in two waves of clusters or more,
+    and at the reduced width's 4 learners x 3 rows, with a length-1 row
+    and rows whose last chunks are wholly
+    masked: every output bit-identical to the streaming launch's,
+    K1-chunk's y to K1-stash's, K3's dx to K2's, K3's gradients within
+    2e-5 of K2's, both kernels within the bf16 tolerance of their plain
+    versions.  Weights at 1/sqrt(fan-in), as the model draws them: at
+    H = 512 the 0.3 of ``_stacked`` saturates every gate, and over 300
+    steps the plain version's other sum order then drifts by more than
+    any tolerance."""
+    from unittest import mock
+
+    from repro_torch.kernels import lstm_cell
+
+    plan = lstm_cell.recur_plan(B, K, H)
+    assert plan.path == "resident"
+    assert lstm_cell.recur_waves(
+        plan, L, B, lstm_cell.active_clusters(plan, H)) >= min_waves
+    g = torch.Generator().manual_seed(21)
+
+    def w(*shape, fan):
+        return (torch.randn(*shape, generator=g) * fan ** -0.5).to(
+            cuda, torch.bfloat16)
+
+    ws = []
+    for _ in range(2):
+        ws += [w(L, D, 4 * H, fan=D), w(L, H, 4 * H, fan=H),
+               (torch.randn(L, 4 * H, generator=g) * 0.1).to(cuda)]
+    x = w(L, B, T, D, fan=1)
+    lens = torch.randint(1, T + 1, (L, B), generator=g)
+    lens[:, 0] = T
+    lens[0, -1] = 1
+    lens[-1, -1] = T - K - 7
+    lens = lens.to(cuda, torch.int32)
+    dy = torch.randn(L, B, T, 2 * H, generator=g).to(cuda, torch.bfloat16)
+
+    def run():
+        fwd = lstm_cell.blstm_layer_train_chunked(*ws, x, lens, chunk=K)
+        y, acts, cseq = lstm_cell.blstm_layer_train(*ws, x, lens)
+        k3 = lstm_cell.blstm_layer_bwd_chunked(*ws, x, *fwd, dy, lens,
+                                               chunk=K)
+        k2 = lstm_cell.blstm_layer_bwd(ws[0], ws[1], ws[3], ws[4], x, y,
+                                       acts, cseq, dy, lens)
+        return fwd, (y, acts, cseq), k3, k2
+
+    def flat(out):
+        if isinstance(out, (list, tuple)):
+            return [t for o in out for t in flat(o)]
+        return [] if out is None else [out]
+
+    got = run()
+    stream = lstm_cell.RecurPlan("stream", *lstm_cell._tile(B, H))
+    with mock.patch.object(lstm_cell, "recur_plan", lambda *a: stream):
+        want = run()
+    assert all(torch.equal(a, b) for a, b in zip(flat(got), flat(want)))
+    (fwd, (y, _, _), (dx, grads), (dx2, grads2)) = got
+    assert torch.equal(fwd[0], y) and torch.equal(dx, dx2)
+    plain = lstm_cell.blstm_layer_train_chunked(*ws, x, lens, chunk=K,
+                                                plain=True)
+    for g_, w_ in zip(fwd, plain):
+        assert _norm_err(g_, w_) <= BF16_TOL
+    dx_w, grads_w = lstm_cell.blstm_layer_bwd_chunked(*ws, x, *fwd, dy, lens,
+                                                      chunk=K, plain=True)
+    assert _norm_err(dx, dx_w) <= BF16_TOL
+    for d in range(2):
+        for g_, w_, w2 in zip(grads[d], grads_w[d], grads2[d]):
+            assert _norm_err(g_, w_) <= BF16_TOL
+            assert _norm_err(g_, w2) <= 2e-5
+
+
 def test_train_step_on_card_matches_plain(cuda):
     """Reduced-width ad_psgd step: the kernel path's loss and gradients
     against the plain path on the card."""
