@@ -29,10 +29,13 @@ Phases, each of which fails the run (nonzero exit, no result line):
    the loop of K1 launches, at the serving admission's shape (B = 1, T =
    256, 6 layers of 512, D0 = 260), evaluate's (B = 8, T = 256, var-len
    with a length-1 row), a small ragged one (B = 5 in a tile of 8, H =
-   16, 3 layers) and B = 16, T = 21, 2 layers (the K1 loop's 16 rows in
-   two tiles, K4's in two); B = 1 and B = 8 timed (eager, and one launch
-   replayed from a CUDA graph) beside the K1 loop, the plain version, the
-   bound and cuDNN's 6-layer bidirectional LSTM;
+   16, 3 layers: the item path) and B = 16, T = 21, 2 layers (the K1
+   loop's 16 rows in two tiles, K4's in four 4-row tiles a direction, two
+   waves of clusters), each with its plan (``lstm_cell.stack_plan``: path,
+   tile rows, clusters of 16 CTAs, waves of the clusters the card holds at
+   once); B = 1 and B = 8 timed (eager, and one launch replayed from a
+   CUDA graph) beside the K1 loop, the plain version, the bound and
+   cuDNN's 6-layer bidirectional LSTM;
 4. serve   — the full-width ``swb2000-blstm`` AsrServer (6 BLSTM layers
    of 512 per direction, vocab 32000, random weights from seed 0)
    serves 8 synthetic utterances to completion with every launch counter
@@ -94,11 +97,14 @@ Phases, each of which fails the run (nonzero exit, no result line):
    kernel (K8 port) over a shuffled 512-page pool of 16 positions with
    padded tables at 2e-2, and bit-identical to K7 at block_s = 16 on
    contiguous pages; K7 again at hymba-1.5b's decode shape (S = 2048,
-   M = 5, window 1024); argmax (K6 port) on (8, 49152) bf16 logits with
-   planted ties and NaN, bit for bit; each timed beside its plain
-   version, its byte bound and a library call, and per launch with the
-   host's dispatch taken out (``_device_ms``: back-to-back launches
-   replayed from one CUDA graph);
+   M = 5, window 1024); argmax (K6 port) on (8, 49152) logits with
+   planted ties (one across a slice bound), NaN (one only in the last
+   slice) and -inf, bit for bit in bf16, in f32 and one element off a
+   16-byte boundary; each timed beside its plain version, its byte bound
+   and a library call, and per launch with the host's dispatch taken out
+   (``_device_ms``: back-to-back launches replayed from one CUDA graph;
+   for K6 ``torch.argmax`` too, and both eager times as medians of five
+   alternating turns);
 8a. k11 — the flash-attention kernel (K11 port) against its plain
    version ``flash_attention_plain`` at 1e-2 of each (position, head)
    row's largest value (half the bf16 output's 2e-2, held since p is
@@ -927,10 +933,12 @@ def check_k5(gen):
 
 
 # K4 at the serving admission's shape (B = 1, T = 256, a 173-frame
-# utterance) and evaluate's (B = 8, T = 256, var-len with a length-1 row),
-# both timed; a small ragged case (B = 5 in a tile of 8, H = 16, 3 layers)
-# first; and B = 16 at T = 21, 2 layers, where the K1 loop runs two
-# 8-row tiles on clusters and K4 two 8-row items of its own
+# utterance: 1-row resident tiles) and evaluate's (B = 8, T = 256, var-len
+# with a length-1 row: 4-row tiles, one wave), both timed; a small ragged
+# case (B = 5 in a tile of 8, H = 16, 3 layers: the item path) first; and
+# B = 16 at T = 21, 2 layers, where the K1 loop runs two 8-row tiles on
+# clusters of 2 and K4 four 4-row tiles a direction on clusters of 16, in
+# two waves
 K4_CASES = [(5, 9, 12, 16, 3, (9, 4, 1, 9, 6)),
             (1, 256, 260, 512, 6, (173,)),
             (8, 256, 260, 512, 6, (256, 240, 199, 150, 97, 64, 12, 1)),
@@ -977,13 +985,29 @@ def _row_norm_err(got, want) -> tuple:
             float((diff / (want.abs().flatten(1).amax(1) + 1e-6)).max()))
 
 
+def _stack_plan(B, H):
+    """K4's plan at this shape (``lstm_cell.stack_plan``) as a dict, with
+    the clusters the card holds at once on the resident path, and as
+    printed."""
+    from repro_torch.kernels import lstm_cell as LC
+
+    active = LC.stack_active_clusters(H) if LC.stack_resident(H) else 0
+    plan = LC.stack_plan(B, H, active)
+    text = f"{plan.path}, tiles of {plan.block_rows} rows"
+    if plan.path == "resident":
+        text += (f", {plan.clusters} clusters of {LC.RESIDENT_CLUSTER} CTAs "
+                 f"in {plan.waves} wave(s) of the {active} the card holds")
+    return dict(plan._asdict(), active_clusters=active), text
+
+
 def check_k4(gen):
     """The fused stack (K4 port) against its plain version (2e-2 per
     utterance, every value finite) and bit-identical to the per-layer K1
-    loop; both full-width shapes timed (eager, and one launch replayed
-    from a CUDA graph) beside the K1 loop, the plain version, the bound
-    and cuDNN's stacked bidirectional LSTM.  The K1 launches of the loop
-    are comparisons, not the main path: the counters are restored."""
+    loop, each case's plan printed; both full-width shapes timed (eager,
+    and one launch replayed from a CUDA graph) beside the K1 loop, the
+    plain version, the bound and cuDNN's stacked bidirectional LSTM.  The
+    K1 launches of the loop are comparisons, not the main path: the
+    counters are restored."""
     import torch
 
     from repro_torch.kernels import lstm_cell as LC
@@ -1005,9 +1029,11 @@ def check_k4(gen):
         want = blstm_stack_plain(layers, x, lengths)
         abs_err, norm = _row_norm_err(got, want)
         shape = f"B={B} T={T} D0={D0} H={H} L={n_layers}"
-        print(f"[K4] blstm_stack {shape} lengths={lens}: bit-identical to "
-              f"the K1 loop {same}; vs plain max_abs_err {abs_err:.3g}, "
-              f"worst per-utterance {norm:.3g} (tol {K1_TOL})", flush=True)
+        plan, plan_text = _stack_plan(B, H)
+        print(f"[K4] blstm_stack {shape} lengths={lens} ({plan_text}): "
+              f"bit-identical to the K1 loop {same}; vs plain max_abs_err "
+              f"{abs_err:.3g}, worst per-utterance {norm:.3g} (tol "
+              f"{K1_TOL})", flush=True)
         if not torch.isfinite(got).all():
             _fail(f"K4 {shape}: non-finite output")
         if not same:
@@ -1034,7 +1060,7 @@ def check_k4(gen):
         timings[B] = dict(ms=ms, device_ms=dev_ms, k1_loop_ms=loop_ms,
                           k1_loop_device_ms=loop_dev_ms, plain_ms=plain_ms,
                           library_ms=library_ms, bound_ms=bound_ms,
-                          bound_by=bound_by)
+                          bound_by=bound_by, plan=plan)
         print(f"[K4] {shape}: kernel {ms:.3f} ms (device {_ms(dev_ms)}), "
               f"K1 loop {loop_ms:.3f} ms (device {_ms(loop_dev_ms)}), plain "
               f"{plain_ms:.1f} ms, library {library_ms} ms, bound "
@@ -2086,6 +2112,10 @@ def check_k8(gen):
 
 
 def check_k6(gen):
+    """K6 at the dense decode's shape, bit for bit against its plain
+    version on rows of planted ties, NaN and -inf, in bf16, in f32 and on
+    a view one element off a 16-byte boundary; timed eager and
+    graph-replayed beside ``torch.argmax``, timed the same two ways."""
     import torch
 
     from repro_torch.decode import kernel as DK
@@ -2097,30 +2127,50 @@ def check_k6(gen):
     x[2, 5] = float("inf")
     x[3] = float("-inf")
     x[4] = torch.round(x[4] * 2) / 2            # many ties
+    x[5, [V // 8 - 1, V // 8]] = 9.0            # a tie across a slice bound
+    x[6, -1] = float("nan")                     # NaN only in the last slice
     x = x.to("cuda", torch.bfloat16)
-    got = DK.argmax_tokens(x)
-    torch.cuda.synchronize()
-    want = DK.argmax_ref(x)
-    if not torch.equal(got, want):
-        _fail(f"K6 argmax {got.tolist()} != plain {want.tolist()}")
-    if got[1] != 7 or got[2] != 100 or got[3] != 0:
-        _fail(f"K6 ties/NaN/-inf rows gave {got[1:4].tolist()}")
-    print(f"[K6] argmax_tokens ({B}, {V}) bf16, ties + NaN + -inf rows: "
+    shifted = torch.empty(B * V + 1, dtype=torch.bfloat16, device="cuda")
+    shifted = shifted[1:].view(B, V)
+    shifted.copy_(x)
+    for tag, rows in (("bf16", x), ("f32", x.float()),
+                      ("bf16 at an offset of one element", shifted)):
+        got = DK.argmax_tokens(rows)
+        torch.cuda.synchronize()
+        want = DK.argmax_ref(rows)
+        if not torch.equal(got, want):
+            _fail(f"K6 argmax {tag} {got.tolist()} != plain "
+                  f"{want.tolist()}")
+        if got[1:4].tolist() != [7, 100, 0] or got[5:7].tolist() != \
+                [V // 8 - 1, V - 1]:
+            _fail(f"K6 {tag} ties/NaN/-inf rows gave {got[1:7].tolist()}")
+    slices = DK.argmax_slices(B, V, 2, DK._n_sm)
+    print(f"[K6] argmax_tokens ({B}, {V}) bf16, f32 and at an offset of one "
+          f"element, {slices} CTAs a row, ties + NaN + -inf rows: "
           f"bit-identical to the plain version {got.tolist()}", flush=True)
-    ms = _time_ms(lambda: DK.argmax_tokens(x), 200)
+    # both eager times are the host's: taken in turns, kernel and library
+    # alternating, each the median of its five, so that the host's drift
+    # over the phase falls on both alike
+    turns = [(_time_ms(lambda: DK.argmax_tokens(x), 200),
+              _time_ms(lambda: torch.argmax(x, dim=-1), 200))
+             for _ in range(5)]
+    ms, library_ms = (sorted(t)[2] for t in zip(*turns))
     plain_ms = _time_ms(lambda: DK.argmax_ref(x), 200)
-    library_ms = _time_ms(lambda: torch.argmax(x, dim=-1), 200)
     dev_ms = _device_ms(lambda: DK.argmax_tokens(x))
+    lib_dev_ms = _device_ms(lambda: torch.argmax(x, dim=-1))
     bound_ms, bound_by = _bound(B * V * 2 + B * 4, B * V, PEAK_F32_FLOPS)
-    print(f"[K6] kernel {ms:.4f} ms eager; graph-replayed per launch "
-          f"{_ms(dev_ms)}; plain {plain_ms:.4f} ms, library "
-          f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})",
-          flush=True)
+    print(f"[K6] kernel {ms:.4f} ms eager (median of 5 turns "
+          f"{[round(k, 4) for k, _ in turns]}), graph-replayed per launch "
+          f"{_ms(dev_ms)}; torch.argmax {library_ms:.4f} ms eager (turns "
+          f"{[round(t, 4) for _, t in turns]}), graph-replayed "
+          f"{_ms(lib_dev_ms)}; plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by})", flush=True)
     return dict(name="argmax_tokens", route="cuda",
                 source="src/repro_torch/decode/csrc/argmax.cu",
                 replaces="src/repro/decode/kernel.py:158", max_abs_err=0.0,
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, device_ms=dev_ms,
                 bound_by=bound_by, library_ms=library_ms,
+                library_device_ms=lib_dev_ms, slices=slices,
                 shape=f"B={B} V={V} bf16")
 
 

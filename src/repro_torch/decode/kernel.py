@@ -16,6 +16,7 @@ Neither falls back from the card to the plain path.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -110,25 +111,74 @@ def argmax_ref(logits):
     return torch.argmax(logits.float(), dim=-1).to(torch.int32)
 
 
+ARGMAX_THREADS = 256     # argmax.cu's THREADS
+MAX_SLICES = 8           # argmax.cu's MAX_SLICES: CTAs (a cluster) per row
+_ARGMAX_KIND = {torch.bfloat16: (0, 2), torch.float32: (1, 4)}  # is_f32, size
+
+
+@functools.lru_cache(maxsize=None)       # off the per-call path
+def argmax_slices(B: int, V: int, itemsize: int, n_sm: int) -> int:
+    """CTAs per row of K6: up to MAX_SLICES, as many as B·S ≤ n_sm (the
+    card's SMs) allows, and no more than give each thread of a CTA one of
+    the row's 16-byte vectors."""
+    n_vec = V * itemsize // 16
+    return max(1, min(MAX_SLICES, n_sm // B, n_vec // ARGMAX_THREADS))
+
+
+def argmax_bounds(V: int, S: int, itemsize: int, head: int = 0) -> list:
+    """The element ranges [lo, hi) of one row's S slices as argmax.cu cuts
+    it: whole 16-byte vectors counted from the row's first 16-byte
+    boundary, ``head`` elements in; the elements before it go to slice 0,
+    those after the last whole vector to slice S - 1."""
+    per = 16 // itemsize
+    head = min(head, V)
+    n_vec = (V - head) // per
+    cut = [0] + [head + per * (n_vec * s // S) for s in range(1, S)] + [V]
+    return list(zip(cut[:-1], cut[1:]))
+
+
+_argmax_rows = None      # the bound entry point, once built
+_n_sm = 0
+_raw_stream = None
+
+
+def _argmax_entry():
+    """The bound ``argmax_rows``; also sets the SM count and the current
+    stream's accessor.  ``torch.cuda.current_stream(dev).cuda_stream``
+    builds a Stream object every call (~9 µs of a ~27 µs call on the
+    H100's host, PERF.md §6); the raw handle is the accessor PyTorch's own
+    generated kernels launch on (``torch._C._cuda_getCurrentRawStream``,
+    the same stream)."""
+    global _argmax_rows, _n_sm, _raw_stream
+    if _argmax_rows is None:
+        fn = build.load("argmax").argmax_rows
+        fn.argtypes = [_P, _P, _I, _I, _I, _I, _P]
+        fn.restype = _I
+        _n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        _raw_stream = torch._C._cuda_getCurrentRawStream
+        _argmax_rows = fn
+    return _argmax_rows
+
+
 def argmax_tokens(logits):
-    """(B, V) bf16 or f32 logits -> (B,) int32 token ids."""
+    """(B, V) bf16 or f32 logits -> (B,) int32 token ids.  Called once per
+    decode group, so the card's path does only what depends on the
+    tensor: the library, its bound entry point and the SM count are looked
+    up once."""
     global argmax_launches
-    if logits.device.type == "cpu":
+    if logits.is_cpu:
         return argmax_ref(logits)
     require_kernel_device(logits)
-    if (logits.dim() != 2 or not logits.is_contiguous()
-            or logits.dtype not in (torch.bfloat16, torch.float32)):
+    spec = _ARGMAX_KIND.get(logits.dtype)
+    if logits.dim() != 2 or spec is None or not logits.is_contiguous():
         raise ValueError(f"logits: expected contiguous (B, V) bf16 or f32, "
                          f"got {tuple(logits.shape)} {logits.dtype}")
     B, V = logits.shape
-    out = torch.empty(B, dtype=torch.int32, device=logits.device)
-    lib = build.load("argmax")
-    if lib.argmax_rows.argtypes is None:
-        lib.argmax_rows.argtypes = [_P, _P, _I, _I, _I, _P]
-        lib.argmax_rows.restype = _I
-    rc = lib.argmax_rows(logits.data_ptr(), out.data_ptr(), B, V,
-                         int(logits.dtype == torch.float32),
-                         torch.cuda.current_stream(logits.device).cuda_stream)
+    fn = _argmax_rows or _argmax_entry()
+    out = logits.new_empty(B, dtype=torch.int32)
+    rc = fn(logits.data_ptr(), out.data_ptr(), B, V, spec[0],
+            argmax_slices(B, V, spec[1], _n_sm),
+            _raw_stream(0))                    # cuda:0, checked above
     if rc:
         raise RuntimeError(f"argmax launch failed: cudaError {rc}")
     argmax_launches += 1

@@ -23,16 +23,25 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+_CAPABLE: set = set()    # device indices whose capability was checked
+
+
 def require_kernel_device(t: torch.Tensor) -> None:
-    """Raise unless ``t`` lies on a CUDA device of capability (9, 0)."""
-    if t.device.type != "cuda":
-        raise ValueError(f"kernel needs a CUDA tensor, got {t.device}")
-    if (t.device.index or 0) != 0:
+    """Raise unless ``t`` lies on a CUDA device of capability (9, 0); the
+    capability is read once per device index."""
+    if t.get_device() in _CAPABLE:     # cuda:0 (-1 off the card), checked
+        return                         # before: no device object built
+    dev = t.device
+    if dev.type != "cuda":
+        raise ValueError(f"kernel needs a CUDA tensor, got {dev}")
+    index = dev.index or 0
+    if index != 0:
         # the ctypes libraries launch on their own runtime's current
         # device, which is device 0
-        raise ValueError(f"the kernels launch on cuda:0, got {t.device}")
-    cap = torch.cuda.get_device_capability(t.device)
+        raise ValueError(f"the kernels launch on cuda:0, got {dev}")
+    cap = torch.cuda.get_device_capability(dev)
     if tuple(cap) != KERNEL_CAPABILITY:
         raise RuntimeError(
-            f"the kernels are built for sm_90a; device {t.device} has "
+            f"the kernels are built for sm_90a; device {dev} has "
             f"capability {cap}")
+    _CAPABLE.add(index)

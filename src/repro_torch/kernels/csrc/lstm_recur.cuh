@@ -7,11 +7,13 @@
 // instructions K1 ran (lstm_fwd.cu) and undoes it with the very
 // instructions of K2 (lstm_bwd.cu): the recomputed gates and cell states
 // are bit-identical to the stash of K1's training variant, and K3's
-// dgates to K2's.  K4 (lstm_stack.cu) walks its own items
-// (`blstm_recur_item`) with the same per-unit sums and the same cell
-// update (`cell_step`), so it is bit-identical to the K1 loop.  The file
-// notes of lstm_fwd.cu and lstm_bwd.cu say what bounds each kernel on the
-// H100.
+// dgates to K2's.  K4 (lstm_stack.cu) walks its layers' items with the
+// resident routine of the training forwards (`resident_item`), or, where H
+// does not split into 16 slices, with its own 512-thread items
+// (`blstm_recur_item`); both keep K1's per-unit sums and cell update
+// (`cell_step`), so K4 is bit-identical to the K1 loop.  The file notes of
+// lstm_fwd.cu, lstm_bwd.cu and lstm_stack.cu say what bounds each kernel
+// on the H100.
 //
 // Time indexing shared by both kernels.  A launch walks `Tg` rows per
 // batch row of its per-step arrays (gx, the stash, dgates): all T frames
@@ -40,19 +42,21 @@
 // runs in the same order as in `blstm_recur_item` and the kernels before
 // the split, whatever C and BB: the bits do not depend on them.
 //
-// Wh resident (`blstm_recur_resident`: the long forward launches of
-// K1-stash, K1-chunk and K3's replay, `lstm_cell.recur_plan`).  The
-// streaming kernels read their share of Wh from device memory every step:
-// 64 MiB a step over 16 learners and both directions at H = 512, more
-// than the L2 holds.  The resident forward runs clusters of 16 CTAs
-// (non-portable), each CTA copying its 128 KB slice of Wh into shared
-// memory once, at the start of the launch; the launch's clusters run in
-// as many waves as the card holds at once (7 clusters on the H100).  The
-// exchange of each step's h goes through st.async stores that complete
-// the peers' mbarriers, double-buffered, with no cluster barrier inside
-// the step loop.  Every (unit, gate, row) sum keeps its order, so the bits
-// are the streaming kernel's.  A resident reverse of the same design was
-// no faster than the streaming one (PERF.md §6), so the reverse streams.
+// Wh resident (`resident_item`: the long forward launches of K1-stash,
+// K1-chunk and K3's replay, `lstm_cell.recur_plan`, and every layer of K4
+// where H splits, `lstm_cell.stack_plan`).  The streaming kernels read
+// their share of Wh from device memory every step: 64 MiB a step over 16
+// learners and both directions at H = 512, more than the L2 holds.  The
+// resident forward runs clusters of 16 CTAs (non-portable), each CTA
+// copying its 128 KB slice of Wh into shared memory once an item (K4: once
+// a layer where a cluster's items share a direction and learner); the
+// items run in as many waves as the card holds clusters at once (7 on the
+// H100).  The exchange of each step's h goes through st.async stores that
+// complete the peers' mbarriers, double-buffered, with no cluster barrier
+// inside the step loop.  Every (unit, gate, row) sum keeps its order, so
+// the bits are the streaming kernel's.  A resident reverse of the same
+// design was no faster than the streaming one (PERF.md §6), so the
+// reverse streams.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -74,8 +78,9 @@ constexpr int RES_CLUSTER = 16;        // CTAs of a resident cluster
 constexpr int MAX_RES_THREADS = 512;   // threads of a resident CTA
 constexpr int SMEM_LIMIT = 232448;     // dynamic shared memory of one CTA
 
-// K4's recurrence runs in a 512-thread block declared
-// __launch_bounds__(MAX_H, 1): one block per SM is all a step needs.
+// K4's blocks (512 threads: its item path's one thread per hidden unit,
+// and two x-projection tiles at once) and the resident CTAs are declared
+// __launch_bounds__(512, 1): one block per SM is all a step needs.
 // Without the minimum, ptxas held the registers to what two 512-thread
 // blocks allow and spilled; with it the per-layer kernels of that design
 // ran 1.6-5.5x faster on the H100 (PERF.md, kernel table).
@@ -178,13 +183,14 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // The launch configuration of a cluster kernel; clusters above the
-// portable 8 CTAs are allowed.
+// portable 8 CTAs are allowed.  `cooperative`: the runtime also refuses a
+// grid whose blocks are not all resident at once (K4's grid barrier).
 struct ClusterLaunch {
   cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
+  cudaLaunchAttribute attr[2];
   template <class Kernel>
   int init(Kernel kernel, dim3 grid, int threads, size_t smem, int C,
-           cudaStream_t st) {
+           cudaStream_t st, bool cooperative = false) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err == cudaSuccess && C > MAX_CLUSTER)
@@ -199,8 +205,10 @@ struct ClusterLaunch {
     attr[0].val.clusterDim.x = C;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
+    attr[1].id = cudaLaunchAttributeCooperative;
+    attr[1].val.cooperative = 1;
     cfg.attrs = attr;
-    cfg.numAttrs = 1;
+    cfg.numAttrs = cooperative ? 2 : 1;
     return 0;
   }
 };
@@ -249,7 +257,7 @@ struct Plan {
 
 // Shared memory of a resident forward CTA: its slice of Wh, h
 // double-buffered in f32, two barriers and the lengths.
-__host__ __forceinline__ size_t res_smem(int H, int BB) {
+__host__ __device__ __forceinline__ size_t res_smem(int H, int BB) {
   const size_t U = H / RES_CLUSTER;
   return (size_t)H * U * 8 + 2 * (size_t)H * BB * 4 + 64;
 }
@@ -673,50 +681,89 @@ struct FwdBatch {
   }
 };
 
-// The forward recurrence with Wh resident: one cluster of RES_CLUSTER
-// CTAs per (batch tile, direction, learner), grid (16·ceil(B / BB), 2, L)
-// in as many waves of clusters as the card holds.  CTA c owns units
-// [c·U, (c+1)·U), U = H / 16, and copies its slice of Wh (U units × 4
-// gates × H inputs, 128 KB at H = 512) into shared memory once, at the
-// start of the launch; every step then reads Wh from there.  Thread
-// 4·jj + q forms gate q of unit c·U + jj for every row of the tile: the
-// sum over k of h[r][k]·Wh[k, qH + j] runs in the order of every other
+// The forward recurrence with Wh resident, one (batch tile, direction,
+// learner) at a time on a cluster of RES_CLUSTER CTAs.  CTA c owns units
+// [c·U, (c+1)·U), U = H / 16, and reads its slice of Wh (U units × 4 gates
+// × H inputs, 128 KB at H = 512) from its shared memory every step.
+// Thread 4·jj + q forms gate q of unit c·U + jj for every row of the tile:
+// the sum over k of h[r][k]·Wh[k, qH + j] runs in the order of every other
 // kernel here (k upwards, one FMA a term), so the bits are those of
-// `blstm_recur_cluster`.  Shuffles gather the unit's four gate sums and
-// thread 4·jj + q updates the cell of rows q, q + 4, ..., and stores the
-// new h of those rows, rounded to bf16 as every kernel here rounds it,
-// into buffer (s + 1) % 2 of every CTA of the cluster (itself included)
-// with st.async; step s + 1 starts when the step's H·BB·4 bytes have
-// completed this CTA's barrier for that buffer.  A peer can only write a
-// buffer again two steps later, after it has received this CTA's next h,
-// which no thread sends before its own product has read the buffer: no
-// other barrier is needed.  The product loads its operands in batches,
-// the next batch's in flight during this one's FMAs.  Dynamic shared
-// memory: the slice of Wh as words [k/2][4U] (the bf16 weights of inputs
-// k and k + 1, k even, of one (unit, gate)), h double-buffered
-// ([2][H][BB] floats), a barrier per buffer and the lengths.
+// `blstm_recur_cluster` and `blstm_recur_item`.  Shuffles gather the
+// unit's four gate sums and thread 4·jj + q updates the cell of rows q,
+// q + 4, ..., and stores the new h of those rows, rounded to bf16 as every
+// kernel here rounds it, into buffer (s + 1) % 2 of every CTA of the
+// cluster (itself included) with st.async; step s + 1 starts when the
+// step's H·BB·4 bytes have completed this CTA's barrier for that buffer.
+// A peer can only write a buffer again two steps later, after it has
+// received this CTA's next h, which no thread sends before its own product
+// has read the buffer: no other barrier is needed.  The product loads its
+// operands in batches, the next batch's in flight during this one's FMAs.
+//
+// Two kernels walk items with it: `blstm_recur_resident` (one item a
+// cluster, the training forwards) and the fused stack K4 (lstm_stack.cu:
+// every layer's items in one launch, each cluster walking several).
+
+// A resident CTA's dynamic shared memory (`res_smem` bytes from `base`):
+// its slice of Wh as words [k/2][4U] (the bf16 weights of inputs k and
+// k + 1, k even, of one (unit, gate)), h double-buffered ([2][H][BB]
+// floats), a barrier per buffer and the tile's lengths.
+template <int BB>
+struct ResSmem {
+  uint32_t* ws;
+  float* hs;
+  uint64_t* bar;
+  int* lens;
+  __device__ __forceinline__ ResSmem(float* base, int H) {
+    ws = reinterpret_cast<uint32_t*>(base);
+    hs = base + (size_t)(H / 2) * 4 * (H / RES_CLUSTER);
+    bar = reinterpret_cast<uint64_t*>(hs + 2 * H * BB);
+    lens = reinterpret_cast<int*>(bar + 2);
+  }
+  // once a launch, before the first item's cluster barrier publishes them
+  __device__ __forceinline__ void init_barriers() const {
+    if (threadIdx.x == 0) {
+      sm90::mbar_init(bar, 1);
+      sm90::mbar_init(bar + 1, 1);
+      sm90::mbar_fence_init();
+    }
+  }
+};
+
+// Start copying CTA `rank`'s slice of learner l's Wh (the resident layout
+// (L, 16, H/2, U, 4, 2), `lstm_cell._res_fwd_layout`) into the start of
+// its shared memory with cp.async, every thread of the block issuing its
+// share; `resident_item` waits for it.
+__device__ __forceinline__ void res_load_slice(float* base,
+                                               const uint32_t* wr, int l,
+                                               int rank, int H) {
+  const size_t words = (size_t)(H / 2) * 4 * (H / RES_CLUSTER);
+  cp_async_block(base, wr + ((size_t)l * RES_CLUSTER + rank) * words,
+                 words * 4);
+}
+
+// One item (batch tile `tile`, direction d, learner l) on CTA `rank` of
+// its cluster, every CTA of the cluster calling it together, with its
+// slice of Wh in shared memory at `smem` or on its way there (cp.async)
+// and its barriers set up.  `par` holds the parity of each barrier's next
+// phase; the parities after the item are returned, so a CTA may walk
+// items and layers one after another in a launch.  Every thread of the
+// CTA calls it (any block size from 4U up); the warps that own no (unit,
+// gate) leave after the cluster barrier that starts the item.  No barrier
+// follows the last step: the caller keeps a CTA from exiting, or from its
+// next item, while a peer still works.
 template <int BB, int MODE, int SD>
-__global__ void __launch_bounds__(MAX_RES_THREADS, 1) blstm_recur_resident(
-    const float* __restrict__ gx, const uint32_t* __restrict__ wrf,
-    const uint32_t* __restrict__ wrb, const float* __restrict__ bias_f,
-    const float* __restrict__ bias_b, const int* __restrict__ lengths,
-    bf16* __restrict__ y, void* __restrict__ acts, void* __restrict__ cseq,
-    void* __restrict__ hb, void* __restrict__ cb, int L, int B, int T, int H,
-    int K, int n, int chunk) {
+__device__ __forceinline__ uint32_t resident_item(
+    const float* gx, const float* bias_f, const float* bias_b,
+    const int* lengths, bf16* y, void* acts, void* cseq, void* hb, void* cb,
+    int L, int B, int T, int H, int K, int n, int chunk, int tile, int d,
+    int l, int rank, float* smem, uint32_t par) {
   constexpr int C = RES_CLUSTER;
   constexpr int RPT = (BB + 3) / 4;              // rows a thread updates
-  extern __shared__ __align__(16) float smem[];
   const int U = H / C, NT = 4 * U, H2 = H / 2;
-  const uint32_t* ws = reinterpret_cast<const uint32_t*>(smem);
-  float* hs = smem + (size_t)H2 * NT;            // [2][H][BB]
-  uint64_t* bar = reinterpret_cast<uint64_t*>(hs + 2 * H * BB);   // [2]
-  int* lens = reinterpret_cast<int*>(bar + 2);
-  const int rank = (int)(blockIdx.x % C);
-  const int b0 = (int)(blockIdx.x / C) * BB;
-  const int d = blockIdx.y;
-  const int l = blockIdx.z;
+  const ResSmem<BB> sm(smem, H);
+  const int b0 = tile * BB;
   const size_t G = 4 * (size_t)H;
-  const float* __restrict__ bias = (d ? bias_b : bias_f) + (size_t)l * G;
+  const float* bias = (d ? bias_b : bias_f) + (size_t)l * G;
   lengths += (size_t)l * B;
   const int Tg = MODE == REPLAY ? K : T;
   const int t0 = MODE == REPLAY ? chunk_t0(d, chunk, K, n) : 0;
@@ -733,18 +780,12 @@ __global__ void __launch_bounds__(MAX_RES_THREADS, 1) blstm_recur_resident(
   uint32_t peer[C];
 #pragma unroll
   for (int p = 0; p < C; ++p) peer[p] = cluster_base(base, p);
-  const uint32_t hs_off = sm90::smem_u32(hs) - base;
-  const uint32_t bar_off = sm90::smem_u32(bar) - base;
+  const uint32_t hs_off = sm90::smem_u32(sm.hs) - base;
+  const uint32_t bar_off = sm90::smem_u32(sm.bar) - base;
 
-  cp_async_block(smem, (d ? wrb : wrf) + ((size_t)l * C + rank) * H2 * NT,
-                 (size_t)H2 * NT * 4);
-  if (tid == 0) {
-    sm90::mbar_init(bar, 1);
-    sm90::mbar_init(bar + 1, 1);
-    sm90::mbar_fence_init();
-  }
+  __syncthreads();                 // no thread still reads the last item's h
   for (int r = tid; r < BB; r += blockDim.x)
-    lens[r] = b0 + r < B ? lengths[b0 + r] : 0;
+    sm.lens[r] = b0 + r < B ? lengths[b0 + r] : 0;
   for (int e = tid; e < 2 * H * BB; e += blockDim.x) {
     const int k = e / BB % H, r = e % BB, b = b0 + r;
     float v = 0.f;
@@ -752,7 +793,7 @@ __global__ void __launch_bounds__(MAX_RES_THREADS, 1) blstm_recur_resident(
       if (e < H * BB && b < B)
         v = load_stash<SD>(hb, ((srow + b) * n + chunk) * H + k);
     }
-    hs[e] = round_bf16(v);
+    sm.hs[e] = round_bf16(v);
   }
   // thread (jj, q) carries rows q, q + 4, ... of unit j
   float h[RPT], c[RPT];
@@ -782,19 +823,20 @@ __global__ void __launch_bounds__(MAX_RES_THREADS, 1) blstm_recur_resident(
     for (int g = 0; g < 4; ++g) bz[g] = bias[g * H + j];
   }
   const int off = (MODE == FWD_ENTRY && d) ? n * K - T : 0;
-  cp_async_wait();
+  cp_async_wait();                       // this thread's share of the slice
   __syncthreads();
-  cluster_arrive();                      // every peer's barriers are set up
-  cluster_wait();
+  cluster_arrive();                      // every peer's item has begun: its
+  cluster_wait();                        // barriers and h are set up
+  if (tid >= (NT + 31) / 32 * 32) return par;    // warps owning no gate
 
   for (int s = 0; s < Tg; ++s) {
     const int k = d ? Tg - 1 - s : s;            // local row
     const int t = t0 + k;                        // frame
     const int nb = (s & 1) ^ 1;                  // the buffer this step fills
-    const float* hc = hs + (s & 1) * H * BB;     // h of the previous step
+    const float* hc = sm.hs + (s & 1) * H * BB;  // h of the previous step
     const bool send = s + 1 < Tg;                // the last h is not read
     if (tid == 0 && send)
-      sm90::mbar_arrive_expect_tx(bar + nb, (uint32_t)(H * BB * 4));
+      sm90::mbar_arrive_expect_tx(sm.bar + nb, (uint32_t)(H * BB * 4));
     if constexpr (MODE == FWD_ENTRY) {
       const int sp = s + off;
       if (own && sp > 0 && sp % K == 0) {
@@ -820,14 +862,18 @@ __global__ void __launch_bounds__(MAX_RES_THREADS, 1) blstm_recur_resident(
       for (int g = 0; g < 4; ++g) xg[i][g] = own ? gr[g * H] : 0.f;
     }
     // h of the previous step has arrived from every CTA
-    if (s > 0) mbar_wait_cluster(bar + (s & 1), ((s - 1) >> 1) & 1);
+    if (s > 0) {
+      const int b = s & 1;
+      mbar_wait_cluster(sm.bar + b, (par >> b) & 1u);
+      par ^= 1u << b;
+    }
     float acc[BB];
 #pragma unroll
     for (int r = 0; r < BB; ++r) acc[r] = 0.f;
     if (own) {
       // batches of KB word rows (2·KB inputs), the next batch's loads in
       // flight while this one's FMAs run (H/2 is a multiple of 2·KB)
-      const uint32_t* wp = ws + tid;
+      const uint32_t* wp = sm.ws + tid;
       FwdBatch<BB> a, b;
       a.load(wp, hc, 0, NT);
       for (int k2 = 0; k2 < H2; k2 += 2 * FwdBatch<BB>::KB) {
@@ -854,7 +900,7 @@ __global__ void __launch_bounds__(MAX_RES_THREADS, 1) blstm_recur_resident(
         const int r = q + 4 * i, b = b0 + r;
         if (r >= BB || b >= B) continue;
         const Cell cs = cell_step(xg[i], a4[i], bz, c[i]);
-        const bool valid = t < lens[r];
+        const bool valid = t < sm.lens[r];
         if (valid) {                    // frozen carry on padded steps
           c[i] = cs.c;
           h[i] = cs.h;
@@ -886,6 +932,30 @@ __global__ void __launch_bounds__(MAX_RES_THREADS, 1) blstm_recur_resident(
       }
     }
   }
+  return par;
+}
+
+// The training forwards' resident recurrence (K1-stash, K1-chunk, K3's
+// replay): one item a cluster, grid (16·ceil(B / BB), 2, L) in as many
+// waves of clusters as the card holds (7 clusters of 16 on the H100).
+// Each CTA copies its slice of Wh into shared memory once, at the start.
+template <int BB, int MODE, int SD>
+__global__ void __launch_bounds__(MAX_RES_THREADS, 1) blstm_recur_resident(
+    const float* __restrict__ gx, const uint32_t* __restrict__ wrf,
+    const uint32_t* __restrict__ wrb, const float* __restrict__ bias_f,
+    const float* __restrict__ bias_b, const int* __restrict__ lengths,
+    bf16* __restrict__ y, void* __restrict__ acts, void* __restrict__ cseq,
+    void* __restrict__ hb, void* __restrict__ cb, int L, int B, int T, int H,
+    int K, int n, int chunk) {
+  extern __shared__ __align__(16) float smem[];
+  const int rank = (int)(blockIdx.x % RES_CLUSTER);
+  const int d = blockIdx.y, l = blockIdx.z;
+  res_load_slice(smem, d ? wrb : wrf, l, rank, H);
+  ResSmem<BB>(smem, H).init_barriers();
+  resident_item<BB, MODE, SD>(gx, bias_f, bias_b, lengths, y, acts, cseq, hb,
+                              cb, L, B, T, H, K, n, chunk,
+                              (int)(blockIdx.x / RES_CLUSTER), d, l, rank,
+                              smem, 0u);
   cluster_arrive();                      // no CTA leaves while a peer works
   cluster_wait();
 }
@@ -895,7 +965,9 @@ int launch_fwd(const FwdArgs& a, const Plan& p, cudaStream_t st) {
   const int tiles = (a.B + BB - 1) / BB;
   if (p.resident) {
     if constexpr (MODE == FWD) {
-      return (int)cudaErrorInvalidValue;  // inference streams Wh
+      // K1's inference launch streams Wh: it is the ≡ oracle of K4, whose
+      // own launch (lstm_stack.cu) runs the resident items
+      return (int)cudaErrorInvalidValue;
     } else {
       const int U = res_units(a.H, BB);
       if (!U) return (int)cudaErrorInvalidValue;

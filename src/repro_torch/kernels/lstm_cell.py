@@ -13,7 +13,9 @@
   the reverse steps;
 * ``blstm_stack`` — K4, the whole L-layer stack in one launch
   (``repro.kernels.lstm_cell._stack_primal``), inference only,
-  bit-identical to the loop of ``blstm_layer``;
+  bit-identical to the loop of ``blstm_layer``; ``stack_plan`` — how its
+  recurrences run: on clusters of 16 CTAs holding Wh in shared memory, or
+  (where H does not split) on one 512-thread block per item;
 * ``blstm_sequence`` — the differentiable layer, a
   ``torch.autograd.Function`` over a forward and its backward (the
   stashing pair, or with ``seq_chunk`` the chunked pair), mirroring
@@ -149,9 +151,11 @@ def _stack_lib():
     lib = build.load("lstm_stack")
     if lib.lstm_stack.argtypes is None:
         arr = ctypes.POINTER(ctypes.c_void_p)
-        lib.lstm_stack.argtypes = ([_P] + [arr] * 6 + [_P] * 6 + [_I] * 7
+        lib.lstm_stack.argtypes = ([_P] + [arr] * 6 + [_P] * 6 + [_I] * 9
                                    + [_P])
         lib.lstm_stack.restype = _I
+        lib.lstm_stack_active_clusters.argtypes = [_I, _I]
+        lib.lstm_stack_active_clusters.restype = _I
     return lib
 
 
@@ -429,7 +433,8 @@ def _forward_kernel(ws, x, lengths, sdt, chunk=0):
     else:
         acts = cseq = None
         kind = 0
-    # inference (K1, which K4 is bit-identical to) always streams
+    # inference streams: K1's inference launch is the oracle K4 is held to
+    # bit for bit, and no main path runs it (K4 runs its own plan)
     plan = recur_plan(B, T, H) if kind else RecurPlan(
         "stream", *_tile(B, H))
     whf4, whb4 = _recur_weights(whf, plan), _recur_weights(whb, plan)
@@ -461,6 +466,78 @@ def blstm_layer(wxf, whf, bf, wxb, whb, bb, x, lengths=None):
 
 
 MAX_STACK_LAYERS = 16    # lstm_stack.cu's MAX_LAYERS
+# K4's x-projection tiles (two 128 x 128 x 16 bf16 tiles of gemm.cuh, two
+# stages each: lstm_stack.cu's 2 * XTile::SMEM), which its resident CTAs
+# keep beside their own regions
+STACK_XPROJ_SMEM = 2 * 20992
+
+
+def stack_smem(H: int, BB: int) -> int:
+    """Shared memory of a resident CTA of K4 (lstm_stack.cu's
+    ``res_stack_smem``): the resident forward's regions
+    (:func:`resident_smem`) and the x-projection's two tiles."""
+    return resident_smem(H, BB) + STACK_XPROJ_SMEM
+
+
+def stack_resident(H: int) -> bool:
+    """Whether K4's recurrences run resident at width H: H splits into 16
+    slices of whole float4s (a multiple of 64) and a CTA's slice, h
+    buffers and x-projection tiles fit its shared memory at
+    RESIDENT_MAX_ROWS-row tiles."""
+    return (H % (4 * RESIDENT_CLUSTER) == 0
+            and stack_smem(H, RESIDENT_MAX_ROWS) <= SMEM_LIMIT)
+
+
+class StackPlan(NamedTuple):
+    """How K4 runs each layer's recurrences: ``path`` "resident" (one
+    cluster of 16 CTAs an item, holding Wh in shared memory; ``clusters``
+    items = 2·L·ceil(B / block_rows) in ``waves`` waves of what the card
+    holds at once) or "item" (one 512-thread block an item, streaming Wh;
+    no clusters, no waves)."""
+    path: str
+    block_rows: int
+    clusters: int
+    waves: int
+
+
+def stack_plan(B: int, H: int, active: int, L: int = 1) -> StackPlan:
+    """K4's plan for L learners' B rows at width H when the card holds
+    ``active`` of its resident clusters at once
+    (:func:`stack_active_clusters`).  Resident wherever H splits
+    (:func:`stack_resident`): the fewest rows per tile (1, 2, 4) whose
+    clusters fit one wave, else the fewest that leave no tile wider than
+    B (at most 4 rows) in waves; a step's product
+    grows with the rows (~2.0, 2.5 and 3.8 µs a step at 1-, 2- and 4-row
+    tiles, 7.8 at 8-row ones, PERF.md §6), so a second wave costs more
+    than wider tiles up to 4 rows.  Where H does not split, the item path
+    at :func:`block_rows` rows: a rule by shape, never a reaction to a
+    failed launch."""
+    if not stack_resident(H):
+        return StackPlan("item", block_rows(B), 0, 0)
+    if active < 1:
+        raise ValueError(f"K4's resident clusters of {RESIDENT_CLUSTER} "
+                         f"CTAs at H={H} cannot be scheduled: "
+                         f"cudaOccupancyMaxActiveClusters {active}")
+    for rows in (1, 2, RESIDENT_MAX_ROWS):
+        clusters = 2 * L * -(-B // rows)
+        if clusters <= active or rows >= B:
+            break
+    return StackPlan("resident", rows, clusters, -(-clusters // active))
+
+
+_STACK_ACTIVE: dict = {}
+
+
+def stack_active_clusters(H: int) -> int:
+    """How many resident clusters of K4 at width H the card holds at once
+    (cudaOccupancyMaxActiveClusters at RESIDENT_MAX_ROWS-row tiles, whose
+    shared memory is the largest the plan picks, so the count holds for
+    every plan), queried once per H; negative: a CUDA error."""
+    n = _STACK_ACTIVE.get(H)
+    if n is None:
+        n = _STACK_ACTIVE[H] = _stack_lib().lstm_stack_active_clusters(
+            RESIDENT_MAX_ROWS, H)
+    return n
 
 
 def blstm_stack(layers, x, lengths=None):
@@ -471,9 +548,10 @@ def blstm_stack(layers, x, lengths=None):
     layer 0 reads x, layer k > 0 the (.., 2H) output of layer k - 1.
 
     On a CUDA tensor one launch of K4 (``csrc/lstm_stack.cu``) runs every
-    layer, bit-identical to the loop of :func:`blstm_layer` (the
-    reference's contract for its fused stack, ``lstm_cell.py:1318-1320``);
-    it never falls back to that loop.  On a CPU tensor it runs
+    layer on :func:`stack_plan`'s path, bit-identical to the loop of
+    :func:`blstm_layer` (the reference's contract for its fused stack,
+    ``lstm_cell.py:1318-1320``); it never falls back to that loop or to
+    another path.  On a CPU tensor it runs
     :func:`~repro_torch.kernels.ref.blstm_stack_plain`."""
     global stack_launches
     if x.device.type == "cpu":
@@ -498,9 +576,12 @@ def blstm_stack(layers, x, lengths=None):
         # layer k reads the (L, B, T, 2H) output of layer k - 1
         _check_weights(ws, L, 2 * H, H, dev, tag=f"layer {k} ")
     lib = _stack_lib()
+    active = stack_active_clusters(H) if stack_resident(H) else 0
+    plan = stack_plan(B, H, active, L)
+    layout = _res_fwd_layout if plan.path == "resident" else _fwd_layout
     # every tensor whose pointer the launch takes is held in a local
-    whf4 = [_fwd_layout(ws[1]) for ws in layers]
-    whb4 = [_fwd_layout(ws[4]) for ws in layers]
+    whf = [layout(ws[1]) for ws in layers]
+    whb = [layout(ws[4]) for ws in layers]
 
     def ptrs(i, ts=None):
         ts = ts or [ws[i] for ws in layers]
@@ -513,10 +594,11 @@ def blstm_stack(layers, x, lengths=None):
     y = torch.empty(L, B, T, 2 * H, dtype=torch.bfloat16, device=dev)
     buf_ptrs = [b.data_ptr() for b in bufs] + [None] * (2 - len(bufs))
     _launch("lstm_stack", lib.lstm_stack(
-        x.data_ptr(), ptrs(0), ptrs(3), ptrs(None, whf4), ptrs(None, whb4),
+        x.data_ptr(), ptrs(0), ptrs(3), ptrs(None, whf), ptrs(None, whb),
         ptrs(2), ptrs(5), lens.data_ptr(), gx.data_ptr(), *buf_ptrs,
         barrier.data_ptr(), y.data_ptr(), len(layers), L, B, T, D0, H,
-        block_rows(B), _stream(dev)))
+        plan.block_rows, int(plan.path == "resident"), active,
+        _stream(dev)))
     stack_launches += 1
     return y.squeeze(0) if one else y
 

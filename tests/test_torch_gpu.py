@@ -136,6 +136,72 @@ def test_blstm_stack_kernel_matches_loop_and_plain(cuda, L, B, T, D0, H,
     assert _norm_err(got, want) <= BF16_TOL
 
 
+def _var_lens(L, B, T):
+    """Lengths with a full row and a length-1 row (B > 1), per learner."""
+    rows = [[T if b == 0 else 1 if b == 1 else T - (b * 53 + l * 7) % T
+             for b in range(B)] for l in range(max(L, 1))]
+    return rows if L else rows[0]
+
+
+# K4 on its resident path (H a multiple of 64, clusters of 16 CTAs):
+# every B from one cluster to several waves, T = 21 and 256, var-len with
+# a length-1 row, the learner axis; H = 64 (4 units a CTA) too.  Weights
+# at 1/sqrt(fan-in): at H = 512 the file's 0.3 saturates every gate and
+# the plain version's other sum order drifts past any tolerance over 256
+# steps, while K4 and the K1 loop keep their bits.
+RESIDENT_STACK_SHAPES = [
+    (L, B, T, 260, 512, 2) for B in (1, 3, 5, 8, 16) for T in (21, 256)
+    for L in (0,)] + [
+    (2, 8, 21, 260, 512, 2),
+    (2, 1, 256, 260, 512, 3),
+    (0, 5, 33, 40, 64, 3),
+]
+
+
+@pytest.mark.parametrize("L,B,T,D0,H,n_layers", RESIDENT_STACK_SHAPES)
+def test_resident_stack_matches_loop_and_plain(cuda, L, B, T, D0, H,
+                                               n_layers):
+    from repro_torch.kernels import lstm_cell
+    from repro_torch.kernels.ref import blstm_stack_plain
+
+    active = lstm_cell.stack_active_clusters(H)
+    plan = lstm_cell.stack_plan(B, H, active, max(L, 1))
+    assert plan.path == "resident" and active >= 1, (plan, active)
+    g = torch.Generator().manual_seed(B * 1000 + T + H + L)
+    lead = (L,) if L else ()
+
+    def w(*shape, scale):
+        return (torch.randn(*lead, *shape, generator=g) * scale).to(
+            cuda, torch.bfloat16)
+
+    layers, D = [], D0
+    for _ in range(n_layers):
+        ws = []
+        for _ in range(2):
+            ws += [w(D, 4 * H, scale=D ** -0.5), w(H, 4 * H, scale=H ** -0.5),
+                   (torch.randn(*lead, 4 * H, generator=g) * 0.1).to(cuda)]
+        layers.append(ws)
+        D = 2 * H
+    x = w(B, T, D0, scale=1.0)
+    lengths = _var_lens(L, B, T)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = (lstm_cell.stack_launches, lstm_cell.launches)
+    got = lstm_cell.blstm_stack(layers, x, lens)
+    torch.cuda.synchronize()
+    assert (lstm_cell.stack_launches, lstm_cell.launches) == \
+        (before[0] + 1, before[1])
+    loop = x
+    for ws in layers:
+        loop = lstm_cell.blstm_layer(*ws, loop, lens)
+    assert torch.equal(got, loop)
+    assert torch.isfinite(got).all()
+    assert _norm_err(got, blstm_stack_plain(layers, x, lens)) <= BF16_TOL
+    for l, row in enumerate(lengths if L else [lengths]):
+        out = got[l] if L else got
+        for b, n in enumerate(row):
+            assert not out[b, n:].any()
+
+
 def test_blstm_stack_rejects_a_missing_bias(cuda):
     from repro_torch.kernels import lstm_cell
 
@@ -665,6 +731,57 @@ def test_argmax_kernel_matches_plain_bit_for_bit(cuda, dtype, V):
         torch.cuda.synchronize()
         assert DK.argmax_launches == before + 1
         assert torch.equal(got, DK.argmax_ref(rows)), (got, DK.argmax_ref(rows))
+
+
+def _argmax_pattern(x, S, pattern, g):
+    """Fill x (B, V) on the card with rows that only the right slicing and
+    merge get right: equal maxima on both sides of every slice bound
+    ("ties"), an inf in the first slice and NaN only in the last ("nan"),
+    all -inf ("-inf"); each row's bounds from its own address."""
+    from repro_torch.decode import kernel as DK
+
+    B, V = x.shape
+    size = x.element_size()
+    rows = torch.randn(B, V, generator=g)
+    for b in range(B):
+        head = (16 - x[b].data_ptr() % 16) % 16 // size
+        bounds = DK.argmax_bounds(V, S, size, head)
+        if pattern == "ties":
+            for lo, hi in bounds:
+                if lo < hi:
+                    rows[b, lo] = rows[b, hi - 1] = 7.0
+        elif pattern == "nan":
+            rows[b, 0] = float("inf")
+            lo, hi = bounds[-1]
+            rows[b, lo:hi:5] = float("nan")
+        elif pattern == "-inf":
+            rows[b] = float("-inf")
+    x.copy_(rows)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,V", [(1, 7), (8, 49152), (8, 49153),
+                                 (4, 151936)])
+def test_argmax_slices_match_plain_bit_for_bit(cuda, B, V, dtype, offset):
+    """K6's rows split over clusters of up to 8 CTAs, at the serving
+    vocabularies and odd ones, aligned and at an offset of one element."""
+    from repro_torch.decode import kernel as DK
+
+    DK._argmax_entry()
+    S = DK.argmax_slices(B, V, torch.empty(0, dtype=dtype).element_size(),
+                         DK._n_sm)
+    g = torch.Generator().manual_seed(B * V + offset)
+    base = torch.empty(B * V + offset, dtype=dtype, device=cuda)
+    x = base[offset:].view(B, V)
+    for pattern in ("ties", "nan", "-inf", "random"):
+        _argmax_pattern(x, S, pattern, g)
+        before = DK.argmax_launches
+        got = DK.argmax_tokens(x)
+        torch.cuda.synchronize()
+        assert DK.argmax_launches == before + 1
+        want = DK.argmax_ref(x)
+        assert torch.equal(got, want), (pattern, S, got, want)
 
 
 def test_lm_servers_on_card_match_cpu(cuda):

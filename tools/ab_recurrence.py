@@ -22,7 +22,15 @@ kernels are built into their own ``build/torch_kernels/``.  Cases:
 
 * K1 inference at the ASR admission's shape (B = 1, T = 256);
 * the fused stack K4 and the K1 loop it is bit-identical to, 6 layers at
-  B = 1, 3 and 8 (a tree without K4 skips them);
+  B = 1, 3 and 8 (a tree without K4 skips them), with K4's plan where the
+  tree has ``lstm_cell.stack_plan``, and there K4 at B = 8 forced onto
+  1-, 2- and 4-row tiles;
+* the token selector K6 at the dense LM decode's (8, 49152) bf16 logits,
+  and where its eager time goes: the host time of each part of the
+  wrapper (the device check, the library lookup, the stream as a Stream
+  object and as a raw handle, the output allocation, the ctypes call) and
+  of ``torch.argmax``, from ``time.perf_counter_ns`` over back-to-back
+  calls;
 * K1-stash and K2 at the paper's training shape (16 learners x 16 rows,
   T = 21, D = 1024, H = 512, var-len), each with its sub-launches: the
   device time per call of every kernel it launches from torch.profiler
@@ -34,8 +42,8 @@ kernels are built into their own ``build/torch_kernels/``.  Cases:
 * end to end: the train-long step (16 learners x 2 utterances, T = 2000)
   chunked and unchunked, ms/step and peak device memory; the §V step
   (ms/step); the ASR serve of 8 requests after one warm-up serve (mean
-  wave ms); evaluate's scoring of 4 batches of 8 x 256 frames from
-  freshly drawn weights (frames/s).
+  wave ms, frames/s); evaluate's scoring of 4 batches of 8 x 256 frames
+  from freshly drawn weights (frames/s).
 
 With ``--stages`` a tree with ``lstm_cell.recur_plan`` instead times the
 recurrence cases at the train-long layer shape and at the §V shape on
@@ -50,6 +58,7 @@ steps, the measurement behind the rule's ``RESIDENT_MIN_STEPS`` and
 """
 import hashlib
 import sys
+import time
 from contextlib import contextmanager
 from pathlib import Path
 
@@ -140,6 +149,70 @@ def plan_text(L, B, T, H):
     return "  " + CS._recur_plan(L, B, T, H)[1]
 
 
+def forced_rows(layers, xs, ls):
+    """K4 at B = 8 on resident tiles of 1, 2 and 4 rows whatever the plan
+    picks (16, 8 and 4 clusters: three, two and one wave of 7), the
+    measurement behind ``stack_plan``'s rows."""
+    plan = LC.stack_plan
+    for rows in (1, 2, 4):
+        def fixed(B, H, active, L=1, rows=rows):
+            clusters = 2 * L * -(-B // rows)
+            return LC.StackPlan("resident", rows, clusters,
+                                -(-clusters // active))
+        LC.stack_plan = fixed
+        try:
+            report(f"K4 6 layers B=8 {rows}-row tiles",
+                   lambda: LC.blstm_stack(layers, xs, ls), 3)
+        finally:
+            LC.stack_plan = plan
+
+
+def host_ns(fn, n=2000):
+    """Mean host ns of one call of ``fn`` over n back-to-back calls."""
+    fn()
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        fn()
+    dt = (time.perf_counter_ns() - t0) / n
+    torch.cuda.synchronize()
+    return dt
+
+
+def k6_row():
+    """K6 at (8, 49152) bf16: event and device ms, SHA-256, and the host
+    ns of the wrapper's parts, whichever way the tree's wrapper does
+    them."""
+    from repro_torch import device as DV
+    from repro_torch.decode import kernel as DK
+    from repro_torch.kernels import build
+
+    B, V = 8, 49152
+    x = torch.randn(B, V, generator=gen).to(dev, torch.bfloat16)
+    x[1, [7, V // 8 - 1, V // 8]] = 6.0
+    report(f"K6 argmax B={B} V={V} bf16", lambda: DK.argmax_tokens(x), 200)
+    fn = build.load("argmax").argmax_rows        # bound by the call above
+    out = torch.empty(B, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = [x.data_ptr(), out.data_ptr(), B, V, 0]
+    if len(fn.argtypes) == 7:                    # the per-row slice count
+        args.append(DK.argmax_slices(B, V, 2, DK._n_sm))
+    args.append(stream)
+    parts = {
+        "argmax_tokens (whole)": lambda: DK.argmax_tokens(x),
+        "require_kernel_device": lambda: DV.require_kernel_device(x),
+        "build.load": lambda: build.load("argmax"),
+        "current_stream": (lambda: torch.cuda.current_stream(dev)
+                           .cuda_stream),
+        "raw stream": lambda: torch._C._cuda_getCurrentRawStream(0),
+        "torch.empty": lambda: torch.empty(B, dtype=torch.int32,
+                                           device=dev),
+        "ctypes call": lambda: fn(*args),
+        "torch.argmax": lambda: torch.argmax(x, dim=-1),
+    }
+    print(f"{name:8s} K6 host ns per call: " + ", ".join(
+        f"{k} {host_ns(f):.0f}" for k, f in parts.items()), flush=True)
+
+
 ws, x, lens = case(1, 1, 256, 1024, 512)                  # ASR admission
 report("K1 B=1 T=256", lambda: LC.blstm_layer(*ws, x, lens), 10)
 if hasattr(LC, "blstm_stack"):         # the fused stack beside the K1 loop
@@ -154,10 +227,17 @@ if hasattr(LC, "blstm_stack"):         # the fused stack beside the K1 loop
                 y = LC.blstm_layer(*w, y, ls)
             return y
         same = torch.equal(LC.blstm_stack(layers, xs, ls), loop())
+        plan = (f"  plan {CS._stack_plan(B, 512)[1]}"
+                if hasattr(LC, "stack_plan") else "")
         report(f"K4 6 layers B={B} T=256",
                lambda: LC.blstm_stack(layers, xs, ls), 3,
-               f"  bit-identical to the K1 loop {same}")
+               f"  bit-identical to the K1 loop {same}{plan}")
         report(f"K1 loop 6 layers B={B}", loop, 3)
+        if B == 8 and hasattr(LC, "stack_plan"):
+            forced_rows(layers, xs, ls)
+
+
+k6_row()
 
 
 def stash_pair(tag, L, B, T, ws, x, lens, dy, iters, calls):
@@ -246,9 +326,11 @@ def end_to_end():
     print(f"{name:8s} train §V {ms:9.2f} ms/step  peak {peak:.2f} GiB",
           flush=True)
     CS._serve(cfg, requests=8, topc=0)              # warm-up
-    _, _, _, wave_s, dt, _ = CS._serve(cfg, requests=8, topc=0)
+    _, pending, _, wave_s, dt, _ = CS._serve(cfg, requests=8, topc=0)
+    frames = sum(len(f) for _, f in pending)
     print(f"{name:8s} serve 8 requests: mean wave "
-          f"{1e3 * float(np.mean(wave_s)):.2f} ms, {dt:.3f} s", flush=True)
+          f"{1e3 * float(np.mean(wave_s)):.2f} ms, {dt:.3f} s, "
+          f"{frames / dt:.1f} frames/s", flush=True)
     params = init_params(LS.param_specs(cfg), 0, dev)
     m = evaluate_params(cfg, params, batches=4, batch=8, seq_len=256,
                         var_len=True, beam=8, decode_chunk=8, device=dev)
