@@ -96,8 +96,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
    0, tile edges and S - 1 and a window, at 2e-2 (normalised); the paged
    kernel (K8 port) over a shuffled 512-page pool of 16 positions with
    padded tables at 2e-2, and bit-identical to K7 at block_s = 16 on
-   contiguous pages; K7 again at hymba-1.5b's decode shape (S = 2048,
-   M = 5, window 1024); argmax (K6 port) on (8, 49152) logits with
+   contiguous pages (with and without a window); both again at one
+   request (B = 1, the serving group) and at granite-moe-3b-a800m's 8 KV
+   heads of 3 queries, and K7 at hymba-1.5b's decode shape (S = 2048,
+   M = 5, window 1024) at 8 slots and one request, each timed shape
+   with its launch plan (splits, CTAs, rows per split) and its own
+   bound; argmax (K6 port) on (8, 49152) logits with
    planted ties (one across a slice bound), NaN (one only in the last
    slice) and -inf, bit for bit in bf16, in f32 and one element off a
    16-byte boundary; each timed beside its plain version, its byte bound
@@ -1868,27 +1872,29 @@ LM_TIMED_POS = 511
 LM_RAGGED = 600
 
 
-def _lm_attn_inputs(gen, B, S, n_pages=None):
+def _attn_inputs(gen, B, S, KV=LM_KV, M=LM_M, E=LM_E, n_pages=None,
+                 P=LM_P):
+    """q, the cache (or a pool of ``n_pages`` pages of P), k_new, v_new:
+    unit normals in bf16 on the card."""
     import torch
 
-    dev = torch.device("cuda")
-    cache = (n_pages, LM_P) if n_pages else (B, S)
+    cache = (n_pages, P) if n_pages else (B, S)
 
     def r(*shape):
-        return torch.randn(*shape, generator=gen).to(dev, torch.bfloat16)
+        return torch.randn(*shape, generator=gen).to("cuda", torch.bfloat16)
 
-    return (r(B, 1, LM_KV * LM_M, LM_E), r(*cache, LM_KV, LM_E),
-            r(*cache, LM_KV, LM_E), r(B, 1, LM_KV, LM_E),
-            r(B, 1, LM_KV, LM_E))
+    return (r(B, 1, KV * M, E), r(*cache, KV, E), r(*cache, KV, E),
+            r(B, 1, KV, E), r(B, 1, KV, E))
 
 
-def _attn_bytes_ops(B, rows):
+def _attn_bytes_ops(B, rows, KV=LM_KV, M=LM_M, E=LM_E):
     """Bytes a delta call must move (q, the ``rows`` admitted cache rows
-    of K and V, the new column, the output) and its f32 operations."""
-    H = LM_KV * LM_M
-    nbytes = (2 * B * H * LM_E * 2 + 2 * B * rows * LM_KV * LM_E * 2
-              + 2 * B * LM_KV * LM_E * 2)
-    ops = 4 * B * (rows + 1) * H * LM_E
+    of K and V of each (batch row, KV head), the new column, the output)
+    and its f32 operations, at a group of M queries per KV head."""
+    H = KV * M
+    nbytes = (2 * B * H * E * 2 + 2 * B * rows * KV * E * 2
+              + 2 * B * KV * E * 2)
+    ops = 4 * B * (rows + 1) * H * E
     return nbytes, ops
 
 
@@ -1912,67 +1918,132 @@ def _sdpa(q, kc, vc, pos):
 
 
 def _library_attn_ms(q, kc, vc, pos, what):
+    """SDPA's eager ms and device ms (one call replayed from a CUDA
+    graph), or (None, None), said, where no backend takes the inputs."""
     try:
-        return _time_ms(_sdpa(q, kc, vc, pos), 50)
+        call = _sdpa(q, kc, vc, pos)
+        return _time_ms(call, 50), _device_ms(call)
     except RuntimeError as e:        # no SDPA backend for these inputs
         print(f"[{what}] library (scaled_dot_product_attention) not timed: "
               f"{e}", flush=True)
-        return None
+        return None, None
 
 
-def check_k7(gen):
+def _taken_plan(DA, call):
+    """The ``decode_plan`` the wrapper takes for ``call`` (run once)."""
+    real, seen = DA.decode_plan, []
+    DA.decode_plan = lambda *a: seen.append(real(*a)) or seen[-1]
+    try:
+        call()
+    finally:
+        DA.decode_plan = real
+    return seen[-1]
+
+
+def _attn_timed(tag, DA, call, B, KV, M, E, rows, extra_bytes=0):
+    """One timed decode-attention shape: eager ms over 200 calls, the
+    device ms of one launch, the bound of its bytes and operations, and
+    the plan the wrapper took (splits, CTAs, rows per split), printed."""
+    plan = _taken_plan(DA, call)
+    ms, dev_ms = _time_ms(call, 200), _device_ms(call)
+    nbytes, ops = _attn_bytes_ops(B, rows, KV, M, E)
+    bound_ms, bound_by = _bound(nbytes + extra_bytes, ops, PEAK_F32_FLOPS)
+    rec = dict(ms=ms, device_ms=dev_ms, bound_ms=bound_ms, bound_by=bound_by,
+               n_split=plan.n_split, ctas=B * KV * plan.n_split,
+               rows_per_split=plan.rows, admitted=[plan.lo, plan.hi])
+    print(f"[{tag}] B={B} KV={KV} M={M} E={E}, {rows} old rows: kernel "
+          f"{ms:.4f} ms eager, graph-replayed per launch {_ms(dev_ms)}, "
+          f"bound {bound_ms:.5f} ms ({bound_by}); plan: {plan.n_split} "
+          f"splits, {rec['ctas']} CTAs, rows {plan.lo}..{plan.hi - 1}, "
+          f"<= {plan.rows} rows a split", flush=True)
+    return rec
+
+
+def _attn_sweep(tag, fn, ref, args, cases, tol=K1_TOL):
+    """``fn`` against ``ref`` at every (pos, window) of ``cases``,
+    canonical and delta; ``args`` = (q, cache..., k_new, v_new).  Returns
+    the worst max abs error; fails past ``tol`` (normalised)."""
     import torch
 
-    from repro_torch.kernels import decode_attention as DA
-
-    q, kc, vc, kn, vn = _lm_attn_inputs(gen, LM_B, LM_S)
-    tile = DA.auto_block_s(LM_S)
+    *head, kn, vn = args
     worst = 0.0
-    cases = [(pos, None) for pos in (0, tile - 1, tile, LM_TIMED_POS,
-                                     LM_S - 1)] + [(700, 100)]
     for delta in (False, True):
         kw = dict(k_new=kn, v_new=vn) if delta else {}
         for pos, window in cases:
-            got = DA.decode_attention(q, kc, vc, pos, window=window, **kw)
+            got = fn(*head, pos, window=window, **kw)
             torch.cuda.synchronize()
-            want = DA.decode_attention_ref(q, kc, vc, pos, window=window,
-                                           **kw)
+            want = ref(*head, pos, window=window, **kw)
             abs_err, norm = _norm_err(got, want)
-            if not norm <= K1_TOL:
-                _fail(f"K7 delta={delta} pos={pos} window={window}: "
+            if not norm <= tol:
+                _fail(f"{tag} delta={delta} pos={pos} window={window}: "
                       f"normalised error {norm}")
             worst = max(worst, abs_err)
-        print(f"[K7] decode_attention B={LM_B} S={LM_S} KV={LM_KV} M={LM_M} "
-              f"E={LM_E} delta={delta} tile {tile}: pos/window {cases} "
-              f"within {K1_TOL} (worst max_abs_err {worst:.3g})", flush=True)
-    kw = dict(k_new=kn, v_new=vn)
-    pos = LM_TIMED_POS
-    ms = _time_ms(lambda: DA.decode_attention(q, kc, vc, pos, **kw), 200)
-    plain_ms = _time_ms(lambda: DA.decode_attention_ref(q, kc, vc, pos,
-                                                        **kw), 20)
-    library_ms = _library_attn_ms(q, kc, vc, pos, "K7")
+    return worst
+
+
+# granite-moe-3b-a800m's decode attention (moe-serve, moe-paged): 24
+# heads over 8 KV heads, E = 64, the LM slice's cache and pages
+GRN_KV, GRN_M = 8, 3
+
+
+def check_k7(gen):
+    from repro_torch.kernels import decode_attention as DA
+
+    q, kc, vc, kn, vn = _attn_inputs(gen, LM_B, LM_S)
+    tile = DA.DEFAULT_BLOCK_S
+    cases = [(pos, None) for pos in (0, tile - 1, tile, LM_TIMED_POS,
+                                     LM_S - 1)] + [(700, 100)]
+    worst = _attn_sweep("K7", DA.decode_attention, DA.decode_attention_ref,
+                        (q, kc, vc, kn, vn), cases)
+    print(f"[K7] decode_attention B={LM_B} S={LM_S} KV={LM_KV} M={LM_M} "
+          f"E={LM_E} tile {tile}, canonical and delta: pos/window {cases} "
+          f"within {K1_TOL} (worst max_abs_err {worst:.3g})", flush=True)
     one = [t[:1].contiguous() for t in (q, kc, vc, kn, vn)]
-    ms_b1 = _time_ms(lambda: DA.decode_attention(
-        one[0], one[1], one[2], pos, k_new=one[3], v_new=one[4]), 200)
-    call = lambda: DA.decode_attention(q, kc, vc, pos, **kw)  # noqa: E731
-    call_b1 = lambda: DA.decode_attention(  # noqa: E731
-        one[0], one[1], one[2], pos, k_new=one[3], v_new=one[4])
-    dev_ms, dev_b1 = _device_ms(call), _device_ms(call_b1)
-    nbytes, ops = _attn_bytes_ops(LM_B, pos)
-    bound_ms, bound_by = _bound(nbytes, ops, PEAK_F32_FLOPS)
-    print(f"[K7] B={LM_B} pos={pos} delta: kernel {ms:.4f} ms (B=1: "
-          f"{ms_b1:.4f} ms) eager; graph-replayed per launch "
-          f"{_ms(dev_ms)} (B=1: {_ms(dev_b1)}); plain {plain_ms:.4f} "
-          f"ms, library {library_ms} ms, bound {bound_ms:.5f} ms "
-          f"({bound_by})", flush=True)
+    worst_b1 = _attn_sweep("K7 B=1", DA.decode_attention,
+                           DA.decode_attention_ref, one, cases)
+    g = _attn_inputs(gen, LM_B, LM_S, GRN_KV, GRN_M)
+    g1 = [t[:1].contiguous() for t in g]
+    worst_grn = max(_attn_sweep(f"K7 granite B={len(x[0])}",
+                                DA.decode_attention, DA.decode_attention_ref,
+                                x, cases) for x in (g, g1))
+    print(f"[K7] B=1 and granite's shape (B=8 and 1, KV={GRN_KV}, "
+          f"M={GRN_M}): within {K1_TOL} (worst max_abs_err "
+          f"{max(worst_b1, worst_grn):.3g})", flush=True)
+    pos = LM_TIMED_POS
+    plain_ms = _time_ms(lambda: DA.decode_attention_ref(
+        q, kc, vc, pos, k_new=kn, v_new=vn), 20)
+    library_ms, library_dev = _library_attn_ms(q, kc, vc, pos, "K7")
+    library_b1, library_dev_b1 = _library_attn_ms(*one[:3], pos, "K7 B=1")
+
+    def timed(tag, x, KV, M):
+        return _attn_timed(tag, DA, lambda: DA.decode_attention(
+            x[0], x[1], x[2], pos, k_new=x[3], v_new=x[4]),
+            len(x[0]), KV, M, LM_E, pos)
+
+    at = {"b8": timed("K7", (q, kc, vc, kn, vn), LM_KV, LM_M),
+          "b1": timed("K7 B=1", one, LM_KV, LM_M),
+          "granite_b8": timed("K7 granite", g, GRN_KV, GRN_M),
+          "granite_b1": timed("K7 granite B=1", g1, GRN_KV, GRN_M)}
+    at["b8"].update(library_ms=library_ms, library_device_ms=library_dev)
+    at["b1"].update(library_ms=library_b1, library_device_ms=library_dev_b1)
+    print(f"[K7] B={LM_B} pos={pos} delta: plain {plain_ms:.4f} ms; "
+          f"library {library_ms} ms eager, {_ms(library_dev)} device (B=1: "
+          f"{library_b1} / {_ms(library_dev_b1)})", flush=True)
+    hyb = _check_k7_hybrid(gen)
+    at.update(hymba_b8=hyb.pop("at_b8"), hymba_b1=hyb.pop("at_b1"))
+    b8 = at["b8"]
     return dict(name="decode_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention.py:216",
-                max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                device_ms=dev_ms, device_ms_b1=dev_b1,
+                max_abs_err=max(worst, worst_b1, worst_grn), ms=b8["ms"],
+                plain_ms=plain_ms, bound_ms=b8["bound_ms"],
+                bound_by=b8["bound_by"], library_ms=library_ms,
+                device_ms=b8["device_ms"], device_ms_b1=at["b1"]["device_ms"],
+                plan={k: b8[k] for k in ("n_split", "ctas",
+                                         "rows_per_split")},
+                shapes=at,
                 shape=f"B={LM_B} S={LM_S} KV={LM_KV} M={LM_M} E={LM_E} "
-                      f"pos={pos} delta tile={tile}", **_check_k7_hybrid(gen))
+                      f"pos={pos} delta tile={tile}", **hyb)
 
 
 # hymba-1.5b's decode attention (the hybrid-serve phase): 8 slots of a
@@ -1984,54 +2055,46 @@ HYB_TIMED_POS = 1600
 
 def _check_k7_hybrid(gen):
     """K7 at hymba-1.5b's decode shape against its plain version, over pos
-    at and around the window's edge, canonical and delta; the delta call
-    timed at pos 1600 (1023 cache rows inside the window).  Returns the
-    fields this adds to K7's entry."""
-    import torch
-
+    at and around the window's edge, canonical and delta, at 8 slots and
+    at one request; the delta call timed at pos 1600 (1023 cache rows
+    inside the window).  Returns the fields this adds to K7's entry."""
     from repro_torch.kernels import decode_attention as DA
 
     B, S, KV, M, E, W = (HYB_B, HYB_CACHE, HYB_KV, HYB_M, HYB_E,
                          HYB_WINDOW)
-
-    def r(*shape):
-        return torch.randn(*shape, generator=gen).to("cuda", torch.bfloat16)
-
-    q, kc, vc, kn, vn = (r(B, 1, KV * M, E), r(B, S, KV, E), r(B, S, KV, E),
-                         r(B, 1, KV, E), r(B, 1, KV, E))
-    worst = 0.0
-    for delta in (False, True):
-        kw = dict(k_new=kn, v_new=vn) if delta else {}
-        for pos in (0, W - 1, W, HYB_TIMED_POS, S - 1):
-            got = DA.decode_attention(q, kc, vc, pos, window=W, **kw)
-            torch.cuda.synchronize()
-            want = DA.decode_attention_ref(q, kc, vc, pos, window=W, **kw)
-            abs_err, norm = _norm_err(got, want)
-            if not norm <= K1_TOL:
-                _fail(f"K7 (hymba shape) delta={delta} pos={pos}: "
-                      f"normalised error {norm}")
-            worst = max(worst, abs_err)
+    x = _attn_inputs(gen, B, S, KV, M, E)
+    one = [t[:1].contiguous() for t in x]
+    cases = [(pos, W) for pos in (0, W - 1, W, HYB_TIMED_POS, S - 1)]
+    worst = max(_attn_sweep(f"K7 (hymba shape) B={len(y[0])}",
+                            DA.decode_attention, DA.decode_attention_ref,
+                            y, cases) for y in (x, one))
     pos = HYB_TIMED_POS
-
-    def call():
-        return DA.decode_attention(q, kc, vc, pos, window=W, k_new=kn,
-                                   v_new=vn)
-
-    ms, dev_ms = _time_ms(call, 200), _device_ms(call)
     rows = W - 1                        # old rows inside the window
-    nbytes = (2 * B * KV * M * E * 2 + 2 * B * rows * KV * E * 2
-              + 2 * B * KV * E * 2)
-    bound_ms, bound_by = _bound(nbytes, 4 * B * (rows + 1) * KV * M * E,
-                                PEAK_F32_FLOPS)
-    print(f"[K7] hymba shape B={B} S={S} KV={KV} M={M} E={E} window {W}: "
-          f"pos 0..{S - 1} canonical and delta within {K1_TOL} (worst "
-          f"max_abs_err {worst:.3g}); delta at pos {pos}: kernel "
-          f"{ms:.4f} ms eager, graph-replayed per launch {_ms(dev_ms)}, "
-          f"bound {bound_ms:.5f} ms ({bound_by})", flush=True)
-    return dict(ms_hymba=ms, device_ms_hymba=dev_ms,
-                bound_ms_hymba=bound_ms, max_abs_err_hymba=worst,
+
+    def timed(tag, y):
+        return _attn_timed(tag, DA, lambda: DA.decode_attention(
+            y[0], y[1], y[2], pos, window=W, k_new=y[3], v_new=y[4]),
+            len(y[0]), KV, M, E, rows)
+
+    b8, b1 = timed("K7 hymba", x), timed("K7 hymba B=1", one)
+    print(f"[K7] hymba shape B={B} and 1, S={S} KV={KV} M={M} E={E} window "
+          f"{W}: pos 0..{S - 1} canonical and delta within {K1_TOL} (worst "
+          f"max_abs_err {worst:.3g})", flush=True)
+    return dict(ms_hymba=b8["ms"], device_ms_hymba=b8["device_ms"],
+                bound_ms_hymba=b8["bound_ms"], max_abs_err_hymba=worst,
                 shape_hymba=f"B={B} S={S} KV={KV} M={M} E={E} pos={pos} "
-                            f"window={W} delta")
+                            f"window={W} delta", at_b8=b8, at_b1=b1)
+
+
+def _shuffled_pool_table(gen, B, W, n_pages, used):
+    """Each row's first ``used`` entries distinct pages of a shuffled
+    pool, the rest arbitrary valid ids (never read)."""
+    import torch
+
+    perm = torch.randperm(n_pages, generator=gen)
+    tbl = torch.randint(0, n_pages, (B, W), generator=gen)
+    tbl[:, :used] = perm[:B * used].reshape(B, used)
+    return tbl.to("cuda", torch.int32)
 
 
 def check_k8(gen):
@@ -2041,29 +2104,31 @@ def check_k8(gen):
 
     dev = torch.device("cuda")
     W = LM_S // LM_P
-    q, kp, vp, kn, vn = _lm_attn_inputs(gen, LM_B, None, n_pages=LM_POOL)
-    perm = torch.randperm(LM_POOL, generator=gen)
+    q, kp, vp, kn, vn = _attn_inputs(gen, LM_B, None, n_pages=LM_POOL)
     used = 36                         # pages of a 560-position request
-    tbl = torch.randint(0, LM_POOL, (LM_B, W), generator=gen)
-    tbl[:, :used] = perm[:LM_B * used].reshape(LM_B, used)
-    tbl = tbl.to(dev, torch.int32)
-    worst = 0.0
-    for delta in (False, True):
-        kw = dict(k_new=kn, v_new=vn) if delta else {}
-        for pos, window in ((0, None), (15, None), (16, None),
-                            (LM_TIMED_POS, None), (used * LM_P - 1, None),
-                            (500, 100)):
-            got = DA.paged_decode_attention(q, kp, vp, tbl, pos,
-                                            window=window, **kw)
-            torch.cuda.synchronize()
-            want = DA.paged_decode_attention_ref(q, kp, vp, tbl, pos,
-                                                 window=window, **kw)
-            abs_err, norm = _norm_err(got, want)
-            if not norm <= K1_TOL:
-                _fail(f"K8 delta={delta} pos={pos}: normalised error {norm}")
-            worst = max(worst, abs_err)
+    tbl = _shuffled_pool_table(gen, LM_B, W, LM_POOL, used)
+    cases = [(0, None), (15, None), (16, None), (LM_TIMED_POS, None),
+             (used * LM_P - 1, None), (500, 100)]
+    worst = _attn_sweep("K8", DA.paged_decode_attention,
+                        DA.paged_decode_attention_ref,
+                        (q, kp, vp, tbl, kn, vn), cases)
+    # one request, and granite's 8 KV heads, over pools of their own
+    one = (q[:1].contiguous(), kp, vp, tbl[:1].contiguous(),
+           kn[:1].contiguous(), vn[:1].contiguous())
+    worst_b1 = _attn_sweep("K8 B=1", DA.paged_decode_attention,
+                           DA.paged_decode_attention_ref, one, cases)
+    gq, gkp, gvp, gkn, gvn = _attn_inputs(gen, LM_B, None, GRN_KV, GRN_M,
+                                          n_pages=LM_POOL)
+    g = (gq, gkp, gvp, _shuffled_pool_table(gen, LM_B, W, LM_POOL, used),
+         gkn, gvn)
+    g1 = tuple(t if t.dim() == 4 and t.shape[0] == LM_POOL
+               else t[:1].contiguous() for t in g)
+    worst_grn = max(_attn_sweep(f"K8 granite B={len(y[0])}",
+                                DA.paged_decode_attention,
+                                DA.paged_decode_attention_ref, y, cases)
+                    for y in (g, g1))
     # contiguous pages: the paged kernel equals the dense one at block_s = P
-    _, kc, vc, _, _ = _lm_attn_inputs(gen, LM_B, LM_S)
+    _, kc, vc, _, _ = _attn_inputs(gen, LM_B, LM_S)
     ctbl = torch.arange(LM_POOL, device=dev,
                         dtype=torch.int32).reshape(LM_B, W)
     kcp = kc.reshape(LM_POOL, LM_P, LM_KV, LM_E)
@@ -2071,42 +2136,59 @@ def check_k8(gen):
     for delta in (False, True):
         kw = dict(k_new=kn, v_new=vn) if delta else {}
         for pos in (0, 16, LM_TIMED_POS, LM_S - 1):
-            dense = DA.decode_attention(q, kc, vc, pos, block_s=LM_P, **kw)
-            paged = DA.paged_decode_attention(q, kcp, vcp, ctbl, pos, **kw)
-            if not torch.equal(dense, paged):
-                _fail(f"K8 is not bit-identical to K7 at block_s={LM_P} "
-                      f"(delta={delta}, pos={pos})")
-    print(f"[K8] paged_decode_attention B={LM_B} pool={LM_POOL}x{LM_P} "
-          f"W={W} shuffled, padded: within {K1_TOL} (worst max_abs_err "
-          f"{worst:.3g}); bit-identical to K7 at block_s={LM_P} on "
-          f"contiguous pages", flush=True)
-    kw = dict(k_new=kn, v_new=vn)
+            for window in (None, 100):
+                dense = DA.decode_attention(q, kc, vc, pos, window=window,
+                                            block_s=LM_P, **kw)
+                paged = DA.paged_decode_attention(q, kcp, vcp, ctbl, pos,
+                                                  window=window, **kw)
+                if not torch.equal(dense, paged):
+                    _fail(f"K8 is not bit-identical to K7 at block_s="
+                          f"{LM_P} (delta={delta}, pos={pos}, window="
+                          f"{window})")
+    print(f"[K8] paged_decode_attention B={LM_B} and 1 (granite's KV="
+          f"{GRN_KV} M={GRN_M} too) pool={LM_POOL}x{LM_P} W={W} shuffled, "
+          f"padded: within {K1_TOL} (worst max_abs_err "
+          f"{max(worst, worst_b1, worst_grn):.3g}); bit-identical to K7 at "
+          f"block_s={LM_P} on contiguous pages", flush=True)
     pos = LM_TIMED_POS
-    ms = _time_ms(lambda: DA.paged_decode_attention(q, kp, vp, tbl, pos,
-                                                    **kw), 200)
     plain_ms = _time_ms(lambda: DA.paged_decode_attention_ref(
-        q, kp, vp, tbl, pos, **kw), 20)
-    ms_k7_16 = _time_ms(lambda: DA.decode_attention(
-        q, kc, vc, pos, block_s=LM_P, **kw), 200)
-    library_ms = _library_attn_ms(q, DA.gather_pages(kp, tbl),
-                                  DA.gather_pages(vp, tbl), pos, "K8")
-    call = lambda: DA.paged_decode_attention(  # noqa: E731
-        q, kp, vp, tbl, pos, **kw)
-    dev_ms = _device_ms(call)
-    nbytes, ops = _attn_bytes_ops(LM_B, pos)
-    nbytes += LM_B * (pos // LM_P + 1) * 4                # table entries
-    bound_ms, bound_by = _bound(nbytes, ops, PEAK_F32_FLOPS)
-    print(f"[K8] B={LM_B} pos={pos} delta: kernel {ms:.4f} ms eager (K7 at "
-          f"block_s={LM_P}: {ms_k7_16:.4f} ms); graph-replayed per launch "
-          f"{_ms(dev_ms)}; plain {plain_ms:.4f} ms, library {library_ms} ms "
-          f"(over the gathered cache), bound {bound_ms:.5f} ms ({bound_by})",
-          flush=True)
+        q, kp, vp, tbl, pos, k_new=kn, v_new=vn), 20)
+    k7_16 = _attn_timed("K8's shape through K7", DA,
+                        lambda: DA.decode_attention(
+                            q, kc, vc, pos, block_s=LM_P, k_new=kn,
+                            v_new=vn), LM_B, LM_KV, LM_M, LM_E, pos)
+    library_ms, library_dev = _library_attn_ms(
+        q, DA.gather_pages(kp, tbl), DA.gather_pages(vp, tbl), pos, "K8")
+
+    def timed(tag, y, KV, M):
+        B = len(y[0])
+        return _attn_timed(tag, DA, lambda: DA.paged_decode_attention(
+            y[0], y[1], y[2], y[3], pos, k_new=y[4], v_new=y[5]),
+            B, KV, M, LM_E, pos,
+            extra_bytes=B * (pos // LM_P + 1) * 4)   # table entries
+
+    at = {"b8": timed("K8", (q, kp, vp, tbl, kn, vn), LM_KV, LM_M),
+          "b1": timed("K8 B=1", one, LM_KV, LM_M),
+          "granite_b8": timed("K8 granite", g, GRN_KV, GRN_M),
+          "granite_b1": timed("K8 granite B=1", g1, GRN_KV, GRN_M)}
+    at["b8"].update(library_ms=library_ms, library_device_ms=library_dev,
+                    k7_block16_ms=k7_16["ms"],
+                    k7_block16_device_ms=k7_16["device_ms"])
+    b8 = at["b8"]
+    print(f"[K8] B={LM_B} pos={pos} delta: plain {plain_ms:.4f} ms, "
+          f"library {library_ms} ms eager, {_ms(library_dev)} device (over "
+          f"the gathered cache); K7 at block_s={LM_P} on the same shape "
+          f"{_ms(k7_16['device_ms'])} device", flush=True)
     return dict(name="paged_decode_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention.py:294",
-                max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                device_ms=dev_ms,
+                max_abs_err=max(worst, worst_b1, worst_grn), ms=b8["ms"],
+                plain_ms=plain_ms, bound_ms=b8["bound_ms"],
+                bound_by=b8["bound_by"], library_ms=library_ms,
+                device_ms=b8["device_ms"],
+                plan={k: b8[k] for k in ("n_split", "ctas",
+                                         "rows_per_split")},
+                shapes=at,
                 shape=f"B={LM_B} pool={LM_POOL}x{LM_P} W={W} KV={LM_KV} "
                       f"M={LM_M} E={LM_E} pos={pos} delta")
 

@@ -646,7 +646,7 @@ def test_decode_attention_kernel_matches_plain(cuda, delta, B, S, KV, M, E,
 
     q, kc, vc, kn, vn = _attn_inputs(cuda, B, S, KV, M, E, seed=S + M)
     kw = dict(k_new=kn, v_new=vn) if delta else {}
-    tile = block_s or DA.auto_block_s(S)
+    tile = block_s or DA.DEFAULT_BLOCK_S
     for pos in sorted({0, tile - 1, tile, S // 2, S - 1}):
         before = DA.launches
         got = DA.decode_attention(q, kc, vc, pos, window=window,
@@ -706,6 +706,107 @@ def test_paged_kernel_equals_dense_kernel_at_page_tile(cuda, delta):
             paged = DA.paged_decode_attention(q, kp, vp, tbl, pos,
                                               window=window, **kw)
             assert torch.equal(dense, paged), (pos, window)
+
+
+@pytest.mark.parametrize("delta", [False, True])
+def test_decode_attention_kernel_one_request_long_window(cuda, delta):
+    """hymba-1.5b's decode shape at one request: a 2048-row cache, 25
+    heads over 5, a 1024-row window; the walk starts at the window and
+    its rows are split over a cluster of 16 CTAs."""
+    from repro_torch.kernels import decode_attention as DA
+
+    B, S, KV, M, E, W = 1, 2048, 5, 5, 64, 1024
+    q, kc, vc, kn, vn = _attn_inputs(cuda, B, S, KV, M, E, seed=41)
+    kw = dict(k_new=kn, v_new=vn) if delta else {}
+    for pos in (0, 31, W - 1, W, 1600, S - 1):
+        before = DA.launches
+        got = DA.decode_attention(q, kc, vc, pos, window=W, **kw)
+        torch.cuda.synchronize()
+        assert DA.launches == before + 1
+        want = DA.decode_attention_ref(q, kc, vc, pos, window=W, **kw)
+        assert _norm_err(got, want) <= BF16_TOL, (pos, _norm_err(got, want))
+    plan = DA.decode_plan(B, KV, S, E, 1600, W, delta, DA.DEFAULT_BLOCK_S,
+                          DA.fit_splits(delta, M, E, B * KV))
+    assert plan.lo == 577 and plan.n_split >= 13     # <= 5 tiles each
+
+
+@pytest.mark.parametrize("delta", [False, True])
+@pytest.mark.parametrize("P", [16, 5])
+def test_paged_kernel_splits_span_pages(cuda, delta, P):
+    """Two rows over a shuffled pool: each split gathers several pages
+    (every edge on a page edge) in three rounds through two buffers; table
+    entries past the rows' pages are out of range (-1, n_pages + 7) and
+    never read."""
+    from repro_torch.kernels import decode_attention as DA
+
+    B, KV, M, E = 2, 2, 3, 64
+    used = 9000 // P + 1
+    W, n_pages = used + 4, B * used + 16
+    q, kp, vp, kn, vn = _attn_inputs(cuda, B, None, KV, M, E, seed=P + 3,
+                                     n_pages=n_pages, P=P)
+    g = torch.Generator().manual_seed(P)
+    perm = torch.randperm(n_pages, generator=g)
+    tbl = torch.full((B, W), n_pages + 7)
+    tbl[:, :used] = perm[:B * used].reshape(B, used)
+    tbl[1, used:] = -1
+    tbl = tbl.to(cuda, torch.int32)
+    kw = dict(k_new=kn, v_new=vn) if delta else {}
+    n_fit = DA.fit_splits(delta, M, E, B * KV)
+    for pos, window in ((8999, None), (4500, None), (8999, 333),
+                        (37, None)):
+        plan = DA.decode_plan(B, KV, W * P, E, pos, window, delta, P, n_fit)
+        if pos == 8999 and window is None:
+            # several pages a split, more than two of the kernel's rounds
+            # (16 KB of K rows: 128 at E = 64)
+            assert plan.n_split > 1 and plan.rows > 2 * (8192 // E)
+        got = DA.paged_decode_attention(q, kp, vp, tbl, pos, window=window,
+                                        **kw)
+        torch.cuda.synchronize()
+        want = DA.paged_decode_attention_ref(q, kp, vp, tbl, pos,
+                                             window=window, **kw)
+        assert _norm_err(got, want) <= BF16_TOL, (pos, window)
+
+
+@pytest.mark.parametrize("delta", [False, True])
+def test_decode_attention_kernel_widest_group_many_splits(cuda, delta):
+    """M = 16, E = 256 (the widest group and head the kernel takes) over
+    one KV head: as many splits as the card fits (the partials' slots in
+    rank 0 bound them), each in rounds of 32 rows through two buffers."""
+    from repro_torch.kernels import decode_attention as DA
+
+    B, S, KV, M, E = 1, 4096, 1, 16, 256
+    q, kc, vc, kn, vn = _attn_inputs(cuda, B, S, KV, M, E, seed=256)
+    kw = dict(k_new=kn, v_new=vn) if delta else {}
+    for pos, window in ((S - 1, None), (2500, None), (3000, 1500)):
+        got = DA.decode_attention(q, kc, vc, pos, window=window, **kw)
+        torch.cuda.synchronize()
+        want = DA.decode_attention_ref(q, kc, vc, pos, window=window, **kw)
+        assert _norm_err(got, want) <= BF16_TOL, (pos, window)
+    plan = DA.decode_plan(B, KV, S, E, S - 1, None, delta,
+                          DA.DEFAULT_BLOCK_S,
+                          DA.fit_splits(delta, M, E, B * KV))
+    assert plan.n_split > 1 and plan.rows > 2 * (8192 // E)   # 32-row rounds
+
+
+def test_decode_attention_kernels_deterministic(cuda):
+    """Two calls of K7 and of K8 give the same bits (a fixed merge order,
+    no atomics)."""
+    from repro_torch.kernels import decode_attention as DA
+
+    B, S, KV, M, E, P = 1, 1024, 5, 3, 64, 16
+    q, kc, vc, kn, vn = _attn_inputs(cuda, B, S, KV, M, E, seed=5)
+    kp = kc.reshape(B * S // P, P, KV, E)
+    vp = vc.reshape(B * S // P, P, KV, E)
+    tbl = torch.arange(B * S // P, device=cuda,
+                       dtype=torch.int32).reshape(B, S // P)
+    for pos in (511, S - 1):
+        for kw in ({}, dict(k_new=kn, v_new=vn)):
+            a = DA.decode_attention(q, kc, vc, pos, **kw)
+            b = DA.decode_attention(q, kc, vc, pos, **kw)
+            c = DA.paged_decode_attention(q, kp, vp, tbl, pos, **kw)
+            d = DA.paged_decode_attention(q, kp, vp, tbl, pos, **kw)
+            assert torch.equal(a, b) and torch.equal(c, d)
+            assert torch.equal(a, c)          # block_s = P by default
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -10,12 +10,14 @@ card and host:
     git archive <parent> | tar -x -C build/parent
     git archive $(git write-tree) | tar -x -C build/change
     for r in parent change change parent; do
-        python3 tools/ab_moe_serve.py build/$r 5
+        python3 tools/ab_moe_serve.py build/$r 5 [paged]
     done
 
 Each of the given number of runs (default 1) serves ``chip_smoke.py``'s
 moe-serve requests (16 prompts of 64-960 tokens, 8 slots, 24 new tokens
-each, random weights from seed 0) after one warm-up request, and prints decoded tokens/s, the mean wave,
+each, random weights from seed 0) after one warm-up request — with
+``paged``, through the ``PagedServer`` of the moe-paged phase (its pool
+of 16-token pages, K8 in place of K7) — and prints decoded tokens/s, the mean wave,
 the mean admission (prefill and first token), the decode calls, the
 launches of each kernel and a digest of every decoded token: the digests
 of two trees agree when they decode the same tokens.  The trees' kernels
@@ -30,16 +32,22 @@ import chip_smoke as CS  # noqa: E402  (the moe-serve requests and counters)
 
 root = sys.argv[1]
 runs = int(sys.argv[2]) if len(sys.argv) > 2 else 1
+paged = sys.argv[3:] == ["paged"]
 sys.path.insert(0, root + "/src")         # ahead of chip_smoke's own tree
 
 import numpy as np  # noqa: E402
 
 from repro_torch.configs import get_arch  # noqa: E402
-from repro_torch.launch.serve import Server  # noqa: E402
+from repro_torch.launch.serve import PagedServer, Server  # noqa: E402
 
-name = root.rstrip("/").split("/")[-1]
+name = root.rstrip("/").split("/")[-1] + (" paged" if paged else "")
 cfg = get_arch("granite-moe-3b-a800m")
-server = Server(cfg, slots=CS.LM_B, max_len=CS.LM_S, seed=CS.SEED)
+if paged:
+    server = PagedServer(cfg, pool_pages=CS.LM_POOL, page_size=CS.LM_P,
+                         max_len=CS.LM_S, seed=CS.SEED)
+else:
+    server = Server(cfg, slots=CS.LM_B, max_len=CS.LM_S, seed=CS.SEED)
+attn = "paged_decode_attention" if paged else "decode_attention"
 pending = CS._moe_pending(cfg)
 server.admit(-1, pending[0][1][:64], 4)          # warm-up, as moe-serve
 while server.active.any():
@@ -49,7 +57,7 @@ for run in range(runs):
     finished, admit_s, wave_s, occ, dt, counts = CS._moe_run(
         server, pending, CS.MOE_MAX_NEW)
     n_tok = sum(len(t) for t in finished.values())
-    calls = counts["decode_attention"] // cfg.n_layers
+    calls = counts[attn] // cfg.n_layers
     digest = hashlib.sha256(str(sorted(finished.items())).encode())
     print(f"{name:8s} run {run}  {n_tok / dt:8.3f} tokens/s  wave "
           f"{1e3 * np.mean(wave_s):8.3f} ms  admission "
