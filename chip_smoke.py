@@ -184,11 +184,15 @@ Phases, each of which fails the run (nonzero exit, no result line):
     ``moe_dense_plain`` at 2e-2 of each token row's largest value (every
     value finite) at granite-moe-3b-a800m's d 1536, 40 experts of d_ff
     512, top-8: T = 1, 8, 700 and 1500, every router weight non-zero, one
-    expert never selected, and a small gelu case; 5 rows of the T = 700
-    call launched alone at T = 1 bit-identical to the same rows; the check
-    shown to reject the plain version without the last expert; T = 8 and
-    T = 700 timed (eager, and graph-replayed per launch) beside their
-    plain version, their bound and a three-bmm yardstick (not one call);
+    expert never selected, a token with no weight (its row exactly 0),
+    T = 1 on experts 32-39, and a small gelu case, each with its launch
+    plan (items, clusters, CTAs, slot bytes) and the work list the
+    kernel's first launch builds on the card equal to ``work_list``'s; 5
+    rows of the T = 700 call launched alone at T = 1 bit-identical to the
+    same rows; the check shown to reject the plain version without the
+    last expert; T = 1, 8 and 700 timed (eager, and graph-replayed per
+    call) beside their plain version, their bound and a three-bmm
+    yardstick (not one call);
 18. moe-serve — the full-width ``granite-moe-3b-a800m`` (32 layers, d
     1536, 24 heads over 8 KV heads, 40 experts of 512, top-8, vocab
     49,155, random weights from seed 0 drawn on the card) ``Server``: 16
@@ -3182,7 +3186,7 @@ MOE_NEVER = 17           # the expert the "never selected" case leaves out
 K10_ROWS = (0, 63, 64, 345, 699)   # rows launched alone at T = 1
 K10_CASES = [
     # tag, T, d, E, f, top-k, act, router weights, timed
-    ("T=1", 1, MOE_D, MOE_E, MOE_F, MOE_K, "swiglu", "topk", False),
+    ("T=1", 1, MOE_D, MOE_E, MOE_F, MOE_K, "swiglu", "topk", True),
     ("T=8 decode", 8, MOE_D, MOE_E, MOE_F, MOE_K, "swiglu", "topk", True),
     ("T=700 prefill", 700, MOE_D, MOE_E, MOE_F, MOE_K, "swiglu", "topk",
      True),
@@ -3192,6 +3196,10 @@ K10_CASES = [
      "all", False),
     ("one expert never selected", 300, MOE_D, MOE_E, MOE_F, MOE_K,
      "swiglu", "skip", False),
+    ("a token with no weight", 37, MOE_D, MOE_E, MOE_F, MOE_K, "swiglu",
+     "zero_row", False),
+    ("T=1 experts 32-39", 1, MOE_D, MOE_E, MOE_F, MOE_K, "swiglu", "last8",
+     False),
 ]
 MOE_REQUESTS, MOE_MAX_NEW, MOE_RAGGED = 16, 24, 700
 MOE_CUT = 4              # layers of the held end-to-end logits check
@@ -3210,18 +3218,24 @@ def _moe_weights(gen, d, E, f):
 
 def _router_weights(gen, T, E, k, mode):
     """(T, E) f32 combine weights: the renormalised top-k of a softmax
-    ("topk"), with expert MOE_NEVER never among them ("skip"), or the
-    whole softmax, every weight non-zero ("all")."""
+    ("topk"), with expert MOE_NEVER never among them ("skip"), drawn only
+    from experts E - 8 .. E - 1 ("last8"), with token T // 2's row all
+    zero ("zero_row"), or the whole softmax, every weight non-zero
+    ("all")."""
     import torch
 
     logits = torch.randn(T, E, generator=gen)
     if mode == "skip":
         logits[:, MOE_NEVER] = -float("inf")
+    if mode == "last8":
+        logits[:, :E - 8] = -float("inf")
     probs = torch.softmax(logits, dim=-1)
     if mode != "all":
         top, idx = torch.topk(probs, k, dim=-1)
         probs = torch.zeros_like(probs).scatter_(
             -1, idx, top / top.sum(-1, keepdim=True))
+    if mode == "zero_row":
+        probs[T // 2] = 0.0
     return probs.to("cuda")
 
 
@@ -3255,10 +3269,12 @@ def _moe_yardstick(x, w, wi, wg, wo):
 def check_k10(gen):
     """K10 against ``moe_dense_plain`` at every case of K10_CASES (2e-2 of
     each token row's largest value, :func:`_row_err`; every value finite);
-    5 rows of the T = 700 call launched alone at T = 1 bit-identical to
-    the same rows of the big call; the check must reject the plain version
-    without the last expert; T = 8 and T = 700 timed beside their plain
-    version, their bound and a three-bmm yardstick."""
+    the work list its first launch builds on the card equal to
+    ``moe_dense.work_list``'s, field by field; a token with no weight an
+    exact 0 row; 5 rows of the T = 700 call launched alone at T = 1
+    bit-identical to the same rows of the big call; the check must reject
+    the plain version without the last expert; T = 1, 8 and 700 timed
+    beside their plain version, their bound and a three-bmm yardstick."""
     import torch
 
     from repro_torch.kernels import moe_dense as MD
@@ -3282,21 +3298,47 @@ def check_k10(gen):
             _fail(f"K10 {tag}: row-normalised error {norm} (tol {K10_TOL}), "
                   f"or a value that is not finite")
         worst = max(worst, abs_err)
+        plain_list = MD.work_list(w.cpu())
+        dev_list = MD.device_work_list(w, d)
+        diff = [name for name, a, b in zip(plain_list._fields, plain_list,
+                                           dev_list) if not torch.equal(a, b)]
+        if diff:
+            _fail(f"K10 {tag}: the device's work list differs from "
+                  f"work_list's in {diff}")
+        plan = MD.launch_plan(T, d, E, f)
         line = (f"[K10] {tag}: T={T} d={d} E={E} f={f} top-{k} {act} "
-                f"({mode} weights; {16 if T <= 16 else 64}-row tiles, "
-                f"{f // 64} x {MD.expert_groups(E)} x "
-                f"{-(-T // (16 if T <= 16 else 64))} CTAs): row-normalised "
-                f"error {norm:.3g} (tol {K10_TOL}; tensor-normalised "
-                f"{_norm_err(got, want)[1]:.3g}), max_abs_err {abs_err:.3g}")
+                f"({mode} weights; {plan['regime']}: "
+                f"{len(plain_list.items)} items of <= {plan['item_rows']} "
+                f"rows over {plan['clusters']} clusters of "
+                f"{plan['cluster']} CTAs = {plan['ctas']} CTAs, "
+                f"{plan['hidden_per_cta']} hidden and "
+                f"{plan['out_per_cta']} output columns a CTA, "
+                f"{int(plain_list.counts.gt(0).sum())} experts used, "
+                f"{len(plain_list.pair_tok)} pairs, slot bytes "
+                f"{4 * d * len(plain_list.pair_tok)} used of "
+                f"{plan['slot_bytes']}; device work list = work_list's): "
+                f"row-normalised error {norm:.3g} (tol {K10_TOL}; "
+                f"tensor-normalised {_norm_err(got, want)[1]:.3g}), "
+                f"max_abs_err {abs_err:.3g}")
+        if mode == "zero_row":
+            zero_ok = torch.equal(got[T // 2], torch.zeros_like(got[T // 2]))
+            line += f"; the weightless token's row exactly 0: {zero_ok}"
+            if not zero_ok:
+                _fail(f"K10 {tag}: token {T // 2} has no weight but its row "
+                      f"is not 0")
         if T == 700:
             alone = [torch.equal(MD.moe_dense(x[r:r + 1], w[r:r + 1], wi, wg,
                                               wo, act=act), got[r:r + 1])
                      for r in K10_ROWS]
+            # and rows 0-7 as one decode call of 8 (8 items, 16-row tiles)
+            alone.append(torch.equal(MD.moe_dense(x[:8], w[:8], wi, wg, wo,
+                                                  act=act), got[:8]))
             short = moe_dense_plain(x, w[:, :-1], wi[:-1], wg[:-1], wo[:-1],
                                     act=act)
             seen = _row_err(short, want)[1]
-            line += (f"; rows {K10_ROWS} launched alone at T=1 "
-                     f"bit-identical: {alone}; the plain version without "
+            line += (f"; rows {K10_ROWS} launched alone at T=1, and rows "
+                     f"0-7 as one T=8 call, bit-identical: {alone}; the "
+                     f"plain version without "
                      f"the last expert: row-normalised {seen:.3g}")
             if not all(alone):
                 _fail(f"K10 {tag}: a row launched alone differs from the "
@@ -3331,6 +3373,7 @@ def check_k10(gen):
                      f"{bound_ms / (dev_ms or ms):.3f}")
         print(line, flush=True)
     extra = {f"{k}_decode": v for k, v in rows[8].items()}
+    extra.update({f"{k}_t1": v for k, v in rows[1].items()})
     return dict(name="moe_dense", route="cuda",
                 source="src/repro_torch/kernels/csrc/moe_dense.cu",
                 replaces="src/repro/kernels/moe_dense.py:72",

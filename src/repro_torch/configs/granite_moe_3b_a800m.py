@@ -4,9 +4,10 @@ SwiGLU experts.
 
 32 layers, d_model 1536, 24 query heads over 8 KV heads (GQA groups of
 3), head_dim 64, vocab 49,155, RMSNorm, RoPE θ = 10,000, tied
-embeddings; 40 experts of d_ff 512, top-8, the "dense" router (every
-expert computed for every token and weighted by its top-k combine
-weight, 0 where not selected), routing groups of 2048 tokens: about 3.3 B
+embeddings; 40 experts of d_ff 512, top-8, the "dense" router (a
+token's FFN output is the sum over every expert weighted by its top-k
+combine weight, 0 where not selected; the port's kernel computes only
+the weighted pairs), routing groups of 2048 tokens: about 3.3 B
 parameters (~6.6 GB in bf16), the dimensions of the granite-3.0-3b-a800m
 model card.  Weights are drawn from a seed; nothing is downloaded.
 """

@@ -9,19 +9,34 @@ router_w[:, e] · ffn_e(x), ffn_e(x) = (silu(x wg_e) · x wi_e) wo_e
 approximation; wg is then not read).  One extension: any T >= 1 (the
 Pallas kernel asserts T % tile_t == 0).
 
-On a CUDA tensor it launches ``csrc/moe_dense.cu`` (the fused kernel and
-its short pass over the expert-group partials) and counts one launch
+On a CUDA tensor it launches ``csrc/moe_dense.cu`` and counts one launch
 (``launches``); on a CPU tensor it runs the plain version
 (``ref.moe_dense_plain``).  It never falls back from the card to the
-plain path.  The kernel keeps x·wi, x·wg and the hidden times wo in f32
-where the plain version rounds each product to bf16, as the reference
-oracle does: the two agree within the bf16 output's tolerance, 2e-2 of
-each token row's largest value.  A token's output is bit-identical
-whatever T is and whichever tokens share its tile.
+plain path.  The kernel computes only the (token, expert) pairs whose
+weight is non-zero: its first launch builds the work list on the device
+from router_w (:func:`work_list` is its plain version; the wrapper
+never waits on the card), the second runs each used expert's FFN on its
+tokens (wgmma products, each expert's weights read from device memory
+once) and writes each pair's weighted row in f32 to the pair's slot, the
+third sums each token's slots in ascending expert order and rounds once;
+a token with no non-zero weight gets an exact 0 row.  A zero weight adds
+nothing wherever the expert's FFN is finite, so the function is the
+dense sum's; where an unselected expert's FFN is not finite, the dense
+sum's row is NaN (0 · inf) and the kernel's is not.
+
+The kernel keeps x·wi, x·wg and the hidden times wo as f32 sums of bf16
+products where the plain version rounds each product to bf16, as the
+reference oracle does: the two agree within the bf16 output's tolerance,
+2e-2 of each token row's largest value.  The hidden is rounded once to
+bf16, y once.  A token's output is bit-identical whatever T is and
+whichever tokens share its tile: every product is the same wgmma shape
+over the same k order at any T.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -32,18 +47,59 @@ from repro_torch.kernels.ref import moe_dense_plain
 launches = 0          # K10 launches (one per moe_dense on the card)
 
 ACTS = ("swiglu", "gelu")
-HIDDEN_PER_CTA = 64   # hidden columns a CTA of a cluster computes
-MAX_CLUSTER = 8       # CTAs per cluster: f / 64 <= 8, so f <= 512
-MAX_OUT_PER_CTA = 192  # output columns d / (f / 64) a CTA accumulates
-EXPERTS_PER_GROUP = 2  # experts a CTA sums before one f32 partial
+HIDDEN_PER_CTA = 64   # hidden columns a CTA computes at prefill (32 at decode)
+MAX_CLUSTER = 8       # CTAs per cluster at prefill: f / 64 <= 8, so f <= 512
+MAX_OUT_PER_CTA = 192  # output columns d / (f / 64) a CTA computes at prefill
+MAX_EXPERTS = 1024    # experts the work list's launch takes
+DECODE_T = 16         # T up to which an item is all of one expert's tokens
+ITEM_ROWS = 64        # rows of an item above DECODE_T
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# the workspace's parts, in moe_dense_layout's order
+_PARTS = ("slots", "tok_nnz", "tok_off", "pair_tok", "pair_slot", "items",
+          "n_items", "total")
 
 
-def expert_groups(E: int) -> int:
-    """The number of f32 partials of y the kernel sums per element."""
-    return -(-E // EXPERTS_PER_GROUP)
+class WorkList(NamedTuple):
+    """The kernel's work list for router weights (T, E): the pairs (a
+    token and an expert whose weight is non-zero) in expert-major order,
+    each expert's tokens ascending; each pair's slot in token-major
+    order (a token's slots follow its experts in ascending order); the
+    items, an expert and up to ``item_rows(T)`` of its pairs, in
+    expert-major order."""
+    counts: torch.Tensor     # (E,) int: pairs of each expert
+    pair_tok: torch.Tensor   # (P,) int: the pair's token
+    pair_slot: torch.Tensor  # (P,) int: its slot
+    tok_nnz: torch.Tensor    # (T,) int: non-zero weights of each token
+    tok_off: torch.Tensor    # (T,) int: its first slot
+    items: torch.Tensor      # (I, 3) int: expert, first pair, rows
+
+
+def item_rows(T: int) -> int:
+    """Token rows an item holds: all of one expert's at decode (T <= 16),
+    else 64 (one wgmma tile)."""
+    return 16 if T <= DECODE_T else ITEM_ROWS
+
+
+def work_list(router_w, rows: int = None) -> WorkList:
+    """The plain version of the kernel's first launch (``moe_plan_kernel``
+    builds the same lists on the card); used by the CPU tests and checks,
+    never on the main path."""
+    T, E = router_w.shape
+    rows = item_rows(T) if rows is None else rows
+    nz = router_w != 0
+    counts = nz.sum(0)
+    e_idx, t_idx = torch.nonzero(nz.T, as_tuple=True)   # expert-major
+    tok_nnz = nz.sum(1)
+    tok_off = torch.cumsum(tok_nnz, 0) - tok_nnz
+    rank = torch.cumsum(nz.long(), 1) - 1     # e's place among t's experts
+    first = torch.cumsum(counts, 0) - counts
+    items = [(e, int(first[e]) + j, min(rows, int(counts[e]) - j))
+             for e in range(E) for j in range(0, int(counts[e]), rows)]
+    return WorkList(counts, t_idx, tok_off[t_idx] + rank[t_idx, e_idx],
+                    tok_nnz, tok_off,
+                    torch.tensor(items, dtype=torch.long).reshape(-1, 3))
 
 
 def _check(x, router_w, wi, wg, wo, act):
@@ -65,7 +121,7 @@ def _check(x, router_w, wi, wg, wo, act):
                          f"and {E} experts")
 
 
-def _check_kernel_shapes(d: int, f: int):
+def _check_kernel_shapes(d: int, f: int, E: int = 1):
     cl = f // HIDDEN_PER_CTA
     if f % HIDDEN_PER_CTA or not 1 <= cl <= MAX_CLUSTER:
         raise ValueError(f"d_ff {f}: the kernel takes a multiple of "
@@ -74,19 +130,51 @@ def _check_kernel_shapes(d: int, f: int):
     if d % (64 * cl) or d // cl > MAX_OUT_PER_CTA:
         raise ValueError(f"d_model {d}: the kernel splits it over {cl} CTAs "
                          f"in multiples of 64 up to {MAX_OUT_PER_CTA} each")
+    if not 1 <= E <= MAX_EXPERTS:
+        raise ValueError(f"{E} experts: the kernel takes 1 to {MAX_EXPERTS}")
 
 
-def moe_dense(x, router_w, wi, wg, wo, *, act: str = "swiglu"):
-    """x (T, d) bf16, router_w (T, E) f32, wi/wg (E, d, f) bf16, wo
-    (E, f, d) bf16 -> y (T, d) bf16."""
-    global launches
-    _check(x, router_w, wi, wg, wo, act)
-    if x.device.type == "cpu":
-        return moe_dense_plain(x, router_w, wi, wg, wo, act=act)
-    require_kernel_device(x)
-    T, d = x.shape
-    E, _, f = wi.shape
-    _check_kernel_shapes(d, f)
+def launch_plan(T: int, d: int, E: int, f: int) -> dict:
+    """How a call at these shapes runs on the card (cluster size, columns
+    a CTA, rows an item, the persistent clusters, the workspace)."""
+    _check_kernel_shapes(d, f, E)
+    cl = f // (32 if T <= DECODE_T else 64)
+    n = _lib().moe_dense_clusters(T, d, E, f)
+    if n < 0:
+        raise RuntimeError(f"moe_dense_clusters failed: cudaError {-n}")
+    lay = _layout(T, d, E)
+    return dict(regime="decode" if T <= DECODE_T else "prefill",
+                item_rows=item_rows(T), cluster=cl, hidden_per_cta=f // cl,
+                out_per_cta=d // cl, clusters=n, ctas=n * cl,
+                slot_bytes=lay["tok_nnz"] - lay["slots"],
+                workspace_bytes=lay["total"])
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = build.load("moe_dense")
+    lib.moe_dense.argtypes = [_P] * 7 + [_I] * 5 + [_P]
+    lib.moe_dense.restype = _I
+    lib.moe_dense_layout.argtypes = [_I] * 3 + [_P]
+    lib.moe_dense_layout.restype = _I
+    lib.moe_dense_clusters.argtypes = [_I] * 4
+    lib.moe_dense_clusters.restype = _I
+    lib.moe_dense_plan.argtypes = [_P, _P] + [_I] * 3 + [_P]
+    lib.moe_dense_plan.restype = _I
+    return lib
+
+
+@functools.lru_cache(maxsize=1024)
+def _layout(T: int, d: int, E: int) -> dict:
+    """The workspace's byte offsets (``moe_dense_layout`` owns them)."""
+    out = (ctypes.c_size_t * len(_PARTS))()
+    rc = _lib().moe_dense_layout(T, d, E, ctypes.cast(out, _P))
+    if rc:
+        raise RuntimeError(f"moe_dense_layout failed: cudaError {rc}")
+    return dict(zip(_PARTS, out))
+
+
+def _check_device(x, router_w, wi, wg, wo):
     dev = x.device
     for name, t, dtype in (("x", x, torch.bfloat16),
                            ("router_w", router_w, torch.float32),
@@ -99,18 +187,57 @@ def moe_dense(x, router_w, wi, wg, wo, *, act: str = "swiglu"):
                              f"aligned {dtype} tensor on {dev}, got "
                              f"{t.dtype} on {t.device} (contiguous: "
                              f"{t.is_contiguous()})")
+
+
+def device_work_list(router_w, d: int) -> WorkList:
+    """The work list as the kernel's first launch builds it on the card,
+    read back (a check of :func:`work_list`'s twin; the main path never
+    reads it back)."""
+    require_kernel_device(router_w)
+    T, E = router_w.shape
+    if router_w.dtype != torch.float32 or not router_w.is_contiguous():
+        raise ValueError("router_w: expected a contiguous f32 tensor")
+    lay = _layout(T, d, E)
+    ws = torch.empty(lay["total"], dtype=torch.uint8, device=router_w.device)
+    rc = _lib().moe_dense_plan(
+        router_w.data_ptr(), ws.data_ptr(), T, d, E,
+        torch._C._cuda_getCurrentRawStream(router_w.get_device()))
+    if rc:
+        raise RuntimeError(f"moe_dense_plan failed: cudaError {rc}")
+    ws = ws.cpu()
+
+    def part(name, n):
+        at = lay[name]
+        return ws[at:at + 4 * n].view(torch.int32).long()
+    tok_nnz = part("tok_nnz", T)
+    P = int(tok_nnz.sum())
+    n_items = int(part("n_items", 1))
+    items = part("items", 4 * n_items).reshape(-1, 4)[:, :3]
+    counts = torch.zeros(E, dtype=torch.long).index_add_(0, items[:, 0],
+                                                         items[:, 2])
+    return WorkList(counts, part("pair_tok", P), part("pair_slot", P),
+                    tok_nnz, part("tok_off", T), items)
+
+
+def moe_dense(x, router_w, wi, wg, wo, *, act: str = "swiglu"):
+    """x (T, d) bf16, router_w (T, E) f32, wi/wg (E, d, f) bf16, wo
+    (E, f, d) bf16 -> y (T, d) bf16."""
+    global launches
+    _check(x, router_w, wi, wg, wo, act)
+    if x.device.type == "cpu":
+        return moe_dense_plain(x, router_w, wi, wg, wo, act=act)
+    require_kernel_device(x)
+    T, d = x.shape
+    E, _, f = wi.shape
+    _check_kernel_shapes(d, f, E)
+    _check_device(x, router_w, wi, wg, wo)
     y = torch.empty_like(x)
-    partial = torch.empty(expert_groups(E), T, d, dtype=torch.float32,
-                          device=dev)
-    lib = build.load("moe_dense")
-    if lib.moe_dense.argtypes is None:
-        lib.moe_dense.argtypes = [_P] * 7 + [_I] * 6 + [_P]
-        lib.moe_dense.restype = _I
-    rc = lib.moe_dense(x.data_ptr(), router_w.data_ptr(), wi.data_ptr(),
-                       wg.data_ptr(), wo.data_ptr(), y.data_ptr(),
-                       partial.data_ptr(), T, d, E, f, int(act == "gelu"),
-                       EXPERTS_PER_GROUP,
-                       torch.cuda.current_stream(dev).cuda_stream)
+    ws = torch.empty(_layout(T, d, E)["total"], dtype=torch.uint8,
+                     device=x.device)
+    rc = _lib().moe_dense(x.data_ptr(), router_w.data_ptr(), wi.data_ptr(),
+                          wg.data_ptr(), wo.data_ptr(), y.data_ptr(),
+                          ws.data_ptr(), T, d, E, f, int(act == "gelu"),
+                          torch._C._cuda_getCurrentRawStream(x.get_device()))
     if rc:
         raise RuntimeError(f"moe_dense launch failed: cudaError {rc}")
     launches += 1

@@ -6,14 +6,14 @@ each token's top-k experts chosen, and a one-hot dispatch/combine moves
 token activations into per-expert buffers of ``cap`` slots (a token past
 its expert's capacity is dropped), in plain torch ops.
 
-``dense`` — every expert computed for every token and weighted by the
-token's top-k combine weight (0 for an expert not selected): exact, no
+``dense`` — a token's output is the sum over every expert weighted by
+its top-k combine weight (0 for an expert not selected): exact, no
 token dropped.  It is ONE call of ``kernels/moe_dense.moe_dense`` on
-all T tokens, on every device: on the card one launch of the fused
-dense-MoE kernel (the K10 port; the (tokens, E, d_ff) hidden never
-reaches device memory), on the CPU its plain version
-``moe_dense_plain``, so both devices round the same function the same
-way.  The reference's ``moe_dense_fused`` flag (the combine weights
+all T tokens, on every device: on the card one call of the fused
+dense-MoE kernel (the K10 port, which computes only the weighted
+pairs; the hidden never reaches device memory), on the CPU its plain
+version ``moe_dense_plain``, so both devices round the same function
+the same way.  The reference's ``moe_dense_fused`` flag (the combine weights
 rounded to bf16 and contracted jointly over experts and d_ff) selects
 nothing here: the kernel keeps the router weights in f32.
 

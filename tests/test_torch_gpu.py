@@ -1173,8 +1173,9 @@ def test_lm_servers_on_card_admit_a_600_token_prompt(cuda):
 
 def _moe_inputs(cuda, T, d, E, f, k, mode, seed):
     """x, the (T, E) router weights (renormalised top-k; "all": the whole
-    softmax; "skip": expert 1 never selected) and wi/wg/wo at the model's
-    init scales, on the card."""
+    softmax; "skip": expert 1 never selected; "last8": top-k of the last
+    8 experts only; "zero_row": token T // 2 with no weight) and wi/wg/wo
+    at the model's init scales, on the card."""
     g = torch.Generator().manual_seed(seed)
     x = torch.randn(T, d, generator=g).to(cuda, torch.bfloat16)
     wi = (torch.randn(E, d, f, generator=g) / d ** 0.5).to(cuda,
@@ -1186,11 +1187,15 @@ def _moe_inputs(cuda, T, d, E, f, k, mode, seed):
     logits = torch.randn(T, E, generator=g)
     if mode == "skip":
         logits[:, 1] = -float("inf")
+    if mode == "last8":
+        logits[:, :E - 8] = -float("inf")
     w = torch.softmax(logits, -1)
     if mode != "all":
         top, idx = torch.topk(w, k, -1)
         w = torch.zeros_like(w).scatter_(-1, idx,
                                          top / top.sum(-1, keepdim=True))
+    if mode == "zero_row":
+        w[T // 2] = 0.0
     return x, w.to(cuda), wi, wg, wo
 
 
@@ -1207,7 +1212,11 @@ def _row_normalised(got, want):
     (37, 256, 4, 128, 2, "gelu", "topk"),        # reduced granite, gelu
     (64, 1536, 40, 512, 8, "swiglu", "all"),     # every weight non-zero
     (300, 1536, 40, 512, 8, "swiglu", "skip"),   # one expert never used
-    (20, 512, 5, 256, 2, "swiglu", "topk"),      # 3 groups, the last of 1
+    (20, 512, 5, 256, 2, "swiglu", "topk"),      # 4 CTAs a cluster
+    (37, 1536, 40, 512, 8, "swiglu", "zero_row"),  # a token with no weight
+    (1, 1536, 40, 512, 8, "swiglu", "last8"),    # experts 32-39 only
+    (16, 1536, 40, 512, 8, "swiglu", "topk"),    # the last decode T
+    (17, 1536, 40, 512, 8, "swiglu", "topk"),    # the first prefill T
 ])
 def test_moe_dense_kernel_matches_plain(cuda, T, d, E, f, k, act, mode):
     """K10 against ``moe_dense_plain`` (whose products round to bf16 as
@@ -1240,6 +1249,26 @@ def test_moe_dense_rows_do_not_depend_on_T(cuda):
                            full[r:r + 1]), r
     assert torch.equal(MD.moe_dense(x[100:109], w[100:109], wi, wg, wo),
                        full[100:109])
+
+
+@pytest.mark.parametrize("T,mode", [(1, "topk"), (8, "topk"),
+                                    (700, "topk"), (37, "zero_row"),
+                                    (1, "last8"), (64, "all")])
+def test_moe_dense_work_list_and_determinism(cuda, T, mode):
+    """The work list the kernel's first launch builds on the card equals
+    ``work_list``'s; two calls are bit-identical; a token with no weight
+    gets an exact 0 row."""
+    from repro_torch.kernels import moe_dense as MD
+
+    x, w, wi, wg, wo = _moe_inputs(cuda, T, 1536, 40, 512, 8, mode, T + 3)
+    got, want = MD.device_work_list(w, 1536), MD.work_list(w.cpu())
+    for name, a, b in zip(want._fields, got, want):
+        assert torch.equal(a, b), name
+    y1 = MD.moe_dense(x, w, wi, wg, wo)
+    y2 = MD.moe_dense(x, w, wi, wg, wo)
+    assert torch.equal(y1, y2)
+    if mode == "zero_row":
+        assert torch.equal(y1[T // 2], torch.zeros_like(y1[T // 2]))
 
 
 def test_moe_dense_rejects_what_it_does_not_take(cuda):

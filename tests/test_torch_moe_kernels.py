@@ -138,15 +138,24 @@ def test_wrapper_runs_the_plain_version_on_cpu_tensors():
 
 
 def test_kernel_shape_limits():
-    """Clusters of f / 64 CTAs (at most 8), each accumulating d / (f / 64)
-    output columns, a multiple of 64 up to 192: granite's (1536, 512) and
-    its reduced (256, 128) are taken."""
+    """Clusters of f / 64 CTAs at prefill (at most 8; twice as many of half
+    the columns at decode), each computing d / (f / 64) output columns, a
+    multiple of 64 up to 192: granite's (1536, 512) and its reduced (256,
+    128) are taken.  The work list's launch takes 1 to 1024 experts (the
+    expert-group partials of the parent kernel are gone); items hold all
+    of one expert's tokens up to T = 16, else 64 rows."""
     for d, f in ((1536, 512), (256, 128), (512, 256), (64, 64)):
         MD._check_kernel_shapes(d, f)
     for d, f in ((1536, 96), (1536, 1024), (1600, 512), (2048, 128)):
         with pytest.raises(ValueError):
             MD._check_kernel_shapes(d, f)
-    assert MD.expert_groups(40) == 20 and MD.expert_groups(5) == 3
+    MD._check_kernel_shapes(1536, 512, 40)
+    MD._check_kernel_shapes(1536, 512, MD.MAX_EXPERTS)
+    for E in (0, MD.MAX_EXPERTS + 1):
+        with pytest.raises(ValueError, match="experts"):
+            MD._check_kernel_shapes(1536, 512, E)
+    assert [MD.item_rows(T) for T in (1, 8, 16, 17, 700)] == \
+        [16, 16, 16, 64, 64]
     cfg = get_arch("granite-moe-3b-a800m")
     MD._check_kernel_shapes(cfg.d_model, cfg.moe.d_ff_expert)
     red = cfg.reduced()
