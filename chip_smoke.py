@@ -880,63 +880,93 @@ def _k5_states(B, K, V, gen):
     return [("mid-utterance", st, 64), ("fewer-live-than-beam", fresh, 0)]
 
 
+K5_BATCHES = (4, 8)      # serve's rows, evaluate's (both timed)
+
+
+def _k5_bound(B, K, V, topc):
+    """Bytes (the row in; the state in, the outputs out) and compares."""
+    nbytes = B * V * 4 + B * K * 4 * 5 + B * K * 4 * 3
+    ops = (B * V + B * K * (topc + 1) * 2) if topc else B * K * V * 2
+    return _bound(nbytes, ops, PEAK_F32_FLOPS)
+
+
 def check_k5(gen):
+    """K5 against the plain frame step at serve's B = 4 and evaluate's B =
+    8 (K = 8, V = 32000), both bodies, both semirings and both states:
+    sel and the max-semiring scores bit-equal, the sum semiring's within
+    K5_SUM_TOL; then both shapes timed (eager, and graph-replayed per
+    call) beside the plain step and the bound, with the plan (CTAs a row,
+    ``decode.kernel.beam_slices``)."""
     import torch
 
     from repro_torch.decode import beam as DB
     from repro_torch.decode import kernel as DK
 
-    B, K, V = 4, 8, 32000
+    K, V = 8, 32000
     dev = torch.device("cuda")
-    logp = torch.log_softmax(torch.randn(B, V, generator=gen).to(dev) * 3.0,
-                             dim=-1).contiguous()
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     entries = {}
     for topc in (0, 16):
         worst = 0.0
-        for semiring in ("max", "sum"):
-            for label, st, max_len in _k5_states(B, K, V, gen):
-                args = (logp, st.p_b, st.p_nb, st.last, st.phash, st.lens)
-                kw = dict(blank=0, max_len=max_len, semiring=semiring)
-                got = DK.beam_frame_step(*args, topc=topc, **kw)
-                torch.cuda.synchronize()
-                want = (DB.frame_step_scores_topc(*args, topc=topc, **kw)
-                        if topc else DB.frame_step_scores(*args, **kw))
-                if not torch.equal(got[0], want[0]):
-                    _fail(f"K5 topc={topc} {semiring} {label}: sel "
-                          f"{got[0].tolist()} != {want[0].tolist()}")
-                err = max(float((g - w).abs().max())
-                          for g, w in zip(got[1:], want[1:]))
-                tol = 0.0 if semiring == "max" else K5_SUM_TOL
-                ok = (all(torch.equal(g, w) for g, w in
-                          zip(got[1:], want[1:])) if semiring == "max"
-                      else all(torch.allclose(g, w, rtol=tol, atol=tol)
-                               for g, w in zip(got[1:], want[1:])))
-                print(f"[K5] beam_frame_step topc={topc} {semiring} "
-                      f"{label}: sel equal, score max_abs_err {err:.3g} "
-                      f"(tol {tol})", flush=True)
-                if not ok:
-                    _fail(f"K5 topc={topc} {semiring} {label}: scores "
-                          f"disagree (max_abs_err {err})")
-                worst = max(worst, err)
-        st = _k5_states(B, K, V, gen)[0][1]
-        args = (logp, st.p_b, st.p_nb, st.last, st.phash, st.lens)
-        kw = dict(blank=0, max_len=64, semiring="max")
-        ms = _time_ms(lambda: DK.beam_frame_step(*args, topc=topc, **kw), 50)
-        plain = ((lambda: DB.frame_step_scores_topc(*args, topc=topc, **kw))
-                 if topc else (lambda: DB.frame_step_scores(*args, **kw)))
-        plain_ms = _time_ms(plain, 5)
-        nbytes = B * V * 4 + B * K * 4 * 5 + B * K * 4 * 3
-        ops = (B * V + B * K * (topc + 1) * 2) if topc else B * K * V * 2
-        bound_ms, bound_by = _bound(nbytes, ops, PEAK_F32_FLOPS)
+        timed = {}
+        for B in K5_BATCHES:
+            logp = torch.log_softmax(
+                torch.randn(B, V, generator=gen).to(dev) * 3.0,
+                dim=-1).contiguous()
+            for semiring in ("max", "sum"):
+                for label, st, max_len in _k5_states(B, K, V, gen):
+                    args = (logp, st.p_b, st.p_nb, st.last, st.phash,
+                            st.lens)
+                    kw = dict(blank=0, max_len=max_len, semiring=semiring)
+                    got = DK.beam_frame_step(*args, topc=topc, **kw)
+                    torch.cuda.synchronize()
+                    want = (DB.frame_step_scores_topc(*args, topc=topc, **kw)
+                            if topc else DB.frame_step_scores(*args, **kw))
+                    if not torch.equal(got[0], want[0]):
+                        _fail(f"K5 B={B} topc={topc} {semiring} {label}: "
+                              f"sel {got[0].tolist()} != {want[0].tolist()}")
+                    err = max(float((g - w).abs().max())
+                              for g, w in zip(got[1:], want[1:]))
+                    tol = 0.0 if semiring == "max" else K5_SUM_TOL
+                    ok = (all(torch.equal(g, w) for g, w in
+                              zip(got[1:], want[1:])) if semiring == "max"
+                          else all(torch.allclose(g, w, rtol=tol, atol=tol)
+                                   for g, w in zip(got[1:], want[1:])))
+                    print(f"[K5] beam_frame_step B={B} topc={topc} "
+                          f"{semiring} {label}: sel equal, score max_abs_err "
+                          f"{err:.3g} (tol {tol})", flush=True)
+                    if not ok:
+                        _fail(f"K5 B={B} topc={topc} {semiring} {label}: "
+                              f"scores disagree (max_abs_err {err})")
+                    worst = max(worst, err)
+            st = _k5_states(B, K, V, gen)[0][1]
+            args = (logp, st.p_b, st.p_nb, st.last, st.phash, st.lens)
+            kw = dict(blank=0, max_len=64, semiring="max")
+            call = lambda: DK.beam_frame_step(*args, topc=topc, **kw)  # noqa
+            ms = _time_ms(call, 50)
+            device = _device_ms(call)
+            plain = ((lambda: DB.frame_step_scores_topc(*args, topc=topc,
+                                                        **kw))
+                     if topc else (lambda: DB.frame_step_scores(*args, **kw)))
+            plain_ms = _time_ms(plain, 5)
+            bound_ms, bound_by = _k5_bound(B, K, V, topc)
+            slices = DK.beam_slices(B, V, n_sm)
+            timed[B] = dict(ms=ms, device_ms=device, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            plan=dict(slices=slices, ctas=B * slices),
+                            shape=f"B={B} K={K} V={V} C={topc}")
+            print(f"[K5] B={B} topc={topc}: kernel {ms:.4f} ms, device "
+                  f"{_ms(device)} per call, plain {plain_ms:.3f} ms, bound "
+                  f"{bound_ms:.5f} ms ({bound_by}); plan: {slices} CTAs a "
+                  f"row (one cluster), {B * slices} CTAs", flush=True)
         name = "beam_frame_step_topc" if topc else "beam_frame_step"
+        serve = timed[K5_BATCHES[0]]
         entries[name] = dict(
             name=name, route="cuda",
             source="src/repro_torch/decode/csrc/beam_step.cu",
             replaces="src/repro/decode/kernel.py:123", max_abs_err=worst,
-            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None, shape=f"B={B} K={K} V={V} C={topc}")
-        print(f"[K5] topc={topc}: kernel {ms:.4f} ms, plain {plain_ms:.3f} "
-              f"ms, bound {bound_ms:.5f} ms ({bound_by})", flush=True)
+            library_ms=None, **serve,
+            evaluate_shape=timed[K5_BATCHES[1]])
     return entries
 
 
@@ -2811,6 +2841,20 @@ def _ssd_bytes_ops(B, S, H, P, G, N, Q):
     return nbytes, [(scores, PEAK_BF16_FLOPS), (f32, PEAK_F32_FLOPS)]
 
 
+def _ssd_launch_us(call, calls=20):
+    """Device µs per call of each of K9's launches (torch.profiler)."""
+    call()
+    got = _profile_window(lambda: [call() for _ in range(calls)], "k9")
+    if got is None:
+        return {}
+    out = {}
+    for us, _, key in got[3]:
+        label = next((n for n in ("ssd_state", "ssd_out") if n in key),
+                     key[:32])
+        out[label] = round(out.get(label, 0.0) + us / calls, 2)
+    return out
+
+
 def check_k9(gen):
     import torch
 
@@ -2821,6 +2865,7 @@ def check_k9(gen):
     shapes = [(2, 100, 4, 32, 2, 64, 32),                   # small, G < H
               (1, SSM_S, SSM_H, SSM_P, 1, SSM_N, SSM_Q),    # mamba2-370m
               (1, HYB_S, 50, 64, 1, 16, 256)]               # hymba-1.5b
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     timed = []
     for B, S, H, P, G, N, Q in shapes:
         args = _ssd_inputs(gen, B, S, H, P, G, N)
@@ -2832,32 +2877,44 @@ def check_k9(gen):
             _fail(f"K9 B={B} S={S} H={H} P={P} G={G} N={N} Q={Q}: "
                   f"normalised error y {ny}, state {nh}")
         worst = max(worst, ey)
+        plan = SSD.ssd_plan(B, S, H, P, G, N, min(Q, S), n_sm)
         print(f"[K9] ssd B={B} S={S} H={H} P={P} G={G} N={N} Q={Q}: y "
               f"{ny:.3g} (tol {SSM_Y_TOL}), state {nh:.3g} (tol "
               f"{SSM_STATE_TOL}) normalised, max_abs_err y {ey:.3g} state "
-              f"{eh:.3g}", flush=True)
+              f"{eh:.3g}; plan: {plan['chunks']} chunks (last "
+              f"{S - (plan['chunks'] - 1) * min(Q, S)}), {plan['items']} "
+              f"items, output CTAs of {plan['p_tile']} channels, scratch "
+              f"{plan['scratch_bytes'] / 1e6:.2f} MB", flush=True)
         if B == 1:                                  # the serving shapes
-            ms = _time_ms(lambda: SSD.ssd(*args, chunk=Q), 50)
+            call = lambda: SSD.ssd(*args, chunk=Q)  # noqa: E731
+            ms = _time_ms(call, 50)
+            device = _device_ms(call)
+            per_launch = _ssd_launch_us(call)
             plain_ms = _time_ms(lambda: ssd_plain(*args, chunk=Q), 10)
             nbytes, ops = _ssd_bytes_ops(B, S, H, P, G, N, Q)
             bound_ms, bound_by = _bound(nbytes, ops)
+            # the kernel's own: each f32 product as three bf16 wgmma ones
+            split_ms, _ = _bound(nbytes, [ops[0], (3 * ops[1][0],
+                                                   PEAK_BF16_FLOPS)])
             print(f"[K9] B={B} S={S} (last chunk {S % Q or Q}) H={H} P={P} "
-                  f"N={N} Q={Q}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                  f"ms, library none, bound {bound_ms:.5f} ms ({bound_by}: "
-                  f"{ops[0][0] / 1e9:.3f} GFLOP bf16 scores, "
-                  f"{ops[1][0] / 1e9:.3f} GFLOP f32, {nbytes / 1e6:.2f} MB)",
-                  flush=True)
-            timed.append((ms, plain_ms, bound_ms, bound_by,
-                          f"B={B} S={S} H={H} P={P} G={G} N={N} Q={Q} bf16"))
-    (ms, plain_ms, bound_ms, bound_by, shape), hyb = timed
+                  f"N={N} Q={Q}: kernel {ms:.4f} ms, device {_ms(device)} "
+                  f"per call (launches, us: {per_launch}), plain "
+                  f"{plain_ms:.4f} ms, library none, bound {bound_ms:.5f} ms "
+                  f"({bound_by}: {ops[0][0] / 1e9:.3f} GFLOP bf16 scores, "
+                  f"{ops[1][0] / 1e9:.3f} GFLOP f32, {nbytes / 1e6:.2f} MB); "
+                  f"bound of the wgmma form (the f32 products as three bf16 "
+                  f"ones at the bf16 peak) {split_ms:.5f} ms", flush=True)
+            timed.append(dict(
+                ms=ms, device_ms=device, launch_us=per_launch,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bound_wgmma_split_ms=split_ms, plan=plan,
+                shape=f"B={B} S={S} H={H} P={P} G={G} N={N} Q={Q} bf16"))
+    mamba, hyb = timed
     return dict(name="ssd_scan", route="cuda",
                 source="src/repro_torch/kernels/csrc/ssd_scan.cu",
                 replaces="src/repro/kernels/ssd_scan.py:103",
-                max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                shape=shape, ms_hymba=hyb[0], plain_ms_hymba=hyb[1],
-                bound_ms_hymba=hyb[2], bound_by_hymba=hyb[3],
-                shape_hymba=hyb[4])
+                max_abs_err=worst, library_ms=None, **mamba,
+                hymba_shape=hyb)
 
 
 # --------------------------------------------------------------- phase 13
@@ -3679,6 +3736,7 @@ def main() -> int:
     launches["blstm_layer"] = eval_counts["blstm_layer"]
     k1["launches_check"] = k1_check_launches
     k5["beam_frame_step"]["launches_evaluate"] = \
+        k5["beam_frame_step"]["evaluate_shape"]["launches"] = \
         eval_counts["beam_frame_step"]
     launches["decode_attention"] = lm_counts["decode_attention"]
     launches["argmax_tokens"] = lm_counts["argmax_tokens"]

@@ -28,38 +28,72 @@ launches = 0          # kernel launches (one per beam_frame_step on the card)
 argmax_launches = 0   # K6 launches (one per argmax_tokens on the card)
 
 MAX_BEAM = 16                   # per-parent tables in the kernel's smem
-SMEM_BYTES = 220 * 1024         # dynamic shared memory the kernel may ask
+SMEM_BYTES = 200 * 1024         # dynamic shared memory a CTA may ask
+                                # (beside ~10 KB of static)
+BEAM_THREADS = 512              # beam_step.cu's THREADS (16 warps)
+BEAM_MAX_SLICES = 8             # beam_step.cu's MAX_SLICES: CTAs a row
+BEAM_MIN_SLICE = BEAM_THREADS   # tokens a CTA at least holds
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _lib():
-    lib = build.load("beam_step")
-    if lib.beam_step.argtypes is None:
-        lib.beam_step.argtypes = [_P] * 9 + [_I] * 7 + [_P]
-        lib.beam_step.restype = _I
-    return lib
+@functools.lru_cache(maxsize=None)       # off the per-call path
+def beam_slices(B: int, V: int, n_sm: int) -> int:
+    """CTAs (one cluster) per row of K5: up to BEAM_MAX_SLICES, as many as
+    B·S ≤ n_sm (the card's SMs) allows, and no more than leave each CTA
+    BEAM_MIN_SLICE tokens of the row."""
+    return max(1, min(BEAM_MAX_SLICES, n_sm // B, V // BEAM_MIN_SLICE))
 
 
-def smem_bytes(beam: int, vocab: int, topc: int) -> int:
-    """Dynamic shared memory of one CTA: the (V,) log-prob row, plus the
-    (K, V) merge-kill bitmap unpruned, or the top-C tables and the
-    (K, C+1) candidate grid when pruned."""
+def beam_bounds(V: int, S: int) -> list:
+    """The token ranges [lo, hi) of one row's S slices as beam_step.cu cuts
+    it: slice s holds [V s // S, V (s + 1) // S)."""
+    return [(V * s // S, V * (s + 1) // S) for s in range(S)]
+
+
+def smem_bytes(beam: int, vocab: int, topc: int, slices: int = 1) -> int:
+    """Dynamic shared memory of one CTA (beam_step.cu's ``smem_bytes``):
+    the widest slice of the log-prob row in 32-token words, plus when
+    pruned the buffer of tokens to rank, the CTA's top-C list, CTA 0's
+    copy of every CTA's, the warps' lists and the (K, C+1) candidate
+    grid."""
+    words = -(-(-(-vocab // slices)) // 32)
     if topc:
-        return 4 * (vocab + 2 * topc + beam * (topc + 1) + beam * topc)
-    return 4 * (vocab + beam * -(-vocab // 32))
+        return 4 * (32 * words + 2 * BEAM_THREADS + 4 * topc
+                    + 2 * slices * topc + 2 * (BEAM_THREADS // 32) * topc
+                    + beam * (topc + 1) + beam * topc)
+    return 4 * 32 * words
+
+
+_beam_step = None     # the bound entry point, once built
+_beam_n_sm = 0
+
+
+def _beam_entry():
+    """The bound ``beam_step`` (argtypes set once) and the SM count; the
+    stream is the raw handle, as for ``argmax_tokens``."""
+    global _beam_step, _beam_n_sm
+    if _beam_step is None:
+        fn = build.load("beam_step").beam_step
+        fn.argtypes = [_P] * 9 + [_I] * 8 + [_P]
+        fn.restype = _I
+        _beam_n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        _beam_step = fn
+    return _beam_step
 
 
 def beam_frame_step(logp, p_b, p_nb, last, phash, plen, *, blank: int,
                     max_len: int, semiring: str, topc: int = 0):
     """logp (B, V) f32; p_b/p_nb (B, K) f32; last/phash/plen (B, K) i32 ->
-    ``(sel (B, K) i32, new_pb (B, K) f32, new_pnb (B, K) f32)``."""
+    ``(sel (B, K) i32, new_pb (B, K) f32, new_pnb (B, K) f32)``.  On the
+    card each row is a cluster of ``beam_slices`` CTAs (the result does
+    not depend on their count)."""
     global launches
     B, V = logp.shape
     K = p_b.shape[1]
     topc = 0 if topc >= V else topc
-    if logp.device.type == "cpu":
+    if logp.is_cpu:
         if topc:
             return frame_step_scores_topc(
                 logp, p_b, p_nb, last, phash, plen, blank=blank,
@@ -74,10 +108,11 @@ def beam_frame_step(logp, p_b, p_nb, last, phash, plen, *, blank: int,
     if not 1 <= K <= min(MAX_BEAM, V) or not 0 <= blank < V or topc < 0:
         raise ValueError(f"unsupported beam {K} / vocab {V} / blank "
                          f"{blank} / topc {topc}")
-    if smem_bytes(K, V, topc) > SMEM_BYTES:
-        raise ValueError(f"vocab {V} (topc {topc}) exceeds the kernel's "
-                         f"{SMEM_BYTES} B of shared memory")
-    dev = logp.device
+    fn = _beam_step or _beam_entry()
+    S = beam_slices(B, V, _beam_n_sm)
+    if smem_bytes(K, V, topc, S) > SMEM_BYTES:
+        raise ValueError(f"vocab {V} (topc {topc}) over {S} slices exceeds "
+                         f"the kernel's {SMEM_BYTES} B of shared memory")
     for name, t, shape, dtype in (
             ("logp", logp, (B, V), torch.float32),
             ("p_b", p_b, (B, K), torch.float32),
@@ -85,20 +120,19 @@ def beam_frame_step(logp, p_b, p_nb, last, phash, plen, *, blank: int,
             ("last", last, (B, K), torch.int32),
             ("phash", phash, (B, K), torch.int32),
             ("plen", plen, (B, K), torch.int32)):
-        if (tuple(t.shape) != shape or t.dtype != dtype or t.device != dev
+        if (t.shape != shape or t.dtype != dtype or t.get_device() != 0
                 or not t.is_contiguous()):
             raise ValueError(f"{name}: expected contiguous {shape} {dtype} "
-                             f"on {dev}, got {tuple(t.shape)} {t.dtype} "
+                             f"on cuda:0, got {tuple(t.shape)} {t.dtype} "
                              f"on {t.device}")
-    sel = torch.empty(B, K, dtype=torch.int32, device=dev)
-    new_pb = torch.empty(B, K, dtype=torch.float32, device=dev)
-    new_pnb = torch.empty(B, K, dtype=torch.float32, device=dev)
-    rc = _lib().beam_step(
-        logp.data_ptr(), p_b.data_ptr(), p_nb.data_ptr(), last.data_ptr(),
-        phash.data_ptr(), plen.data_ptr(), sel.data_ptr(), new_pb.data_ptr(),
-        new_pnb.data_ptr(), B, K, V, blank, max_len,
-        1 if semiring == "sum" else 0, topc,
-        torch.cuda.current_stream(dev).cuda_stream)
+    sel = logp.new_empty(B, K, dtype=torch.int32)
+    new_pb = logp.new_empty(B, K)
+    new_pnb = logp.new_empty(B, K)
+    rc = fn(logp.data_ptr(), p_b.data_ptr(), p_nb.data_ptr(), last.data_ptr(),
+            phash.data_ptr(), plen.data_ptr(), sel.data_ptr(),
+            new_pb.data_ptr(), new_pnb.data_ptr(), B, K, V, blank, max_len,
+            1 if semiring == "sum" else 0, topc, S,
+            torch._C._cuda_getCurrentRawStream(0))   # cuda:0, checked above
     if rc:
         raise RuntimeError(f"beam_step launch failed: cudaError {rc}")
     launches += 1

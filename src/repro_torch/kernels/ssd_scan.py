@@ -9,13 +9,17 @@ the Pallas kernel asserts S % Q == 0), and B/C may be given per group,
 (B, S, G, N) with head h reading group h // (H // G), so the group
 broadcast is never materialised (G = H is the reference's signature).
 
-On a CUDA tensor it launches the kernel (``csrc/ssd_scan.cu``) and counts
-one launch (``launches``); on a CPU tensor it runs the plain version
-(``ref.ssd_plain``).  It never falls back from the card to the plain path.
+On a CUDA tensor it launches the kernel (``csrc/ssd_scan.cu``: two
+launches, the chunk states then the outputs, the chunks in parallel as
+``ssd_plan`` lays them out; bf16 products on the tensor cores, f32
+inputs on the CUDA cores) and counts one launch per call (``launches``);
+on a CPU tensor it runs the plain version (``ref.ssd_plain``).  It never
+falls back from the card to the plain path.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -23,13 +27,31 @@ from repro_torch.device import require_kernel_device
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ssd_plain
 
-launches = 0          # K9 launches (one per ssd on the card)
+launches = 0          # K9 calls on the card (one per ssd, both launches)
 
 MAX_CHUNK = 256       # the kernel scans one chunk inside a 256-thread CTA
-MAX_STATE = 128       # state rows a thread keeps in registers: N / 16 <= 8
+MAX_STATE = 128       # the widest state tile (N padded to 32, 64 or 128)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def ssd_plan(B: int, S: int, H: int, P: int, G: int, N: int, Q: int,
+             n_sm: int) -> dict:
+    """How a bf16 call runs on the card: the chunks, the work items (row,
+    chunk, head), the channels of P an output CTA owns (``p_tile``) and
+    the scratch.  An output CTA computes a tile's scores and weights once
+    for all its channels; P is cut into slices of 32 channels (each CTA
+    then computing the same scores) where P needs no more or where the
+    items fill at most half of the card's ``n_sm`` SMs, else 64 (f32 calls
+    take 64 whatever the plan says)."""
+    Q = min(Q, S)
+    chunks = -(-S // Q)
+    items = B * chunks * H
+    return dict(chunks=chunks, items=items,
+                p_tile=32 if P <= 32 or 2 * items <= n_sm else 64,
+                scratch_bytes=4 * items * (P * N + 1))
 
 
 def _check(x, dt, A, Bm, Cm, chunk):
@@ -53,13 +75,33 @@ def _check(x, dt, A, Bm, Cm, chunk):
         raise ValueError(f"{H} heads do not split into {G} B/C groups")
 
 
+_entry = None         # the bound ssd_scan, once built
+_n_sm = 0
+_raw_stream = None
+
+
+def _ssd_entry():
+    """The bound ``ssd_scan`` (argtypes set once), the SM count and the
+    raw current-stream accessor, as ``decode.kernel.argmax_tokens`` has
+    them."""
+    global _entry, _n_sm, _raw_stream
+    if _entry is None:
+        fn = build.load("ssd_scan").ssd_scan
+        fn.argtypes = [_P] * 8 + [_I] * 9 + [_P]
+        fn.restype = _I
+        _n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        _raw_stream = torch._C._cuda_getCurrentRawStream
+        _entry = fn
+    return _entry
+
+
 def ssd(x, dt, A, Bm, Cm, *, chunk: int = 256):
     """x (B, S, H, P) bf16 or f32, dt (B, S, H) f32, A (H,) f32, Bm/Cm
     (B, S, G, N) in x's dtype -> (y (B, S, H, P), state (B, H, N, P)
     f32)."""
     global launches
     _check(x, dt, A, Bm, Cm, chunk)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return ssd_plain(x, dt, A, Bm, Cm, chunk=chunk)
     require_kernel_device(x)
     Bsz, S, H, P = x.shape
@@ -70,24 +112,22 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 256):
                          f"{MAX_STATE}: beyond the kernel's tiles")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"x: expected bf16 or f32, got {x.dtype}")
-    dev = x.device
     for name, t, dtype in (("x", x, x.dtype), ("dt", dt, torch.float32),
                            ("A", A, torch.float32), ("Bm", Bm, x.dtype),
                            ("Cm", Cm, x.dtype)):
-        if t.dtype != dtype or t.device != dev or not t.is_contiguous():
-            raise ValueError(f"{name}: expected contiguous {dtype} on {dev}, "
-                             f"got {t.dtype} on {t.device}")
+        if t.dtype != dtype or t.get_device() != 0 or not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous {dtype} on "
+                             f"cuda:0, got {t.dtype} on {t.device}")
+    fn = _entry or _ssd_entry()
+    plan = ssd_plan(Bsz, S, H, P, G, N, Q, _n_sm)
     y = torch.empty_like(x)
-    state = torch.empty(Bsz, H, N, P, dtype=torch.float32, device=dev)
-    lib = build.load("ssd_scan")
-    if lib.ssd_scan.argtypes is None:
-        lib.ssd_scan.argtypes = [_P] * 7 + [_I] * 8 + [_P]
-        lib.ssd_scan.restype = _I
-    rc = lib.ssd_scan(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
-                      Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(),
-                      state.data_ptr(), Bsz, S, H, P, G, N, Q,
-                      int(x.dtype == torch.float32),
-                      torch.cuda.current_stream(dev).cuda_stream)
+    state = x.new_empty(Bsz, H, N, P, dtype=torch.float32)
+    scratch = x.new_empty(plan["scratch_bytes"] // 4, dtype=torch.float32)
+    rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), y.data_ptr(), state.data_ptr(),
+            scratch.data_ptr(), Bsz, S, H, P, G, N, Q, plan["p_tile"],
+            int(x.dtype == torch.float32),
+            _raw_stream(0))                      # cuda:0, checked above
     if rc:
         raise RuntimeError(f"ssd_scan launch failed: cudaError {rc}")
     launches += 1

@@ -581,6 +581,44 @@ def test_beam_step_kernel_matches_plain(cuda, semiring, topc, B, K, V, U,
                 torch.testing.assert_close(g_, w_, rtol=SUM_TOL, atol=SUM_TOL)
 
 
+@pytest.mark.parametrize("topc", [0, 16, 24])   # 24: the warps' rounds
+@pytest.mark.parametrize("B,K,V,blank", [
+    (4, 8, 32000, 0),          # serve's rows: 8 CTAs a row
+    (3, 5, 4097, 2),           # V not a multiple of the slices
+    (2, 16, 1500, 0),          # K = 16
+])
+def test_beam_step_slices_agree(cuda, monkeypatch, topc, B, K, V, blank):
+    """Every slicing of a row (one CTA to eight, and the plan's) gives the
+    plain step's sel and scores bit for bit, ties across slice bounds
+    included; two calls give the same bits.  The slice count is driven
+    through the SM count ``beam_slices`` reads."""
+    from repro_torch.decode import beam as DB
+    from repro_torch.decode import kernel as DK
+
+    st, lp = _state(cuda, B, K, V, 64, 4, seed=V + K)
+    lp[:, V // 2] = lp[:, V // 2 - 1]             # a tie across a bound
+    lp[:, V - 1] = lp[:, 1]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    assert DK.beam_slices(B, V, n_sm) >= 2
+    for max_len in (64, 0):
+        args = (lp, st.p_b, st.p_nb, st.last, st.phash, st.lens)
+        kw = dict(blank=blank, max_len=max_len, semiring="max", topc=topc)
+        want = (DB.frame_step_scores_topc(*args, **kw) if topc else
+                DB.frame_step_scores(*args, **{k: v for k, v in kw.items()
+                                               if k != "topc"}))
+        DK.beam_frame_step(*args, **kw)           # binds the entry point
+        seen = set()
+        for slices in (0, 1, 2, 3, 8):
+            monkeypatch.setattr(DK, "_beam_n_sm", B * slices or n_sm)
+            seen.add(DK.beam_slices(B, V, DK._beam_n_sm))
+            got = DK.beam_frame_step(*args, **kw)
+            again = DK.beam_frame_step(*args, **kw)
+            torch.cuda.synchronize()
+            for g_, a_, w_ in zip(got, again, want):
+                assert torch.equal(g_, w_) and torch.equal(a_, g_), slices
+        assert {1, 2} <= seen
+
+
 def test_serve_on_card_matches_cpu(cuda):
     """Reduced-width server: parked posteriors agree with the CPU's at
     the bf16 tolerance, and decoding the same peaked posteriors gives the
@@ -967,6 +1005,32 @@ def test_ssd_kernel_at_full_width_prefill(cuda):
     y, h = ssd_scan.ssd(x, dt, A, Bm, Cm, chunk=256)
     torch.cuda.synchronize()
     want_y, want_h = ssd_plain(x, dt, A, Bm, Cm, chunk=256)
+    assert _norm_err(y, want_y) <= BF16_TOL
+    assert _norm_err(h, want_h) <= 1e-4
+
+
+@pytest.mark.parametrize("B,S,H,P,N", [
+    (1, 200, 32, 64, 128),     # few items: the plan splits P
+    (1, 700, 32, 64, 128),     # mamba2-370m: one wave of 64-channel CTAs
+    (1, 1500, 50, 64, 16),     # hymba-1.5b: three waves
+])
+def test_ssd_plan_regimes_on_card(cuda, B, S, H, P, N):
+    """Both slices of P the plan picks from (32 channels an output CTA
+    where the items fill at most half the card, else 64) hold y and the
+    state against ``ssd_plain``; two calls give the same bits (no
+    atomics, a fixed order)."""
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.kernels.ref import ssd_plain
+
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, B, S, H, P, 1, N, seed=S)
+    want_y, want_h = ssd_plain(x, dt, A, Bm, Cm, chunk=256)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = ssd_scan.ssd_plan(B, S, H, P, 1, N, min(256, S), n_sm)
+    assert plan["p_tile"] == (32 if 2 * plan["items"] <= n_sm else 64)
+    y, h = ssd_scan.ssd(x, dt, A, Bm, Cm, chunk=256)
+    y2, h2 = ssd_scan.ssd(x, dt, A, Bm, Cm, chunk=256)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(h, h2)
     assert _norm_err(y, want_y) <= BF16_TOL
     assert _norm_err(h, want_h) <= 1e-4
 

@@ -12,9 +12,10 @@ evaluated in f64 (``ssd_f64`` below, the truth).  It prints:
 
 1. per layer, for four layers of the 700-token prefill, the error of the
    kernel and of ``ssd_plain`` against the truth on that layer's own
-   inputs (y before rounding, and the final state, normalised by the
-   truth's max-abs) and how many bf16 y values round apart, kernel vs
-   plain and plain vs the truth;
+   inputs, normalised by the truth's max-abs: with the inputs cast to
+   f32 (y before rounding and the final state) and as served in bf16
+   (the final state, and how many bf16 y values round apart, kernel vs
+   plain and plain vs the truth);
 2. the normalised error of the last-token logits through the first
    1, 2, 4, 8, 16, 32 and 48 layers: kernel vs plain, plain vs truth;
 3. the same three pairs through 16 layers for each of the 16 prompts,
@@ -104,13 +105,15 @@ def main():
         ty, th = ssd_f64(*f32)
         ky, kh = KERNEL(*f32, chunk=cfg.ssm.chunk)
         py, ph = ssd_plain(*f32, chunk=cfg.ssm.chunk)
-        plain_y = ssd_plain(x, dt, A, Bm, Cm, chunk=cfg.ssm.chunk)[0]
-        flips = int((KERNEL(x, dt, A, Bm, Cm, chunk=cfg.ssm.chunk)[0]
-                     != plain_y).sum())
+        plain_y, plain_h = ssd_plain(x, dt, A, Bm, Cm, chunk=cfg.ssm.chunk)
+        by, bh = KERNEL(x, dt, A, Bm, Cm, chunk=cfg.ssm.chunk)
+        flips = int((by != plain_y).sum())
         flips_f64 = int((ty.to(x.dtype) != plain_y).sum())
-        print(f"[layer {i}] vs f64 truth: y kernel {err(ky, ty):.3g} plain "
-              f"{err(py, ty):.3g}; state kernel {err(kh, th):.3g} plain "
-              f"{err(ph, th):.3g}; bf16 y rounded apart of {x.numel()}: "
+        print(f"[layer {i}] vs f64 truth: f32 inputs: y kernel "
+              f"{err(ky, ty):.3g} plain {err(py, ty):.3g}; state kernel "
+              f"{err(kh, th):.3g} plain {err(ph, th):.3g}; bf16 inputs (as "
+              f"served): state kernel {err(bh, th):.3g} plain "
+              f"{err(plain_h, th):.3g}, y rounded apart of {x.numel()}: "
               f"kernel vs plain {flips}, plain vs f64 {flips_f64}",
               flush=True)
     for n in (1, 2, 4, 8, 16, 32, cfg.n_layers):
