@@ -65,6 +65,33 @@ Phases, each of which fails the run (nonzero exit, no result line):
    the plain beam decode's on the same logits on the card (max semiring:
    K5 is bit-exact there); its six CSV
    rows (no quality claim: 12 steps of synthetic data);
+7a-comm — the paper's communication substrate on the train phase's data
+   (16 learners, batch 256, T = 21, var-len, seed 0), five transports of
+   1 warm-up and 3 timed steps each, the counters set to 0 just before
+   and read just after (K1-stash and K2 6 times a step): ``hring`` with
+   pods of 4 (f32, the ``mix_hierarchical`` fast path); ``hring`` with
+   bf16 intra-pod, top-k inter-pod (1 %) and 4 MB buckets, driven
+   through ``launch.train.main`` with its ``--comm-*`` flags and
+   ``--consensus``; ``ad_psgd_q8`` with 4 MB buckets; ``ad_psgd_exp``;
+   ``ad_psgd`` over a flat top-k wire.  Each prints ms/step, valid
+   frames/s, wire bytes a learner a round (held equal to the reference's
+   formula), the consensus distance, the grad norm and peak memory; every
+   loss finite.  On each one's final params upcast to f32: the hring round
+   within 1e-6 (normalised) of ``hierarchical_matrix(16, 4) @ w`` in f64,
+   4 exponential-graph rounds to consensus (1e-6 of the params' RMS), the
+   top-k wires' replica mean kept to 1e-6, every int8 value within
+   scale/2 of its sender's; one round of each on ``softmax_w`` (16 x 256
+   x 32000) on the card bit-identical to the same ops on a CPU copy;
+7a-ctc — the reference's ``bench_decode_wer`` path at full width: ad_psgd
+   with the CTC loss (each utterance's valid frames collapsed to at most 6
+   labels), 2 warm-up and 5 timed steps (K1-stash and K2 6 times a step,
+   every loss finite); one step's loss and gradients against the plain
+   path at 2e-2; ``ctc_loss`` on the card against a CPU f64 evaluation at
+   1e-5; then 2 held-out batches of 8 through the consensus model (K4 once
+   per forward), ``greedy_ctc_decode`` and ``beam_decode(beam=8,
+   semiring="sum")`` (K5 once per frame), whose hypotheses equal the plain
+   beam's on the same logits on the card with scores within K5_SUM_TOL;
+   greedy and beam TER (no quality claim);
 7b. k3 — the long-utterance slice's kernels against their plain versions
    and against the unchunked pair: K1's chunk-entry variant and the
    chunked-recompute backward (K3 port) at 4 learners x 2 rows, T = 300,
@@ -212,8 +239,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
     512-page pool): K8 32 times per decode call, and how many requests
     decode the dense run's tokens.
 
-The last two lines are ``{"kernels": [...]}`` and
-``{"ok": true, "device": {...}}``.
+The last two lines are ``{"kernels": [...]}`` (K1-stash's, K2's, K4's and
+K5's ``launches`` counting 7a-comm and 7a-ctc too, also apart as
+``launches_comm`` and ``launches_ctc``) and ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -1471,6 +1500,466 @@ def phase_evaluate(state):
         _fail(f"evaluate: K5's beam state differs from the plain decode in "
               f"{diff}")
     return counts, k1_launches
+
+
+# ------------------------------------------------------------- phase 7a-comm
+# The paper's communication substrate at full width: the train phase's
+# data (16 learners, batch 256, T = 21, var-len, seed 0) through five
+# transports, 1 warm-up and 3 timed steps each.  The second runs through
+# the train CLI with its --comm-* flags (docs/strategies.md's combination:
+# bf16 inside pods of 4, top-k error-feedback gossip across them).
+COMM_WARMUP, COMM_STEPS = 1, 3
+COMM_TOL = 1e-6          # f32 mixing against f64, the CPU round, the mean
+COMM_CONFIGS = [
+    ("hring-f32", "hring", dict(comm_pod_size=4)),
+    ("hring-bf16-topk", "hring", dict(comm_pod_size=4,
+                                      comm_intra_wire="bf16",
+                                      comm_wire="topk", comm_topk_frac=0.01,
+                                      comm_bucket_mb=4)),
+    ("ad_psgd_q8", "ad_psgd_q8", dict(comm_bucket_mb=4)),
+    ("ad_psgd_exp", "ad_psgd_exp", {}),
+    ("ad_psgd-topk", "ad_psgd", dict(comm_wire="topk")),
+]
+COMM_CLI = ["--arch", "swb2000-blstm", "--strategy", "hring", "--learners",
+            "16", "--batch", "256", "--var-len", "--log-every", "1",
+            "--steps", str(COMM_WARMUP + COMM_STEPS), "--comm-pod-size", "4",
+            "--comm-intra-wire", "bf16", "--comm-wire", "topk",
+            "--comm-topk-frac", "0.01", "--comm-bucket-mb", "4",
+            "--consensus", "--grad-norm"]
+
+
+def _wire_formula(params, t) -> float:
+    """The reference's analytic bytes a learner sends per mixing round
+    (``repro/core/transport.py:375-422``), restated from the leaf shapes:
+    ring 2 payloads, exp 1, hierarchical the intra-pod allreduce
+    (2(p-1)/p) plus the pod ring over its p members; f32 4 B, bf16 2 B,
+    int8 1 B + a 4-B scale per bucket, topk 8 B per kept entry."""
+    import math
+
+    from repro_torch.core.strategies import _leaves
+
+    def payload(wire, n):
+        if t.bucket_bytes <= 0 or 4 * n <= t.bucket_bytes:
+            sizes = [n]
+        else:
+            per = t.bucket_bytes // 4
+            sizes = [min(per, n - i) for i in range(0, n, per)]
+        return {"f32": 4.0 * n, "bf16": 2.0 * n,
+                "int8": float(n + 4 * len(sizes)),
+                "topk": float(sum(8 * min(s, max(1, math.ceil(
+                    t.topk_frac * s))) for s in sizes))}[wire]
+
+    def ring(G):
+        return 0.0 if G <= 1 else (1.0 if G == 2 else 2.0)
+
+    total = 0.0
+    for w in _leaves(params):
+        L, n = w.shape[0], w[0].numel()
+        if t.topology == "hierarchical":
+            p = t.pod_size
+            total += (2.0 * (p - 1) / p * payload(t.intra_wire, n)
+                      + ring(L // p) * payload(t.wire, n) / p)
+        else:
+            total += {"ring": ring(L), "exp": 1.0}[t.topology] * payload(
+                t.wire, n)
+    return total
+
+
+def _comm_checks(name, state, t):
+    """The mixing checks of one configuration on the phase's own final
+    params, upcast to f32 (bf16-representable, so the bf16 intra codec is
+    exact there and the mixer's output keeps f32): config 1 one round
+    against ``hierarchical_matrix(16, 4) @ w`` in f64; the exponential
+    graph 4 rounds to consensus; the top-k wires keep the replica mean;
+    int8 within scale/2 of each sender; and, for every configuration, one
+    round on ``softmax_w`` on the card bit-identical to the same round of
+    the same ops on a CPU copy."""
+    import torch
+
+    from repro_torch.core import mixing as MX
+    from repro_torch.core import strategies as ST
+    from repro_torch.core import transport as TP
+    from repro_torch.core.strategies import _leaves
+    from repro_torch.optim.optimizers import tree_map
+
+    L = TRAIN_L
+    mix = t.make_mixer(L)
+    step = state["step"]
+    comm = state.get("comm", {})
+    pf = tree_map(lambda w: w.float(), state["params"])
+    if name == "hring-f32":
+        T = torch.as_tensor(MX.hierarchical_matrix(L, t.pod_size),
+                            device=pf["softmax_w"].device)
+        mixed, _ = mix(pf, step, comm)
+        worst = 0.0
+        for w, m in zip(_leaves(pf), _leaves(mixed)):
+            want = (T @ w.double().reshape(L, -1)).reshape(w.shape)
+            worst = max(worst, float((m.double() - want).abs().max())
+                        / float(want.abs().max()))
+        print(f"[comm {name}] one round vs hierarchical_matrix(16, 4) @ w "
+              f"in f64: worst normalised error {worst:.3g} (tol {COMM_TOL})",
+              flush=True)
+        if not worst <= COMM_TOL:
+            _fail(f"comm {name}: the mixer is not hierarchical_matrix @ w")
+    if name == "ad_psgd_exp":
+        q = pf
+        for k in range(4):
+            q, _ = mix(q, step + k, comm)
+        rms = float(torch.sqrt(sum(torch.sum(w.double() ** 2)
+                                   for w in _leaves(pf))
+                               / sum(w.numel() for w in _leaves(pf))))
+        dist = float(ST.consensus_distance(q))
+        print(f"[comm {name}] 4 rounds, no gradient: consensus distance "
+              f"{dist:.3g}, {dist / rms:.3g} of the params' RMS {rms:.4g} "
+              f"(tol {COMM_TOL})", flush=True)
+        if not dist <= COMM_TOL * rms:
+            _fail(f"comm {name}: 4 rounds did not reach consensus")
+    if t.wire == "topk":
+        # the mean the gossip must keep is that of what it was given: the
+        # hierarchical intra-pod allreduce averages coded payloads (bf16
+        # here: exact on the bf16 weights, one rounding of the f32 biases)
+        coded = t.topology == "hierarchical" and t.pod_size > 1
+        mixed, _ = mix(pf, step, comm)
+        worst = 0.0
+        for w, m in zip(_leaves(pf), _leaves(mixed)):
+            if coded:
+                w = TP._coded(t, t.intra_wire, w.reshape(L, -1)).reshape(
+                    w.shape)
+            drift = float((m.double().mean(0) - w.double().mean(0)).abs()
+                          .max())
+            worst = max(worst, drift / float(w.abs().max()))
+        print(f"[comm {name}] replica mean after one round"
+              f"{' (against the intra-pod payloads)' if coded else ''}: "
+              f"worst normalised drift {worst:.3g} (tol {COMM_TOL})",
+              flush=True)
+        if not worst <= COMM_TOL:
+            _fail(f"comm {name}: the replica mean moved")
+    if t.wire == "int8":
+        worst = 0.0
+        for w in _leaves(pf):
+            for c in TP._split_cols(w.reshape(L, -1), t.bucket_bytes):
+                err = (TP.decode_payload("int8", c) - c).abs()
+                half = c.abs().amax(dim=1, keepdim=True) / 254.0
+                # a zero sender (scale 1) must come through exactly
+                ratio = torch.where(half > 0, err / half, err * 1e30)
+                worst = max(worst, float(ratio.max()))
+        print(f"[comm {name}] int8 error over each sender's half scale: "
+              f"worst {worst:.7f} (must be <= 1, f32 rounding aside)",
+              flush=True)
+        if not worst <= 1.0 + 1e-5:
+            _fail(f"comm {name}: an int8 value is off by more than scale/2")
+    leaf = {"softmax_w": state["params"]["softmax_w"]}
+    lcomm = {k: {"softmax_w": v["softmax_w"]} for k, v in comm.items()}
+    got, gcomm = mix(leaf, step, lcomm)
+    want, wcomm = mix(tree_map(lambda x: x.cpu(), leaf), step,
+                      tree_map(lambda x: x.cpu(), lcomm))
+    diff = [k for k, g, w in [("mixed", got, want)] + [
+        (k, gcomm[k], wcomm[k]) for k in sorted(wcomm)]
+        if not torch.equal(g["softmax_w"].cpu(), w["softmax_w"])]
+    print(f"[comm {name}] one round on softmax_w {tuple(leaf['softmax_w'].shape)} "
+          f"on the card vs the same ops on a CPU copy: bit-identical "
+          f"{not diff}", flush=True)
+    if diff:
+        errs = {k: _norm_err((got if k == "mixed" else gcomm[k])[
+            "softmax_w"].cpu(), (want if k == "mixed" else wcomm[k])[
+            "softmax_w"])[1] for k in diff}
+        _fail(f"comm {name}: the card's round differs from the CPU's in "
+              f"{diff} (normalised {errs})")
+
+
+def phase_comm():
+    """Five transports over the §V training data at full width, each with
+    the counters set to 0 just before its steps and read just after
+    (K1-stash and K2 6 times a step); ms/step, valid frames/s, wire bytes
+    a learner a round (equal to the reference's formula), consensus, grad
+    norm, peak memory; then :func:`_comm_checks`."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import make_dataset
+    from repro_torch.launch import train as TR
+
+    dev = torch.device("cuda")
+    base = get_arch("swb2000-blstm")
+    steps = COMM_WARMUP + COMM_STEPS
+    total, rows = {"blstm_layer_train": 0, "blstm_layer_bwd": 0}, []
+    for name, strategy, knobs in COMM_CONFIGS:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if name == "hring-bf16-topk":
+            _zero_counts()
+            out = TR.main(COMM_CLI)
+            counts = _train_counts()
+            state, metrics, records, meta = (out["state"], out["metrics"],
+                                             out["records"], out["meta"])
+            del out          # the next configuration's peak is its own
+        else:
+            cfg = dataclasses.replace(base, **knobs)
+            state, step, meta = TR.setup_training(
+                cfg, strategy_name=strategy, n_learners=TRAIN_L, seed=SEED,
+                device=dev, with_consensus=True, with_grad_norm=True)
+            ds = make_dataset(cfg, seq_len=TRAIN_T,
+                              batch=TRAIN_L * TRAIN_B, seed=SEED,
+                              var_len=True)
+            torch.cuda.synchronize()
+            _zero_counts()
+            state, metrics, records = TR.run(state, step, ds, steps=steps,
+                                             device=dev, log_every=1,
+                                             label=f"[comm {name}] ")
+            counts = _train_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        t = meta["transport"]
+        losses = [float(r[3]) for r in records]
+        if not all(math.isfinite(v) for v in losses):
+            _fail(f"comm {name}: non-finite loss {losses}")
+        for k, n in counts.items():
+            if n != 6 * steps:
+                _fail(f"comm {name}: {k} launched {n} times in {steps} "
+                      f"steps, expected 6 a step")
+            total[k] += n
+        timed = records[COMM_WARMUP:]
+        ms = 1e3 * sum(r[0] for r in timed) / len(timed)
+        fps = sum(r[1] for r in timed) / sum(r[0] for r in timed)
+        wire = float(metrics["wire_bytes"])
+        want = _wire_formula(state["params"], t)
+        row = dict(name=name, strategy=strategy, transport=str(t),
+                   ms_per_step=ms, valid_frames_s=fps, wire_bytes=wire,
+                   consensus=float(metrics["consensus"]),
+                   grad_norm=float(metrics["grad_norm"]), peak_gib=peak_gb,
+                   losses=losses)
+        rows.append(row)
+        print(f"[comm {name}] {t}: {COMM_STEPS} timed steps {ms:.2f} "
+              f"ms/step, {fps:.1f} valid frames/s; wire {wire:.0f} B = "
+              f"{wire / 2 ** 20:.2f} MiB a learner a round (formula "
+              f"{want:.0f}); consensus {row['consensus']:.4g}, grad norm "
+              f"{row['grad_norm']:.4g}; peak device memory {peak_gb:.2f} "
+              f"GiB; launches {counts}", flush=True)
+        if wire != want:
+            _fail(f"comm {name}: wire_bytes {wire} != the formula's {want}")
+        _comm_checks(name, state, t)
+        del state, metrics, records, meta
+    print(f"[comm] summary {json.dumps(rows)}", flush=True)
+    return total
+
+
+# -------------------------------------------------------------- phase 7a-ctc
+# The reference's recognition-quality path (benchmarks/paper_tables.py,
+# bench_decode_wer) at full width: ad_psgd with the CTC loss on the train
+# phase's data, each utterance's valid frames collapsed to at most 6
+# labels; then the consensus model decodes 2 held-out batches of 8
+# (greedy, and the sum-semiring prefix beam, beam 8).
+CTC_U, CTC_WARMUP, CTC_STEPS, CTC_LR = 6, 2, 5, 0.03
+CTC_HELD, CTC_HELD_B, CTC_BEAM = 2, 8, 8
+CTC_LOSS_TOL = 1e-5      # the card's f32 CTC against the CPU's f64
+
+
+class _CtcData:
+    """A dataset's batches with CTC targets: each utterance's valid frames
+    collapsed (``collapse_frame_labels``) into at most CTC_U labels."""
+
+    def __init__(self, ds):
+        self.ds = ds
+
+    def batch_at(self, step):
+        return _ctc_batch(self.ds.batch_at(step))
+
+
+def _ctc_batch(batch):
+    import numpy as np
+
+    from repro_torch.models.ctc import collapse_frame_labels
+
+    rows = [collapse_frame_labels(lab[None, :n], CTC_U)
+            for lab, n in zip(batch["labels"], batch["lengths"])]
+    return {"features": batch["features"], "lengths": batch["lengths"],
+            "ctc": np.concatenate([r[0] for r in rows]),
+            "ctc_lengths": np.concatenate([r[1] for r in rows])}
+
+
+def phase_ctc():
+    """CTC training at full width (2 warm-up and 5 timed steps, K1-stash
+    and K2 6 times a step), one step's loss and gradients against the
+    plain path, ``ctc_loss`` on the card against a CPU f64 evaluation,
+    then the held-out decode: K4 once per forward, K5 once per frame,
+    the beam's hypotheses equal to the plain beam's with scores within
+    K5_SUM_TOL; greedy and beam TER (no quality claim)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import strategies as ST
+    from repro_torch.data import make_dataset
+    from repro_torch.decode import beam as DB
+    from repro_torch.decode import beam_decode
+    from repro_torch.decode import kernel as DK
+    from repro_torch.eval.metrics import greedy_ctc_decode, token_error_rate
+    from repro_torch.kernels import lstm_cell as LC
+    from repro_torch.launch.train import run, timing_line
+    from repro_torch.models import lstm as LS
+    from repro_torch.models.ctc import ctc_loss
+    from repro_torch.optim.optimizers import sgd, tree_map
+    from repro_torch.optim.schedules import constant
+    from repro_torch.params import init_params
+
+    cfg = get_arch("swb2000-blstm")
+    dev = torch.device("cuda")
+    L = TRAIN_L
+
+    def loss_fn(p, b, plain=False):
+        logits = LS.forward(cfg, p, b["features"], b["lengths"], device=dev,
+                            plain=plain)
+        return ctc_loss(logits, b["ctc"], b["ctc_lengths"],
+                        input_lengths=b["lengths"])
+
+    strategy, opt = ST.get_strategy("ad_psgd"), sgd()
+    step = ST.make_train_step(strategy, loss_fn, opt, constant(CTC_LR),
+                              n_learners=L, with_grad_norm=True)
+    params = ST.stack_for_learners(
+        init_params(LS.param_specs(cfg), SEED, dev), L)
+    state = ST.init_state(strategy, params, opt)
+    data = _CtcData(make_dataset(cfg, seq_len=TRAIN_T,
+                                 batch=TRAIN_L * TRAIN_B, seed=SEED,
+                                 var_len=True))
+    steps = CTC_WARMUP + CTC_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    state, metrics, records = run(state, step, data, steps=steps,
+                                  device=dev, log_every=1, label="[ctc] ")
+    counts = _train_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(r[3]) for r in records]
+    if not all(math.isfinite(v) for v in losses):
+        _fail(f"ctc: non-finite loss {losses}")
+    for k, n in counts.items():
+        if n != 6 * steps:
+            _fail(f"ctc: {k} launched {n} times in {steps} steps, expected "
+                  f"6 a step")
+    timed = records[CTC_WARMUP:]
+    ms = 1e3 * sum(r[0] for r in timed) / len(timed)
+    fps = sum(r[1] for r in timed) / sum(r[0] for r in timed)
+    print(f"[ctc] {timing_line(records)}", flush=True)
+    print(f"[ctc] ad_psgd, CTC (U <= {CTC_U}), {L} learners, batch "
+          f"{TRAIN_L * TRAIN_B}, T={TRAIN_T}, var-len: {CTC_STEPS} timed "
+          f"steps {ms:.2f} ms/step, {fps:.1f} valid frames/s; losses "
+          f"{[round(v, 4) for v in losses]}; grad norm "
+          f"{float(metrics['grad_norm']):.4g}; peak device memory "
+          f"{peak_gb:.2f} GiB; launches {counts}", flush=True)
+
+    # one step's CTC loss and gradients, kernel path vs plain path
+    lb = ST.split_learner_batch(
+        {k: torch.as_tensor(v).to(dev)
+         for k, v in data.batch_at(steps).items()}, L)
+    loss, grads = ST._value_and_grad(loss_fn, state["prev_params"], lb)
+    loss_w, grads_w = ST._value_and_grad(
+        lambda p, b: loss_fn(p, b, plain=True), state["prev_params"], lb)
+    if not torch.isfinite(loss).all():
+        _fail("ctc: non-finite loss in the gradient check")
+    loss_err = float(((loss - loss_w).abs() / loss_w.abs()).max())
+    worst, where = 0.0, None
+    for (key, g), w_ in zip(_named_leaves(grads), ST._leaves(grads_w)):
+        if not torch.isfinite(g).all():
+            _fail(f"ctc: non-finite gradient {key}")
+        _, norm = _norm_err(g, w_)
+        if norm > worst:
+            worst, where = norm, key
+    print(f"[ctc] kernel vs plain path, one step: loss relative error "
+          f"{loss_err:.3g}, worst normalised gradient error {worst:.3g} "
+          f"({where}) (tol {K1_TOL})", flush=True)
+    if not (loss_err <= K1_TOL and worst <= K1_TOL):
+        _fail("ctc: the kernel path's loss or gradients disagree with the "
+              "plain path")
+    del grads, grads_w
+
+    # ctc_loss on the card against a CPU f64 evaluation, one learner
+    with torch.no_grad():
+        one = tree_map(lambda w: w[0], state["params"])
+        logits = LS.forward(cfg, one, lb["features"][0], lb["lengths"][0],
+                            device=dev)
+        args = (lb["ctc"][0], lb["ctc_lengths"][0])
+        got = float(ctc_loss(logits, *args, input_lengths=lb["lengths"][0]))
+        want = float(ctc_loss(logits.double().cpu(),
+                              *(a.cpu() for a in args),
+                              input_lengths=lb["lengths"][0].cpu()))
+    rel = abs(got - want) / abs(want)
+    print(f"[ctc] ctc_loss on the card {got:.7f} vs CPU f64 {want:.7f}: "
+          f"relative error {rel:.3g} (tol {CTC_LOSS_TOL})", flush=True)
+    if not rel <= CTC_LOSS_TOL:
+        _fail("ctc: the card's ctc_loss disagrees with the f64 evaluation")
+
+    # held-out decode of the consensus model
+    avg = ST.average_learners(state["params"])
+    del state, params
+    held = make_dataset(cfg, seq_len=TRAIN_T, batch=CTC_HELD_B, seed=SEED,
+                        var_len=True)
+    batches = [_ctc_batch(held.batch_at(10_000 + i))
+               for i in range(CTC_HELD)]
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    refs, hyp_g, hyp_b, kept = [], [], [], []
+    for hb in batches:
+        refs += [list(map(int, s[:n])) for s, n in zip(hb["ctc"],
+                                                      hb["ctc_lengths"])]
+        with torch.no_grad():
+            lg = LS.forward(cfg, avg, hb["features"], hb["lengths"],
+                            device=dev)
+        hyp_g += greedy_ctc_decode(lg.cpu().numpy(), hb["lengths"])
+        hyps = beam_decode(lg, hb["lengths"], beam=CTC_BEAM,
+                           semiring="sum", device=dev)
+        hyp_b += hyps
+        kept.append((lg, hb["lengths"], hyps))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    dec = {"blstm_stack": LC.stack_launches, "blstm_layer": LC.launches,
+           "beam_frame_step": DK.launches}
+    frames = CTC_HELD * TRAIN_T
+    print(f"[ctc] held-out decode ({CTC_HELD} batches of {CTC_HELD_B}, "
+          f"T={TRAIN_T}) in {dt:.2f}s; launches {dec}", flush=True)
+    if dec != {"blstm_stack": CTC_HELD, "blstm_layer": 0,
+               "beam_frame_step": frames}:
+        _fail(f"ctc decode launches {dec}: expected K4 once per forward "
+              f"({CTC_HELD}), K1 never, K5 once per frame ({frames})")
+    # the same decode with K5's plain frame step in its place, on the card
+    kernel_step = DK.beam_frame_step
+
+    def plain_step(*a, topc=0, **kw):
+        return DB.frame_step_scores(*a, **kw)
+    worst, n_hyp = 0.0, 0
+    for lg, lens, hyps in kept:
+        kw = dict(beam=CTC_BEAM, semiring="sum", device=dev)
+        tok, ln, sc = DB.beam_search(lg, lens, **kw)
+        DK.beam_frame_step = plain_step
+        try:
+            tok_w, ln_w, sc_w = DB.beam_search(lg, lens, **kw)
+        finally:
+            DK.beam_frame_step = kernel_step
+        mine = [list(map(int, r[:n])) for r, n in zip(tok.cpu().numpy(),
+                                                      ln.cpu().numpy())]
+        if not (torch.equal(tok, tok_w) and torch.equal(ln, ln_w)
+                and mine == hyps):
+            _fail("ctc: K5's sum-semiring hypotheses differ from the plain "
+                  "beam's")
+        if not torch.allclose(sc, sc_w, rtol=K5_SUM_TOL, atol=K5_SUM_TOL):
+            _fail(f"ctc: beam scores differ: {sc.tolist()} vs "
+                  f"{sc_w.tolist()}")
+        worst = max(worst, float((sc - sc_w).abs().max()))
+        n_hyp += len(hyps)
+    ter_g = token_error_rate(refs, hyp_g)
+    ter_b = token_error_rate(refs, hyp_b)
+    print(f"[ctc] K5 sum-semiring beam vs the plain beam on the same "
+          f"logits: {n_hyp} hypotheses equal, score max_abs_err "
+          f"{worst:.3g} (tol {K5_SUM_TOL}); TER greedy {ter_g:.4f}, beam "
+          f"{ter_b:.4f} ({sum(map(len, hyp_b))} beam tokens against "
+          f"{sum(map(len, refs))} reference labels; {steps} steps of "
+          f"synthetic data: no quality claim)", flush=True)
+    return counts, dec
 
 
 # ---------------------------------------------------------------- phase 7b
@@ -3687,6 +4176,10 @@ def main() -> int:
         eval_counts, k1_check_launches = phase_evaluate(state)
         del state, step, ds
         done("evaluate")
+        comm_counts = phase_comm()
+        done("comm")
+        ctc_counts, ctc_decode = phase_ctc()
+        done("ctc")
         k1c, k3 = check_k3(gen)
         long_counts, long_steps = phase_train_long()
         done("train-long")
@@ -3726,18 +4219,27 @@ def main() -> int:
         _fail("a phase raised")
     for k in (k1s, k2):
         k["launches_per_step"] = counts[k["name"]] / steps
-    launches.update(counts)
+        k["launches_comm"] = comm_counts[k["name"]]
+        k["launches_ctc"] = ctc_counts[k["name"]]
+        launches[k["name"]] = (counts[k["name"]] + comm_counts[k["name"]]
+                               + ctc_counts[k["name"]])
     # K4 is the forward of every serve admission (B = 1, the entry's own
     # times) and of evaluate (B = 8, its ``evaluate_shape``): each count
     # stands beside its shape's times.  K1's inference variant runs on no
     # main path now (serve and evaluate hold it at 0); the launches of the
     # loop K4 is held to are a check and stand apart
     k4["evaluate_shape"]["launches"] = eval_counts["blstm_stack"]
+    # the CTC phase's held-out decode: K4 at B = 8, T = 21 and K5 under the
+    # sum semiring, counted into the main-path totals
+    k4["launches_ctc"] = ctc_decode["blstm_stack"]
+    launches["blstm_stack"] += ctc_decode["blstm_stack"]
     launches["blstm_layer"] = eval_counts["blstm_layer"]
     k1["launches_check"] = k1_check_launches
     k5["beam_frame_step"]["launches_evaluate"] = \
         k5["beam_frame_step"]["evaluate_shape"]["launches"] = \
         eval_counts["beam_frame_step"]
+    k5["beam_frame_step"]["launches_ctc"] = ctc_decode["beam_frame_step"]
+    launches["beam_frame_step"] += ctc_decode["beam_frame_step"]
     launches["decode_attention"] = lm_counts["decode_attention"]
     launches["argmax_tokens"] = lm_counts["argmax_tokens"]
     launches["paged_decode_attention"] = paged_counts["paged_decode_attention"]

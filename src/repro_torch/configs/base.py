@@ -91,9 +91,23 @@ class ArchConfig:
     # distribution defaults (core/strategies.py)
     train_strategy: str = "sd_psgd"
     n_learners: int = 16
-    # mixing topology / wire codec overrides; "" = the strategy's default
+    # communication substrate (core/transport.py): mixing topology / wire
+    # codec overrides, "" = the strategy's default
     comm_topology: str = ""
     comm_wire: str = ""
+    # hierarchical only: codec of the intra-pod allreduce ("" = f32;
+    # f32 | bf16 | int8, topk is gossip-only); the inter-pod ring uses
+    # comm_wire, e.g. bf16 intra + topk inter
+    comm_intra_wire: str = ""
+    # split payloads into buckets of this many MB, each coded on its own
+    # (0 = one payload per tensor)
+    comm_bucket_mb: int = 0
+    # hierarchical topology: learners per pod (must divide n_learners)
+    comm_pod_size: int = 1
+    # topk wire: fraction of entries shipped per bucket
+    comm_topk_frac: float = 0.01
+    # elastic mixing only (not ported yet): staleness damping λ
+    comm_staleness_lambda: float = 0.0
 
     # serving KV-cache layout (launch/serve.py --cache): 'dense' per-slot
     # max_len rows | 'paged' shared page pool with prompt-prefix sharing

@@ -17,7 +17,19 @@ ad_psgd             T_1 ring    W_{k-1}    §IV-C async decentralized:
 downpour            T_u         W_{k-1}    §IV-B2 async centralized
 bmuf                block T_u   W_k local  §IV-B1 blockwise model-update
                                            filtering
+hring               T_u in      W_{k-1}    §V hierarchical ring: pods
+                    pods, T_1              average, the pod means ring
+                    across
+ad_psgd_q8          T_1, int8   W_{k-1}    §IV-D: AD-PSGD with int8
+                                           neighbour payloads
+ad_psgd_exp         exp graph   W_{k-1}    §IV-D: AD-PSGD on the
+                                           one-peer exponential graph
 ==================  ==========  =========  ===========================
+
+``topology``/``wire`` of a row are only its default
+:class:`~repro_torch.core.transport.Transport`; any strategy runs over
+any substrate configuration (``transport_from_cfg``), and wires with
+error feedback carry their state in ``state['comm']``.
 
 The learners are a stacked leading axis of every parameter leaf, on one
 card.  Where the reference ``jax.vmap``s the per-learner gradient over
@@ -33,10 +45,8 @@ Variable-length batches (a ``lengths`` key) are aggregated with frame
 weights: each learner's masked-mean gradient is scaled by its
 valid-frame share, so uniform mixing equals the global masked gradient.
 
-Not ported yet: the hring, ad_psgd_q8 and ad_psgd_exp rows (they raise,
-naming ROADMAP.md queue 1's "Topologies and strategies not yet
-ported" and "Wire codecs and bucketing") and the elastic step
-("Recovery and elastic training").
+Not ported yet: the elastic step (ROADMAP.md queue 1, "Recovery and
+elastic training").
 """
 from __future__ import annotations
 
@@ -189,16 +199,14 @@ STRATEGIES = {
     "downpour": Strategy("downpour", topology="uniform", stale=True),
     # BMUF mixes only at block boundaries; 'uniform' is the block sync
     "bmuf": Strategy("bmuf", topology="uniform", block_size=16),
+    "hring": Strategy("hring", topology="hierarchical", stale=True),
+    "ad_psgd_q8": Strategy("ad_psgd_q8", topology="ring", wire="int8",
+                           stale=True),
+    "ad_psgd_exp": Strategy("ad_psgd_exp", topology="exp", stale=True),
 }
-NOT_PORTED = ("hring", "ad_psgd_q8", "ad_psgd_exp")
 
 
 def get_strategy(name: str) -> Strategy:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"strategy {name!r} needs a topology or wire codec that is not "
-            f"ported yet: ROADMAP.md queue 1, 'Topologies and strategies not "
-            f"yet ported' and 'Wire codecs and bucketing'")
     return STRATEGIES[name]
 
 
@@ -209,8 +217,15 @@ def default_transport(strategy: Strategy) -> Transport:
 def transport_from_cfg(cfg, strategy: Strategy) -> Transport:
     """Resolve the ``comm_*`` knobs of an ArchConfig against the strategy
     defaults (empty string = keep the strategy default)."""
-    return Transport(topology=cfg.comm_topology or strategy.topology,
-                     wire=cfg.comm_wire or strategy.wire)
+    return Transport(
+        topology=cfg.comm_topology or strategy.topology,
+        wire=cfg.comm_wire or strategy.wire,
+        intra_wire=cfg.comm_intra_wire or "f32",
+        bucket_bytes=int(cfg.comm_bucket_mb * 2 ** 20),
+        pod_size=cfg.comm_pod_size or 1,
+        topk_frac=cfg.comm_topk_frac,
+        staleness_lambda=cfg.comm_staleness_lambda,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -228,7 +243,12 @@ def _learner_dim(params) -> int:
 def init_state(strategy: Strategy, params, optimizer: Optimizer,
                transport: Optional[Transport] = None):
     """params: already stacked with the learner dim if
-    strategy.replicated.  ``step`` is a host int."""
+    strategy.replicated.  ``step`` is a host int.  Pass the SAME
+    ``transport`` given to :func:`make_train_step`: wires with error
+    feedback (topk) carry their residual and estimate in
+    ``state['comm']`` (f32 whatever the parameter dtype)."""
+    transport = transport if transport is not None \
+        else default_transport(strategy)
     L = _learner_dim(params) if strategy.replicated else None
     state = {
         "params": params,
@@ -243,6 +263,8 @@ def init_state(strategy: Strategy, params, optimizer: Optimizer,
         state["block_mom"] = tree_map(
             lambda w: torch.zeros(w.shape, dtype=torch.float32,
                                   device=w.device), params)
+    if strategy.replicated and transport.needs_state:
+        state["comm"] = transport.init_comm(params)
     return state
 
 
@@ -258,6 +280,19 @@ def average_learners(params):
     return tree_map(lambda w: w.float().mean(0).to(w.dtype), params)
 
 
+def _grad_norm(g):
+    """Global L2 norm of a gradient tree (f32 accumulation)."""
+    return torch.sqrt(sum(torch.sum(torch.square(w.float()))
+                          for w in _leaves(g)))
+
+
+def _grad_norm_stacked(g_l):
+    """(L,) per-learner L2 norms of a stacked gradient tree."""
+    return torch.sqrt(sum(
+        torch.sum(torch.square(w.float()), dim=tuple(range(1, w.dim())))
+        for w in _leaves(g_l)))
+
+
 def _to_device(batch, device):
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
@@ -265,7 +300,9 @@ def _to_device(batch, device):
 def make_train_step(strategy: Strategy, loss_fn: Callable,
                     optimizer: Optimizer, lr_schedule: Callable, *,
                     n_learners: int = 1, microbatches: int = 1,
-                    transport: Optional[Transport] = None):
+                    with_consensus: bool = False,
+                    transport: Optional[Transport] = None,
+                    with_grad_norm: bool = False):
     """Build the train step ``step(state, batch) -> (state', metrics)``.
 
     ``loss_fn(params, batch) -> (L,)`` takes stacked params and a batch
@@ -274,7 +311,13 @@ def make_train_step(strategy: Strategy, loss_fn: Callable,
     parameters' device.  Batches carrying ``lengths`` get frame-weighted
     aggregation, and the reported loss is the frame-weighted mean.
     Replicated steps report ``wire_bytes``, the analytic bytes each
-    learner sends this step."""
+    learner sends this step (0 on BMUF's non-sync steps), and carry
+    ``state['comm']`` through the transport's mixer.
+    ``with_consensus`` adds ``metrics['consensus']``
+    (:func:`consensus_distance` of the new parameters);
+    ``with_grad_norm`` adds ``metrics['grad_norm']``, the L2 norm of the
+    applied gradient (the mean of the per-learner norms on replicated
+    strategies)."""
     transport = transport if transport is not None \
         else default_transport(strategy)
     mix = (transport.make_mixer(n_learners) if strategy.replicated
@@ -298,6 +341,8 @@ def make_train_step(strategy: Strategy, loss_fn: Callable,
             new_params, opt = optimizer.update(g, state["opt"],
                                                state["params"], lr)
             metrics["loss"] = loss[0]
+            if with_grad_norm:
+                metrics["grad_norm"] = _grad_norm(g)
             return {"params": new_params, "opt": opt,
                     "step": state["step"] + 1}, metrics
 
@@ -316,7 +361,10 @@ def make_train_step(strategy: Strategy, loss_fn: Callable,
                                / torch.clamp(frames.sum(), min=1e-6))
         else:
             metrics["loss"] = loss_l.mean()
+        if with_grad_norm:
+            metrics["grad_norm"] = _grad_norm_stacked(g_l).mean()
 
+        comm = state.get("comm", {})
         wire_bytes = transport.wire_bytes(state["params"])
         if strategy.block_size:
             # BMUF: local SGD inside a block; blockwise model-update
@@ -328,7 +376,7 @@ def make_train_step(strategy: Strategy, loss_fn: Callable,
                    "anchor": state["anchor"],
                    "block_mom": state["block_mom"]}
             if step_no % strategy.block_size == 0:
-                avg, _ = mix(upd, step_no, {})
+                avg, comm = mix(upd, step_no, comm)
                 mom = tree_map(
                     lambda m, a, b: strategy.block_momentum * m
                     + strategy.block_lr * (a.float() - b.float()),
@@ -342,14 +390,18 @@ def make_train_step(strategy: Strategy, loss_fn: Callable,
         else:
             # Eq. 14: the current iterate is mixed while the gradient was
             # taken (at the previous iterate when stale)
-            mixed, _ = mix(state["params"], state["step"], {})
+            mixed, comm = mix(state["params"], state["step"], comm)
             new_params, opt = optimizer.update(g_l, state["opt"], mixed, lr)
             out = {"params": new_params, "opt": opt,
                    "step": state["step"] + 1}
             metrics["wire_bytes"] = wire_bytes
 
+        if "comm" in state:
+            out["comm"] = comm
         if strategy.stale:
             out["prev_params"] = state["params"]
+        if with_consensus:
+            metrics["consensus"] = consensus_distance(out["params"])
         return out, metrics
 
     return step

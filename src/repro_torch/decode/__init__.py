@@ -1,8 +1,11 @@
-"""CTC prefix beam search of the port: plain torch beam (``beam.py``) and
-the CUDA frame-step kernel with its wrapper (``kernel.py``)."""
+"""CTC prefix beam search of the port: plain torch beam (``beam.py``,
+``beam_decode`` for TER scoring), the CUDA frame-step kernel with its
+wrapper (``kernel.py``), and the exact numpy oracle (``ref.py``, an own
+copy of the reference's)."""
 from repro_torch.decode.beam import (  # noqa: F401
     BeamState,
     apply_selection,
+    beam_decode,
     beam_occupancy,
     beam_search,
     decode_chunk,

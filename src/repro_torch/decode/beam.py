@@ -376,3 +376,11 @@ def beam_search(logits, lengths=None, *, beam: int = 8, blank: int = 0,
     state = decode_chunk(state, logits, lengths, blank=blank,
                          semiring=semiring, topc=topc)
     return finalize(state, len_norm=len_norm, semiring=semiring)
+
+
+def beam_decode(logits, lengths=None, **kw):
+    """:func:`beam_search` with list-of-int-lists output, mirroring
+    ``eval.metrics.greedy_ctc_decode`` for drop-in TER scoring."""
+    tokens, lens, _ = beam_search(logits, lengths, **kw)
+    tokens, lens = tokens.cpu().numpy(), lens.cpu().numpy()
+    return [list(map(int, row[:n])) for row, n in zip(tokens, lens)]

@@ -19,11 +19,22 @@ loop (prefetching, logging, per-step timing); the CLI wraps both.
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
         --device cpu --steps 2 --ckpt-dir "$CK" --ckpt-every 2
 
+    # the paper's §V hierarchical ring with compressed wires: bf16 inside
+    # pods of 2, top-k error-feedback gossip across them, 1 MB buckets
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
+        --device cpu --learners 4 --strategy hring --comm-pod-size 2 \\
+        --comm-intra-wire bf16 --comm-wire topk --comm-bucket-mb 1 \\
+        --consensus --steps 3 --log-every 1
+
 ``--ckpt-dir`` restores the latest checkpoint there at start, when one
 exists, and the step count goes on from it; ``--ckpt-every`` saves every
-that many steps; ``--resume`` requires a checkpoint.  Not ported yet
-(ROADMAP.md queue 1): fault plans and the elastic step, ``--trace-out``,
-and the ``--comm-*`` codecs.
+that many steps; ``--resume`` requires a checkpoint (the optimizer state
+and the wires' error-feedback state in ``state['comm']`` resume bit for
+bit).  ``--consensus`` logs the replicas' consensus distance each step.
+The ``--comm-*`` flags override the strategy's transport
+(``core/transport.py``).  Not ported yet (ROADMAP.md queue 1): fault
+plans, the elastic step and ``--comm-staleness-lambda``, and
+``--trace-out``.
 """
 from __future__ import annotations
 
@@ -48,7 +59,8 @@ from repro_torch.params import init_params
 
 def setup_training(cfg, *, strategy_name: str = None, n_learners: int = None,
                    optimizer_name: str = "sgd", lr_schedule=None,
-                   seed: int = 0, device=None):
+                   seed: int = 0, device=None, with_consensus: bool = False,
+                   with_grad_norm: bool = False):
     """Build the train state and step for one arch.
 
     Weights are drawn from ``seed`` (:func:`repro_torch.params.
@@ -56,8 +68,10 @@ def setup_training(cfg, *, strategy_name: str = None, n_learners: int = None,
     the CUDA card and raises without one; ``device="cpu"`` runs the plain
     PyTorch path.  The default schedule is the reference's
     (``repro/launch/train.py:71``); microbatches and the mixing
-    transport come from ``cfg``.  ``meta["loss_fn"]`` is the per-learner
-    loss the step differentiates."""
+    transport come from ``cfg`` (its ``comm_*`` knobs).  ``with_consensus``
+    and ``with_grad_norm`` add those metrics to every step.
+    ``meta["loss_fn"]`` is the per-learner loss the step
+    differentiates."""
     dev = resolve_device(device)
     if cfg.family != "lstm":
         raise ValueError(f"only the lstm family is ported, not "
@@ -76,7 +90,8 @@ def setup_training(cfg, *, strategy_name: str = None, n_learners: int = None,
 
     step_fn = ST.make_train_step(
         strategy, loss_fn, opt, lr_schedule, n_learners=n_learners,
-        microbatches=cfg.microbatches, transport=transport)
+        microbatches=cfg.microbatches, transport=transport,
+        with_consensus=with_consensus, with_grad_norm=with_grad_norm)
     params = init_params(LS.param_specs(cfg), seed, dev)
     if strategy.replicated:
         params = ST.stack_for_learners(params, n_learners)
@@ -152,6 +167,10 @@ def run(state, step_fn, dataset, *, steps: int, device, start: int = 0,
                     line += f" pad_eff {v / p:.2f}"
                 if "wire_bytes" in metrics:
                     line += f" wire {float(metrics['wire_bytes']) / 2**20:.2f}MB"
+                if "consensus" in metrics:
+                    line += f" consensus {float(metrics['consensus']):.3e}"
+                if "grad_norm" in metrics:
+                    line += f" grad_norm {float(metrics['grad_norm']):.4g}"
                 print(label + line, flush=True)
             if ckpt_dir and ckpt_every and (k + 1) % ckpt_every == 0:
                 save(ckpt_dir, k + 1, state)
@@ -175,6 +194,8 @@ def timing_line(records) -> str:
 
 
 def main(argv=None):
+    """The CLI; returns the final ``state``, the last step's ``metrics``,
+    the per-step ``records`` of :func:`run` and ``meta``."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="swb2000-blstm")
     ap.add_argument("--strategy", default=None,
@@ -206,6 +227,36 @@ def main(argv=None):
                          "padded frames")
     ap.add_argument("--bucket", action="store_true",
                     help="length-bucketed batching (implies --var-len)")
+    ap.add_argument("--consensus", action="store_true",
+                    help="log the replicas' consensus distance each step")
+    ap.add_argument("--grad-norm", action="store_true",
+                    help="log the applied gradient's L2 norm each step "
+                         "(the reference records it under --trace-out, "
+                         "not ported yet)")
+    ap.add_argument("--comm-topology", default="",
+                    choices=["", "uniform", "ring", "hierarchical", "exp",
+                             "none"],
+                    help="mixing topology override (default: the "
+                         "strategy's own)")
+    ap.add_argument("--comm-wire", default="",
+                    choices=["", "f32", "bf16", "int8", "topk"],
+                    help="wire codec of the mixing payloads (default: the "
+                         "strategy's own, f32 but for ad_psgd_q8)")
+    ap.add_argument("--comm-intra-wire", default="",
+                    choices=["", "f32", "bf16", "int8"],
+                    help="hierarchical topology: codec of the intra-pod "
+                         "allreduce (the inter-pod ring uses --comm-wire; "
+                         "topk is gossip-only and not valid here)")
+    ap.add_argument("--comm-bucket-mb", type=int, default=0,
+                    help="split mixing payloads into buckets of this many "
+                         "MB, each coded on its own (0 = one payload per "
+                         "tensor)")
+    ap.add_argument("--comm-pod-size", type=int, default=0,
+                    help="hierarchical topology: learners per pod (0 = "
+                         "cfg value)")
+    ap.add_argument("--comm-topk-frac", type=float, default=0.0,
+                    help="topk wire: fraction of entries shipped (0 = "
+                         "cfg value, 0.01)")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--resume", action="store_true",
@@ -226,6 +277,10 @@ def main(argv=None):
         changes["lstm_stash_dtype"] = args.stash_dtype
     if args.seq_chunk:
         changes["lstm_seq_chunk"] = args.seq_chunk
+    for key in ("comm_topology", "comm_wire", "comm_intra_wire",
+                "comm_bucket_mb", "comm_pod_size", "comm_topk_frac"):
+        if getattr(args, key):
+            changes[key] = getattr(args, key)
     if changes:
         cfg = dataclasses.replace(cfg, **changes)
     seq_len = args.seq_len or 21
@@ -239,6 +294,7 @@ def main(argv=None):
     state, step_fn, meta = setup_training(
         cfg, strategy_name=strategy.name, n_learners=n_learners,
         optimizer_name=args.optimizer, seed=args.seed, device=device,
+        with_consensus=args.consensus, with_grad_norm=args.grad_norm,
         lr_schedule=paper_recipe(steps_per_epoch=max(args.steps // 16, 1),
                                  base_lr=0.05, peak_lr=0.2))
     if args.resume and not args.ckpt_dir:
@@ -268,6 +324,7 @@ def main(argv=None):
           f"[{meta['strategy'].name}, L={meta['n_learners']}, {device}]")
     if records:
         print(timing_line(records), flush=True)
+    return dict(state=state, metrics=metrics, records=records, meta=meta)
 
 
 if __name__ == "__main__":

@@ -15,6 +15,10 @@ import torch
 _F32 = torch.float32
 
 
+def constant(lr: float):
+    return lambda step: torch.tensor(lr, dtype=_F32)
+
+
 def warmup_then_anneal(base_lr: float, peak_lr: float, warmup_steps: int,
                        anneal_every: int, anneal_factor: float):
     def sched(step):

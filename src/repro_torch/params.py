@@ -111,16 +111,18 @@ def from_jax_state(state, device="cpu") -> dict:
     """A JAX train state whose leaves were converted to numpy
     (``jax.tree.map(np.asarray, state)`` of ``repro.core.strategies.
     init_state``) -> the port's state: ``params``, ``prev_params``,
-    ``anchor``, ``block_mom`` and ``opt`` as tensors on ``device`` (bf16
-    bits carried exactly, an empty optimizer state kept as ``()``), and
+    ``anchor``, ``block_mom``, ``opt`` and ``comm`` (the error-feedback
+    residual and estimate, f32) as tensors on ``device`` (bf16 bits
+    carried exactly, an empty optimizer state kept as ``()``), and
     ``step`` as a host int."""
     out = {}
     for key, value in state.items():
         if key == "step":
             out[key] = int(np.asarray(value))
-        elif key in ("params", "prev_params", "anchor", "block_mom", "opt"):
+        elif key in ("params", "prev_params", "anchor", "block_mom", "opt",
+                     "comm"):
             out[key] = _state_tree(value, device)
         else:
             raise ValueError(f"state key {key!r} has no counterpart in the "
-                             f"port (elastic and comm state are not ported)")
+                             f"port (the elastic state is not ported)")
     return out

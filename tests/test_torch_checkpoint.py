@@ -167,3 +167,33 @@ def test_msgpack_is_not_imported():
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_resume_is_bit_exact_with_an_uninterrupted_run(tmp_path):
+    """The train CLI over a bucketed top-k wire (error-feedback state in
+    ``state['comm']``) checkpointed at step 2 and resumed with
+    ``--resume`` to step 4 ends bit-identical to 4 uninterrupted steps:
+    params, prev_params, the momentum state and comm."""
+    from repro_torch.launch.train import main
+
+    base = ["--reduced", "--device", "cpu", "--strategy", "ad_psgd",
+            "--optimizer", "momentum", "--var-len", "--log-every", "0",
+            "--comm-wire", "topk", "--comm-topk-frac", "0.05",
+            "--comm-bucket-mb", "1"]
+    whole = main(base + ["--steps", "4"])["state"]
+    ck = str(tmp_path / "ck")
+    main(base + ["--steps", "2", "--ckpt-dir", ck, "--ckpt-every", "2"])
+    assert CK.latest_step(ck) == 2
+    resumed = main(base + ["--steps", "2", "--ckpt-dir", ck, "--resume"])
+    resumed = resumed["state"]
+    assert resumed["step"] == whole["step"] == 4
+    assert {"params", "prev_params", "opt", "comm"} <= set(whole)
+    want, have = dict(_leaves(whole)), dict(_leaves(resumed))
+    assert want.keys() == have.keys()
+    assert any(k.startswith("/comm/residual") for k in want)
+    for key, w in want.items():
+        if isinstance(w, torch.Tensor):
+            assert _bits(have[key]) == _bits(w), key
+    with pytest.raises(SystemExit, match="no checkpoint"):
+        main(base + ["--steps", "1", "--ckpt-dir", str(tmp_path / "none"),
+                     "--resume"])

@@ -57,6 +57,8 @@ def test_import_leaves_jax_and_repro_unloaded():
         "import repro_torch.configs.llama4_scout_17b_a16e\n"
         "import repro_torch.launch.evaluate, repro_torch.checkpoint\n"
         "import repro_torch.eval, repro_torch.obs\n"
+        "import repro_torch.core.compression, repro_torch.models.ctc\n"
+        "import repro_torch.decode.ref\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'repro', 'msgpack')]\n"
         "print(bad)\n"

@@ -226,31 +226,68 @@ def test_transport_wire_bytes_and_mixer(topology, L):
         assert _bits(want[key]) == got[key].float().numpy().tobytes()
 
 
+@pytest.mark.parametrize("kw", [
+    dict(topology="exp"),
+    dict(topology="hierarchical", pod_size=2),
+    dict(wire="int8"),
+    dict(bucket_bytes=64),
+], ids=["exp", "hierarchical", "int8", "bucketed"])
+def test_transport_once_refused_now_matches_jax(kw):
+    """The four configurations the f32-only transport refused before the
+    wire codecs and topologies were ported: wire bytes equal and the mixed
+    replicas bit for bit (the full grid is tests/test_torch_comm.py)."""
+    L = 4
+    rng = np.random.default_rng(7)
+    p = {"w": jnp.asarray(rng.normal(size=(L, 6, 4)), jnp.bfloat16),
+         "b": jnp.asarray(rng.normal(size=(L, 30)), jnp.float32)}
+    jt, tt = jtr.Transport(**kw), Transport(**kw)
+    assert tt.wire_bytes(_tree(p)) == jt.wire_bytes(p)
+    for step in range(3):
+        want, _ = jt.make_mixer(L)(p, jnp.int32(step), {})
+        got, _ = tt.make_mixer(L)(_tree(p), step, {})
+        for key in ("w", "b"):
+            assert _bits(want[key]) == got[key].float().numpy().tobytes()
+
+
 @pytest.mark.parametrize("kw,err", [
-    (dict(topology="exp"), NotImplementedError),
-    (dict(topology="hierarchical"), NotImplementedError),
-    (dict(wire="int8"), NotImplementedError),
-    (dict(bucket_bytes=1024), NotImplementedError),
     (dict(topology="torus"), ValueError),
     (dict(wire="fp4"), ValueError),
+    (dict(intra_wire="topk"), ValueError),
+    (dict(pod_size=0), ValueError),
+    (dict(topk_frac=0.0), ValueError),
+    (dict(gossip_gamma=1.5), ValueError),
+    (dict(staleness_lambda=-1.0), ValueError),
 ])
 def test_transport_rejects_what_is_not_ported(kw, err):
+    """What the reference refuses, the port refuses with the same error;
+    the one method left unported, ``make_elastic_mixer``, raises naming
+    its ROADMAP.md item."""
+    with pytest.raises(err):
+        jtr.Transport(**kw)
     with pytest.raises(err):
         Transport(**kw)
+    with pytest.raises(NotImplementedError,
+                       match="Recovery and elastic training"):
+        Transport().make_elastic_mixer(4)
+    with pytest.raises(ValueError, match="pod_size"):
+        Transport(topology="hierarchical", pod_size=3).make_mixer(4)
+    with pytest.raises(ValueError, match="power-of-2"):
+        Transport(topology="exp").make_mixer(6)
 
 
 def test_strategy_rows_mirror_jax():
     from repro.core import strategies as JS
 
+    assert set(TS.STRATEGIES) == set(JS.STRATEGIES)
+    assert len(TS.STRATEGIES) == 9
     for name, row in TS.STRATEGIES.items():
         ref = JS.STRATEGIES[name]
         for field in ("topology", "wire", "stale", "replicated",
                       "block_size", "block_momentum", "block_lr"):
             assert getattr(row, field) == getattr(ref, field), (name, field)
-    assert set(TS.STRATEGIES) | set(TS.NOT_PORTED) == set(JS.STRATEGIES)
-    for name in TS.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TS.get_strategy(name)
+        assert TS.get_strategy(name) is row
+        assert TS.default_transport(row) == Transport(
+            topology=ref.topology, wire=ref.wire)
 
 
 @pytest.mark.parametrize("L", [1, 3])

@@ -151,8 +151,32 @@ def test_from_jax_state_carries_every_leaf():
         w.float().numpy(),
         np.asarray(jstate["prev_params"]["layers"]["layer_0"]["fwd"]["wx"],
                    np.float32))
-    with pytest.raises(ValueError, match="comm"):
-        from_jax_state({"comm": {}})
+    with pytest.raises(ValueError, match="elastic"):
+        from_jax_state({"staleness": np.zeros(L, np.int32)})
+
+
+def test_from_jax_state_carries_comm():
+    """A top-k wire's error-feedback residual and estimate (f32, here made
+    non-zero by one JAX step) come over bit for bit."""
+    from repro.core.transport import Transport as JT
+
+    jcfg = jax_get_arch("swb2000-blstm").reduced()
+    params = JS.stack_for_learners(
+        init_spec_tree(jlstm.param_specs(jcfg), jax.random.PRNGKey(0)), L)
+    jt = JT(topology="ring", wire="topk", topk_frac=0.1)
+    jstate = JS.init_state(JS.get_strategy("ad_psgd"), params,
+                           jax_optimizer("sgd"), transport=jt)
+    _, jstate["comm"] = jt.make_mixer(L)(params, jnp.int32(0),
+                                        jstate["comm"])
+    tstate = from_jax_state(jax.tree.map(np.asarray, jstate))
+    flat = jax.tree_util.tree_flatten_with_path(
+        jax.tree.map(np.asarray, jstate["comm"]))[0]
+    assert {p[0].key for p, _ in flat} == {"residual", "estimate"}
+    for path, want in flat:
+        got = _leaf(tstate["comm"], path)
+        assert got.dtype == torch.float32 and want.dtype == np.float32
+        assert got.numpy().tobytes() == want.tobytes()
+    assert any(np.abs(w).max() > 0 for _, w in flat)
 
 
 def _cli_lines(capsys, argv):
