@@ -92,6 +92,32 @@ Phases, each of which fails the run (nonzero exit, no result line):
    semiring="sum")`` (K5 once per frame), whose hypotheses equal the plain
    beam's on the same logits on the card with scores within K5_SUM_TOL;
    greedy and beam TER (no quality claim);
+7a-elastic — elastic fault-tolerant training at full width on the train
+   phase's data (16 learners, batch 256, T = 21, var-len, fresh seed-0
+   weights, sgd), each run with the counters set to 0 just before its
+   steps and read just after (K1-stash and K2 6 times a step): (a)
+   ``ad_psgd`` over the f32 ring under one ``FaultPlan`` (learner 0
+   straggling 4x, learner 1 crashed at step 2 and rejoining at step 6,
+   drop and corrupt probability 0.05, corrupt scale 0.1, staleness
+   damping 0.2, fault seed 0), 1 warm-up and 8 timed steps; (b) ``hring``
+   (pods of 4, int8 wire) with learners 4-7 crashed at step 1 and
+   rejoining at step 3, 4 steps; (c) run (a)'s flags through
+   ``launch.train.main``: 4 steps, then 2 with a checkpoint and 2 more
+   with ``--resume``, every leaf of params, prev_params, opt and
+   staleness and the ``final loss`` line bit-identical.  Every step: the
+   loss finite, the staleness counters equal to the reference's formula
+   on the host, the step's matrix doubly stochastic to 1e-6 with identity
+   rows and columns for the dead, ``wire_bytes`` = the wire formula x
+   n_active / 16; the dead replicas bit-identical through their crash
+   windows; (a)'s rejoiner at the incumbents' f64 mean (f32 leaves 1e-6,
+   bf16 one rounding), fresh state and zero staleness; (b) ``n_active``
+   12 in the crash window; one elastic step of (a) kernel vs plain path
+   (loss and gradients at 2e-2); the no-fault plan against the plain
+   ad_psgd step, 3 steps each from the same state (one f32 mix and the
+   f32 leaves at 2e-5 normalised, bf16 leaves at 2e-5 beyond one bf16
+   rounding step of each element).  ms/step (beside
+   the train phase's plain step), contributors' valid frames/s, peak
+   memory, the act/stale trail, beside the card's name and power limit;
 7b. k3 — the long-utterance slice's kernels against their plain versions
    and against the unchunked pair: K1's chunk-entry variant and the
    chunked-recompute backward (K3 port) at 4 learners x 2 rows, T = 300,
@@ -240,9 +266,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
     decode the dense run's tokens.
 
 The last two lines are ``{"kernels": [...]}`` (K1-stash's, K2's, K4's and
-K5's ``launches`` counting 7a-comm and 7a-ctc too, also apart as
-``launches_comm`` and ``launches_ctc``) and ``{"ok": true, "device":
-{...}}``.
+K5's ``launches`` counting 7a-comm, 7a-ctc and 7a-elastic too, also apart
+as ``launches_comm``, ``launches_ctc`` and ``launches_elastic``) and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -423,16 +449,21 @@ def _row_err(got, want) -> tuple:
 
 
 # ---------------------------------------------------------------- phase 1
-def phase_device():
-    import torch
-
+def _card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     if smi.returncode != 0:
         _fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip(), flush=True)
+    return smi.stdout.strip()
+
+
+def phase_device():
+    import torch
+
+    print(_card_line(), flush=True)
     cap = torch.cuda.get_device_capability(0)
     print(f"[device] {torch.cuda.get_device_name(0)} capability {cap} "
           f"count {torch.cuda.device_count()} torch {torch.__version__} "
@@ -1744,6 +1775,451 @@ def phase_comm():
         del state, metrics, records, meta
     print(f"[comm] summary {json.dumps(rows)}", flush=True)
     return total
+
+
+# ---------------------------------------------------------- phase 7a-elastic
+# Elastic fault-tolerant training at full width on the train phase's data
+# (16 learners, batch 256, T = 21, var-len, seed 0, fresh seed-0 weights,
+# sgd): (a) ad_psgd over the f32 ring under one fault plan; (b) hring,
+# pods of 4, an int8 wire, one whole pod crashed and rejoined; (c) run
+# (a)'s flags through the train CLI, killed and resumed.
+ELASTIC_WARMUP, ELASTIC_STEPS, ELASTIC_HRING_STEPS = 1, 8, 4
+ELASTIC_LAMBDA = 0.2
+ELASTIC_TOL = 1e-6       # doubly stochastic; f32 leaves against f64
+TRIVIAL_TOL = 2e-5       # trivial plan vs the plain step (f32 leaves)
+BF16_ULP = 2.0 ** -7     # one bf16 rounding step, relative, at most
+ELASTIC_FLAGS = ["--comm-staleness-lambda", str(ELASTIC_LAMBDA),
+                 "--fault-stragglers", "0:4", "--fault-departures", "1:2:6",
+                 "--fault-drop-prob", "0.05", "--fault-corrupt-prob",
+                 "0.05", "--fault-corrupt-scale", "0.1", "--fault-seed",
+                 "0"]
+ELASTIC_CLI = ["--arch", "swb2000-blstm", "--strategy", "ad_psgd",
+               "--learners", "16", "--batch", "256", "--var-len",
+               "--log-every", "1"] + ELASTIC_FLAGS
+
+
+def _elastic_plan(L, hring):
+    from repro_torch.core.faults import (FaultPlan, parse_departures,
+                                         parse_stragglers)
+
+    if hring:
+        return FaultPlan(L, departures=parse_departures(
+            "4:1:3,5:1:3,6:1:3,7:1:3"))
+    return FaultPlan(L, seed=0, stragglers=parse_stragglers("0:4"),
+                     departures=parse_departures("1:2:6"), drop_prob=0.05,
+                     corrupt_prob=0.05, corrupt_scale=0.1)
+
+
+def _rows(tree, i):
+    """Learner ``i``'s rows of every leaf, cloned."""
+    from repro_torch.core.strategies import _leaves
+
+    return [w[i].clone() for w in _leaves(tree)]
+
+
+def _same_rows(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _check_matrix(name, k, mix, faults, staleness):
+    """This step's elastic matrix (the mixer's own host construction, from
+    the step's masks and counters): doubly stochastic to ELASTIC_TOL,
+    identity rows and columns for the dead.  Returns its error."""
+    import numpy as np
+
+    T = mix.matrix(k, faults["active"], staleness, faults["edge_ok"]).numpy()
+    eye = np.eye(T.shape[0], dtype=T.dtype)
+    err = max(float(np.abs(T.sum(0) - 1).max()),
+              float(np.abs(T.sum(1) - 1).max()), float(-T.min()))
+    for i in np.where(faults["active"] == 0)[0]:
+        err = max(err, float(np.abs(T[i] - eye[i]).max()),
+                  float(np.abs(T[:, i] - eye[i]).max()))
+    if not err <= ELASTIC_TOL:
+        _fail(f"elastic {name}: step {k}'s matrix is {err:.3g} off doubly "
+              f"stochastic with identity rows for the dead")
+    return err
+
+
+def _elastic_run(name, cfg, strategy, plan, steps, warmup, checks):
+    """One elastic run from fresh seed-0 weights, the counters set to 0
+    just before its steps and read just after.  Every step: the loss
+    finite, the staleness counters equal to the reference's formula on
+    the host, the step's matrix checked (:func:`_check_matrix`),
+    ``wire_bytes`` equal to the wire formula times n_active / L; then
+    ``checks(k, before, after, faults, metrics)``.  Returns the final
+    state, the step, meta and a record of the run."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import strategies as ST
+    from repro_torch.data import make_dataset
+    from repro_torch.launch import train as TR
+
+    L = TRAIN_L
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, step, meta = TR.setup_training(
+        cfg, strategy_name=strategy, n_learners=L, seed=SEED,
+        device=torch.device("cuda"), elastic=True, fault_seed=plan.seed,
+        with_corruption=plan.corrupt_prob > 0)
+    t = meta["transport"]
+    mix = t.make_elastic_mixer(L)
+    ds = make_dataset(cfg, seq_len=TRAIN_T, batch=L * TRAIN_B, seed=SEED,
+                      var_len=True)
+    stale = np.zeros(L, np.int32)
+    records, trail, mat_err = [], [], 0.0
+    torch.cuda.synchronize()
+    _zero_counts()
+    for k in range(steps):
+        batch = ds.batch_at(k)
+        faults = plan.step_inputs(k)
+        ST.check_active(faults["active"])
+        before = state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, faults)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        gmask = faults["active"] * faults["contrib"]
+        frames = float((batch["lengths"].reshape(L, -1).sum(1)
+                        * gmask).sum())
+        loss = float(metrics["loss"])
+        records.append((secs, frames, loss))
+        trail.append((int(metrics["n_active"]),
+                      int(metrics["staleness_max"])))
+        print(f"[elastic {name}] step {k} loss {loss:.4f} {1e3 * secs:.2f} "
+              f"ms act {trail[-1][0]}/{L} stale {trail[-1][1]} contrib "
+              f"{int(metrics['n_contrib'])} wire "
+              f"{metrics['wire_bytes'] / 2 ** 20:.2f}MB", flush=True)
+        if not math.isfinite(loss):
+            _fail(f"elastic {name}: non-finite loss at step {k}")
+        stale = np.where(faults["rejoin"] > 0, 0, stale)
+        mat_err = max(mat_err, _check_matrix(name, k, mix, faults, stale))
+        stale = np.where(gmask > 0, 0, stale + 1).astype(np.int32)
+        if not np.array_equal(state["staleness"].numpy(), stale):
+            _fail(f"elastic {name}: staleness {state['staleness']} != the "
+                  f"formula's {stale} at step {k}")
+        want = _wire_formula(state["params"], t) * float(
+            faults["active"].sum()) / L
+        if not abs(metrics["wire_bytes"] - want) <= 1e-6 * want:
+            _fail(f"elastic {name}: wire_bytes {metrics['wire_bytes']} != "
+                  f"{want} at step {k}")
+        checks(k, before, state, faults, metrics)
+    counts = _train_counts()
+    for key, n in counts.items():
+        if n != 6 * steps:
+            _fail(f"elastic {name}: {key} launched {n} times in {steps} "
+                  f"steps, expected 6 a step")
+    timed = records[warmup:]
+    run = dict(ms=1e3 * sum(r[0] for r in timed) / len(timed),
+               fps=sum(r[1] for r in timed) / sum(r[0] for r in timed),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               trail=trail, counts=counts, losses=[r[2] for r in records],
+               matrix_err=mat_err)
+    return state, step, meta, run
+
+
+def _mean_check(name, params, incumbents, got):
+    """A rejoiner's reseeded params ``got`` against the incumbents' mean of
+    ``params`` in f64 (on the card): f32 leaves within ELASTIC_TOL of the
+    leaf's max-abs, bf16 leaves within one bf16 step of the mean (its one
+    rounding, from an f32 mean).  Returns the worst relative error."""
+    import torch
+
+    from repro_torch.core.strategies import _leaves
+
+    worst = 0.0
+    for w, g in zip(_leaves(params), _leaves(got)):
+        mu = w[incumbents].double().mean(0)
+        d = (g.double() - mu).abs()
+        if g.dtype == torch.float32:
+            err = float(d.max()) / float(mu.abs().max())
+            ok = err <= ELASTIC_TOL
+        else:
+            err = float((d / (mu.abs() + 1e-30)).max())
+            ok = bool((d <= BF16_ULP * mu.abs() + 1e-30).all())
+        worst = max(worst, err)
+        if not ok:
+            _fail(f"elastic {name}: the rejoiner is not at the incumbents' "
+                  f"mean ({err:.3g})")
+    return worst
+
+
+def _elastic_kernel_vs_plain(cfg, meta, step, state, batch, faults):
+    """One elastic step from ``state`` through the kernels and through the
+    plain path (which launches no kernel), and the gradients both take at
+    the step's iterate: loss and every gradient leaf within K1_TOL."""
+    import torch
+
+    from repro_torch.core import strategies as ST
+    from repro_torch.models import lstm as LS
+    from repro_torch.optim.optimizers import sgd
+
+    dev = state["params"]["softmax_b"].device
+    L = TRAIN_L
+
+    def plain_fn(p, b):
+        return LS.loss_train(cfg, p, b, device=dev, plain=True)
+
+    # the loss is taken before the update: the plain step's lr is moot
+    plain_step = ST.make_elastic_train_step(
+        meta["strategy"], plain_fn, sgd(), lambda k: 0.0, n_learners=L,
+        transport=meta["transport"], fault_seed=0, with_corruption=True)
+    _, m_plain = plain_step(state, batch, faults)
+    _, m_kern = step(state, batch, faults)
+    loss_err = abs(float(m_kern["loss"]) - float(m_plain["loss"])) / abs(
+        float(m_plain["loss"]))
+    lb = ST.split_learner_batch({k: torch.as_tensor(v).to(dev)
+                                 for k, v in batch.items()}, L)
+    _, grads = ST._value_and_grad(meta["loss_fn"], state["prev_params"], lb)
+    _, grads_w = ST._value_and_grad(plain_fn, state["prev_params"], lb)
+    worst, where = 0.0, None
+    for (key, g), w_ in zip(_named_leaves(grads), ST._leaves(grads_w)):
+        if not torch.isfinite(g).all():
+            _fail(f"elastic: non-finite gradient {key}")
+        _, norm = _norm_err(g, w_)
+        if norm > worst:
+            worst, where = norm, key
+    print(f"[elastic ad_psgd] one elastic step (step 5, learner 1 dead) "
+          f"kernel vs plain: loss relative error {loss_err:.3g}, worst "
+          f"normalised gradient error {worst:.3g} ({where}) (tol {K1_TOL})",
+          flush=True)
+    if not (loss_err <= K1_TOL and worst <= K1_TOL):
+        _fail("elastic: the kernel path disagrees with the plain path")
+
+
+def _elastic_trivial(base, ds):
+    """The no-fault plan against the plain ad_psgd step on the card, each
+    of 3 steps from the plain run's own state: the elastic step mixes by a
+    matrix product where the plain one rolls, so the mix (in f32) and
+    the f32 leaves hold TRIVIAL_TOL, and a bf16 leaf holds TRIVIAL_TOL of
+    its max-abs beyond one bf16 rounding step of each element."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import strategies as ST
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.launch import train as TR
+    from repro_torch.optim.optimizers import sgd, tree_map
+
+    L = TRAIN_L
+    ps, pstep, meta = TR.setup_training(base, strategy_name="ad_psgd",
+                                        n_learners=L, seed=SEED,
+                                        device=torch.device("cuda"))
+    t = meta["transport"]
+    estep = ST.make_elastic_train_step(
+        meta["strategy"], meta["loss_fn"], sgd(), lambda k: 0.05,
+        n_learners=L, transport=t)
+    pstep = ST.make_train_step(meta["strategy"], meta["loss_fn"], sgd(),
+                               lambda k: 0.05, n_learners=L, transport=t)
+    nf = FaultPlan(L).no_fault_inputs()
+    pf = tree_map(lambda w: w.float(), ps["params"])
+    got = t.make_elastic_mixer(L)(pf, 0, nf["active"],
+                                  np.zeros(L, np.int32), nf["edge_ok"],
+                                  nf["corrupt"])
+    want, _ = t.make_mixer(L)(pf, 0, {})
+    mix_err = max(_norm_err(g, w_)[1] for g, w_ in
+                  zip(ST._leaves(got), ST._leaves(want)))
+    del pf, got, want
+    f32_err, bf16_err, flips, n_bf16 = 0.0, 0.0, 0, 0
+    for k in range(3):
+        batch = ds.batch_at(k)
+        es, _ = estep(dict(ps, staleness=torch.zeros(L, dtype=torch.int32)),
+                      batch, nf)
+        ps, _ = pstep(ps, batch)
+        for g, w_ in zip(ST._leaves(es["params"]), ST._leaves(ps["params"])):
+            w_ = w_.float()
+            d = (g.float() - w_).abs()
+            scale = float(w_.abs().max())
+            if g.dtype == torch.float32:
+                f32_err = max(f32_err, float(d.max()) / scale)
+            else:
+                flips += int((d > 0).sum())
+                n_bf16 += d.numel()
+                beyond = torch.clamp(d - BF16_ULP * w_.abs(), min=0.0)
+                bf16_err = max(bf16_err, float(beyond.max()) / scale)
+        del es
+    print(f"[elastic trivial] no-fault elastic step vs the plain ad_psgd "
+          f"step, 3 steps each from the plain run's state: one f32 mix "
+          f"{mix_err:.3g}, f32 leaves {f32_err:.3g}, bf16 leaves "
+          f"{bf16_err:.3g} beyond one rounding step (tol {TRIVIAL_TOL}; "
+          f"{flips} of {n_bf16} bf16 elements apart)", flush=True)
+    if not max(mix_err, f32_err, bf16_err) <= TRIVIAL_TOL:
+        _fail("elastic: the trivial plan does not walk the plain step")
+
+
+def _elastic_cli(L):
+    """Run (c): the train CLI under run (a)'s flags, 4 steps, then 2 with
+    a checkpoint and 2 more with ``--resume``: every leaf of params,
+    prev_params, opt and staleness and the ``final loss`` line
+    bit-identical.  Returns the launch counts of the 8 steps."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch import train as TR
+
+    def cli(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = TR.main(ELASTIC_CLI + argv)
+        text = buf.getvalue()
+        final = [l for l in text.splitlines() if l.startswith("final loss")]
+        return res["state"], text, final[-1] if final else None
+
+    torch.cuda.empty_cache()
+    _zero_counts()
+    full, text, final_full = cli(["--steps", "4"])
+    if "FaultPlan(L=16" not in text or f"act 15/{L}" not in text:
+        _fail(f"elastic CLI: no fault banner or crash window:\n{text}")
+    print("\n".join(f"[elastic CLI] {l}" for l in text.splitlines()
+                    if l.startswith(("FaultPlan", "step"))), flush=True)
+    with tempfile.TemporaryDirectory() as ck:
+        cli(["--steps", "2", "--ckpt-dir", ck, "--ckpt-every", "2"])
+        resumed, _, final_res = cli(["--steps", "2", "--ckpt-dir", ck,
+                                     "--resume"])
+    counts = _train_counts()
+    for key, n in counts.items():
+        if n != 6 * 8:
+            _fail(f"elastic CLI: {key} launched {n} times in 8 steps")
+    diff = [name for name, a, b in _paired_leaves(full, resumed)
+            if not (a.dtype == b.dtype and a.device == b.device
+                    and torch.equal(a, b))]
+    print(f"[elastic CLI] 4 steps vs 2 + --resume 2: {final_full!r} vs "
+          f"{final_res!r}; every leaf of params, prev_params, opt and "
+          f"staleness bit-identical: {not diff}", flush=True)
+    if diff or final_full is None or final_full != final_res:
+        _fail(f"elastic CLI: the resumed run differs in {diff[:4]}")
+    return counts
+
+
+def phase_elastic(train_ms):
+    """Phase 7a-elastic: runs (a), (b) and (c) with their checks, one
+    elastic step kernel vs plain, the trivial plan against the plain
+    step; ms/step, contributors' valid frames/s and peak memory beside
+    the card's name and power limit.  Returns K1-stash's and K2's
+    launches over the three runs."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import make_dataset
+    from repro_torch.optim.optimizers import tree_map
+
+    t_phase = time.perf_counter()
+    L = TRAIN_L
+    base = get_arch("swb2000-blstm")
+    card = _card_line()
+    totals = {"blstm_layer_train": 0, "blstm_layer_bwd": 0}
+
+    # (a) ad_psgd, f32 ring: a 4x straggler, a crash at step 2 rejoining
+    # at step 6, dropped edges and corrupted payloads
+    cfg_a = dataclasses.replace(base, comm_staleness_lambda=ELASTIC_LAMBDA)
+    plan = _elastic_plan(L, hring=False)
+    seen = {}
+
+    def checks_a(k, before, after, faults, metrics):
+        if k == 2:
+            seen["rows"] = _rows(before["params"], 1)
+        if 2 <= k < 6 and not _same_rows(seen["rows"],
+                                         _rows(after["params"], 1)):
+            _fail(f"elastic ad_psgd: dead learner 1 moved at step {k}")
+        if k == 5:
+            seen["state"] = after
+        if k == 6:
+            # the reseeded iterate is the next gradient's: prev_params
+            inc = torch.as_tensor(
+                faults["active"] * (1 - faults["rejoin"]) > 0,
+                device=before["params"]["softmax_b"].device)
+            seen["mean_err"] = _mean_check(
+                "ad_psgd", before["params"], inc,
+                tree_map(lambda w: w[1], after["prev_params"]))
+            if int(after["staleness"][1]) != 0 or after["opt"] != ():
+                _fail("elastic ad_psgd: the rejoiner's staleness or "
+                      "optimizer state is not fresh")
+
+    state, step_a, meta_a, run_a = _elastic_run(
+        "ad_psgd", cfg_a, "ad_psgd", plan, ELASTIC_WARMUP + ELASTIC_STEPS,
+        ELASTIC_WARMUP, checks_a)
+    del state
+    print(f"[elastic ad_psgd] {card}: {ELASTIC_STEPS} timed steps "
+          f"{run_a['ms']:.2f} ms/step (the train phase's plain ad_psgd "
+          f"step: {train_ms:.2f}), {run_a['fps']:.1f} contributors' valid "
+          f"frames/s; peak device memory {run_a['peak_gib']:.2f} GiB; "
+          f"act/stale trail {run_a['trail']}; launches {run_a['counts']}; "
+          f"matrices doubly stochastic to {run_a['matrix_err']:.3g}; "
+          f"learner 1 frozen through steps 2-5 and reseeded at step 6 "
+          f"within {seen['mean_err']:.3g} of the incumbents' f64 mean",
+          flush=True)
+    ds = make_dataset(cfg_a, seq_len=TRAIN_T, batch=L * TRAIN_B, seed=SEED,
+                      var_len=True)
+    _elastic_kernel_vs_plain(cfg_a, meta_a, step_a, seen.pop("state"),
+                             ds.batch_at(5), plan.step_inputs(5))
+    del step_a, meta_a
+    _elastic_trivial(base, ds)
+
+    # (b) hring, pods of 4, int8 wire: learners 4-7 (one pod) crash at
+    # step 1 and rejoin at step 3
+    cfg_b = dataclasses.replace(base, comm_pod_size=4, comm_wire="int8")
+
+    def checks_b(k, before, after, faults, metrics):
+        if k == 1:
+            seen["pod"] = [_rows(before["params"], i) for i in range(4, 8)]
+        if 1 <= k < 3:
+            if metrics["n_active"] != 12:
+                _fail(f"elastic hring: n_active {metrics['n_active']} in "
+                      f"the crash window")
+            for i, rows in zip(range(4, 8), seen["pod"]):
+                if not _same_rows(rows, _rows(after["params"], i)):
+                    _fail(f"elastic hring: dead learner {i} moved")
+
+    state, _, _, run_b = _elastic_run("hring", cfg_b, "hring",
+                                      _elastic_plan(L, hring=True),
+                                      ELASTIC_HRING_STEPS, 1, checks_b)
+    del state, seen
+    print(f"[elastic hring] {card}: pods of 4, int8 wire, learners 4-7 "
+          f"dead at steps 1-2: {ELASTIC_HRING_STEPS - 1} timed steps "
+          f"{run_b['ms']:.2f} ms/step, {run_b['fps']:.1f} contributors' "
+          f"valid frames/s; peak device memory {run_b['peak_gib']:.2f} "
+          f"GiB; act/stale trail {run_b['trail']}", flush=True)
+
+    counts_c = _elastic_cli(L)
+    for counts in (run_a["counts"], run_b["counts"], counts_c):
+        for key in totals:
+            totals[key] += counts[key]
+    secs = time.perf_counter() - t_phase
+    summary = {k: {kk: v[kk] for kk in ("ms", "fps", "peak_gib", "trail",
+                                        "losses")}
+               for k, v in (("ad_psgd", run_a), ("hring", run_b))}
+    print(f"[elastic] {card}: phase 7a-elastic {secs:.1f}s; summary "
+          f"{json.dumps(summary)}", flush=True)
+    return totals
+
+
+def _paired_leaves(a, b, prefix=""):
+    """(path, leaf of a, leaf of b) over two trees of dicts, tuples and
+    tensors; the host ``step`` compared as a 0-d tensor."""
+    import torch
+
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            yield prefix + "/<keys>", torch.zeros(1), torch.ones(1)
+            return
+        for k in a:
+            yield from _paired_leaves(a[k], b[k], f"{prefix}/{k}")
+    elif isinstance(a, (tuple, list)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            yield from _paired_leaves(x, y, f"{prefix}/{i}")
+    else:
+        yield prefix, torch.as_tensor(a), torch.as_tensor(b)
 
 
 # -------------------------------------------------------------- phase 7a-ctc
@@ -4170,7 +4646,7 @@ def main() -> int:
         launches = phase_serve()
         phase_profile()
         done("serve")
-        state, step, ds, counts, steps, _ = phase_train()
+        state, step, ds, counts, steps, train_ms = phase_train()
         phase_train_profile(state, step, ds, steps)
         done("train")
         eval_counts, k1_check_launches = phase_evaluate(state)
@@ -4180,6 +4656,8 @@ def main() -> int:
         done("comm")
         ctc_counts, ctc_decode = phase_ctc()
         done("ctc")
+        elastic_counts = phase_elastic(train_ms)
+        done("elastic")
         k1c, k3 = check_k3(gen)
         long_counts, long_steps = phase_train_long()
         done("train-long")
@@ -4221,8 +4699,10 @@ def main() -> int:
         k["launches_per_step"] = counts[k["name"]] / steps
         k["launches_comm"] = comm_counts[k["name"]]
         k["launches_ctc"] = ctc_counts[k["name"]]
+        k["launches_elastic"] = elastic_counts[k["name"]]
         launches[k["name"]] = (counts[k["name"]] + comm_counts[k["name"]]
-                               + ctc_counts[k["name"]])
+                               + ctc_counts[k["name"]]
+                               + elastic_counts[k["name"]])
     # K4 is the forward of every serve admission (B = 1, the entry's own
     # times) and of evaluate (B = 8, its ``evaluate_shape``): each count
     # stands beside its shape's times.  K1's inference variant runs on no

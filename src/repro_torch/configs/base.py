@@ -106,7 +106,9 @@ class ArchConfig:
     comm_pod_size: int = 1
     # topk wire: fraction of entries shipped per bucket
     comm_topk_frac: float = 0.01
-    # elastic mixing only (not ported yet): staleness damping λ
+    # elastic mixing only (the fault-tolerant step, --fault-* runs): a
+    # learner s steps behind mixes with confidence 1/(1 + λ·s)
+    # (mixing.staleness_damped, through Transport.staleness_lambda)
     comm_staleness_lambda: float = 0.0
 
     # serving KV-cache layout (launch/serve.py --cache): 'dense' per-slot

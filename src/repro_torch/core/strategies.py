@@ -45,16 +45,21 @@ Variable-length batches (a ``lengths`` key) are aggregated with frame
 weights: each learner's masked-mean gradient is scaled by its
 valid-frame share, so uniform mixing equals the global masked gradient.
 
-Not ported yet: the elastic step (ROADMAP.md queue 1, "Recovery and
-elastic training").
+:func:`make_elastic_train_step` is the fault-tolerant variant: one
+:class:`~repro_torch.core.faults.FaultPlan` step's host masks say who is
+alive, who contributes a gradient, who rejoins, which gossip edges
+deliver and whose payloads are corrupted, and the strategy runs over the
+live set through the elastic mixing matrices.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
+from repro_torch.core import mixing
 from repro_torch.core.transport import Transport
 from repro_torch.optim.optimizers import Optimizer, tree_map
 
@@ -97,6 +102,23 @@ def split_learner_batch(batch, n_learners: int):
         return x.reshape(n_learners, B // n_learners, *x.shape[1:])
 
     return {k: one(k, v) for k, v in batch.items()}
+
+
+def check_active(active) -> int:
+    """Host-side guard against a step with no live learner: frame-weighted
+    aggregation over an empty learner set is 0/0 and mixing has no
+    survivor to freeze toward.  Call it on the step's activity mask
+    before the elastic step; returns the live count.  ``FaultPlan``
+    applies the same rule to every membership event at construction."""
+    n = int(np.asarray(active).sum())
+    if n <= 0:
+        raise ValueError(
+            "no active learners this step: frame-weighted aggregation "
+            "over an empty learner set is 0/0 and mixing has no "
+            "survivor to freeze toward — fix the fault plan so at least "
+            "one learner stays alive (FaultPlan raises the same error "
+            "at construction)")
+    return n
 
 
 def _valid_frames(batch):
@@ -300,14 +322,15 @@ def _to_device(batch, device):
 def make_train_step(strategy: Strategy, loss_fn: Callable,
                     optimizer: Optimizer, lr_schedule: Callable, *,
                     n_learners: int = 1, microbatches: int = 1,
-                    with_consensus: bool = False,
+                    with_consensus: bool = False, pre_split: bool = False,
                     transport: Optional[Transport] = None,
                     with_grad_norm: bool = False):
     """Build the train step ``step(state, batch) -> (state', metrics)``.
 
     ``loss_fn(params, batch) -> (L,)`` takes stacked params and a batch
     split over learners (L, B/L, ...), and returns each learner's loss.
-    The batch (numpy arrays or tensors, flat (B, ...)) is moved to the
+    The batch (numpy arrays or tensors, flat (B, ...), or with
+    ``pre_split`` already shaped (L, B/L, ...)) is moved to the
     parameters' device.  Batches carrying ``lengths`` get frame-weighted
     aggregation, and the reported loss is the frame-weighted mean.
     Replicated steps report ``wire_bytes``, the analytic bytes each
@@ -346,7 +369,8 @@ def make_train_step(strategy: Strategy, loss_fn: Callable,
             return {"params": new_params, "opt": opt,
                     "step": state["step"] + 1}, metrics
 
-        lbatch = split_learner_batch(batch, n_learners)
+        lbatch = batch if pre_split else split_learner_batch(batch,
+                                                             n_learners)
         grad_at = state["prev_params"] if strategy.stale else state["params"]
         loss_l, g_l = grad_one(grad_at, lbatch)
         frames = _valid_frames(lbatch)
@@ -402,6 +426,265 @@ def make_train_step(strategy: Strategy, loss_fn: Callable,
             out["prev_params"] = state["params"]
         if with_consensus:
             metrics["consensus"] = consensus_distance(out["params"])
+        return out, metrics
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Elastic (fault-tolerant) train step
+# ---------------------------------------------------------------------------
+
+def _sel(mask, a, b):
+    """Per-learner select over stacked trees: rows where the host (L,)
+    ``mask`` is set come from ``a``, the rest from ``b``.  An all-set or
+    all-clear mask returns ``a`` or ``b`` itself (the select would copy
+    it bit for bit)."""
+    m = np.asarray(mask) > 0
+    if m.all():
+        return a
+    if not m.any():
+        return b
+
+    def one(x, y):
+        mt = torch.as_tensor(m, device=x.device).reshape(
+            (-1,) + (1,) * (x.dim() - 1))
+        return torch.where(mt, x, y)
+
+    return _map2(one, a, b)
+
+
+def _map2(fn, a, b):
+    """``fn`` leafwise over two trees of dicts, tuples and tensors (the
+    optimizer states included: sgd's is ``()``)."""
+    if isinstance(a, dict):
+        return {k: _map2(fn, a[k], b[k]) for k in a}
+    if isinstance(a, (tuple, list)):
+        return type(a)(_map2(fn, x, y) for x, y in zip(a, b))
+    return fn(a, b)
+
+
+def _column(v: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """A host (L,) f32 vector on ``like``'s device, broadcastable against
+    it."""
+    return _per_learner(torch.as_tensor(v, dtype=torch.float32,
+                                        device=like.device), like)
+
+
+def _reseed_rejoiners(params, rejoin, incumbent):
+    """Rejoining learners re-enter at the incumbents' f32 mean (the sum
+    over learners in order, divided by their count); elastic membership
+    never resurrects a crashed learner's dead weights.  Rows that do not
+    rejoin keep their bits (f32 -> dtype of an upcast is exact), so a
+    step with no rejoiner returns ``params`` itself."""
+    rj = np.nonzero(np.asarray(rejoin) > 0)[0]
+    if rj.size == 0:
+        return params
+    n_inc = float(max(np.float32(np.asarray(incumbent, np.float32).sum()),
+                      np.float32(1.0)))
+    idx = torch.as_tensor(rj)
+
+    def one(w):
+        wf = w.float()
+        mu = mixing.div(mixing.ordered_sum(wf * _column(incumbent, w), 0),
+                        n_inc)
+        out = w.clone()
+        out[idx.to(w.device)] = mu.to(w.dtype)
+        return out
+
+    return tree_map(one, params)
+
+
+def _masked_consensus(params, active):
+    """Consensus distance over the ACTIVE learners only (a crashed
+    learner's frozen replica is cluster weather, not disagreement)."""
+    a = np.asarray(active, np.float32)
+    n_act = max(np.float32(a.sum()), np.float32(1.0))
+    num, den = None, np.float32(0.0)
+    for w in _leaves(params):
+        if w.dim() == 0 or w.shape[0] == 1:
+            part, d = torch.zeros((), device=w.device), np.float32(1.0)
+        else:
+            wf = w.float()
+            col = _column(a, w)
+            mu = mixing.div(mixing.ordered_sum(wf * col, 0), float(n_act))
+            part = torch.sum(torch.square(wf - mu) * col)
+            d = n_act * (np.float32(wf.numel()) / np.float32(wf.shape[0]))
+        num = part if num is None else num + part
+        den = np.float32(den + d)
+    return torch.sqrt(mixing.div(num, float(den)))
+
+
+def init_elastic_state(strategy: Strategy, params, optimizer: Optimizer,
+                       transport: Optional[Transport] = None):
+    """:func:`init_state` plus the per-learner staleness counters (steps
+    since the learner last contributed a gradient), an int32 (L,) tensor.
+
+    The counters live on the host (a CPU tensor, whatever the params'
+    device): every input they depend on is a host mask, and the mixing
+    matrix they damp is built on the host, so the step never reads the
+    card for them.  The checkpoint saves and restores them there."""
+    state = init_state(strategy, params, optimizer, transport)
+    state["staleness"] = torch.zeros((_learner_dim(params),),
+                                     dtype=torch.int32)
+    return state
+
+
+def make_elastic_train_step(strategy: Strategy, loss_fn: Callable,
+                            optimizer: Optimizer, lr_schedule: Callable, *,
+                            n_learners: int, microbatches: int = 1,
+                            with_consensus: bool = False,
+                            pre_split: bool = False,
+                            transport: Optional[Transport] = None,
+                            fault_seed: int = 0,
+                            with_corruption: bool = False,
+                            with_grad_norm: bool = False):
+    """The fault-tolerant variant of :func:`make_train_step`:
+
+        ``step(state, batch, faults) -> (state', metrics)``
+
+    where ``faults`` is one ``FaultPlan.step_inputs`` dict of numpy
+    arrays (active, contrib, rejoin, edge_ok, corrupt).  Semantics:
+
+    * **membership** — mixing runs over the live set through the elastic
+      matrices (the dead frozen bit for bit); rejoiners re-enter at the
+      incumbents' f32 mean (``prev_params`` too for stale strategies)
+      with a fresh optimizer state and zero staleness.
+    * **stragglers/stalls** — a learner alive but not contributing still
+      mixes but applies no gradient and keeps its optimizer state; its
+      staleness grows, and ``transport.staleness_lambda`` > 0 damps its
+      mixing influence by 1/(1 + λ·staleness).
+    * **aggregation** — gradients are weighted w_l = n_active · f_l /
+      Σ_contrib f over the contributors (f the valid frames, 1 a learner
+      on rectangular batches); the loss is the contributors'
+      frame-weighted mean and ``grad_norm`` the mean over contributors.
+    * **wire faults** — dropped edges return their mixing mass to the
+      diagonal; corrupted payloads (``with_corruption``) only reach the
+      peer view, never the local replica.
+
+    ``n_active``, ``n_contrib``, the staleness update and
+    ``staleness_max`` depend on the host masks only and are computed on
+    the host; ``wire_bytes`` is ``Transport.wire_bytes · n_active / L``.
+    With the trivial masks the trajectory matches :func:`make_train_step`
+    to f32 rounding (a matrix product where the plain path rolls).
+    Non-replicated strategies are refused (no learner axis to mask), and
+    difference-coded wires by :meth:`Transport.make_elastic_mixer`."""
+    if not strategy.replicated:
+        raise ValueError(
+            f"strategy {strategy.name!r} is not replicated: elastic "
+            f"membership needs a stacked learner axis to mask — use "
+            f"'sc_psgd_replicated' for an elastic allreduce baseline")
+    transport = transport if transport is not None \
+        else default_transport(strategy)
+    mix = transport.make_elastic_mixer(
+        n_learners, fault_seed=fault_seed, with_corruption=with_corruption)
+
+    def grad_one(params, batch):
+        return _accumulated_grad(loss_fn, params, batch, microbatches)
+
+    def step(state, batch, faults):
+        lr = lr_schedule(state["step"])
+        device = next(_leaves(state["params"])).device
+        batch = _to_device(batch, device)
+        metrics = {}
+        f32 = np.float32
+        active = np.asarray(faults["active"], f32)
+        rejoin = np.asarray(faults["rejoin"], f32)
+        gmask = active * np.asarray(faults["contrib"], f32)
+        n_act = max(f32(active.sum()), f32(1.0))
+        incumbent = active * (f32(1.0) - rejoin)
+
+        # membership first: rejoiners re-enter at the incumbents' mean
+        params = _reseed_rejoiners(state["params"], rejoin, incumbent)
+        opt = state["opt"]
+        if rejoin.any():
+            opt = _sel(rejoin, optimizer.init(
+                params, n_learners if n_learners > 1 else None), opt)
+        staleness = np.where(rejoin > 0, 0,
+                             state["staleness"].cpu().numpy()).astype(
+                                 np.int32)
+
+        lbatch = batch if pre_split else split_learner_batch(batch,
+                                                             n_learners)
+        grad_at = params
+        if strategy.stale:
+            grad_at = _reseed_rejoiners(state["prev_params"], rejoin,
+                                        incumbent)
+        loss_l, g_l = grad_one(grad_at, lbatch)
+
+        frames = _valid_frames(lbatch)
+        if frames is None:
+            frames = torch.ones(n_learners, device=device)
+        gm = torch.as_tensor(gmask, device=device)
+        cframes = gm * frames
+        csum = torch.clamp(mixing.ordered_sum(cframes, 0), min=1e-6)
+        # the mean over the active learners of the applied gradients is
+        # the global masked gradient over the contributors
+        w = torch.as_tensor(n_act, device=device) * cframes / csum
+        g_l = tree_map(lambda g: (g.float() * _per_learner(w, g)).to(
+            g.dtype), g_l)
+        metrics["loss"] = mixing.ordered_sum(loss_l * cframes, 0) / csum
+        if with_grad_norm:
+            norms = _grad_norm_stacked(g_l)
+            metrics["grad_norm"] = mixing.div(
+                mixing.ordered_sum(norms * gm, 0),
+                float(max(f32(gmask.sum()), f32(1.0))))
+
+        wire_bytes = float(f32(transport.wire_bytes(params)) * n_act
+                           / f32(n_learners))
+
+        def elastic_mix(p, step_no):
+            return mix(p, step_no, active, staleness, faults["edge_ok"],
+                       faults["corrupt"])
+
+        if strategy.block_size:
+            # elastic BMUF: gated local SGD inside the block; at block
+            # boundaries the survivors sync through the elastic matrix
+            # while the dead keep params, anchor and momentum frozen
+            anchor = _reseed_rejoiners(state["anchor"], rejoin, incumbent)
+            mom = _sel(rejoin, tree_map(torch.zeros_like,
+                                        state["block_mom"]),
+                       state["block_mom"])
+            upd, new_opt = optimizer.update(g_l, opt, params, lr)
+            upd = _sel(gmask, upd, params)
+            new_opt = _sel(gmask, new_opt, opt)
+            step_no = state["step"] + 1
+            out = {"params": upd, "opt": new_opt, "step": step_no,
+                   "anchor": anchor, "block_mom": mom}
+            if step_no % strategy.block_size == 0:
+                avg = elastic_mix(upd, step_no)
+                new_mom = tree_map(
+                    lambda m, a, b: strategy.block_momentum * m
+                    + strategy.block_lr * (a.float() - b.float()),
+                    mom, avg, anchor)
+                new = tree_map(lambda b, m: (b.float() + m).to(b.dtype),
+                               anchor, new_mom)
+                out.update(params=_sel(active, new, upd),
+                           anchor=_sel(active, new, anchor),
+                           block_mom=_sel(active, new_mom, mom))
+                metrics["wire_bytes"] = wire_bytes
+            else:
+                metrics["wire_bytes"] = 0.0
+        else:
+            mixed = elastic_mix(params, state["step"])
+            upd, new_opt = optimizer.update(g_l, opt, mixed, lr)
+            # contributors step from the mixed iterate; alive
+            # non-contributors keep the mixed iterate (they gossiped but
+            # computed nothing); the dead stay exactly where they were
+            out = {"params": _sel(active, _sel(gmask, upd, mixed), params),
+                   "opt": _sel(gmask, new_opt, opt),
+                   "step": state["step"] + 1}
+            metrics["wire_bytes"] = wire_bytes
+
+        if strategy.stale:
+            out["prev_params"] = params
+        new_stale = np.where(gmask > 0, 0, staleness + 1).astype(np.int32)
+        out["staleness"] = torch.from_numpy(new_stale)
+        metrics["n_active"] = float(n_act)
+        metrics["n_contrib"] = float(f32(gmask.sum()))
+        metrics["staleness_max"] = int((new_stale * (active > 0)).max())
+        if with_consensus:
+            metrics["consensus"] = _masked_consensus(out["params"], active)
         return out, metrics
 
     return step

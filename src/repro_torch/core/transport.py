@@ -31,8 +31,10 @@ Everything is elementwise IEEE arithmetic in the reference's order (the
 means over learners and pods sum in index order and scale by f32(1/n),
 as ``jnp.mean`` compiles), so the mixed replicas and the EF state keep
 the reference's bits.  ``wire_bytes`` is the analytic bytes each learner
-sends per round.  :meth:`Transport.make_elastic_mixer` is not ported yet
-(ROADMAP.md queue 1, "Recovery and elastic training").
+sends per round.  :meth:`Transport.make_elastic_mixer` mixes over a live
+subset of learners (fault-tolerant training) through one doubly-stochastic
+matrix a step, built on the host and applied as a full-f32 (L, L) × (L, n)
+product per leaf.
 """
 from __future__ import annotations
 
@@ -132,13 +134,30 @@ def _combine_exp(w, d, step: int, G: int):
                       2.0)
 
 
+def noise_seed(fault_seed: int, step: int, leaf: int, row: int) -> int:
+    """The seed of one corruption draw: learner ``row``'s payload of leaf
+    ``leaf`` (in the params' key order) at ``step`` under ``fault_seed``,
+    a function of those four numbers alone."""
+    ss = np.random.SeedSequence([int(fault_seed) % 2 ** 63, int(step),
+                                 int(leaf), int(row)])
+    return int(ss.generate_state(1, np.uint64)[0] >> np.uint64(1))
+
+
+def _require_full_f32(device):
+    """The elastic product is held to f32 (a TF32 product moves each mix
+    by ~1e-3): refuse to run it on a card set to TF32."""
+    if device.type == "cuda" and (
+            torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError(
+            "elastic mixing needs full-f32 matrix products: "
+            "torch.backends.cuda.matmul.allow_tf32 is on or the f32 matmul "
+            "precision is not 'highest'")
+
+
 # ---------------------------------------------------------------------------
 # Transport
 # ---------------------------------------------------------------------------
-
-_ELASTIC_TODO = ("elastic mixing is not ported yet: ROADMAP.md queue 1, "
-                 "'Recovery and elastic training'")
-
 
 @dataclass(frozen=True)
 class Transport:
@@ -155,7 +174,8 @@ class Transport:
     # consensus step of the difference-coded (topk) gossip; 0 = auto,
     # min(0.5, topk_frac)
     gossip_gamma: float = 0.0
-    # elastic mixing only (not ported): staleness damping λ
+    # elastic mixing only: a learner s steps behind mixes with confidence
+    # 1/(1 + λ·s)
     staleness_lambda: float = 0.0
 
     def __post_init__(self):
@@ -254,10 +274,91 @@ class Transport:
 
         return lambda p, step, comm: _general_mix(t, p, step, comm)
 
-    def make_elastic_mixer(self, n_learners: int, **kw):
-        """Elastic-membership mixing over a live learner set — not ported
-        yet."""
-        raise NotImplementedError(_ELASTIC_TODO)
+    def make_elastic_mixer(self, n_learners: int, *, fault_seed: int = 0,
+                           with_corruption: bool = False):
+        """Elastic-membership mixing: returns
+
+            ``mix(params, step, active, staleness, edge_ok, corrupt)
+              -> mixed``
+
+        where ``active``, ``edge_ok`` and ``corrupt`` are one
+        ``FaultPlan.step_inputs`` dict's host arrays and ``staleness`` the
+        per-learner counters of the strategy state, ``step`` a host int.
+        The topology is rebuilt every step over the live set
+        (:func:`repro_torch.core.mixing.elastic_matrix`, on the host):
+        dead learners are identity rows, dropped edges return their mass
+        to the diagonal, and with ``staleness_lambda`` > 0 a learner s
+        steps behind is down-weighted by 1/(1 + λ·s).  The matrix is
+        copied to the params' device once a step; each leaf's f32 (L, n)
+        view is coded by ``wire`` (``intra_wire`` does not apply: the
+        hierarchical stages are one matrix) and mixed as ``off @ d +
+        diag * w``, the local replica exact, the product in full f32.
+
+        Difference-coded wires (topk) are refused: their shared public
+        estimate desynchronizes when learners crash or rejoin.  With
+        ``with_corruption``, each learner row r with ``corrupt[r] > 0``
+        of the peer view picks up Gaussian noise of RMS ``corrupt[r] ·
+        rms(d[r])``, drawn from a ``torch.Generator`` on the params'
+        device seeded from (fault_seed, step, leaf index, r) alone
+        (:func:`noise_seed`), so a resumed run draws the same noise; the
+        reference draws ``jax.random.normal`` under
+        ``fold_in(fold_in(PRNGKey(fault_seed), step), leaf)``, a stream
+        the port does not reproduce."""
+        t = self
+        if t.needs_state:
+            raise ValueError(
+                f"wire {t.wire!r} is difference-coded (error-feedback "
+                f"state) and cannot run under elastic membership: the "
+                f"shared public estimate desynchronizes when learners "
+                f"crash or rejoin — use an f32/bf16/int8 wire with "
+                f"--fault-* runs")
+        if t.topology == "hierarchical" and n_learners % t.pod_size:
+            raise ValueError(
+                f"hierarchical topology needs pod_size ({t.pod_size}) to "
+                f"divide n_learners ({n_learners})")
+
+        def matrix(step, active, staleness, edge_ok):
+            return mixing.elastic_matrix(
+                active, t.topology, step=int(step), pod_size=t.pod_size,
+                staleness=staleness, staleness_lambda=t.staleness_lambda,
+                edge_ok=edge_ok)
+
+        def mix(params, step, active, staleness, edge_ok, corrupt):
+            if t.topology == "none":
+                return params
+            T = matrix(step, active, staleness, edge_ok)
+            dev = next(_leaves(params)).device
+            _require_full_f32(dev)
+            diag = torch.diagonal(T).clone()
+            off = (T - torch.diag(diag)).to(dev)
+            diag = diag.to(dev)[:, None]
+            hit = (np.nonzero(np.asarray(corrupt) > 0)[0]
+                   if with_corruption else ())
+            scale = np.asarray(corrupt, np.float32)
+            leaves = list(_leaves(params))
+
+            def one(i, w):
+                wf = w.float().reshape(n_learners, -1)
+                d = _coded(t, t.wire, wf)
+                if len(hit):
+                    d = d.clone()
+                    for r in hit:
+                        gen = torch.Generator(device=dev).manual_seed(
+                            noise_seed(fault_seed, step, i, int(r)))
+                        noise = torch.randn(d.shape[1], generator=gen,
+                                            dtype=torch.float32, device=dev)
+                        rms = torch.sqrt(torch.mean(d[r] * d[r]))
+                        d[r] = d[r] + float(scale[r]) * rms * noise
+                # peers arrive through the (coded, possibly corrupted)
+                # wire; the local replica contributes exactly
+                out = off @ d + diag * wf
+                return out.reshape(w.shape).to(w.dtype)
+
+            mixed = iter([one(i, w) for i, w in enumerate(leaves)])
+            return tree_map(lambda _: next(mixed), params)
+
+        mix.matrix = matrix
+        return mix
 
     # -- telemetry ------------------------------------------------------
     def wire_bytes(self, params) -> float:

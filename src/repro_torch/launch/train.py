@@ -26,15 +26,29 @@ loop (prefetching, logging, per-step timing); the CLI wraps both.
         --comm-intra-wire bf16 --comm-wire topk --comm-bucket-mb 1 \\
         --consensus --steps 3 --log-every 1
 
+    # fault-tolerant training: learner 0 straggles 4x, learner 1 crashes
+    # at step 3 and rejoins at step 6, stale learners damped (λ = 0.2)
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
+        --device cpu --learners 4 --fault-stragglers 0:4 \\
+        --fault-departures 1:3:6 --comm-staleness-lambda 0.2 --steps 8 \\
+        --log-every 1
+
 ``--ckpt-dir`` restores the latest checkpoint there at start, when one
 exists, and the step count goes on from it; ``--ckpt-every`` saves every
-that many steps; ``--resume`` requires a checkpoint (the optimizer state
-and the wires' error-feedback state in ``state['comm']`` resume bit for
-bit).  ``--consensus`` logs the replicas' consensus distance each step.
-The ``--comm-*`` flags override the strategy's transport
-(``core/transport.py``).  Not ported yet (ROADMAP.md queue 1): fault
-plans, the elastic step and ``--comm-staleness-lambda``, and
-``--trace-out``.
+that many steps; ``--resume`` requires a checkpoint (the optimizer state,
+the wires' error-feedback state in ``state['comm']`` and the elastic
+staleness counters resume bit for bit).  ``--steps`` counts the steps of
+this run: a resumed run takes that many more from the restored step.
+``--consensus`` logs the replicas' consensus distance each step.  The
+``--comm-*`` flags override the strategy's transport
+(``core/transport.py``).  Any of ``--fault-stragglers``,
+``--fault-departures``, ``--fault-drop-prob``, ``--fault-stall-prob`` or
+``--fault-corrupt-prob`` switches to the elastic step
+(``core/strategies.make_elastic_train_step``) under one deterministic
+``core/faults.FaultPlan``, whose inputs at the global step number drive
+each step, so a resumed run sees the faults an uninterrupted one would.
+Not ported yet (ROADMAP.md queue 1): ``--trace-out``, ``--mesh`` and
+``--kernel-impl``.
 """
 from __future__ import annotations
 
@@ -48,6 +62,8 @@ import torch
 from repro_torch.checkpoint import restore, save
 from repro_torch.configs import get_arch
 from repro_torch.core import strategies as ST
+from repro_torch.core.faults import (FaultPlan, parse_departures,
+                                     parse_stragglers)
 from repro_torch.data import Prefetcher, make_dataset
 from repro_torch.device import resolve_device
 from repro_torch.kernels.lstm_cell import chunk_length, stash_bytes
@@ -60,7 +76,8 @@ from repro_torch.params import init_params
 def setup_training(cfg, *, strategy_name: str = None, n_learners: int = None,
                    optimizer_name: str = "sgd", lr_schedule=None,
                    seed: int = 0, device=None, with_consensus: bool = False,
-                   with_grad_norm: bool = False):
+                   with_grad_norm: bool = False, elastic: bool = False,
+                   fault_seed: int = 0, with_corruption: bool = False):
     """Build the train state and step for one arch.
 
     Weights are drawn from ``seed`` (:func:`repro_torch.params.
@@ -70,6 +87,10 @@ def setup_training(cfg, *, strategy_name: str = None, n_learners: int = None,
     (``repro/launch/train.py:71``); microbatches and the mixing
     transport come from ``cfg`` (its ``comm_*`` knobs).  ``with_consensus``
     and ``with_grad_norm`` add those metrics to every step.
+    ``elastic=True`` builds the fault-tolerant step
+    (``ST.make_elastic_train_step``, with ``fault_seed`` and
+    ``with_corruption``) and its state (``ST.init_elastic_state``): the
+    step takes a third argument, one ``FaultPlan.step_inputs`` dict.
     ``meta["loss_fn"]`` is the per-learner loss the step
     differentiates."""
     dev = resolve_device(device)
@@ -88,14 +109,21 @@ def setup_training(cfg, *, strategy_name: str = None, n_learners: int = None,
     def loss_fn(params, batch):
         return LS.loss_train(cfg, params, batch, device=dev)
 
-    step_fn = ST.make_train_step(
-        strategy, loss_fn, opt, lr_schedule, n_learners=n_learners,
-        microbatches=cfg.microbatches, transport=transport,
-        with_consensus=with_consensus, with_grad_norm=with_grad_norm)
+    kw = dict(n_learners=n_learners, microbatches=cfg.microbatches,
+              transport=transport, with_consensus=with_consensus,
+              with_grad_norm=with_grad_norm)
+    if elastic:
+        step_fn = ST.make_elastic_train_step(
+            strategy, loss_fn, opt, lr_schedule, fault_seed=fault_seed,
+            with_corruption=with_corruption, **kw)
+    else:
+        step_fn = ST.make_train_step(strategy, loss_fn, opt, lr_schedule,
+                                     **kw)
     params = init_params(LS.param_specs(cfg), seed, dev)
     if strategy.replicated:
         params = ST.stack_for_learners(params, n_learners)
-    state = ST.init_state(strategy, params, opt, transport=transport)
+    init = ST.init_elastic_state if elastic else ST.init_state
+    state = init(strategy, params, opt, transport=transport)
     meta = dict(strategy=strategy, n_learners=n_learners,
                 transport=transport, device=dev, loss_fn=loss_fn)
     return state, step_fn, meta
@@ -131,10 +159,13 @@ def _sync(device):
 
 def run(state, step_fn, dataset, *, steps: int, device, start: int = 0,
         log_every: int = 0, label: str = "", ckpt_dir: str = "",
-        ckpt_every: int = 0):
+        ckpt_every: int = 0, plan: FaultPlan = None):
     """Run ``steps`` steps, numbered from ``start``, on prefetched batches
     of ``dataset`` (the data is a pure function of the step number, so a
     run restored at ``start`` sees the batches an uninterrupted one would).
+    With a fault ``plan`` the step is the elastic one: each step k gets
+    ``plan.step_inputs(k)`` after :func:`ST.check_active`, and the log
+    line the live count and the largest staleness.
 
     Prints the reference's ``step k loss ...`` line every ``log_every``
     steps (0 = never), and saves the state to ``ckpt_dir`` after every
@@ -154,7 +185,12 @@ def run(state, step_fn, dataset, *, steps: int, device, start: int = 0,
                 else padded
             _sync(device)
             ts = time.perf_counter()
-            state, metrics = step_fn(state, batch)
+            if plan is None:
+                state, metrics = step_fn(state, batch)
+            else:
+                faults = plan.step_inputs(k)
+                ST.check_active(faults["active"])
+                state, metrics = step_fn(state, batch, faults)
             _sync(device)
             records.append((time.perf_counter() - ts, valid, padded,
                             metrics["loss"]))
@@ -167,6 +203,10 @@ def run(state, step_fn, dataset, *, steps: int, device, start: int = 0,
                     line += f" pad_eff {v / p:.2f}"
                 if "wire_bytes" in metrics:
                     line += f" wire {float(metrics['wire_bytes']) / 2**20:.2f}MB"
+                if "n_active" in metrics:
+                    line += (f" act {int(metrics['n_active'])}/"
+                             f"{plan.n_learners} stale "
+                             f"{metrics['staleness_max']}")
                 if "consensus" in metrics:
                     line += f" consensus {float(metrics['consensus']):.3e}"
                 if "grad_norm" in metrics:
@@ -257,6 +297,37 @@ def main(argv=None):
     ap.add_argument("--comm-topk-frac", type=float, default=0.0,
                     help="topk wire: fraction of entries shipped (0 = "
                          "cfg value, 0.01)")
+    ap.add_argument("--comm-staleness-lambda", type=float, default=0.0,
+                    help="elastic mixing: staleness damping λ — a "
+                         "learner s steps behind mixes with confidence "
+                         "1/(1 + λ·s); 0 = cfg value")
+    ap.add_argument("--fault-stragglers", default="",
+                    help="fault plan: 'learner:factor,...' — e.g. '0:4' "
+                         "makes learner 0 contribute a gradient only "
+                         "every 4th step; any --fault-* flag switches to "
+                         "the elastic fault-tolerant step")
+    ap.add_argument("--fault-departures", default="",
+                    help="fault plan: 'learner:step[:rejoin],...' — "
+                         "e.g. '1:30:60' crashes learner 1 at step 30 "
+                         "and rejoins it (re-seeded from the survivors' "
+                         "consensus) at step 60")
+    ap.add_argument("--fault-drop-prob", type=float, default=0.0,
+                    help="fault plan: per-step probability that an "
+                         "undirected gossip edge drops (both endpoints "
+                         "fall back to themselves)")
+    ap.add_argument("--fault-stall-prob", type=float, default=0.0,
+                    help="fault plan: per-step probability a learner "
+                         "enters a heavy-tailed (Pareto) stall")
+    ap.add_argument("--fault-corrupt-prob", type=float, default=0.0,
+                    help="fault plan: per-step probability a learner's "
+                         "outgoing payload picks up noise (receivers "
+                         "only; needs --fault-corrupt-scale > 0)")
+    ap.add_argument("--fault-corrupt-scale", type=float, default=0.0,
+                    help="fault plan: corruption noise RMS relative to "
+                         "the payload RMS")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="fault plan: seed of the deterministic fault "
+                         "schedule (same seed = same cluster weather)")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--resume", action="store_true",
@@ -278,7 +349,8 @@ def main(argv=None):
     if args.seq_chunk:
         changes["lstm_seq_chunk"] = args.seq_chunk
     for key in ("comm_topology", "comm_wire", "comm_intra_wire",
-                "comm_bucket_mb", "comm_pod_size", "comm_topk_frac"):
+                "comm_bucket_mb", "comm_pod_size", "comm_topk_frac",
+                "comm_staleness_lambda"):
         if getattr(args, key):
             changes[key] = getattr(args, key)
     if changes:
@@ -291,12 +363,30 @@ def main(argv=None):
         n_learners = 1
     batch = args.batch or max(8, 2 * n_learners)
 
+    # any --fault-* flag switches to the elastic step under one
+    # deterministic fault plan
+    plan = None
+    if (args.fault_stragglers or args.fault_departures
+            or args.fault_drop_prob or args.fault_stall_prob
+            or args.fault_corrupt_prob):
+        plan = FaultPlan(
+            n_learners, seed=args.fault_seed,
+            stragglers=parse_stragglers(args.fault_stragglers),
+            departures=parse_departures(args.fault_departures),
+            drop_prob=args.fault_drop_prob,
+            stall_prob=args.fault_stall_prob,
+            corrupt_prob=args.fault_corrupt_prob,
+            corrupt_scale=args.fault_corrupt_scale)
+        print(plan.describe(), flush=True)
+
     state, step_fn, meta = setup_training(
         cfg, strategy_name=strategy.name, n_learners=n_learners,
         optimizer_name=args.optimizer, seed=args.seed, device=device,
         with_consensus=args.consensus, with_grad_norm=args.grad_norm,
         lr_schedule=paper_recipe(steps_per_epoch=max(args.steps // 16, 1),
-                                 base_lr=0.05, peak_lr=0.2))
+                                 base_lr=0.05, peak_lr=0.2),
+        elastic=plan is not None, fault_seed=args.fault_seed,
+        with_corruption=args.fault_corrupt_prob > 0)
     if args.resume and not args.ckpt_dir:
         raise SystemExit("--resume needs --ckpt-dir")
     start = 0
@@ -317,13 +407,14 @@ def main(argv=None):
                                   device=device, start=start,
                                   log_every=args.log_every,
                                   ckpt_dir=args.ckpt_dir,
-                                  ckpt_every=args.ckpt_every)
+                                  ckpt_every=args.ckpt_every, plan=plan)
     if metrics is not None:
         print(f"final loss {float(metrics['loss']):.6f}")
     print(f"done: {args.steps} steps in {time.time() - t0:.1f}s "
           f"[{meta['strategy'].name}, L={meta['n_learners']}, {device}]")
     if records:
         print(timing_line(records), flush=True)
+    meta["plan"] = plan
     return dict(state=state, metrics=metrics, records=records, meta=meta)
 
 

@@ -110,19 +110,25 @@ def _state_tree(tree, device):
 def from_jax_state(state, device="cpu") -> dict:
     """A JAX train state whose leaves were converted to numpy
     (``jax.tree.map(np.asarray, state)`` of ``repro.core.strategies.
-    init_state``) -> the port's state: ``params``, ``prev_params``,
-    ``anchor``, ``block_mom``, ``opt`` and ``comm`` (the error-feedback
-    residual and estimate, f32) as tensors on ``device`` (bf16 bits
-    carried exactly, an empty optimizer state kept as ``()``), and
-    ``step`` as a host int."""
+    init_state`` or ``init_elastic_state``) -> the port's state:
+    ``params``, ``prev_params``, ``anchor``, ``block_mom``, ``opt`` and
+    ``comm`` (the error-feedback residual and estimate, f32) as tensors on
+    ``device`` (bf16 bits carried exactly, an empty optimizer state kept
+    as ``()``), ``step`` as a host int, and the elastic state's
+    ``staleness`` counters as an int32 tensor on the host, where the
+    port's elastic step keeps them
+    (``repro_torch.core.strategies.init_elastic_state``)."""
     out = {}
     for key, value in state.items():
         if key == "step":
             out[key] = int(np.asarray(value))
+        elif key == "staleness":
+            out[key] = torch.from_numpy(
+                np.array(value, dtype=np.int32, copy=True))
         elif key in ("params", "prev_params", "anchor", "block_mom", "opt",
                      "comm"):
             out[key] = _state_tree(value, device)
         else:
             raise ValueError(f"state key {key!r} has no counterpart in the "
-                             f"port (the elastic state is not ported)")
+                             f"port")
     return out

@@ -1382,3 +1382,97 @@ def test_moe_servers_on_card_match_cpu(cuda):
         assert all(len(t) == 6 for t in dict(fin).values())
         calls = MD.launches - before - cfg.n_layers * len(pending)
         assert calls > 0 and calls % cfg.n_layers == 0
+
+
+@pytest.mark.parametrize("wire", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("topology", ["ring", "uniform", "exp",
+                                      "hierarchical"])
+def test_elastic_mixer_on_card_matches_cpu(cuda, topology, wire):
+    """The elastic mixer on the card against the same mixer on a CPU copy:
+    the matrix is the host's on both, the codecs elementwise, the product
+    in full f32 (1e-6 normalised)."""
+    import numpy as np
+
+    from repro_torch.core.transport import Transport
+
+    L = 16
+    t = Transport(topology=topology, wire=wire, pod_size=4,
+                  staleness_lambda=0.2, bucket_bytes=4096)
+    mix = t.make_elastic_mixer(L)
+    rng = np.random.default_rng(3)
+    g = torch.Generator().manual_seed(1)
+    p = {"w": (torch.randn(L, 40, 33, generator=g) * 0.1).to(torch.bfloat16),
+         "b": torch.randn(L, 700, generator=g)}
+    for step in range(3):
+        active = (rng.random(L) > 0.25).astype(np.float32)
+        active[step] = 1.0
+        stale = rng.integers(0, 4, L).astype(np.int32)
+        up = np.triu(rng.random((L, L)) > 0.2, 1)
+        edge = (up + up.T).astype(np.float32)
+        np.fill_diagonal(edge, 1.0)
+        corrupt = np.zeros(L, np.float32)
+        want = mix(p, step, active, stale, edge, corrupt)
+        got = mix({k: v.to(cuda) for k, v in p.items()}, step, active, stale,
+                  edge, corrupt)
+        for k in p:
+            w_, g_ = want[k].float(), got[k].cpu().float()
+            tol = 1e-6 if p[k].dtype == torch.float32 else 2.0 ** -7
+            err = float((g_ - w_).abs().max()) / float(w_.abs().max())
+            assert err <= tol, (step, k, err)
+            for i in np.where(active == 0)[0]:
+                assert torch.equal(got[k][i].cpu(), p[k][i]), (step, k, i)
+
+
+def test_elastic_step_kernels_match_plain_and_freeze_the_dead(cuda):
+    """Elastic steps at reduced width with K1-stash/K2 (once per layer a
+    step) against the plain path from the same state (loss and params at
+    2e-2), a dead learner frozen bit for bit on the card across its crash
+    window, and the staleness counters kept on the host."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import strategies as ST
+    from repro_torch.core.faults import Departure, FaultPlan, Straggler
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels import lstm_cell as LC
+    from repro_torch.launch.train import setup_training
+    from repro_torch.models import lstm as LS
+    from repro_torch.optim.optimizers import sgd
+
+    cfg = get_arch("swb2000-blstm").reduced()
+    state, _, meta = setup_training(cfg, strategy_name="ad_psgd",
+                                    n_learners=4, device=cuda, seed=3,
+                                    elastic=True)
+
+    def make(plain):
+        return ST.make_elastic_train_step(
+            meta["strategy"],
+            lambda p, b: LS.loss_train(cfg, p, b, device=cuda, plain=plain),
+            sgd(), lambda k: 0.05, n_learners=4,
+            transport=meta["transport"])
+
+    kern, plain = make(False), make(True)
+    plan = FaultPlan(4, stragglers=(Straggler(0, 2),),
+                     departures=(Departure(2, 1, 4),))
+    ds = make_dataset(cfg, seq_len=8, batch=8, seed=0, var_len=True)
+    frozen = None
+    for k in range(5):
+        faults = plan.step_inputs(k)
+        ref, m_ref = plain(state, ds.batch_at(k), faults)
+        before = LC.stash_launches, LC.bwd_launches
+        state, m = kern(state, ds.batch_at(k), faults)
+        torch.cuda.synchronize()
+        assert LC.stash_launches - before[0] == cfg.n_layers
+        assert LC.bwd_launches - before[1] == cfg.n_layers
+        want = float(m_ref["loss"])
+        assert abs(float(m["loss"]) - want) <= BF16_TOL * abs(want)
+        for g_, w_ in zip(ST._leaves(state["params"]),
+                          ST._leaves(ref["params"])):
+            err = float((g_.float() - w_.float()).abs().max()) / (
+                float(w_.float().abs().max()) + 1e-12)
+            assert err <= BF16_TOL, (k, err)
+        w2 = state["params"]["softmax_w"][2]
+        if k == 0:
+            frozen = w2.clone()
+        elif k < 4:                      # dead at steps 1-3
+            assert torch.equal(w2, frozen), k
+        assert state["staleness"].device.type == "cpu"
+    assert not torch.equal(state["params"]["softmax_w"][2], frozen)

@@ -58,7 +58,10 @@ def test_import_leaves_jax_and_repro_unloaded():
         "import repro_torch.launch.evaluate, repro_torch.checkpoint\n"
         "import repro_torch.eval, repro_torch.obs\n"
         "import repro_torch.core.compression, repro_torch.models.ctc\n"
-        "import repro_torch.decode.ref\n"
+        "import repro_torch.decode.ref, repro_torch.core.faults\n"
+        "from repro_torch.core.strategies import (make_elastic_train_step,"
+        " init_elastic_state, check_active)\n"
+        "from repro_torch.core.mixing import elastic_matrix\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'repro', 'msgpack')]\n"
         "print(bad)\n"
@@ -110,6 +113,14 @@ def test_training_entry_points_raise_without_gpu(no_gpu):
     assert meta["device"] == torch.device("cpu")
     leaf = state["params"]["layers"]["layer_0"]["fwd"]["wx"]
     assert leaf.device.type == "cpu" and leaf.shape[0] == cfg.n_learners
+    # the elastic step too, and the CLI's fault flags
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        setup_training(cfg, elastic=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--reduced", "--steps", "1", "--fault-stragglers", "0:2"])
+    state, step, meta = setup_training(cfg, device="cpu", elastic=True)
+    assert state["staleness"].dtype == torch.int32
+    assert state["params"]["softmax_b"].device.type == "cpu"
 
 
 def test_kernel_device_probe_rejects_cpu_tensors():

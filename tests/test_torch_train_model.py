@@ -259,16 +259,16 @@ def test_transport_once_refused_now_matches_jax(kw):
     (dict(staleness_lambda=-1.0), ValueError),
 ])
 def test_transport_rejects_what_is_not_ported(kw, err):
-    """What the reference refuses, the port refuses with the same error;
-    the one method left unported, ``make_elastic_mixer``, raises naming
-    its ROADMAP.md item."""
+    """What the reference refuses, the port refuses with the same error,
+    ``make_elastic_mixer``'s refusal of a difference-coded wire
+    included."""
     with pytest.raises(err):
         jtr.Transport(**kw)
     with pytest.raises(err):
         Transport(**kw)
-    with pytest.raises(NotImplementedError,
-                       match="Recovery and elastic training"):
-        Transport().make_elastic_mixer(4)
+    for make in (jtr.Transport, Transport):
+        with pytest.raises(ValueError, match="difference-coded"):
+            make(wire="topk").make_elastic_mixer(4)
     with pytest.raises(ValueError, match="pod_size"):
         Transport(topology="hierarchical", pod_size=3).make_mixer(4)
     with pytest.raises(ValueError, match="power-of-2"):

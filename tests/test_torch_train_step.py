@@ -151,8 +151,14 @@ def test_from_jax_state_carries_every_leaf():
         w.float().numpy(),
         np.asarray(jstate["prev_params"]["layers"]["layer_0"]["fwd"]["wx"],
                    np.float32))
-    with pytest.raises(ValueError, match="elastic"):
-        from_jax_state({"staleness": np.zeros(L, np.int32)})
+    # the elastic state's staleness counters come over as int32 on the
+    # host; a key with no counterpart in the port is refused
+    st = from_jax_state({"staleness": np.array([3, 0], np.int32)})
+    assert st["staleness"].dtype == torch.int32
+    assert st["staleness"].device.type == "cpu"
+    assert st["staleness"].tolist() == [3, 0]
+    with pytest.raises(ValueError, match="no counterpart"):
+        from_jax_state({"momentum_buffer": np.zeros(L, np.float32)})
 
 
 def test_from_jax_state_carries_comm():
