@@ -263,12 +263,38 @@ Phases, each of which fails the run (nonzero exit, no result line):
 19. moe profile — as 14, for the moe server;
 20. moe-paged — the same requests through ``PagedServer`` (pages of 16, a
     512-page pool): K8 32 times per decode call, and how many requests
-    decode the dense run's tokens.
+    decode the dense run's tokens;
+21. load — serving under load and observability at full width, every
+    run through ``launch.load.main`` (or ``launch.train.main``) with the
+    launch counters set to 0 just before and read just after: (a) the
+    ``swb2000-blstm`` AsrServer (4 slots, 256 frames, chunk 8, lognormal
+    lengths of median 120 frames, two tiers, patience 1 s) at 8
+    requests/s for 3 wall seconds with ``--wall --calibrate``: the
+    ``calib/*`` rows (a least-squares cost model of the measured
+    admissions and waves, each stop stamp after ``torch.cuda.
+    synchronize``); (b) ``serving.sustained_capacity`` in virtual time at
+    those costs over one AsrServer reset between probes (1-64 requests/s,
+    3 bisection steps, first-token p99 target 250 ms): the max sustained
+    rate and its p99; (c) twice an overload at twice that rate with
+    ``--trace-out --trace-deterministic``: preemptions > 0, no priority
+    inversion after any pump (``check_inversion``), done + abandoned +
+    rejected = offered, both traces valid and byte-identical; in (a)-(c)
+    K4 once per first admission, K5 once per frame of each wave, K1
+    never; (d) the paged ``smollm-360m`` (pages of 16, 1024 positions, 8
+    slots' pool, 32 new tokens, prompts of median 300) at 4 requests/s
+    for 2.5 wall seconds with ``--trace-out``: K11 32 times per
+    admission, K8 32 times per decode call, K6 once per admission and per
+    decode call, the trace rendered by ``launch.obsreport`` (its
+    compile/steady table printed); (e) the train CLI, the §V setup for 2
+    steps with ``--trace-out --trace-deterministic``, twice: K1-stash and
+    K2 6 times a step, the two traces byte-identical.
 
 The last two lines are ``{"kernels": [...]}`` (K1-stash's, K2's, K4's and
 K5's ``launches`` counting 7a-comm, 7a-ctc and 7a-elastic too, also apart
-as ``launches_comm``, ``launches_ctc`` and ``launches_elastic``) and
-``{"ok": true, "device": {...}}``.
+as ``launches_comm``, ``launches_ctc`` and ``launches_elastic``; K4's,
+K5's, K6's, K8's and K11's counting phase 21's runs, apart as
+``launches_load``, and K1-stash's and K2's its train CLI runs, as
+``launches_trace_cli``) and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -4608,6 +4634,286 @@ def phase_moe_paged(pending, dense):
     return counts
 
 
+# ---------------------------------------------------------------- phase 21
+LOAD_ASR = ["--arch", "swb2000-blstm", "--slots", "4", "--max-len", "256",
+            "--chunk-frames", "8", "--len-median", "120", "--len-sigma",
+            "0.5", "--patience", "1.0", "--deadline", "2.0"]
+LOAD_ASR_WALL = ["--qps", "8", "--horizon", "3"]
+LOAD_HORIZON = 2.0        # virtual seconds of the capacity probes, overload
+LOAD_P99 = 0.25           # first-token p99 target of the capacity search, s
+LOAD_LM = ["--arch", "smollm-360m", "--cache", "paged", "--page-size", "16",
+           "--max-len", "1024", "--slots", "8", "--max-new", "32",
+           "--len-median", "300", "--len-sigma", "0.6", "--qps", "4",
+           "--horizon", "2.5", "--wall"]
+LOAD_TRAIN = ["--arch", "swb2000-blstm", "--strategy", "ad_psgd",
+              "--learners", "16", "--batch", "256", "--var-len", "--steps",
+              "2", "--log-every", "1", "--trace-deterministic"]
+
+
+def _load_counts():
+    from repro_torch.decode import kernel as DK
+    from repro_torch.kernels import lstm_cell as LC
+
+    counts = _lm_counts()
+    counts.update(blstm_stack=LC.stack_launches, blstm_layer=LC.launches,
+                  beam_frame_step=DK.launches)
+    return counts
+
+
+def _zero_load_counts():
+    _zero_counts()
+    _zero_lm_counts()
+
+
+def _load_cli(tag, argv, loops=None):
+    """One run of ``launch.load.main`` with the launch counters set to 0
+    just before and read just after; the CSV rows as a dict, the
+    counts, and the printed lines (echoed with ``tag``).  ``loops``
+    collects the run's ServingLoop, checking priority inversion after
+    every pump."""
+    import torch
+
+    from repro_torch.launch import load as TL
+    from repro_torch.serving import ServingLoop
+
+    class Checked(ServingLoop):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, check_inversion=True, **kw)
+            loops.append(self)
+
+    torch.cuda.synchronize()
+    _zero_load_counts()
+    t0 = time.perf_counter()
+    try:
+        if loops is not None:
+            TL.ServingLoop = Checked
+        rc, text = _io_run(TL.main, argv)
+    finally:
+        TL.ServingLoop = ServingLoop
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _load_counts()
+    if rc != 0:
+        _fail(f"{tag}: launch.load exited {rc}:\n{text}")
+    rows = {}
+    for line in text.splitlines():
+        parts = line.split(",", 2)
+        if len(parts) == 3 and parts[0] != "name":
+            rows[parts[0]] = float(parts[1])
+    print("\n".join(f"[{tag}] {l}" for l in text.splitlines()
+                    if l.startswith(("[load]", "load/", "calib/",
+                                     "trace:"))), flush=True)
+    print(f"[{tag}] {dt:.2f}s wall; launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    return rows, counts, text
+
+
+def _check_asr_launches(tag, rows, counts, chunk=8):
+    """K4 once per first admission (every admitted request finishes),
+    K5 once per frame of every wave, K1 never."""
+    want = {"blstm_stack": int(rows["load/done"]),
+            "beam_frame_step": chunk * int(rows["load/waves"]),
+            "blstm_layer": 0}
+    got = {k: counts[k] for k in want}
+    if got != want or want["blstm_stack"] <= 0:
+        _fail(f"{tag}: launches {got}, expected {want}")
+    if rows["load/offered"] != (rows["load/done"] + rows["load/abandoned"]
+                                + rows["load/rejected"]):
+        _fail(f"{tag}: done + abandoned + rejected != offered: {rows}")
+
+
+def _load_capacity(calib):
+    """sustained_capacity in virtual time at the calibrated costs over one
+    full-width AsrServer (reset between probes), the launches counted
+    per probe through the server's own calls."""
+    import argparse
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import load as TL
+    from repro_torch.launch.serve import AsrServer
+    from repro_torch.serving import (CostModel, make_payload,
+                                     sustained_capacity)
+
+    cfg = get_arch("swb2000-blstm")
+    server = AsrServer(cfg, slots=4, max_frames=256, chunk=8, seed=SEED)
+    calls = {"admit": 0, "wave": 0}
+    submit, step_wave = server.submit, server.step_wave
+
+    def counted_submit(req, payload):
+        res = submit(req, payload)
+        calls["admit"] += bool(res)
+        return res
+
+    def counted_wave():
+        calls["wave"] += 1
+        return step_wave()
+
+    server.submit, server.step_wave = counted_submit, counted_wave
+    args = argparse.Namespace(
+        qps=1.0, horizon=LOAD_HORIZON, seed=SEED, tier_probs="0.25,0.75",
+        len_median=120.0, len_sigma=0.5, max_len=256, diurnal_amp=0.0,
+        diurnal_period=60.0, patience=1.0, deadline=2.0, max_new=8)
+    workload = TL.build_workload(args, "asr")
+    cost = CostModel(admit_s=calib["calib/admit_ms"] * 1e-3,
+                     wave_base_s=calib["calib/wave_ms"] * 1e-3,
+                     per_work_s=calib["calib/work_us"] * 1e-6)
+    payload = lambda req: make_payload(req, mode="asr",
+                                       input_dim=cfg.input_dim, seed=SEED)
+    torch.cuda.synchronize()
+    _zero_load_counts()
+    t0 = time.perf_counter()
+    qps, best = sustained_capacity(server, workload, payload,
+                                   p99_target_s=LOAD_P99, qps_lo=1.0,
+                                   qps_hi=64.0, iters=3, cost=cost)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _load_counts()
+    want = {"blstm_stack": calls["admit"],
+            "beam_frame_step": 8 * calls["wave"], "blstm_layer": 0}
+    got = {k: counts[k] for k in want}
+    print(f"[load-capacity] max sustained {qps:.6g} qps at first-token "
+          f"p99 {1e3 * best['first_token']['p99']:.3f} ms (target "
+          f"{1e3 * LOAD_P99:.0f} ms; {best['done']} of {best['offered']} "
+          f"done, {best['abandoned']} abandoned, {best['waves']} waves, "
+          f"virtual {best['virtual_s']:.3f}s); cost admit "
+          f"{calib['calib/admit_ms']:.4f} ms, wave "
+          f"{calib['calib/wave_ms']:.4f} ms + {calib['calib/work_us']:.4f} "
+          f"us/frame; 5 probes in {dt:.2f}s wall, launches {got}",
+          flush=True)
+    if got != want or want["blstm_stack"] <= 0:
+        _fail(f"load-capacity: launches {got}, expected {want}")
+    if not qps > 0:
+        _fail("load-capacity: even 1 qps misses the first-token target")
+    return qps, cost, counts
+
+
+def _add_counts(total, counts, names):
+    for name in names:
+        total[name] = total.get(name, 0) + counts[name]
+
+
+def phase_load():
+    """Phase 21: the serving layer under load and the observability layer
+    at full width (module docstring)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.launch import obsreport
+    from repro_torch.launch import train as TR
+
+    asr = ("blstm_stack", "beam_frame_step")
+    lm = ("flash_attention", "paged_decode_attention", "argmax_tokens")
+    load = {}
+    torch.cuda.empty_cache()
+    # (a) full-width ASR, wall time, calibrated
+    rows, counts, _ = _load_cli("load-asr-wall",
+                                LOAD_ASR + LOAD_ASR_WALL
+                                + ["--wall", "--calibrate"])
+    _check_asr_launches("load-asr-wall", rows, counts)
+    _add_counts(load, counts, asr)
+    calib = {k: v for k, v in rows.items() if k.startswith("calib/")}
+    if not all(v == v and v >= 0 for v in calib.values()) or \
+            calib.get("calib/n_waves", 0) <= 0:
+        _fail(f"load-asr-wall: calibration rows {calib}")
+    # (b) the capacity search in virtual time at the calibrated costs
+    qps, cost, counts = _load_capacity(calib)
+    _add_counts(load, counts, asr)
+    # (c) an overload at twice that rate, deterministic trace, twice
+    over = LOAD_ASR + [
+        "--qps", repr(2 * qps), "--horizon", repr(LOAD_HORIZON),
+        "--admit-ms", repr(cost.admit_s * 1e3),
+        "--wave-ms", repr(cost.wave_base_s * 1e3),
+        "--work-us", repr(cost.per_work_s * 1e6), "--trace-deterministic"]
+    traces = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for k in (1, 2):
+            loops = []
+            path = f"{tmp}/asr{k}.jsonl"
+            rows, counts, _ = _load_cli(f"load-asr-over{k}",
+                                        over + ["--trace-out", path], loops)
+            _check_asr_launches(f"load-asr-over{k}", rows, counts)
+            _add_counts(load, counts, asr)
+            inv = loops[0].inversions
+            if rows["load/preemptions"] <= 0 or inv:
+                _fail(f"load-asr-over{k}: preemptions "
+                      f"{rows['load/preemptions']}, inversions {inv[:4]}")
+            with open(path, "rb") as f:
+                traces.append(f.read())
+            evs = obs.read_jsonl(path)
+            if obs.validate_events(evs):
+                _fail(f"load-asr-over{k}: {obs.validate_events(evs)[:4]}")
+        print(f"[load-asr-over] {rows['load/offered']:.0f} offered at "
+              f"{2 * qps:.6g} qps: {rows['load/preemptions']:.0f} "
+              f"preemptions, no priority inversion after any pump; "
+              f"deterministic traces of {len(evs)} events, "
+              f"{len(traces[0])} bytes, byte-identical: "
+              f"{traces[0] == traces[1]}", flush=True)
+        if traces[0] != traces[1]:
+            _fail("load-asr-over: the two deterministic traces differ")
+        # (d) full-width smollm-360m, paged, wall time, traced
+        path = f"{tmp}/lm.jsonl"
+        rows, counts, _ = _load_cli("load-lm-wall",
+                                    LOAD_LM + ["--trace-out", path])
+        evs = obs.read_jsonl(path)
+        decode_calls = sum(
+            e["count"] for e in evs if e["kind"] == "metric"
+            and e["name"] == "profile/call_s"
+            and e["tags"]["fn"] == "serve/decode")
+        done = int(rows["load/done"])
+        want = {"flash_attention": 32 * done,
+                "paged_decode_attention": 32 * decode_calls,
+                "argmax_tokens": done + decode_calls}
+        got = {k: counts[k] for k in want}
+        if got != want or done <= 0:
+            _fail(f"load-lm-wall: launches {got}, expected {want}")
+        _add_counts(load, counts, lm)
+        rep = _io_run(obsreport.main, [path])
+        print("\n".join(f"[load-lm-report] {l}" for l in rep[1].splitlines()),
+              flush=True)
+        if rep[0] != 0 or "serve/decode" not in rep[1]:
+            _fail("load-lm-wall: obsreport did not render the trace")
+        # (e) the train CLI, §V setup, 2 steps, deterministic trace, twice
+        train, trace_counts = [], {}
+        for k in (1, 2):
+            path = f"{tmp}/train{k}.jsonl"
+            torch.cuda.empty_cache()
+            _zero_counts()
+            rc, _ = _io_run(TR.main, LOAD_TRAIN + ["--trace-out", path])
+            tc = _train_counts()
+            if rc is None or tc != {"blstm_layer_train": 12,
+                                    "blstm_layer_bwd": 12}:
+                _fail(f"load-train{k}: launches {tc}, expected 6 a step")
+            _add_counts(trace_counts, tc, tc)
+            with open(path, "rb") as f:
+                train.append(f.read())
+            steps = [json.loads(l) for l in train[-1].splitlines()
+                     if b'"train/step"' in l]
+            print(f"[load-train{k}] " + "; ".join(
+                f"step {e['attrs']['step']} loss {e['attrs']['loss']!r} "
+                f"grad_norm {e['attrs']['grad_norm']!r}" for e in steps),
+                flush=True)
+        print(f"[load-train] deterministic traces of {len(train[0])} "
+              f"bytes, byte-identical: {train[0] == train[1]}", flush=True)
+        if train[0] != train[1] or len(steps) != 2:
+            _fail("load-train: the two deterministic traces differ")
+    return load, trace_counts
+
+
+def _io_run(fn, argv):
+    """``fn(argv)`` with its standard output captured: (result, text)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn(argv)
+    return res, buf.getvalue()
+
+
 def _to_cpu(tree):
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
@@ -4690,6 +4996,8 @@ def main() -> int:
         done("moe-profile")
         moe_paged_counts = phase_moe_paged(moe_pending, moe_fin)
         done("moe-paged")
+        load_counts, trace_counts = phase_load()
+        done("load")
     except SystemExit:
         raise
     except Exception:                    # any phase failing fails the run
@@ -4740,6 +5048,15 @@ def main() -> int:
     for k in (k1c, k3):
         k["launches_per_step"] = long_counts[k["name"]] / long_steps
         launches[k["name"]] = long_counts[k["name"]]
+    # phase 21: the load runs (K4, K5; K11, K8, K6 of the paged LM) and
+    # the traced train CLI (K1-stash, K2)
+    for name, n in load_counts.items():
+        launches[name] += n
+    for k in (k4, k5["beam_frame_step"], k6, k8, k11):
+        k["launches_load"] = load_counts[k["name"]]
+    for k in (k1s, k2):
+        k["launches_trace_cli"] = trace_counts[k["name"]]
+        launches[k["name"]] += trace_counts[k["name"]]
     kernels = [k1, k1s, k2, k1c, k3, k4, k5["beam_frame_step"],
                k5["beam_frame_step_topc"], k6, k7, k8, k9, k10, k11]
     for k in kernels:

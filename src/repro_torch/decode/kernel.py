@@ -66,6 +66,17 @@ def smem_bytes(beam: int, vocab: int, topc: int, slices: int = 1) -> int:
     return 4 * 32 * words
 
 
+def beam_cand_bytes(beam: int, vocab: int, topc: int = 0) -> int:
+    """f32 bytes per batch row of the beam step's candidate working set,
+    the reference's formula (``repro/decode/kernel.py:56``): unpruned ~4
+    live (K, V) grids and the (V,) log-prob row; pruned the (K, C+1)
+    grids, the row and its top-C workspace.  The quantity K5 works on,
+    beside what one CTA holds (:func:`smem_bytes`)."""
+    if topc and topc < vocab:
+        return (4 * beam * (topc + 1) + 2 * vocab + 2 * topc) * 4
+    return (4 * beam * vocab + vocab) * 4
+
+
 _beam_step = None     # the bound entry point, once built
 _beam_n_sm = 0
 

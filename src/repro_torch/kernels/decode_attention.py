@@ -106,6 +106,28 @@ def decode_plan(B: int, KV: int, S: int, E: int, pos: int, window,
     return DecodePlan(lo, hi, n, tiles, per * block_s)
 
 
+def smem_bytes(plan: DecodePlan, M: int, E: int, paged: bool) -> int:
+    """Dynamic shared memory of one CTA of a launch on ``plan``
+    (decode_attention.cu's ``layout``): one round of the longest split's
+    rows, or two buffers of ``8192 / E`` rows (at most 256) when its rows
+    take several rounds, each row's k and v in bf16 — or, if larger, the
+    4 warps' and the cluster's f32 partials (acc (M, E), max and sum per
+    query head) — then q in f32, the new column's score and k/v, and,
+    paged, two page-table slices."""
+    def part(n):
+        return n * (M * E + 2 * M) * 4
+
+    def align(x):
+        return (x + 15) & ~15
+
+    round_max = min(256, 8192 // E)
+    rows = min(plan.rows, round_max) or 1
+    n_buf = 2 if plan.rows > rows else 1
+    total = align(max(n_buf * rows * 2 * E * 2, part(4) + part(plan.n_split)))
+    total += align(M * E * 4) + align((M + 2 * E) * 4)
+    return total + (align(2 * (rows + 1) * 4) if paged else 0)
+
+
 # ---------------------------------------------------------------------------
 # plain versions (CPU path and the card's oracle)
 # ---------------------------------------------------------------------------

@@ -35,9 +35,12 @@ The output is the ``name,value,derived`` CSV of the reference.
         --ckpt-dir "$CK" --batches 4 --batch 8 --seq-len 256 --var-len \\
         --beam-width 8 --decode-chunk 8
 
+``--trace-out`` writes the run's flight recorder as JSONL: each timed
+batch's forward and decode as ``eval/fwd`` / ``eval/decode`` wall spans
+and histograms (host time, each ending in ``torch.cuda.synchronize``);
+``--trace-deterministic`` drops them, as it drops every wall-clock field.
 Not ported yet (ROADMAP.md queue 1): ``--kernel-impl`` (the card always
-runs the kernels; ``--device cpu`` the plain path), and ``--trace-out`` /
-``--trace-deterministic`` (observability).
+runs the kernels; ``--device cpu`` the plain path).
 """
 from __future__ import annotations
 
@@ -49,6 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch import decode as DC
+from repro_torch import obs
 from repro_torch.checkpoint import restore
 from repro_torch.configs import get_arch
 from repro_torch.core import strategies as ST
@@ -140,6 +144,10 @@ def evaluate_params(cfg, params, *, batches: int = 4, batch: int = 8,
         toks, lens, occ = decode_batch(logits, lens_t)
         _sync(dev)
         dt_dec = time.perf_counter() - t1
+        obs.add_span("eval/fwd", t0, dt_fwd, wall=True)
+        obs.add_span("eval/decode", t1, dt_dec, wall=True)
+        obs.histogram("eval/fwd_s", wall=True).observe(dt_fwd)
+        obs.histogram("eval/decode_s", wall=True).observe(dt_dec)
         return logits, lengths, toks, lens, occ, dt_fwd, dt_dec
 
     # warm-up on every distinct padded shape (bucketed batches pad to
@@ -238,9 +246,18 @@ def main(argv=None):
     ap.add_argument("--blank", type=int, default=0,
                     help="blank/silence class id of the TER convention")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace-out", default="",
+                    help="enable observability and write the run's "
+                         "flight-recorder JSONL here (eval/fwd and "
+                         "eval/decode wall spans and histograms)")
+    ap.add_argument("--trace-deterministic", action="store_true",
+                    help="strip wall-clock fields from the JSONL so "
+                         "two seeded runs emit byte-identical traces")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    if args.trace_out:
+        obs.configure()
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -289,6 +306,11 @@ def main(argv=None):
     ]
     # the shared name,value,derived schema (repro_torch.obs)
     print_csv_rows(rows, header=True)
+    if args.trace_out:
+        n = obs.dump(args.trace_out,
+                     deterministic=args.trace_deterministic)
+        print(f"trace: {n} events -> {args.trace_out}")
+        obs.reset()
     return m
 
 

@@ -35,6 +35,15 @@ servers keep the reference's slot-pool duck contract (``admit``,
 preempted-then-restored request decodes bit for bit like an
 uninterrupted one.
 
+With ``--trace-out`` (observability, ``repro_torch.obs``) every
+request's transitions land in the flight recorder as ``serve/*`` events,
+each wave in a ``serve/wave`` span, the servers' entry points
+(``serve/prefill``, ``serve/decode``, ...) in compile/steady wall-time
+wrappers and the kernels' shared memory per CTA in ``kernel/*`` gauges.
+Wall times on the card are host times up to a ``torch.cuda.synchronize``:
+each profiled call synchronizes, so a traced run is timed with more
+synchronizations than an untraced one.
+
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
         --requests 8 --slots 4 --prompt-len 128 --max-len 256 --max-new 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
@@ -53,11 +62,15 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs import get_arch
 from repro_torch.data import make_dataset
 from repro_torch.decode import beam as DC
-from repro_torch.decode.kernel import argmax_tokens
+from repro_torch.decode.kernel import (argmax_tokens, beam_cand_bytes,
+                                       beam_slices)
+from repro_torch.decode.kernel import smem_bytes as beam_smem_bytes
 from repro_torch.device import resolve_device
+from repro_torch.kernels import decode_attention as DA
 from repro_torch.models import build_model
 from repro_torch.models import lstm as LS
 from repro_torch.models.transformer import ATTENTION_ONLY
@@ -82,6 +95,43 @@ def require_weights_fit(model, device: torch.device):
         raise ValueError(
             f"{model.cfg.name}: {nbytes / 1e9:.1f} GB of weights do not fit "
             f"one {cap / 1e9:.0f} GB card; serve it with --reduced")
+
+
+def _profile_fns(server, names):
+    """Wrap the server's entry points ``server._fn_<name>`` in
+    compile/steady :class:`~repro_torch.obs.ProfiledFn` wall-time wrappers
+    named ``serve/<name>``, only while observability is on: the wrapper
+    synchronizes the card after every call, which the uninstrumented hot
+    path must not pay."""
+    server._profiled = []
+    if not obs.enabled():
+        return
+    for name in names:
+        p = obs.profiled(getattr(server, f"_fn_{name}"), f"serve/{name}",
+                         metrics=obs.get_metrics(),
+                         recorder=obs.get_recorder())
+        setattr(server, f"_fn_{name}", p)
+        server._profiled.append(p)
+
+
+def _attn_smem_gauge(name, cfg, *, rows: int, S: int, block_s: int,
+                     paged: bool, device):
+    """Record the shared memory of one CTA of a server's widest decode
+    attention launch (K7, or K8 when ``paged``): the delta call of
+    ``rows`` requests at the last decode position of an ``S``-row cache,
+    from the kernel's own plan (``decode_attention.decode_plan``), its
+    splits bounded by what the card runs at once where the server runs on
+    one, else by ``MAX_SPLIT``.  Tagged with the split alignment (the
+    page size, paged) and the plan's splits."""
+    KV, E = cfg.n_kv_heads, cfg.head_dim
+    M = cfg.n_heads // KV
+    n_fit = (DA.fit_splits(True, M, E, rows * KV) if device.type == "cuda"
+             else DA.MAX_SPLIT)
+    plan = DA.decode_plan(rows, KV, S, E, S - 2, cfg.window or None, True,
+                          block_s, n_fit)
+    align = {"page_size" if paged else "block_s": block_s}
+    obs.gauge(name, splits=plan.n_split, **align).set(
+        DA.smem_bytes(plan, M, E, paged))
 
 
 def _tree_map(fn, tree):
@@ -114,6 +164,7 @@ class _Events:
 
     def _event(self, kind: str, rid: int, **kw):
         self.events.append((kind, rid, kw))
+        obs.event(f"serve/{kind}", rid=rid, **kw)
         if self.verbose:
             extra = "".join(f" {k}={v}" for k, v in kw.items())
             print(f"[req] {kind} rid={rid}{extra}", flush=True)
@@ -179,6 +230,20 @@ class Server(_SlotPool):
         self.tokens = np.zeros((slots, 1), np.int32)  # last emitted token
         self.budget = np.zeros(slots, np.int32)
         self.outputs = [[] for _ in range(slots)]
+        _profile_fns(self, ("prefill", "decode"))
+        if obs.enabled() and cfg.family in ATTENTION_ONLY:
+            _attn_smem_gauge("kernel/decode_attn_smem_bytes", cfg,
+                             rows=slots, S=max_len,
+                             block_s=DA.DEFAULT_BLOCK_S, paged=False,
+                             device=self.device)
+
+    # ---------------------------------------------- profiled entry points
+    def _fn_prefill(self, tokens):
+        return self.model.prefill_fn(self.params, {"tokens": tokens},
+                                     cache_len=self.max_len)
+
+    def _fn_decode(self, rows, toks, pos):
+        return self.model.decode_fn(self.params, rows, toks, pos)
 
     # ------------------------------------------------------------------
     def admit(self, req_id: int, prompt, max_new: int) -> AdmitResult:
@@ -197,9 +262,7 @@ class Server(_SlotPool):
         slot = self._free_slot()
         if slot < 0:
             return AdmitResult(POOL_FULL)
-        logits, row = self.model.prefill_fn(
-            self.params, {"tokens": self._on_device(prompt[None, :])},
-            cache_len=self.max_len)
+        logits, row = self._fn_prefill(self._on_device(prompt[None, :]))
         for dst, src in _tree_pairs(self.cache, row):
             dst[:, slot] = src[:, 0]
         nxt = select_tokens(logits[:, -1])[0]
@@ -281,11 +344,11 @@ class Server(_SlotPool):
         lo = group[0]
         if list(group) == list(range(lo, lo + len(group))):
             rows = _tree_map(lambda c: c[:, lo:lo + len(group)], self.cache)
-            logits, _ = self.model.decode_fn(self.params, rows, toks, pos)
+            logits, _ = self._fn_decode(rows, toks, pos)
         else:
             idx = self._on_device(group).long()
             rows = _tree_map(lambda c: c[:, idx], self.cache)
-            logits, rows = self.model.decode_fn(self.params, rows, toks, pos)
+            logits, rows = self._fn_decode(rows, toks, pos)
             if "attn" in rows:
                 for name in ("k", "v"):
                     self.cache["attn"][name][:, idx, pos] = \
@@ -392,6 +455,33 @@ class PagedServer(_Events):
         self.k_pages = pages["attn"]["k"]
         self.v_pages = pages["attn"]["v"]
         self.reqs = {}    # rid -> {pos, token, budget, outputs, ...}
+        _profile_fns(self, ("prefill", "decode", "write", "copy_page"))
+        if obs.enabled():
+            _attn_smem_gauge("kernel/paged_attn_smem_bytes", cfg,
+                             rows=max(1, pool_pages // self.table_w),
+                             S=self.table_w * page_size, block_s=page_size,
+                             paged=True, device=self.device)
+
+    # ---------------------------------------------- profiled entry points
+    def _fn_prefill(self, tokens, cache_len: int):
+        return self.model.prefill_fn(self.params, {"tokens": tokens},
+                                     cache_len=cache_len)
+
+    def _fn_decode(self, toks, pos: int, table):
+        return self.model.decode_fn(
+            self.params, {"attn": {"k": self.k_pages, "v": self.v_pages}},
+            toks, pos, page_table=table, page_size=self.page_size)
+
+    @staticmethod
+    def _fn_write(pool, rows, idx):
+        """Write ``rows`` (L, n, P, KV, E) into the pool's pages ``idx``."""
+        pool[:, idx] = rows
+        return pool
+
+    @staticmethod
+    def _fn_copy_page(pool, src: int, dst: int):
+        pool[:, dst] = pool[:, src]
+        return pool
 
     @property
     def active(self):
@@ -426,9 +516,8 @@ class PagedServer(_Events):
         if alloc is None:
             return AdmitResult(POOL_FULL)
         P = self.page_size
-        logits, row = self.model.prefill_fn(
-            self.params, {"tokens": self._on_device(prompt[None, :])},
-            cache_len=cdiv(plen, P) * P)
+        logits, row = self._fn_prefill(self._on_device(prompt[None, :]),
+                                       cdiv(plen, P) * P)
         self._write_owned(row, alloc.table, alloc.owned,
                           n_pages=cdiv(plen, P))
         nxt = select_tokens(logits[:, -1])[0]
@@ -454,7 +543,8 @@ class PagedServer(_Events):
         for name, pool in (("k", self.k_pages), ("v", self.v_pages)):
             arr = row["attn"][name]
             L, _, pp, KV, E = arr.shape
-            pool[:, phys] = arr[:, 0].reshape(L, pp // P, P, KV, E)[:, own]
+            self._fn_write(pool, arr[:, 0].reshape(L, pp // P, P, KV, E)
+                           [:, own], phys)
 
     # ----------------------------------------------------- duck contract
     def submit(self, req, payload) -> AdmitResult:
@@ -494,8 +584,10 @@ class PagedServer(_Events):
         own = [j for j in range(alloc.n_pages) if alloc.owned[j]]
         if own:
             phys = self._on_device([alloc.table[j] for j in own]).long()
-            self.k_pages[:, phys] = snap["pages_k"][:, own].to(self.device)
-            self.v_pages[:, phys] = snap["pages_v"][:, own].to(self.device)
+            self._fn_write(self.k_pages,
+                           snap["pages_k"][:, own].to(self.device), phys)
+            self._fn_write(self.v_pages,
+                           snap["pages_v"][:, own].to(self.device), phys)
         self.reqs[rid] = {k: snap[k] for k in
                           ("pos", "token", "budget", "prompt", "total")}
         self.reqs[rid]["outputs"] = list(snap["outputs"])
@@ -525,8 +617,8 @@ class PagedServer(_Events):
                 moved = self.pool.ensure_writable(rid, p)
                 if moved is not None:
                     src, dst = moved
-                    self.k_pages[:, dst] = self.k_pages[:, src]
-                    self.v_pages[:, dst] = self.v_pages[:, src]
+                    self._fn_copy_page(self.k_pages, src, dst)
+                    self._fn_copy_page(self.v_pages, src, dst)
                     self._event("cow", rid, pos=p, src=src, dst=dst)
             # attend only the pages the group can reach: the widest
             # request's page count, rounded up to a power of two
@@ -538,10 +630,7 @@ class PagedServer(_Events):
                 tbl[i, :len(t)] = t[:w_use]
             toks = self._on_device([[self.reqs[rid]["token"]]
                                     for rid in group])
-            logits, _ = self.model.decode_fn(
-                self.params, {"attn": {"k": self.k_pages,
-                                       "v": self.v_pages}},
-                toks, p, page_table=self._on_device(tbl), page_size=P)
+            logits, _ = self._fn_decode(toks, p, self._on_device(tbl))
             for rid, nxt in zip(group, select_tokens(logits[:, -1])):
                 self._advance(rid, nxt, done)
         return done
@@ -588,6 +677,32 @@ class AsrServer(_SlotPool):
         self.lens = np.zeros(slots, np.int32)     # valid frames per slot
         self.pos = np.zeros(slots, np.int32)      # frames consumed
         self.state = DC.init_state(slots, self.beam, max_frames, self.device)
+        _profile_fns(self, ("fwd", "decode", "finalize"))
+        if obs.enabled():
+            n_sm = (torch.cuda.get_device_properties(self.device)
+                    .multi_processor_count
+                    if self.device.type == "cuda" else 1)
+            topc = 0 if self.topc >= cfg.vocab else self.topc
+            slices = beam_slices(slots, cfg.vocab, n_sm)
+            obs.gauge("kernel/beam_cand_bytes", beam=self.beam,
+                      topc=self.topc).set(
+                beam_cand_bytes(self.beam, cfg.vocab, self.topc))
+            obs.gauge("kernel/beam_smem_bytes", beam=self.beam,
+                      topc=self.topc, slices=slices).set(
+                beam_smem_bytes(self.beam, cfg.vocab, topc, slices))
+
+    # ---------------------------------------------- profiled entry points
+    def _fn_fwd(self, feats, lengths):
+        return LS.forward(self.cfg, self.params, feats, lengths,
+                          device=self.device)
+
+    def _fn_decode(self, state, wave, lens):
+        return DC.decode_chunk(state, wave, lens, semiring=self.semiring,
+                               topc=self.topc)
+
+    def _fn_finalize(self, state):
+        return DC.finalize(state, len_norm=self.len_norm,
+                           semiring=self.semiring)
 
     # ------------------------------------------------------------ slots
     def _slot_mask(self, slot: int) -> torch.Tensor:
@@ -613,9 +728,8 @@ class AsrServer(_SlotPool):
             return AdmitResult(POOL_FULL)
         padded = np.zeros((1, self.max_frames, feats.shape[-1]), np.float32)
         padded[0, :n] = feats
-        logits = LS.forward(self.cfg, self.params, torch.from_numpy(padded),
-                            torch.tensor([n], dtype=torch.int32),
-                            device=self.device)
+        logits = self._fn_fwd(torch.from_numpy(padded),
+                              torch.tensor([n], dtype=torch.int32))
         self.logits[slot] = logits[0]
         self.lens[slot] = n
         self.pos[slot] = 0
@@ -694,9 +808,8 @@ class AsrServer(_SlotPool):
         rows = torch.arange(self.slots, device=self.device)[:, None]
         wave = self.logits[rows, torch.from_numpy(idx).to(self.device)]
         # per-row freeze: state.t >= lens stops exhausted/empty rows
-        self.state = DC.decode_chunk(
-            self.state, wave, torch.from_numpy(self.lens).to(self.device),
-            semiring=self.semiring, topc=self.topc)
+        self.state = self._fn_decode(
+            self.state, wave, torch.from_numpy(self.lens).to(self.device))
         occ = (float(DC.beam_occupancy(self.state).cpu().numpy()
                      [self.active].mean())
                if self.active.any() else 0.0)
@@ -705,8 +818,7 @@ class AsrServer(_SlotPool):
         done = []
         finished = np.where(self.active & (self.pos >= self.lens))[0]
         if len(finished):
-            toks, lens, _ = DC.finalize(self.state, len_norm=self.len_norm,
-                                        semiring=self.semiring)
+            toks, lens, _ = self._fn_finalize(self.state)
             toks, lens = toks.cpu().numpy(), lens.cpu().numpy()
             for slot in finished:
                 hyp = list(map(int, toks[slot][:int(lens[slot])]))
@@ -731,7 +843,8 @@ def serve_all(server: AsrServer, pending):
             if res.reason == POOL_FULL:
                 break
             pending.pop(0)     # admitted, or rejected for good
-        done, _ = server.step()
+        with obs.span("serve/wave", wave=len(wave_s)):
+            done, _ = server.step()
         wave_s.append(time.perf_counter() - t0)
         finished += done
     return finished, wave_s
@@ -777,9 +890,25 @@ def serve_lm(server, pending, max_new: int):
             pending.pop(0)      # admitted, or rejected for good
         occ += server.occupancy() if paged else float(server.active.mean())
         t0 = time.perf_counter()
-        finished += server.step()
+        with obs.span("serve/wave", wave=len(wave_s)):
+            finished += server.step()
         wave_s.append(time.perf_counter() - t0)
     return finished, admit_s, wave_s, occ / max(len(wave_s), 1)
+
+
+def _finish_trace(server, args):
+    """End of a traced run: each profiled entry point's first-call and
+    steady wall time, then the flight recorder's JSONL."""
+    for p in getattr(server, "_profiled", []):
+        n = p.n_calls - p.n_compiles
+        print(f"timing: {p.name} compile {p.compile_s:.2f}s "
+              f"({p.n_compiles} compile(s)), steady {p.steady_s:.3f}s "
+              f"over {n} calls", flush=True)
+    if args.trace_out:
+        n = obs.dump(args.trace_out,
+                     deterministic=args.trace_deterministic)
+        print(f"trace: {n} events -> {args.trace_out}")
+        obs.reset()
 
 
 def main(argv=None):
@@ -831,15 +960,26 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the plain PyTorch path)")
+    ap.add_argument("--trace-out", default="",
+                    help="enable observability and write the run's "
+                         "flight-recorder JSONL here (per-request events, "
+                         "serve/wave spans, compile/steady timings of the "
+                         "entry points, the kernels' shared-memory gauges; "
+                         "render with repro_torch.launch.obsreport)")
+    ap.add_argument("--trace-deterministic", action="store_true",
+                    help="strip wall-clock fields from the JSONL so "
+                         "two seeded runs emit byte-identical traces")
     args = ap.parse_args(argv)
 
+    device = resolve_device(args.device)
+    if args.trace_out:
+        obs.configure()
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     if cfg.family == "lstm":
-        return _main_asr(cfg, args)
+        return _main_asr(cfg, args, device)
 
-    device = resolve_device(args.device)
     try:
         require_weights_fit(build_model(cfg), device)
     except ValueError as e:
@@ -880,9 +1020,10 @@ def main(argv=None):
               f"shared_hits={server.pool.n_shared_hits}")
     for rid, out in finished:
         print(f"  req {rid}: {out[:8]}{'...' if len(out) > 8 else ''}")
+    _finish_trace(server, args)
 
 
-def _main_asr(cfg, args):
+def _main_asr(cfg, args, device):
     """Streaming-ASR serving of synthetic utterances from the data
     pipeline's length distribution, chunked beam decode."""
     seq_len = min(args.prompt_len, prompt_capacity(args.max_len, "asr"))
@@ -890,7 +1031,7 @@ def _main_asr(cfg, args):
     server = AsrServer(cfg, slots=args.slots, max_frames=args.max_len,
                        chunk=args.chunk_frames, beam=args.beam_width,
                        topc=None if args.beam_topc < 0 else args.beam_topc,
-                       device=args.device, verbose=True)
+                       device=device, verbose=True)
     frames = sum(len(f) for _, f in pending)
     t0 = time.perf_counter()
     finished, wave_s = serve_all(server, pending)
@@ -902,6 +1043,7 @@ def _main_asr(cfg, args):
           f"{1e3 * float(np.mean(wave_s)):.2f} ms, beam {server.beam})")
     for rid, out in finished:
         print(f"  req {rid}: {out[:8]}{'...' if len(out) > 8 else ''}")
+    _finish_trace(server, args)
 
 
 if __name__ == "__main__":

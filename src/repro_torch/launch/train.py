@@ -47,8 +47,14 @@ this run: a resumed run takes that many more from the restored step.
 (``core/strategies.make_elastic_train_step``) under one deterministic
 ``core/faults.FaultPlan``, whose inputs at the global step number drive
 each step, so a resumed run sees the faults an uninterrupted one would.
-Not ported yet (ROADMAP.md queue 1): ``--trace-out``, ``--mesh`` and
-``--kernel-impl``.
+``--trace-out`` turns observability on (``repro_torch.obs``): every
+step's metrics as a ``train/step`` event (the gradient norm included),
+``train/fetch`` spans, the step's first-call and steady wall time
+(``train/step``, timed up to a ``torch.cuda.synchronize``), the loss,
+wire-byte, fault and padding instruments and the ``kernel/stash_bytes``
+gauge, written as JSONL (``--trace-deterministic``: without the
+wall-clock fields, byte-identical between two seeded runs).  Not ported
+yet (ROADMAP.md queue 1): ``--mesh`` and ``--kernel-impl``.
 """
 from __future__ import annotations
 
@@ -59,6 +65,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.checkpoint import restore, save
 from repro_torch.configs import get_arch
 from repro_torch.core import strategies as ST
@@ -157,9 +164,35 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _batch_key(args, kwargs):
+    """The step's shape key: the batch's array shapes (args[1]); a new
+    padded length is a first call again."""
+    return tuple(sorted((k, tuple(v.shape)) for k, v in args[1].items()))
+
+
+def _record_step(k: int, metrics, strategy: str, valid: int, padded: int):
+    """One step's instruments (no-ops while observability is off): the
+    ``train/step`` event with every metric as a float, the loss and
+    gradient-norm histograms, bytes on the wire per strategy, the live
+    learners and staleness, and the padding efficiency so far."""
+    scal = {name: float(v) for name, v in metrics.items()}
+    obs.event("train/step", step=k, **scal)
+    obs.histogram("train/loss").observe(scal["loss"])
+    if "grad_norm" in scal:
+        obs.histogram("train/grad_norm").observe(scal["grad_norm"])
+    if "wire_bytes" in scal:
+        obs.counter("train/wire_bytes", strategy=strategy).inc(
+            scal["wire_bytes"])
+    if "n_active" in scal:
+        obs.gauge("train/n_active").set(scal["n_active"])
+        obs.histogram("train/staleness_max").observe(scal["staleness_max"])
+    if padded:
+        obs.gauge("train/pad_eff").set(valid / padded)
+
+
 def run(state, step_fn, dataset, *, steps: int, device, start: int = 0,
         log_every: int = 0, label: str = "", ckpt_dir: str = "",
-        ckpt_every: int = 0, plan: FaultPlan = None):
+        ckpt_every: int = 0, plan: FaultPlan = None, strategy: str = ""):
     """Run ``steps`` steps, numbered from ``start``, on prefetched batches
     of ``dataset`` (the data is a pure function of the step number, so a
     run restored at ``start`` sees the batches an uninterrupted one would).
@@ -170,19 +203,31 @@ def run(state, step_fn, dataset, *, steps: int, device, start: int = 0,
     Prints the reference's ``step k loss ...`` line every ``log_every``
     steps (0 = never), and saves the state to ``ckpt_dir`` after every
     ``ckpt_every``-th step (0 = never).  Each step is timed on the host clock between two
-    ``torch.cuda.synchronize`` calls.  Returns (state, metrics of the
-    last step, per-step records (seconds, valid frames, padded frames,
-    loss))."""
+    ``torch.cuda.synchronize`` calls.  While observability is on, each
+    step lands in the flight recorder (:func:`_record_step`, ``strategy``
+    tagging the wire bytes) and the step is wrapped in a compile/steady
+    :class:`~repro_torch.obs.ProfiledFn` (``train/step``).  Returns
+    (state, metrics of the last step, per-step records (seconds, valid
+    frames, padded frames, loss))."""
     pf = Prefetcher(dataset, start_step=start)
     records, metrics = [], None
+    if obs.enabled():
+        step_fn = obs.profiled(step_fn, "train/step", key=_batch_key,
+                               metrics=obs.get_metrics(),
+                               recorder=obs.get_recorder())
+    valid_all = padded_all = 0          # over var-len batches only
     t0 = time.time()
     try:
         for k in range(start, start + steps):
-            batch = pf.next()
+            with obs.span("train/fetch", step=k):
+                batch = pf.next()
             feats = batch["features"]
             padded = int(feats.shape[0] * feats.shape[1])
             valid = int(batch["lengths"].sum()) if "lengths" in batch \
                 else padded
+            if "lengths" in batch:
+                valid_all += valid
+                padded_all += padded
             _sync(device)
             ts = time.perf_counter()
             if plan is None:
@@ -194,13 +239,13 @@ def run(state, step_fn, dataset, *, steps: int, device, start: int = 0,
             _sync(device)
             records.append((time.perf_counter() - ts, valid, padded,
                             metrics["loss"]))
+            if obs.enabled():
+                _record_step(k, metrics, strategy, valid_all, padded_all)
             if log_every and k % log_every == 0:
                 loss = float(metrics["loss"])
                 line = f"step {k:5d} loss {loss:.4f} ({time.time() - t0:.1f}s)"
-                if "lengths" in batch:
-                    v = sum(r[1] for r in records)
-                    p = sum(r[2] for r in records)
-                    line += f" pad_eff {v / p:.2f}"
+                if padded_all:
+                    line += f" pad_eff {valid_all / padded_all:.2f}"
                 if "wire_bytes" in metrics:
                     line += f" wire {float(metrics['wire_bytes']) / 2**20:.2f}MB"
                 if "n_active" in metrics:
@@ -271,8 +316,7 @@ def main(argv=None):
                     help="log the replicas' consensus distance each step")
     ap.add_argument("--grad-norm", action="store_true",
                     help="log the applied gradient's L2 norm each step "
-                         "(the reference records it under --trace-out, "
-                         "not ported yet)")
+                         "(--trace-out records it too)")
     ap.add_argument("--comm-topology", default="",
                     choices=["", "uniform", "ring", "hierarchical", "exp",
                              "none"],
@@ -337,9 +381,19 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card (raises without one); "
                          "'cpu' runs the plain PyTorch path")
+    ap.add_argument("--trace-out", default="",
+                    help="enable observability and write the run's "
+                         "flight-recorder JSONL here (render with "
+                         "repro_torch.launch.obsreport); also records the "
+                         "per-step gradient norm")
+    ap.add_argument("--trace-deterministic", action="store_true",
+                    help="strip wall-clock fields from the JSONL so "
+                         "two seeded runs emit byte-identical traces")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    if args.trace_out:
+        obs.configure()
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -382,7 +436,8 @@ def main(argv=None):
     state, step_fn, meta = setup_training(
         cfg, strategy_name=strategy.name, n_learners=n_learners,
         optimizer_name=args.optimizer, seed=args.seed, device=device,
-        with_consensus=args.consensus, with_grad_norm=args.grad_norm,
+        with_consensus=args.consensus,
+        with_grad_norm=args.grad_norm or obs.enabled(),
         lr_schedule=paper_recipe(steps_per_epoch=max(args.steps // 16, 1),
                                  base_lr=0.05, peak_lr=0.2),
         elastic=plan is not None, fault_seed=args.fault_seed,
@@ -399,6 +454,15 @@ def main(argv=None):
                 raise SystemExit(
                     f"--resume: no checkpoint under {args.ckpt_dir}")
     print(stash_line(cfg, batch, seq_len), flush=True)
+    if obs.enabled():
+        # the stash of one learner's share of the batch, at the
+        # per-direction width and the resolved chunk length
+        itemsize = 2 if cfg.lstm_stash_dtype == "bfloat16" else 4
+        K = (chunk_length(seq_len, cfg.lstm_seq_chunk)
+             if cfg.lstm_seq_chunk else 0)
+        obs.gauge("kernel/stash_bytes", seq_chunk=K).set(stash_bytes(
+            max(batch // max(n_learners, 1), 1), seq_len, cfg.lstm_hidden,
+            n_dir=2, stash_itemsize=itemsize, seq_chunk=K))
     ds = make_dataset(cfg, seq_len=seq_len, batch=batch, seed=args.seed,
                       var_len=args.var_len or args.bucket,
                       bucket=args.bucket)
@@ -407,13 +471,19 @@ def main(argv=None):
                                   device=device, start=start,
                                   log_every=args.log_every,
                                   ckpt_dir=args.ckpt_dir,
-                                  ckpt_every=args.ckpt_every, plan=plan)
+                                  ckpt_every=args.ckpt_every, plan=plan,
+                                  strategy=meta["strategy"].name)
     if metrics is not None:
         print(f"final loss {float(metrics['loss']):.6f}")
     print(f"done: {args.steps} steps in {time.time() - t0:.1f}s "
           f"[{meta['strategy'].name}, L={meta['n_learners']}, {device}]")
     if records:
         print(timing_line(records), flush=True)
+    if args.trace_out:
+        n = obs.dump(args.trace_out,
+                     deterministic=args.trace_deterministic)
+        print(f"trace: {n} events -> {args.trace_out}")
+        obs.reset()
     meta["plan"] = plan
     return dict(state=state, metrics=metrics, records=records, meta=meta)
 

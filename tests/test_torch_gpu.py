@@ -1476,3 +1476,48 @@ def test_elastic_step_kernels_match_plain_and_freeze_the_dead(cuda):
             assert torch.equal(w2, frozen), k
         assert state["staleness"].device.type == "cpu"
     assert not torch.equal(state["params"]["softmax_w"][2], frozen)
+
+
+def test_load_on_card_matches_cpu_rows_and_calibrates(cuda):
+    """``launch.load`` on the card at the reduced width: the paged LM's
+    virtual-time CSV rows equal the CPU run's (the timeline depends only
+    on the trace, the costs, admission outcomes and the work), with K11,
+    K8 and K6 launched; the ASR ``--wall --calibrate`` run launches K4
+    once per admission and K5 once per frame, and its synchronized
+    measurements fit finite, positive costs."""
+    import contextlib
+    import io
+
+    from repro_torch import obs
+    from repro_torch.decode import kernel as DK
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import lstm_cell
+    from repro_torch.launch import load as TL
+
+    def run(argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert TL.main(argv) == 0
+        torch.cuda.synchronize()
+        assert not obs.enabled()
+        return [ln for ln in out.getvalue().splitlines()
+                if ln.count(",") >= 2]
+
+    lm = ["--arch", "smollm-360m", "--reduced", "--cache", "paged",
+          "--page-size", "4", "--qps", "30", "--horizon", "1",
+          "--len-median", "8", "--patience", "0.4"]
+    before = (FA.launches, DA.paged_launches, DK.argmax_launches)
+    card = run(lm)
+    after = (FA.launches, DA.paged_launches, DK.argmax_launches)
+    assert all(a > b for a, b in zip(after, before))
+    assert card == run(lm + ["--device", "cpu"])
+
+    k4, k5 = lstm_cell.stack_launches, DK.launches
+    rows = run(["--arch", "swb2000-blstm", "--reduced", "--qps", "20",
+                "--horizon", "0.5", "--wall", "--calibrate"])
+    vals = {ln.split(",")[0]: float(ln.split(",")[1]) for ln in rows[1:]}
+    assert lstm_cell.stack_launches - k4 == vals["load/done"] > 0
+    assert DK.launches - k5 == 8 * vals["load/waves"]
+    for name in ("calib/admit_ms", "calib/wave_ms"):
+        assert 0 < vals[name] < 1e3, (name, vals[name])

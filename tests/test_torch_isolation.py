@@ -29,6 +29,22 @@ def _forbidden(name: str) -> bool:
     return top in ("jax", "jaxlib", "repro", "msgpack")
 
 
+def test_observability_imports_without_torch():
+    """``repro_torch.obs``, the serving layer and ``obsreport`` are numpy
+    and the standard library only: rendering a trace needs no torch."""
+    code = ("import sys\n"
+            "import repro_torch.obs, repro_torch.serving\n"
+            "import repro_torch.launch.obsreport\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'repro')]\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def test_no_jax_or_repro_imports():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
@@ -62,6 +78,12 @@ def test_import_leaves_jax_and_repro_unloaded():
         "from repro_torch.core.strategies import (make_elastic_train_step,"
         " init_elastic_state, check_active)\n"
         "from repro_torch.core.mixing import elastic_matrix\n"
+        "import repro_torch.obs.metrics, repro_torch.obs.trace\n"
+        "import repro_torch.obs.profile, repro_torch.serving\n"
+        "import repro_torch.serving.workload, repro_torch.serving.slo\n"
+        "import repro_torch.serving.admission, repro_torch.serving.loop\n"
+        "import repro_torch.serving.capacity, repro_torch.launch.load\n"
+        "import repro_torch.launch.obsreport\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'repro', 'msgpack')]\n"
         "print(bad)\n"
