@@ -289,15 +289,51 @@ Phases, each of which fails the run (nonzero exit, no result line):
     steps with ``--trace-out --trace-deterministic``, twice: K1-stash and
     K2 6 times a step, the two traces byte-identical.
 
+22. encdec — the full-width ``whisper-large-v3`` (32 encoder and 32
+    decoder layers, d 1280, 20 heads of 64, vocab 51,866, random weights
+    from seed 0) through ``Model.prefill_fn`` / ``decode_fn`` (no server
+    runs the family): 8 streams of 1500 stub frame embeddings (30 s of
+    audio at 50 Hz), the 4-token start sequence, a 448-position self
+    cache, 64 greedy tokens (K6), with the counters set to 0 just before
+    and read just after (K11 96 times per prefill: 32 encoder, 32 self,
+    32 cross; K7 64 times per decode step: 32 self, 32 cross over the
+    1500 frames); encode ms, prefill ms, decode-step ms, tokens/s, peak
+    memory; every token in the vocabulary; stream 0's prefill and 8
+    teacher-forced decode logits against the plain path within 2e-2
+    through 4 encoder and 4 decoder layers (through all 32 printed);
+23. vlm — the full-width ``internvl2-2b`` (24 layers, d 2048, 16 heads
+    over 8 KV heads of 128, vocab 92,553) ``Server`` and ``PagedServer``
+    (pages of 16) serving 8 requests of token prompts (64-960 tokens, a
+    64-token shared prefix), 8 slots x 1024, 24 new tokens, each with the
+    counters set to 0 just before and read just after (K11 24 times per
+    admission, K7 (K8 paged) 24 times per decode call, K6 once per
+    admission and per call); one prefill of 256 patch embeddings and 64
+    text tokens and 8 teacher-forced decode logits held within 2e-2 of
+    the plain path; preempt/restore bit-identical in both servers;
+24. dense-configs — ``phi3-medium-14b``, ``stablelm-12b`` (E = 160) and
+    ``command-r-35b`` (60.57 GB) at full width, one at a time from an
+    emptied allocator: ``param_bytes`` and ``require_weights_fit``; a
+    ``Server`` of 4 slots x 1024 serving 4 requests, 8 new tokens (K11 40
+    times per admission, K7 40 times per decode call); the first
+    request's prefill and 8 decode logits within 2e-2 of the plain path
+    through 4 layers.  Phase 8's K7 also runs at whisper's cross (pos 1499
+    of 1500 frames, canonical) and self (448 positions) shapes and at
+    stablelm's E = 160, its K6 at the four vocabularies, and 8a's K11 at
+    stablelm's S = 1000 (E = 160), whisper's encoder (S = 1500, non-
+    causal) and cross-attention (4 queries over 1500 frames).
+
 The last two lines are ``{"kernels": [...]}`` (K1-stash's, K2's, K4's and
 K5's ``launches`` counting 7a-comm, 7a-ctc and 7a-elastic too, also apart
 as ``launches_comm``, ``launches_ctc`` and ``launches_elastic``; K4's,
 K5's, K6's, K8's and K11's counting phase 21's runs, apart as
 ``launches_load``, and K1-stash's and K2's its train CLI runs, as
-``launches_trace_cli``) and ``{"ok": true, "device": {...}}``.
+``launches_trace_cli``; K6's, K7's, K8's and K11's phases 22-24's, apart
+as ``launches_encdec``, ``launches_vlm`` and ``launches_dense_cfgs``)
+and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -3056,11 +3092,14 @@ def check_k7(gen):
           f"{library_b1} / {_ms(library_dev_b1)})", flush=True)
     hyb = _check_k7_hybrid(gen)
     at.update(hymba_b8=hyb.pop("at_b8"), hymba_b1=hyb.pop("at_b1"))
+    wide, worst_wide = _check_k7_wide(gen)
+    at.update(wide)
     b8 = at["b8"]
     return dict(name="decode_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention.py:216",
-                max_abs_err=max(worst, worst_b1, worst_grn), ms=b8["ms"],
+                max_abs_err=max(worst, worst_b1, worst_grn, worst_wide),
+                ms=b8["ms"],
                 plain_ms=plain_ms, bound_ms=b8["bound_ms"],
                 bound_by=b8["bound_by"], library_ms=library_ms,
                 device_ms=b8["device_ms"], device_ms_b1=at["b1"]["device_ms"],
@@ -3109,6 +3148,62 @@ def _check_k7_hybrid(gen):
                 bound_ms_hymba=b8["bound_ms"], max_abs_err_hymba=worst,
                 shape_hymba=f"B={B} S={S} KV={KV} M={M} E={E} pos={pos} "
                             f"window={W} delta", at_b8=b8, at_b1=b1)
+
+
+# K7 at the decode shapes of the encdec and dense-configs phases: whisper-
+# large-v3's cross-attention (the canonical variant over all 1500 encoder
+# frames at pos 1499) and self-attention (the delta variant over its
+# 448-position cache; the phase decodes positions 4..67), MHA (20 heads,
+# M = 1, E = 64) at 8 streams; stablelm-12b's (32 heads over 8, M = 4, E =
+# 160) at the phase's 4 slots of 1024 positions
+K7_WIDE = [
+    # tag, B, S, KV, M, E, timed pos, delta, sweep positions
+    ("whisper_cross", 8, 1500, 20, 1, 64, 1499, False, (0, 1023, 1499)),
+    ("whisper_self", 8, 448, 20, 1, 64, 67, True, (0, 15, 16, 67, 447)),
+    ("stablelm_e160", 4, 1024, 8, 4, 160, 511, True,
+     (0, 15, 16, 511, 1023)),
+]
+
+
+def _check_k7_wide(gen):
+    """K7 against its plain version at every K7_WIDE shape (canonical and
+    delta over its positions, 2e-2), each timed at its decode position in
+    the variant the phase runs, beside SDPA.  Returns ({tag: record},
+    worst max_abs_err)."""
+    from repro_torch.kernels import decode_attention as DA
+
+    out, worst = {}, 0.0
+    for tag, B, S, KV, M, E, pos, delta, sweep in K7_WIDE:
+        x = _attn_inputs(gen, B, S, KV, M, E)
+        worst = max(worst, _attn_sweep(f"K7 {tag}", DA.decode_attention,
+                                       DA.decode_attention_ref, x,
+                                       [(p, None) for p in sweep]))
+        kw = dict(k_new=x[3], v_new=x[4]) if delta else {}
+
+        def call(fn=DA.decode_attention):
+            return fn(x[0], x[1], x[2], pos, **kw)
+
+        # the canonical call reads pos + 1 rows, as many bytes and
+        # operations as a delta call of pos old rows and the new column
+        rec = _attn_timed(f"K7 {tag}", DA, call, B, KV, M, E, pos)
+        rec["plain_ms"] = _time_ms(
+            lambda: call(DA.decode_attention_ref), 20)
+        if delta:
+            kc, vc = x[1].clone(), x[2].clone()
+            kc[:, pos], vc[:, pos] = x[3][:, 0], x[4][:, 0]
+        else:
+            kc, vc = x[1], x[2]
+        rec["library_ms"], rec["library_device_ms"] = _library_attn_ms(
+            x[0], kc, vc, pos, f"K7 {tag}")
+        rec["shape"] = (f"B={B} S={S} KV={KV} M={M} E={E} pos={pos} "
+                        f"{'delta' if delta else 'canonical'}")
+        print(f"[K7] {tag}: {rec['shape']}, positions {sweep} canonical and "
+              f"delta within {K1_TOL}; plain {rec['plain_ms']:.4f} ms, "
+              f"library {_ms(rec['library_ms'])} eager, "
+              f"{_ms(rec['library_device_ms'])} graph-replayed", flush=True)
+        out[tag] = rec
+        del x, kc, vc
+    return out, worst
 
 
 def _shuffled_pool_table(gen, B, W, n_pages, used):
@@ -3278,7 +3373,57 @@ def check_k6(gen):
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, device_ms=dev_ms,
                 bound_by=bound_by, library_ms=library_ms,
                 library_device_ms=lib_dev_ms, slices=slices,
-                shape=f"B={B} V={V} bf16")
+                shape=f"B={B} V={V} bf16", vocabs=_check_k6_vocabs(gen))
+
+
+# the vocabularies of the encdec, vlm and dense-configs phases: whisper-
+# large-v3's and internvl2-2b's are odd multiples of 2 bytes off a 16-byte
+# boundary (every bf16 row after the first starts mid-vector), phi3's and
+# stablelm's 100,352, command-r's 256,000
+K6_VOCABS = (51866, 92553, 100352, 256000)
+
+
+def _check_k6_vocabs(gen):
+    """K6 at B = 8 over each of K6_VOCABS: bit for bit against
+    ``torch.argmax`` and the plain version on unit normals (ties planted
+    in one row, the maximum in the last element of another), timed eager
+    and graph-replayed beside ``torch.argmax``.  Returns {V: record}."""
+    import torch
+
+    from repro_torch.decode import kernel as DK
+
+    out = {}
+    for V in K6_VOCABS:
+        x = torch.randn(8, V, generator=gen)
+        x[1, [3, V // 2, V - 2]] = 7.0           # a three-way tie
+        x[2, V - 1] = 8.0                        # the row's last element
+        x = x.to("cuda", torch.bfloat16)
+        got = DK.argmax_tokens(x)
+        torch.cuda.synchronize()
+        want = torch.argmax(x, dim=-1)
+        if not (torch.equal(got, want.to(got.dtype))
+                and torch.equal(got, DK.argmax_ref(x))
+                and got[1:3].tolist() == [3, V - 1]):
+            _fail(f"K6 at V = {V}: {got.tolist()} != torch.argmax "
+                  f"{want.tolist()}")
+        kernel = functools.partial(DK.argmax_tokens, x)
+        library = functools.partial(torch.argmax, x, dim=-1)
+        rec = dict(ms=_time_ms(kernel, 200), device_ms=_device_ms(kernel),
+                   library_ms=_time_ms(library, 200),
+                   library_device_ms=_device_ms(library),
+                   plain_ms=_time_ms(functools.partial(DK.argmax_ref, x), 50),
+                   slices=DK.argmax_slices(8, V, 2, DK._n_sm))
+        rec["bound_ms"], rec["bound_by"] = _bound(8 * V * 2 + 8 * 4, 8 * V,
+                                                  PEAK_F32_FLOPS)
+        print(f"[K6] V={V} (8 rows, bf16, {rec['slices']} CTAs a row): "
+              f"bit-identical to torch.argmax and the plain version; kernel "
+              f"{rec['ms']:.4f} ms eager, graph-replayed "
+              f"{_ms(rec['device_ms'])}; torch.argmax {rec['library_ms']:.4f}"
+              f" ms / {_ms(rec['library_device_ms'])}; plain "
+              f"{rec['plain_ms']:.4f} ms; bound {rec['bound_ms']:.5f} ms "
+              f"({rec['bound_by']})", flush=True)
+        out[V] = rec
+    return out
 
 
 # --------------------------------------------------------------- phase 8a
@@ -3308,6 +3453,16 @@ K11_CASES = [
     ("non-causal", 2, 333, 290, 8, 2, 64, False, 0, 0, False),
     ("M=8 E=128 windowed", 1, 777, 777, 8, 1, 128, True, 128, 0, False),
     ("M=8 E=128 global", 1, 777, 777, 8, 1, 128, True, 0, 0, False),
+    # stablelm-12b's prefill (32 heads over 8, E = 160: 192-column tiles),
+    # whisper-large-v3's encoder (30 s of audio: 1500 frames, 20 heads,
+    # MHA, non-causal) and its decoder's cross-attention (the 4-token start
+    # sequence over the 1500 encoder frames)
+    ("stablelm E=160", 1, 1000, 1000, 32, 8, 160, True, GLOBAL, 0, True),
+    ("whisper encoder", 1, 1500, 1500, 20, 20, 64, False, 0, 0, True),
+    ("whisper cross", 1, 4, 1500, 20, 20, 64, False, 0, 0, True),
+    ("E=160 windowed ragged", 2, 77, 77, 8, 2, 160, True, 16, 0, False),
+    ("E=160 q_offset", 1, 37, 300, 8, 2, 160, True, 0, 263, False),
+    ("E=160 non-causal", 2, 5, 333, 4, 4, 160, False, 0, 0, False),
 ]
 
 
@@ -3497,10 +3652,13 @@ def check_k11(gen):
     print(f"[K11] SASS of the flash library: {sass}", flush=True)
     if not (sass["HGMMA"] > 0 and sass["HMMA"] == 0 and sass["UTMALDG"] > 0):
         _fail(f"K11: the flash library is not on wgmma and TMA: {sass}")
-    extra = {f"{k}_global": v for k, v in rows["hymba global"].items()}
-    extra.update({f"{k}_smollm": v for k, v in rows["smollm-360m"].items()})
-    extra.update({f"{k}_granite": v
-                  for k, v in rows["granite S=700"].items()})
+    extra = {}
+    for tag, key in (("hymba global", "global"), ("smollm-360m", "smollm"),
+                     ("granite S=700", "granite"),
+                     ("stablelm E=160", "stablelm"),
+                     ("whisper encoder", "whisper_encoder"),
+                     ("whisper cross", "whisper_cross")):
+        extra.update({f"{k}_{key}": v for k, v in rows[tag].items()})
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:119",
@@ -4903,6 +5061,372 @@ def phase_load():
     return load, trace_counts
 
 
+# --------------------------------------------------------------- phase 22
+# The encdec family at full width: whisper-large-v3 (32 encoder and 32
+# decoder layers, d 1280, 20 heads of 64, vocab 51,866; 3.07 GB of
+# weights).  8 streams of 30 s of audio (1500 stub frame embeddings each,
+# whisper's 50 Hz encoder rate), the 4-token start sequence, a self cache
+# of 448 positions (whisper's decoder context), 64 greedy tokens.
+ED_B, ED_FRAMES, ED_CACHE, ED_NEW = 8, 1500, 448, 64
+ED_CUT = 4               # encoder and decoder layers of the held check
+# <|startoftranscript|> <|en|> <|transcribe|> <|notimestamps|> (large-v3)
+ED_START = (50258, 50259, 50360, 50364)
+
+
+def _encdec_cut(cfg, params, n):
+    """The encdec model and weights cut to their first ``n`` encoder and
+    ``n`` decoder layers."""
+    import dataclasses
+
+    from repro_torch.models import build_model
+
+    def cut(tree):
+        if isinstance(tree, dict):
+            return {k: cut(v) for k, v in tree.items()}
+        return tree[:n]
+
+    return (build_model(dataclasses.replace(cfg, n_layers=n,
+                                            n_enc_layers=n)),
+            dict(params, enc_layers=cut(params["enc_layers"]),
+                 dec_layers=cut(params["dec_layers"])))
+
+
+def _encdec_logits(model, params, frames, prompt, tokens):
+    """One stream's prefill logits and one decode step's per token of
+    ``tokens`` (teacher-forced), as (len(tokens) + 1, V) f32."""
+    import torch
+
+    logits, cache = model.prefill_fn(params, {"frames": frames,
+                                              "tokens": prompt},
+                                     cache_len=ED_CACHE)
+    out = [logits[:, -1].float()]
+    for i, t in enumerate(tokens):
+        tok = torch.tensor([[t]], dtype=torch.int32, device=frames.device)
+        logits, cache = model.decode_fn(params, cache, tok,
+                                        prompt.shape[1] + i)
+        out.append(logits[:, -1].float())
+    return torch.cat(out)
+
+
+def phase_encdec():
+    """whisper-large-v3 through ``Model.prefill_fn`` / ``decode_fn`` (no
+    server runs the family): 8 streams, greedy tokens by K6, with the
+    counters set to 0 just before and read just after (K11 96 times per
+    prefill: 32 encoder, 32 self, 32 cross; K7 64 times per decode step:
+    32 self (delta) and 32 cross (canonical over the 1500 frames); K6
+    once per token); every token in the vocabulary; stream 0's prefill
+    and 8 teacher-forced decode logits against the plain path within 2e-2
+    through ED_CUT encoder and decoder layers (printed, not held, through
+    all 32)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import select_tokens
+    from repro_torch.models import build_model
+    from repro_torch.models import encdec as ED
+    from repro_torch.params import init_params, param_bytes
+
+    cfg = get_arch("whisper-large-v3")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = init_params(model.param_specs(), SEED, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    frames = torch.randn(ED_B, ED_FRAMES, cfg.d_model, generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    prompt = torch.tensor([ED_START] * ED_B, dtype=torch.int32,
+                          device="cuda")
+
+    def run(n_new):
+        """Greedy decode of every stream: (tokens per stream, seconds of
+        the prefill and first token, seconds of the decode steps)."""
+        t_a = time.perf_counter()
+        logits, cache = model.prefill_fn(params, {"frames": frames,
+                                                  "tokens": prompt},
+                                         cache_len=ED_CACHE)
+        toks = [select_tokens(logits[:, -1])]
+        t_b = time.perf_counter()
+        for i in range(n_new - 1):
+            tok = torch.tensor(toks[-1], dtype=torch.int32,
+                               device="cuda")[:, None]
+            logits, cache = model.decode_fn(params, cache, tok,
+                                            len(ED_START) + i)
+            toks.append(select_tokens(logits[:, -1]))
+        return [list(t) for t in zip(*toks)], t_b - t_a, \
+            time.perf_counter() - t_b
+
+    run(3)                                # warm-up: libraries, cuBLAS
+    setup = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_lm_counts()
+    streams, prefill_s, decode_s = run(ED_NEW)
+    counts = _lm_counts()
+    peak = torch.cuda.max_memory_allocated()
+    encode_ms = _time_ms(lambda: ED.encode(cfg, params, frames), 3, 1)
+    steps = ED_NEW - 1
+    want = {"flash_attention": cfg.n_enc_layers + 2 * cfg.n_layers,
+            "decode_attention": 2 * cfg.n_layers * steps,
+            "argmax_tokens": ED_NEW}
+    for name, n in want.items():
+        if counts[name] != n:
+            _fail(f"encdec: {name} launched {counts[name]} times, expected "
+                  f"{n}")
+    if any(len(t) != ED_NEW or min(t) < 0 or max(t) >= cfg.vocab
+           for t in streams):
+        _fail("encdec: a stream decoded too few tokens, or one outside "
+              "the vocabulary")
+    n_tok = ED_B * ED_NEW
+    print(f"[encdec] {cfg.name}: {cfg.n_enc_layers} encoder and "
+          f"{cfg.n_layers} decoder layers, d {cfg.d_model}, {cfg.n_heads} "
+          f"heads of {cfg.head_dim}, vocab {cfg.vocab}, "
+          f"{param_bytes(model.param_specs())} bytes of weights; {ED_B} "
+          f"streams of {ED_FRAMES} frames, prompt {list(ED_START)}, self "
+          f"cache {ED_CACHE}; set-up {setup:.1f}s", flush=True)
+    print(f"[encdec] encode {encode_ms:.2f} ms ({ED_B} x {ED_FRAMES} "
+          f"frames), prefill + first token {1e3 * prefill_s:.2f} ms, decode "
+          f"step {1e3 * decode_s / steps:.2f} ms ({steps} steps), "
+          f"{n_tok / (prefill_s + decode_s):.1f} tokens/s, peak device "
+          f"memory {peak / 2 ** 30:.2f} GiB; launches {counts}; stream 0 "
+          f"{streams[0][:12]}", flush=True)
+
+    fed = streams[0][:8]
+    for (m, p), held in ((_encdec_cut(cfg, params, ED_CUT), True),
+                         ((model, params), False)):
+        got = _encdec_logits(m, p, frames[:1], prompt[:1], fed)
+        with _plain_kernels():
+            ref = _encdec_logits(m, p, frames[:1], prompt[:1], fed)
+        errs = [_norm_err(g, w)[1] for g, w in zip(got, ref)]
+        print(f"[encdec] stream 0 teacher-forced through "
+              f"{m.cfg.n_enc_layers} + {m.cfg.n_layers} layers, kernel vs "
+              f"plain path, normalised: prefill {errs[0]:.3g}, decode steps "
+              f"1-8 {[round(e, 5) for e in errs[1:]]} "
+              f"({'held at ' + str(K1_TOL) if held else 'not held'})",
+              flush=True)
+        if held and not max(errs) <= K1_TOL:
+            _fail(f"encdec logits disagree with the plain path: {errs}")
+    return counts
+
+
+# --------------------------------------------------------------- phase 23
+# The vlm family at full width: internvl2-2b (24 layers, d 2048, 16 heads
+# over 8 KV heads of 128, vocab 92,553; 3.40 GB).  8 requests of token
+# prompts (64-960 tokens drawn with the seed, a 64-token shared prefix), 8
+# slots x 1024 positions, 24 new tokens; one prefill of 256 patch
+# embeddings (InternVL2's tokens per 448 x 448 tile) and 64 text tokens.
+VLM_REQUESTS, VLM_MAX_NEW, VLM_PATCHES, VLM_TEXT = 8, 24, 256, 64
+
+
+def _vlm_logits(server, patches, text, tokens=None):
+    """The prefill of ``patches`` then ``text`` (batch 1) and 8 decode
+    steps fed ``tokens`` (None: the run's own greedy tokens): ((9, V) f32
+    logits, the tokens fed)."""
+    import torch
+
+    logits, cache = server.model.prefill_fn(
+        server.params, {"tokens": text, "patches": patches},
+        cache_len=server.max_len)
+    out, fed = [logits[:, -1].float()], []
+    n = patches.shape[1] + text.shape[1]
+    for i in range(8):
+        t = tokens[i] if tokens else int(out[-1].argmax())
+        fed.append(t)
+        tok = torch.tensor([[t]], dtype=torch.int32, device="cuda")
+        logits, cache = server.model.decode_fn(server.params, cache, tok,
+                                               n + i)
+        out.append(logits[:, -1].float())
+    return torch.cat(out), fed
+
+
+def _check_vlm_patches(server):
+    """One ``Model.prefill_fn`` of VLM_PATCHES patch embeddings (the
+    stub's output, drawn at the token embeddings' scale, 0.02) and
+    VLM_TEXT text tokens, and 8 decode steps, kernel vs plain path
+    (teacher-forced with the kernel path's greedy tokens), held at 2e-2."""
+    import torch
+
+    cfg = server.cfg
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    patches = (0.02 * torch.randn(1, VLM_PATCHES, cfg.d_model, generator=gen,
+                                  device="cuda")).to(torch.bfloat16)
+    text = torch.randint(0, cfg.vocab, (1, VLM_TEXT), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    got, fed = _vlm_logits(server, patches, text)
+    with _plain_kernels():
+        want, _ = _vlm_logits(server, patches, text, fed)
+    errs = [_norm_err(g, w)[1] for g, w in zip(got, want)]
+    print(f"[vlm-serve] {VLM_PATCHES} patch embeddings + {VLM_TEXT} text "
+          f"tokens through {cfg.n_layers} layers, kernel vs plain path, "
+          f"normalised: prefill {errs[0]:.3g}, decode steps 1-8 "
+          f"{[round(e, 5) for e in errs[1:]]} (held at {K1_TOL}); greedy "
+          f"tokens {fed}", flush=True)
+    if not max(errs) <= K1_TOL:
+        _fail(f"vlm-serve: the patch prefill's logits disagree with the "
+              f"plain path: {errs}")
+
+
+def _expect_attn_launches(tag, cfg, pending, counts, decode_kernel):
+    """K11 once per layer of every admission; the decode kernel once per
+    layer of every decode call; K6 once per admission and per call."""
+    calls = counts[decode_kernel] // cfg.n_layers
+    for name, want in (("flash_attention", cfg.n_layers * len(pending)),
+                       (decode_kernel, cfg.n_layers * calls),
+                       ("argmax_tokens", calls + len(pending))):
+        if counts[name] != want or not calls:
+            _fail(f"{tag}: {name} launched {counts[name]} times, expected "
+                  f"{want} ({len(pending)} admissions, {calls} decode "
+                  f"calls)")
+    return calls
+
+
+def phase_vlm():
+    """internvl2-2b's ``Server`` and ``PagedServer`` (pages of 16, the
+    dense cache's bytes) over the same requests, each run with the
+    counters set to 0 just before and read just after: K11 24 times per
+    admission, K7 (K8 paged) 24 times per decode call, K6 once per
+    admission and per call; every token in the vocabulary; the patch
+    prefill held against the plain path; preempt/restore bit-identical in
+    both servers."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import PagedServer, Server, lm_requests
+
+    cfg = get_arch("internvl2-2b")
+    t0 = time.perf_counter()
+    server = Server(cfg, slots=LM_B, max_len=LM_S, seed=SEED)
+    lengths = np.random.default_rng(SEED).integers(64, 961,
+                                                   size=VLM_REQUESTS)
+    pending = lm_requests(cfg, [int(n) for n in lengths],
+                          shared_prefix=LM_SHARED, seed=SEED)
+    server.admit(-1, pending[0][1][:64], 4)          # warm-up
+    while server.active.any():
+        server.step()
+    server.reset()
+    print(f"[vlm-serve] {cfg.name}: {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV "
+          f"heads of {cfg.head_dim}, vocab {cfg.vocab}; {LM_B} slots x "
+          f"{LM_S}, {VLM_MAX_NEW} new tokens; prompt lengths "
+          f"{[len(p) for _, p in pending]}; set-up "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    finished, admit_s, wave_s, occ, dt, counts = _lm_run(server, pending,
+                                                         VLM_MAX_NEW)
+    calls = _expect_attn_launches("vlm-serve", cfg, pending, counts,
+                                  "decode_attention")
+    _lm_report("vlm-serve", cfg, pending, finished, admit_s, wave_s, occ,
+               dt, counts, VLM_MAX_NEW)
+    print(f"[vlm-serve] {calls} decode calls", flush=True)
+    _check_vlm_patches(server)
+    _check_lm_preempt(server, pending, tag="vlm-serve")
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    paged = PagedServer(cfg, pool_pages=LM_POOL, page_size=LM_P,
+                        max_len=LM_S, seed=SEED)
+    p_fin, admit_s, wave_s, occ, dt, p_counts = _lm_run(paged, pending,
+                                                        VLM_MAX_NEW)
+    _expect_attn_launches("vlm-paged", cfg, pending, p_counts,
+                          "paged_decode_attention")
+    _lm_report("vlm-paged", cfg, pending, p_fin, admit_s, wave_s, occ, dt,
+               p_counts, VLM_MAX_NEW)
+    agree = sum(finished[r] == p_fin.get(r) for r in finished)
+    print(f"[vlm-paged] pool {paged.pool.n_pages} pages x {LM_P}: peak "
+          f"sharing_ratio {paged.peak_sharing:.3f}, cow {paged.pool.n_cow}, "
+          f"shared_hits {paged.pool.n_shared_hits}; {agree} of "
+          f"{len(finished)} requests decode the dense run's tokens",
+          flush=True)
+    if paged.pool.n_shared_hits <= 0 or paged.pool.pages_in_use != 0:
+        _fail("vlm-paged: no prefix page was shared, or pages leaked")
+    _check_lm_preempt(paged, pending, tag="vlm-paged")
+    return counts, p_counts
+
+
+# --------------------------------------------------------------- phase 24
+# The last three dense configs at full width, one at a time, each from an
+# emptied allocator: phi3-medium-14b (28.29 GB), stablelm-12b (24.29 GB;
+# E = 160), command-r-35b (60.57 GB, ~20 GB left beside it).  4 slots x
+# 1024 positions, 4 requests (64-960 tokens drawn with the seed), 8 new
+# tokens.
+DENSE_CFGS = ("phi3-medium-14b", "stablelm-12b", "command-r-35b")
+DENSE_SLOTS, DENSE_REQUESTS, DENSE_NEW = 4, 4, 8
+DENSE_CUT = 4            # layers of the held logits check
+
+
+def phase_dense_configs():
+    """Each of DENSE_CFGS: its ``param_bytes`` and ``require_weights_fit``
+    on the card; a ``Server`` serving 4 requests with the counters set to
+    0 just before and read just after (K11 40 times per admission, K7 40
+    times per decode call, K6 once per admission and per call); every
+    token in the vocabulary; the first request's prefill and 8 decode
+    logits (teacher-forced) against the plain path within 2e-2 through
+    DENSE_CUT layers.  Returns the launches summed over the three."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import (Server, lm_requests,
+                                          require_weights_fit)
+    from repro_torch.models import build_model
+    from repro_torch.params import param_bytes
+
+    total = {}
+    cap = torch.cuda.get_device_properties(0).total_memory
+    for name in DENSE_CFGS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_arch(name)
+        model = build_model(cfg)
+        nbytes = param_bytes(model.param_specs())
+        require_weights_fit(model, torch.device("cuda"))
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        server = Server(cfg, slots=DENSE_SLOTS, max_len=LM_S, seed=SEED)
+        lengths = np.random.default_rng(SEED).integers(
+            64, 961, size=DENSE_REQUESTS)
+        pending = lm_requests(cfg, [int(n) for n in lengths], seed=SEED)
+        server.admit(-1, pending[0][1][:64], 2)      # warm-up
+        while server.active.any():
+            server.step()
+        server.reset()
+        tag = f"dense-configs {name}"
+        print(f"[{tag}] {cfg.n_layers} layers, d {cfg.d_model}, "
+              f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads of "
+              f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+              f"param_bytes {nbytes} ({nbytes / 1e9:.2f} GB) fit the card's "
+              f"{cap / 1e9:.2f} GB (allocated before: {before / 2 ** 30:.2f} "
+              f"GiB); prompt lengths {[len(p) for _, p in pending]}; set-up "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        finished, admit_s, wave_s, occ, dt, counts = _lm_run(
+            server, pending, DENSE_NEW)
+        _expect_attn_launches(tag, cfg, pending, counts, "decode_attention")
+        _lm_report(tag, cfg, pending, finished, admit_s, wave_s, occ, dt,
+                   counts, DENSE_NEW)
+        rid, prompt = pending[0]
+        cut = _layer_cut(server, DENSE_CUT)
+        got = _teacher_forced_logits(cut, prompt, finished[rid], 8)
+        with _plain_kernels():
+            want = _teacher_forced_logits(cut, prompt, finished[rid], 8)
+        errs = [_norm_err(g, w)[1] for g, w in zip(got, want)]
+        print(f"[{tag}] request {rid} ({len(prompt)} prompt tokens) "
+              f"teacher-forced through {DENSE_CUT} layers, kernel vs plain "
+              f"path, normalised: prefill {errs[0]:.3g}, decode steps 1-8 "
+              f"{[round(e, 5) for e in errs[1:]]} (held at {K1_TOL})",
+              flush=True)
+        if not max(errs) <= K1_TOL:
+            _fail(f"{tag}: logits disagree with the plain path: {errs}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        del server, cut, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
 def _io_run(fn, argv):
     """``fn(argv)`` with its standard output captured: (result, text)."""
     import contextlib
@@ -4998,6 +5522,12 @@ def main() -> int:
         done("moe-paged")
         load_counts, trace_counts = phase_load()
         done("load")
+        encdec_counts = phase_encdec()
+        done("encdec")
+        vlm_counts, vlm_paged_counts = phase_vlm()
+        done("vlm")
+        dense_cfg_counts = phase_dense_configs()
+        done("dense-configs")
     except SystemExit:
         raise
     except Exception:                    # any phase failing fails the run
@@ -5057,6 +5587,15 @@ def main() -> int:
     for k in (k1s, k2):
         k["launches_trace_cli"] = trace_counts[k["name"]]
         launches[k["name"]] += trace_counts[k["name"]]
+    # phases 22-24: the encdec, vlm (dense and paged) and dense-configs
+    # runs (K11, K7, K8, K6)
+    for k in (k6, k7, k8, k11):
+        name = k["name"]
+        k["launches_encdec"] = encdec_counts[name]
+        k["launches_vlm"] = vlm_counts[name] + vlm_paged_counts[name]
+        k["launches_dense_cfgs"] = dense_cfg_counts[name]
+        launches[name] += (k["launches_encdec"] + k["launches_vlm"]
+                           + k["launches_dense_cfgs"])
     kernels = [k1, k1s, k2, k1c, k3, k4, k5["beam_frame_step"],
                k5["beam_frame_step_topc"], k6, k7, k8, k9, k10, k11]
     for k in kernels:

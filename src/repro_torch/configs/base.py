@@ -1,6 +1,7 @@
 """Architecture configuration: the port's own copy of the fields of
 ``repro.configs.base.ArchConfig`` (and of its ``MoEConfig`` and
-``SSMConfig``) that the lstm, dense, moe, ssm and hybrid families read.
+``SSMConfig``) that the lstm, dense, moe, ssm, hybrid, encdec and vlm
+families read.
 
 Configs are frozen dataclasses so they compare and hash by value.
 """
@@ -42,7 +43,7 @@ class ArchConfig:
     """One selectable architecture (``--arch <name>``)."""
 
     name: str
-    family: str               # "lstm" | "dense" | "moe" | "ssm" | "hybrid"
+    family: str     # lstm | dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int
     d_model: int
     vocab: int
@@ -64,6 +65,16 @@ class ArchConfig:
     window: int = 0
     window_for_long: int = 8192
     global_attn_layers: tuple = ()
+
+    # encoder-decoder (whisper, models/encdec.py): encoder layers
+    n_enc_layers: int = 0
+    # vlm: the share of a training shape's positions that are prefix patch
+    # embeddings (the reference's input_specs; the port's prefill takes
+    # whatever patches it is given)
+    vlm_patch_frac: float = 0.25
+    # modality frontend stub: 'none' | 'audio' (frame embeddings) |
+    # 'vision' (patch embeddings)
+    frontend: str = "none"
 
     # the MoE FFN of the moe family's layers (models/moe.py)
     moe: Optional[MoEConfig] = None
@@ -138,7 +149,8 @@ class ArchConfig:
         512, vocab <= 512, hidden 64, bottleneck 32, 2 learners, 1
         microbatch; an MoE keeps <= 4 experts, top-k <= 2, d_ff_expert and
         shared_d_ff <= 128 and routing groups of 64; an SSM keeps
-        state_dim <= 16 with head_dim 16 and chunk 16."""
+        state_dim <= 16 with head_dim 16 and chunk 16; an encoder keeps
+        1 layer."""
         d = min(self.d_model, 256)
         heads = min(self.n_heads, 4) or self.n_heads
         kv = min(self.n_kv_heads, 2) or self.n_kv_heads
@@ -158,6 +170,8 @@ class ArchConfig:
             changes["ssm"] = replace(self.ssm,
                                      state_dim=min(self.ssm.state_dim, 16),
                                      head_dim=16, chunk=16)
+        if self.n_enc_layers:
+            changes["n_enc_layers"] = 1
         if self.lstm_hidden:
             changes["lstm_hidden"] = 64
             changes["lstm_bottleneck"] = 32

@@ -47,8 +47,17 @@
 //   contiguous: the K-major B operand as it lies); O += P·V takes P from
 //   registers (the S accumulator re-packed as bf16 A fragments) and V
 //   from shared memory through wgmma's transposed-B mode, so no thread
-//   loads an operand by hand.  128-byte swizzle at E = 64 and 128 (a
+//   loads an operand by hand.  128-byte swizzle at E = 64, 128 and 160 (a
 //   64-column block is one 128-byte row), 64-byte at E = 32 (sm90.cuh).
+// * E = 160 (stablelm-12b): a 320-byte row is 2.5 column blocks of the
+//   128-byte swizzle, which no box or wgmma operand covers.  The tiles
+//   are kept EP = 192 columns wide: the TMA boxes read the third block
+//   past the tensor's 160 columns, which arrive as zeros; q·k walks only
+//   E / 16 = 10 k16 steps (the q columns past E are never read); p·v is
+//   one m64n192 product whose 32 columns past E sum zeros and are never
+//   stored.  The wider tiles leave room for a ring of 3 stages beside the
+//   128-row q tile (4 at E <= 128), and E = 160 takes 128-row items only
+//   (a 64-row item's merge area would not fit beside them).
 // * Overlap.  Each consumer is software-pipelined: step i issues tile i's
 //   q·k and tile i - 1's p·v, waits for the first only, and takes tile
 //   i's softmax while the tensor cores run the second; the other
@@ -104,7 +113,6 @@ using sm90::Wgmma;
 
 constexpr int BK = 64;                    // keys per K/V tile
 constexpr int WG_ROWS = 64;               // rows of one consumer warpgroup
-constexpr int STAGES = 4;                 // K/V ring depth
 constexpr float NEG_INF = -1e30f;
 
 struct Args {
@@ -132,8 +140,11 @@ struct Layout {
   static constexpr int CONSUMER_REGS = CONSUMERS == 2 ? 232 : 160;
   static constexpr int SPAN = E == 32 ? 64 : 128;   // bytes of a tile row
   static constexpr int COLS = SPAN / 2;             // columns of a block
-  static constexpr int Q_BYTES = ROWS * E * 2;
-  static constexpr int KV_BYTES = BK * E * 2;       // one K or V tile
+  // the tiles' width: E rounded up to whole column blocks (192 at E = 160)
+  static constexpr int EP = (E + COLS - 1) / COLS * COLS;
+  static constexpr int STAGES = EP > 128 ? 3 : 4;   // K/V ring depth
+  static constexpr int Q_BYTES = ROWS * EP * 2;
+  static constexpr int KV_BYTES = BK * EP * 2;      // one K or V tile
   static constexpr int BAR_OFF = Q_BYTES + 2 * STAGES * KV_BYTES;
   // SHARED: the second consumer's acc, m and l, one slot per thread
   static constexpr int MERGE_FLOATS = E / 2 + 4;
@@ -181,8 +192,8 @@ __global__ void __launch_bounds__(Layout<E, ITEM_ROWS>::THREADS, 1)
     flash_attn_kernel(const Args a, const __grid_constant__ CUtensorMap tmk,
                       const __grid_constant__ CUtensorMap tmv) {
   using L = Layout<E, ITEM_ROWS>;
-  constexpr int SPAN = L::SPAN, COLS = L::COLS, NCB = E / COLS;
-  constexpr int ROWS = L::ROWS;
+  constexpr int SPAN = L::SPAN, COLS = L::COLS, EP = L::EP, NCB = EP / COLS;
+  constexpr int ROWS = L::ROWS, STAGES = L::STAGES;
   constexpr bool SHARED = L::SHARED;
   extern __shared__ unsigned char smem_raw[];
   // 1024-byte aligned: the swizzle pattern is a function of the address
@@ -283,9 +294,11 @@ __global__ void __launch_bounds__(Layout<E, ITEM_ROWS>::THREADS, 1)
   const int w_last = (min(rw0 + WG_ROWS, n_rows) - 1) / M + a.q_offset;
   const uint32_t q_tile = sm90::smem_u32(qs) + c * WG_ROWS * SPAN;
 
-  float o[E / 2];
+  // the accumulator of p·v over EP columns: o[e] for e >= E / 2 holds the
+  // columns past E, zeros, never rescaled or stored
+  float o[EP / 2];
 #pragma unroll
-  for (int i = 0; i < E / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < EP / 2; ++i) o[i] = 0.f;
   float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
 
   // This group's tiles: the item's (SHARED: every other one, from tile
@@ -339,8 +352,8 @@ __global__ void __launch_bounds__(Layout<E, ITEM_ROWS>::THREADS, 1)
     const uint32_t v_tile = sm90::smem_u32(vs + stage(i) * L::KV_BYTES);
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      Wgmma<E>::template rs<1>(o, p[kk],
-                               sm90::desc_nmajor<SPAN>(v_tile, BK, kk), 1);
+      Wgmma<EP>::template rs<1>(o, p[kk],
+                                sm90::desc_nmajor<SPAN>(v_tile, BK, kk), 1);
     sm90::wgmma_commit();
   };
   // the online softmax of tile i's scores, left in sc as p; alpha rescales
@@ -545,10 +558,10 @@ int launch(const Args& a, const void* k, const void* v, cudaStream_t st) {
 }  // namespace
 
 // q (B, Sq, KV * M, E), k and v (B, Sk, KV, E), out like q; all bf16,
-// contiguous, 16-byte aligned.  E in {32, 64, 128}; window 0 means no
+// contiguous, 16-byte aligned.  E in {32, 64, 128, 160}; window 0 means no
 // window.  Items of `rows` flattened rows (`flash_attention.plan`): 64
-// (two consumers share the rows and split the key walk), 128, or 192 at
-// E <= 64.
+// (two consumers share the rows and split the key walk) at E <= 128, 128,
+// or 192 at E <= 64.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int B, int Sq, int Sk, int KV,
                                int M, int E, int causal, int window,
@@ -556,7 +569,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || M < 1 || window < 0 ||
       q_offset < 0 || (long long)Sq * M > (1LL << 30) ||
-      !(rows == 64 || rows == 128 || (rows == 192 && E <= 64)))
+      !(rows == 128 || (rows == 64 && E <= 128) || (rows == 192 && E <= 64)))
     return (int)cudaErrorInvalidValue;
   const int tiles = (int)(((long long)Sq * M + rows - 1) / rows);
   if ((long long)tiles * B * KV > 0x7fffffffLL)
@@ -575,6 +588,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     FA_CASE(32, 64) FA_CASE(64, 64) FA_CASE(128, 64)
     FA_CASE(32, 128) FA_CASE(64, 128) FA_CASE(128, 128)
     FA_CASE(32, 192) FA_CASE(64, 192)
+    FA_CASE(160, 128)
 #undef FA_CASE
     default: return (int)cudaErrorInvalidValue;
   }

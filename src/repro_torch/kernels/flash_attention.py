@@ -1,5 +1,7 @@
-"""Causal or sliding-window GQA flash attention: the wrapper of the K11
-port, the prefill attention of the dense, hybrid and MoE families.
+"""Causal, sliding-window or full GQA flash attention: the wrapper of the
+K11 port, the prefill attention of the dense, vlm, hybrid and MoE
+families and the encoder, self- and cross-attention of the encdec
+family.
 
 ``flash_attention`` has the contract of ``repro.kernels.flash_attention.
 flash_attention``: q (B, Sq, H, E), k/v (B, Sk, KV, E) -> (B, Sq, H, E)
@@ -23,7 +25,8 @@ The work is cut by :func:`plan`, a rule of the shape and the SM count:
 items of 192 or 128 flattened (position, head) rows (three or two
 consumer warpgroups of 64 rows) or, where such items would leave SMs
 idle, of 64 rows whose key walk two warpgroups share, merged in shared
-memory.
+memory.  E = 160 (stablelm-12b) keeps its tiles 192 columns wide, the
+columns past 160 zeros, and takes 128-row items only.
 """
 from __future__ import annotations
 
@@ -40,11 +43,12 @@ from repro_torch.kernels.ref import flash_attention_plain
 
 launches = 0          # K11 launches (one per flash_attention on the card)
 
-HEAD_DIMS = (32, 64, 128)     # the kernel's instantiations of E
+HEAD_DIMS = (32, 64, 128, 160)    # the kernel's instantiations of E
 BK = 64                       # keys per K/V tile
 # rows of an item, largest first: three consumer warpgroups of 64 rows (at
 # E <= 64 only: the accumulators of E = 128 do not fit), two, or one
-# shared by two warpgroups that walk every other key tile
+# shared by two warpgroups that walk every other key tile (at E <= 128
+# only: E = 160's 192-column tiles leave no room for their merge)
 ITEM_ROWS = (192, 128, 64)
 
 _P = ctypes.c_void_p
@@ -68,18 +72,24 @@ class Plan(NamedTuple):
     items: int          # blocks of the launch: tiles * B * KV
 
 
+def item_rows(E: int) -> tuple:
+    """The item sizes of ``ITEM_ROWS`` the kernel has at head_dim E."""
+    return tuple(r for r in ITEM_ROWS
+                 if not (r == 192 and E > 64 or r == 64 and E > 128))
+
+
 def plan(B, Sq, KV, M, E, sms) -> Plan:
-    """The launch of one call: items of the most rows of ``ITEM_ROWS``
-    whose count ``B * KV * ceil(Sq * M / rows)`` still reaches ``sms``,
-    else 64 rows, whose halved key chains fill a short grid.  At the
-    serving shapes on 132 SMs: hymba-1.5b's S = 1500 200 items of 192,
-    granite's S = 700 136 of 128, smollm-360m's S = 600 145 of 64 —
-    the fastest item size measured at each (PERF.md)."""
-    for rows in ITEM_ROWS:
-        if rows == 192 and E > 64:
-            continue
+    """The launch of one call: items of the most rows of
+    :func:`item_rows` whose count ``B * KV * ceil(Sq * M / rows)`` still
+    reaches ``sms``, else the fewest (64 rows, whose halved key chains
+    fill a short grid; 128 at E = 160).  At the serving shapes on 132
+    SMs: hymba-1.5b's S = 1500 200 items of 192, granite's S = 700 136 of
+    128, smollm-360m's S = 600 145 of 64 — the fastest item size measured
+    at each (PERF.md)."""
+    sizes = item_rows(E)
+    for rows in sizes:
         tiles = -(-Sq * M // rows)
-        if rows == ITEM_ROWS[-1] or tiles * B * KV >= sms:
+        if rows == sizes[-1] or tiles * B * KV >= sms:
             return Plan(rows, tiles, tiles * B * KV)
 
 

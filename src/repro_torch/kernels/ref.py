@@ -435,8 +435,9 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     heads per KV head, f32 scores, softmax and p·v.  With ``causal`` query
     row s sits at position ``q_offset + s`` and admits key t <= it; a
     ``window`` > 0 also requires position - t < window (a window past
-    every position is full attention).  Masked scores are -1e30, as the
-    reference's; any Sq and Sk."""
+    every position, or None, is full attention, as in the kernel's
+    wrapper).  Masked scores are -1e30, as the reference's; any Sq and
+    Sk."""
     B, Sq, H, E = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     M = H // KV
@@ -446,7 +447,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
         q_pos = q_offset + torch.arange(Sq, device=q.device)
         k_pos = torch.arange(Sk, device=q.device)
         ok = q_pos[:, None] >= k_pos[None, :]
-        if window > 0:
+        if window is not None and window > 0:
             ok = ok & (q_pos[:, None] - k_pos[None, :] < window)
         s = torch.where(ok[None, None, None], s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)

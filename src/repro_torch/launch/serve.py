@@ -4,11 +4,14 @@
 Two request families share the slot-pool pattern (admit into free slots,
 advance all active slots together, free and refill on completion):
 
-* **LM** (the dense decoder family, e.g. ``smollm-360m``, the moe
-  family, e.g. ``granite-moe-3b-a800m``, whose FFNs are mixtures of
-  experts, the attention-free ssm family, e.g. ``mamba2-370m``, and the
-  hybrid family, e.g. ``hymba-1.5b``, whose layers run attention and SSM
-  heads side by side): admission prefills the prompt and emits the first
+* **LM** (the dense decoder family, e.g. ``smollm-360m`` or
+  ``command-r-35b``, the vlm family, ``internvl2-2b``, served with token
+  prompts as the reference serves it, the moe family, e.g.
+  ``granite-moe-3b-a800m``, whose FFNs are mixtures of experts, the
+  attention-free ssm family, e.g. ``mamba2-370m``, and the hybrid
+  family, e.g. ``hymba-1.5b``, whose layers run attention and SSM heads
+  side by side; not the encdec family, which the reference's servers
+  refuse too): admission prefills the prompt and emits the first
   token; every decode wave advances the active requests one token
   through the model's ``decode_step``, and selects tokens with the
   argmax kernel (K6 port).  Prefill attention is the flash-attention
@@ -16,7 +19,7 @@ advance all active slots together, free and refill on completion):
   attention is the decode-attention kernel (K7 port) over the dense KV
   cache of :class:`Server`, or the paged kernel (K8 port) over the
   shared page pool of :class:`PagedServer` (attention-only families:
-  dense and moe).  A moe layer's dense-router FFN is the fused dense-MoE
+  dense, moe and vlm).  A moe layer's dense-router FFN is the fused dense-MoE
   kernel (K10 port), in prefill and in decode.  The SSM blocks' prefill
   runs the chunked SSD scan (K9 port) in every layer; their decode
   advances per-slot conv windows and SSM states in plain torch ops.
@@ -51,6 +54,9 @@ synchronizations than an untraced one.
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch granite-moe-3b-a800m --requests 16 --slots 8 \
         --prompt-len 700 --max-len 1024 --max-new 24 [--cache paged]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-2b \
+        --requests 8 --slots 4 --prompt-len 300 --max-len 512 --max-new 24 \
+        [--cache paged]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch swb2000-blstm \
         --requests 8 --slots 4 --prompt-len 256 --max-len 256
 """
@@ -83,11 +89,22 @@ from repro_torch.serving.kvpool import PagePool, cdiv
 H100_BYTES = 80e9     # the card the port serves on, for a CPU run
 
 
+def _require_decoder_only(cfg):
+    """The LM servers run decoder-only families: the encdec family has no
+    server (the reference's ``Server`` and ``PagedServer`` assert it
+    away); its entry points are ``Model.prefill_fn`` / ``decode_fn``."""
+    if not cfg.supports_decode:
+        raise ValueError(f"{cfg.name} has no LM decode loop")
+    if cfg.family == "encdec":
+        raise ValueError(f"{cfg.name}: the LM servers cover decoder-only "
+                         f"families, not encdec")
+
+
 def require_weights_fit(model, device: torch.device):
     """ValueError when the model's weights alone exceed the memory of the
     card that would serve them: the CUDA device's own, or on the CPU (which
     runs the card's path at small widths) one H100's.  llama4-scout-17b-a16e
-    at full width holds ~214 GB of bf16."""
+    at full width holds ~214 GB of bf16; command-r-35b's 60.57 GB fit."""
     nbytes = param_bytes(model.param_specs())
     cap = (torch.cuda.get_device_properties(device).total_memory
            if device.type == "cuda" else H100_BYTES)
@@ -203,8 +220,8 @@ class Server(_SlotPool):
 
     The cache is a tree whose leaves carry (L, slots, ...) on the device:
     {'attn': {'k', 'v'}}, each (L, slots, max_len, KV, E) bf16, for the
-    dense and moe families; {'ssm': {'conv': {'x', 'B', 'C'}, 'h'}} for
-    the ssm family; both for the hybrid family.  Admission, preemption
+    dense, moe and vlm families; {'ssm': {'conv': {'x', 'B', 'C'}, 'h'}}
+    for the ssm family; both for the hybrid family.  Admission, preemption
     and restore move a slot's row of every leaf.  Weights are drawn from
     ``seed`` on the server's device (:func:`init_params`).
     Assign ``server.params`` to serve other weights (e.g. carried over
@@ -214,8 +231,7 @@ class Server(_SlotPool):
 
     def __init__(self, cfg, *, slots: int, max_len: int, seed: int = 0,
                  batched: bool = True, device=None, verbose: bool = False):
-        if not cfg.supports_decode:
-            raise ValueError(f"{cfg.name} has no LM decode loop")
+        _require_decoder_only(cfg)
         super().__init__(slots, verbose)
         self.cfg = cfg
         self.model = build_model(cfg)
@@ -421,8 +437,9 @@ class PagedServer(_Events):
     * **preempt/restore** — the snapshot is the table's pages on the host;
       restore re-allocates through the trie and writes the owned pages.
 
-    Attention-only (the dense and moe families): a family with per-slot
-    SSM state (ssm, hybrid) raises ValueError.
+    Attention-only (the dense, moe and vlm families): a family with
+    per-slot SSM state (ssm, hybrid), or with an encoder (encdec), raises
+    ValueError.
     """
 
     emits_on_admit = True
@@ -430,8 +447,7 @@ class PagedServer(_Events):
     def __init__(self, cfg, *, pool_pages: int, page_size: int,
                  max_len: int, seed: int = 0, share: bool = True,
                  device=None, verbose: bool = False):
-        if not cfg.supports_decode:
-            raise ValueError(f"{cfg.name} has no LM decode loop")
+        _require_decoder_only(cfg)
         if cfg.family not in ATTENTION_ONLY:
             raise ValueError(f"paged KV cache needs an attention-only "
                              f"family, got {cfg.family}")
@@ -914,10 +930,13 @@ def _finish_trace(server, args):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-360m",
-                    help="smollm-360m (dense LM), granite-moe-3b-a800m or "
+                    help="smollm-360m, phi3-medium-14b, stablelm-12b or "
+                         "command-r-35b (dense LM), internvl2-2b (vlm LM, "
+                         "token prompts), granite-moe-3b-a800m or "
                          "llama4-scout-17b-a16e (moe LM; llama4 --reduced "
                          "only), mamba2-370m (ssm LM), hymba-1.5b (hybrid "
-                         "LM) or swb2000-blstm (ASR)")
+                         "LM) or swb2000-blstm (ASR); whisper-large-v3 "
+                         "(encdec) has no server")
     ap.add_argument("--reduced", action="store_true",
                     help="serve the reference's smoke-test width (2 "
                          "layers, d_model <= 256, vocab <= 512; lstm: "

@@ -1,15 +1,20 @@
 """Model facade: one interface over the ported families — the port of
-``repro.models.api`` for the dense, moe, ssm, hybrid and lstm families.
+``repro.models.api`` for the dense, moe, ssm, hybrid, vlm, encdec and
+lstm families.
 
 ``build_model(cfg)`` returns a :class:`Model` exposing ``param_specs()``,
-``prefill_fn`` / ``decode_fn`` (serving steps: the dense and moe
+``prefill_fn`` / ``decode_fn`` (serving steps: the dense, moe and vlm
 families over a dense or paged KV cache — a moe layer's FFN is a mixture
 of experts, the fused dense-MoE kernel on the card under the dense
-router — the ssm family over per-slot conv windows and SSM states, the
-hybrid family over both: a dense KV cache and the SSM states),
-``cache_specs(batch, cache_len)`` and ``page_specs(n_pages, page_size)``
-(attention-only: ValueError for the ssm and hybrid families).  The lstm
-family has parameters but no decode loop; its ASR server calls
+router; a vlm prefill may prefix ``batch['patches']`` to the tokens —
+the ssm family over per-slot conv windows and SSM states, the hybrid
+family over both: a dense KV cache and the SSM states; the encdec family
+(``models/encdec.py``) encodes ``batch['frames']`` and decodes over a
+self and a cross cache, never paged), ``cache_specs(batch, cache_len)``
+(encdec: also ``enc_len``, the encoder frames; ``cache_len`` by default,
+the reference's even split) and ``page_specs(n_pages, page_size)``
+(attention-only: ValueError for the ssm, hybrid and encdec families).
+The lstm family has parameters but no decode loop; its ASR server calls
 ``models/lstm.py`` directly.
 """
 from __future__ import annotations
@@ -17,6 +22,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import encdec as ED
 from repro_torch.models import lstm as LS
 from repro_torch.models import transformer as TF
 
@@ -26,7 +32,10 @@ class Model:
     cfg: ArchConfig
 
     def param_specs(self):
-        if self.cfg.family == "lstm":
+        fam = self.cfg.family
+        if fam == "encdec":
+            return ED.param_specs(self.cfg)
+        if fam == "lstm":
             return LS.param_specs(self.cfg)
         return TF.param_specs(self.cfg)
 
@@ -37,23 +46,36 @@ class Model:
 
     def prefill_fn(self, params, batch, *, cache_len: int = 0):
         self._decoder()
+        if self.cfg.family == "encdec":
+            return ED.prefill(self.cfg, params, batch["frames"],
+                              batch["tokens"], cache_len=cache_len)
         return TF.prefill(self.cfg, params, batch["tokens"],
-                          cache_len=cache_len)
+                          cache_len=cache_len, patches=batch.get("patches"))
 
     def decode_fn(self, params, cache, tokens, pos, *, page_table=None,
                   page_size: int = 0):
         self._decoder()
+        if self.cfg.family == "encdec":
+            if page_table is not None:
+                raise ValueError("paged KV cache: decoder-only families")
+            return ED.decode_step(self.cfg, params, cache, tokens, pos)
         return TF.decode_step(self.cfg, params, cache, tokens, pos,
                               page_table=page_table, page_size=page_size)
 
-    def cache_specs(self, batch: int, cache_len: int):
+    def cache_specs(self, batch: int, cache_len: int, enc_len: int = 0):
         self._decoder()
+        if self.cfg.family == "encdec":
+            return ED.cache_specs(self.cfg, batch, cache_len,
+                                  enc_len or cache_len)
         return TF.cache_specs(self.cfg, batch, cache_len)
 
     def page_specs(self, n_pages: int, page_size: int):
         """Paged decode-state specs (one shared page pool; serve.py
-        ``--cache paged``); ValueError for a family without attention."""
+        ``--cache paged``); ValueError for a family without attention or
+        with an encoder."""
         self._decoder()
+        if self.cfg.family == "encdec":
+            raise ValueError("paged KV cache: decoder-only families")
         return TF.page_specs(self.cfg, n_pages, page_size)
 
 

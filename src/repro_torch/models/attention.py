@@ -1,14 +1,15 @@
 """Grouped-query attention — the port of ``repro.models.attention`` for the
-dense decoder (the GSPMD-only ``seq_shard`` modes are not carried: the
-port runs on one card).
+decoders and the encoder-decoder (the GSPMD-only ``seq_shard`` modes are
+not carried: the port runs on one card).
 
 * ``attn_seq``    — full-sequence attention: the reference's plain
   q-chunked path, in torch ops (bf16 products, f32 softmax, p cast to
   the value dtype before p·v), with a masked ragged last chunk where the
   reference asserts Sq % q_chunk == 0.
-* ``attn_prefill`` — the model's causal prefill attention: on the card
-  the flash-attention kernel (the K11 port, any prompt length), on the
-  CPU ``attn_seq``, the reference model's own prefill math.
+* ``attn_prefill`` — the model's prefill attention, causal or (an
+  encoder's, a cross-attention's) not: on the card the flash-attention
+  kernel (the K11 port, any prompt length), on the CPU ``attn_seq``, the
+  reference model's own prefill math.
 * ``attn_decode`` / ``attn_decode_delta`` — the single-token step
   against a dense cache (B, S, KV, E) or, with ``page_table``, a page
   pool (n_pages, P, KV, E).  Both go through the decode-attention
@@ -123,17 +124,20 @@ def attn_seq(q, k, v, *, causal: bool, window=None, q_chunk: int = 512,
     return o.reshape(B, Sq, G * M, E)
 
 
-def attn_prefill(q, k, v, *, window=None):
-    """Causal self-attention of a prompt: q (B, S, H, E), k/v (B, S, KV,
-    E) -> (B, S, H, E); ``window`` None or past S is full attention.  On
-    the card the K11 kernel (``kernels.flash_attention``); on the CPU
-    :func:`attn_seq`.  Both round p to bf16 once before p·v, as the
-    reference's prefill does.  A branch on the device, not a fallback: the
-    card never runs ``attn_seq``."""
+def attn_prefill(q, k, v, *, window=None, causal: bool = True):
+    """Full-sequence attention of a prompt: q (B, Sq, H, E), k/v (B, Sk,
+    KV, E) -> (B, Sq, H, E).  Causal (self-attention, Sq = Sk; ``window``
+    None or past S is full attention), or with ``causal=False`` every
+    query sees every key, for any Sq and Sk (an encoder's self-attention,
+    a decoder's cross-attention over the encoder output; the window plays
+    no part).  On the card the K11 kernel (``kernels.flash_attention``);
+    on the CPU :func:`attn_seq`.  Both round p to bf16 once before p·v, as
+    the reference's prefill does.  A branch on the device, not a fallback:
+    the card never runs ``attn_seq``."""
     if q.device.type == "cpu":
-        return attn_seq(q, k, v, causal=True, window=window)
+        return attn_seq(q, k, v, causal=causal, window=window)
     return FA.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                              causal=True, window=window)
+                              causal=causal, window=window)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Shared model helpers: norms, RoPE, activations, masks and the loss —
-the port of ``repro.models.common``."""
+"""Shared model helpers: norms, RoPE and sinusoidal positions,
+activations, masks and the loss — the port of ``repro.models.common``."""
 from __future__ import annotations
 
 import numpy as np
@@ -44,7 +44,7 @@ def rmsnorm(x, scale=None, eps: float = 1e-5):
 
 
 # ---------------------------------------------------------------------------
-# Rotary positions, activations
+# Rotary and sinusoidal positions, activations
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
@@ -77,6 +77,20 @@ def apply_rope(x, positions, theta: float):
     if theta <= 0:
         return x
     return rotate(x, *rope_angles(positions, x.shape[-1], theta))
+
+
+def sinusoidal_positions(positions, d_model: int):
+    """Whisper-style fixed sinusoidal embeddings of ``positions`` (..., S)
+    -> (..., S, d_model) f32: [sin, cos] of positions x exp(-ln(10^4) i /
+    (d/2 - 1)), computed in f32 as the reference computes them (its
+    callers cast to the activations' dtype), on the positions' device."""
+    half = d_model // 2
+    i = torch.arange(half, dtype=torch.float32, device=positions.device)
+    c = torch.tensor(-np.log(10_000.0), dtype=torch.float32,
+                     device=positions.device)
+    freqs = torch.exp(c * i / float(max(half - 1, 1)))
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def gelu(x):

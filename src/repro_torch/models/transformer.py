@@ -1,9 +1,9 @@
-"""Decoder-only stack: the dense, moe, ssm and hybrid families of
+"""Decoder-only stack: the dense, moe, ssm, hybrid and vlm families of
 ``repro.models.transformer`` — parameter specs, the sequence forward
 (prefill), the one-token decode step, and the decode-state layouts
-(dense KV rows or a page pool for the dense and moe families; per-slot
-conv windows and SSM states for the ssm family; both halves, KV rows and
-SSM states, for the hybrid family).
+(dense KV rows or a page pool for the dense, moe and vlm families;
+per-slot conv windows and SSM states for the ssm family; both halves, KV
+rows and SSM states, for the hybrid family).
 
 Layers are stacked along a leading axis L, as the reference stacks them
 for ``lax.scan``; here a Python loop walks them (no remat: inference
@@ -13,12 +13,16 @@ the same normed input and adds the mean of their rmsnormed outputs
 (Hymba's fusion) before its FFN.  A moe layer's FFN is
 ``moe.moe_ffn`` (the K10 kernel on the card under the dense router);
 its auxiliary loss is not built, as the reference's decode discards it.
+A vlm layer is a dense layer; the family's prefill may put image patch
+embeddings (a stub's output) before the text tokens
+(:func:`embed_with_prefix`), and the decode continues after both.
 The decode step keeps the reference's shape: each attention layer
 attends over the OLD cache plus the new token's column
 (``attn_decode_delta``), and the new K/V of all layers land in ONE
 stacked write after the loop; each SSM block's state rows are replaced
-in place.  The other families (encdec, vlm) raise
-``NotImplementedError`` naming their ROADMAP item.
+in place.  The encdec family has its own module (``models/encdec.py``,
+which ``models/api.py`` routes it to); here it raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -36,24 +40,24 @@ from repro_torch.params import ParamSpec
 GLOBAL_WINDOW = np.int32(2 ** 30)   # "window" meaning full attention
 
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-ATTENTION_ONLY = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+ATTENTION_ONLY = ("dense", "moe", "vlm")
 
 
 def _require_ported(cfg):
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported (ROADMAP queue 1, 'Other "
-            f"families'); the port's transformer covers the dense, moe, "
-            f"ssm and hybrid families")
+            f"family {cfg.family!r} is not a family of the decoder-only "
+            f"stack (dense, moe, ssm, hybrid, vlm); the encdec family is "
+            f"models/encdec.py's")
 
 
 def _require_attention(cfg):
     """The paged KV cache holds attention keys and values only: the ssm
     family's state is per-slot O(1) and has nothing to page, and the
     hybrid family's per-slot SSM state is refused with it, as the
-    reference refuses every family that is not attention-only (dense and
-    moe here)."""
+    reference refuses every family that is not attention-only (dense, moe
+    and vlm)."""
     _require_ported(cfg)
     if cfg.family not in ATTENTION_ONLY:
         raise ValueError(f"paged KV cache needs an attention-only family, "
@@ -233,6 +237,16 @@ def embed_tokens(cfg, params, tokens):
     return params["embed"][tokens.long()].to(torch.bfloat16)
 
 
+def embed_with_prefix(cfg, params, tokens, patches=None):
+    """The vlm family's early fusion: patch embeddings (B, S_patch, d),
+    cast to bf16, then the text tokens' embeddings; the tokens' alone
+    without patches."""
+    xt = embed_tokens(cfg, params, tokens)
+    if patches is None:
+        return xt
+    return torch.cat([patches.to(torch.bfloat16), xt], dim=1)
+
+
 def logits_fn(cfg, params, x):
     if cfg.tie_embeddings:
         return x @ params["embed"].T
@@ -271,7 +285,7 @@ def _stack_state(spec_tree, n):
 def page_specs(cfg, n_pages: int, page_size: int) -> dict:
     """Paged KV cache: ONE pool of physical pages shared by every
     in-flight request, k, v (L, n_pages, page_size, KV, E) bf16.
-    Attention-only families (dense, moe): ValueError for the ssm and
+    Attention-only families (dense, moe, vlm): ValueError for the ssm and
     hybrid families."""
     _require_attention(cfg)
     shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
@@ -354,12 +368,14 @@ def _decode_step_ssm(cfg, params, cache, tokens):
     return logits_fn(cfg, params, x), cache
 
 
-def prefill(cfg, params, tokens, *, cache_len: int = 0):
-    """Full-context forward of tokens (B, S) -> (last-token logits
-    (B, 1, V), the decode cache): {'attn': {'k', 'v'}} of length
-    max(S, cache_len) for the dense and moe families, {'ssm': {'conv',
-    'h'}} for the ssm family, both for the hybrid family."""
-    x = embed_tokens(cfg, params, tokens)
+def prefill(cfg, params, tokens, *, cache_len: int = 0, patches=None):
+    """Full-context forward of tokens (B, S), after ``patches`` (B,
+    S_patch, d) where given (:func:`embed_with_prefix`) -> (last-token
+    logits (B, 1, V), the decode cache): {'attn': {'k', 'v'}} of length
+    max(S_patch + S, cache_len) for the dense, moe and vlm families,
+    {'ssm': {'conv', 'h'}} for the ssm family, both for the hybrid
+    family."""
+    x = embed_with_prefix(cfg, params, tokens, patches)
     cache_len = cache_len or x.shape[1]
     x, caches = forward_seq(cfg, params, x, collect_cache=True,
                             cache_len=cache_len)

@@ -6,7 +6,10 @@ keys — the BLSTM's ``layers/layer_i/{fwd,bwd}/{wx,wh,b}``,
 layer-stacked ``layers/{ln1,attn,ln2,mlp}/...``, for the moe family
 ``layers/{ln1,attn,ln2,moe}/...``, for the ssm family
 ``layers/{ln1,ssm}/...`` (leading axis L),
-``embed`` and ``final_norm`` — so a JAX parameter tree converted to
+``embed`` and ``final_norm`` (the vlm family's are the dense family's);
+the encdec family's ``embed``, ``enc_layers/{ln1,attn,ln2,mlp}/...``,
+``enc_norm``, ``dec_layers/{ln1,self_attn,lnx,cross_attn,ln2,mlp}/...``
+and ``dec_norm`` — so a JAX parameter tree converted to
 numpy loads one-to-one through :func:`from_jax_params`, and a JAX train
 state through :func:`from_jax_state`.
 """
@@ -30,9 +33,17 @@ class ParamSpec(NamedTuple):
     init_scale: float = 0.02
 
 
+# a leaf is drawn in f32 and cast, so drawing it whole takes an f32 copy
+# beside its own bytes; a leaf of more elements than this (8 GiB of f32)
+# is drawn one slice of its first axis at a time, which lets command-r-
+# 35b's 60.57 GB of bf16 weights be drawn on one 80 GB card
+DRAW_WHOLE_MAX = 2 ** 31
+
+
 def _init_one(ps: ParamSpec, gen: torch.Generator) -> torch.Tensor:
     """``sharding.init_param`` semantics: draws in f32 on the generator's
-    device, then casts."""
+    device, then casts (a leaf past ``DRAW_WHOLE_MAX`` elements a slice of
+    its first axis at a time)."""
     dtype, dev = _DTYPES[ps.dtype], gen.device
     if ps.init == "zeros":
         return torch.zeros(ps.shape, dtype=dtype, device=dev)
@@ -43,13 +54,25 @@ def _init_one(ps: ParamSpec, gen: torch.Generator) -> torch.Tensor:
         u = torch.rand(ps.shape, generator=gen, dtype=torch.float32,
                        device=dev)
         return torch.log(1.0 + 15.0 * u).to(dtype)
-    z = torch.randn(ps.shape, generator=gen, dtype=torch.float32, device=dev)
     if ps.init == "lecun":
         fan_in = ps.shape[0] if len(ps.shape) >= 1 else 1
-        return z.mul_(1.0 / np.sqrt(max(fan_in, 1))).to(dtype)
-    if ps.init == "normal":
-        return z.mul_(ps.init_scale).to(dtype)
-    raise ValueError(f"unknown init {ps.init!r}")
+        scale = 1.0 / np.sqrt(max(fan_in, 1))
+    elif ps.init == "normal":
+        scale = ps.init_scale
+    else:
+        raise ValueError(f"unknown init {ps.init!r}")
+
+    def draw(shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float32,
+                           device=dev).mul_(scale).to(dtype)
+
+    if len(ps.shape) < 2 or np.prod(ps.shape, dtype=np.int64) <= \
+            DRAW_WHOLE_MAX:
+        return draw(ps.shape)
+    out = torch.empty(ps.shape, dtype=dtype, device=dev)
+    for i in range(ps.shape[0]):
+        out[i] = draw(ps.shape[1:])
+    return out
 
 
 def _map_tree(fn, tree):

@@ -106,6 +106,8 @@ def test_global_window_is_full_attention():
     tq, tk, tv, full = _check_plain(1, 70, 70, 4, 2, 64, "float32", seed=8)
     glob = flash_attention_plain(tq, tk, tv, window=int(GLOBAL_WINDOW))
     assert torch.equal(glob, full)
+    # None is no window, as in the wrapper (the encdec layers pass it)
+    assert torch.equal(flash_attention_plain(tq, tk, tv, window=None), full)
     assert FA.kernel_window(GLOBAL_WINDOW, causal=True, q_offset=0,
                             Sq=70) == 0
     assert FA.kernel_window(69, causal=True, q_offset=0, Sq=70) == 69

@@ -677,6 +677,8 @@ def _attn_inputs(cuda, B, S, KV, M, E, seed, n_pages=None, P=None):
     (2, 64, 4, 1, 32, 64, 5),          # M = 1, one tile
     (2, 70, 2, 5, 256, 32, None),      # E = 256
     (8, 1024, 5, 3, 64, None, None),   # the serve shape, default tile
+    (8, 1500, 20, 1, 64, None, None),  # whisper-large-v3's cross cache
+    (4, 1024, 8, 4, 160, None, None),  # stablelm-12b's E = 160
 ])
 def test_decode_attention_kernel_matches_plain(cuda, delta, B, S, KV, M, E,
                                                block_s, window):
@@ -955,6 +957,60 @@ def test_lm_servers_on_card_match_cpu(cuda):
     assert all(n > c for n, c in zip(now, counts))
 
 
+def test_encdec_and_vlm_on_card_match_cpu(cuda):
+    """Reduced whisper-large-v3: the card's prefill and 3 decode steps
+    (K11, K7, K6) agree with the CPU's at bf16 tolerance; reduced
+    internvl2-2b: a prefill with patch embeddings likewise, and both
+    servers finish every request on the card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.serve import (PagedServer, Server, lm_requests,
+                                          serve_lm)
+    from repro_torch.models import build_model
+    from repro_torch.params import init_params
+
+    cfg = get_arch("whisper-large-v3").reduced()
+    model = build_model(cfg)
+    params = init_params(model.param_specs(), 0, "cpu")
+    g = torch.Generator().manual_seed(3)
+    batch = {"frames": torch.randn(2, 70, cfg.d_model, generator=g),
+             "tokens": torch.randint(0, cfg.vocab, (2, 5), generator=g)}
+    before = FA.launches
+    outs = []
+    for dev in ("cpu", cuda):
+        p = _to(params, dev)
+        logits, cache = model.prefill_fn(
+            p, {k: v.to(dev) for k, v in batch.items()}, cache_len=16)
+        got = [logits.float().cpu()]
+        for i in range(3):
+            tok = batch["tokens"][:, i:i + 1].to(dev)
+            logits, cache = model.decode_fn(p, cache, tok, 5 + i)
+            got.append(logits.float().cpu())
+        outs.append(got)
+    assert FA.launches == before + cfg.n_enc_layers + 2 * cfg.n_layers
+    for want, got in zip(*outs):
+        assert _norm_err(got, want) <= BF16_TOL
+
+    cfg = get_arch("internvl2-2b").reduced()
+    cpu = Server(cfg, slots=2, max_len=32, device="cpu")
+    gpu = Server(cfg, slots=2, max_len=32)
+    gpu.params = _to(cpu.params, cuda)
+    vis = {"tokens": torch.randint(0, cfg.vocab, (1, 6), generator=g),
+           "patches": 0.02 * torch.randn(1, 8, cfg.d_model, generator=g)}
+    want, _ = cpu.model.prefill_fn(cpu.params, vis, cache_len=32)
+    got, _ = gpu.model.prefill_fn(
+        gpu.params, {k: v.to(cuda) for k, v in vis.items()}, cache_len=32)
+    assert _norm_err(got.cpu(), want) <= BF16_TOL
+    pending = lm_requests(cfg, [5, 9, 12])
+    paged = PagedServer(cfg, pool_pages=16, page_size=4, max_len=32)
+    paged.params = gpu.params
+    for server in (gpu, paged):
+        fin, _, _, _ = serve_lm(server, pending, 4)
+        assert sorted(dict(fin)) == [0, 1, 2]
+        assert all(len(t) == 4 and all(0 <= x < cfg.vocab for x in t)
+                   for t in dict(fin).values())
+
+
 def _ssd_inputs(cuda, B, S, H, P, G, N, seed, dtype=torch.bfloat16):
     g = torch.Generator().manual_seed(seed)
     x = torch.randn(B, S, H, P, generator=g).to(cuda, dtype)
@@ -1131,6 +1187,15 @@ def _check_flash(cuda, B, Sq, Sk, H, KV, E, causal, window, q_offset, seed):
     (2, 100, 130, 6, 2, 32, True, 0, 0),       # E = 32
     (2, 100, 130, 6, 2, 128, True, 0, 0),      # E = 128
     (1, 300, 300, 6, 3, 128, False, 0, 0),     # E = 128, non-causal
+    # E = 160 (stablelm-12b: 192-column tiles, 128-row items): its
+    # prefill, a window, q_offset, non-causal with Sq != Sk
+    (1, 1000, 1000, 32, 8, 160, True, 0, 0),
+    (2, 77, 77, 8, 2, 160, True, 16, 0),
+    (1, 37, 300, 8, 2, 160, True, 0, 263),
+    (2, 5, 333, 4, 4, 160, False, 0, 0),
+    # whisper-large-v3's encoder (MHA, non-causal) and cross-attention
+    (1, 1500, 1500, 20, 20, 64, False, 0, 0),
+    (8, 4, 1500, 20, 20, 64, False, 0, 0),
 ])
 def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, KV, E,
                                               causal, window, q_offset):

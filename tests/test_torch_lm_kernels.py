@@ -30,7 +30,7 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 KV, E = 2, 16
 
 
-def _arrays(seed, B, S, M, dtype, n_pages=None, P=None):
+def _arrays(seed, B, S, M, dtype, n_pages=None, P=None, E=E):
     rng = np.random.default_rng(seed)
     H = KV * M
     cache = (n_pages, P) if n_pages else (B, S)
@@ -74,6 +74,26 @@ def test_decode_attention_plain_matches_pallas(S, block_s, window, M, delta,
         got = DA.decode_attention(tt["q"], tt["k"], tt["v"], pos,
                                   window=window, block_s=block_s, **extra_t)
         assert got.dtype == tt["q"].dtype and got.shape == tt["q"].shape
+        assert _err(got, want) <= TOL[dtype], (pos, _err(got, want))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("delta", [False, True])
+@pytest.mark.parametrize("M,E_,S", [(1, 64, 100), (4, 160, 40)])
+def test_decode_attention_plain_matches_pallas_wide(S, E_, M, delta, dtype):
+    """whisper-large-v3's decode shape (MHA, M = 1, E = 64): its cross-
+    attention reads the whole cache at pos S - 1 (canonical), its self-
+    attention the delta variant; and stablelm-12b's (M = 4, E = 160)."""
+    jx, tt = _arrays(S + E_ + M, 2, S, M, dtype, E=E_)
+    extra_j = dict(k_new=jx["kn"], v_new=jx["vn"]) if delta else {}
+    extra_t = dict(k_new=tt["kn"], v_new=tt["vn"]) if delta else {}
+    for pos, window in ((0, None), (17, None), (S - 1, None), (S - 1, 9)):
+        want = jax_decode_attention(jx["q"], jx["k"], jx["v"], pos,
+                                    window=window, block_s=16,
+                                    interpret=True, **extra_j)
+        got = DA.decode_attention(tt["q"], tt["k"], tt["v"], pos,
+                                  window=window, block_s=16, **extra_t)
+        assert got.shape == tt["q"].shape
         assert _err(got, want) <= TOL[dtype], (pos, _err(got, want))
 
 

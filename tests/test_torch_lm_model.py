@@ -145,10 +145,14 @@ def test_init_params_ones_and_windows(models):
 
 
 def test_other_families_raise():
-    cfg = dataclasses.replace(get_arch("smollm-360m").reduced(),
-                              family="vlm")
-    with pytest.raises(NotImplementedError, match="Other families"):
-        build_model(cfg).param_specs()
+    """The decoder-only stack refuses the encdec family, which
+    ``models/encdec.py`` carries and ``build_model`` routes there; a vlm
+    config builds the dense tree."""
+    cfg = get_arch("smollm-360m").reduced()
+    with pytest.raises(NotImplementedError, match="encdec.py"):
+        TT.param_specs(dataclasses.replace(cfg, family="encdec"))
+    vlm = build_model(dataclasses.replace(cfg, family="vlm")).param_specs()
+    assert vlm == build_model(cfg).param_specs()
 
 
 # ---------------------------------------------------------------------------

@@ -31,6 +31,7 @@ from repro.sharding import init_spec_tree  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import ssm as TSM  # noqa: E402
+from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.params import ParamSpec, from_jax_params, init_params  # noqa: E402
 
 BF16_TOL = 2e-2
@@ -145,9 +146,8 @@ def test_init_small_a_log_and_per_layer_fan_in(models):
 
 def test_other_families_and_paged_ssm_raise(models):
     tcfg, tm, tp = models[1], models[3], models[5]
-    for fam in ("encdec", "vlm"):
-        with pytest.raises(NotImplementedError, match="Other families"):
-            build_model(dataclasses.replace(tcfg, family=fam)).param_specs()
+    with pytest.raises(NotImplementedError, match="encdec.py"):
+        TT.layer_param_specs(dataclasses.replace(tcfg, family="encdec"))
     with pytest.raises(ValueError, match="attention-only"):
         tm.page_specs(8, 4)
     cache = {"ssm": {}}
