@@ -322,14 +322,49 @@ Phases, each of which fails the run (nonzero exit, no result line):
     stablelm's S = 1000 (E = 160), whisper's encoder (S = 1500, non-
     causal) and cross-attention (4 queries over 1500 frames).
 
+25. lm-train — the transformer families' training through
+    ``launch.train`` (``setup_training``, ``run``, ``main``) and
+    ``Model.loss_fn``, every run from an emptied allocator with the
+    counters set to 0 just before its steps and read just after: (a)
+    ``smollm-360m`` at full width and depth (32 layers, d 960), ad_psgd
+    over 16 learners, batch 32 x 128 tokens, 2 microbatches, 2 warm-up
+    and 5 timed steps: loss per step, ms/step, tokens/s, peak memory, K11
+    launches per step held to 32 x 2 x 2 (remat re-runs each layer in the
+    backward); one step's losses and every gradient leaf kernel vs plain
+    path at 2e-2 (normalised per leaf) through all 32 layers; one more
+    step profiled (busy share, the kernels' device time, the autograd
+    Functions' plain backward and the mixer as CUDA-event spans); (b)
+    ``mamba2-370m`` at full width and depth, ad_psgd over 16 learners
+    (K9 folds them into 512 heads), 3 steps; (c) ``granite-moe-3b-a800m``
+    under sc_psgd (one replica), batch 8, 3 steps, then 4 of its layers
+    over 4 learners (ad_psgd, batch 16: K10 folds them into 160 experts,
+    the folded weights' layout copies counted) with a kernel-vs-plain
+    step; (d) ``hymba-1.5b``, ``internvl2-2b`` (32 patches + 96 tokens)
+    and ``whisper-large-v3`` (64 frames + 64 tokens) at full width and
+    depth over 2 learners of their configs' strategies, 2 steps each, a
+    kernel-vs-plain step through 4 layers, each gradient leaf's relative
+    L2 distance held at 2e-2 (the max-abs one printed; hymba's and
+    whisper's at 8e-2: the SSD's B/C gradients and whisper's
+    cross-attention gradients amplify the forward's rounding; on moe the
+    plain pass replays the kernel pass's top-k selections, whose flips
+    are counted); (e) the train CLI
+    (``--arch smollm-360m --learners 4 --steps 2``) with its timing
+    line; (f) each autograd Function (K11 at smollm's rows and whisper's
+    cross-attention, K9 at mamba2's 512 folded heads, K10 at granite's
+    4-learner fold) against autograd of its plain version at 2e-2, timed
+    forward + backward beside it.  A non-finite loss, a kernel of a
+    family never launched or a missed tolerance fails the run.
+
 The last two lines are ``{"kernels": [...]}`` (K1-stash's, K2's, K4's and
 K5's ``launches`` counting 7a-comm, 7a-ctc and 7a-elastic too, also apart
 as ``launches_comm``, ``launches_ctc`` and ``launches_elastic``; K4's,
 K5's, K6's, K8's and K11's counting phase 21's runs, apart as
 ``launches_load``, and K1-stash's and K2's its train CLI runs, as
 ``launches_trace_cli``; K6's, K7's, K8's and K11's phases 22-24's, apart
-as ``launches_encdec``, ``launches_vlm`` and ``launches_dense_cfgs``)
-and ``{"ok": true, "device": {...}}``.
+as ``launches_encdec``, ``launches_vlm`` and ``launches_dense_cfgs``;
+K9's, K10's and K11's phase 25's, apart as ``launches_train_lm``, with
+``train_shapes``: each Function's gradient error and forward + backward
+ms at its training shapes) and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -3760,10 +3795,18 @@ def _teacher_forced_logits(server, prompt, tokens, steps):
     return torch.cat(out)
 
 
+def _moe_dense_learners_plain(x, router_w, wi, wg, wo, *, act="swiglu",
+                              keep=None, slot=None):
+    from repro_torch.kernels.ref import moe_dense_plain
+
+    return moe_dense_plain(x, router_w, wi, wg, wo, act=act)
+
+
 def _plain_kernels():
     """Every LM kernel wrapper swapped for its plain version: the prefill
-    attention (K11), the SSD scan (K9), the decode attention (K7) and the
-    fused dense MoE (K10)."""
+    attention (K11), the SSD scan (K9, which ``ssd_learners`` calls), the
+    decode attention (K7) and the fused dense MoE (K10, one model's and
+    the learner-batched call of training)."""
     from contextlib import ExitStack
     from unittest import mock
 
@@ -3779,7 +3822,9 @@ def _plain_kernels():
                              (SSD, "ssd", ssd_plain),
                              (DA, "decode_attention",
                               DA.decode_attention_ref),
-                             (MD, "moe_dense", moe_dense_plain)):
+                             (MD, "moe_dense", moe_dense_plain),
+                             (MD, "moe_dense_learners",
+                              _moe_dense_learners_plain)):
         stack.enter_context(mock.patch.object(mod, name, plain))
     return stack
 
@@ -5427,6 +5472,545 @@ def phase_dense_configs():
     return total
 
 
+# ---------------------------------------------------------------- phase 25
+LMT_L, LMT_BATCH, LMT_S = 16, 32, 128     # smollm's ad_psgd x 16, the CLI's
+LMT_WARMUP, LMT_STEPS = 2, 5              # batch max(8, 2 L), 128 positions
+LMT_CUT = 4             # layers of the (c) and (d) kernel-vs-plain steps
+# the kernel-vs-plain gradient tolerance of the families whose gradients
+# amplify the forward's rounding: the SSD's B/C gradients reach every leaf
+# upstream of a Mamba-2 block (the reference's own gradients move 0.047
+# when its SSD's bf16 casts become f32; tests/test_torch_ssm_train.py
+# holds the port at this too); whisper's cross-attention gradients move
+# 5.7 % (relative L2) at full width between p rounded to bf16 before p·v
+# (K11's, and the reference's) and an f32 p, on the CPU with no kernel
+LMT_GRAD_TOL = {"ssm": 8e-2, "hybrid": 8e-2, "encdec": 8e-2}
+# (d): the families' configs over 2 learners, 2 steps each
+LMT_FAMILIES = ("hymba-1.5b", "internvl2-2b", "whisper-large-v3")
+LMT_CLI = ["--arch", "smollm-360m", "--learners", "4", "--steps", "2",
+           "--log-every", "1"]
+TRAIN_LM = ("flash_attention", "ssd_scan", "moe_dense")
+
+
+def _train_lm_counts():
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import moe_dense as MD
+    from repro_torch.kernels import ssd_scan as SSD
+
+    return {"flash_attention": FA.launches, "ssd_scan": SSD.launches,
+            "moe_dense": MD.launches}
+
+
+def _zero_train_lm_counts():
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import moe_dense as MD
+    from repro_torch.kernels import ssd_scan as SSD
+
+    FA.launches = SSD.launches = MD.launches = 0
+
+
+def _free_all():
+    """Collect what the last run left and empty the allocator."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _lm_kernels_of(cfg) -> set:
+    """The kernels a training step of ``cfg`` launches."""
+    fam = cfg.family
+    out = set() if fam == "ssm" else {"flash_attention"}
+    if fam in ("ssm", "hybrid"):
+        out.add("ssd_scan")
+    if fam == "moe" and cfg.moe.router_impl == "dense":
+        out.add("moe_dense")
+    return out
+
+
+def _lm_train_run(tag, cfg, *, strategy, L, batch, steps, warmup):
+    """Set up ``cfg`` on the card from an emptied allocator and take
+    ``steps`` steps of ``strategy`` over L learners on the port's
+    synthetic data (``batch`` x LMT_S positions), the counters set to 0
+    just before and read just after; the first ``warmup`` are not timed.
+    Fails on a non-finite loss or a kernel of the family never launched.
+    Returns (state, meta, dataset, the run's numbers)."""
+    import math
+
+    import torch
+
+    from repro_torch.core import strategies as ST
+    from repro_torch.data import make_dataset
+    from repro_torch.launch.train import run, setup_training, timing_line
+
+    _free_all()
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    state, step, meta = setup_training(cfg, strategy_name=strategy,
+                                       n_learners=L, seed=SEED)
+    ds = make_dataset(cfg, seq_len=LMT_S, batch=batch, seed=SEED)
+    torch.cuda.synchronize()
+    lead = 1 if meta["strategy"].replicated else 0
+    n_params = sum(w[0].numel() if lead else w.numel()
+                   for w in ST._leaves(state["params"]))
+    print(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{n_params / 1e6:.1f} M params per learner, "
+          f"{meta['n_learners']} learner(s), {strategy}, batch {batch} x "
+          f"{LMT_S} positions, {cfg.microbatches} microbatches, remat "
+          f"{cfg.remat}; set-up {time.perf_counter() - t0:.1f}s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_train_lm_counts()
+    box = [state]          # the run holds the only reference to the state
+    del state
+    state, _, records = run(box.pop(), step, ds, steps=steps, device=dev,
+                            log_every=1, label=f"[{tag}] ")
+    counts = _train_lm_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(r[3]) for r in records]
+    if not all(math.isfinite(v) for v in losses):
+        _fail(f"{tag}: non-finite training loss: {losses}")
+    for name in _lm_kernels_of(cfg):
+        if counts[name] <= 0:
+            _fail(f"{tag}: kernel {name} was never launched on the training "
+                  f"path")
+    timed = records[warmup:]
+    secs = sum(r[0] for r in timed)
+    out = dict(ms=1e3 * secs / len(timed),
+               tokens_s=sum(r[1] for r in timed) / secs, peak_gib=peak,
+               counts=counts, steps=steps)
+    print(f"[{tag}] {timing_line(records, 'tokens')}", flush=True)
+    print(f"[{tag}] {len(timed)} timed steps: {out['ms']:.1f} ms/step, "
+          f"{out['tokens_s']:.1f} tokens/s; launches {counts} over {steps} "
+          f"steps ({ {k: v / steps for k, v in counts.items()} } per step); "
+          f"peak device memory {peak:.2f} GiB; {_card_line()}", flush=True)
+    return state, meta, ds, out
+
+
+def _cut_layers(cfg, params, n):
+    """``cfg`` and learner-stacked ``params`` cut to their first ``n``
+    layers (an encdec's encoder too)."""
+    import dataclasses
+
+    def cut(tree):
+        if isinstance(tree, dict):
+            return {k: cut(v) for k, v in tree.items()}
+        return tree[:, :n].contiguous()
+    changes = dict(n_layers=n)
+    if cfg.n_enc_layers:
+        changes["n_enc_layers"] = n
+    out = {k: cut(v) if k.endswith("layers") else v
+           for k, v in params.items()}
+    return dataclasses.replace(cfg, **changes), out
+
+
+def _lm_grad_check(tag, cfg, params, batch, L, *, metric="max"):
+    """One step's per-learner losses and every gradient leaf of the
+    kernel path (K11, K9 and K10 through their autograd Functions) against
+    the plain path (every kernel swapped for its plain version), at
+    ``params`` on one batch split over the learners: the loss relative,
+    and each leaf's largest difference normalised by its plain max-abs
+    (a key bias's by its query bias's) with ``metric="max"``, or with
+    ``metric="l2"`` its relative L2 distance (both printed), held at
+    K1_TOL (the families of LMT_GRAD_TOL at theirs).  On moe the plain pass takes
+    the kernel pass's top-k selections.  The kernel launches made here
+    are a check's and not counted."""
+    import torch
+
+    from repro_torch.core import strategies as ST
+    from repro_torch.models import build_model
+
+    from unittest import mock
+
+    from repro_torch.models import moe as M
+
+    counts = _train_lm_counts()
+    dev = torch.device("cuda")
+    lb = ST.split_learner_batch({k: torch.as_tensor(v).to(dev)
+                                 for k, v in batch.items()}, L)
+    loss_fn = build_model(cfg).loss_fn
+    routes, flips = [], [0, 0]
+    with mock.patch.object(M, "route_learners", _route_logger(routes)):
+        loss, grads = ST._value_and_grad(loss_fn, params, lb)
+    with _plain_kernels(), mock.patch.object(
+            M, "route_learners", _route_replayer(routes, flips)):
+        loss_w, grads_w = ST._value_and_grad(loss_fn, params, lb)
+    for k, v in counts.items():           # restore the main path's counts
+        setattr(_kernel_module(k), "launches", v)
+    if routes:
+        print(f"[{tag}] the plain pass takes the kernel pass's top-"
+              f"{cfg.moe.top_k} selections ({len(routes)} router calls; "
+              f"its own would differ in {flips[0]} of {flips[1]} tokens): "
+              f"a flipped selection moves a whole expert's gradient",
+              flush=True)
+    if not torch.isfinite(loss).all():
+        _fail(f"{tag}: non-finite loss in the gradient check")
+    loss_err = float(((loss - loss_w).abs() / loss_w.abs()).max())
+    tol = LMT_GRAD_TOL.get(cfg.family, K1_TOL)
+    plain = dict(_named_leaves(grads_w))
+    worst = {"max": (0.0, None), "l2": (0.0, None)}
+    for key, g in _named_leaves(grads):
+        if not torch.isfinite(g).all():
+            _fail(f"{tag}: non-finite gradient {key}")
+        w_ = plain[key].float()
+        # a key bias's gradient is zero in exact arithmetic (it shifts
+        # each query's scores by a constant): both are rounding noise,
+        # normalised by the sibling query bias's
+        scale = plain[key[:-2] + "bq"].float() if key.endswith("/bk") \
+            else w_
+        d = g.float() - w_
+        errs = {"max": float(d.abs().max()) / (float(scale.abs().max())
+                                                + 1e-8),
+                "l2": float(d.norm()) / (float(scale.norm()) + 1e-8)}
+        for k, e in errs.items():
+            if e > worst[k][0]:
+                worst[k] = (e, key)
+    print(f"[{tag}] kernel vs plain path, one step over {L} learners "
+          f"through {cfg.n_layers} layers: loss relative error "
+          f"{loss_err:.3g} (tol {K1_TOL}); worst gradient leaf, max-abs "
+          f"normalised {worst['max'][0]:.3g} ({worst['max'][1]}), relative "
+          f"L2 {worst['l2'][0]:.3g} ({worst['l2'][1]}); {metric} held at "
+          f"{tol}", flush=True)
+    if not (loss_err <= K1_TOL and worst[metric][0] <= tol):
+        _fail(f"{tag}: the kernel path's loss or gradients disagree with "
+              f"the plain path")
+
+
+def _route_logger(log):
+    """A stand-in for ``moe.route_learners`` that records each call's
+    top-k indices."""
+    from repro_torch.models import moe as M
+
+    real = M.route_learners
+
+    def record(cfg, p, xg):
+        out = real(cfg, p, xg)
+        log.append(out[2])
+        return out
+    return record
+
+
+def _route_replayer(log, flips):
+    """A stand-in for ``moe.route_learners`` that takes the recorded
+    calls' top-k indices in order (weights gathered from its own probs and
+    renormalised, so gradients flow as through top-k), counting in
+    ``flips`` the tokens whose own selection differs."""
+    from repro_torch.models import moe as M
+
+    real = M.route_learners
+    calls = iter(log)
+
+    def replay(cfg, p, xg):
+        probs, _, own = real(cfg, p, xg)
+        idx = next(calls)
+        flips[0] += int((own.sort(-1).values != idx.sort(-1).values)
+                        .any(-1).sum())
+        flips[1] += own[..., 0].numel()
+        top_w = probs.gather(-1, idx)
+        return probs, top_w / top_w.sum(dim=-1, keepdim=True), idx
+    return replay
+
+
+def _kernel_module(name):
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import moe_dense as MD
+    from repro_torch.kernels import ssd_scan as SSD
+
+    return {"flash_attention": FA, "ssd_scan": SSD, "moe_dense": MD}[name]
+
+
+class _Spans:
+    """Device time between CUDA events recorded around each call of the
+    wrapped functions (the stream's clock from the first launch of a span
+    to its last, gaps included), summed per name."""
+
+    def __init__(self):
+        self.events = {}
+
+    def wrap(self, name, fn):
+        import torch
+
+        def timed(*args, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*args, **kw)
+            e1.record()
+            self.events.setdefault(name, []).append((e0, e1))
+            return out
+        return timed
+
+    def ms(self):
+        import torch
+
+        torch.cuda.synchronize()
+        return {k: (sum(a.elapsed_time(b) for a, b in v), len(v))
+                for k, v in self.events.items()}
+
+
+def _lm_train_profile(tag, cfg, state, meta, ds, start):
+    """One more step under torch.profiler (device activity): wall time,
+    the device's busy share, each training kernel's device time from the
+    trace, and as CUDA-event spans the plain backward of each autograd
+    Function (its recompute and differentiation) and the mixer."""
+    from contextlib import ExitStack
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.core import strategies as ST
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import moe_dense as MD
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.launch.train import run
+    from repro_torch.optim.optimizers import get_optimizer
+
+    spans = _Spans()
+    dev = torch.device("cuda")
+    transport = meta["transport"]
+    make_mixer = type(transport).make_mixer
+    with ExitStack() as stack:
+        for cls, name in ((FA._FlashAttention, "K11 plain backward"),
+                          (SSD._SSD, "K9 plain backward"),
+                          (MD._MoEDense, "K10 plain backward")):
+            stack.enter_context(mock.patch.object(
+                cls, "backward", staticmethod(spans.wrap(name,
+                                                         cls.backward))))
+        stack.enter_context(mock.patch.object(
+            type(transport), "make_mixer",
+            lambda self, n: spans.wrap("mixer", make_mixer(self, n))))
+        step = ST.make_train_step(
+            meta["strategy"], meta["loss_fn"], get_optimizer("sgd"),
+            lambda k: 0.05, n_learners=meta["n_learners"],
+            microbatches=cfg.microbatches, transport=transport)
+        box = [state]
+        del state
+        got = _profile_window(lambda: run(box.pop(), step, ds, steps=1,
+                                          device=dev, start=start), tag)
+    if got is None:
+        return
+    (_, _, records), _, busy_ms, rows = got
+    wall_ms = 1e3 * records[0][0]
+    kern = {}
+    for us, n, key in rows:
+        for name, sub in (("K11 flash_attn_kernel", "flash_attn"),
+                          ("K9 ssd_*", "ssd_"), ("K10 moe_*", "moe_")):
+            if sub in key:
+                t, c = kern.get(name, (0.0, 0))
+                kern[name] = (t + us / 1e3, c + n)
+    span = spans.ms()
+    print(f"[{tag}] one {meta['strategy'].name} step: wall {wall_ms:.1f} "
+          f"ms, device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}"
+          f"%); {_card_line()}", flush=True)
+    for name, (ms, n) in sorted(kern.items()):
+        print(f"[{tag}]   {ms:9.2f} ms  {n:6d}x  {name} (device time, "
+              f"trace)", flush=True)
+    for name, (ms, n) in sorted(span.items()):
+        print(f"[{tag}]   {ms:9.2f} ms  {n:6d}x  {name} (event span)",
+              flush=True)
+    for us, n, key in rows[:10]:
+        print(f"[{tag}]   {us / 1e3:9.2f} ms  {n:6d}x  {key[:70]}",
+              flush=True)
+
+
+def _train_fn_check(tag, fn, plain, ins, gen, iters=10):
+    """An autograd Function's gradients against autograd of its plain
+    version on the same inputs (each input's gradient normalised by the
+    plain one's max-abs, held at K1_TOL), and forward + backward timed
+    through each.  Returns (worst error, ms, plain ms)."""
+    import torch
+
+    leaves = [[t.detach().clone().requires_grad_(t.is_floating_point())
+               for t in ins] for _ in range(2)]
+    first = fn(*leaves[0])
+    first = first[0] if isinstance(first, tuple) else first
+    cot = torch.randn(first.shape, generator=gen).to(first.device)
+
+    def grads(f, ls):
+        y = f(*ls)
+        y = y[0] if isinstance(y, tuple) else y
+        want = [t for t in ls if t.requires_grad]
+        return torch.autograd.grad((y.float() * cot).sum(), want)
+    got, want = grads(fn, leaves[0]), grads(plain, leaves[1])
+    err = max(_norm_err(a, b)[1] for a, b in zip(got, want))
+    ms = _time_ms(lambda: grads(fn, leaves[0]), iters)
+    plain_ms = _time_ms(lambda: grads(plain, leaves[1]), iters)
+    print(f"[{tag}] gradients vs autograd of the plain version: worst "
+          f"normalised error {err:.3g} (tol {K1_TOL}); forward + backward "
+          f"{ms:.3f} ms (plain {plain_ms:.3f} ms)", flush=True)
+    if not err <= K1_TOL:
+        _fail(f"{tag}: the autograd Function's gradients disagree with "
+              f"the plain version's")
+    return err, ms, plain_ms
+
+
+def check_train_functions(gen, whisper_lb):
+    """(f) Each autograd Function at its training shapes: K11 at
+    smollm-360m's (L·B = 16 rows of 128, 15 heads over 5) and at
+    whisper-large-v3's cross-attention (L·B = ``whisper_lb``, 64 tokens
+    over 64 frames, 20 heads); K9 at mamba2-370m's 16 learners folded
+    into 512 heads (S = 128, one row); K10 at granite-moe-3b-a800m's 4
+    learners folded into 160 experts (128 tokens each, top-8).  Returns
+    {kernel: {shape: (err, ms, plain ms)}}."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import moe_dense as MD
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.kernels.ref import (flash_attention_plain,
+                                         moe_dense_plain, ssd_plain)
+
+    _free_all()
+    cuda = torch.device("cuda")
+
+    def rnd(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to(cuda, dtype)
+    out = {"flash_attention": {}, "ssd_scan": {}, "moe_dense": {}}
+    for name, B, Sq, Sk, H, KV, causal in (
+            ("smollm", 16, 128, 128, 15, 5, True),
+            ("whisper-cross", whisper_lb, 64, 64, 20, 20, False)):
+        ins = (rnd(B, Sq, H, 64), rnd(B, Sk, KV, 64), rnd(B, Sk, KV, 64))
+        out["flash_attention"][f"{name} B={B} Sq={Sq} Sk={Sk} H={H} KV={KV}"
+                               ] = _train_fn_check(
+            f"train-fn K11 {name}",
+            lambda *a: FA.flash_attention(*a, causal=causal),
+            lambda *a: flash_attention_plain(*a, causal=causal), ins, gen)
+    H, P, G, N = 16 * 32, 64, 16, 128
+    ins = (rnd(1, LMT_S, H, P), (0.05 + 0.1 * torch.rand(
+        1, LMT_S, H, generator=gen)).to(cuda),
+        (-1.0 - 15.0 * torch.rand(H, generator=gen)).to(cuda),
+        rnd(1, LMT_S, G, N, scale=0.3), rnd(1, LMT_S, G, N, scale=0.3))
+    out["ssd_scan"][f"mamba2 16 learners: B=1 S={LMT_S} H={H} P={P} G={G} "
+                    f"N={N}"] = _train_fn_check(
+        "train-fn K9 mamba2", lambda *a: SSD.ssd(*a, chunk=256),
+        lambda *a: ssd_plain(*a, chunk=256), ins, gen)
+    L, T, d, E, f, k = 4, LMT_S, 1536, 40, 512, 8
+    ws = [rnd(L, E, *s, scale=s[0] ** -0.5) for s in ((d, f), (d, f),
+                                                        (f, d))]
+    p = torch.softmax(torch.randn(L, T, E, generator=gen), -1)
+    top = torch.topk(p, k, -1)
+    rw = (torch.zeros_like(p).scatter(-1, top.indices, top.values)
+          / top.values.sum(-1, keepdim=True)).to(cuda)
+    out["moe_dense"][f"granite 4 learners: T={T} d={d} E={E} f={f} top-{k}"
+                     ] = _train_fn_check(
+        "train-fn K10 granite", lambda *a: MD.moe_dense_learners(*a),
+        lambda *a: moe_dense_plain(*a), (rnd(L, T, d), rw, *ws), gen)
+    return out
+
+
+def phase_lm_train(gen):
+    """The transformer families' training on the card, every run from an
+    emptied allocator with the counters set to 0 just before its steps and
+    read just after: (a) smollm-360m at full width and depth, ad_psgd over
+    16 learners (LMT_WARMUP + LMT_STEPS steps, K11 launches per step held
+    to layers x microbatches x 2 with remat), one step kernel vs plain at
+    full depth (each leaf's max-abs error), one more step profiled; (b)
+    mamba2-370m the same, 3 steps, no check;
+    (c) granite-moe-3b-a800m under sc_psgd (batch 8), 3 steps, then 4 of
+    its layers over 4 learners (ad_psgd, batch 16), where K10 folds the
+    learners into its experts, with its kernel-vs-plain step; (d) each of
+    LMT_FAMILIES over 2 learners of its config's strategy, 2 steps, a
+    kernel-vs-plain step through its first LMT_CUT layers ((c) and (d):
+    each leaf's relative L2 error); (e) the train
+    CLI at full width; (f) each autograd Function at its training shapes.
+    Returns (the main-path launches per kernel summed over (a)-(e), (f)'s
+    checks)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import main as train_main
+
+    total = dict.fromkeys(TRAIN_LM, 0)
+
+    def add(counts):
+        for k2, v in counts.items():
+            total[k2] += v
+
+    # (a) the main path
+    cfg = get_arch("smollm-360m")
+    state, meta, ds, res = _lm_train_run(
+        "lm-train smollm", cfg, strategy="ad_psgd", L=LMT_L,
+        batch=LMT_BATCH, steps=LMT_WARMUP + LMT_STEPS, warmup=LMT_WARMUP)
+    add(res["counts"])
+    want = cfg.n_layers * cfg.microbatches * (2 if cfg.remat else 1)
+    got = res["counts"]["flash_attention"] / res["steps"]
+    print(f"[lm-train smollm] K11 launches per step {got:g} (layers "
+          f"{cfg.n_layers} x microbatches {cfg.microbatches} x "
+          f"{2 if cfg.remat else 1} with remat = {want})", flush=True)
+    if got != want:
+        _fail(f"lm-train smollm: {got} K11 launches per step, expected "
+              f"{want}")
+    steps = res["steps"]
+    _lm_grad_check("lm-train smollm", cfg, state["prev_params"],
+                   ds.batch_at(steps), LMT_L)
+    _lm_train_profile("lm-train-profile", cfg, state, meta, ds, steps)
+    del state
+    # (b) the ssm family at full width
+    cfg = get_arch("mamba2-370m")
+    state, meta, ds, res = _lm_train_run(
+        "lm-train mamba2", cfg, strategy="ad_psgd", L=LMT_L,
+        batch=LMT_BATCH, steps=3, warmup=1)
+    add(res["counts"])
+    del state
+    # (c) the moe family: one replica at full depth, then 4 learners
+    cfg = get_arch("granite-moe-3b-a800m")
+    state, meta, ds, res = _lm_train_run(
+        "lm-train granite", cfg, strategy="sc_psgd", L=1, batch=8, steps=3,
+        warmup=1)
+    add(res["counts"])
+    del state
+    cut = dataclasses.replace(cfg, n_layers=LMT_CUT)
+    state, meta, ds, res = _lm_train_run(
+        "lm-train granite-4x4", cut, strategy="ad_psgd", L=4, batch=16,
+        steps=2, warmup=1)
+    add(res["counts"])
+    from repro_torch.kernels import moe_dense as MD
+    print(f"[lm-train granite-4x4] learner-folded expert weights: "
+          f"{MD.fold_copies} layout copies, {MD.fold_bytes / 2 ** 20:.1f} "
+          f"MiB over the run (each layer's copy taken once a step)",
+          flush=True)
+    _lm_grad_check("lm-train granite-4x4", cut, state["prev_params"],
+                   ds.batch_at(2), 4, metric="l2")
+    del state, meta                 # the model keeps its folded experts
+    # (d) the hybrid, vlm and encdec families over 2 learners
+    whisper_lb = 0
+    for name in LMT_FAMILIES:
+        cfg = get_arch(name)
+        tag = f"lm-train {name.split('-')[0]}"
+        state, meta, ds, res = _lm_train_run(
+            tag, cfg, strategy=cfg.train_strategy, L=2, batch=8, steps=2,
+            warmup=1)
+        add(res["counts"])
+        ccfg, cparams = _cut_layers(cfg, state["params"], LMT_CUT)
+        del state
+        _lm_grad_check(tag, ccfg, cparams, ds.batch_at(2), 2, metric="l2")
+        del cparams
+        if cfg.family == "encdec":
+            whisper_lb = 8 // cfg.microbatches
+    # (e) the train CLI at full width
+    _free_all()
+    _zero_train_lm_counts()
+    t0 = time.perf_counter()
+    res_cli, text = _io_run(train_main, LMT_CLI)
+    counts = _train_lm_counts()
+    add(counts)
+    lines = [ln for ln in text.splitlines() if ln.startswith(("timing",
+                                                              "done",
+                                                              "final"))]
+    for ln in lines:
+        print(f"[lm-train cli] {ln}", flush=True)
+    print(f"[lm-train cli] {' '.join(LMT_CLI)}: {time.perf_counter() - t0:.1f}"
+          f"s, launches {counts}", flush=True)
+    if counts["flash_attention"] <= 0 or not any(
+            ln.startswith("timing") for ln in lines):
+        _fail("lm-train cli: no K11 launch or no timing line")
+    del res_cli
+    # (f) each autograd Function at its training shapes
+    fns = check_train_functions(gen, whisper_lb)
+    _free_all()
+    return total, fns
+
+
 def _io_run(fn, argv):
     """``fn(argv)`` with its standard output captured: (result, text)."""
     import contextlib
@@ -5528,6 +6112,8 @@ def main() -> int:
         done("vlm")
         dense_cfg_counts = phase_dense_configs()
         done("dense-configs")
+        lm_train_counts, train_fns = phase_lm_train(gen)
+        done("lm-train")
     except SystemExit:
         raise
     except Exception:                    # any phase failing fails the run
@@ -5596,6 +6182,15 @@ def main() -> int:
         k["launches_dense_cfgs"] = dense_cfg_counts[name]
         launches[name] += (k["launches_encdec"] + k["launches_vlm"]
                            + k["launches_dense_cfgs"])
+    # phase 25: the transformer families' training (K11, K9, K10), each
+    # also at its training shapes through its autograd Function
+    for k in (k9, k10, k11):
+        name = k["name"]
+        k["launches_train_lm"] = lm_train_counts[name]
+        launches[name] += lm_train_counts[name]
+        k["train_shapes"] = {
+            shape: dict(grad_err=e, ms=ms, plain_ms=pms)
+            for shape, (e, ms, pms) in train_fns[name].items()}
     kernels = [k1, k1s, k2, k1c, k3, k4, k5["beam_frame_step"],
                k5["beam_frame_step_topc"], k6, k7, k8, k9, k10, k11]
     for k in kernels:

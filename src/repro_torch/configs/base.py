@@ -130,6 +130,9 @@ class ArchConfig:
 
     param_dtype: str = "bfloat16"
     microbatches: int = 4     # gradient-accumulation microbatches for train
+    # recompute each transformer layer's forward in the backward
+    # (torch.utils.checkpoint) instead of keeping its activations
+    remat: bool = True
     # the reference config's switch for its fused dense-MoE math; it selects
     # nothing in the port (models/moe.py runs one kernel on every device)
     # and is kept so that a config maps onto the reference's one to one

@@ -26,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.optim.optimizers import tree_map
+from repro_torch.optim.optimizers import map_slices, tree_map
 
 
 def ring_matrix(L: int) -> np.ndarray:
@@ -108,10 +108,10 @@ def mix_ring(params):
 
     The neighbours are rolled in their own (usually bf16) dtype, as the
     reference rolls before it upcasts (the payload its collective-permute
-    moves), then the average is taken in f32 and cast back."""
+    moves), then the average is taken in f32 and cast back; a large leaf
+    a block of its second axis at a time (``map_slices``: no f32 copy of
+    a whole stacked leaf)."""
     def one(w):
-        if w.shape[0] == 1:
-            return w
         wf = w.float()
         if w.shape[0] == 2:
             mixed = div(2 * wf + torch.roll(w, 1, dims=0).float(), 3.0)
@@ -120,7 +120,8 @@ def mix_ring(params):
                         + torch.roll(w, -1, dims=0).float(), 3.0)
         return mixed.to(w.dtype)
 
-    return tree_map(one, params)
+    return tree_map(lambda w: w if w.shape[0] == 1 else map_slices(
+        one, w, dim=1), params)
 
 
 def mix_uniform(params):

@@ -61,7 +61,7 @@ import torch
 
 from repro_torch.core import mixing
 from repro_torch.core.transport import Transport
-from repro_torch.optim.optimizers import Optimizer, tree_map
+from repro_torch.optim.optimizers import Optimizer, slice_blocks, tree_map
 
 
 # ---------------------------------------------------------------------------
@@ -145,7 +145,8 @@ def _accumulated_grad(loss_fn, params, batch, n_micro: int):
     frame weights (each microbatch's masked-mean loss/grad scaled by its
     valid-frame count) so the result equals the masked mean over the
     whole batch, not the mean-of-means; the accumulated gradient is
-    f32."""
+    f32, summed and scaled in place (one f32 copy of the parameters, not
+    two at each update)."""
     if n_micro <= 1:
         return _value_and_grad(loss_fn, params, batch)
 
@@ -166,13 +167,18 @@ def _accumulated_grad(loss_fn, params, batch, n_micro: int):
         loss, g = _value_and_grad(loss_fn, params, mbatch)
         w = (_valid_frames(mbatch) if weighted
              else torch.ones_like(loss))
-        acc = tree_map(lambda a, b: a + _per_learner(w, a) * b.float(),
-                       acc, g)
+        for a, b in zip(_leaves(acc), _leaves(g)):
+            wa = _per_learner(w, a)
+            for i, n in slice_blocks(a):   # no whole-leaf f32 temporary
+                a.narrow(0, i, n).add_(wa.narrow(0, i, n)
+                                       * b.narrow(0, i, n).float())
+        del g
         loss_acc = loss_acc + w * loss
         wsum = wsum + w
     scale = 1.0 / torch.clamp(wsum, min=1e-6)
-    return loss_acc * scale, tree_map(lambda x: x * _per_learner(scale, x),
-                                      acc)
+    for a in _leaves(acc):
+        a.mul_(_per_learner(scale, a))
+    return loss_acc * scale, acc
 
 
 def _per_learner(v, like):

@@ -2,5 +2,8 @@
 from repro_torch.data.pipeline import (  # noqa: F401
     Prefetcher,
     SyntheticASRDataset,
+    SyntheticLMDataset,
+    SyntheticSeq2SeqDataset,
+    SyntheticVLMDataset,
     make_dataset,
 )

@@ -1,9 +1,12 @@
-"""Synthetic utterances for the paper's BLSTM acoustic model — the port's
-own copy of ``SyntheticASRDataset`` and the lstm branch of
-``make_dataset`` from ``repro/data/pipeline.py``.
+"""Synthetic training data — the port's own copy of ``SyntheticASRDataset``
+(utterances for the paper's BLSTM acoustic model), ``SyntheticLMDataset``
+(Markov token streams), ``SyntheticSeq2SeqDataset`` (frame embeddings to
+token transcripts, the encdec family), ``SyntheticVLMDataset`` (patch
+embeddings before Markov text) and ``make_dataset`` from
+``repro/data/pipeline.py``.
 
 Numpy only, with the reference's draw order, so the same seed gives the
-same utterances byte for byte.  Features come from per-class Gaussian
+same batches byte for byte.  Features come from per-class Gaussian
 clusters with Zipf-distributed class priors (CD-state occupancy is very
 uneven).  With ``var_len=True`` every batch carries ``lengths``
 (lognormal utterance lengths, features and labels zeroed beyond them);
@@ -103,15 +106,127 @@ class SyntheticASRDataset:
                 "lengths": blens}
 
 
+@dataclass
+class SyntheticLMDataset:
+    """First-order Markov token streams (learnable next-token structure):
+    ``tokens`` and ``labels`` (B, S) i32, labels the tokens shifted by
+    one."""
+
+    vocab: int
+    seq_len: int
+    batch: int
+    seed: int = 0
+    effective_vocab: int = 256
+    temperature: float = 0.3
+
+    def __post_init__(self):
+        r = np.random.default_rng(self.seed)
+        k = min(self.effective_vocab, self.vocab)
+        logits = r.normal(size=(k, k)) / self.temperature
+        e = np.exp(logits - logits.max(-1, keepdims=True))
+        self.trans = (e / e.sum(-1, keepdims=True)).astype(np.float64)
+        self.k = k
+
+    def batch_at(self, step: int):
+        r = _rng(self.seed, step)
+        B, S = self.batch, self.seq_len
+        toks = np.zeros((B, S + 1), np.int32)
+        toks[:, 0] = r.integers(0, self.k, size=B)
+        # inverse-CDF sampling of each next token
+        cdf = np.cumsum(self.trans, axis=-1)
+        u = r.random((B, S))
+        for t in range(S):
+            toks[:, t + 1] = (cdf[toks[:, t]] > u[:, t:t + 1]).argmax(-1)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+@dataclass
+class SyntheticSeq2SeqDataset:
+    """Frame embeddings -> token transcripts (whisper-style backbone):
+    ``frames`` (B, enc_len, d) f32, ``tokens`` and ``labels`` (B,
+    dec_len) i32, the tokens the labels after a start token 0."""
+
+    d_model: int
+    vocab: int
+    enc_len: int
+    dec_len: int
+    batch: int
+    seed: int = 0
+    effective_vocab: int = 128
+
+    def __post_init__(self):
+        r = np.random.default_rng(self.seed)
+        k = min(self.effective_vocab, self.vocab)
+        self.readout = r.normal(size=(self.d_model, k)).astype(np.float32)
+        self.k = k
+
+    def batch_at(self, step: int):
+        r = _rng(self.seed, step)
+        frames = r.normal(size=(self.batch, self.enc_len,
+                                self.d_model)).astype(np.float32)
+        # pooled frame windows determine the target tokens (a learnable
+        # alignment)
+        pool = (self.enc_len // self.dec_len
+                if self.enc_len >= self.dec_len else 1)
+        trimmed = frames[:, :pool * self.dec_len].reshape(
+            self.batch, self.dec_len, pool, self.d_model).mean(2)
+        scores = trimmed @ self.readout
+        labels = scores.argmax(-1).astype(np.int32)
+        tokens = np.concatenate(
+            [np.zeros((self.batch, 1), np.int32), labels[:, :-1]], axis=1)
+        return {"frames": frames, "tokens": tokens, "labels": labels}
+
+
+@dataclass
+class SyntheticVLMDataset:
+    """Patch-embedding prefix + Markov text (internvl-style early fusion):
+    ``patches`` (B, n_patches, d) f32 beside the text's ``tokens`` and
+    ``labels`` (B, text_len)."""
+
+    d_model: int
+    vocab: int
+    n_patches: int
+    text_len: int
+    batch: int
+    seed: int = 0
+
+    def __post_init__(self):
+        self.lm = SyntheticLMDataset(self.vocab, self.text_len, self.batch,
+                                     seed=self.seed)
+
+    def batch_at(self, step: int):
+        r = _rng(self.seed, step)
+        out = self.lm.batch_at(step)
+        out["patches"] = r.normal(
+            size=(self.batch, self.n_patches, self.d_model)
+        ).astype(np.float32)
+        return out
+
+
 def make_dataset(cfg, *, seq_len: int, batch: int, seed: int = 0,
                  var_len: bool = False, bucket: bool = False):
-    """The utterance dataset of an lstm-family ArchConfig."""
-    if cfg.family != "lstm":
-        raise ValueError(f"only the lstm family is ported, not "
-                         f"{cfg.family!r}")
-    return SyntheticASRDataset(cfg.input_dim, cfg.vocab, seq_len, batch,
-                               seed=seed, var_len=var_len or bucket,
-                               bucket=bucket)
+    """The family's synthetic dataset for an ArchConfig: utterances (lstm;
+    ``var_len``/``bucket`` select variable lengths, for that family
+    alone), frames and transcripts of seq_len // 2 each (encdec), a
+    ``vlm_patch_frac`` share of seq_len as patches before the text (vlm),
+    else token streams of seq_len."""
+    fam = cfg.family
+    if (var_len or bucket) and fam != "lstm":
+        raise ValueError(f"var_len/bucket batching is only defined for the "
+                         f"lstm (utterance) family, not {fam!r}")
+    if fam == "lstm":
+        return SyntheticASRDataset(cfg.input_dim, cfg.vocab, seq_len, batch,
+                                   seed=seed, var_len=var_len or bucket,
+                                   bucket=bucket)
+    if fam == "encdec":
+        half = seq_len // 2
+        return SyntheticSeq2SeqDataset(cfg.d_model, cfg.vocab, half, half,
+                                       batch, seed=seed)
+    if fam == "vlm":
+        sp = int(seq_len * cfg.vlm_patch_frac)
+        return SyntheticVLMDataset(cfg.d_model, cfg.vocab, sp, seq_len - sp,
+                                   batch, seed=seed)
+    return SyntheticLMDataset(cfg.vocab, seq_len, batch, seed=seed)
 
 
 class Prefetcher:

@@ -1,4 +1,5 @@
-"""Device resolution and the Hopper capability probe.
+"""Device resolution, the Hopper capability probe and the kernels'
+autograd guard.
 
 Entry points take ``device=None`` and resolve it here: ``None`` means the
 CUDA card, and raises when there is none, so a run never carries on
@@ -45,3 +46,20 @@ def require_kernel_device(t: torch.Tensor) -> None:
             f"the kernels are built for sm_90a; device {dev} has "
             f"capability {cap}")
     _CAPABLE.add(index)
+
+
+def wants_grad(*tensors) -> bool:
+    """Grad mode is on and an input requires a gradient: a kernel wrapper
+    then takes its autograd Function instead of the raw launch."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def require_no_grad(name: str, *tensors) -> None:
+    """Raise where a raw launch would take an input that requires a
+    gradient under grad mode: its output (filled by the kernel through a
+    pointer) would carry no ``grad_fn``, and every gradient upstream of it
+    would stop without a word."""
+    if wants_grad(*tensors):
+        raise RuntimeError(f"{name}: the raw launch takes no input that "
+                           f"requires a gradient; call the wrapper, whose "
+                           f"autograd Function differentiates it")

@@ -21,6 +21,13 @@ reference model's prefill does, and keeps the row sum in f32: it matches
 the all-f32 plain version within the bf16 output's tolerance, 2e-2
 normalised per row (1e-2 held on the card).
 
+Training: where grad mode is on and an input requires a gradient, the
+call goes through an autograd Function whose forward is the launch and
+whose backward recomputes the plain version on the saved q, k, v and
+differentiates it (the reference differentiates its jnp attention; the
+JAX kernel has no backward).  The raw launch raises on such an input, so
+no gradient stops at the kernel's output unseen.
+
 The work is cut by :func:`plan`, a rule of the shape and the SM count:
 items of 192 or 128 flattened (position, head) rows (three or two
 consumer warpgroups of 64 rows) or, where such items would leave SMs
@@ -37,7 +44,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.device import require_kernel_device
+from repro_torch.device import (require_kernel_device, require_no_grad,
+                                wants_grad)
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_plain
 
@@ -119,15 +127,49 @@ def _check(q, k, v, window, q_offset):
                          f"{q_offset + Sq - 1} admits no key of {Sk}")
 
 
+class _FlashAttention(torch.autograd.Function):
+    """K11 forward; backward by autograd through ``flash_attention_plain``
+    recomputed on the saved q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, window, q_offset)
+        return _launch(q, k, v, causal=causal, window=window,
+                       q_offset=q_offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        causal, window, q_offset = ctx.args
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(need) for t, need in
+                   zip(ctx.saved_tensors, ctx.needs_input_grad)]
+            out = flash_attention_plain(
+                *ins, causal=causal, q_offset=q_offset,
+                window=0 if window is None else int(window))
+            want = [t for t in ins if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, want, g))
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in ins) + (None, None, None)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window=0,
                     q_offset: int = 0):
     """q (B, Sq, H, E) bf16, k/v (B, Sk, KV, E) bf16 -> (B, Sq, H, E)."""
-    global launches
     q_offset = int(q_offset)
     if q.device.type == "cpu":
         return flash_attention_plain(
             q, k, v, causal=causal, q_offset=q_offset,
             window=0 if window is None else int(window))
+    if wants_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, window, q_offset)
+    return _launch(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+
+def _launch(q, k, v, *, causal, window, q_offset):
+    """One K11 launch on the card (no autograd)."""
+    global launches
+    require_no_grad("flash_attention", q, k, v)
     win = kernel_window(window, causal=causal, q_offset=q_offset,
                         Sq=q.shape[1])
     _check(q, k, v, win, q_offset)

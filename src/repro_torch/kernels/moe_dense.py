@@ -31,6 +31,17 @@ reference oracle does: the two agree within the bf16 output's tolerance,
 bf16, y once.  A token's output is bit-identical whatever T is and
 whichever tokens share its tile: every product is the same wgmma shape
 over the same k order at any T.
+
+Training: where grad mode is on and an input requires a gradient, the
+call goes through an autograd Function whose forward is the launch and
+whose backward recomputes the plain version on the saved inputs and
+differentiates it, to x, router_w, wi, wg and wo; the raw launch raises
+on such an input.  :func:`moe_dense_learners` takes a leading learner
+axis L: learner l's experts become experts l·E .. l·E + E - 1 of one
+launch over the L·T tokens, whose router weights are zero off each
+learner's block (the work list skips those pairs), while the backward
+runs the plain version learner-batched (the dense plain version over the
+folded (L·T, L·E) weights would do L times the work).
 """
 from __future__ import annotations
 
@@ -40,11 +51,16 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.device import require_kernel_device
+from repro_torch.device import (require_kernel_device, require_no_grad,
+                                wants_grad)
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import moe_dense_plain
 
 launches = 0          # K10 launches (one per moe_dense on the card)
+# the learner-folded expert weights' layout copies (moe_dense_learners on
+# the card): how many were taken and their bytes
+fold_copies = 0
+fold_bytes = 0
 
 ACTS = ("swiglu", "gelu")
 HIDDEN_PER_CTA = 64   # hidden columns a CTA computes at prefill (32 at decode)
@@ -219,13 +235,109 @@ def device_work_list(router_w, d: int) -> WorkList:
                     tok_nnz, part("tok_off", T), items)
 
 
+class _MoEDense(torch.autograd.Function):
+    """K10 forward on the learner-folded operands; backward by autograd
+    through ``moe_dense_plain`` recomputed learner-batched on the saved
+    (L, ...) inputs."""
+
+    @staticmethod
+    def forward(ctx, x, router_w, wi, wg, wo, act, folded):
+        ctx.save_for_backward(x, router_w, wi, wg, wo)
+        ctx.act = act
+        return _launch_folded(x, router_w, folded, act)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(need) for t, need in
+                   zip(ctx.saved_tensors, ctx.needs_input_grad)]
+            out = moe_dense_plain(*ins, act=ctx.act)
+            want = [t for t in ins if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, want, g))
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in ins) + (None, None)
+
+
+def _same(a, b) -> bool:
+    return (a.data_ptr() == b.data_ptr() and a.shape == b.shape
+            and a.stride() == b.stride() and a._version == b._version)
+
+
+def fold_experts(wi, wg, wo, keep=None, slot=None):
+    """Learner-stacked expert weights (L, E, ...) -> (L·E, ...) contiguous:
+    a view where they are contiguous (L = 1), else a copy.  Given a
+    ``keep`` dict and a ``slot`` (the caller's layer) the copy is kept
+    there and reused while the same weights come back unchanged (same
+    memory, layout and version), so a step's microbatches and the
+    recompute of a checkpointed layer take it once; the kept weights hold
+    their memory, so an equal address is the same tensor."""
+    global fold_copies, fold_bytes
+    ws = (wi, wg, wo)
+    if all(w.is_contiguous() for w in ws):
+        return tuple(w.flatten(0, 1) for w in ws)
+    kept = keep.get(slot) if keep is not None else None
+    if kept is not None and all(_same(a, b) for a, b in zip(ws, kept[0])):
+        return kept[1]
+    with torch.no_grad():
+        out = tuple(w.detach().contiguous().flatten(0, 1) for w in ws)
+    fold_copies += 3
+    fold_bytes += sum(w.numel() * w.element_size() for w in out)
+    if keep is not None:
+        keep[slot] = (tuple(w.detach() for w in ws), out)
+    return out
+
+
+def learner_block_weights(router_w):
+    """(L, T, E) -> (L·T, L·E) router weights: learner l's tokens weigh
+    only its own experts, zero elsewhere."""
+    L, T, E = router_w.shape
+    out = router_w.new_zeros(L, T, L, E)
+    idx = torch.arange(L, device=router_w.device)
+    out[idx, :, idx, :] = router_w
+    return out.reshape(L * T, L * E)
+
+
+def moe_dense_learners(x, router_w, wi, wg, wo, *, act: str = "swiglu",
+                       keep=None, slot=None):
+    """:func:`moe_dense` for L learners at once: x (L, T, d), router_w
+    (L, T, E), wi/wg (L, E, d, f), wo (L, E, f, d) (each learner's own
+    experts; a strided layer slice of a learner-stacked tree is fine) ->
+    y (L, T, d).  On the card one launch of the folded operands
+    (:func:`fold_experts`, kept in ``keep`` under ``slot``;
+    :func:`learner_block_weights`), through the autograd Function where a
+    gradient is wanted; on the CPU the learner-batched plain version."""
+    if x.device.type == "cpu":
+        return moe_dense_plain(x, router_w, wi, wg, wo, act=act)
+    folded = fold_experts(wi, wg, wo, keep, slot)
+    if wants_grad(x, router_w, wi, wg, wo):
+        return _MoEDense.apply(x, router_w, wi, wg, wo, act, folded)
+    return _launch_folded(x, router_w, folded, act)
+
+
+def _launch_folded(x, router_w, folded, act):
+    L, T, d = x.shape
+    y = _launch(x.reshape(L * T, d), learner_block_weights(router_w),
+                *folded, act=act)
+    return y.view(L, T, d)
+
+
 def moe_dense(x, router_w, wi, wg, wo, *, act: str = "swiglu"):
     """x (T, d) bf16, router_w (T, E) f32, wi/wg (E, d, f) bf16, wo
     (E, f, d) bf16 -> y (T, d) bf16."""
-    global launches
     _check(x, router_w, wi, wg, wo, act)
     if x.device.type == "cpu":
         return moe_dense_plain(x, router_w, wi, wg, wo, act=act)
+    if wants_grad(x, router_w, wi, wg, wo):
+        return _MoEDense.apply(x[None], router_w[None], wi[None], wg[None],
+                               wo[None], act, (wi, wg, wo))[0]
+    return _launch(x, router_w, wi, wg, wo, act=act)
+
+
+def _launch(x, router_w, wi, wg, wo, *, act):
+    """One K10 call on the card (its three launches; no autograd)."""
+    global launches
+    require_no_grad("moe_dense", x, router_w, wi, wg, wo)
+    _check(x, router_w, wi, wg, wo, act)
     require_kernel_device(x)
     T, d = x.shape
     E, _, f = wi.shape

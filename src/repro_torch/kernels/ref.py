@@ -467,15 +467,19 @@ def moe_dense_plain(x, router_w, wi, wg, wo, *, act: str = "swiglu"):
     x·wi, x·wg and h·wo return x's dtype; silu(g)·h (``act="swiglu"``) or
     the tanh-approximated gelu(h) (``act="gelu"``) is taken in f32 and the
     hidden rounded once to x's dtype before wo; the sum over experts is
-    f32, weighted by the f32 router weights, and rounded once."""
-    h = torch.einsum("td,edf->tef", x, wi)
+    f32, weighted by the f32 router weights, and rounded once.  With a
+    leading learner axis on every operand (x (L, T, d), router_w (L, T,
+    E), wi/wg (L, E, d, f), wo (L, E, f, d)) each learner's tokens go
+    through its own experts, batched: the same function per learner."""
+    lt = "l" if x.dim() == 3 else ""
+    h = torch.einsum(f"{lt}td,{lt}edf->{lt}tef", x, wi)
     if act == "swiglu":
-        g = torch.einsum("td,edf->tef", x, wg)
+        g = torch.einsum(f"{lt}td,{lt}edf->{lt}tef", x, wg)
         h = torch.nn.functional.silu(g.float()) * h.float()
     elif act == "gelu":
         h = torch.nn.functional.gelu(h.float(), approximate="tanh")
     else:
         raise ValueError(f"act {act!r}: expected 'swiglu' or 'gelu'")
-    ye = torch.einsum("tef,efd->ted", h.to(x.dtype), wo)
-    return torch.einsum("ted,te->td", ye.float(),
+    ye = torch.einsum(f"{lt}tef,{lt}efd->{lt}ted", h.to(x.dtype), wo)
+    return torch.einsum(f"{lt}ted,{lt}te->{lt}td", ye.float(),
                         router_w.float()).to(x.dtype)

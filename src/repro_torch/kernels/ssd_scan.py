@@ -15,6 +15,14 @@ launches, the chunk states then the outputs, the chunks in parallel as
 inputs on the CUDA cores) and counts one launch per call (``launches``);
 on a CPU tensor it runs the plain version (``ref.ssd_plain``).  It never
 falls back from the card to the plain path.
+
+Training: where grad mode is on and an input requires a gradient, the
+call goes through an autograd Function whose forward is the launch and
+whose backward recomputes ``ssd_plain`` on the saved inputs and
+differentiates it, to x, dt, A, Bm and Cm (an unused final state counts
+as a zero gradient); the raw launch raises on such an input.
+:func:`ssd_learners` folds a leading learner axis into the heads and
+groups (one launch for every learner) and unfolds y and the state.
 """
 from __future__ import annotations
 
@@ -23,7 +31,8 @@ import functools
 
 import torch
 
-from repro_torch.device import require_kernel_device
+from repro_torch.device import (require_kernel_device, require_no_grad,
+                                wants_grad)
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ssd_plain
 
@@ -95,14 +104,66 @@ def _ssd_entry():
     return _entry
 
 
+class _SSD(torch.autograd.Function):
+    """K9 forward; backward by autograd through ``ssd_plain`` recomputed
+    on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.chunk = chunk
+        return _launch(x, dt, A, Bm, Cm, chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(need) for t, need in
+                   zip(ctx.saved_tensors, ctx.needs_input_grad)]
+            outs = ssd_plain(*ins, chunk=ctx.chunk)
+            pairs = [(o, g) for o, g in zip(outs, (gy, gstate))
+                     if g is not None]
+            want = [t for t in ins if t.requires_grad]
+            grads = (iter(torch.autograd.grad([o for o, _ in pairs], want,
+                                              [g for _, g in pairs]))
+                     if pairs else None)
+        return tuple(next(grads) if t.requires_grad and grads else None
+                     for t in ins) + (None,)
+
+
 def ssd(x, dt, A, Bm, Cm, *, chunk: int = 256):
     """x (B, S, H, P) bf16 or f32, dt (B, S, H) f32, A (H,) f32, Bm/Cm
     (B, S, G, N) in x's dtype -> (y (B, S, H, P), state (B, H, N, P)
     f32)."""
-    global launches
     _check(x, dt, A, Bm, Cm, chunk)
     if x.is_cpu:
         return ssd_plain(x, dt, A, Bm, Cm, chunk=chunk)
+    if wants_grad(x, dt, A, Bm, Cm):
+        return _SSD.apply(x, dt, A, Bm, Cm, chunk)
+    return _launch(x, dt, A, Bm, Cm, chunk)
+
+
+def ssd_learners(x, dt, A, Bm, Cm, *, chunk: int = 256):
+    """:func:`ssd` over a leading learner axis in one call: x (L, B, S, H,
+    P), dt (L, B, S, H), A (L, H), Bm/Cm (L, B, S, G, N) -> (y (L, B, S,
+    H, P), state (L, B, H, N, P)).  Learner l's heads become heads l·H ..
+    l·H + H - 1 of one (B, S, L·H, P) call and its groups groups l·G ..,
+    so head l·H + h reads group l·G + h // (H / G), as each learner's own
+    call would (heads are independent in the scan)."""
+    L, H = x.shape[0], x.shape[3]
+
+    def fold(a):                      # (L, B, S, n, ...) -> (B, S, L·n, ...)
+        return a.movedim(0, 2).flatten(2, 3).contiguous()
+    y, state = ssd(fold(x), fold(dt), A.reshape(L * H).contiguous(),
+                   fold(Bm), fold(Cm), chunk=chunk)
+    return (y.unflatten(2, (L, H)).movedim(2, 0),
+            state.unflatten(1, (L, H)).movedim(1, 0))
+
+
+def _launch(x, dt, A, Bm, Cm, chunk):
+    """One K9 call on the card (its two launches; no autograd)."""
+    global launches
+    require_no_grad("ssd", x, dt, A, Bm, Cm)
     require_kernel_device(x)
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]

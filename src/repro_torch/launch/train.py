@@ -1,12 +1,21 @@
 """Training launcher — the port of ``repro.launch.train`` (main path).
 
 Library entry point: :func:`setup_training` builds (state, step_fn, meta)
-for the paper's acoustic model under one strategy; :func:`run` drives the
-loop (prefetching, logging, per-step timing); the CLI wraps both.
+for any arch under one strategy; :func:`run` drives the loop
+(prefetching, logging, per-step timing); the CLI wraps both.
 
     # the paper's §V setup on the card: AD-PSGD, 16 learners, batch 256
     PYTHONPATH=src python -m repro_torch.launch.train --arch swb2000-blstm \\
         --learners 16 --batch 256 --var-len --steps 20 --log-every 1
+
+    # a language model on the card: smollm-360m under its config's
+    # ad_psgd over 16 learners, batch 32 x 128 tokens, 2 microbatches
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
+        --batch 32 --steps 20 --log-every 1
+
+    # any arch at reduced size on the CPU (the plain PyTorch path)
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \\
+        --reduced --device cpu --steps 2 --log-every 1
 
     # long utterances: sequence-chunked recompute (K = 256 at T = 2000)
     PYTHONPATH=src python -m repro_torch.launch.train --arch swb2000-blstm \\
@@ -53,8 +62,12 @@ step's metrics as a ``train/step`` event (the gradient norm included),
 (``train/step``, timed up to a ``torch.cuda.synchronize``), the loss,
 wire-byte, fault and padding instruments and the ``kernel/stash_bytes``
 gauge, written as JSONL (``--trace-deterministic``: without the
-wall-clock fields, byte-identical between two seeded runs).  Not ported
-yet (ROADMAP.md queue 1): ``--mesh`` and ``--kernel-impl``.
+wall-clock fields, byte-identical between two seeded runs).  ``--seq-len``
+defaults to 21 frames for the lstm family and 128 positions otherwise
+(an encdec batch splits them evenly between frames and tokens, a vlm
+batch gives ``vlm_patch_frac`` of them to patches); ``--var-len`` and
+``--bucket`` are the lstm family's alone.  Not ported (ROADMAP.md queue
+1): ``--mesh`` and ``--kernel-impl``.
 """
 from __future__ import annotations
 
@@ -74,7 +87,7 @@ from repro_torch.core.faults import (FaultPlan, parse_departures,
 from repro_torch.data import Prefetcher, make_dataset
 from repro_torch.device import resolve_device
 from repro_torch.kernels.lstm_cell import chunk_length, stash_bytes
-from repro_torch.models import lstm as LS
+from repro_torch.models import build_model
 from repro_torch.optim.optimizers import get_optimizer
 from repro_torch.optim.schedules import paper_recipe, warmup_then_anneal
 from repro_torch.params import init_params
@@ -85,7 +98,8 @@ def setup_training(cfg, *, strategy_name: str = None, n_learners: int = None,
                    seed: int = 0, device=None, with_consensus: bool = False,
                    with_grad_norm: bool = False, elastic: bool = False,
                    fault_seed: int = 0, with_corruption: bool = False):
-    """Build the train state and step for one arch.
+    """Build the train state and step for one arch of any family, through
+    ``build_model(cfg)``'s ``param_specs`` and ``loss_fn``.
 
     Weights are drawn from ``seed`` (:func:`repro_torch.params.
     init_params`) and copied to every learner.  ``device`` defaults to
@@ -101,9 +115,7 @@ def setup_training(cfg, *, strategy_name: str = None, n_learners: int = None,
     ``meta["loss_fn"]`` is the per-learner loss the step
     differentiates."""
     dev = resolve_device(device)
-    if cfg.family != "lstm":
-        raise ValueError(f"only the lstm family is ported, not "
-                         f"{cfg.family!r}")
+    model = build_model(cfg)
     strategy = ST.get_strategy(strategy_name or cfg.train_strategy)
     n_learners = n_learners if n_learners is not None else cfg.n_learners
     if not strategy.replicated:
@@ -113,8 +125,7 @@ def setup_training(cfg, *, strategy_name: str = None, n_learners: int = None,
     lr_schedule = lr_schedule or warmup_then_anneal(0.1, 0.5, 100, 10_000,
                                                     1 / np.sqrt(2))
 
-    def loss_fn(params, batch):
-        return LS.loss_train(cfg, params, batch, device=dev)
+    loss_fn = model.loss_fn
 
     kw = dict(n_learners=n_learners, microbatches=cfg.microbatches,
               transport=transport, with_consensus=with_consensus,
@@ -126,7 +137,7 @@ def setup_training(cfg, *, strategy_name: str = None, n_learners: int = None,
     else:
         step_fn = ST.make_train_step(strategy, loss_fn, opt, lr_schedule,
                                      **kw)
-    params = init_params(LS.param_specs(cfg), seed, dev)
+    params = init_params(model.param_specs(), seed, dev)
     if strategy.replicated:
         params = ST.stack_for_learners(params, n_learners)
     init = ST.init_elastic_state if elastic else ST.init_state
@@ -162,6 +173,16 @@ def stash_line(cfg, batch: int, seq_len: int) -> str:
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _positions(batch):
+    """(valid, padded) positions of a batch: the utterances' frames (the
+    valid ones counted from ``lengths``), else the tokens."""
+    x = batch["features"] if "features" in batch else batch["tokens"]
+    padded = int(x.shape[0] * x.shape[1])
+    if "lengths" in batch:
+        return int(batch["lengths"].sum()), padded
+    return padded, padded
 
 
 def _batch_key(args, kwargs):
@@ -208,7 +229,7 @@ def run(state, step_fn, dataset, *, steps: int, device, start: int = 0,
     tagging the wire bytes) and the step is wrapped in a compile/steady
     :class:`~repro_torch.obs.ProfiledFn` (``train/step``).  Returns
     (state, metrics of the last step, per-step records (seconds, valid
-    frames, padded frames, loss))."""
+    frames, padded frames, loss); an LM batch's frames are its tokens)."""
     pf = Prefetcher(dataset, start_step=start)
     records, metrics = [], None
     if obs.enabled():
@@ -221,10 +242,7 @@ def run(state, step_fn, dataset, *, steps: int, device, start: int = 0,
         for k in range(start, start + steps):
             with obs.span("train/fetch", step=k):
                 batch = pf.next()
-            feats = batch["features"]
-            padded = int(feats.shape[0] * feats.shape[1])
-            valid = int(batch["lengths"].sum()) if "lengths" in batch \
-                else padded
+            valid, padded = _positions(batch)
             if "lengths" in batch:
                 valid_all += valid
                 padded_all += padded
@@ -264,9 +282,10 @@ def run(state, step_fn, dataset, *, steps: int, device, start: int = 0,
     return state, metrics, records
 
 
-def timing_line(records) -> str:
+def timing_line(records, unit: str = "valid frames") -> str:
     """First-step vs steady time: the first step also builds kernels and
-    warms allocators, so it is reported apart."""
+    warms allocators, so it is reported apart.  ``unit`` names what the
+    records count (an LM's tokens)."""
     first = records[0][0]
     steady = records[1:]
     line = f"timing: first step {1e3 * first:.1f} ms"
@@ -274,7 +293,7 @@ def timing_line(records) -> str:
         secs = sum(r[0] for r in steady)
         frames = sum(r[1] for r in steady)
         line += (f", steady {1e3 * secs / len(steady):.1f} ms/step over "
-                 f"{len(steady)} steps, {frames / secs:.1f} valid frames/s")
+                 f"{len(steady)} steps, {frames / secs:.1f} {unit}/s")
     return line
 
 
@@ -282,7 +301,8 @@ def main(argv=None):
     """The CLI; returns the final ``state``, the last step's ``metrics``,
     the per-step ``records`` of :func:`run` and ``meta``."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="swb2000-blstm")
+    ap.add_argument("--arch", default="swb2000-blstm",
+                    help="any registered arch (repro_torch.configs)")
     ap.add_argument("--strategy", default=None,
                     choices=[None] + sorted(ST.STRATEGIES))
     ap.add_argument("--steps", type=int, default=100)
@@ -309,9 +329,10 @@ def main(argv=None):
     ap.add_argument("--var-len", action="store_true",
                     help="variable-length utterances: batches carry a "
                          "'lengths' key, loss/BLSTM/aggregation mask "
-                         "padded frames")
+                         "padded frames (lstm family only)")
     ap.add_argument("--bucket", action="store_true",
-                    help="length-bucketed batching (implies --var-len)")
+                    help="length-bucketed batching (implies --var-len; "
+                         "lstm family only)")
     ap.add_argument("--consensus", action="store_true",
                     help="log the replicas' consensus distance each step")
     ap.add_argument("--grad-norm", action="store_true",
@@ -409,7 +430,8 @@ def main(argv=None):
             changes[key] = getattr(args, key)
     if changes:
         cfg = dataclasses.replace(cfg, **changes)
-    seq_len = args.seq_len or 21
+    lstm = cfg.family == "lstm"
+    seq_len = args.seq_len or (21 if lstm else 128)
     n_learners = (args.learners if args.learners is not None
                   else cfg.n_learners)
     strategy = ST.get_strategy(args.strategy or cfg.train_strategy)
@@ -453,8 +475,12 @@ def main(argv=None):
             if args.resume:
                 raise SystemExit(
                     f"--resume: no checkpoint under {args.ckpt_dir}")
-    print(stash_line(cfg, batch, seq_len), flush=True)
-    if obs.enabled():
+    ds = make_dataset(cfg, seq_len=seq_len, batch=batch, seed=args.seed,
+                      var_len=args.var_len or args.bucket,
+                      bucket=args.bucket)
+    if lstm:
+        print(stash_line(cfg, batch, seq_len), flush=True)
+    if lstm and obs.enabled():
         # the stash of one learner's share of the batch, at the
         # per-direction width and the resolved chunk length
         itemsize = 2 if cfg.lstm_stash_dtype == "bfloat16" else 4
@@ -463,11 +489,12 @@ def main(argv=None):
         obs.gauge("kernel/stash_bytes", seq_chunk=K).set(stash_bytes(
             max(batch // max(n_learners, 1), 1), seq_len, cfg.lstm_hidden,
             n_dir=2, stash_itemsize=itemsize, seq_chunk=K))
-    ds = make_dataset(cfg, seq_len=seq_len, batch=batch, seed=args.seed,
-                      var_len=args.var_len or args.bucket,
-                      bucket=args.bucket)
     t0 = time.time()
-    state, metrics, records = run(state, step_fn, ds, steps=args.steps,
+    # hand the state over: with no reference left here, each step frees
+    # the state it replaces (at full width, replicas of gigabytes)
+    box = [state]
+    del state
+    state, metrics, records = run(box.pop(), step_fn, ds, steps=args.steps,
                                   device=device, start=start,
                                   log_every=args.log_every,
                                   ckpt_dir=args.ckpt_dir,
@@ -478,7 +505,8 @@ def main(argv=None):
     print(f"done: {args.steps} steps in {time.time() - t0:.1f}s "
           f"[{meta['strategy'].name}, L={meta['n_learners']}, {device}]")
     if records:
-        print(timing_line(records), flush=True)
+        print(timing_line(records, "valid frames" if lstm else "tokens"),
+              flush=True)
     if args.trace_out:
         n = obs.dump(args.trace_out,
                      deterministic=args.trace_deterministic)

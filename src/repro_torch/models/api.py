@@ -15,11 +15,14 @@ self and a cross cache, never paged), ``cache_specs(batch, cache_len)``
 the reference's even split) and ``page_specs(n_pages, page_size)``
 (attention-only: ValueError for the ssm, hybrid and encdec families).
 The lstm family has parameters but no decode loop; its ASR server calls
-``models/lstm.py`` directly.
+``models/lstm.py`` directly.  ``loss_fn(params, batch)`` is every
+family's training loss: over learner-stacked params and a batch split
+over learners (the train step's call) the (L,) per-learner losses, for
+one model's params and batch the scalar.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import encdec as ED
@@ -30,6 +33,9 @@ from repro_torch.models import transformer as TF
 @dataclass(frozen=True)
 class Model:
     cfg: ArchConfig
+    # the learner-folded expert weights a moe model keeps on the card from
+    # one training call to the next (kernels/moe_dense.fold_experts)
+    folds: dict = field(default_factory=dict, compare=False, repr=False)
 
     def param_specs(self):
         fam = self.cfg.family
@@ -38,6 +44,18 @@ class Model:
         if fam == "lstm":
             return LS.param_specs(self.cfg)
         return TF.param_specs(self.cfg)
+
+    def loss_fn(self, params, batch):
+        """The family's training loss (``models/transformer.loss_train``,
+        ``models/encdec.loss_train`` or ``models/lstm.loss_train``, the
+        last on the device the params lie on)."""
+        fam = self.cfg.family
+        if fam == "encdec":
+            return ED.loss_train(self.cfg, params, batch)
+        if fam == "lstm":
+            dev = params["softmax_b"].device
+            return LS.loss_train(self.cfg, params, batch, device=dev)
+        return TF.loss_train(self.cfg, params, batch, keep=self.folds)
 
     def _decoder(self):
         if not self.cfg.supports_decode:

@@ -28,7 +28,8 @@ import torch
 
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
-from repro_torch.models.common import apply_rope, rotate
+from repro_torch.models.common import (apply_rope, linear, per_learner,
+                                       rotate)
 from repro_torch.params import ParamSpec
 
 NEG_INF = -1e30
@@ -58,19 +59,19 @@ def attn_param_specs(cfg, *, dtype=None) -> dict:
 def qkv_project(cfg, p, xq, xkv, positions_q=None, positions_kv=None, *,
                 rope=None):
     """x (B, S, d) -> q (B, S, H, E), k and v (B, S, KV, E), each one
-    matmul against the (d, heads * E) view of its weight.  ``rope`` is a
-    precomputed (sin, cos) pair (:func:`~repro_torch.models.common.
-    rope_angles`) applied to q and k in place of ``positions_*``."""
-    B, Sq, d = xq.shape
-    Skv = xkv.shape[1]
-    H, KV, E = p["wq"].shape[1], p["wk"].shape[1], p["wq"].shape[2]
-    q = (xq @ p["wq"].reshape(d, H * E)).view(B, Sq, H, E)
-    k = (xkv @ p["wk"].reshape(d, KV * E)).view(B, Skv, KV, E)
-    v = (xkv @ p["wv"].reshape(d, KV * E)).view(B, Skv, KV, E)
+    matmul against the (d, heads * E) view of its weight; or, with
+    learner-stacked weights, x (L, B, S, d) -> (L, B, S, heads, E), one
+    batched product per weight.  ``rope`` is a precomputed (sin, cos) pair
+    (:func:`~repro_torch.models.common.rope_angles`) applied to q and k in
+    place of ``positions_*``."""
+    H, KV, E = p["wq"].shape[-2], p["wk"].shape[-2], p["wq"].shape[-1]
+    q = linear(xq, p["wq"].flatten(-2)).view(*xq.shape[:-1], H, E)
+    k = linear(xkv, p["wk"].flatten(-2)).view(*xkv.shape[:-1], KV, E)
+    v = linear(xkv, p["wv"].flatten(-2)).view(*xkv.shape[:-1], KV, E)
     if "bq" in p:
-        q = (q.float() + p["bq"]).to(q.dtype)
-        k = (k.float() + p["bk"]).to(k.dtype)
-        v = (v.float() + p["bv"]).to(v.dtype)
+        q = (q.float() + per_learner(p["bq"], 2, q.dim())).to(q.dtype)
+        k = (k.float() + per_learner(p["bk"], 2, k.dim())).to(k.dtype)
+        v = (v.float() + per_learner(p["bv"], 2, v.dim())).to(v.dtype)
     if rope is not None:
         return rotate(q, *rope), rotate(k, *rope), v
     if positions_q is not None:
@@ -81,11 +82,11 @@ def qkv_project(cfg, p, xq, xkv, positions_q=None, positions_kv=None, *,
 
 
 def out_project(p, o):
-    """o (B, S, H, E) -> (B, S, d) through the (H * E, d) view of wo."""
-    B, S, H, E = o.shape
-    y = o.reshape(B, S, H * E) @ p["wo"].reshape(H * E, -1)
+    """o (B, S, H, E) -> (B, S, d) through the (H * E, d) view of wo (or
+    per learner, o (L, B, S, H, E) against wo (L, H, E, d))."""
+    y = linear(o.flatten(-2), p["wo"].flatten(-3, -2))
     if "bo" in p:
-        y = (y.float() + p["bo"]).to(y.dtype)
+        y = (y.float() + per_learner(p["bo"], 1, y.dim())).to(y.dtype)
     return y
 
 
@@ -133,7 +134,14 @@ def attn_prefill(q, k, v, *, window=None, causal: bool = True):
     no part).  On the card the K11 kernel (``kernels.flash_attention``);
     on the CPU :func:`attn_seq`.  Both round p to bf16 once before p·v, as
     the reference's prefill does.  A branch on the device, not a fallback:
-    the card never runs ``attn_seq``."""
+    the card never runs ``attn_seq``.  A leading learner axis (q (L, B,
+    Sq, H, E), k/v (L, B, Sk, KV, E)) folds into the batch: one call for
+    every learner.  Differentiable on both devices (on the card through
+    K11's autograd Function)."""
+    if q.dim() == 5:
+        out = attn_prefill(q.flatten(0, 1), k.flatten(0, 1),
+                           v.flatten(0, 1), window=window, causal=causal)
+        return out.view(q.shape)
     if q.device.type == "cpu":
         return attn_seq(q, k, v, causal=causal, window=window)
     return FA.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),

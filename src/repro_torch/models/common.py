@@ -1,11 +1,38 @@
 """Shared model helpers: norms, RoPE and sinusoidal positions,
-activations, masks and the loss — the port of ``repro.models.common``."""
+activations, masks and the loss — the port of ``repro.models.common`` —
+and the products of learner-stacked weights (:func:`linear`,
+:func:`per_learner`) through which the training forward runs every
+learner in one pass."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from repro_torch.params import ParamSpec
+
+
+# ---------------------------------------------------------------------------
+# Learner-stacked weights
+# ---------------------------------------------------------------------------
+
+def linear(x, w):
+    """x (..., K) @ w (K, N); or, for a learner-stacked weight w (L, K,
+    N) and x (L, ..., K), one batched product over each learner's rows
+    (the lstm model's ``_rows``)."""
+    if w.dim() == 2:
+        return x @ w
+    L, K, N = w.shape
+    return torch.bmm(x.reshape(L, -1, K), w).reshape(*x.shape[:-1], N)
+
+
+def per_learner(w, nd: int, ndim: int):
+    """A parameter of ``nd`` dims of its own, or with a leading learner
+    axis on top of them, made broadcastable against a tensor of ``ndim``
+    dims (whose first axis is the learner's when ``w`` has one)."""
+    if w.dim() == nd:
+        return w
+    return w.reshape((w.shape[0],) + (1,) * (ndim - 1 - nd)
+                     + tuple(w.shape[1:]))
 
 
 # ---------------------------------------------------------------------------
@@ -25,13 +52,15 @@ def apply_norm(p, x, eps: float = 1e-5):
     """RMSNorm, or LayerNorm when ``p`` has a bias; f32 inside, the input
     dtype out."""
     xf = x.float()
+    scale = per_learner(p["scale"], 1, x.dim())
     if "bias" in p:
         mu = xf.mean(dim=-1, keepdim=True)
         var = torch.square(xf - mu).mean(dim=-1, keepdim=True)
-        y = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+        y = ((xf - mu) * torch.rsqrt(var + eps) * scale
+             + per_learner(p["bias"], 1, x.dim()))
     else:
         ms = torch.square(xf).mean(dim=-1, keepdim=True)
-        y = xf * torch.rsqrt(ms + eps) * p["scale"]
+        y = xf * torch.rsqrt(ms + eps) * scale
     return y.to(x.dtype)
 
 
@@ -39,7 +68,7 @@ def rmsnorm(x, scale=None, eps: float = 1e-5):
     xf = x.float()
     y = xf * torch.rsqrt(torch.square(xf).mean(dim=-1, keepdim=True) + eps)
     if scale is not None:
-        y = y * scale
+        y = y * per_learner(scale, 1, x.dim())
     return y.to(x.dtype)
 
 

@@ -1,6 +1,7 @@
 """Whisper-style encoder-decoder transformer: the encdec family — the port
-of ``repro.models.encdec`` for serving (parameter specs, the encoder, the
-teacher-forced decoder, prefill and the one-token decode step).
+of ``repro.models.encdec`` (parameter specs, the encoder, the
+teacher-forced decoder, prefill, the one-token decode step and the
+training loss over learner-stacked params, :func:`loss_train`).
 
 The mel-spectrogram and conv feature extractor is a stub, as in the
 reference: the encoder takes precomputed frame embeddings (B, S_enc,
@@ -8,7 +9,7 @@ d_model).  Both stacks add sinusoidal positions
 (:func:`~repro_torch.models.common.sinusoidal_positions`, f32, cast to
 bf16 before the add), the reference's stand-in for whisper's learned
 decoder positions.  Layers are stacked along a leading axis, walked by a
-Python loop (inference only: no remat).  Casts follow the reference:
+Python loop.  Casts follow the reference:
 frames to bf16 before the positions, each layer's residual stream bf16.
 
 * ``encode`` — non-causal self-attention layers (``attention.
@@ -37,13 +38,18 @@ its entry points are ``models.api.Model.prefill_fn`` / ``decode_fn``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
-from repro_torch.models.common import (apply_norm, norm_spec,
-                                       sinusoidal_positions)
-from repro_torch.models.transformer import _layer, _pad_cache, _stack
+from repro_torch.models.common import (apply_norm, cross_entropy, linear,
+                                       norm_spec, sinusoidal_positions)
+from repro_torch.models.transformer import (_layer, _pad_cache, _stack,
+                                            embed_rows, learner_batch,
+                                            unstack_layers)
 from repro_torch.params import ParamSpec
 
 
@@ -70,22 +76,58 @@ def param_specs(cfg) -> dict:
 
 
 def _add_positions(x):
-    """x (B, S, d) + the sinusoids of positions 0..S-1 in x's dtype."""
-    pos = torch.arange(x.shape[1], device=x.device)
-    return x + sinusoidal_positions(pos, x.shape[2]).to(x.dtype)[None]
+    """x (..., S, d) + the sinusoids of positions 0..S-1 in x's dtype."""
+    pos = torch.arange(x.shape[-2], device=x.device)
+    return x + sinusoidal_positions(pos, x.shape[-1]).to(x.dtype)
 
 
-def encode(cfg, params, frames):
-    """frames (B, S_enc, d) stub frame embeddings -> (B, S_enc, d) bf16."""
+def _layers(tree, n: int, learners: bool) -> list:
+    """The n layers of a stacked tree: (L, ...) views of a learner-stacked
+    one, else the layer slices."""
+    if learners:
+        return unstack_layers(tree, n)
+    return [_layer(tree, i) for i in range(n)]
+
+
+def _walk(body, x, layers, *args, remat: bool):
+    """x through ``body(x, p, *args)`` for each layer p, each recomputed
+    in the backward (``torch.utils.checkpoint``) under ``remat``."""
+    for p in layers:
+        x = (checkpoint(body, x, p, *args, use_reentrant=False) if remat
+             else body(x, p, *args))
+    return x
+
+
+def _enc_block(cfg, x, p):
+    h = apply_norm(p["ln1"], x)
+    q, k, v = A.qkv_project(cfg, p["attn"], h, h)
+    x = x + A.out_project(p["attn"], A.attn_prefill(q, k, v, causal=False))
+    x = x + F.ffn_apply(cfg, p["mlp"], apply_norm(p["ln2"], x))
+    return x.to(torch.bfloat16)
+
+
+def _dec_block(cfg, x, p, enc_out):
+    """One decoder layer -> (x', (k, v, ck, cv)): its self K/V and its
+    cross K/V (the encoder output's projections)."""
+    h = apply_norm(p["ln1"], x)
+    q, k, v = A.qkv_project(cfg, p["self_attn"], h, h)
+    x = x + A.out_project(p["self_attn"], A.attn_prefill(q, k, v))
+    h = apply_norm(p["lnx"], x)
+    q, ck, cv = A.qkv_project(cfg, p["cross_attn"], h, enc_out)
+    x = x + A.out_project(p["cross_attn"],
+                          A.attn_prefill(q, ck, cv, causal=False))
+    x = x + F.ffn_apply(cfg, p["mlp"], apply_norm(p["ln2"], x))
+    return x.to(torch.bfloat16), (k, v, ck, cv)
+
+
+def encode(cfg, params, frames, *, remat: bool = False):
+    """frames (B, S_enc, d) stub frame embeddings -> (B, S_enc, d) bf16;
+    over learner-stacked params, frames (L, B, S_enc, d) -> (L, B, S_enc,
+    d).  ``remat`` recomputes each layer in the backward."""
     x = _add_positions(frames.to(torch.bfloat16))
-    for i in range(cfg.n_enc_layers):
-        p = _layer(params["enc_layers"], i)
-        h = apply_norm(p["ln1"], x)
-        q, k, v = A.qkv_project(cfg, p["attn"], h, h)
-        x = x + A.out_project(p["attn"], A.attn_prefill(q, k, v,
-                                                        causal=False))
-        x = x + F.ffn_apply(cfg, p["mlp"], apply_norm(p["ln2"], x))
-        x = x.to(torch.bfloat16)
+    layers = _layers(params["enc_layers"], cfg.n_enc_layers,
+                     frames.dim() == 4)
+    x = _walk(functools.partial(_enc_block, cfg), x, layers, remat=remat)
     return apply_norm(params["enc_norm"], x)
 
 
@@ -99,16 +141,8 @@ def decode_seq(cfg, params, tokens, enc_out, *, collect_cache: bool = False,
     x = _add_positions(params["embed"][tokens.long()].to(torch.bfloat16))
     ks, vs, cks, cvs = [], [], [], []
     for i in range(cfg.n_layers):
-        p = _layer(params["dec_layers"], i)
-        h = apply_norm(p["ln1"], x)
-        q, k, v = A.qkv_project(cfg, p["self_attn"], h, h)
-        x = x + A.out_project(p["self_attn"], A.attn_prefill(q, k, v))
-        h = apply_norm(p["lnx"], x)
-        q, ck, cv = A.qkv_project(cfg, p["cross_attn"], h, enc_out)
-        x = x + A.out_project(p["cross_attn"],
-                              A.attn_prefill(q, ck, cv, causal=False))
-        x = x + F.ffn_apply(cfg, p["mlp"], apply_norm(p["ln2"], x))
-        x = x.to(torch.bfloat16)
+        x, (k, v, ck, cv) = _dec_block(cfg, x, _layer(params["dec_layers"],
+                                                      i), enc_out)
         if collect_cache:
             k, v = _pad_cache(k, v, cache_len)
             ks.append(k)
@@ -120,6 +154,27 @@ def decode_seq(cfg, params, tokens, enc_out, *, collect_cache: bool = False,
         return x, ()
     return x, ((torch.stack(ks), torch.stack(vs)),
                (torch.stack(cks), torch.stack(cvs)))
+
+
+def loss_train(cfg, params, batch):
+    """The reference's ``loss_train``: encode ``frames``, the teacher-
+    forced decoder over ``tokens``, tied logits, cross entropy against
+    ``labels``.  Over learner-stacked params and a batch split over
+    learners (frames (L, B, S_enc, d), tokens (L, B, S)) -> the (L,)
+    per-learner losses; for one model (frames (B, S_enc, d)) the scalar.
+    Every encoder layer is recomputed in the backward (the reference's
+    encoder is ``jax.checkpoint``-ed whatever the config says), every
+    decoder layer when ``cfg.remat`` is set."""
+    params, batch, one = learner_batch(params, batch, "frames")
+    enc_out = encode(cfg, params, batch["frames"], remat=True)
+    x = _add_positions(embed_rows(params["embed"], batch["tokens"]))
+    x = _walk(lambda x, p, e: _dec_block(cfg, x, p, e)[0], x,
+              unstack_layers(params["dec_layers"], cfg.n_layers), enc_out,
+              remat=cfg.remat)
+    x = apply_norm(params["dec_norm"], x)
+    logits = linear(x, params["embed"].transpose(-1, -2))
+    loss = cross_entropy(logits, batch["labels"], per_learner=True)
+    return loss[0] if one else loss
 
 
 def cache_specs(cfg, batch: int, cache_len: int, enc_len: int) -> dict:

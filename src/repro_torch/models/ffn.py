@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.common import gelu
+from repro_torch.models.common import gelu, linear, per_learner
 from repro_torch.params import ParamSpec
 
 
@@ -23,14 +23,16 @@ def ffn_param_specs(cfg, d_ff=None) -> dict:
 
 
 def ffn_apply(cfg, p, x):
-    h = x @ p["wi"]
+    """x (B, S, d) -> (B, S, d); or per learner, x (L, B, S, d) against
+    learner-stacked weights, one batched product per weight."""
+    h = linear(x, p["wi"])
     if "bi" in p:
-        h = (h.float() + p["bi"]).to(h.dtype)
+        h = (h.float() + per_learner(p["bi"], 1, h.dim())).to(h.dtype)
     if cfg.act == "swiglu":
-        h = torch.nn.functional.silu(x @ p["wg"]) * h
+        h = torch.nn.functional.silu(linear(x, p["wg"])) * h
     else:
         h = gelu(h)
-    y = h @ p["wo"]
+    y = linear(h, p["wo"])
     if "bo" in p:
-        y = (y.float() + p["bo"]).to(y.dtype)
+        y = (y.float() + per_learner(p["bo"], 1, y.dim())).to(y.dtype)
     return y

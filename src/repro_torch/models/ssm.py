@@ -21,7 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ssd_scan as SSD
 from repro_torch.kernels.ref import expand_groups
-from repro_torch.models.common import rmsnorm
+from repro_torch.models.common import linear, per_learner, rmsnorm
 from repro_torch.params import ParamSpec
 
 
@@ -80,12 +80,14 @@ def ssm_cache_specs(cfg, batch: int) -> dict:
 
 def causal_conv_seq(x, kernel):
     """x (B, S, C); kernel (W, C) depthwise, f32; causal (left) zero
-    padding; f32 sums, x's dtype out."""
-    W, S = kernel.shape[0], x.shape[1]
+    padding; f32 sums, x's dtype out.  Per learner: x (L, B, S, C),
+    kernel (L, W, C)."""
+    W, S = kernel.shape[-2], x.shape[-2]
     xp = F.pad(x, (0, 0, W - 1, 0))
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for i in range(W):
-        out = out + xp[:, i:i + S].float() * kernel[i]
+        out = out + (xp[..., i:i + S, :].float()
+                     * per_learner(kernel[..., i, :], 1, x.dim()))
     return out.to(x.dtype)
 
 
@@ -100,8 +102,8 @@ def causal_conv_step(buf, xt, kernel):
 def _tail(a, n: int):
     """The last ``n`` rows of a (B, S, C) along S, left-padded with zeros
     when S < n: the window the zero-padded causal conv has seen."""
-    S = a.shape[1]
-    return a[:, S - n:] if S >= n else F.pad(a, (0, 0, n - S, 0))
+    S = a.shape[-2]
+    return a[..., S - n:, :] if S >= n else F.pad(a, (0, 0, n - S, 0))
 
 
 # ---------------------------------------------------------------------------
@@ -124,41 +126,46 @@ def ssd_step(h, xt, dtt, A, Bt, Ct):
 # ---------------------------------------------------------------------------
 
 def _projections(p, x):
-    z = x @ p["wz"]
-    xi = x @ p["wx"]
-    Bp = x @ p["wB"]
-    Cp = x @ p["wC"]
-    dt_raw = x.float() @ p["wdt"].float()
+    z = linear(x, p["wz"])
+    xi = linear(x, p["wx"])
+    Bp = linear(x, p["wB"])
+    Cp = linear(x, p["wC"])
+    dt_raw = linear(x.float(), p["wdt"].float())
     return z, xi, Bp, Cp, dt_raw
 
 
 def _gate_out(cfg, p, y, xh, z):
     """y += D x; RMSNorm of y * silu(z); the output projection."""
     d_inner = ssm_dims(cfg)[0]
-    y = y + (p["D"][:, None] * xh.float()).to(y.dtype)
+    D = per_learner(p["D"][..., None], 2, xh.dim())
+    y = y + (D * xh.float()).to(y.dtype)
     y = y.reshape(*y.shape[:-2], d_inner)
     y = rmsnorm(y * F.silu(z.float()).to(y.dtype), p["norm_scale"])
-    return y @ p["out"]
+    return linear(y, p["out"])
 
 
 def mamba2_seq(cfg, p, x):
     """Full-sequence mamba2 block.  x (B, S, d) -> (y (B, S, d),
     (conv_state, ssm_state)): conv_state the last ``conv_width - 1``
     pre-conv inputs {'x', 'B', 'C'} (zero rows first when S is shorter),
-    ssm_state (B, H, N, P) f32."""
+    ssm_state (B, H, N, P) f32.  With learner-stacked weights, x (L, B,
+    S, d) and every output with a leading L: the projections and the
+    conv per learner, the scan one ``ssd_learners`` call (K9 with the
+    learners folded into its heads on the card)."""
     s = cfg.ssm
     H = ssm_dims(cfg)[1]
-    B_, S_, _ = x.shape
+    lead = x.shape[:-1]                                   # (B, S) or (L, B, S)
     z, xi, Bp, Cp, dt_raw = _projections(p, x)
     xi_c = F.silu(causal_conv_seq(xi, p["conv_x"]))
     Bp_c = F.silu(causal_conv_seq(Bp, p["conv_B"]))
     Cp_c = F.silu(causal_conv_seq(Cp, p["conv_C"]))
-    dt = F.softplus(dt_raw + p["dt_bias"])                          # f32
+    dt = F.softplus(dt_raw + per_learner(p["dt_bias"], 1, x.dim()))  # f32
     A = -torch.exp(p["A_log"])
-    xh = xi_c.reshape(B_, S_, H, s.head_dim)
-    grouped = (B_, S_, s.n_groups, s.state_dim)
-    y, h_final = SSD.ssd(xh, dt, A, Bp_c.reshape(grouped),
-                         Cp_c.reshape(grouped), chunk=s.chunk)
+    xh = xi_c.reshape(*lead, H, s.head_dim)
+    grouped = (*lead, s.n_groups, s.state_dim)
+    scan = SSD.ssd_learners if x.dim() == 4 else SSD.ssd
+    y, h_final = scan(xh, dt, A, Bp_c.reshape(grouped),
+                      Cp_c.reshape(grouped), chunk=s.chunk)
     out = _gate_out(cfg, p, y, xh, z)
     n = s.conv_width - 1
     conv_state = {"x": _tail(xi, n), "B": _tail(Bp, n), "C": _tail(Cp, n)}

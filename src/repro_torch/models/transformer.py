@@ -6,8 +6,7 @@ per-slot conv windows and SSM states for the ssm family; both halves, KV
 rows and SSM states, for the hybrid family).
 
 Layers are stacked along a leading axis L, as the reference stacks them
-for ``lax.scan``; here a Python loop walks them (no remat: inference
-only).  Prefill attention is ``attention.attn_prefill`` (the K11 kernel
+for ``lax.scan``; here a Python loop walks them.  Prefill attention is ``attention.attn_prefill`` (the K11 kernel
 on the card).  A hybrid layer runs attention and the Mamba-2 block on
 the same normed input and adds the mean of their rmsnormed outputs
 (Hymba's fusion) before its FFN.  A moe layer's FFN is
@@ -23,18 +22,30 @@ stacked write after the loop; each SSM block's state rows are replaced
 in place.  The encdec family has its own module (``models/encdec.py``,
 which ``models/api.py`` routes it to); here it raises
 ``NotImplementedError``.
+
+Training (:func:`loss_train`, the reference's ``loss_train``) runs every
+learner of a learner-stacked tree (a leading learner axis on every leaf,
+the layers' axis second) in one pass: x (L, B, S, d), one batched
+product per weight, each kernel called once for all learners
+(:func:`forward_train`).  Each layer is recomputed in the backward
+(``torch.utils.checkpoint``) when ``cfg.remat`` is set, as the
+reference's ``jax.checkpoint``; a moe layer's auxiliary loss is kept,
+per learner.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as SM
-from repro_torch.models.common import (apply_norm, norm_spec, rmsnorm,
-                                       rope_angles)
+from repro_torch.models.common import (apply_norm, cross_entropy, linear,
+                                       norm_spec, rmsnorm, rope_angles)
 from repro_torch.params import ParamSpec
 
 GLOBAL_WINDOW = np.int32(2 ** 30)   # "window" meaning full attention
@@ -218,6 +229,127 @@ def _forward_seq_ssm(cfg, params, x, collect_cache):
     if not collect_cache:
         return x, ()
     return x, (_stack_conv(convs), torch.stack(hs))
+
+
+# ---------------------------------------------------------------------------
+# Training forward (learner-stacked)
+# ---------------------------------------------------------------------------
+
+def unstack_layers(tree, n: int) -> list:
+    """A learner-stacked layer tree (every leaf (L, n, ...)) -> n trees of
+    (L, ...) views, one per layer.  One ``unbind`` per leaf: its backward
+    stacks the layers' gradients once, where slicing each layer out would
+    write a whole-leaf gradient per layer."""
+    if isinstance(tree, dict):
+        per_key = {k: unstack_layers(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(tree.unbind(1))
+
+
+def _train_layer(cfg, window, rope, keep, slot, x, p):
+    """One layer of :func:`forward_train`: x (L, B, S, d) -> (x', aux
+    (L,) f32, zero but in a moe layer)."""
+    aux = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+    h = apply_norm(p["ln1"], x)
+    if cfg.family == "ssm":
+        return (x + SM.mamba2_seq(cfg, p["ssm"], h)[0]).to(torch.bfloat16), aux
+    q, k, v = A.qkv_project(cfg, p["attn"], h, h, rope=rope)
+    o = A.out_project(p["attn"], A.attn_prefill(q, k, v, window=window))
+    if cfg.family == "hybrid":
+        o = _hybrid_combine(o, SM.mamba2_seq(cfg, p["ssm"], h)[0]).to(x.dtype)
+    x = x + o
+    h = apply_norm(p["ln2"], x)
+    if cfg.family == "moe":
+        y, aux = M.moe_apply(cfg, p["moe"], h, keep=keep, slot=slot)
+    else:
+        y = F.ffn_apply(cfg, p["mlp"], h)
+    return (x + y).to(torch.bfloat16), aux
+
+
+def forward_train(cfg, params, x, *, keep=None):
+    """The training forward over learner-stacked params: x (L, B, S, d)
+    embedded inputs -> (hidden (L, B, S, d) bf16, aux (L,) f32, the moe
+    layers' load-balance losses summed; zeros for the other families).
+    Each layer runs under ``torch.utils.checkpoint`` (non-reentrant) when
+    ``cfg.remat`` is set, so its kernels launch again in the backward.
+    ``keep`` holds a moe layer's learner-folded expert weights on the
+    card (``moe_dense.fold_experts``) from one call to the next."""
+    _require_ported(cfg)
+    L, B, S, _ = x.shape
+    windows = layer_windows(cfg, S)
+    rope = _rope(cfg, torch.arange(S, device=x.device)[None, :])
+    x = x.to(torch.bfloat16)
+    aux = torch.zeros(L, dtype=torch.float32, device=x.device)
+    for i, p in enumerate(unstack_layers(params["layers"], cfg.n_layers)):
+        body = functools.partial(_train_layer, cfg, int(windows[i]), rope,
+                                 keep, i)
+        if cfg.remat:
+            x, a = checkpoint(body, x, p, use_reentrant=False)
+        else:
+            x, a = body(x, p)
+        aux = aux + a
+    return x, aux
+
+
+def embed_rows(embed, tokens):
+    """Each learner's embedding rows of its ``tokens`` in bf16: embed (L,
+    V, d), tokens (L, ...) -> (L, ..., d)."""
+    lidx = torch.arange(embed.shape[0], device=tokens.device)
+    lidx = lidx.reshape((-1,) + (1,) * (tokens.dim() - 1))
+    return embed[lidx, tokens.long()].to(torch.bfloat16)
+
+
+def learner_batch(params, batch, key: str):
+    """(params, batch, one): a batch given for one model (``key``'s
+    leaf without a learner axis) gets a learner axis of 1 on every leaf
+    of both, and ``one`` says to drop it from the loss.  Batch leaves are
+    moved to the parameters' device."""
+    emb = params["embed"]
+    batch = {k: torch.as_tensor(v, device=emb.device) for k, v in
+             batch.items()}
+    one = batch[key].dim() == (1 if key == "frames" else 0) + 2
+    if one:
+        params = _map(lambda w: w.unsqueeze(0), params)
+        batch = {k: v.unsqueeze(0) for k, v in batch.items()}
+    return params, batch, one
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def loss_train(cfg, params, batch, *, keep=None):
+    """The reference's ``loss_train``: batch {'tokens', 'labels'} (+
+    'patches' for vlm: the loss is over the text positions alone), over
+    learner-stacked params and a batch split over learners (tokens (L,
+    B, S), patches (L, B, S_patch, d)) -> the (L,) per-learner losses:
+    next-token cross entropy, plus ``aux_loss_weight`` times the summed
+    load-balance loss for moe.  Params and a batch for one model (tokens
+    (B, S)) give the scalar loss.  ``keep``: see :func:`forward_train`."""
+    params, batch, one = learner_batch(params, batch, "tokens")
+    x = embed_rows(params["embed"], batch["tokens"])
+    patches = batch.get("patches")
+    if patches is not None:
+        x = torch.cat([patches.to(torch.bfloat16), x], dim=2)
+    x, aux = forward_train(cfg, params, x, keep=keep)
+    x = apply_norm(params["final_norm"], x)
+    if patches is not None:
+        x = x[:, :, patches.shape[2]:]
+    logits = learner_logits(cfg, params, x)
+    loss = cross_entropy(logits, batch["labels"], per_learner=True)
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.aux_loss_weight * aux
+    return loss[0] if one else loss
+
+
+def learner_logits(cfg, params, x):
+    """x (L, B, S, d) -> logits (L, B, S, V) through each learner's tied
+    embedding or lm_head."""
+    if cfg.tie_embeddings:
+        return linear(x, params["embed"].transpose(-1, -2))
+    return linear(x, params["lm_head"])
 
 
 def _pad_cache(k, v, cache_len):

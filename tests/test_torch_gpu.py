@@ -1586,3 +1586,137 @@ def test_load_on_card_matches_cpu_rows_and_calibrates(cuda):
     assert DK.launches - k5 == 8 * vals["load/waves"]
     for name in ("calib/admit_ms", "calib/wave_ms"):
         assert 0 < vals[name] < 1e3, (name, vals[name])
+
+
+# ---------------------------------------------------------------------------
+# training: the K11, K9 and K10 autograd Functions and the learner folds
+# ---------------------------------------------------------------------------
+
+def _grads_vs_plain(fn, plain, ins, cot):
+    """Gradients of <fn(*ins), cot> through the kernel's Function and
+    through autograd of its plain version, each normalised by the plain
+    gradient's max-abs: the worst."""
+    outs = []
+    for f in (fn, plain):
+        leaves = [t.detach().clone().requires_grad_(t.is_floating_point())
+                  for t in ins]
+        y = f(*leaves)
+        y = y[0] if isinstance(y, tuple) else y
+        want = [t for t in leaves if t.requires_grad]
+        outs.append(torch.autograd.grad((y.float() * cot).sum(), want))
+    return max(float((a.float() - b.float()).abs().max())
+               / (float(b.float().abs().max()) + 1e-12)
+               for a, b in zip(*outs))
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,E,causal,window", [
+    (4, 128, 128, 15, 5, 64, True, 0),        # smollm's heads
+    (2, 70, 70, 4, 2, 64, True, 32),          # ragged, windowed
+    (2, 16, 96, 4, 4, 64, False, 0),          # cross-attention
+])
+def test_flash_attention_function_grads(cuda, B, Sq, Sk, H, KV, E, causal,
+                                        window):
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.ref import flash_attention_plain
+
+    g = torch.Generator().manual_seed(Sq + Sk)
+    q = torch.randn(B, Sq, H, E, generator=g).to(cuda, torch.bfloat16)
+    k = torch.randn(B, Sk, KV, E, generator=g).to(cuda, torch.bfloat16)
+    v = torch.randn(B, Sk, KV, E, generator=g).to(cuda, torch.bfloat16)
+    cot = torch.randn(B, Sq, H, E, generator=g).to(cuda)
+    before = FA.launches
+    err = _grads_vs_plain(
+        lambda *a: FA.flash_attention(*a, causal=causal, window=window),
+        lambda *a: flash_attention_plain(*a, causal=causal, window=window),
+        (q, k, v), cot)
+    assert FA.launches == before + 1
+    assert err <= BF16_TOL, err
+
+
+def test_ssd_function_grads_and_learner_fold(cuda):
+    """K9's Function against autograd of ``ssd_plain`` (an unused final
+    state included), and ``ssd_learners`` (one launch for 3 learners)
+    equal to each learner's own launch."""
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.kernels.ref import ssd_plain
+
+    g = torch.Generator().manual_seed(9)
+    L, B, S, H, P, G, N = 3, 2, 100, 4, 64, 2, 32
+
+    def rnd(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g)).to(cuda, dtype)
+    x = rnd(L, B, S, H, P)
+    dt = (0.1 * torch.rand(L, B, S, H, generator=g)).to(cuda)
+    A = (-torch.rand(L, H, generator=g) - 0.1).to(cuda)
+    Bm, Cm = rnd(L, B, S, G, N, scale=0.3), rnd(L, B, S, G, N, scale=0.3)
+    cot = torch.randn(B, S, H, P, generator=g).to(cuda)
+    err = _grads_vs_plain(lambda *a: SSD.ssd(*a, chunk=64),
+                          lambda *a: ssd_plain(*a, chunk=64),
+                          (x[0], dt[0], A[0], Bm[0], Cm[0]), cot)
+    assert err <= BF16_TOL, err
+    before = SSD.launches
+    y, st = SSD.ssd_learners(x, dt, A, Bm, Cm, chunk=64)
+    assert SSD.launches == before + 1
+    for i in range(L):
+        y1, st1 = SSD.ssd(x[i], dt[i], A[i], Bm[i], Cm[i], chunk=64)
+        scale = float(y1.float().abs().max())
+        assert float((y[i].float() - y1.float()).abs().max()) <= 1e-2 * scale
+        assert float((st[i] - st1).abs().max()) <= 1e-4 * float(
+            st1.abs().max())
+
+
+def test_moe_dense_function_grads_and_learner_fold(cuda):
+    """K10 over 2 learners' experts folded into one launch (router
+    weights zero off each learner's block) against each learner's own
+    launch, and its Function's gradients against learner-batched autograd
+    of ``moe_dense_plain``."""
+    from repro_torch.kernels import moe_dense as MD
+    from repro_torch.kernels.ref import moe_dense_plain
+
+    g = torch.Generator().manual_seed(10)
+    L, T, d, E, f, k = 2, 40, 256, 6, 128, 2
+    x = torch.randn(L, T, d, generator=g).to(cuda, torch.bfloat16)
+    ws = [(torch.randn(L, E, *s, generator=g) / s[0] ** 0.5).to(
+        cuda, torch.bfloat16) for s in ((d, f), (d, f), (f, d))]
+    p = torch.softmax(torch.randn(L, T, E, generator=g), -1)
+    top = torch.topk(p, k, -1)
+    rw = torch.zeros_like(p).scatter(-1, top.indices, top.values).to(cuda)
+    before = MD.launches
+    y = MD.moe_dense_learners(x, rw, *ws)
+    assert MD.launches == before + 1
+    for i in range(L):
+        y1 = MD.moe_dense(x[i], rw[i], *(w[i] for w in ws))
+        assert torch.equal(y[i], y1)
+    cot = torch.randn(L, T, d, generator=g).to(cuda)
+    err = _grads_vs_plain(lambda *a: MD.moe_dense_learners(*a),
+                          lambda *a: moe_dense_plain(*a), (x, rw, *ws), cot)
+    assert err <= BF16_TOL, err
+
+
+def test_raw_launches_refuse_grad_inputs(cuda):
+    """A raw launch reached with an input that requires a gradient raises
+    (its output would carry no grad_fn); under no_grad it runs."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import moe_dense as MD
+    from repro_torch.kernels import ssd_scan as SSD
+
+    q = torch.randn(1, 64, 2, 64, device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    with pytest.raises(RuntimeError, match="raw launch"):
+        FA._launch(q, q, q, causal=True, window=0, q_offset=0)
+    with torch.no_grad():
+        FA._launch(q, q, q, causal=True, window=0, q_offset=0)
+    x = torch.randn(1, 64, 2, 64, device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    dt = torch.rand(1, 64, 2, device=cuda)
+    A = -torch.ones(2, device=cuda)
+    Bm = torch.randn(1, 64, 1, 16, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="raw launch"):
+        SSD._launch(x, dt, A, Bm, Bm, 64)
+    xm = torch.randn(4, 128, device=cuda, dtype=torch.bfloat16,
+                     requires_grad=True)
+    w = torch.randn(2, 128, 64, device=cuda, dtype=torch.bfloat16)
+    rw = torch.ones(4, 2, device=cuda)
+    with pytest.raises(RuntimeError, match="raw launch"):
+        MD._launch(xm, rw, w, w, w.transpose(1, 2).contiguous(),
+                   act="swiglu")
