@@ -379,14 +379,19 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE / "src"))
 
-# NVIDIA H100 SXM data sheet, dense, at the full 700 W power limit
-PEAK_BYTES_S = 3.35e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12
+# NVIDIA H100 SXM data sheet, dense, at the full 700 W power limit: the
+# port's one record of the card's peaks (repro_torch.analysis.roofline)
+try:
+    from repro_torch.analysis.roofline import HW
+except ImportError:              # main() says what is missing, and fails
+    HW = None
+PEAK_BYTES_S = HW and HW.hbm_bw
+PEAK_BF16_FLOPS = HW and HW.peak_flops_bf16
+PEAK_F32_FLOPS = HW and HW.peak_flops_f32
 # f32-accurate products on the tensor cores: the least time for K2's (and
 # K3's) products on f32 dgates is one TF32 pass of the same work (the
 # kernels issue three bf16 passes of split operands, gemm.cuh)
-PEAK_TF32_FLOPS = 495e12
+PEAK_TF32_FLOPS = HW and HW.peak_flops_tf32
 
 K1_TOL = 2e-2            # bf16 forward (docs/kernels.md §Oracle tolerances)
 K5_SUM_TOL = 1e-5        # sum semiring: logaddexp in another order
@@ -6011,6 +6016,486 @@ def phase_lm_train(gen):
     return total, fns
 
 
+# ---------------------------------------------------------------- phase 26
+# impl-dryrun: the one-direction LSTM (models/lstm.lstm_layer: K1, K1-stash,
+# K2, K1-chunk and K3 launched with one direction), the public wrappers and
+# the fake tensors' plain path, the dry-run's prediction against the card,
+# the card's identity
+UNI_B, UNI_T = 16, 21                  # the paper's batch tile and frames
+UNI_TOL = 2e-2                         # bf16 forward and gradients
+# the dry-run traces the plain path; the card runs the kernels.  Its
+# predicted peak must lie at or above the kernel path's
+# max_memory_allocated and at most this share above it, set from the
+# card's first run (+2.74 %; PERF.md §3)
+DRYRUN_PEAK_TOL = 0.05
+DRYRUN_B, DRYRUN_S = 4, 600            # smollm's ragged serve prompt
+
+
+def _uni_counts():
+    from repro_torch.kernels import lstm_cell as LC
+
+    return {"lstm_layer": LC.uni_launches,
+            "lstm_layer_train": LC.uni_stash_launches,
+            "lstm_layer_bwd": LC.uni_bwd_launches,
+            "lstm_layer_train_chunked": LC.uni_chunk_launches,
+            "lstm_layer_bwd_chunked": LC.uni_chunked_bwd_launches}
+
+
+def _zero_uni_counts():
+    from repro_torch.kernels import lstm_cell as LC
+
+    LC.uni_launches = LC.uni_stash_launches = LC.uni_bwd_launches = 0
+    LC.uni_chunk_launches = LC.uni_chunked_bwd_launches = 0
+
+
+def _uni_main_path(gen):
+    """The main path of the one-direction kernels: ``models/lstm.
+    lstm_layer`` (the reference's ``lstm_layer(kernel_impl="pallas")``;
+    on CUDA tensors the port's takes the kernels) at the paper's width, both directions, inference and under a gradient
+    (stash; and at T = 2000 chunked), with the counts zeroed just before
+    and read just after."""
+    import torch
+
+    from repro_torch.models import lstm as LS
+
+    D, H = TRAIN_D, TRAIN_H
+    ws, x, lens = _stacked_inputs(1, UNI_B, UNI_T, D, H, gen, True)
+    xl, ll = x[0], lens[0]
+    lws, lx, llens = _long_inputs(gen, LONG_L, LONG_ROWS, LONG_T, D, H,
+                                  LONG_K)
+    _zero_uni_counts()
+    for d in range(2):
+        p = dict(zip(("wx", "wh", "b"), ws[3 * d:3 * d + 3]))
+        p = {k: v[0] for k, v in p.items()}
+        with torch.no_grad():
+            LS.lstm_layer(p, xl, lengths=ll, reverse=bool(d))
+        pg = {k: v.detach().requires_grad_() for k, v in p.items()}
+        LS.lstm_layer(pg, xl, lengths=ll,
+                      reverse=bool(d)).float().sum().backward()
+        # 16 learners' weights and rows in one call (x (L, B, T, D))
+        pl = {k: v.detach().requires_grad_() for k, v in
+              zip(("wx", "wh", "b"), lws[3 * d:3 * d + 3])}
+        LS.lstm_layer(pl, lx, lengths=llens, reverse=bool(d),
+                      seq_chunk=-1).float().sum().backward()
+    torch.cuda.synchronize()
+    counts = _uni_counts()
+    for name, n in counts.items():
+        if n <= 0:
+            _fail(f"impl-dryrun: kernel {name} was never launched on the "
+                  f"one-direction path")
+    print(f"[impl-dryrun] models/lstm.lstm_layer, both directions, launches "
+          f"{counts}", flush=True)
+    return counts
+
+
+def _cudnn_uni(x, wx, wh, b):
+    """One cuDNN unidirectional bf16 LSTM over x's rows with the same
+    weights (forget bias +1 in the input bias): (forward with autograd,
+    backward of one saved forward), the library yardstick timed only
+    here and used nowhere in the port."""
+    import torch
+
+    L, B, T, D = x.shape
+    H = wh.shape[-2]
+    lstm = torch.nn.LSTM(D, H, batch_first=True).to(x.device, torch.bfloat16)
+    with torch.no_grad():
+        bias = b[0].clone()
+        bias[H:2 * H] += 1.0
+        lstm.weight_ih_l0.copy_(wx[0].t())
+        lstm.weight_hh_l0.copy_(wh[0].t())
+        lstm.bias_ih_l0.copy_(bias)
+        lstm.bias_hh_l0.zero_()
+    lstm.flatten_parameters()
+    xin = x.reshape(L * B, T, D).detach().requires_grad_(True)
+
+    def fwd():
+        return lstm(xin)[0]
+    out = fwd()
+    dy = torch.randn_like(out)
+
+    def bwd():
+        torch.autograd.grad(out, [xin] + list(lstm.parameters()), dy,
+                            retain_graph=True)
+    return fwd, bwd
+
+
+def _uni_bound(L, B, T, D, H, n_valid, kind, K=0):
+    """(bytes, ops) one direction must move and do: x, the weights, the
+    lengths, y (and the stash or carries), or K2/K3's reads and writes;
+    the products on the valid frames at the bf16 peak (x·Wx, h·Wh), K2's
+    and K3's on f32 dgates at the TF32 peak."""
+    weights = L * (D * 4 * H * 2 + H * 4 * H * 2 + 4 * H * 4)
+    io = L * B * T * D * 2 + weights + L * B * 4 + L * B * T * H * 2
+    recur = 2 * n_valid * 4 * H * (D + H)
+    k2 = 2 * n_valid * 4 * H * (H + D + D + H) + n_valid * 4 * H
+    grads = L * (D * 4 * H + H * 4 * H + 4 * H) * 4
+    if kind == "fwd":
+        return io, [(recur, PEAK_BF16_FLOPS)]
+    if kind == "stash":
+        return io + L * B * T * 5 * H * 4, [(recur, PEAK_BF16_FLOPS)]
+    n = -(-T // K) if K else 0
+    carries = L * B * n * 2 * H * 4
+    if kind == "chunk":
+        return io + carries, [(recur, PEAK_BF16_FLOPS)]
+    if kind == "bwd":       # + dy, the f32 stash, dx and dW, db
+        return (io + L * B * T * H * 2 + L * B * T * 5 * H * 4
+                + L * B * T * D * 2 + grads), [(k2, PEAK_TF32_FLOPS)]
+    return (io + L * B * T * H * 2 + carries + L * B * T * D * 2 + grads,
+            [(recur, PEAK_BF16_FLOPS), (k2, PEAK_TF32_FLOPS)])
+
+
+def _uni_entry(name, tag, src, line, fn, plain, lib_fn, err, nbytes, ops,
+               shape):
+    ms = _time_ms(fn, 5, warmup=1)
+    dev_ms = _device_ms(fn, iters=5, reps=3)
+    plain_ms = _time_ms(plain, 1, warmup=0)
+    library_ms = None if lib_fn is None else _time_ms(lib_fn, 5)
+    bound_ms, bound_by = _bound(nbytes, ops)
+    print(f"[{tag}] {shape}: kernel {ms:.4f} ms eager, {_ms(dev_ms)} "
+          f"replayed from a CUDA graph, plain {plain_ms:.3f} ms, cuDNN "
+          f"(one direction) {_ms(library_ms)}, bound {bound_ms:.4f} ms "
+          f"({bound_by})", flush=True)
+    return dict(name=name, route="cuda",
+                source=f"src/repro_torch/kernels/csrc/{src}",
+                replaces=f"src/repro/kernels/lstm_cell.py:{line}",
+                max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                shape=shape, directions=1)
+
+
+def _uni_grads_check(tag, ws, x, lens, **kw):
+    """blstm_sequence against the forward and the reversed lstm_sequence
+    (bit for bit, forward and every gradient), and each lstm_sequence
+    against its plain version (``UNI_TOL``); returns the worst abs
+    error against plain."""
+    import torch
+
+    from repro_torch.kernels import lstm_cell as LC
+
+    H = ws[1].shape[-2]
+    dy = torch.randn(*x.shape[:-1], 2 * H, generator=torch.Generator(
+        ).manual_seed(7)).to(x.device, torch.bfloat16)
+
+    def run(fused, plain=False):
+        leaves = [t.detach().clone().requires_grad_() for t in ws + [x]]
+        *w, xi = leaves
+        if fused:
+            y = LC.blstm_sequence(*w, xi, lens, plain=plain, **kw)
+        else:
+            y = torch.cat([
+                LC.lstm_sequence(*w[:3], xi, lens, plain=plain, **kw),
+                LC.lstm_sequence(*w[3:], xi, lens, reverse=True,
+                                 plain=plain, **kw)], dim=-1)
+        y.backward(dy)
+        return [y.detach()] + [t.grad for t in leaves]
+    fused, passes = run(True), run(False)
+    if not all(torch.equal(a, b) for a, b in zip(fused, passes)):
+        _fail(f"{tag}: blstm_sequence is not bit-identical to the two "
+              f"lstm_sequence passes")
+    want = run(False, plain=True)
+    names = ["y", "dwx_f", "dwh_f", "db_f", "dwx_b", "dwh_b", "db_b", "dx"]
+    worst, errs = 0.0, []
+    for n, g, w_ in zip(names, passes, want):
+        abs_err, norm = _norm_err(g, w_)
+        errs.append(f"{n} {norm:.3g}")
+        worst = max(worst, abs_err)
+        if not norm <= UNI_TOL:
+            _fail(f"{tag}: {n} of the one-direction kernels disagrees with "
+                  f"its plain version: {norm}")
+    print(f"[{tag}] fused ≡ two one-direction passes bit for bit (y and "
+          f"every gradient); vs plain {', '.join(errs)} (tol {UNI_TOL})",
+          flush=True)
+    return worst
+
+
+def check_uni_lstm(gen):
+    """(a) The one-direction kernels at the paper's width: K1 (B = 16,
+    T = 21), K1-stash + K2 (the same rows under a gradient) and K1-chunk
+    + K3 (16 learners x 2 rows, T = 2000, seq_chunk -1), both directions,
+    var-len, against their plain versions, the bidirectional launches
+    equal to the two one-direction passes bit for bit, and each timed."""
+    import torch
+
+    from repro_torch.kernels import lstm_cell as LC
+
+    D, H = TRAIN_D, TRAIN_H
+    ws, x, lens = _stacked_inputs(1, UNI_B, UNI_T, D, H, gen, True)
+    # K1: inference, each direction vs plain and vs the fused launch
+    y2 = LC.blstm_layer(*ws, x, lens)
+    worst_k1 = 0.0
+    for d in range(2):
+        wx, wh, b = ws[3 * d:3 * d + 3]
+        y = LC.lstm_layer(wx, wh, b, x, lens, reverse=bool(d))
+        abs_err, norm = _norm_err(y, LC.lstm_layer_train(
+            wx, wh, b, x, lens, reverse=bool(d), plain=True)[0])
+        worst_k1 = max(worst_k1, abs_err)
+        if not norm <= UNI_TOL:
+            _fail(f"K1 (one direction, d={d}) disagrees with its plain "
+                  f"version: {norm}")
+        if not torch.equal(y, y2[..., d * H:(d + 1) * H]):
+            _fail(f"K1 (one direction, d={d}) is not bit-identical to its "
+                  f"half of the bidirectional launch")
+    print(f"[K1-uni] B={UNI_B} T={UNI_T} D={D} H={H} var-len, both "
+          f"directions: max_abs_err {worst_k1:.3g} vs plain (tol {UNI_TOL}); "
+          f"bit-identical to the bidirectional launch's halves", flush=True)
+    worst_train = _uni_grads_check("K1-stash-uni + K2-uni", ws, x, lens)
+    K = LC.chunk_length(LONG_T, -1)
+    lws, lx, llens = _long_inputs(gen, LONG_L, LONG_ROWS, LONG_T, D, H,
+                                  LONG_K)
+    worst_chunk = _uni_grads_check("K1-chunk-uni + K3-uni", lws, lx, llens,
+                                   seq_chunk=-1)
+    plan = LC.recur_plan(LONG_ROWS, LONG_T, H)
+    waves = (LC.recur_waves(plan, LONG_L, LONG_ROWS,
+                            LC.active_clusters(plan, H), n_dir=1)
+             if plan.path == "resident" else 0)
+    print(f"[K1-chunk-uni] L={LONG_L} B={LONG_ROWS} T={LONG_T} K={K}: the "
+          f"forward recurrence {plan.path}, tiles of {plan.block_rows} rows, "
+          f"{waves} wave(s) of one direction's clusters", flush=True)
+
+    # timing: the forward direction (the reverse runs the same work)
+    wx, wh, b = ws[:3]
+    n_valid = int(lens.sum())
+    fwd, bwd = _library_ms(lambda: _cudnn_uni(x, wx, wh, b), "K1-uni") or \
+        (None, None)
+    shape = f"B={UNI_B} T={UNI_T} D={D} H={H}"
+    entries = [_uni_entry(
+        "lstm_layer", "K1-uni", "lstm_fwd.cu", 498,
+        lambda: LC.lstm_layer(wx, wh, b, x, lens),
+        lambda: LC.lstm_layer_train(wx, wh, b, x, lens, plain=True),
+        fwd, worst_k1, *_uni_bound(1, UNI_B, UNI_T, D, H, n_valid, "fwd"),
+        shape)]
+    entries.append(_uni_entry(
+        "lstm_layer_train", "K1-stash-uni", "lstm_fwd.cu", 498,
+        lambda: LC.lstm_layer_train(wx, wh, b, x, lens),
+        lambda: LC.lstm_layer_train(wx, wh, b, x, lens, plain=True),
+        fwd, worst_train,
+        *_uni_bound(1, UNI_B, UNI_T, D, H, n_valid, "stash"), shape))
+    y, acts, cseq = LC.lstm_layer_train(wx, wh, b, x, lens)
+    dy = torch.randn(1, UNI_B, UNI_T, H, generator=gen).to(x.device,
+                                                           torch.bfloat16)
+    entries.append(_uni_entry(
+        "lstm_layer_bwd", "K2-uni", "lstm_bwd.cu", 656,
+        lambda: LC.lstm_layer_bwd(wx, wh, x, y, acts, cseq, dy, lens),
+        lambda: LC.lstm_layer_bwd(wx, wh, x, y, acts, cseq, dy, lens,
+                                  plain=True),
+        bwd, worst_train,
+        *_uni_bound(1, UNI_B, UNI_T, D, H, n_valid, "bwd"), shape))
+    del y, acts, cseq
+    wx, wh, b = lws[:3]
+    n_valid = int(llens.sum())
+    lfwd, lbwd = _library_ms(lambda: _cudnn_uni(lx, wx, wh, b),
+                             "K1-chunk-uni") or (None, None)
+    shape = f"L={LONG_L} B={LONG_ROWS} T={LONG_T} K={K} D={D} H={H}"
+    entries.append(_uni_entry(
+        "lstm_layer_train_chunked", "K1-chunk-uni", "lstm_fwd.cu", 498,
+        lambda: LC.lstm_layer_train_chunked(wx, wh, b, lx, llens, chunk=K),
+        lambda: LC.lstm_layer_train_chunked(wx, wh, b, lx, llens, chunk=K,
+                                            plain=True),
+        lfwd, worst_chunk, *_uni_bound(LONG_L, LONG_ROWS, LONG_T, D, H,
+                                       n_valid, "chunk", K), shape))
+    y, hb, cb = LC.lstm_layer_train_chunked(wx, wh, b, lx, llens, chunk=K)
+    dy = torch.randn(LONG_L, LONG_ROWS, LONG_T, H, generator=gen).to(
+        lx.device, torch.bfloat16)
+    args = (wx, wh, b, lx, y, hb, cb, dy, llens)
+    entries.append(_uni_entry(
+        "lstm_layer_bwd_chunked", "K3-uni", "lstm_bwd_chunked.cu", 823,
+        lambda: LC.lstm_layer_bwd_chunked(*args, chunk=K),
+        lambda: LC.lstm_layer_bwd_chunked(*args, chunk=K, plain=True),
+        lbwd, worst_chunk, *_uni_bound(LONG_L, LONG_ROWS, LONG_T, D, H,
+                                       n_valid, "chunked_bwd", K), shape))
+    return entries
+
+
+def _launch_counts() -> dict:
+    """Every kernel wrapper's launch count: each module-level int of the
+    kernel modules whose name ends in ``launches``."""
+    from repro_torch.decode import kernel as DK
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import lstm_cell as LC
+    from repro_torch.kernels import moe_dense as MD
+    from repro_torch.kernels import ssd_scan as SSD
+
+    return {f"{m.__name__.rsplit('.', 1)[1]}.{k}": v
+            for m in (DK, DA, FA, LC, MD, SSD)
+            for k, v in vars(m).items()
+            if k.endswith("launches") and isinstance(v, int)}
+
+
+def _check_ops_on_card(gen):
+    """(b) Every ``kernels/ops`` wrapper equals the wrapper it names on
+    the card, bit for bit (``ops.blstm_stack``'s own inference branch
+    included)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import lstm_cell as LC
+    from repro_torch.kernels import moe_dense as MD
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as SSD
+
+    r = lambda *s, dt=torch.bfloat16: torch.randn(*s, generator=gen).to(
+        "cuda", dt)
+    q, k, v = r(2, 64, 4, 64), r(2, 64, 2, 64), r(2, 64, 2, 64)
+    ws = [r(1, 32, 64), r(1, 16, 64), r(1, 64, dt=torch.float32)] * 2
+    one = [w[0] for w in ws[:3]]         # one model's weights
+    x, lx = r(1, 3, 9, 32), torch.tensor([[9, 4, 1]], dtype=torch.int32,
+                                         device="cuda")
+    xs, dt_, A = r(1, 64, 4, 16), r(1, 64, 4, dt=torch.float32).abs(), \
+        -r(4, dt=torch.float32).abs()
+    Bm, Cm = r(1, 64, 1, 16), r(1, 64, 1, 16)
+    xm, rw = r(8, 64), torch.softmax(r(8, 4, dt=torch.float32), -1)
+    wi, wg, wo = r(4, 64, 64), r(4, 64, 64), r(4, 64, 64)
+    pairs = [
+        ("attention", ops.attention(q, k, v), FA.flash_attention(q, k, v)),
+        ("lstm_sequence", ops.lstm_sequence(*one, x[0], lx[0], reverse=True),
+         LC.lstm_sequence(*one, x[0], lx[0], reverse=True)),
+        ("blstm_sequence", ops.blstm_sequence(*ws, x, lx),
+         LC.blstm_sequence(*ws, x, lx)),
+        ("blstm_stack", ops.blstm_stack([ws], x, lx),
+         LC.blstm_stack([ws], x, lx)),
+        ("ssd", ops.ssd(xs, dt_, A, Bm, Cm, chunk=16)[0],
+         SSD.ssd(xs, dt_, A, Bm, Cm, chunk=16)[0]),
+        ("moe_dense", ops.moe_dense(xm, rw, wi, wg, wo),
+         MD.moe_dense(xm, rw, wi, wg, wo)),
+    ]
+    for name, a, b in pairs:
+        if not torch.equal(a, b):
+            _fail(f"ops.{name} differs from the wrapper it calls")
+    print(f"[impl-dryrun] ops.{{{', '.join(n for n, _, _ in pairs)}}} equal "
+          f"the wrappers they call, bit for bit", flush=True)
+
+
+def _check_dryrun_on_card():
+    """(c) Local dry-run records at full width on fake CUDA tensors:
+    smollm-360m's training step (ad_psgd over its 16 learners, one
+    sequence a microbatch, each layer under activation checkpointing,
+    forward and backward) and its
+    prefill at B = 4, S = 600.  Neither launches a kernel: a fake tensor
+    takes every wrapper's plain version, in the checkpoint's recompute
+    and the backward too.  Then the same prefill on the card, on the
+    kernel path: the argument bytes exactly, and the predicted peak (the
+    plain path's) at or above ``max_memory_allocated`` and at most
+    ``DRYRUN_PEAK_TOL`` above it."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.models import build_model
+    from repro_torch.params import init_params
+
+    cfg = get_arch("smollm-360m")
+    train = ShapeConfig(f"train_{DRYRUN_S}", DRYRUN_S,
+                        cfg.n_learners * cfg.microbatches, "train")
+    shape = ShapeConfig(f"prefill_{DRYRUN_S}", DRYRUN_S, DRYRUN_B, "prefill")
+    before = _launch_counts()
+    t0 = time.perf_counter()
+    trec = DR.run_one(cfg.name, train.name, device="cuda", shape=train)
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec = DR.run_one(cfg.name, shape.name, device="cuda", shape=shape)
+    trace_s = time.perf_counter() - t0
+    after = _launch_counts()
+    for r in (trec, rec):
+        if r["status"] != "ok" or r["path"] != "plain":
+            _fail(f"the dry-run record of {cfg.name} {r['shape']}: {r}")
+    moved = {k: (before[k], after[k]) for k in after
+             if after[k] != before.get(k)}
+    if moved:
+        _fail(f"the dry-run on fake tensors launched kernels: {moved}")
+    tm = trec["memory"]
+    print(f"[impl-dryrun] dry-run {cfg.name} {train.name} (ad_psgd, "
+          f"{trec['n_learners']} learners, trace {train_s:.1f}s) on fake "
+          f"CUDA tensors: argument {tm['argument_gb']:.3f} GB, peak "
+          f"{tm['peak_gb']:.3f} GB (plain path), flops "
+          f"{trec['cost']['flops']:.4g}; no kernel launched "
+          f"({len(after)} counts unchanged)", flush=True)
+    model = build_model(cfg)
+    _free_all()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(model.param_specs(), SEED, "cuda")
+    tokens = torch.zeros(DRYRUN_B, DRYRUN_S, dtype=torch.int32,
+                         device="cuda")
+    real_args = sum(t.untyped_storage().nbytes() for t in
+                    _leaf_tensors(params) + [tokens])
+    alloc_args = torch.cuda.memory_allocated() - base
+    n = FA.launches
+    with torch.no_grad():
+        model.prefill_fn(params, {"tokens": tokens}, cache_len=DRYRUN_S)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    if FA.launches == n:
+        _fail("the prefill on the card launched no K11")
+    pred = rec["peak_bytes"]
+    over = pred / peak - 1.0
+    print(f"[impl-dryrun] dry-run {cfg.name} {shape.name} (trace "
+          f"{trace_s:.1f}s): argument_bytes {rec['argument_bytes']} vs the "
+          f"card's params + inputs {real_args} (allocator blocks "
+          f"{alloc_args}); predicted peak (plain path) {pred} B "
+          f"({pred / 2**30:.3f} GiB) vs the kernel path's "
+          f"max_memory_allocated {peak} B ({peak / 2**30:.3f} GiB): "
+          f"{100 * over:+.2f} % (bound 0 to +{100 * DRYRUN_PEAK_TOL:.0f} %)"
+          f"; flops {rec['cost']['flops']:.4g}, bytes "
+          f"{rec['cost']['bytes']:.4g}, roofline {rec['roofline']}, fits "
+          f"{rec['fits']}", flush=True)
+    if rec["argument_bytes"] != real_args:
+        _fail(f"the dry-run's argument bytes {rec['argument_bytes']} are not "
+              f"the card's {real_args}")
+    if not 0.0 <= over <= DRYRUN_PEAK_TOL:
+        _fail(f"the dry-run's peak is {100 * over:+.2f} % off the kernel "
+              f"path's (bound 0 to +{100 * DRYRUN_PEAK_TOL:.0f} %)")
+    del params, tokens
+    _free_all()
+    return dict(argument_bytes=real_args, predicted_peak=pred,
+                measured_peak=peak, over=over)
+
+
+def _leaf_tensors(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaf_tensors(v)]
+    return [tree]
+
+
+def _check_card_identity():
+    """(d) The port's Hardware record against the card: the name as
+    nvidia-smi gives it, the memory (the data sheet's "80 GB": the card's
+    total_memory lies between 80e9 B and 80 GiB; the record's 80e9 is
+    the smaller reading, which ``fits`` holds a peak to), and the power
+    limit beside its 700 W."""
+    import torch
+
+    card = _card_line()
+    name, limit = (s.strip() for s in card.split(",", 1))
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[impl-dryrun] Hardware {HW.name!r}, {HW.hbm_per_chip:.0f} B, "
+          f"{HW.power_limit_w} W; nvidia-smi {card!r}; total_memory {total} "
+          f"B ({total / 2**30:.2f} GiB)", flush=True)
+    if name != HW.name:
+        _fail(f"the card is {name!r}, the Hardware record {HW.name!r}")
+    if not HW.hbm_per_chip <= total <= HW.hbm_per_chip / 1e9 * 2**30:
+        _fail(f"the card's memory {total} B is not the record's "
+              f"{HW.hbm_per_chip / 1e9:.0f} GB read in GB or GiB")
+    if not limit.startswith(f"{HW.power_limit_w:.2f}"):
+        print(f"[impl-dryrun] the card's power limit {limit} is below the "
+              f"data sheet's {HW.power_limit_w} W: its peaks are lower",
+              flush=True)
+
+
+def phase_impl_dryrun(gen):
+    """Phase 26: (a) the one-direction kernels' main path (counted) and
+    checks, (b) the public wrappers on the card, (c) the dry-run on fake
+    CUDA tensors and against the card, (d) the card's identity.  Returns (the five one-direction entries,
+    their main-path launches)."""
+    counts = _uni_main_path(gen)
+    entries = check_uni_lstm(gen)
+    _check_ops_on_card(gen)
+    _check_dryrun_on_card()
+    _check_card_identity()
+    return entries, counts
+
+
 def _io_run(fn, argv):
     """``fn(argv)`` with its standard output captured: (result, text)."""
     import contextlib
@@ -6114,6 +6599,8 @@ def main() -> int:
         done("dense-configs")
         lm_train_counts, train_fns = phase_lm_train(gen)
         done("lm-train")
+        uni, uni_counts = phase_impl_dryrun(gen)
+        done("impl-dryrun")
     except SystemExit:
         raise
     except Exception:                    # any phase failing fails the run
@@ -6195,6 +6682,11 @@ def main() -> int:
                k5["beam_frame_step_topc"], k6, k7, k8, k9, k10, k11]
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    # phase 26: K1, K1-stash, K2, K1-chunk and K3 launched with one
+    # direction (models/lstm.lstm_layer)
+    for k in uni:
+        k["launches"] = uni_counts[k["name"]]
+    kernels += uni
     print(f"[total] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

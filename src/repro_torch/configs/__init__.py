@@ -2,10 +2,13 @@
 lstm, dense, moe, ssm, hybrid, encdec and vlm families)."""
 from repro_torch.configs.base import (  # noqa: F401
     ARCH_REGISTRY,
+    SHAPE_REGISTRY,
     ArchConfig,
     MoEConfig,
+    ShapeConfig,
     SSMConfig,
     get_arch,
+    get_shape,
     register,
 )
 from repro_torch.configs import (  # noqa: F401
@@ -21,3 +24,6 @@ from repro_torch.configs import (  # noqa: F401
     swb2000_blstm,
     whisper_large_v3,
 )
+
+ALL_ARCHS = tuple(sorted(ARCH_REGISTRY))
+ASSIGNED_ARCHS = tuple(a for a in ALL_ARCHS if a != "swb2000-blstm")

@@ -1,7 +1,8 @@
 """Architecture configuration: the port's own copy of the fields of
 ``repro.configs.base.ArchConfig`` (and of its ``MoEConfig`` and
 ``SSMConfig``) that the lstm, dense, moe, ssm, hybrid, encdec and vlm
-families read.
+families, the sharding rules and the dry-run read, and of its
+``ShapeConfig`` registry (the assigned workload shapes).
 
 Configs are frozen dataclasses so they compare and hash by value.
 """
@@ -102,6 +103,12 @@ class ArchConfig:
     # distribution defaults (core/strategies.py)
     train_strategy: str = "sd_psgd"
     n_learners: int = 16
+    # shard params over the data axis (SC-PSGD only) and the mesh axis of
+    # expert parallelism ("data" or ""): read by the sharding rules
+    # (repro_torch.sharding, launch/mesh.rules_for), which on one card
+    # place nothing
+    fsdp: bool = False
+    expert_axis: str = ""
     # communication substrate (core/transport.py): mixing topology / wire
     # codec overrides, "" = the strategy's default
     comm_topology: str = ""
@@ -128,11 +135,19 @@ class ArchConfig:
     cache_mode: str = "dense"
     page_size: int = 16
 
+    # the assigned shapes this arch does not run (the dry-run skips them)
+    skip_shapes: tuple = ()
+
     param_dtype: str = "bfloat16"
     microbatches: int = 4     # gradient-accumulation microbatches for train
     # recompute each transformer layer's forward in the backward
     # (torch.utils.checkpoint) instead of keeping its activations
     remat: bool = True
+    # 'replicated' | 'seq': the reference's sequence-parallel attention
+    # over the model axis of a pod.  One card has no model axis: the only
+    # meaning left is the rule it adds (launch/mesh.rules_for: head_dim ->
+    # 'model'), which the dry-run's pod geometries read
+    attn_sharding: str = "replicated"
     # the reference config's switch for its fused dense-MoE math; it selects
     # nothing in the port (models/moe.py runs one kernel on every device)
     # and is kept so that a config maps onto the reference's one to one
@@ -143,8 +158,26 @@ class ArchConfig:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
 
     @property
+    def is_subquadratic(self) -> bool:
+        return self.family in ("ssm", "hybrid") or self.window > 0
+
+    @property
     def supports_decode(self) -> bool:
         return self.family != "lstm"   # frame classifier has no decode loop
+
+    def supports_shape(self, shape_name: str) -> bool:
+        return shape_name not in self.skip_shapes
+
+    def optimized(self) -> "ArchConfig":
+        """The reference's §Perf overlay (``repro/configs/base.py:
+        200-208``): sequence-parallel attention, the fused dense-MoE
+        combine, routing groups of 1024 under the dispatch router, and a
+        quarter of the microbatches (at least 2)."""
+        changes = dict(attn_sharding="seq", moe_dense_fused=True,
+                       microbatches=max(2, self.microbatches // 4))
+        if self.moe is not None and self.moe.router_impl == "dispatch":
+            changes["moe"] = replace(self.moe, router_group=1024)
+        return replace(self, **changes)
 
     def reduced(self) -> "ArchConfig":
         """The reference's smoke-test variant: 2 layers, d_model <= 256,
@@ -179,6 +212,37 @@ class ArchConfig:
             changes["lstm_hidden"] = 64
             changes["lstm_bottleneck"] = 32
         return replace(self, **changes)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned (seq_len, global_batch) workload shape."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                 # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPE_REGISTRY = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def get_shape(name: str) -> ShapeConfig:
+    try:
+        return SHAPE_REGISTRY[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown shape {name!r}; available: {sorted(SHAPE_REGISTRY)}"
+        ) from None
 
 
 ARCH_REGISTRY: dict = {}

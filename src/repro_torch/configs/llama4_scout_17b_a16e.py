@@ -42,6 +42,8 @@ LLAMA4_SCOUT = register(
         global_attn_layers=(0, 12, 24, 36),
         train_strategy="sc_psgd",
         n_learners=1,
+        fsdp=True,
+        expert_axis="data",
         microbatches=8,
     )
 )

@@ -22,6 +22,8 @@ SWB2000_BLSTM = register(
         input_dim=260,
         beam_width=8,
         beam_semiring="max",
+        # frame classifier: no autoregressive decode step
+        skip_shapes=("prefill_32k", "decode_32k", "long_500k"),
         train_strategy="ad_psgd",
         n_learners=16,
         microbatches=1,

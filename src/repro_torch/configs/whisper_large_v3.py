@@ -31,6 +31,7 @@ WHISPER_LARGE_V3 = register(
         tie_embeddings=True,
         citation="arXiv:2212.04356 (Whisper); large-v3 model card",
         frontend="audio",
+        skip_shapes=("long_500k",),
         train_strategy="sd_psgd",
         n_learners=16,
         microbatches=4,

@@ -169,9 +169,9 @@ def _accumulated_grad(loss_fn, params, batch, n_micro: int):
              else torch.ones_like(loss))
         for a, b in zip(_leaves(acc), _leaves(g)):
             wa = _per_learner(w, a)
-            for i, n in slice_blocks(a):   # no whole-leaf f32 temporary
-                a.narrow(0, i, n).add_(wa.narrow(0, i, n)
-                                       * b.narrow(0, i, n).float())
+            for start, n in slice_blocks(a):   # no whole-leaf f32 temporary
+                a.narrow(0, start, n).add_(wa.narrow(0, start, n)
+                                           * b.narrow(0, start, n).float())
         del g
         loss_acc = loss_acc + w * loss
         wsum = wsum + w

@@ -21,7 +21,7 @@ import functools
 import torch
 
 from repro_torch.decode.beam import frame_step_scores, frame_step_scores_topc
-from repro_torch.device import require_kernel_device
+from repro_torch.device import plain_path, require_kernel_device
 from repro_torch.kernels import build
 
 launches = 0          # kernel launches (one per beam_frame_step on the card)
@@ -104,7 +104,7 @@ def beam_frame_step(logp, p_b, p_nb, last, phash, plen, *, blank: int,
     B, V = logp.shape
     K = p_b.shape[1]
     topc = 0 if topc >= V else topc
-    if logp.is_cpu:
+    if plain_path(logp):
         if topc:
             return frame_step_scores_topc(
                 logp, p_b, p_nb, last, phash, plen, blank=blank,
@@ -211,7 +211,7 @@ def argmax_tokens(logits):
     tensor: the library, its bound entry point and the SM count are looked
     up once."""
     global argmax_launches
-    if logits.is_cpu:
+    if plain_path(logits):
         return argmax_ref(logits)
     require_kernel_device(logits)
     spec = _ARGMAX_KIND.get(logits.dtype)

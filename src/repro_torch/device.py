@@ -5,10 +5,26 @@ Entry points take ``device=None`` and resolve it here: ``None`` means the
 CUDA card, and raises when there is none, so a run never carries on
 quietly on the CPU.  ``device="cpu"`` is the explicit request for the
 plain PyTorch path (the CPU tests use it).
+
+Every kernel wrapper asks :func:`plain_path` which side to take: the
+hand-written kernel on a CUDA tensor, its plain version on a CPU tensor
+and on a fake tensor (the dry-run's stand-ins, ``launch/dryrun.py``,
+which hold no data a kernel could read).  The reference's
+``kernel_impl`` switch has no counterpart: nothing runs a plain version
+on the card's tensors.
 """
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+
+
+def plain_path(t: torch.Tensor) -> bool:
+    """Whether a kernel wrapper runs its plain version on ``t``: a CPU
+    tensor or a fake one.  A tensor on any other device takes the kernel
+    path, whose device checks raise off the card."""
+    return t.device.type == "cpu" or isinstance(t, FakeTensor)
+
 
 KERNEL_CAPABILITY = (9, 0)      # the kernels are compiled for sm_90a only
 

@@ -51,6 +51,14 @@
 // the tensor cores, would take 0.23 ms at 495 TFLOP/s.  The stash is read
 // once and dgates written once and read three times (171 MB per layer in
 // f32).
+//
+// One direction.  Each function also takes nd = 1, the backward of the
+// unidirectional `lstm_sequence` (`_lstm_vjp`, lstm_cell.py:954-988):
+// the one direction d0's reverse recurrence, its dx (its product rounded
+// to bf16 once: the sum with the other direction is the caller's, as
+// autograd adds the two passes' dx in bf16) and its dWx, dWh, db, over
+// (1, L, ...) buffers, from the same instructions as that direction's
+// half of the bidirectional launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,16 +72,19 @@ using bf16 = __nv_bfloat16;
 // (2, L, B, T, 4H) and cseq (2, L, B, T, H) in the stash dtype; wh4
 // (L, H, H, 4) bf16 per direction with W4[c, j, q] = Wh[j, 4c + q];
 // lengths (L, B); dg (2, L, B, T, 4H) f32 out.  block_b and cluster as
-// blstm_recur's (lstm_fwd.cu).
+// blstm_recur's (lstm_fwd.cu); nd = 1: direction d0 alone, every 2 above
+// a 1 and its Wh in whf and whb alike.
 extern "C" int lstm_bwd_recur(const void* dy, const void* acts,
                               const void* cseq, const void* whf,
                               const void* whb, const void* lengths, void* dg,
                               int stash_kind, int L, int B, int T, int H,
-                              int block_b, int cluster, void* stream) {
+                              int block_b, int cluster, int nd, int d0,
+                              void* stream) {
   using lstm_recur::BwdArgs;
   using lstm_recur::launch_bwd_rows;
   if (L < 1 || B < 1 || T < 1 || H < 1 ||
-      !lstm_recur::cluster_units(H, cluster))
+      !lstm_recur::cluster_units(H, cluster) ||
+      !(nd == 2 ? d0 == 0 : nd == 1 && (d0 == 0 || d0 == 1)))
     return (int)cudaErrorInvalidValue;
   BwdArgs a{};
   a.dy = static_cast<const bf16*>(dy);
@@ -89,6 +100,8 @@ extern "C" int lstm_bwd_recur(const void* dy, const void* acts,
   a.H = H;
   a.K = T;
   a.n = 1;
+  a.nd = nd;
+  a.d0 = d0;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (stash_kind) {
     case 1: return launch_bwd_rows<1, 0>(block_b, cluster, a, st);
@@ -100,10 +113,11 @@ extern "C" int lstm_bwd_recur(const void* dy, const void* acts,
 // dx (L, M, D) bf16 from dg (2, L, M, N) f32 and wx_dir (L, D, N) bf16;
 // with f32_out, dx (L, M, D) f32 = the two directions' products summed in
 // f32 and never rounded (the same tiles with the f32 epilogues: the
-// precision check's view of this product).
+// precision check's view of this product).  nd = 1: dg (1, L, M, N) and
+// wxf only, dx = bf16(dg·wxfᵀ) (f32_out: unrounded).
 extern "C" int lstm_bwd_dx(const void* dg, const void* wxf, const void* wxb,
                            void* dx, int L, int M, int D, int N, int f32_out,
-                           void* stream) {
+                           int nd, void* stream) {
   using lstm_gemm::Mat;
   const float* g = static_cast<const float*>(dg);
   const Mat<float, false> gf{g, N}, gb{g + (size_t)L * M * N, N};
@@ -111,16 +125,17 @@ extern "C" int lstm_bwd_dx(const void* dg, const void* wxf, const void* wxb,
   const Mat<bf16, true> wb{static_cast<const bf16*>(wxb), N};
   const cudaStream_t st = (cudaStream_t)stream;
   const size_t sa = (size_t)M * N, sb = (size_t)D * N, sc = (size_t)M * D;
+  if (nd != 1 && nd != 2) return (int)cudaErrorInvalidValue;
   if (f32_out) {
     const int rc = lstm_gemm::gemm<lstm_gemm::EPI_F32>(
         gf, gf, wf, wf, dx, dx, sa, sb, sc, D, M, D, N, L, 1, st);
-    if (rc) return rc;
+    if (rc || nd == 1) return rc;
     return lstm_gemm::gemm<lstm_gemm::EPI_ACC_F32>(
         gb, gb, wb, wb, dx, dx, sa, sb, sc, D, M, D, N, L, 1, st);
   }
   int rc = lstm_gemm::gemm<lstm_gemm::EPI_BF16>(
       gf, gf, wf, wf, dx, dx, sa, sb, sc, D, M, D, N, L, 1, st);
-  if (rc) return rc;
+  if (rc || nd == 1) return rc;
   return lstm_gemm::gemm<lstm_gemm::EPI_ADD_BF16>(
       gb, gb, wb, wb, dx, dx, sa, sb, sc, D, M, D, N, L, 1, st);
 }
@@ -129,25 +144,29 @@ extern "C" int lstm_bwd_dx(const void* dg, const void* wxf, const void* wxb,
 // dwx (2, L, D, N) f32 and dwhb (2, L, H + 1, N) f32 (row H: db).
 extern "C" int lstm_bwd_dw(const void* x, const void* y, const void* dg,
                            void* dwx, void* dwhb, int L, int B, int T, int D,
-                           int H, int N, void* stream) {
+                           int H, int N, int nd, int d0, void* stream) {
   using lstm_gemm::Mat;
   using lstm_gemm::ShiftedRows;
+  if (!(nd == 2 ? d0 == 0 : nd == 1 && (d0 == 0 || d0 == 1)))
+    return (int)cudaErrorInvalidValue;
   const int M = B * T;
   const float* g = static_cast<const float*>(dg);
-  const Mat<float, false> gf{g, N}, gb{g + (size_t)L * M * N, N};
+  const Mat<float, false> gf{g, N}, gb{g + (size_t)(nd - 1) * L * M * N, N};
   const Mat<bf16, true> xa{static_cast<const bf16*>(x), D};
   const cudaStream_t st = (cudaStream_t)stream;
   float* wx = static_cast<float*>(dwx);
   int rc = lstm_gemm::gemm<lstm_gemm::EPI_F32>(
       xa, xa, gf, gb, wx, wx + (size_t)L * D * N, (size_t)M * D,
-      (size_t)M * N, (size_t)D * N, N, D, N, M, L, 2, st);
+      (size_t)M * N, (size_t)D * N, N, D, N, M, L, nd, st);
   if (rc) return rc;
   // h_{t-1}: the forward direction's previous step is t-1, the reverse
-  // direction's t+1
+  // direction's t+1; slot 1 (nd = 2) is the reverse direction, slot 0 is
+  // direction d0
   const bf16* yb = static_cast<const bf16*>(y);
-  const ShiftedRows hf{yb, 2 * H, T, -1, H}, hb{yb + H, 2 * H, T, 1, H};
+  const ShiftedRows hf{yb, nd * H, T, d0 ? 1 : -1, H},
+      hb{yb + (nd - 1) * H, nd * H, T, 1, H};
   float* wh = static_cast<float*>(dwhb);
   return lstm_gemm::gemm<lstm_gemm::EPI_F32>(
-      hf, hb, gf, gb, wh, wh + (size_t)L * (H + 1) * N, (size_t)M * 2 * H,
-      (size_t)M * N, (size_t)(H + 1) * N, N, H + 1, N, M, L, 2, st);
+      hf, hb, gf, gb, wh, wh + (size_t)L * (H + 1) * N, (size_t)M * nd * H,
+      (size_t)M * N, (size_t)(H + 1) * N, N, H + 1, N, M, L, nd, st);
 }

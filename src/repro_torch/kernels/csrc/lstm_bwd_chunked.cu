@@ -73,6 +73,9 @@ using bf16 = __nv_bfloat16;
 // (2, L, D, 4H) and dwhb (2, L, H + 1, 4H) f32 (zero on entry; row H: db).
 // The plan as blstm_recur's (lstm_fwd.cu): with resident = 1, whX4 in the
 // resident layout; the reverse streams whX4b on clusters of `cluster`.
+// nd = 1: direction d0 alone (the unidirectional `lstm_sequence`'s
+// backward), every 2 above a 1, its weights in the X = f and X = b
+// arguments alike, and dx = bf16(dgates·Wxᵀ) of that direction only.
 extern "C" int lstm_bwd_chunked(
     const void* x, const void* y, const void* dy, const void* hb,
     const void* cb, const void* wxf, const void* wxb, const void* whf4,
@@ -80,7 +83,7 @@ extern "C" int lstm_bwd_chunked(
     const void* bb, const void* lengths, void* gx, void* acts, void* cseq,
     void* dg, void* dh, void* dc, void* dx, void* dwx, void* dwhb,
     int carry_kind, int L, int B, int T, int D, int H, int K, int block_b,
-    int cluster, int resident, void* stream) {
+    int cluster, int resident, int nd, int d0, void* stream) {
   using lstm_recur::BwdArgs;
   using lstm_recur::FwdArgs;
   using lstm_recur::launch_bwd_rows;
@@ -92,7 +95,8 @@ extern "C" int lstm_bwd_chunked(
   using lstm_gemm::ShiftedChunkRows;
   const lstm_recur::Plan p{block_b, cluster, resident};
   if (L < 1 || B < 1 || T < 1 || D < 1 || H < 1 || K < 1 ||
-      !lstm_recur::plan_ok(H, p) || (carry_kind != 1 && carry_kind != 2))
+      !lstm_recur::plan_ok(H, p) || (carry_kind != 1 && carry_kind != 2) ||
+      !(nd == 2 ? d0 == 0 : nd == 1 && (d0 == 0 || d0 == 1)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const int n = (T + K - 1) / K;
@@ -107,7 +111,8 @@ extern "C" int lstm_bwd_chunked(
   const Mat<bf16, false> wb{static_cast<const bf16*>(wxb), N};
   const Mat<bf16, true> wfT{static_cast<const bf16*>(wxf), N};
   const Mat<bf16, true> wbT{static_cast<const bf16*>(wxb), N};
-  const Mat<float, false> gf{dgs, N}, gb{dgs + (size_t)L * M * N, N};
+  const Mat<float, false> gf{dgs, N},
+      gb{dgs + (size_t)(nd - 1) * L * M * N, N};
 
   FwdArgs fa{};
   fa.gx = gxs;
@@ -126,6 +131,8 @@ extern "C" int lstm_bwd_chunked(
   fa.H = H;
   fa.K = K;
   fa.n = n;
+  fa.nd = nd;
+  fa.d0 = d0;
   BwdArgs ba{};
   ba.dy = static_cast<const bf16*>(dy);
   ba.acts = acts;
@@ -143,14 +150,18 @@ extern "C" int lstm_bwd_chunked(
   ba.H = H;
   ba.K = K;
   ba.n = n;
+  ba.nd = nd;
+  ba.d0 = d0;
 
   for (int chunk = n - 1; chunk >= 0; --chunk) {
-    const int t0f = chunk * K, t0b = (n - 1 - chunk) * K;
+    // the chunk's first frame in slot 0 and slot 1 (nd = 1: slot 0 is
+    // direction d0)
+    const int t0f = (d0 ? n - 1 - chunk : chunk) * K, t0b = (n - 1 - chunk) * K;
     const ChunkRows<false> xf{xs, D, T, K, t0f}, xb{xs, D, T, K, t0b};
-    // (a) the chunk's x-projection, both directions
+    // (a) the chunk's x-projection, every direction of the launch
     int rc = lstm_gemm::gemm<lstm_gemm::EPI_F32>(
         xf, xb, wf, wb, gxs, gxs + (size_t)M * N, (size_t)B * T * D,
-        (size_t)D * N, (size_t)2 * M * N, N, M, N, D, L, 2, st);
+        (size_t)D * N, (size_t)nd * M * N, N, M, N, D, L, nd, st);
     if (rc) return rc;
     // (b) replay the chunk from its entry carry
     fa.chunk = chunk;
@@ -170,7 +181,7 @@ extern "C" int lstm_bwd_chunked(
           gf, gf, wfT, wfT, dx, dx, (size_t)M * N, (size_t)D * N,
           (size_t)B * T * D, D, M, D, N, L, 1, st, ChunkOut{T, K, t0f});
       if (rc) return rc;
-      rc = lstm_gemm::gemm<lstm_gemm::EPI_ADD_BF16>(
+      if (nd == 2) rc = lstm_gemm::gemm<lstm_gemm::EPI_ADD_BF16>(
           gb, gb, wbT, wbT, dx, dx, (size_t)M * N, (size_t)D * N,
           (size_t)B * T * D, D, M, D, N, L, 1, st, ChunkOut{T, K, t0b});
       if (rc) return rc;
@@ -178,16 +189,16 @@ extern "C" int lstm_bwd_chunked(
     const ChunkRows<true> xfT{xs, D, T, K, t0f}, xbT{xs, D, T, K, t0b};
     rc = lstm_gemm::gemm<lstm_gemm::EPI_ACC_F32>(
         xfT, xbT, gf, gb, wx, wx + (size_t)L * D * N, (size_t)B * T * D,
-        (size_t)M * N, (size_t)D * N, N, D, N, M, L, 2, st);
+        (size_t)M * N, (size_t)D * N, N, D, N, M, L, nd, st);
     if (rc) return rc;
     // h_{t-1}: the forward direction's previous step is t-1, the reverse
     // direction's t+1
-    const ShiftedChunkRows hf{ys, 2 * H, T, K, t0f, -1, H};
-    const ShiftedChunkRows hr{ys + H, 2 * H, T, K, t0b, 1, H};
+    const ShiftedChunkRows hf{ys, nd * H, T, K, t0f, d0 ? 1 : -1, H};
+    const ShiftedChunkRows hr{ys + (nd - 1) * H, nd * H, T, K, t0b, 1, H};
     rc = lstm_gemm::gemm<lstm_gemm::EPI_ACC_F32>(
         hf, hr, gf, gb, wh, wh + (size_t)L * (H + 1) * N,
-        (size_t)B * T * 2 * H, (size_t)M * N, (size_t)(H + 1) * N, N, H + 1,
-        N, M, L, 2, st);
+        (size_t)B * T * nd * H, (size_t)M * N, (size_t)(H + 1) * N, N, H + 1,
+        N, M, L, nd, st);
     if (rc) return rc;
   }
   return 0;

@@ -64,6 +64,13 @@
 // clusters at ~3.1 us a step, its product issuing at about half an
 // instruction a cycle per warp (PERF.md §6).
 //
+// One direction.  Both kernels also take nd = 1 (the unidirectional
+// `lstm_sequence`, lstm_cell.py:991-1005): x·Wx of the one direction, and
+// the recurrence of that direction alone, forward (d0 = 0) or reversed
+// (d0 = 1), into (L, 1, ...) buffers (lstm_recur.cuh, "One direction or
+// two"): the same instructions, so the bits of the direction's half of
+// the bidirectional launch.
+//
 // Numerics mirror `_cell_math`: gates = (x·Wx + h·Wh) + b accumulated in
 // f32, h rounded to bf16 before the product, h and c carried in f32, the
 // output written in bf16.  The reverse direction's time index is T-1-s
@@ -78,23 +85,28 @@
 using bf16 = __nv_bfloat16;
 
 extern "C" int lstm_xproj(const void* x, const void* wxf, const void* wxb,
-                          void* gx, int L, int M, int D, int N, void* stream) {
-  // gx (L, 2, M, N) f32 = x (L, M, D) · wx_dir (L, D, N)
+                          void* gx, int L, int M, int D, int N, int nd,
+                          void* stream) {
+  // gx (L, nd, M, N) f32 = x (L, M, D) · wx_dir (L, D, N); nd = 1 reads
+  // wxf only
   using lstm_gemm::Mat;
+  if (nd != 1 && nd != 2) return (int)cudaErrorInvalidValue;
   const Mat<bf16, false> xa{static_cast<const bf16*>(x), D};
   const Mat<bf16, false> wf{static_cast<const bf16*>(wxf), N};
-  const Mat<bf16, false> wb{static_cast<const bf16*>(wxb), N};
+  const Mat<bf16, false> wb{static_cast<const bf16*>(nd == 2 ? wxb : wxf), N};
   float* g = static_cast<float*>(gx);
   return lstm_gemm::gemm<lstm_gemm::EPI_F32, 32>(
       xa, xa, wf, wb, g, g + (size_t)M * N, (size_t)M * D, (size_t)D * N,
-      (size_t)2 * M * N, N, M, N, D, L, 2, (cudaStream_t)stream);
+      (size_t)nd * M * N, N, M, N, D, L, nd, (cudaStream_t)stream);
 }
 
 // stash_kind: 0 = inference (acts, cseq unused), 1 = f32 stash, 2 = bf16
 // stash, 3 = f32 chunk-entry carries, 4 = bf16 ones (acts and cseq are then
-// the (2, L, B, ceil(T / K), H) h and c carries).  gx (L, 2, B, T, 4H) f32;
-// wh (L, H, H, 4) bf16 gate-interleaved; b (L, 4H) f32; lengths (L, B);
-// y (L, B, T, 2H) bf16.  The plan (lstm_recur.cuh's Plan,
+// the (nd, L, B, ceil(T / K), H) h and c carries).  gx (L, nd, B, T, 4H)
+// f32; wh (L, H, H, 4) bf16 gate-interleaved; b (L, 4H) f32; lengths
+// (L, B); y (L, B, T, nd·H) bf16.  nd = 2: both directions (whf, bf the
+// forward's, whb, bb the reverse's); nd = 1: direction d0 alone (0
+// forward, 1 reversed), its weights in whf and whb alike.  The plan (lstm_recur.cuh's Plan,
 // `lstm_cell.recur_plan`): block_b rows per tile (1, 2, 4 or 8); cluster
 // (1, 2, 4 or 8; H even, a multiple of 4·cluster when above 1, H /
 // cluster <= 256); with resident = 0, clusters of `cluster` CTAs, wh
@@ -106,14 +118,15 @@ extern "C" int blstm_recur(const void* gx, const void* whf, const void* whb,
                            const void* lengths, void* y, void* acts,
                            void* cseq, int stash_kind, int L, int B, int T,
                            int H, int K, int block_b, int cluster,
-                           int resident, void* stream) {
+                           int resident, int nd, int d0, void* stream) {
   using lstm_recur::FWD;
   using lstm_recur::FWD_ENTRY;
   using lstm_recur::FWD_STASH;
   using lstm_recur::FwdArgs;
   using lstm_recur::launch_fwd_rows;
   const lstm_recur::Plan p{block_b, cluster, resident};
-  if (L < 1 || B < 1 || T < 1 || H < 1 || !lstm_recur::plan_ok(H, p))
+  if (L < 1 || B < 1 || T < 1 || H < 1 || !lstm_recur::plan_ok(H, p) ||
+      !(nd == 2 ? d0 == 0 : nd == 1 && (d0 == 0 || d0 == 1)))
     return (int)cudaErrorInvalidValue;
   const bool entry = stash_kind == 3 || stash_kind == 4;
   if (entry && K < 1) return (int)cudaErrorInvalidValue;
@@ -135,6 +148,8 @@ extern "C" int blstm_recur(const void* gx, const void* whf, const void* whb,
   a.H = H;
   a.K = entry ? K : T;
   a.n = (T + a.K - 1) / a.K;
+  a.nd = nd;
+  a.d0 = d0;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (stash_kind) {
     case 0: return launch_fwd_rows<FWD, 0>(p, a, st);

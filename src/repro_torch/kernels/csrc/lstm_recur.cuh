@@ -57,6 +57,17 @@
 // the bits are the streaming kernel's.  A resident reverse of the same
 // design was no faster than the streaming one (PERF.md §6), so the
 // reverse streams.
+//
+// One direction or two.  A launch of K1, K2 or K3 runs `nd` directions:
+// both (nd = 2, the bidirectional layer) or one (nd = 1, the
+// unidirectional `lstm_sequence`), whose recurrence walks forward (d0 =
+// 0) or reversed (d0 = 1).  Its buffers hold nd slots: gx (L, nd, B, Tg,
+// 4H), y and dy (L, B, T, nd·H), the stash, carries and dgates (nd, L,
+// ...).  Grid axis y is the slot s, the direction d = d0 + s; the
+// weights, the bias and the time order follow d, the buffers s.  At nd =
+// 2 slot and direction coincide; at nd = 1 the one direction runs the
+// very instructions it runs beside the other, so a unidirectional launch
+// is bit-identical to its direction of the bidirectional one.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -299,20 +310,21 @@ enum FwdMode {
 };
 
 struct FwdArgs {
-  const float* gx;        // (L, 2, B, Tg, 4H) f32 x-projections
+  const float* gx;        // (L, nd, B, Tg, 4H) f32 x-projections
   const bf16* whf;        // (L, H, H, 4) bf16 gate-interleaved, per direction
   const bf16* whb;
   const float* bias_f;    // (L, 4H) f32
   const float* bias_b;
   const int* lengths;     // (L, B), each <= T
-  bf16* y;                // (L, B, T, 2H): direction d in columns d*H..
-  void* acts;             // FWD_STASH, REPLAY: (2, L, B, Tg, 4H)
-  void* cseq;             // FWD_STASH, REPLAY: (2, L, B, Tg, H)
-  void* hb;               // FWD_ENTRY writes, REPLAY reads: (2, L, B, n, H)
+  bf16* y;                // (L, B, T, nd*H): slot s in columns s*H..
+  void* acts;             // FWD_STASH, REPLAY: (nd, L, B, Tg, 4H)
+  void* cseq;             // FWD_STASH, REPLAY: (nd, L, B, Tg, H)
+  void* hb;               // FWD_ENTRY writes, REPLAY reads: (nd, L, B, n, H)
   void* cb;
   int L, B, T, H;
   int K, n;               // chunk length and count (FWD_ENTRY, REPLAY)
   int chunk;              // REPLAY: the recurrence chunk replayed
+  int nd, d0;             // directions in the launch, direction of slot 0
 };
 
 // One cell update (`_cell_math`): gate pre-activations (x-projection +
@@ -481,7 +493,7 @@ __global__ void __launch_bounds__(MAX_CTA) blstm_recur_cluster(
     const float* __restrict__ bias_b, const int* __restrict__ lengths,
     bf16* __restrict__ y, void* __restrict__ acts, void* __restrict__ cseq,
     void* __restrict__ hb, void* __restrict__ cb, int L, int B, int T, int H,
-    int K, int n, int chunk, int C) {
+    int K, int n, int chunk, int C, int nd, int d0) {
   constexpr int KU = WEIGHT_LOADS;
   extern __shared__ __align__(16) float smem[];
   const int U = H / C;
@@ -489,7 +501,8 @@ __global__ void __launch_bounds__(MAX_CTA) blstm_recur_cluster(
   int* lens = reinterpret_cast<int*>(hs + 2 * H * BB);
   const int rank = (int)(blockIdx.x % C);
   const int b0 = (int)(blockIdx.x / C) * BB;
-  const int d = blockIdx.y;
+  const int sl = blockIdx.y;                     // slot in the buffers
+  const int d = d0 + sl;                         // direction
   const int l = blockIdx.z;
   const size_t G = 4 * (size_t)H;
   const bf16* __restrict__ wh = (d ? whb : whf) + (size_t)l * H * G;
@@ -497,9 +510,9 @@ __global__ void __launch_bounds__(MAX_CTA) blstm_recur_cluster(
   lengths += (size_t)l * B;
   const int Tg = MODE == REPLAY ? K : T;
   const int t0 = MODE == REPLAY ? chunk_t0(d, chunk, K, n) : 0;
-  gx += (size_t)(2 * l + d) * B * Tg * G;
-  if constexpr (MODE != REPLAY) y += (size_t)l * B * T * 2 * H;
-  const size_t srow = (size_t)(d * L + l) * B;   // stash row of b = 0
+  gx += (size_t)(nd * l + sl) * B * Tg * G;
+  if constexpr (MODE != REPLAY) y += (size_t)l * B * T * nd * H;
+  const size_t srow = (size_t)(sl * L + l) * B;  // stash row of b = 0
   const int jj = threadIdx.x;
   const int j = rank * U + jj;
   const bool own = jj < U;
@@ -613,7 +626,7 @@ __global__ void __launch_bounds__(MAX_CTA) blstm_recur_cluster(
           h[r] = cs.h;
         }
         if constexpr (MODE != REPLAY)
-          y[((size_t)b * T + t) * 2 * H + (size_t)d * H + j] =
+          y[((size_t)b * T + t) * nd * H + (size_t)sl * H + j] =
               __float2bfloat16(valid ? cs.h : 0.f);
         hn[j * BB + r] = round_bf16(h[r]);
         if constexpr (MODE == FWD_STASH || MODE == REPLAY) {
@@ -756,8 +769,9 @@ __device__ __forceinline__ uint32_t resident_item(
     const float* gx, const float* bias_f, const float* bias_b,
     const int* lengths, bf16* y, void* acts, void* cseq, void* hb, void* cb,
     int L, int B, int T, int H, int K, int n, int chunk, int tile, int d,
-    int l, int rank, float* smem, uint32_t par) {
+    int l, int rank, float* smem, uint32_t par, int nd = 2) {
   constexpr int C = RES_CLUSTER;
+  const int sl = nd == 2 ? d : 0;                // slot in the buffers
   constexpr int RPT = (BB + 3) / 4;              // rows a thread updates
   const int U = H / C, NT = 4 * U, H2 = H / 2;
   const ResSmem<BB> sm(smem, H);
@@ -767,9 +781,9 @@ __device__ __forceinline__ uint32_t resident_item(
   lengths += (size_t)l * B;
   const int Tg = MODE == REPLAY ? K : T;
   const int t0 = MODE == REPLAY ? chunk_t0(d, chunk, K, n) : 0;
-  gx += (size_t)(2 * l + d) * B * Tg * G;
-  if constexpr (MODE != REPLAY) y += (size_t)l * B * T * 2 * H;
-  const size_t srow = (size_t)(d * L + l) * B;   // stash row of b = 0
+  gx += (size_t)(nd * l + sl) * B * Tg * G;
+  if constexpr (MODE != REPLAY) y += (size_t)l * B * T * nd * H;
+  const size_t srow = (size_t)(sl * L + l) * B;  // stash row of b = 0
   const int tid = threadIdx.x;
   const bool own = tid < NT;
   const int jj = tid >> 2, q = tid & 3;          // unit, gate
@@ -906,7 +920,7 @@ __device__ __forceinline__ uint32_t resident_item(
           h[i] = cs.h;
         }
         if constexpr (MODE != REPLAY)
-          y[((size_t)b * T + t) * 2 * H + (size_t)d * H + j] =
+          y[((size_t)b * T + t) * nd * H + (size_t)sl * H + j] =
               __float2bfloat16(valid ? cs.h : 0.f);
         if constexpr (MODE == FWD_STASH || MODE == REPLAY) {
           constexpr int OUT = MODE == REPLAY ? 1 : SD;
@@ -946,16 +960,16 @@ __global__ void __launch_bounds__(MAX_RES_THREADS, 1) blstm_recur_resident(
     const float* __restrict__ bias_b, const int* __restrict__ lengths,
     bf16* __restrict__ y, void* __restrict__ acts, void* __restrict__ cseq,
     void* __restrict__ hb, void* __restrict__ cb, int L, int B, int T, int H,
-    int K, int n, int chunk) {
+    int K, int n, int chunk, int nd, int d0) {
   extern __shared__ __align__(16) float smem[];
   const int rank = (int)(blockIdx.x % RES_CLUSTER);
-  const int d = blockIdx.y, l = blockIdx.z;
+  const int d = d0 + (int)blockIdx.y, l = blockIdx.z;
   res_load_slice(smem, d ? wrb : wrf, l, rank, H);
   ResSmem<BB>(smem, H).init_barriers();
   resident_item<BB, MODE, SD>(gx, bias_f, bias_b, lengths, y, acts, cseq, hb,
                               cb, L, B, T, H, K, n, chunk,
                               (int)(blockIdx.x / RES_CLUSTER), d, l, rank,
-                              smem, 0u);
+                              smem, 0u, nd);
   cluster_arrive();                      // no CTA leaves while a peer works
   cluster_wait();
 }
@@ -973,12 +987,12 @@ int launch_fwd(const FwdArgs& a, const Plan& p, cudaStream_t st) {
       if (!U) return (int)cudaErrorInvalidValue;
       return launch_cluster(
           blstm_recur_resident<BB, MODE, SD>,
-          dim3(RES_CLUSTER * tiles, 2, a.L), (4 * U + 31) / 32 * 32,
+          dim3(RES_CLUSTER * tiles, a.nd, a.L), (4 * U + 31) / 32 * 32,
           res_smem(a.H, BB), RES_CLUSTER, st, a.gx,
           reinterpret_cast<const uint32_t*>(a.whf),
           reinterpret_cast<const uint32_t*>(a.whb), a.bias_f, a.bias_b,
           a.lengths, a.y, a.acts, a.cseq, a.hb, a.cb, a.L, a.B, a.T, a.H,
-          a.K, a.n, a.chunk);
+          a.K, a.n, a.chunk, a.nd, a.d0);
     }
   }
   const int C = p.cluster;
@@ -986,10 +1000,10 @@ int launch_fwd(const FwdArgs& a, const Plan& p, cudaStream_t st) {
   if (!U) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)2 * a.H * BB * sizeof(float) + BB * sizeof(int);
   return launch_cluster(blstm_recur_cluster<BB, MODE, SD>,
-                        dim3(C * tiles, 2, a.L), (U + 31) / 32 * 32, smem, C,
-                        st, a.gx, a.whf, a.whb, a.bias_f, a.bias_b, a.lengths,
-                        a.y, a.acts, a.cseq, a.hb, a.cb, a.L, a.B, a.T, a.H,
-                        a.K, a.n, a.chunk, C);
+                        dim3(C * tiles, a.nd, a.L), (U + 31) / 32 * 32, smem,
+                        C, st, a.gx, a.whf, a.whb, a.bias_f, a.bias_b,
+                        a.lengths, a.y, a.acts, a.cseq, a.hb, a.cb, a.L, a.B,
+                        a.T, a.H, a.K, a.n, a.chunk, C, a.nd, a.d0);
 }
 
 template <int MODE, int SD>
@@ -1006,18 +1020,19 @@ int launch_fwd_rows(const Plan& p, const FwdArgs& a, cudaStream_t st) {
 // ---------------------------------------------------------------- reverse
 
 struct BwdArgs {
-  const bf16* dy;         // (L, B, T, 2H): direction d in columns d*H..
-  const void* acts;       // (2, L, B, Tg, 4H) in dtype SD
-  const void* cseq;       // (2, L, B, Tg, H)
+  const bf16* dy;         // (L, B, T, nd*H): slot s in columns s*H..
+  const void* acts;       // (nd, L, B, Tg, 4H) in dtype SD
+  const void* cseq;       // (nd, L, B, Tg, H)
   const bf16* whf;        // (L, H, H, 4): W4[c, j, q] = Wh[j, 4c + q]
   const bf16* whb;
   const int* lengths;     // (L, B)
-  float* dg;              // (2, L, B, Tg, 4H) f32 out
-  const void* cb;         // chunked: entry c carries (2, L, B, n, H), dtype CK
-  float* dh;              // chunked: (dh, dc) carries (2, L, B, H) f32, in
+  float* dg;              // (nd, L, B, Tg, 4H) f32 out
+  const void* cb;         // chunked: entry c carries (nd, L, B, n, H), dtype CK
+  float* dh;              // chunked: (dh, dc) carries (nd, L, B, H) f32, in
   float* dc;              //   from the later chunk and out to the earlier one
   int L, B, T, H;
   int K, n, chunk;        // chunked: chunk length, count, and this chunk
+  int nd, d0;             // directions in the launch, direction of slot 0
 };
 
 // acc[r] += Σ_q dg[r][4c + q] * Wh[j, 4c + q] for the 4 weights in `u`;
@@ -1058,7 +1073,7 @@ __global__ void __launch_bounds__(MAX_CTA) lstm_bwd_recur_cluster(
     const bf16* __restrict__ whb, const int* __restrict__ lengths,
     float* __restrict__ dg, const void* __restrict__ cb,
     float* __restrict__ dhp, float* __restrict__ dcp, int L, int B, int T,
-    int H, int K, int n, int chunk, int C) {
+    int H, int K, int n, int chunk, int C, int nd, int d0) {
   constexpr int KU = WEIGHT_LOADS;
   extern __shared__ __align__(16) float smem[];
   const int U = H / C;
@@ -1066,15 +1081,16 @@ __global__ void __launch_bounds__(MAX_CTA) lstm_bwd_recur_cluster(
   int* lens = reinterpret_cast<int*>(dgs + 4 * H * BB);
   const int rank = (int)(blockIdx.x % C);
   const int b0 = (int)(blockIdx.x / C) * BB;
-  const int d = blockIdx.y;
+  const int sl = blockIdx.y;                     // slot in the buffers
+  const int d = d0 + sl;                         // direction
   const int l = blockIdx.z;
   const size_t G = 4 * (size_t)H;
   const bf16* __restrict__ wh = (d ? whb : whf) + (size_t)l * H * G;
   lengths += (size_t)l * B;
-  dy += (size_t)l * B * T * 2 * H + (size_t)d * H;
+  dy += (size_t)l * B * T * nd * H + (size_t)sl * H;
   const int Tg = CK ? K : T;
   const int t0 = CK ? chunk_t0(d, chunk, K, n) : 0;
-  const size_t srow = (size_t)(d * L + l) * B;   // stash/dgates row of b = 0
+  const size_t srow = (size_t)(sl * L + l) * B;  // stash/dgates row of b = 0
   const int jj = threadIdx.x;
   const int j = rank * U + jj;
   const bool own = jj < U;
@@ -1122,7 +1138,7 @@ __global__ void __launch_bounds__(MAX_CTA) lstm_bwd_recur_cluster(
           const float cp = boundary
               ? c_in[r] : load_stash<SD>(cseq, ((srow + b) * Tg + kp) * H + j);
           const float dyv =
-              t < T ? __bfloat162float(dy[((size_t)b * T + t) * 2 * H + j])
+              t < T ? __bfloat162float(dy[((size_t)b * T + t) * nd * H + j])
                     : 0.f;
           float dh = dyv + dh_c[r];
           const float tc = tanhf(c);
@@ -1202,12 +1218,12 @@ template <int BB, int SD, int CK>
 int launch_bwd(const BwdArgs& a, int C, cudaStream_t st) {
   const int U = cluster_units(a.H, C);
   if (!U) return (int)cudaErrorInvalidValue;
-  const dim3 grid(C * ((a.B + BB - 1) / BB), 2, a.L);
+  const dim3 grid(C * ((a.B + BB - 1) / BB), a.nd, a.L);
   const size_t smem = (size_t)4 * a.H * BB * sizeof(float) + BB * sizeof(int);
   return launch_cluster(lstm_bwd_recur_cluster<BB, SD, CK>, grid,
                         (U + 31) / 32 * 32, smem, C, st, a.dy, a.acts, a.cseq,
                         a.whf, a.whb, a.lengths, a.dg, a.cb, a.dh, a.dc, a.L,
-                        a.B, a.T, a.H, a.K, a.n, a.chunk, C);
+                        a.B, a.T, a.H, a.K, a.n, a.chunk, C, a.nd, a.d0);
 }
 
 template <int SD, int CK>

@@ -37,7 +37,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.device import require_kernel_device
+from repro_torch.device import plain_path, require_kernel_device
 from repro_torch.kernels import build
 
 launches = 0          # K7 kernel launches
@@ -286,7 +286,7 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=None, k_new=None,
     It does not change the function, only the f32 rounding order; at the
     page size it gives the paged kernel's plan and bits."""
     global launches
-    if q.is_cpu:
+    if plain_path(q):
         return decode_attention_ref(q, k_cache, v_cache, pos, window=window,
                                     k_new=k_new, v_new=v_new)
     require_kernel_device(q)
@@ -320,7 +320,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, pos, *,
     entry outside [0, n_pages) reads zeros rather than memory outside the
     pool.  The splits are cut on page edges (``block_s = P``)."""
     global paged_launches
-    if q.is_cpu:
+    if plain_path(q):
         return paged_decode_attention_ref(q, k_pages, v_pages, page_table,
                                           pos, window=window, k_new=k_new,
                                           v_new=v_new)

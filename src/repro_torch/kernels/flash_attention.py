@@ -44,8 +44,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.device import (require_kernel_device, require_no_grad,
-                                wants_grad)
+from repro_torch.device import (plain_path, require_kernel_device,
+                                require_no_grad, wants_grad)
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_plain
 
@@ -157,7 +157,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=0,
                     q_offset: int = 0):
     """q (B, Sq, H, E) bf16, k/v (B, Sk, KV, E) bf16 -> (B, Sq, H, E)."""
     q_offset = int(q_offset)
-    if q.device.type == "cpu":
+    if plain_path(q):
         return flash_attention_plain(
             q, k, v, causal=causal, q_offset=q_offset,
             window=0 if window is None else int(window))

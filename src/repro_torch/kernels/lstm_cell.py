@@ -25,16 +25,28 @@
 * ``recur_plan`` — how the training wrappers launch their forward
   recurrences: streaming Wh from device memory (short launches, 8-row
   tiles), or with Wh resident in the shared memory of clusters of 16
-  CTAs (long launches), the same bits either way.
+  CTAs (long launches), the same bits either way;
+* ``lstm_sequence`` — ONE direction, forward or ``reverse``, the
+  counterpart of ``repro.kernels.lstm_cell.lstm_sequence`` under its
+  custom VJP ``_lstm_vjp`` (``lstm_cell.py:954-1005``): inference is one
+  launch of K1 (``lstm_layer``), training K1-stash + K2 or, under
+  ``seq_chunk``, K1-chunk + K3 (``lstm_layer_train``,
+  ``lstm_layer_bwd``, ``lstm_layer_train_chunked``,
+  ``lstm_layer_bwd_chunked``), behind ``_LstmSequence``.  These are the
+  same kernels launched with one direction (the sources' ``nd = 1``):
+  ``blstm_sequence`` equals the concatenation of the forward and the
+  reversed ``lstm_sequence`` bit for bit, forward and gradients (dx
+  being the bf16 sum of the two passes' dx, as autograd adds them).
 
 Every tensor may carry a leading learner axis (x (L, B, T, D), weights
 (L, D, 4H), ..., lengths (L, B)): the learners are one more axis of each
 kernel's grid, as ``jax.vmap`` of a ``pallas_call`` is.  On CUDA tensors
 the wrappers launch the kernels of ``csrc/lstm_fwd.cu``,
 ``csrc/lstm_bwd.cu``, ``csrc/lstm_bwd_chunked.cu`` and
-``csrc/lstm_stack.cu`` and count their launches; on CPU tensors, or with
-``plain=True`` (the oracle a check asks for by name), they run the plain
-versions of ``kernels.ref``.  They never fall back from the card to the
+``csrc/lstm_stack.cu`` and count their launches; on CPU and fake tensors
+(``repro_torch.device.plain_path``), or with ``plain=True`` (the oracle
+a check asks for by name), they run the plain versions of
+``kernels.ref``.  They never fall back from the card to the
 plain path.
 """
 from __future__ import annotations
@@ -44,12 +56,13 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.device import require_kernel_device
+from repro_torch.device import plain_path, require_kernel_device
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import (blstm_layer_ref, blstm_stack_plain,
                                      lstm_direction_bwd_chunked_ref,
                                      lstm_direction_bwd_ref,
                                      lstm_direction_chunk_fwd_ref,
+                                     lstm_direction_ref,
                                      lstm_direction_train_ref, stash_dtype)
 
 launches = 0          # blstm_layer calls that launched the inference kernel
@@ -58,6 +71,12 @@ bwd_launches = 0      # blstm_layer_bwd calls that launched K2
 chunk_launches = 0    # blstm_layer_train_chunked calls that launched K1-chunk
 chunked_bwd_launches = 0   # blstm_layer_bwd_chunked calls that launched K3
 stack_launches = 0    # blstm_stack calls that launched K4
+# the one-direction launches of the same kernels (lstm_sequence's path)
+uni_launches = 0             # lstm_layer: K1, inference
+uni_stash_launches = 0       # lstm_layer_train: K1-stash
+uni_bwd_launches = 0         # lstm_layer_bwd: K2
+uni_chunk_launches = 0       # lstm_layer_train_chunked: K1-chunk
+uni_chunked_bwd_launches = 0     # lstm_layer_bwd_chunked: K3
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -118,9 +137,9 @@ def chunk_lengths(x, lengths):
 def _fwd_lib():
     lib = build.load("lstm_fwd")
     if lib.lstm_xproj.argtypes is None:
-        lib.lstm_xproj.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+        lib.lstm_xproj.argtypes = [_P] * 4 + [_I] * 5 + [_P]
         lib.lstm_xproj.restype = _I
-        lib.blstm_recur.argtypes = [_P] * 9 + [_I] * 9 + [_P]
+        lib.blstm_recur.argtypes = [_P] * 9 + [_I] * 11 + [_P]
         lib.blstm_recur.restype = _I
         lib.blstm_recur_active_clusters.argtypes = [_I, _I]
         lib.blstm_recur_active_clusters.restype = _I
@@ -130,11 +149,11 @@ def _fwd_lib():
 def _bwd_lib():
     lib = build.load("lstm_bwd")
     if lib.lstm_bwd_recur.argtypes is None:
-        lib.lstm_bwd_recur.argtypes = [_P] * 7 + [_I] * 7 + [_P]
+        lib.lstm_bwd_recur.argtypes = [_P] * 7 + [_I] * 9 + [_P]
         lib.lstm_bwd_recur.restype = _I
-        lib.lstm_bwd_dx.argtypes = [_P] * 4 + [_I] * 5 + [_P]
+        lib.lstm_bwd_dx.argtypes = [_P] * 4 + [_I] * 6 + [_P]
         lib.lstm_bwd_dx.restype = _I
-        lib.lstm_bwd_dw.argtypes = [_P] * 5 + [_I] * 6 + [_P]
+        lib.lstm_bwd_dw.argtypes = [_P] * 5 + [_I] * 8 + [_P]
         lib.lstm_bwd_dw.restype = _I
     return lib
 
@@ -142,7 +161,7 @@ def _bwd_lib():
 def _bwd_chunked_lib():
     lib = build.load("lstm_bwd_chunked")
     if lib.lstm_bwd_chunked.argtypes is None:
-        lib.lstm_bwd_chunked.argtypes = [_P] * 23 + [_I] * 10 + [_P]
+        lib.lstm_bwd_chunked.argtypes = [_P] * 23 + [_I] * 12 + [_P]
         lib.lstm_bwd_chunked.restype = _I
     return lib
 
@@ -254,11 +273,13 @@ def recur_plan(B: int, T: int, H: int) -> RecurPlan:
     return RecurPlan("resident", BB, RESIDENT_CLUSTER)
 
 
-def recur_waves(plan: RecurPlan, L: int, B: int, active: int) -> int:
-    """Waves of clusters a resident launch of L learners' B rows runs in
-    when the card holds ``active`` of its clusters at once
-    (:func:`active_clusters`): 2·L·ceil(B / block_rows) clusters."""
-    return -(-2 * L * -(-B // plan.block_rows) // active)
+def recur_waves(plan: RecurPlan, L: int, B: int, active: int,
+                n_dir: int = 2) -> int:
+    """Waves of clusters a resident launch of L learners' B rows in
+    ``n_dir`` directions (2: the bidirectional layer, 1: ``lstm_sequence``)
+    runs in when the card holds ``active`` of its clusters at once
+    (:func:`active_clusters`): n_dir·L·ceil(B / block_rows) clusters."""
+    return -(-n_dir * L * -(-B // plan.block_rows) // active)
 
 
 def _plan_args(plan: RecurPlan, H: int) -> tuple:
@@ -364,71 +385,83 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _xproj(x, wxf, wxb):
+def _xproj(x, wxf, wxb, nd=2):
     """``lstm_xproj`` on the card: x (L, M, D) bf16 · wx_dir (L, D, N) bf16
-    -> gx (L, 2, M, N) f32, the tensor-core GEMM of ``csrc/gemm.cuh``."""
+    -> gx (L, nd, M, N) f32, the tensor-core GEMM of ``csrc/gemm.cuh``
+    (nd = 1: ``wxf`` only)."""
     require_kernel_device(x)
     L, M, D = x.shape
     N = wxf.shape[-1]
-    gx = torch.empty(L, 2, M, N, dtype=torch.float32, device=x.device)
+    gx = torch.empty(L, nd, M, N, dtype=torch.float32, device=x.device)
     _launch("lstm_xproj", _fwd_lib().lstm_xproj(
         x.data_ptr(), wxf.data_ptr(), wxb.data_ptr(), gx.data_ptr(), L, M, D,
-        N, _stream(x.device)))
+        N, nd, _stream(x.device)))
     return gx
 
 
 def _bwd_dx(dg, wxf, wxb, f32_out=False):
-    """``lstm_bwd_dx`` on the card: dg (2, L, M, N) f32 and wx_dir (L, D, N)
-    bf16 -> dx (L, M, D), each direction's product rounded to bf16, summed
-    in f32 and rounded again; with ``f32_out`` the f32 sum of the two
-    products, never rounded (the precision check's view)."""
+    """``lstm_bwd_dx`` on the card: dg (nd, L, M, N) f32 and wx_dir (L, D,
+    N) bf16 -> dx (L, M, D), each direction's product rounded to bf16,
+    summed in f32 and rounded again (nd = 1: the one product, rounded);
+    with ``f32_out`` the f32 sum of the products, never rounded (the
+    precision check's view)."""
     require_kernel_device(dg)
-    _, L, M, N = dg.shape
+    nd, L, M, N = dg.shape
     D = wxf.shape[1]
     dx = torch.empty(L, M, D, device=dg.device,
                      dtype=torch.float32 if f32_out else torch.bfloat16)
     _launch("lstm_bwd_dx", _bwd_lib().lstm_bwd_dx(
         dg.data_ptr(), wxf.data_ptr(), wxb.data_ptr(), dx.data_ptr(), L, M,
-        D, N, int(f32_out), _stream(dg.device)))
+        D, N, int(f32_out), nd, _stream(dg.device)))
     return dx
 
 
-def _bwd_dw(x, y, dg):
-    """``lstm_bwd_dw`` on the card: x (L, B, T, D) bf16, y (L, B, T, 2H)
-    bf16, dg (2, L, B*T, N) f32 -> dwx (2, L, D, N) and dwhb (2, L, H + 1,
-    N) f32, row H of dwhb being db = Σ dgates; h_prev is y one recurrence
-    step back (t - 1 forward, t + 1 reverse), zero at the boundary."""
+def _bwd_dw(x, y, dg, d0=0):
+    """``lstm_bwd_dw`` on the card: x (L, B, T, D) bf16, y (L, B, T, nd·H)
+    bf16, dg (nd, L, B*T, N) f32 -> dwx (nd, L, D, N) and dwhb (nd, L,
+    H + 1, N) f32, row H of dwhb being db = Σ dgates; h_prev is y one
+    recurrence step back (t - 1 forward, t + 1 reverse), zero at the
+    boundary; nd = 1: direction ``d0`` alone."""
     require_kernel_device(x)
     L, B, T, D = x.shape
-    H = y.shape[-1] // 2
-    N = dg.shape[-1]
-    dwx = torch.empty(2, L, D, N, dtype=torch.float32, device=x.device)
-    dwhb = torch.empty(2, L, H + 1, N, dtype=torch.float32, device=x.device)
+    nd, N = dg.shape[0], dg.shape[-1]
+    H = y.shape[-1] // nd
+    dwx = torch.empty(nd, L, D, N, dtype=torch.float32, device=x.device)
+    dwhb = torch.empty(nd, L, H + 1, N, dtype=torch.float32, device=x.device)
     _launch("lstm_bwd_dw", _bwd_lib().lstm_bwd_dw(
         x.data_ptr(), y.data_ptr(), dg.data_ptr(), dwx.data_ptr(),
-        dwhb.data_ptr(), L, B, T, D, H, N, _stream(x.device)))
+        dwhb.data_ptr(), L, B, T, D, H, N, nd, d0, _stream(x.device)))
     return dwx, dwhb
 
 
-def _forward_kernel(ws, x, lengths, sdt, chunk=0):
-    """K1 on the card: ``lstm_xproj`` (x·Wx, all learners and both
-    directions) then ``blstm_recur`` (with the per-step stash when
-    ``sdt``, or with ``chunk`` > 0 the chunk-entry carries in ``sdt``).
-    Returns (y, acts, cseq), or (y, hb, cb) when chunked."""
+def _dirs(reverse):
+    """(nd, d0) of a launch: both directions (``reverse`` None), or the
+    one direction, forward (False) or reversed (True)."""
+    return (2, 0) if reverse is None else (1, int(bool(reverse)))
+
+
+def _forward_kernel(ws, x, lengths, sdt, chunk=0, reverse=None):
+    """K1 on the card: ``lstm_xproj`` (x·Wx, all learners and every
+    direction of the launch) then ``blstm_recur`` (with the per-step stash
+    when ``sdt``, or with ``chunk`` > 0 the chunk-entry carries in
+    ``sdt``).  Returns (y, acts, cseq), or (y, hb, cb) when chunked.
+    ``reverse`` None: both directions; else the one direction (its
+    weights given twice in ``ws``), y (L, B, T, H) and stash (1, L, ...)."""
     require_kernel_device(x)
     L, B, T, D, H, lens = _prepare(ws, x, lengths)
     dev = x.device
+    nd, d0 = _dirs(reverse)
     wxf, whf, bf, wxb, whb, bb = ws
-    gx = _xproj(x.view(L, B * T, D), wxf, wxb)
-    y = torch.empty(L, B, T, 2 * H, dtype=torch.bfloat16, device=dev)
+    gx = _xproj(x.view(L, B * T, D), wxf, wxb, nd)
+    y = torch.empty(L, B, T, nd * H, dtype=torch.bfloat16, device=dev)
     if chunk:                       # (h, c) entering each chunk
         n = -(-T // chunk)
-        acts = torch.empty(2, L, B, n, H, dtype=sdt, device=dev)
-        cseq = torch.empty(2, L, B, n, H, dtype=sdt, device=dev)
+        acts = torch.empty(nd, L, B, n, H, dtype=sdt, device=dev)
+        cseq = torch.empty(nd, L, B, n, H, dtype=sdt, device=dev)
         kind = _ENTRY_KIND[sdt]
     elif sdt is not None:           # gates and c of every step
-        acts = torch.empty(2, L, B, T, 4 * H, dtype=sdt, device=dev)
-        cseq = torch.empty(2, L, B, T, H, dtype=sdt, device=dev)
+        acts = torch.empty(nd, L, B, T, 4 * H, dtype=sdt, device=dev)
+        cseq = torch.empty(nd, L, B, T, H, dtype=sdt, device=dev)
         kind = _STASH_KIND[sdt]
     else:
         acts = cseq = None
@@ -437,13 +470,14 @@ def _forward_kernel(ws, x, lengths, sdt, chunk=0):
     # bit for bit, and no main path runs it (K4 runs its own plan)
     plan = recur_plan(B, T, H) if kind else RecurPlan(
         "stream", *_tile(B, H))
-    whf4, whb4 = _recur_weights(whf, plan), _recur_weights(whb, plan)
+    whf4 = _recur_weights(whf, plan)
+    whb4 = whf4 if whb is whf else _recur_weights(whb, plan)
     _launch_recur("blstm_recur", _fwd_lib().blstm_recur(
         gx.data_ptr(), whf4.data_ptr(), whb4.data_ptr(), bf.data_ptr(),
         bb.data_ptr(), lens.data_ptr(), y.data_ptr(),
         acts.data_ptr() if acts is not None else None,
         cseq.data_ptr() if cseq is not None else None,
-        kind, L, B, T, H, chunk, *_plan_args(plan, H), _stream(dev)),
+        kind, L, B, T, H, chunk, *_plan_args(plan, H), nd, d0, _stream(dev)),
         plan, H)
     return y, acts, cseq
 
@@ -457,7 +491,7 @@ def blstm_layer(wxf, whf, bf, wxb, whb, bb, x, lengths=None):
     gate order i|f|g|o.  ``lengths`` (B,) int masks padded steps (carry
     frozen, output zeroed at t >= lengths[b])."""
     global launches
-    if x.device.type == "cpu":
+    if plain_path(x):
         return blstm_layer_ref(wxf, whf, bf, wxb, whb, bb, x, lengths)
     ws, xs, ls, squeeze = _stacked([wxf, whf, bf, wxb, whb, bb], x, lengths)
     y, _, _ = _forward_kernel(ws, xs, ls, None)
@@ -554,7 +588,7 @@ def blstm_stack(layers, x, lengths=None):
     another path.  On a CPU tensor it runs
     :func:`~repro_torch.kernels.ref.blstm_stack_plain`."""
     global stack_launches
-    if x.device.type == "cpu":
+    if plain_path(x):
         return blstm_stack_plain(layers, x, lengths)
     require_kernel_device(x)
     layers = [list(ws) for ws in layers]
@@ -611,7 +645,7 @@ def blstm_layer_train(wxf, whf, bf, wxb, whb, bb, x, lengths=None, *,
     ``y`` is bit-identical to :func:`blstm_layer`'s."""
     global stash_launches
     sdt = stash_dtype(stash)
-    if plain or x.device.type == "cpu":
+    if plain or plain_path(x):
         outs = [lstm_direction_train_ref(wx, wh, b, x, lengths,
                                          reverse=bool(d), stash=stash)
                 for d, (wx, wh, b) in enumerate(((wxf, whf, bf),
@@ -634,7 +668,7 @@ def blstm_layer_bwd(wxf, whf, wxb, whb, x, y, acts, cseq, dy, lengths=None,
     rounded again (``lstm_cell.py:949,1050``)."""
     global bwd_launches
     H = whf.shape[-2]
-    if plain or x.device.type == "cpu":
+    if plain or plain_path(x):
         dxs, grads = [], []
         for d, (wx, wh) in enumerate(((wxf, whf), (wxb, whb))):
             sl = slice(d * H, (d + 1) * H)
@@ -646,30 +680,42 @@ def blstm_layer_bwd(wxf, whf, wxb, whb, x, y, acts, cseq, dy, lengths=None,
         dx = (dxs[0].float() + dxs[1].float()).to(x.dtype) if need_dx \
             else None
         return dx, grads
+    out = _bwd_kernel([wxf, whf, None, wxb, whb, None], x, y, acts, cseq, dy,
+                      lengths, need_dx)
+    bwd_launches += 1
+    return out
+
+
+def _bwd_kernel(ws, x, y, acts, cseq, dy, lengths, need_dx, reverse=None):
+    """K2 on the card against the stash of :func:`_forward_kernel`:
+    ``lstm_bwd_recur``, ``lstm_bwd_dx`` and ``lstm_bwd_dw`` over the
+    launch's directions (``reverse`` as there).  Returns (dx or None,
+    [(dwx, dwh, db) f32 per direction])."""
     require_kernel_device(x)
-    L, B, T, D, H, lens = _prepare([wxf, whf, None, wxb, whb, None], x,
-                                   lengths)
+    L, B, T, D, H, lens = _prepare(ws, x, lengths)
     dev = x.device
+    nd, d0 = _dirs(reverse)
+    wxf, whf, _, wxb, whb, _ = ws
     sdt = acts.dtype
-    _check("y", y, (L, B, T, 2 * H), torch.bfloat16, dev)
-    _check("dy", dy, (L, B, T, 2 * H), torch.bfloat16, dev)
-    _check("acts", acts, (2, L, B, T, 4 * H), sdt, dev)
-    _check("cseq", cseq, (2, L, B, T, H), sdt, dev)
+    _check("y", y, (L, B, T, nd * H), torch.bfloat16, dev)
+    _check("dy", dy, (L, B, T, nd * H), torch.bfloat16, dev)
+    _check("acts", acts, (nd, L, B, T, 4 * H), sdt, dev)
+    _check("cseq", cseq, (nd, L, B, T, H), sdt, dev)
     if sdt not in _STASH_KIND:
         raise ValueError(f"stash dtype {sdt} is not one the kernel takes")
-    whf4, whb4 = _bwd_layout(whf), _bwd_layout(whb)
-    dg = torch.empty(2, L, B * T, 4 * H, dtype=torch.float32, device=dev)
+    whf4 = _bwd_layout(whf)
+    whb4 = whf4 if whb is whf else _bwd_layout(whb)
+    dg = torch.empty(nd, L, B * T, 4 * H, dtype=torch.float32, device=dev)
     _launch("lstm_bwd_recur", _bwd_lib().lstm_bwd_recur(
         dy.data_ptr(), acts.data_ptr(), cseq.data_ptr(), whf4.data_ptr(),
         whb4.data_ptr(), lens.data_ptr(), dg.data_ptr(), _STASH_KIND[sdt],
-        L, B, T, H, *_tile(B, H), _stream(dev)))
+        L, B, T, H, *_tile(B, H), nd, d0, _stream(dev)))
     dx = _bwd_dx(dg, wxf, wxb).view(L, B, T, D) if need_dx else None
     # rows 0..H-1 of dwhb: dWh = h_prev^T dgates; row H: db = 1^T dgates
-    dwx, dwhb = _bwd_dw(x, y, dg)
-    bwd_launches += 1
+    dwx, dwhb = _bwd_dw(x, y, dg, d0)
     # db is copied out so the (H + 1)-row buffer is freed once dWh is cast
     return dx, [(dwx[d], dwhb[d, :, :H], dwhb[d, :, H].contiguous())
-                for d in range(2)]
+                for d in range(nd)]
 
 
 def blstm_layer_train_chunked(wxf, whf, bf, wxb, whb, bb, x, lengths=None,
@@ -685,7 +731,7 @@ def blstm_layer_train_chunked(wxf, whf, bf, wxb, whb, bb, x, lengths=None,
     global chunk_launches
     sdt = stash_dtype(stash)
     lens = chunk_lengths(x, lengths)
-    if plain or x.device.type == "cpu":
+    if plain or plain_path(x):
         outs = [lstm_direction_chunk_fwd_ref(wx, wh, b, x, lens, chunk=chunk,
                                              reverse=bool(d), stash=stash)
                 for d, (wx, wh, b) in enumerate(((wxf, whf, bf),
@@ -716,7 +762,7 @@ def blstm_layer_bwd_chunked(wxf, whf, bf, wxb, whb, bb, x, y, hb, cb, dy,
     global chunked_bwd_launches
     H = whf.shape[-2]
     lens = chunk_lengths(x, lengths)
-    if plain or x.device.type == "cpu":
+    if plain or plain_path(x):
         dxs, grads = [], []
         for d, (wx, wh, b) in enumerate(((wxf, whf, bf), (wxb, whb, bb))):
             dxd, dwx, dwh, db = lstm_direction_bwd_chunked_ref(
@@ -727,38 +773,52 @@ def blstm_layer_bwd_chunked(wxf, whf, bf, wxb, whb, bb, x, y, hb, cb, dy,
         dx = (dxs[0].float() + dxs[1].float()).to(x.dtype) if need_dx \
             else None
         return dx, grads
+    out = _bwd_chunked_kernel([wxf, whf, bf, wxb, whb, bb], x, y, hb, cb, dy,
+                              lens, chunk, need_dx)
+    chunked_bwd_launches += 1
+    return out
+
+
+def _bwd_chunked_kernel(ws, x, y, hb, cb, dy, lens, chunk, need_dx,
+                        reverse=None):
+    """K3 on the card (``lstm_bwd_chunked``) over the launch's
+    directions (``reverse`` as in :func:`_forward_kernel`).  Returns (dx or
+    None, [(dwx, dwh, db) f32 per direction])."""
     require_kernel_device(x)
-    L, B, T, D, H, lens = _prepare([wxf, whf, bf, wxb, whb, bb], x, lens)
+    L, B, T, D, H, lens = _prepare(ws, x, lens)
     dev = x.device
+    nd, d0 = _dirs(reverse)
+    wxf, whf, bf, wxb, whb, bb = ws
     if chunk < 1:
         raise ValueError(f"chunk must be a resolved K > 0, got {chunk}")
     n = -(-T // chunk)
     sdt = hb.dtype
     if sdt not in _STASH_KIND:
         raise ValueError(f"carry dtype {sdt} is not one the kernel takes")
-    _check("y", y, (L, B, T, 2 * H), torch.bfloat16, dev)
-    _check("dy", dy, (L, B, T, 2 * H), torch.bfloat16, dev)
-    _check("hb", hb, (2, L, B, n, H), sdt, dev)
-    _check("cb", cb, (2, L, B, n, H), sdt, dev)
+    _check("y", y, (L, B, T, nd * H), torch.bfloat16, dev)
+    _check("dy", dy, (L, B, T, nd * H), torch.bfloat16, dev)
+    _check("hb", hb, (nd, L, B, n, H), sdt, dev)
+    _check("cb", cb, (nd, L, B, n, H), sdt, dev)
     lib = _bwd_chunked_lib()
     f32 = dict(dtype=torch.float32, device=dev)
     G = 4 * H
-    gx = torch.empty(L, 2, B * chunk, G, **f32)
-    acts = torch.empty(2, L, B, chunk, G, **f32)
-    cseq = torch.empty(2, L, B, chunk, H, **f32)
-    dg = torch.empty(2, L, B, chunk, G, **f32)
-    dh = torch.zeros(2, L, B, H, **f32)
-    dc = torch.zeros(2, L, B, H, **f32)
+    gx = torch.empty(L, nd, B * chunk, G, **f32)
+    acts = torch.empty(nd, L, B, chunk, G, **f32)
+    cseq = torch.empty(nd, L, B, chunk, H, **f32)
+    dg = torch.empty(nd, L, B, chunk, G, **f32)
+    dh = torch.zeros(nd, L, B, H, **f32)
+    dc = torch.zeros(nd, L, B, H, **f32)
     dx = (torch.zeros(L, B, T, D, dtype=x.dtype, device=dev) if need_dx
           else None)
-    dwx = torch.zeros(2, L, D, G, **f32)
+    dwx = torch.zeros(nd, L, D, G, **f32)
     # rows 0..H-1: dWh = h_prev^T dgates; row H: db = 1^T dgates
-    dwhb = torch.zeros(2, L, H + 1, G, **f32)
+    dwhb = torch.zeros(nd, L, H + 1, G, **f32)
     # held in locals: a temporary's block would go back to the allocator
     # as soon as its pointer is taken
     plan = recur_plan(B, chunk, H)
-    whs = [_recur_weights(whf, plan), _recur_weights(whb, plan),
-           _bwd_layout(whf), _bwd_layout(whb)]
+    whs = [_recur_weights(whf, plan), _bwd_layout(whf)]
+    whs = ([whs[0], whs[0], whs[1], whs[1]] if whb is whf else
+           [whs[0], _recur_weights(whb, plan), whs[1], _bwd_layout(whb)])
     _launch_recur("lstm_bwd_chunked", lib.lstm_bwd_chunked(
         x.data_ptr(), y.data_ptr(), dy.data_ptr(), hb.data_ptr(),
         cb.data_ptr(), wxf.data_ptr(), wxb.data_ptr(),
@@ -767,10 +827,9 @@ def blstm_layer_bwd_chunked(wxf, whf, bf, wxb, whb, bb, x, y, hb, cb, dy,
         acts.data_ptr(), cseq.data_ptr(), dg.data_ptr(), dh.data_ptr(),
         dc.data_ptr(), dx.data_ptr() if dx is not None else None,
         dwx.data_ptr(), dwhb.data_ptr(), _STASH_KIND[sdt], L, B, T, D, H,
-        chunk, *_plan_args(plan, H), _stream(dev)), plan, H)
-    chunked_bwd_launches += 1
+        chunk, *_plan_args(plan, H), nd, d0, _stream(dev)), plan, H)
     return dx, [(dwx[d], dwhb[d, :, :H], dwhb[d, :, H].contiguous())
-                for d in range(2)]
+                for d in range(nd)]
 
 
 class _BlstmSequence(torch.autograd.Function):
@@ -833,3 +892,157 @@ def blstm_sequence(wxf, whf, bf, wxb, whb, bb, x, lengths=None, *,
     chunk = chunk_length(x.shape[-2], seq_chunk) if seq_chunk else 0
     return _BlstmSequence.apply(wxf, whf, bf, wxb, whb, bb, x, lengths,
                                 stash_dtype or "float32", chunk, plain)
+
+
+# ---------------------------------------------------------------------------
+# One direction: the same kernels launched with nd = 1
+# ---------------------------------------------------------------------------
+
+def lstm_layer(wx, wh, b, x, lengths=None, *, reverse=False):
+    """One LSTM direction, inference: x (B, T, D) bf16 -> (B, T, H) bf16,
+    or the same with a leading learner axis on every operand; ``reverse``
+    walks t = T-1..0 (within each row's valid span under ``lengths``).
+    On a CUDA tensor one launch of K1 with one direction, bit-identical to
+    that direction's half of :func:`blstm_layer`; on a CPU tensor
+    :func:`~repro_torch.kernels.ref.lstm_direction_ref`."""
+    global uni_launches
+    if plain_path(x):
+        return lstm_direction_ref(wx, wh, b, x, lengths, reverse=reverse)
+    # the launches take one direction's weights in both slots
+    ws, xs, ls, squeeze = _stacked([wx, wh, b] * 2, x, lengths)
+    y, _, _ = _forward_kernel(ws, xs, ls, None, reverse=reverse)
+    uni_launches += 1
+    return squeeze(y)
+
+
+def lstm_layer_train(wx, wh, b, x, lengths=None, *, reverse=False,
+                     stash="float32", plain=False):
+    """K1's stashing variant, one direction, over stacked operands (x (L,
+    B, T, D), ...): ``y`` (L, B, T, H) bf16, ``acts`` (L, B, T, 4H) and
+    ``cseq`` (L, B, T, H) in the ``stash`` dtype."""
+    global uni_stash_launches
+    if plain or plain_path(x):
+        return lstm_direction_train_ref(wx, wh, b, x, lengths,
+                                        reverse=reverse, stash=stash)
+    y, acts, cseq = _forward_kernel([wx, wh, b] * 2, x, lengths,
+                                    stash_dtype(stash), reverse=reverse)
+    uni_stash_launches += 1
+    return y, acts[0], cseq[0]
+
+
+def lstm_layer_bwd(wx, wh, x, y, acts, cseq, dy, lengths=None, *,
+                   reverse=False, need_dx=True, plain=False):
+    """K2, one direction, against the stash of :func:`lstm_layer_train`:
+    dy (L, B, T, H) -> (dx (L, B, T, D) in x's dtype or None, (dwx, dwh,
+    db) f32), dx rounded once."""
+    global uni_bwd_launches
+    if plain or plain_path(x):
+        dx, dwx, dwh, db = lstm_direction_bwd_ref(
+            wx, wh, x, y, acts, cseq, dy, lengths, reverse=reverse)
+        return (dx if need_dx else None), (dwx, dwh, db)
+    dx, grads = _bwd_kernel([wx, wh, None] * 2, x, y, acts[None],
+                            cseq[None], dy, lengths, need_dx,
+                            reverse=reverse)
+    uni_bwd_launches += 1
+    return dx, grads[0]
+
+
+def lstm_layer_train_chunked(wx, wh, b, x, lengths=None, *, chunk,
+                             reverse=False, stash="float32", plain=False):
+    """K1's chunk-entry variant, one direction (``chunk`` the resolved K):
+    ``y`` (L, B, T, H) bf16 and ``hb``, ``cb`` (L, B, n, H) in the
+    ``stash`` dtype, the carries entering each chunk in recurrence
+    order."""
+    global uni_chunk_launches
+    lens = chunk_lengths(x, lengths)
+    if plain or plain_path(x):
+        return lstm_direction_chunk_fwd_ref(wx, wh, b, x, lens, chunk=chunk,
+                                            reverse=reverse, stash=stash)
+    if chunk < 1:
+        raise ValueError(f"chunk must be a resolved K > 0, got {chunk}")
+    y, hb, cb = _forward_kernel([wx, wh, b] * 2, x, lens, stash_dtype(stash),
+                                chunk=chunk, reverse=reverse)
+    uni_chunk_launches += 1
+    return y, hb[0], cb[0]
+
+
+def lstm_layer_bwd_chunked(wx, wh, b, x, y, hb, cb, dy, lengths=None, *,
+                           chunk, reverse=False, need_dx=True, plain=False):
+    """K3, one direction, against the carries of
+    :func:`lstm_layer_train_chunked`: dy (L, B, T, H) -> (dx or None,
+    (dwx, dwh, db) f32)."""
+    global uni_chunked_bwd_launches
+    lens = chunk_lengths(x, lengths)
+    if plain or plain_path(x):
+        dx, dwx, dwh, db = lstm_direction_bwd_chunked_ref(
+            wx, wh, b, x, dy, hb, cb, lens, chunk=chunk, reverse=reverse)
+        return (dx if need_dx else None), (dwx, dwh, db)
+    dx, grads = _bwd_chunked_kernel([wx, wh, b] * 2, x, y, hb[None],
+                                    cb[None], dy, lens, chunk, need_dx,
+                                    reverse=reverse)
+    uni_chunked_bwd_launches += 1
+    return dx, grads[0]
+
+
+class _LstmSequence(torch.autograd.Function):
+    """One direction's VJP (``_lstm_vjp``, ``lstm_cell.py:954-988``), as
+    :class:`_BlstmSequence` for both: the stashing pair (K1-stash + K2)
+    or, with ``chunk`` K, the chunked pair (K1-chunk + K3)."""
+
+    @staticmethod
+    def forward(ctx, wx, wh, b, x, lengths, reverse, stash, chunk, plain):
+        ctx.reverse, ctx.plain, ctx.chunk = reverse, plain, chunk
+        ctx.bias_dtype = b.dtype
+        if chunk:
+            lens = chunk_lengths(x, lengths)
+            y, hb, cb = lstm_layer_train_chunked(
+                wx, wh, b, x, lens, chunk=chunk, reverse=reverse,
+                stash=stash, plain=plain)
+            ctx.save_for_backward(wx, wh, b, x, y, hb, cb, lens)
+        else:
+            y, acts, cseq = lstm_layer_train(wx, wh, b, x, lengths,
+                                             reverse=reverse, stash=stash,
+                                             plain=plain)
+            ctx.save_for_backward(wx, wh, x, y, acts, cseq, lengths)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        need_dx = ctx.needs_input_grad[3]
+        if ctx.chunk:
+            wx, wh, b, x, y, hb, cb, lens = ctx.saved_tensors
+            dx, (dwx, dwh, db) = lstm_layer_bwd_chunked(
+                wx, wh, b, x, y, hb, cb, dy.contiguous(), lens,
+                chunk=ctx.chunk, reverse=ctx.reverse, need_dx=need_dx,
+                plain=ctx.plain)
+        else:
+            wx, wh, x, y, acts, cseq, lengths = ctx.saved_tensors
+            dx, (dwx, dwh, db) = lstm_layer_bwd(
+                wx, wh, x, y, acts, cseq, dy.contiguous(), lengths,
+                reverse=ctx.reverse, need_dx=need_dx, plain=ctx.plain)
+        return (dwx.to(wx.dtype), dwh.to(wh.dtype), db.to(ctx.bias_dtype),
+                dx, None, None, None, None, None)
+
+
+def lstm_sequence(wx, wh, b, x, lengths=None, *, reverse=False,
+                  stash_dtype=None, seq_chunk=0, plain=False):
+    """One differentiable LSTM direction (``repro.kernels.lstm_cell.
+    lstm_sequence``): x (B, T, D) bf16 -> (B, T, H) bf16, or the same with
+    a leading learner axis on every operand.  Without a gradient to take
+    it is :func:`lstm_layer` (one K1 launch on the card); otherwise
+    :class:`_LstmSequence` (K1-stash + K2, or with ``seq_chunk`` K1-chunk +
+    K3).  ``stash_dtype`` and ``seq_chunk`` as :func:`blstm_sequence`'s;
+    ``plain=True`` runs the plain versions on any device."""
+    if not torch.is_grad_enabled() or not any(
+            t.requires_grad for t in (wx, wh, b, x)):
+        if plain:
+            return lstm_direction_ref(wx, wh, b, x, lengths, reverse=reverse)
+        return lstm_layer(wx, wh, b, x, lengths, reverse=reverse)
+    one = x.dim() == 3
+    if one:
+        wx, wh, b, x = (t.unsqueeze(0) for t in (wx, wh, b, x))
+        lengths = None if lengths is None else lengths.unsqueeze(0)
+    chunk = chunk_length(x.shape[-2], seq_chunk) if seq_chunk else 0
+    y = _LstmSequence.apply(wx, wh, b, x, lengths, bool(reverse),
+                            stash_dtype or "float32", chunk, plain)
+    return y.squeeze(0) if one else y

@@ -51,8 +51,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.device import (require_kernel_device, require_no_grad,
-                                wants_grad)
+from repro_torch.device import (plain_path, require_kernel_device,
+                                require_no_grad, wants_grad)
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import moe_dense_plain
 
@@ -258,9 +258,13 @@ class _MoEDense(torch.autograd.Function):
                      for t in ins) + (None, None)
 
 
-def _same(a, b) -> bool:
-    return (a.data_ptr() == b.data_ptr() and a.shape == b.shape
-            and a.stride() == b.stride() and a._version == b._version)
+def _same(a, kept) -> bool:
+    """``a`` is the tensor whose fold was kept: the same memory and layout
+    as the kept detached view, and the version counter it had then (the
+    view shares ``a``'s counter, so the version is kept as an int)."""
+    view, version = kept
+    return (a.data_ptr() == view.data_ptr() and a.shape == view.shape
+            and a.stride() == view.stride() and a._version == version)
 
 
 def fold_experts(wi, wg, wo, keep=None, slot=None):
@@ -268,22 +272,24 @@ def fold_experts(wi, wg, wo, keep=None, slot=None):
     a view where they are contiguous (L = 1), else a copy.  Given a
     ``keep`` dict and a ``slot`` (the caller's layer) the copy is kept
     there and reused while the same weights come back unchanged (same
-    memory, layout and version), so a step's microbatches and the
-    recompute of a checkpointed layer take it once; the kept weights hold
-    their memory, so an equal address is the same tensor."""
+    memory, layout, and the version counter each had when the fold was
+    kept: an in-place update bumps it and the next call folds afresh),
+    so a step's microbatches and the recompute of a checkpointed layer
+    take it once; the kept weights hold their memory, so an equal
+    address is the same tensor."""
     global fold_copies, fold_bytes
     ws = (wi, wg, wo)
     if all(w.is_contiguous() for w in ws):
         return tuple(w.flatten(0, 1) for w in ws)
     kept = keep.get(slot) if keep is not None else None
-    if kept is not None and all(_same(a, b) for a, b in zip(ws, kept[0])):
+    if kept is not None and all(_same(a, k) for a, k in zip(ws, kept[0])):
         return kept[1]
     with torch.no_grad():
         out = tuple(w.detach().contiguous().flatten(0, 1) for w in ws)
     fold_copies += 3
     fold_bytes += sum(w.numel() * w.element_size() for w in out)
     if keep is not None:
-        keep[slot] = (tuple(w.detach() for w in ws), out)
+        keep[slot] = (tuple((w.detach(), w._version) for w in ws), out)
     return out
 
 
@@ -306,7 +312,7 @@ def moe_dense_learners(x, router_w, wi, wg, wo, *, act: str = "swiglu",
     (:func:`fold_experts`, kept in ``keep`` under ``slot``;
     :func:`learner_block_weights`), through the autograd Function where a
     gradient is wanted; on the CPU the learner-batched plain version."""
-    if x.device.type == "cpu":
+    if plain_path(x):
         return moe_dense_plain(x, router_w, wi, wg, wo, act=act)
     folded = fold_experts(wi, wg, wo, keep, slot)
     if wants_grad(x, router_w, wi, wg, wo):
@@ -325,7 +331,7 @@ def moe_dense(x, router_w, wi, wg, wo, *, act: str = "swiglu"):
     """x (T, d) bf16, router_w (T, E) f32, wi/wg (E, d, f) bf16, wo
     (E, f, d) bf16 -> y (T, d) bf16."""
     _check(x, router_w, wi, wg, wo, act)
-    if x.device.type == "cpu":
+    if plain_path(x):
         return moe_dense_plain(x, router_w, wi, wg, wo, act=act)
     if wants_grad(x, router_w, wi, wg, wo):
         return _MoEDense.apply(x[None], router_w[None], wi[None], wg[None],

@@ -31,8 +31,8 @@ import functools
 
 import torch
 
-from repro_torch.device import (require_kernel_device, require_no_grad,
-                                wants_grad)
+from repro_torch.device import (plain_path, require_kernel_device,
+                                require_no_grad, wants_grad)
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ssd_plain
 
@@ -136,7 +136,7 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 256):
     (B, S, G, N) in x's dtype -> (y (B, S, H, P), state (B, H, N, P)
     f32)."""
     _check(x, dt, A, Bm, Cm, chunk)
-    if x.is_cpu:
+    if plain_path(x):
         return ssd_plain(x, dt, A, Bm, Cm, chunk=chunk)
     if wants_grad(x, dt, A, Bm, Cm):
         return _SSD.apply(x, dt, A, Bm, Cm, chunk)

@@ -39,8 +39,8 @@ The output is the ``name,value,derived`` CSV of the reference.
 batch's forward and decode as ``eval/fwd`` / ``eval/decode`` wall spans
 and histograms (host time, each ending in ``torch.cuda.synchronize``);
 ``--trace-deterministic`` drops them, as it drops every wall-clock field.
-Not ported yet (ROADMAP.md queue 1): ``--kernel-impl`` (the card always
-runs the kernels; ``--device cpu`` the plain path).
+The reference's ``--kernel-impl`` has no counterpart: the card always
+runs the kernels and ``--device cpu`` their plain versions.
 """
 from __future__ import annotations
 

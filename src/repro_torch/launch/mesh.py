@@ -1,0 +1,89 @@
+"""Meshes — the port of ``repro.launch.mesh``.
+
+The reference lays its programs over TPU meshes: one pod (16, 16) = 256
+chips, axes ('data', 'model'), or two pods (2, 16, 16) = 512, axes
+('pod', 'data', 'model'), with the learner ring of AD-PSGD on 'data'
+(one pod) or 'pod' (the H-ring).  The port runs on one H100, so a
+:class:`Mesh` here is a description: axis names and sizes, and the
+devices it is laid over — none for the production geometries, which
+exist only for the dry-run's per-device accounting
+(``launch/dryrun.py --mesh pod|multipod``), and the local cards (or the
+CPU) for :func:`make_local_mesh`.  Nothing is placed by it.
+"""
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass, field
+
+import torch
+
+from repro_torch.sharding import MeshRules, default_rules, multipod_rules
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """Axis names and sizes (``shape``, as ``jax.sharding.Mesh.shape``),
+    and the devices of a mesh laid over real ones (empty: abstract)."""
+
+    axis_names: tuple
+    axis_sizes: tuple
+    devices: tuple = field(default=(), compare=False)
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for s in self.axis_sizes:
+            n *= s
+        return n
+
+    @property
+    def abstract(self) -> bool:
+        return not self.devices
+
+
+def use_mesh(mesh):
+    """The reference's mesh context; on one card there is nothing to
+    activate, so a no-op context."""
+    return contextlib.nullcontext(mesh)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production geometry, abstract: (16, 16) = 256
+    devices ('data', 'model'), or (2, 16, 16) = 512 ('pod', 'data',
+    'model')."""
+    if multi_pod:
+        return Mesh(("pod", "data", "model"), (2, 16, 16))
+    return Mesh(("data", "model"), (16, 16))
+
+
+def make_local_mesh(data: int = 1, model: int = 1, *, device=None) -> Mesh:
+    """A (data, model) mesh over the local devices: the CUDA cards, or the
+    CPU where ``device`` is 'cpu' or no card is present (one device).  As
+    the reference's, ``data`` is clamped to the devices there are and
+    'model' takes the rest; ``model`` is accepted for its signature."""
+    dev = torch.device(device) if device is not None else None
+    if dev is None and torch.cuda.is_available():
+        dev = torch.device("cuda")
+    if dev is None or dev.type != "cuda":
+        devices = (torch.device("cpu"),)
+    else:
+        devices = tuple(torch.device("cuda", i)
+                        for i in range(torch.cuda.device_count()))
+    n = len(devices)
+    data = min(data, n)
+    return Mesh(("data", "model"), (data, max(n // data, 1)), devices)
+
+
+def rules_for(cfg, mesh, *, multi_pod: bool = False) -> MeshRules:
+    """MeshRules for one architecture on one mesh (FSDP and the expert
+    axis from the arch's fields); ``attn_sharding == "seq"`` shards the
+    projections' contracting head_dim over 'model'."""
+    mk = multipod_rules if multi_pod else default_rules
+    rules = mk(fsdp=cfg.fsdp, expert_axis=cfg.expert_axis)
+    if getattr(cfg, "attn_sharding", "replicated") == "seq":
+        rules["head_dim"] = ("model",)
+    return MeshRules(mesh, rules)

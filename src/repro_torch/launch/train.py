@@ -66,8 +66,12 @@ wall-clock fields, byte-identical between two seeded runs).  ``--seq-len``
 defaults to 21 frames for the lstm family and 128 positions otherwise
 (an encdec batch splits them evenly between frames and tokens, a vlm
 batch gives ``vlm_patch_frac`` of them to patches); ``--var-len`` and
-``--bucket`` are the lstm family's alone.  Not ported (ROADMAP.md queue
-1): ``--mesh`` and ``--kernel-impl``.
+``--bucket`` are the lstm family's alone.  ``--mesh local`` is the one
+card, and ``pod``/``multipod`` (256 and 512 devices) raise, pointing to
+``repro_torch.launch.dryrun``.  Three of the reference's flags have no
+counterpart: ``--kernel-impl`` (the card always runs the kernels and
+``--device cpu`` their plain versions), and ``--block-b`` and
+``--vmem-budget-mb``, which size TPU VMEM tiles.
 """
 from __future__ import annotations
 
@@ -145,6 +149,24 @@ def setup_training(cfg, *, strategy_name: str = None, n_learners: int = None,
     meta = dict(strategy=strategy, n_learners=n_learners,
                 transport=transport, device=dev, loss_fn=loss_fn)
     return state, step_fn, meta
+
+
+MESH_DEVICES = {"pod": 256, "multipod": 512}
+
+
+def check_mesh(mesh: str) -> None:
+    """``--mesh local`` (the one card) runs; the reference's pod meshes
+    need 256 or 512 devices, which a one-card port has not: ValueError,
+    naming the dry-run that accounts for them."""
+    if mesh in MESH_DEVICES:
+        raise ValueError(
+            f"--mesh {mesh} lays the step over {MESH_DEVICES[mesh]} "
+            f"devices; the port trains on one card (--mesh local).  "
+            f"python -m repro_torch.launch.dryrun --mesh {mesh} gives its "
+            f"per-device bytes")
+    if mesh != "local":
+        raise ValueError(f"--mesh must be local, pod or multipod, got "
+                         f"{mesh!r}")
 
 
 def stash_line(cfg, batch: int, seq_len: int) -> str:
@@ -410,7 +432,14 @@ def main(argv=None):
     ap.add_argument("--trace-deterministic", action="store_true",
                     help="strip wall-clock fields from the JSONL so "
                          "two seeded runs emit byte-identical traces")
+    ap.add_argument("--mesh", default="local",
+                    choices=("local", "pod", "multipod"),
+                    help="local: the one card; pod (256 devices) and "
+                         "multipod (512) are the reference's TPU meshes, "
+                         "which the port only accounts for "
+                         "(repro_torch.launch.dryrun --mesh pod)")
     args = ap.parse_args(argv)
+    check_mesh(args.mesh)
 
     device = resolve_device(args.device)
     if args.trace_out:

@@ -26,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.device import plain_path
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.models.common import (apply_rope, linear, per_learner,
@@ -43,16 +44,23 @@ def attn_param_specs(cfg, *, dtype=None) -> dict:
     dt = dtype or cfg.param_dtype
     d, H, KV, E = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p = {
-        "wq": ParamSpec((d, H, E), dt, "lecun"),
-        "wk": ParamSpec((d, KV, E), dt, "lecun"),
-        "wv": ParamSpec((d, KV, E), dt, "lecun"),
-        "wo": ParamSpec((H, E, d), dt, "lecun"),
+        "wq": ParamSpec((d, H, E), dt, "lecun",
+                        axes=("embed", "heads", "head_dim")),
+        "wk": ParamSpec((d, KV, E), dt, "lecun",
+                        axes=("embed", "kv_heads", "head_dim")),
+        "wv": ParamSpec((d, KV, E), dt, "lecun",
+                        axes=("embed", "kv_heads", "head_dim")),
+        "wo": ParamSpec((H, E, d), dt, "lecun",
+                        axes=("heads", "head_dim", "embed")),
     }
     if cfg.use_bias:
-        p["bq"] = ParamSpec((H, E), "float32", "zeros")
-        p["bk"] = ParamSpec((KV, E), "float32", "zeros")
-        p["bv"] = ParamSpec((KV, E), "float32", "zeros")
-        p["bo"] = ParamSpec((d,), "float32", "zeros")
+        p["bq"] = ParamSpec((H, E), "float32", "zeros",
+                            axes=("heads", "head_dim"))
+        p["bk"] = ParamSpec((KV, E), "float32", "zeros",
+                            axes=("kv_heads", "head_dim"))
+        p["bv"] = ParamSpec((KV, E), "float32", "zeros",
+                            axes=("kv_heads", "head_dim"))
+        p["bo"] = ParamSpec((d,), "float32", "zeros", axes=("embed",))
     return p
 
 
@@ -142,7 +150,7 @@ def attn_prefill(q, k, v, *, window=None, causal: bool = True):
         out = attn_prefill(q.flatten(0, 1), k.flatten(0, 1),
                            v.flatten(0, 1), window=window, causal=causal)
         return out.view(q.shape)
-    if q.device.type == "cpu":
+    if plain_path(q):
         return attn_seq(q, k, v, causal=causal, window=window)
     return FA.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                               causal=causal, window=window)

@@ -39,13 +39,13 @@ def per_learner(w, nd: int, ndim: int):
 # Norms
 # ---------------------------------------------------------------------------
 
-def norm_spec(cfg, dim=None) -> dict:
+def norm_spec(cfg, dim=None, axes=("embed",)) -> dict:
     """f32 scale (ones), plus a zero bias for LayerNorm."""
     dim = dim if dim is not None else cfg.d_model
     if cfg.norm == "layernorm":
-        return {"scale": ParamSpec((dim,), "float32", "ones"),
-                "bias": ParamSpec((dim,), "float32", "zeros")}
-    return {"scale": ParamSpec((dim,), "float32", "ones")}
+        return {"scale": ParamSpec((dim,), "float32", "ones", axes=axes),
+                "bias": ParamSpec((dim,), "float32", "zeros", axes=axes)}
+    return {"scale": ParamSpec((dim,), "float32", "ones", axes=axes)}
 
 
 def apply_norm(p, x, eps: float = 1e-5):

@@ -45,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
+from repro_torch.models import transformer as TF
 from repro_torch.models.common import (apply_norm, cross_entropy, linear,
                                        norm_spec, sinusoidal_positions)
 from repro_torch.models.transformer import (_layer, _pad_cache, _stack,
@@ -67,7 +68,7 @@ def dec_layer_specs(cfg) -> dict:
 def param_specs(cfg) -> dict:
     return {
         "embed": ParamSpec((cfg.vocab, cfg.d_model), cfg.param_dtype,
-                           "normal", 0.02),
+                           "normal", 0.02, ("vocab", "embed")),
         "enc_layers": _stack(enc_layer_specs(cfg), cfg.n_enc_layers),
         "enc_norm": norm_spec(cfg),
         "dec_layers": _stack(dec_layer_specs(cfg), cfg.n_layers),
@@ -183,8 +184,8 @@ def cache_specs(cfg, batch: int, cache_len: int, enc_len: int) -> dict:
     batch, S, KV, E) bf16."""
     def kv(s):
         shape = (cfg.n_layers, batch, s, cfg.n_kv_heads, cfg.head_dim)
-        return {"k": ParamSpec(shape, "bfloat16", "zeros"),
-                "v": ParamSpec(shape, "bfloat16", "zeros")}
+        return {k: ParamSpec(shape, "bfloat16", "zeros",
+                             axes=TF.KV_CACHE_AXES) for k in "kv"}
     return {"self": kv(cache_len), "cross": kv(enc_len)}
 
 

@@ -12,13 +12,13 @@ from repro_torch.params import ParamSpec
 def ffn_param_specs(cfg, d_ff=None) -> dict:
     d, ff = cfg.d_model, d_ff or cfg.d_ff
     dt = cfg.param_dtype
-    p = {"wi": ParamSpec((d, ff), dt, "lecun"),
-         "wo": ParamSpec((ff, d), dt, "lecun")}
+    p = {"wi": ParamSpec((d, ff), dt, "lecun", axes=("embed", "mlp")),
+         "wo": ParamSpec((ff, d), dt, "lecun", axes=("mlp", "embed"))}
     if cfg.act == "swiglu":
-        p["wg"] = ParamSpec((d, ff), dt, "lecun")
+        p["wg"] = ParamSpec((d, ff), dt, "lecun", axes=("embed", "mlp"))
     if cfg.use_bias:
-        p["bi"] = ParamSpec((ff,), "float32", "zeros")
-        p["bo"] = ParamSpec((d,), "float32", "zeros")
+        p["bi"] = ParamSpec((ff,), "float32", "zeros", axes=("mlp",))
+        p["bo"] = ParamSpec((d,), "float32", "zeros", axes=("embed",))
     return p
 
 

@@ -11,19 +11,69 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.device import resolve_device
-from repro_torch.kernels.lstm_cell import blstm_sequence, blstm_stack
+from repro_torch.device import plain_path, resolve_device
+from repro_torch.kernels.lstm_cell import (blstm_sequence, blstm_stack,
+                                           lstm_sequence)
 from repro_torch.kernels.ref import blstm_stack_plain
 from repro_torch.models.common import cross_entropy, sequence_mask
 from repro_torch.params import ParamSpec
 
 
+def lstm_cell_step(wx, wh, b, x_t, h, c):
+    """One LSTM step in x's dtype (``repro.models.lstm.lstm_cell_step``):
+    x_t (B, D_in), h (B, H) in x's dtype, c (B, H) f32; gate order
+    i|f|g|o, forget bias +1."""
+    gates = (x_t @ wx + h @ wh).float() + b
+    i, f, g, o = gates.chunk(4, dim=-1)
+    c = torch.sigmoid(f + 1.0) * c + torch.sigmoid(i) * torch.tanh(g)
+    h = torch.sigmoid(o) * torch.tanh(c)
+    return h.to(x_t.dtype), c
+
+
+def _lstm_layer_plain(p, x, lengths, reverse):
+    """The reference's jnp ``lstm_layer`` (a scan of
+    :func:`lstm_cell_step`) in torch ops, differentiable by autograd."""
+    B, T, _ = x.shape
+    H = p["wh"].shape[0]
+    h = x.new_zeros(B, H)
+    c = torch.zeros(B, H, dtype=torch.float32, device=x.device)
+    out = [None] * T
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        h2, c2 = lstm_cell_step(p["wx"], p["wh"], p["b"], x[:, t], h, c)
+        if lengths is None:
+            h, c, out[t] = h2, c2, h2
+            continue
+        v = (t < lengths)[:, None]
+        h = torch.where(v, h2, h)                   # freeze the carry
+        c = torch.where(v, c2, c)
+        out[t] = torch.where(v, h2, torch.zeros_like(h2))
+    return torch.stack(out, dim=1)
+
+
+def lstm_layer(p, x, *, lengths=None, reverse: bool = False,
+               stash_dtype: str = None, seq_chunk: int = 0):
+    """One direction, x (B, T, D_in) -> (B, T, H)
+    (``repro.models.lstm.lstm_layer``).  On the kernel path
+    :func:`~repro_torch.kernels.lstm_cell.lstm_sequence` (K1; under a
+    gradient K1-stash + K2, or with ``seq_chunk`` K1-chunk + K3, the stash
+    in ``stash_dtype``); on the plain path the reference's jnp scan in x's
+    dtype.  ``lengths`` (B,) masks as the module docstring says."""
+    if plain_path(x):
+        return _lstm_layer_plain(p, x, lengths, reverse)
+    return lstm_sequence(p["wx"], p["wh"], p["b"], x, lengths,
+                         reverse=reverse, stash_dtype=stash_dtype,
+                         seq_chunk=seq_chunk)
+
+
 def layer_specs(d_in: int, hidden: int, dtype: str) -> dict:
     def direction():
         return {
-            "wx": ParamSpec((d_in, 4 * hidden), dtype, "lecun"),
-            "wh": ParamSpec((hidden, 4 * hidden), dtype, "lecun"),
-            "b": ParamSpec((4 * hidden,), "float32", "zeros"),
+            "wx": ParamSpec((d_in, 4 * hidden), dtype, "lecun",
+                            axes=("feature", "lstm_gates")),
+            "wh": ParamSpec((hidden, 4 * hidden), dtype, "lecun",
+                            axes=("lstm_hidden", "lstm_gates")),
+            "b": ParamSpec((4 * hidden,), "float32", "zeros",
+                           axes=("lstm_gates",)),
         }
     return {"fwd": direction(), "bwd": direction()}
 
@@ -38,10 +88,12 @@ def param_specs(cfg) -> dict:
         d_in = 2 * H
     return {
         "layers": layers,
-        "bottleneck": ParamSpec((2 * H, cfg.lstm_bottleneck), dt, "lecun"),
+        "bottleneck": ParamSpec((2 * H, cfg.lstm_bottleneck), dt, "lecun",
+                                axes=("lstm_hidden", "bottleneck")),
         "softmax_w": ParamSpec((cfg.lstm_bottleneck, cfg.vocab), dt,
-                               "normal", 0.02),
-        "softmax_b": ParamSpec((cfg.vocab,), "float32", "zeros"),
+                               "normal", 0.02, ("bottleneck", "vocab")),
+        "softmax_b": ParamSpec((cfg.vocab,), "float32", "zeros",
+                               axes=("vocab",)),
     }
 
 

@@ -46,16 +46,23 @@ def moe_param_specs(cfg) -> dict:
     dt = cfg.param_dtype
     s_in, s_ff = float(1.0 / np.sqrt(d)), float(1.0 / np.sqrt(ff))
     p = {
-        "router": ParamSpec((d, E), "float32", "lecun"),
-        "wi": ParamSpec((E, d, ff), dt, "normal", s_in),
-        "wg": ParamSpec((E, d, ff), dt, "normal", s_in),
-        "wo": ParamSpec((E, ff, d), dt, "normal", s_ff),
+        "router": ParamSpec((d, E), "float32", "lecun",
+                            axes=("embed", "experts")),
+        "wi": ParamSpec((E, d, ff), dt, "normal", s_in,
+                        ("experts", "embed", "expert_mlp")),
+        "wg": ParamSpec((E, d, ff), dt, "normal", s_in,
+                        ("experts", "embed", "expert_mlp")),
+        "wo": ParamSpec((E, ff, d), dt, "normal", s_ff,
+                        ("experts", "expert_mlp", "embed")),
     }
     if m.shared_expert:
         sff = m.shared_d_ff
-        p["shared_wi"] = ParamSpec((d, sff), dt, "lecun")
-        p["shared_wg"] = ParamSpec((d, sff), dt, "lecun")
-        p["shared_wo"] = ParamSpec((sff, d), dt, "lecun")
+        p["shared_wi"] = ParamSpec((d, sff), dt, "lecun",
+                                   axes=("embed", "mlp"))
+        p["shared_wg"] = ParamSpec((d, sff), dt, "lecun",
+                                   axes=("embed", "mlp"))
+        p["shared_wo"] = ParamSpec((sff, d), dt, "lecun",
+                                   axes=("mlp", "embed"))
     return p
 
 

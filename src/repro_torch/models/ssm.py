@@ -40,19 +40,27 @@ def ssm_param_specs(cfg) -> dict:
     dt = cfg.param_dtype
     W = s.conv_width
     return {
-        "wz": ParamSpec((d, d_inner), dt, "lecun"),
-        "wx": ParamSpec((d, d_inner), dt, "lecun"),
-        "wB": ParamSpec((d, GN), dt, "lecun"),
-        "wC": ParamSpec((d, GN), dt, "lecun"),
-        "wdt": ParamSpec((d, H), dt, "lecun"),
-        "conv_x": ParamSpec((W, d_inner), "float32", "lecun"),
-        "conv_B": ParamSpec((W, GN), "float32", "lecun"),
-        "conv_C": ParamSpec((W, GN), "float32", "lecun"),
-        "dt_bias": ParamSpec((H,), "float32", "zeros"),
-        "A_log": ParamSpec((H,), "float32", "small_a_log"),
-        "D": ParamSpec((H,), "float32", "ones"),
-        "norm_scale": ParamSpec((d_inner,), "float32", "ones"),
-        "out": ParamSpec((d_inner, d), dt, "lecun"),
+        "wz": ParamSpec((d, d_inner), dt, "lecun",
+                        axes=("embed", "ssm_inner")),
+        "wx": ParamSpec((d, d_inner), dt, "lecun",
+                        axes=("embed", "ssm_inner")),
+        "wB": ParamSpec((d, GN), dt, "lecun", axes=("embed", "ssm_state")),
+        "wC": ParamSpec((d, GN), dt, "lecun", axes=("embed", "ssm_state")),
+        "wdt": ParamSpec((d, H), dt, "lecun", axes=("embed", "ssm_heads")),
+        "conv_x": ParamSpec((W, d_inner), "float32", "lecun",
+                            axes=(None, "ssm_inner")),
+        "conv_B": ParamSpec((W, GN), "float32", "lecun",
+                            axes=(None, "ssm_state")),
+        "conv_C": ParamSpec((W, GN), "float32", "lecun",
+                            axes=(None, "ssm_state")),
+        "dt_bias": ParamSpec((H,), "float32", "zeros", axes=("ssm_heads",)),
+        "A_log": ParamSpec((H,), "float32", "small_a_log",
+                           axes=("ssm_heads",)),
+        "D": ParamSpec((H,), "float32", "ones", axes=("ssm_heads",)),
+        "norm_scale": ParamSpec((d_inner,), "float32", "ones",
+                                axes=("ssm_inner",)),
+        "out": ParamSpec((d_inner, d), dt, "lecun",
+                         axes=("ssm_inner", "embed")),
     }
 
 
@@ -65,12 +73,16 @@ def ssm_cache_specs(cfg, batch: int) -> dict:
     W = s.conv_width
     return {
         "conv": {
-            "x": ParamSpec((batch, W - 1, d_inner), "bfloat16", "zeros"),
-            "B": ParamSpec((batch, W - 1, GN), "bfloat16", "zeros"),
-            "C": ParamSpec((batch, W - 1, GN), "bfloat16", "zeros"),
+            "x": ParamSpec((batch, W - 1, d_inner), "bfloat16", "zeros",
+                           axes=("batch", None, "ssm_inner")),
+            "B": ParamSpec((batch, W - 1, GN), "bfloat16", "zeros",
+                           axes=("batch", None, "ssm_state")),
+            "C": ParamSpec((batch, W - 1, GN), "bfloat16", "zeros",
+                           axes=("batch", None, "ssm_state")),
         },
         "h": ParamSpec((batch, H, s.state_dim, s.head_dim), "float32",
-                       "zeros"),
+                       "zeros", axes=("batch", "ssm_heads", "ssm_state",
+                                      None)),
     }
 
 

@@ -53,6 +53,8 @@ GLOBAL_WINDOW = np.int32(2 ** 30)   # "window" meaning full attention
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 ATTENTION_ONLY = ("dense", "moe", "vlm")
+# the logical axes of a stacked KV cache (L, batch, positions, KV, E)
+KV_CACHE_AXES = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
 
 
 def _require_ported(cfg):
@@ -106,18 +108,21 @@ def _stack(spec_tree, n):
     init, scale = ps.init, ps.init_scale
     if init == "lecun":
         init, scale = "normal", float(1.0 / np.sqrt(max(ps.shape[0], 1)))
-    return ParamSpec((n,) + tuple(ps.shape), ps.dtype, init, scale)
+    return ParamSpec((n,) + tuple(ps.shape), ps.dtype, init, scale,
+                     ("layers",) + tuple(ps.axes))
 
 
 def param_specs(cfg) -> dict:
     d, V = cfg.d_model, cfg.vocab
     p = {
-        "embed": ParamSpec((V, d), cfg.param_dtype, "normal", 0.02),
+        "embed": ParamSpec((V, d), cfg.param_dtype, "normal", 0.02,
+                           ("vocab", "embed")),
         "layers": _stack(layer_param_specs(cfg), cfg.n_layers),
         "final_norm": norm_spec(cfg),
     }
     if not cfg.tie_embeddings:
-        p["lm_head"] = ParamSpec((d, V), cfg.param_dtype, "normal", 0.02)
+        p["lm_head"] = ParamSpec((d, V), cfg.param_dtype, "normal", 0.02,
+                                 ("embed", "vocab"))
     return p
 
 
@@ -172,7 +177,7 @@ def _stack_conv(convs):
 # ---------------------------------------------------------------------------
 
 def forward_seq(cfg, params, x, *, collect_cache: bool = False,
-                cache_len: int = 0):
+                cache_len: int = 0, long_context: bool = False):
     """x (B, S, d) embedded inputs -> (hidden, cache).  Without
     ``collect_cache`` the cache is ().  The dense cache is the stacked
     (k, v), each (L, B, max(S, cache_len), KV, E); the ssm cache is the
@@ -184,7 +189,7 @@ def forward_seq(cfg, params, x, *, collect_cache: bool = False,
         return _forward_seq_ssm(cfg, params, x, collect_cache)
     hybrid = cfg.family == "hybrid"
     B, S, _ = x.shape
-    windows = layer_windows(cfg, S)
+    windows = layer_windows(cfg, S, long_context=long_context)
     rope = _rope(cfg, torch.arange(S, device=x.device)[None, :])
     x = x.to(torch.bfloat16)
     ks, vs, convs, hs = [], [], [], []
@@ -400,8 +405,8 @@ def cache_specs(cfg, batch: int, cache_len: int) -> dict:
     if cfg.family != "ssm":
         shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads,
                  cfg.head_dim)
-        specs["attn"] = {"k": ParamSpec(shape, "bfloat16", "zeros"),
-                         "v": ParamSpec(shape, "bfloat16", "zeros")}
+        specs["attn"] = {k: ParamSpec(shape, "bfloat16", "zeros",
+                                      axes=KV_CACHE_AXES) for k in "kv"}
     if cfg.family in ("ssm", "hybrid"):
         specs["ssm"] = _stack_state(SM.ssm_cache_specs(cfg, batch),
                                     cfg.n_layers)
@@ -411,7 +416,8 @@ def cache_specs(cfg, batch: int, cache_len: int) -> dict:
 def _stack_state(spec_tree, n):
     if isinstance(spec_tree, dict):
         return {k: _stack_state(v, n) for k, v in spec_tree.items()}
-    return spec_tree._replace(shape=(n,) + tuple(spec_tree.shape))
+    return spec_tree._replace(shape=(n,) + tuple(spec_tree.shape),
+                              axes=("layers",) + tuple(spec_tree.axes))
 
 
 def page_specs(cfg, n_pages: int, page_size: int) -> dict:
@@ -421,12 +427,13 @@ def page_specs(cfg, n_pages: int, page_size: int) -> dict:
     hybrid families."""
     _require_attention(cfg)
     shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
-    return {"attn": {"k": ParamSpec(shape, "bfloat16", "zeros"),
-                     "v": ParamSpec(shape, "bfloat16", "zeros")}}
+    axes = ("layers", "pages", "page_pos", "kv_heads", "head_dim")
+    return {"attn": {"k": ParamSpec(shape, "bfloat16", "zeros", axes=axes),
+                     "v": ParamSpec(shape, "bfloat16", "zeros", axes=axes)}}
 
 
 def decode_step(cfg, params, cache, tokens, pos: int, *, page_table=None,
-                page_size: int = 0):
+                page_size: int = 0, long_context: bool = False):
     """One-token decode.  tokens (B, 1) int, pos the host int position of
     the new token.  Returns (logits (B, 1, V), cache).
 
@@ -435,7 +442,9 @@ def decode_step(cfg, params, cache, tokens, pos: int, *, page_table=None,
     the table's page for ``pos`` (attention-only families: ValueError for
     ssm and hybrid).  The cache tensors are written in place — the new K/V
     column once for all layers after the layer loop, the conv windows and
-    SSM states replaced whole per layer — and returned."""
+    SSM states replaced whole per layer — and returned.  ``long_context``
+    gives a full-attention arch its documented sliding window
+    (:func:`layer_windows`)."""
     _require_ported(cfg)
     if page_table is not None:
         _require_attention(cfg)
@@ -445,7 +454,7 @@ def decode_step(cfg, params, cache, tokens, pos: int, *, page_table=None,
     paged = page_table is not None
     kc, vc = cache["attn"]["k"], cache["attn"]["v"]
     S_cache = page_table.shape[-1] * page_size if paged else kc.shape[2]
-    windows = layer_windows(cfg, S_cache)
+    windows = layer_windows(cfg, S_cache, long_context=long_context)
     x = embed_tokens(cfg, params, tokens)
     rope = _rope(cfg, torch.full((tokens.shape[0], 1), int(pos),
                                  device=x.device))
@@ -500,7 +509,8 @@ def _decode_step_ssm(cfg, params, cache, tokens):
     return logits_fn(cfg, params, x), cache
 
 
-def prefill(cfg, params, tokens, *, cache_len: int = 0, patches=None):
+def prefill(cfg, params, tokens, *, cache_len: int = 0, patches=None,
+            long_context: bool = False):
     """Full-context forward of tokens (B, S), after ``patches`` (B,
     S_patch, d) where given (:func:`embed_with_prefix`) -> (last-token
     logits (B, 1, V), the decode cache): {'attn': {'k', 'v'}} of length
@@ -510,7 +520,7 @@ def prefill(cfg, params, tokens, *, cache_len: int = 0, patches=None):
     x = embed_with_prefix(cfg, params, tokens, patches)
     cache_len = cache_len or x.shape[1]
     x, caches = forward_seq(cfg, params, x, collect_cache=True,
-                            cache_len=cache_len)
+                            cache_len=cache_len, long_context=long_context)
     x = apply_norm(params["final_norm"], x)
     logits = logits_fn(cfg, params, x[:, -1:, :])
     if cfg.family == "ssm":

@@ -24,13 +24,19 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 class ParamSpec(NamedTuple):
-    """Shape + dtype + init recipe of one parameter (the fields of
-    ``repro.sharding.ParamSpec`` that init reads)."""
+    """Shape + dtype + init recipe + logical axes of one parameter (the
+    fields of ``repro.sharding.ParamSpec``; ``axes`` comes last so that a
+    positional spec keeps its meaning).  ``axes`` names each dimension's
+    logical axis ('embed', 'heads', 'experts', ..., or None), which the
+    sharding rules (``repro_torch.sharding``) and the active-parameter
+    count (``repro_torch.analysis.params``) read; () where no rule reads
+    it."""
 
     shape: tuple
     dtype: str = "bfloat16"
     init: str = "normal"          # normal | zeros | ones | lecun | small_a_log
     init_scale: float = 0.02
+    axes: tuple = ()
 
 
 # a leaf is drawn in f32 and cast, so drawing it whole takes an f32 copy
