@@ -118,6 +118,22 @@ Phases, each of which fails the run (nonzero exit, no result line):
    rounding step of each element).  ms/step (beside
    the train phase's plain step), contributors' valid frames/s, peak
    memory, the act/stale trail, beside the card's name and power limit;
+7a-multirank — decentralized training with the learner axis split over
+   two ranks that share the one card (``torch.multiprocessing`` spawn, a
+   file rendezvous, gloo: each rank's payloads staged through host
+   memory; ``launch.multihost.initialize`` places both on cuda:0): the §V
+   step at full width from the train phase's seed-0 init, ad_psgd x 16
+   learners (8 a rank, batch 256, T = 21, var-len) for 3 steps, hring
+   with pods of 8 (one pod a rank: the pod mean local, the ring of pod
+   means across ranks) and sc_psgd_replicated (the ordered chain) for 2
+   each, each first in one process, the ranks' launch counters set to 0
+   just before their steps and read just after (K1-stash and K2 6 times a
+   step in every rank); every leaf of params and prev_params and every
+   loss of the ranks bit-identical to the one-process run, whose ad_psgd
+   losses equal the train phase's first three; ms/step at W = 1 and W =
+   2, the exchange alone (the transport's mix of the final params) and
+   the bytes each rank sends a step, by primitive, beside the card's name
+   and power limit.  A rank that raises fails the run;
 7b. k3 — the long-utterance slice's kernels against their plain versions
    and against the unchunked pair: K1's chunk-entry variant and the
    chunked-recompute backward (K3 port) at 4 learners x 2 rows, T = 300,
@@ -357,7 +373,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
 
 The last two lines are ``{"kernels": [...]}`` (K1-stash's, K2's, K4's and
 K5's ``launches`` counting 7a-comm, 7a-ctc and 7a-elastic too, also apart
-as ``launches_comm``, ``launches_ctc`` and ``launches_elastic``; K4's,
+as ``launches_comm``, ``launches_ctc`` and ``launches_elastic``, K1-stash's
+and K2's the ranks' of 7a-multirank, as ``launches_multirank``; K4's,
 K5's, K6's, K8's and K11's counting phase 21's runs, apart as
 ``launches_load``, and K1-stash's and K2's its train CLI runs, as
 ``launches_trace_cli``; K6's, K7's, K8's and K11's phases 22-24's, apart
@@ -1468,7 +1485,7 @@ def phase_train():
         _fail("the kernel path's loss or gradients disagree with the "
               "plain path")
     del grads, grads_w
-    return state, step, ds, counts, steps, ms
+    return state, step, ds, counts, steps, ms, losses
 
 
 def _named_leaves(tree, prefix=""):
@@ -1633,6 +1650,232 @@ def phase_evaluate(state):
         _fail(f"evaluate: K5's beam state differs from the plain decode in "
               f"{diff}")
     return counts, k1_launches
+
+
+# ------------------------------------------------------- phase 7a-multirank
+MULTIRANK_MIX_CALLS = 3      # timed calls of the exchange alone, after one
+MULTIRANK_S = 240            # the most the ranks may take, or one wait
+
+
+def _multirank_runs(world: int) -> tuple:
+    """(strategy, extra config, steps): the §V step over a learner axis
+    split across ``world`` ranks, each held bit for bit against the same
+    steps in one process.  hring's pods are the ranks' blocks (the paper's
+    H-ring: the pod mean local, the ring of pod means across ranks);
+    sc_psgd_replicated mixes through the ordered chain."""
+    return (("ad_psgd", {}, 3),
+            ("hring", {"comm_pod_size": TRAIN_L // world}, 2),
+            ("sc_psgd_replicated", {}, 2))
+
+
+def _exchange_ms(mix, params, device) -> float:
+    """Mean host ms of the transport's mix of ``params`` (one warm-up,
+    then :data:`MULTIRANK_MIX_CALLS` calls, each rank in step)."""
+    import torch
+
+    mix(params, 0, {})
+    if torch.distributed.is_initialized():
+        torch.distributed.barrier()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for k in range(MULTIRANK_MIX_CALLS):
+        mix(params, k, {})
+    torch.cuda.synchronize(device)
+    return 1e3 * (time.perf_counter() - t0) / MULTIRANK_MIX_CALLS
+
+
+def _multirank_setup(strategy, knobs, device):
+    """The train phase's set-up for one run of :func:`_multirank_runs`:
+    seed-0 weights, ``strategy`` over TRAIN_L learners (this rank's block
+    of them under a process group), the §V data."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import make_dataset
+    from repro_torch.launch.train import setup_training
+
+    cfg = dataclasses.replace(get_arch("swb2000-blstm"), **knobs)
+    state, step, meta = setup_training(cfg, strategy_name=strategy,
+                                       n_learners=TRAIN_L, seed=SEED,
+                                       device=device)
+    ds = make_dataset(cfg, seq_len=TRAIN_T, batch=TRAIN_L * TRAIN_B,
+                      seed=SEED, var_len=True)
+    return state, step, meta, ds
+
+
+def _stale_trees(state) -> dict:
+    """The state's params (and prev_params where kept) on the host."""
+    return {k: _to_cpu(state[k]) for k in ("params", "prev_params")
+            if k in state}
+
+
+def _multirank_rank(rank, world, rdv, out_dir, backend):
+    """One rank of phase 7a-multirank: joins the group over ``rdv`` (a
+    file rendezvous) through ``launch.multihost.initialize``, which takes
+    its card (the shared card under gloo, ``cuda:rank`` under nccl) and
+    picks the backend, held to ``backend``; runs every
+    :func:`_multirank_runs` entry on its block with the launch counters set
+    to 0 just before and read just after, times the exchange alone, and
+    writes its blocks, losses, times, sent bytes and counts to
+    ``out_dir``."""
+    import torch
+
+    from repro_torch.core import collective as C
+    from repro_torch.launch import multihost
+    from repro_torch.launch.train import run
+
+    # a collective that waits past MULTIRANK_S raises in the rank
+    if not multihost.initialize(init_method=f"file://{rdv}",
+                                num_processes=world, process_id=rank,
+                                timeout=MULTIRANK_S):
+        raise RuntimeError("no process group after the rendezvous")
+    try:
+        place = multihost.placement()
+        if place.device.type != "cuda" or place.backend != backend:
+            raise RuntimeError(f"rank {rank} placed as {place}")
+        dev = place.device
+        result = {"placement": place.describe()}
+        for strategy, knobs, steps in _multirank_runs(world):
+            state, step, meta, ds = _multirank_setup(strategy, knobs, dev)
+            torch.cuda.synchronize(dev)
+            torch.distributed.barrier()
+            _zero_counts()
+            C.reset_sent()
+            state, _, records = run(state, step, ds, steps=steps,
+                                    device=dev)
+            counts = _train_counts()
+            sent = dict(C.sent_bytes)
+            # the exchange alone: the transport's mix of the new params
+            mix_ms = _exchange_ms(meta["transport"].make_mixer(TRAIN_L),
+                                  state["params"], dev)
+            result[strategy] = dict(
+                trees=_stale_trees(state), counts=counts, sent=sent,
+                losses=[float(r[3]) for r in records],
+                step_ms=[1e3 * r[0] for r in records], mix_ms=mix_ms,
+                steps=steps)
+            del state, step, meta
+            torch.cuda.empty_cache()
+        torch.save(result, f"{out_dir}/rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _same_trees(name, want, got) -> None:
+    """Every leaf of ``got`` (the ranks' blocks, concatenated) equal to
+    ``want``'s bit for bit; fails the run naming the first that is not."""
+    import torch
+
+    for (key, a), (_, b) in zip(_named_leaves(want), _named_leaves(got)):
+        if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
+            _fail(f"[multirank] {name}: {key} differs from the one-process "
+                  f"run")
+
+
+def phase_multirank(train_losses, *, backend="gloo", world=2):
+    """Decentralized training with the learner axis split over ``world``
+    ranks (two ranks sharing the one card over gloo, payloads staged
+    through host memory; or, from ``tools/multicard_smoke.py``, one rank a
+    card over nccl): each run of :func:`_multirank_runs` in one process
+    first (its ms/step, the exchange's ms), then in the ranks, every leaf
+    of params and prev_params and every loss held bit for bit; the ad_psgd
+    run's losses also equal the train phase's first steps.  Prints ms/step
+    at W = 1 and W = ``world``, the exchange's ms and the bytes each rank
+    sends a step.  Returns the ranks' K1-stash and K2 launches."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.core import strategies as ST
+    from repro_torch.launch.train import run
+
+    dev = torch.device("cuda")
+    print(f"[multirank] {_card_line()}", flush=True)
+    t_phase = time.perf_counter()
+    ref = {}
+    for strategy, knobs, steps in _multirank_runs(world):
+        state, step, meta, ds = _multirank_setup(strategy, knobs, dev)
+        state, _, records = run(state, step, ds, steps=steps, device=dev)
+        ref[strategy] = dict(
+            trees=_stale_trees(state), losses=[float(r[3]) for r in records],
+            step_ms=[1e3 * r[0] for r in records],
+            mix_ms=_exchange_ms(meta["transport"].make_mixer(TRAIN_L),
+                                state["params"], dev))
+        del state, step, meta
+        torch.cuda.empty_cache()
+    got = ref["ad_psgd"]["losses"]
+    if got != list(train_losses[:len(got)]):
+        _fail(f"[multirank] the one-process ad_psgd losses {got} are not "
+              f"the train phase's {list(train_losses[:len(got)])}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        # a rank that raises fails the spawn, and the run with it; ranks
+        # still running after MULTIRANK_S are killed
+        ctx = mp.start_processes(_multirank_rank,
+                                 args=(world, f"{tmp}/rdv", tmp, backend),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.perf_counter() - t0 > MULTIRANK_S:
+                    _fail(f"[multirank] ranks still running after "
+                          f"{MULTIRANK_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=10)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+                 for r in range(world)]
+    counts = {"blstm_layer_train": 0, "blstm_layer_bwd": 0}
+    for strategy, knobs, steps in _multirank_runs(world):
+        parts = [r[strategy] for r in ranks]
+        whole = {k: _cat_trees([p["trees"][k] for p in parts])
+                 for k in parts[0]["trees"]}
+        _same_trees(strategy, ref[strategy]["trees"], whole)
+        for r, p in enumerate(parts):
+            if p["losses"] != ref[strategy]["losses"]:
+                _fail(f"[multirank] {strategy}: rank {r}'s losses "
+                      f"{p['losses']} != one process's "
+                      f"{ref[strategy]['losses']}")
+            for name, n in p["counts"].items():
+                if n != 6 * steps:
+                    _fail(f"[multirank] {strategy}: rank {r} launched "
+                          f"{name} {n} times in {steps} steps, not "
+                          f"{6 * steps}")
+                counts[name] += n
+        one = ref[strategy]
+        w1 = sum(one["step_ms"][1:]) / (steps - 1)
+        wn = sum(parts[0]["step_ms"][1:]) / (steps - 1)
+        sent = [p["sent"] for p in parts]
+        print(f"[multirank] {strategy}: {steps} steps at W = 1 and W = "
+              f"{world} ({backend}) bit-identical (params, prev_params, "
+              f"losses {one['losses']}); ms/step after the first: W = 1 "
+              f"{w1:.2f}, W = {world} {wn:.2f} (rank 0; first "
+              f"{one['step_ms'][0]:.1f} / {parts[0]['step_ms'][0]:.1f}); "
+              f"exchange alone {one['mix_ms']:.2f} ms at W = 1, "
+              f"{parts[0]['mix_ms']:.2f} at W = {world}; bytes sent a step "
+              f"by each rank "
+              f"{[{k: v // steps for k, v in s.items()} for s in sent]}",
+              flush=True)
+    print(f"[multirank] ranks: {[r['placement'] for r in ranks]}; spawn "
+          f"and runs {spawn_s:.1f}s, phase "
+          f"{time.perf_counter() - t_phase:.1f}s; K1-stash and K2 launches "
+          f"by the ranks {counts}", flush=True)
+    return counts
+
+
+def _cat_trees(trees):
+    """Leafwise concatenation along axis 0 of the ranks' blocks."""
+    import torch
+
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _cat_trees([t[k] for t in trees]) for k in first}
+    return torch.cat(trees, dim=0)
 
 
 # ------------------------------------------------------------- phase 7a-comm
@@ -6545,12 +6788,15 @@ def main() -> int:
         launches = phase_serve()
         phase_profile()
         done("serve")
-        state, step, ds, counts, steps, train_ms = phase_train()
+        state, step, ds, counts, steps, train_ms, train_losses = \
+            phase_train()
         phase_train_profile(state, step, ds, steps)
         done("train")
         eval_counts, k1_check_launches = phase_evaluate(state)
         del state, step, ds
         done("evaluate")
+        multirank_counts = phase_multirank(train_losses)
+        done("multirank")
         comm_counts = phase_comm()
         done("comm")
         ctc_counts, ctc_decode = phase_ctc()
@@ -6611,9 +6857,11 @@ def main() -> int:
         k["launches_comm"] = comm_counts[k["name"]]
         k["launches_ctc"] = ctc_counts[k["name"]]
         k["launches_elastic"] = elastic_counts[k["name"]]
+        k["launches_multirank"] = multirank_counts[k["name"]]
         launches[k["name"]] = (counts[k["name"]] + comm_counts[k["name"]]
                                + ctc_counts[k["name"]]
-                               + elastic_counts[k["name"]])
+                               + elastic_counts[k["name"]]
+                               + multirank_counts[k["name"]])
     # K4 is the forward of every serve admission (B = 1, the entry's own
     # times) and of evaluate (B = 8, its ``evaluate_shape``): each count
     # stands beside its shape's times.  K1's inference variant runs on no

@@ -24,6 +24,11 @@ checkpoint has no ``tree.json``, a port checkpoint no
 * **Bit-exact round trips** — leaves are stored as raw numpy arrays
   (bf16 viewed as uint16, since npz cannot hold bfloat16); a Python
   scalar leaf (the state's host ``step``) comes back as its own type.
+* **Any world size** — a learner-stacked state is saved whole (the train
+  CLI's rank 0 gathers every rank's block first, so W ranks write the
+  files one process writes), and :func:`restore` with ``learner_block``
+  keeps one rank's rows of each stacked leaf: a checkpoint resumes at any
+  W that divides its learners.
 """
 from __future__ import annotations
 
@@ -164,7 +169,8 @@ def _from_numpy(a: np.ndarray, dtype: str, ref):
     return t.to(ref.device)
 
 
-def restore(directory: str, state_like, step: int = None):
+def restore(directory: str, state_like, step: int = None, *,
+            learner_block: tuple = None):
     """Restore into the structure of ``state_like``; returns (state,
     step).  Tensors land on the device of their ``state_like`` leaf.
 
@@ -172,7 +178,10 @@ def restore(directory: str, state_like, step: int = None):
     against ``state_like``; a mismatch raises a ValueError naming the
     leaf path, the expected and the found shape or dtype, so a
     checkpoint of another strategy, config or learner count fails loudly
-    instead of restoring into the wrong slot."""
+    instead of restoring into the wrong slot.  ``learner_block`` (start,
+    count, total): ``state_like`` is one rank's block of a learner-stacked
+    state, every tensor leaf of which was saved with ``total`` learners;
+    rows [start, start + count) of each are restored."""
     step = step if step is not None else latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {directory}")
@@ -195,6 +204,13 @@ def restore(directory: str, state_like, step: int = None):
             a = data[f"leaf_{i}"]
             dt = meta["dtypes"][i]
             expect_shape = tuple(np.shape(ref))
+            if learner_block is not None and isinstance(ref, torch.Tensor) \
+                    and ref.dim() > 0:
+                start, count, total = learner_block
+                expect_shape = (total,) + expect_shape[1:]
+                if tuple(a.shape) == expect_shape:
+                    a = a[start:start + count]
+                    expect_shape = tuple(np.shape(ref))
             if tuple(a.shape) != expect_shape:
                 raise ValueError(
                     f"checkpoint {path} leaf {name!r}: saved shape "

@@ -16,6 +16,15 @@ leading learner axis; the explicit matrices exist for analysis and
 tests.  Means over learners sum in learner order and scale by f32(1/n),
 as the reference's ``jnp.mean`` compiles, so the mixers keep its bits.
 
+Under ``torchrun`` the learner axis is split over the ranks in
+contiguous blocks (``core/collective.py``): each mixer takes this rank's
+block, reads the global L (a ring of two learners is the degenerate
+[2/3, 1/3] one whatever the block holds), and moves the rows that cross
+a block boundary through the collective primitives, so that the result
+equals the one-process mix bit for bit.  The H-ring with pods inside the
+blocks averages each pod locally and rings only the pod means across
+ranks; pods that straddle blocks go through the general gather.
+
 The elastic matrices (the same topologies over a live subset of
 learners, for fault-tolerant training) are built from host masks, on the
 CPU in f32, in the reference's order of operations; the elastic mixer
@@ -26,6 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import collective as C
 from repro_torch.optim.optimizers import map_slices, tree_map
 
 
@@ -79,28 +89,41 @@ def div(x: torch.Tensor, c: float) -> torch.Tensor:
     return x / torch.full((), c, dtype=torch.float32, device=x.device)
 
 
-def ordered_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Sum over ``dim`` in index order, the reference's reduction order."""
+def ordered_sum(x: torch.Tensor, dim: int, *,
+                learners: bool = False) -> torch.Tensor:
+    """Sum over ``dim`` in index order, the reference's reduction order.
+    ``learners``: ``dim`` 0 is the (block-split) learner axis, summed over
+    every rank's rows in order (:func:`~repro_torch.core.collective.
+    ordered_sum_learners`), the total on every rank."""
+    if learners:
+        return C.ordered_sum_learners(x)
     total = x.select(dim, 0)
     for i in range(1, x.shape[dim]):
         total = total + x.select(dim, i)
     return total
 
 
-def ordered_mean(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """``jnp.mean`` op for op: the ordered sum scaled by f32(1/n)."""
-    scale = torch.tensor(1.0 / x.shape[dim], dtype=torch.float32)
-    return ordered_sum(x, dim) * scale
+def ordered_mean(x: torch.Tensor, dim: int, *,
+                 learners: bool = False) -> torch.Tensor:
+    """``jnp.mean`` op for op: the ordered sum scaled by f32(1/n), n the
+    global count of a block-split learner axis (``learners``)."""
+    n = C.global_count(x.shape[0]) if learners else x.shape[dim]
+    scale = torch.tensor(1.0 / n, dtype=torch.float32)
+    return ordered_sum(x, dim, learners=learners) * scale
 
 
-def _ring3(x: torch.Tensor) -> torch.Tensor:
+def _ring3(x: torch.Tensor, split: bool = True) -> torch.Tensor:
     """T_1 over axis 0 of an f32 tensor (the G == 2 degenerate ring
-    included)."""
-    if x.shape[0] == 1:
+    included), G the global count of a block-split axis (``split``) or
+    the local one."""
+    G = C.global_count(x.shape[0]) if split else x.shape[0]
+    roll = C.roll_learners if split else (
+        lambda t, k: torch.roll(t, k, dims=0))
+    if G == 1:
         return x
-    if x.shape[0] == 2:
-        return div(2.0 * x + torch.roll(x, 1, dims=0), 3.0)
-    return div(x + torch.roll(x, 1, dims=0) + torch.roll(x, -1, dims=0), 3.0)
+    if G == 2:
+        return div(2.0 * x + roll(x, 1), 3.0)
+    return div(x + roll(x, 1) + roll(x, -1), 3.0)
 
 
 def mix_ring(params):
@@ -110,46 +133,68 @@ def mix_ring(params):
     reference rolls before it upcasts (the payload its collective-permute
     moves), then the average is taken in f32 and cast back; a large leaf
     a block of its second axis at a time (``map_slices``: no f32 copy of
-    a whole stacked leaf)."""
-    def one(w):
-        wf = w.float()
-        if w.shape[0] == 2:
-            mixed = div(2 * wf + torch.roll(w, 1, dims=0).float(), 3.0)
-        else:
-            mixed = div(wf + torch.roll(w, 1, dims=0).float()
-                        + torch.roll(w, -1, dims=0).float(), 3.0)
-        return mixed.to(w.dtype)
+    a whole stacked leaf).  On a split learner axis the neighbours cross
+    the block boundaries (:func:`~repro_torch.core.collective.
+    roll_learners`), and the two-learner form is read from the global
+    L."""
+    def mixer(L):
+        def one(w):
+            wf = w.float()
+            if L == 2:
+                mixed = div(2 * wf + C.roll_learners(w, 1).float(), 3.0)
+            else:
+                mixed = div(wf + C.roll_learners(w, 1).float()
+                            + C.roll_learners(w, -1).float(), 3.0)
+            return mixed.to(w.dtype)
+        return one
 
-    return tree_map(lambda w: w if w.shape[0] == 1 else map_slices(
-        one, w, dim=1), params)
+    def leaf(w):
+        L = C.global_count(w.shape[0])
+        return w if L == 1 else map_slices(mixer(L), w, dim=1)
+
+    return tree_map(leaf, params)
 
 
 def mix_uniform(params):
     """Global model averaging (T_u) — the allreduce PS realization.  The
     f32 sum runs over the learners in order and is scaled by f32(1/L),
-    the reference's ``jnp.mean`` op for op."""
+    the reference's ``jnp.mean`` op for op (over a split learner axis the
+    ordered chain of :func:`~repro_torch.core.collective.
+    ordered_sum_learners`)."""
     def one(w):
-        mean = ordered_mean(w.float(), 0)
+        mean = ordered_mean(w.float(), 0, learners=True)
         return mean.expand(w.shape).to(w.dtype).contiguous()
 
     return tree_map(one, params)
 
 
+def _hierarchical_leaf(w, pod_size: int, split: bool):
+    """One leaf of :func:`mix_hierarchical`, the learner axis this rank's
+    block of a split one (``split``) or the whole stack."""
+    L = C.global_count(w.shape[0]) if split else w.shape[0]
+    if L % pod_size:
+        raise ValueError(f"pod_size {pod_size} must divide L={L}")
+    if pod_size == 1:
+        return mix_ring({"w": w})["w"]
+    if split and w.shape[0] % pod_size:
+        # pods straddle the blocks: the one-process mix on the gathered
+        # stack, this rank's rows of it
+        full = C.gather_learners(w)
+        return C.block_rows(_hierarchical_leaf(full, pod_size, False))
+    wf = w.float().reshape(w.shape[0] // pod_size, pod_size, -1)
+    # the pod mean is local; only the ring of pod means crosses ranks
+    mixed = _ring3(ordered_mean(wf, 1), split)
+    return mixed[:, None, :].expand(wf.shape).reshape(w.shape).to(w.dtype)
+
+
 def mix_hierarchical(params, *, pod_size: int):
     """Collective form of :func:`hierarchical_matrix`: pod-mean, ring-mix
-    the pod means, broadcast back to the pod's members."""
-    def one(w):
-        L = w.shape[0]
-        if L % pod_size:
-            raise ValueError(f"pod_size {pod_size} must divide L={L}")
-        if pod_size == 1:
-            return mix_ring({"w": w})["w"]
-        wf = w.float().reshape(L // pod_size, pod_size, -1)
-        mixed = _ring3(ordered_mean(wf, 1))
-        return mixed[:, None, :].expand(wf.shape).reshape(w.shape).to(
-            w.dtype)
-
-    return tree_map(one, params)
+    the pod means, broadcast back to the pod's members.  Over a split
+    learner axis with pods inside the blocks (``pod_size`` dividing L/W:
+    the paper's H-ring at ``pod_size`` = L/W) each pod mean is local and
+    only the ring of pod means crosses ranks; pods that straddle blocks
+    go through the general gather."""
+    return tree_map(lambda w: _hierarchical_leaf(w, pod_size, True), params)
 
 
 def exp_shift(step: int, n_learners: int) -> int:
@@ -164,7 +209,9 @@ def make_exp_mixer(n_learners: int):
 
     For L = 2^m this reaches EXACT consensus every m rounds (hypercube
     gossip), at one payload a round.  ``step`` is a host int (the
-    reference's ``lax.switch`` over the m shifts becomes indexing)."""
+    reference's ``lax.switch`` over the m shifts becomes indexing).
+    ``n_learners`` is the global L: on a split learner axis the shift
+    may exceed a rank's block."""
     L = n_learners
     m = max(int(np.log2(L)), 1)
     if 2 ** m != L and L != 1:
@@ -175,8 +222,9 @@ def make_exp_mixer(n_learners: int):
         if L == 1:
             return params
         shift = exp_shift(int(step), L)
-        return tree_map(lambda w: div(w.float() + torch.roll(
-            w.float(), shift, dims=0), 2.0).to(w.dtype), params)
+        # the peer's rows move in their own dtype (the upcast is exact)
+        return tree_map(lambda w: div(w.float() + C.roll_learners(
+            w, shift).float(), 2.0).to(w.dtype), params)
 
     return mix
 

@@ -45,6 +45,19 @@ Variable-length batches (a ``lengths`` key) are aggregated with frame
 weights: each learner's masked-mean gradient is scaled by its
 valid-frame share, so uniform mixing equals the global masked gradient.
 
+Under ``torchrun`` the learner axis is split over the ranks
+(``core/collective.py``): rank r holds learners [r·L/W, (r+1)·L/W) of
+every stacked leaf and takes the same rows of each global batch; the
+step's frame weights, loss, gradient norm and consensus distance are
+reduced over all L learners in the one-process order (the per-learner
+values gathered), and the mixers exchange rows across ranks, so a run at
+any W takes the steps of W = 1 bit for bit.  ``sc_psgd`` (one replica)
+splits the global batch's rows over the ranks; each rank differentiates
+its term of the global masked mean (the sum over its frames divided by
+every rank's frame count, ``loss_fn(params, batch, denominator=n)``)
+and the terms' gradients are added in rank order, which agrees with one
+process to rounding, not bit for bit.
+
 :func:`make_elastic_train_step` is the fault-tolerant variant: one
 :class:`~repro_torch.core.faults.FaultPlan` step's host masks say who is
 alive, who contributes a gradient, who rejoins, which gossip edges
@@ -59,6 +72,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import collective as C
 from repro_torch.core import mixing
 from repro_torch.core.transport import Transport
 from repro_torch.optim.optimizers import Optimizer, slice_blocks, tree_map
@@ -149,21 +163,11 @@ def _accumulated_grad(loss_fn, params, batch, n_micro: int):
     two at each update)."""
     if n_micro <= 1:
         return _value_and_grad(loss_fn, params, batch)
-
-    def slice_micro(x):
-        # split on the MINOR position of each learner's batch dim
-        # (strided microbatches), as the reference does
-        L, B = x.shape[:2]
-        return x.reshape(L, B // n_micro, n_micro, *x.shape[2:]).movedim(
-            2, 0)
-
-    mb = {k: slice_micro(v) for k, v in batch.items()}
     weighted = "lengths" in batch
     acc = tree_map(lambda w: torch.zeros(w.shape, dtype=torch.float32,
                                          device=w.device), params)
     loss_acc = wsum = 0.0
-    for i in range(n_micro):
-        mbatch = {k: v[i] for k, v in mb.items()}
+    for mbatch in _microbatches(batch, n_micro):
         loss, g = _value_and_grad(loss_fn, params, mbatch)
         w = (_valid_frames(mbatch) if weighted
              else torch.ones_like(loss))
@@ -181,6 +185,34 @@ def _accumulated_grad(loss_fn, params, batch, n_micro: int):
     return loss_acc * scale, acc
 
 
+def _microbatches(batch, n_micro: int):
+    """The ``n_micro`` microbatches of an (L, B, ...) batch, split on the
+    MINOR position of each learner's batch dim (strided microbatches), as
+    the reference does."""
+    def micro(x):
+        L, B = x.shape[:2]
+        return x.reshape(L, B // n_micro, n_micro, *x.shape[2:]).movedim(
+            2, 0)
+
+    mb = {k: micro(v) for k, v in batch.items()}
+    return [{k: v[i] for k, v in mb.items()} for i in range(n_micro)]
+
+
+def _summed_grad(loss_fn, params, batch, n_micro: int):
+    """Loss and gradient of a loss that is a sum over the batch's rows (a
+    rank's term of a global mean): the microbatches' losses and
+    gradients added, the gradients in f32."""
+    if n_micro <= 1:
+        return _value_and_grad(loss_fn, params, batch)
+    loss_acc, acc = 0.0, None
+    for mbatch in _microbatches(batch, n_micro):
+        loss, g = _value_and_grad(loss_fn, params, mbatch)
+        acc = (tree_map(lambda x: x.float(), g) if acc is None
+               else tree_map(lambda a, x: a.add_(x.float()), acc, g))
+        loss_acc = loss_acc + loss
+    return loss_acc, acc
+
+
 def _per_learner(v, like):
     """(L,) -> broadcastable against a stacked leaf."""
     return v.reshape((-1,) + (1,) * (like.dim() - 1))
@@ -188,13 +220,15 @@ def _per_learner(v, like):
 
 def consensus_distance(params):
     """Mean L2 distance of learner replicas from their average — the
-    consensus diagnostic for decentralized SGD (paper §IV-C)."""
+    consensus diagnostic for decentralized SGD (paper §IV-C).  On a split
+    learner axis each leaf is gathered first, so every rank reduces the
+    global stack in the one-process order."""
     num = den = 0.0
     for w in _leaves(params):
-        if w.dim() == 0 or w.shape[0] == 1:
+        if w.dim() == 0 or C.global_count(w.shape[0]) == 1:
             den = den + 1.0
             continue
-        wf = w.float()
+        wf = C.gather_learners(w).float()
         num = num + torch.sum(torch.square(wf - wf.mean(0, keepdim=True)))
         den = den + wf.numel()
     return torch.sqrt(torch.as_tensor(num / den))
@@ -278,9 +312,12 @@ def init_state(strategy: Strategy, params, optimizer: Optimizer,
     transport = transport if transport is not None \
         else default_transport(strategy)
     L = _learner_dim(params) if strategy.replicated else None
+    # a rank's block of a split learner axis: per-learner optimizer state
+    # whenever the global L is above one
+    many = L and C.global_count(L) > 1
     state = {
         "params": params,
-        "opt": optimizer.init(params, L if L and L > 1 else None),
+        "opt": optimizer.init(params, L if many else None),
         "step": 0,
     }
     # distinct buffers, never aliases of params
@@ -298,14 +335,36 @@ def init_state(strategy: Strategy, params, optimizer: Optimizer,
 
 def stack_for_learners(params, n_learners: int):
     """Replicate freshly-initialized params into the stacked learner axis
-    (real copies: the kernels take contiguous operands)."""
+    (real copies: the kernels take contiguous operands): this rank's
+    block of the ``n_learners`` global learners."""
+    n = C.learner_block(n_learners)[1]
     return tree_map(lambda w: w.unsqueeze(0).expand(
-        (n_learners,) + tuple(w.shape)).contiguous(), params)
+        (n,) + tuple(w.shape)).contiguous(), params)
 
 
 def average_learners(params):
-    """Collapse replicas to the consensus model (for eval/checkpoint)."""
-    return tree_map(lambda w: w.float().mean(0).to(w.dtype), params)
+    """Collapse replicas to the consensus model (for eval/checkpoint),
+    over every rank's learners."""
+    return tree_map(lambda w: C.gather_learners(w).float().mean(0).to(
+        w.dtype), params)
+
+
+def rank_rows(batch):
+    """This rank's rows of a global batch: rows [r·B/W, (r+1)·B/W) of
+    each flat (B, ...) leaf (``multihost.host_batch_slice``), or its
+    learners' block of an (L, B/L, ...) one; the batch itself in one
+    process."""
+    rank, W = C.world()
+    if W == 1:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        n = v.shape[0]
+        if n % W:
+            raise ValueError(f"batch key {k!r}: {n} rows do not split over "
+                             f"{W} ranks")
+        out[k] = v[rank * (n // W):(rank + 1) * (n // W)]
+    return out
 
 
 def _grad_norm(g):
@@ -339,6 +398,9 @@ def make_train_step(strategy: Strategy, loss_fn: Callable,
     ``pre_split`` already shaped (L, B/L, ...)) is moved to the
     parameters' device.  Batches carrying ``lengths`` get frame-weighted
     aggregation, and the reported loss is the frame-weighted mean.
+    ``sc_psgd`` across ranks calls ``loss_fn(params, batch,
+    denominator=n)``: the sum of the rank's position losses over ``n``,
+    the count of loss positions in the global batch.
     Replicated steps report ``wire_bytes``, the analytic bytes each
     learner sends this step (0 on BMUF's non-sync steps), and carry
     ``state['comm']`` through the transport's mixer.
@@ -346,11 +408,20 @@ def make_train_step(strategy: Strategy, loss_fn: Callable,
     (:func:`consensus_distance` of the new parameters);
     ``with_grad_norm`` adds ``metrics['grad_norm']``, the L2 norm of the
     applied gradient (the mean of the per-learner norms on replicated
-    strategies)."""
+    strategies).
+
+    Under a process group of W ranks ``n_learners`` is the global L, the
+    state holds this rank's block (:func:`init_state` of
+    :func:`stack_for_learners`), the batch is the global one, of which
+    the step takes this rank's rows (:func:`rank_rows`), and the metrics
+    are the global ones on every rank."""
     transport = transport if transport is not None \
         else default_transport(strategy)
     mix = (transport.make_mixer(n_learners) if strategy.replicated
            else None)
+    rank, W = C.world()
+    n_local = (C.learner_block(n_learners)[1] if strategy.replicated
+               else n_learners)
 
     def grad_one(params, batch):
         return _accumulated_grad(loss_fn, params, batch, microbatches)
@@ -358,14 +429,28 @@ def make_train_step(strategy: Strategy, loss_fn: Callable,
     def step(state, batch):
         lr = lr_schedule(state["step"])
         device = next(_leaves(state["params"])).device
-        batch = _to_device(batch, device)
+        batch = _to_device(rank_rows(batch), device)
         metrics = {}
 
         if not strategy.replicated:
             # plain data-parallel SGD on one replica: a learner axis of 1
             one = tree_map(lambda w: w.unsqueeze(0), state["params"])
-            loss, g = grad_one(one, {k: v.unsqueeze(0)
-                                     for k, v in batch.items()})
+            lone = {k: v.unsqueeze(0) for k, v in batch.items()}
+            if W == 1:
+                loss, g = grad_one(one, lone)
+            else:
+                # this rank's term of the global masked mean: the sum of
+                # its frames' losses over every rank's frame count, so
+                # that each frame's cotangent is W = 1's; differentiated
+                # as GSPMD does on the rows it holds, the terms and their
+                # gradients added in rank order, in f32
+                total = C.ordered_sum_ranks(_positions(batch))
+                loss, g = _summed_grad(
+                    lambda p, b: loss_fn(p, b, denominator=total), one,
+                    lone, microbatches)
+                loss = C.ordered_sum_ranks(loss.float())
+                g = tree_map(lambda x: C.ordered_sum_ranks(x.float()).to(
+                    x.dtype), g)
             g = tree_map(lambda x: x.squeeze(0), g)
             new_params, opt = optimizer.update(g, state["opt"],
                                                state["params"], lr)
@@ -376,23 +461,27 @@ def make_train_step(strategy: Strategy, loss_fn: Callable,
                     "step": state["step"] + 1}, metrics
 
         lbatch = batch if pre_split else split_learner_batch(batch,
-                                                             n_learners)
+                                                             n_local)
         grad_at = state["prev_params"] if strategy.stale else state["params"]
         loss_l, g_l = grad_one(grad_at, lbatch)
         frames = _valid_frames(lbatch)
         if frames is not None:
             # frame-weighted aggregation: each learner's masked-mean
             # gradient scaled by its valid-frame share, cast back to the
-            # gradient's dtype
-            w = frames / torch.clamp(frames.mean(), min=1e-6)
+            # gradient's dtype; the share and the loss over all learners
+            frames_all = C.gather_learners(frames)
+            w = (frames_all / torch.clamp(frames_all.mean(), min=1e-6)
+                 ).narrow(0, rank * n_local, n_local)
             g_l = tree_map(lambda g: (g.float() * _per_learner(w, g)).to(
                 g.dtype), g_l)
-            metrics["loss"] = (torch.sum(loss_l * frames)
-                               / torch.clamp(frames.sum(), min=1e-6))
+            metrics["loss"] = (torch.sum(C.gather_learners(loss_l)
+                                         * frames_all)
+                               / torch.clamp(frames_all.sum(), min=1e-6))
         else:
-            metrics["loss"] = loss_l.mean()
+            metrics["loss"] = C.gather_learners(loss_l).mean()
         if with_grad_norm:
-            metrics["grad_norm"] = _grad_norm_stacked(g_l).mean()
+            metrics["grad_norm"] = C.gather_learners(
+                _grad_norm_stacked(g_l)).mean()
 
         comm = state.get("comm", {})
         wire_bytes = transport.wire_bytes(state["params"])
@@ -435,6 +524,15 @@ def make_train_step(strategy: Strategy, loss_fn: Callable,
         return out, metrics
 
     return step
+
+
+def _positions(batch):
+    """The loss positions of a batch: its valid frames, or where the
+    batch is rectangular every label."""
+    if "lengths" in batch:
+        return batch["lengths"].float().sum()
+    labels = batch["labels"]
+    return torch.tensor(float(labels.numel()), device=labels.device)
 
 
 # ---------------------------------------------------------------------------
@@ -580,6 +678,11 @@ def make_elastic_train_step(strategy: Strategy, loss_fn: Callable,
             f"strategy {strategy.name!r} is not replicated: elastic "
             f"membership needs a stacked learner axis to mask — use "
             f"'sc_psgd_replicated' for an elastic allreduce baseline")
+    if C.world()[1] > 1:
+        raise ValueError(
+            f"the elastic step runs in one process: its membership "
+            f"masks and matrices span every learner, and the learner "
+            f"axis is split over {C.world()[1]} ranks")
     transport = transport if transport is not None \
         else default_transport(strategy)
     mix = transport.make_elastic_mixer(

@@ -6,7 +6,9 @@ the balance between communication and computation".  A
 :class:`Transport` names who exchanges with whom (``topology``) and the
 codec of what crosses the wire (``wire``); every mixing site of the
 strategies goes through it.  On one card the learners are one stacked
-axis, so a mixing round is a tensor op over that axis.
+axis, so a mixing round is a tensor op over that axis; under
+``torchrun`` that axis is split over the ranks and the f32 fast paths
+exchange the rows that cross a block boundary (``core/collective.py``).
 
 * ``topology`` — doubly-stochastic mixing over the learner axis (Eq. 14):
   ``uniform`` (T_u, the allreduce realization of a parameter server),
@@ -43,7 +45,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.core import mixing
+from repro_torch.core import collective, mixing
 from repro_torch.optim.optimizers import tree_map
 
 TOPOLOGIES = ("none", "uniform", "ring", "hierarchical", "exp")
@@ -237,7 +239,10 @@ class Transport:
         """``mix(params, step, comm) -> (mixed, comm)`` over the stacked
         learner axis (``step`` a host int).  With ``wire='f32'`` and no
         bucketing the fast path delegates to the pure-topology mixers of
-        :mod:`repro_torch.core.mixing`, as the reference does."""
+        :mod:`repro_torch.core.mixing`, as the reference does; they also
+        run over a learner axis split across ranks (``n_learners`` is the
+        global L).  The coded and bucketed path runs in one process only:
+        ValueError naming the wire on a split axis."""
         t = self
         if t.topology == "hierarchical" and n_learners % t.pod_size:
             raise ValueError(
@@ -272,6 +277,11 @@ class Transport:
                 exp = mixing.make_exp_mixer(n_learners)
                 return lambda p, step, comm: (exp(p, step), comm)
 
+        if collective.world()[1] > 1:
+            raise ValueError(
+                f"wire {t.wire!r} (intra-pod {t.intra_wire!r}, buckets of "
+                f"{t.bucket_bytes} B) runs in one process only: across "
+                f"ranks the port mixes over the plain f32 wire, unbucketed")
         return lambda p, step, comm: _general_mix(t, p, step, comm)
 
     def make_elastic_mixer(self, n_learners: int, *, fault_seed: int = 0,
@@ -366,10 +376,11 @@ class Transport:
         shapes only: ring = 2 payloads (1 when L == 2), uniform =
         2(L-1)/L (ring-allreduce schedule regardless of codec), exp = 1,
         hierarchical = intra uniform over the pod + the pod ring amortized
-        over its members."""
+        over its members.  L is the global learner count (a rank's block
+        of a split axis times the world size)."""
         total = 0.0
         for leaf in _leaves(params):
-            L = int(leaf.shape[0])
+            L = collective.global_count(int(leaf.shape[0]))
             n = int(np.prod(leaf.shape[1:])) if len(leaf.shape) > 1 else 1
             if self.topology == "hierarchical":
                 p = self.pod_size

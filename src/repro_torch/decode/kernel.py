@@ -21,7 +21,8 @@ import functools
 import torch
 
 from repro_torch.decode.beam import frame_step_scores, frame_step_scores_topc
-from repro_torch.device import plain_path, require_kernel_device
+from repro_torch.device import (on_card, plain_path,
+                                 require_kernel_device)
 from repro_torch.kernels import build
 
 launches = 0          # kernel launches (one per beam_frame_step on the card)
@@ -131,19 +132,22 @@ def beam_frame_step(logp, p_b, p_nb, last, phash, plen, *, blank: int,
             ("last", last, (B, K), torch.int32),
             ("phash", phash, (B, K), torch.int32),
             ("plen", plen, (B, K), torch.int32)):
-        if (t.shape != shape or t.dtype != dtype or t.get_device() != 0
+        if (t.shape != shape or t.dtype != dtype
+                or t.get_device() != logp.get_device()
                 or not t.is_contiguous()):
             raise ValueError(f"{name}: expected contiguous {shape} {dtype} "
-                             f"on cuda:0, got {tuple(t.shape)} {t.dtype} "
-                             f"on {t.device}")
+                             f"on {logp.device}, got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
     sel = logp.new_empty(B, K, dtype=torch.int32)
     new_pb = logp.new_empty(B, K)
     new_pnb = logp.new_empty(B, K)
-    rc = fn(logp.data_ptr(), p_b.data_ptr(), p_nb.data_ptr(), last.data_ptr(),
-            phash.data_ptr(), plen.data_ptr(), sel.data_ptr(),
-            new_pb.data_ptr(), new_pnb.data_ptr(), B, K, V, blank, max_len,
-            1 if semiring == "sum" else 0, topc, S,
-            torch._C._cuda_getCurrentRawStream(0))   # cuda:0, checked above
+    with on_card(logp):
+        rc = fn(logp.data_ptr(), p_b.data_ptr(), p_nb.data_ptr(),
+                last.data_ptr(),
+                phash.data_ptr(), plen.data_ptr(), sel.data_ptr(),
+                new_pb.data_ptr(), new_pnb.data_ptr(), B, K, V, blank, max_len,
+                1 if semiring == "sum" else 0, topc, S,
+                torch._C._cuda_getCurrentRawStream(logp.get_device()))
     if rc:
         raise RuntimeError(f"beam_step launch failed: cudaError {rc}")
     launches += 1
@@ -221,9 +225,10 @@ def argmax_tokens(logits):
     B, V = logits.shape
     fn = _argmax_rows or _argmax_entry()
     out = logits.new_empty(B, dtype=torch.int32)
-    rc = fn(logits.data_ptr(), out.data_ptr(), B, V, spec[0],
-            argmax_slices(B, V, spec[1], _n_sm),
-            _raw_stream(0))                    # cuda:0, checked above
+    with on_card(logits):
+        rc = fn(logits.data_ptr(), out.data_ptr(), B, V, spec[0],
+                argmax_slices(B, V, spec[1], _n_sm),
+                _raw_stream(logits.get_device()))
     if rc:
         raise RuntimeError(f"argmax launch failed: cudaError {rc}")
     argmax_launches += 1

@@ -11,9 +11,13 @@ hand-written kernel on a CUDA tensor, its plain version on a CPU tensor
 and on a fake tensor (the dry-run's stand-ins, ``launch/dryrun.py``,
 which hold no data a kernel could read).  The reference's
 ``kernel_impl`` switch has no counterpart: nothing runs a plain version
-on the card's tensors.
+on the card's tensors.  A kernel launches on its tensor's card, whatever
+its index (:func:`on_card`): under ``torchrun`` each rank's tensors live
+on ``cuda:LOCAL_RANK``.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
@@ -46,22 +50,34 @@ _CAPABLE: set = set()    # device indices whose capability was checked
 def require_kernel_device(t: torch.Tensor) -> None:
     """Raise unless ``t`` lies on a CUDA device of capability (9, 0); the
     capability is read once per device index."""
-    if t.get_device() in _CAPABLE:     # cuda:0 (-1 off the card), checked
-        return                         # before: no device object built
+    if t.get_device() in _CAPABLE:     # a card checked before (-1 off
+        return                         # the card): no device object built
     dev = t.device
     if dev.type != "cuda":
         raise ValueError(f"kernel needs a CUDA tensor, got {dev}")
-    index = dev.index or 0
-    if index != 0:
-        # the ctypes libraries launch on their own runtime's current
-        # device, which is device 0
-        raise ValueError(f"the kernels launch on cuda:0, got {dev}")
+    index = t.get_device()
     cap = torch.cuda.get_device_capability(dev)
     if tuple(cap) != KERNEL_CAPABILITY:
         raise RuntimeError(
             f"the kernels are built for sm_90a; device {dev} has "
             f"capability {cap}")
     _CAPABLE.add(index)
+
+
+_SAME = contextlib.nullcontext()
+
+
+def on_card(t: torch.Tensor):
+    """The context of a ctypes launch on ``t``'s card: the kernel
+    libraries launch on the current device of the calling thread (their
+    runtime takes the context PyTorch made current), so a tensor on
+    another card than the current one makes its card current for the
+    launch (``torch.cuda.device``) and restores the caller's after.  On
+    the current card, a shared no-op context."""
+    index = t.get_device()
+    if index == torch.cuda.current_device():
+        return _SAME
+    return torch.cuda.device(index)
 
 
 def wants_grad(*tensors) -> bool:

@@ -37,7 +37,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.device import plain_path, require_kernel_device
+from repro_torch.device import (on_card, plain_path,
+                                 require_kernel_device)
 from repro_torch.kernels import build
 
 launches = 0          # K7 kernel launches
@@ -190,12 +191,12 @@ def _check(name, t, shape, dtype, dev):
                          f"{t.device} (contiguous: {t.is_contiguous()})")
 
 
-def _fits(t, shape, dtype=torch.bfloat16) -> bool:
-    """``t`` is a contiguous ``shape`` ``dtype`` tensor on cuda:0 — the
-    per-call check, which builds no string (:func:`_check` names what is
-    wrong once it is not)."""
+def _fits(t, shape, dtype=torch.bfloat16, *, like) -> bool:
+    """``t`` is a contiguous ``shape`` ``dtype`` tensor on ``like``'s card
+    — the per-call check, which builds no string (:func:`_check` names
+    what is wrong once it is not)."""
     return (t.shape == shape and t.dtype == dtype and t.is_contiguous()
-            and t.get_device() == 0)
+            and t.get_device() == like.get_device())
 
 
 def _group(q, KV, block_s):
@@ -209,7 +210,7 @@ def _group(q, KV, block_s):
                          f"{block_s}: the kernel takes one query row, "
                          f"M = H / KV <= {MAX_M}, E % 8 == 0 and E <= "
                          f"{MAX_E}, tile >= 1")
-    if not _fits(q, (B, 1, H, E)):
+    if not _fits(q, (B, 1, H, E), like=q):
         _check("q", q, (B, 1, H, E), torch.bfloat16, q.device)
     return B, H, M, E
 
@@ -222,7 +223,7 @@ def _new_column(q, k_new, v_new, B, KV, E):
     if k_new is None or v_new is None:
         raise ValueError("pass both k_new and v_new, or neither")
     for name, t in (("k_new", k_new), ("v_new", v_new)):
-        if not _fits(t, shape):
+        if not _fits(t, shape, like=q):
             _check(name, t, shape, torch.bfloat16, q.device)
     return k_new.data_ptr(), v_new.data_ptr()
 
@@ -296,16 +297,17 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=None, k_new=None,
     B, H, M, E = _group(q, KV, bs)
     cache = (B, S, KV, E)
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
-        if not _fits(t, cache):
+        if not _fits(t, cache, like=q):
             _check(name, t, cache, torch.bfloat16, q.device)
     kn, vn = _new_column(q, k_new, v_new, B, KV, E)
     delta = kn is not None
     plan = decode_plan(B, KV, S, E, int(pos), window, delta, bs,
                        fit_splits(delta, M, E, B * KV))
     out = torch.empty_like(q)
-    rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kn, vn,
-            out.data_ptr(), B, S, KV, M, E, bs, plan.lo, plan.hi,
-            plan.n_split, _scale(E), _raw_stream(0))   # cuda:0, checked
+    with on_card(q):
+        rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kn, vn,
+                out.data_ptr(), B, S, KV, M, E, bs, plan.lo, plan.hi,
+                plan.n_split, _scale(E), _raw_stream(q.get_device()))
     if rc:
         raise RuntimeError(f"decode_attention launch failed: cudaError {rc}")
     launches += 1
@@ -330,20 +332,22 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, pos, *,
     B, H, M, E = _group(q, KV, P)
     pool = (n_pages, P, KV, E)
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
-        if not _fits(t, pool):
+        if not _fits(t, pool, like=q):
             _check(name, t, pool, torch.bfloat16, q.device)
     W = page_table.shape[-1]
-    if not _fits(page_table, (B, W), torch.int32):
+    if not _fits(page_table, (B, W), torch.int32, like=q):
         _check("page_table", page_table, (B, W), torch.int32, q.device)
     kn, vn = _new_column(q, k_new, v_new, B, KV, E)
     delta = kn is not None
     plan = decode_plan(B, KV, W * P, E, int(pos), window, delta, P,
                        fit_splits(delta, M, E, B * KV))
     out = torch.empty_like(q)
-    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            page_table.data_ptr(), kn, vn, out.data_ptr(), B, n_pages, P, W,
-            KV, M, E, plan.lo, plan.hi, plan.n_split, _scale(E),
-            _raw_stream(0))
+    with on_card(q):
+        rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                page_table.data_ptr(), kn, vn, out.data_ptr(), B, n_pages,
+                P, W,
+                KV, M, E, plan.lo, plan.hi, plan.n_split, _scale(E),
+                _raw_stream(q.get_device()))
     if rc:
         raise RuntimeError(f"paged_decode_attention launch failed: "
                            f"cudaError {rc}")

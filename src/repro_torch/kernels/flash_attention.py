@@ -44,8 +44,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.device import (plain_path, require_kernel_device,
-                                require_no_grad, wants_grad)
+from repro_torch.device import (on_card, plain_path,
+                                 require_kernel_device,
+                                 require_no_grad, wants_grad)
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_plain
 
@@ -194,11 +195,13 @@ def _launch(q, k, v, *, causal, window, q_offset):
         lib.flash_attention.argtypes = ([_P] * 4 + [_I] * 9
                                         + [ctypes.c_float, _I, _P])
         lib.flash_attention.restype = _I
-    rc = lib.flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk,
-        KV, M, E, int(bool(causal)), win, q_offset,
-        float(np.float32(1.0 / np.sqrt(E))), pl.rows,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with on_card(q):
+        rc = lib.flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+            Sk,
+            KV, M, E, int(bool(causal)), win, q_offset,
+            float(np.float32(1.0 / np.sqrt(E))), pl.rows,
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"flash_attention launch failed: cudaError {rc}")
     launches += 1

@@ -56,7 +56,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.device import plain_path, require_kernel_device
+from repro_torch.device import (on_card, plain_path,
+                                 require_kernel_device)
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import (blstm_layer_ref, blstm_stack_plain,
                                      lstm_direction_bwd_chunked_ref,
@@ -393,9 +394,11 @@ def _xproj(x, wxf, wxb, nd=2):
     L, M, D = x.shape
     N = wxf.shape[-1]
     gx = torch.empty(L, nd, M, N, dtype=torch.float32, device=x.device)
-    _launch("lstm_xproj", _fwd_lib().lstm_xproj(
-        x.data_ptr(), wxf.data_ptr(), wxb.data_ptr(), gx.data_ptr(), L, M, D,
-        N, nd, _stream(x.device)))
+    with on_card(x):
+        _launch("lstm_xproj", _fwd_lib().lstm_xproj(
+            x.data_ptr(), wxf.data_ptr(), wxb.data_ptr(), gx.data_ptr(), L,
+            M, D,
+            N, nd, _stream(x.device)))
     return gx
 
 
@@ -410,9 +413,10 @@ def _bwd_dx(dg, wxf, wxb, f32_out=False):
     D = wxf.shape[1]
     dx = torch.empty(L, M, D, device=dg.device,
                      dtype=torch.float32 if f32_out else torch.bfloat16)
-    _launch("lstm_bwd_dx", _bwd_lib().lstm_bwd_dx(
-        dg.data_ptr(), wxf.data_ptr(), wxb.data_ptr(), dx.data_ptr(), L, M,
-        D, N, int(f32_out), nd, _stream(dg.device)))
+    with on_card(dg):
+        _launch("lstm_bwd_dx", _bwd_lib().lstm_bwd_dx(
+            dg.data_ptr(), wxf.data_ptr(), wxb.data_ptr(), dx.data_ptr(), L, M,
+            D, N, int(f32_out), nd, _stream(dg.device)))
     return dx
 
 
@@ -428,9 +432,10 @@ def _bwd_dw(x, y, dg, d0=0):
     H = y.shape[-1] // nd
     dwx = torch.empty(nd, L, D, N, dtype=torch.float32, device=x.device)
     dwhb = torch.empty(nd, L, H + 1, N, dtype=torch.float32, device=x.device)
-    _launch("lstm_bwd_dw", _bwd_lib().lstm_bwd_dw(
-        x.data_ptr(), y.data_ptr(), dg.data_ptr(), dwx.data_ptr(),
-        dwhb.data_ptr(), L, B, T, D, H, N, nd, d0, _stream(x.device)))
+    with on_card(x):
+        _launch("lstm_bwd_dw", _bwd_lib().lstm_bwd_dw(
+            x.data_ptr(), y.data_ptr(), dg.data_ptr(), dwx.data_ptr(),
+            dwhb.data_ptr(), L, B, T, D, H, N, nd, d0, _stream(x.device)))
     return dwx, dwhb
 
 
@@ -472,13 +477,15 @@ def _forward_kernel(ws, x, lengths, sdt, chunk=0, reverse=None):
         "stream", *_tile(B, H))
     whf4 = _recur_weights(whf, plan)
     whb4 = whf4 if whb is whf else _recur_weights(whb, plan)
-    _launch_recur("blstm_recur", _fwd_lib().blstm_recur(
-        gx.data_ptr(), whf4.data_ptr(), whb4.data_ptr(), bf.data_ptr(),
-        bb.data_ptr(), lens.data_ptr(), y.data_ptr(),
-        acts.data_ptr() if acts is not None else None,
-        cseq.data_ptr() if cseq is not None else None,
-        kind, L, B, T, H, chunk, *_plan_args(plan, H), nd, d0, _stream(dev)),
-        plan, H)
+    with on_card(x):
+        _launch_recur("blstm_recur", _fwd_lib().blstm_recur(
+            gx.data_ptr(), whf4.data_ptr(), whb4.data_ptr(), bf.data_ptr(),
+            bb.data_ptr(), lens.data_ptr(), y.data_ptr(),
+            acts.data_ptr() if acts is not None else None,
+            cseq.data_ptr() if cseq is not None else None,
+            kind, L, B, T, H, chunk, *_plan_args(plan, H), nd, d0,
+            _stream(dev)),
+            plan, H)
     return y, acts, cseq
 
 
@@ -627,12 +634,13 @@ def blstm_stack(layers, x, lengths=None):
     barrier = torch.zeros(1, dtype=torch.int32, device=dev)
     y = torch.empty(L, B, T, 2 * H, dtype=torch.bfloat16, device=dev)
     buf_ptrs = [b.data_ptr() for b in bufs] + [None] * (2 - len(bufs))
-    _launch("lstm_stack", lib.lstm_stack(
-        x.data_ptr(), ptrs(0), ptrs(3), ptrs(None, whf), ptrs(None, whb),
-        ptrs(2), ptrs(5), lens.data_ptr(), gx.data_ptr(), *buf_ptrs,
-        barrier.data_ptr(), y.data_ptr(), len(layers), L, B, T, D0, H,
-        plan.block_rows, int(plan.path == "resident"), active,
-        _stream(dev)))
+    with on_card(x):
+        _launch("lstm_stack", lib.lstm_stack(
+            x.data_ptr(), ptrs(0), ptrs(3), ptrs(None, whf), ptrs(None, whb),
+            ptrs(2), ptrs(5), lens.data_ptr(), gx.data_ptr(), *buf_ptrs,
+            barrier.data_ptr(), y.data_ptr(), len(layers), L, B, T, D0, H,
+            plan.block_rows, int(plan.path == "resident"), active,
+            _stream(dev)))
     stack_launches += 1
     return y.squeeze(0) if one else y
 
@@ -706,10 +714,11 @@ def _bwd_kernel(ws, x, y, acts, cseq, dy, lengths, need_dx, reverse=None):
     whf4 = _bwd_layout(whf)
     whb4 = whf4 if whb is whf else _bwd_layout(whb)
     dg = torch.empty(nd, L, B * T, 4 * H, dtype=torch.float32, device=dev)
-    _launch("lstm_bwd_recur", _bwd_lib().lstm_bwd_recur(
-        dy.data_ptr(), acts.data_ptr(), cseq.data_ptr(), whf4.data_ptr(),
-        whb4.data_ptr(), lens.data_ptr(), dg.data_ptr(), _STASH_KIND[sdt],
-        L, B, T, H, *_tile(B, H), nd, d0, _stream(dev)))
+    with on_card(x):
+        _launch("lstm_bwd_recur", _bwd_lib().lstm_bwd_recur(
+            dy.data_ptr(), acts.data_ptr(), cseq.data_ptr(), whf4.data_ptr(),
+            whb4.data_ptr(), lens.data_ptr(), dg.data_ptr(), _STASH_KIND[sdt],
+            L, B, T, H, *_tile(B, H), nd, d0, _stream(dev)))
     dx = _bwd_dx(dg, wxf, wxb).view(L, B, T, D) if need_dx else None
     # rows 0..H-1 of dwhb: dWh = h_prev^T dgates; row H: db = 1^T dgates
     dwx, dwhb = _bwd_dw(x, y, dg, d0)
@@ -819,15 +828,16 @@ def _bwd_chunked_kernel(ws, x, y, hb, cb, dy, lens, chunk, need_dx,
     whs = [_recur_weights(whf, plan), _bwd_layout(whf)]
     whs = ([whs[0], whs[0], whs[1], whs[1]] if whb is whf else
            [whs[0], _recur_weights(whb, plan), whs[1], _bwd_layout(whb)])
-    _launch_recur("lstm_bwd_chunked", lib.lstm_bwd_chunked(
-        x.data_ptr(), y.data_ptr(), dy.data_ptr(), hb.data_ptr(),
-        cb.data_ptr(), wxf.data_ptr(), wxb.data_ptr(),
-        *(w.data_ptr() for w in whs),
-        bf.data_ptr(), bb.data_ptr(), lens.data_ptr(), gx.data_ptr(),
-        acts.data_ptr(), cseq.data_ptr(), dg.data_ptr(), dh.data_ptr(),
-        dc.data_ptr(), dx.data_ptr() if dx is not None else None,
-        dwx.data_ptr(), dwhb.data_ptr(), _STASH_KIND[sdt], L, B, T, D, H,
-        chunk, *_plan_args(plan, H), nd, d0, _stream(dev)), plan, H)
+    with on_card(x):
+        _launch_recur("lstm_bwd_chunked", lib.lstm_bwd_chunked(
+            x.data_ptr(), y.data_ptr(), dy.data_ptr(), hb.data_ptr(),
+            cb.data_ptr(), wxf.data_ptr(), wxb.data_ptr(),
+            *(w.data_ptr() for w in whs),
+            bf.data_ptr(), bb.data_ptr(), lens.data_ptr(), gx.data_ptr(),
+            acts.data_ptr(), cseq.data_ptr(), dg.data_ptr(), dh.data_ptr(),
+            dc.data_ptr(), dx.data_ptr() if dx is not None else None,
+            dwx.data_ptr(), dwhb.data_ptr(), _STASH_KIND[sdt], L, B, T, D, H,
+            chunk, *_plan_args(plan, H), nd, d0, _stream(dev)), plan, H)
     return dx, [(dwx[d], dwhb[d, :, :H], dwhb[d, :, H].contiguous())
                 for d in range(nd)]
 

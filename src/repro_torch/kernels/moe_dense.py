@@ -51,8 +51,9 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.device import (plain_path, require_kernel_device,
-                                require_no_grad, wants_grad)
+from repro_torch.device import (on_card, plain_path,
+                                 require_kernel_device,
+                                 require_no_grad, wants_grad)
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import moe_dense_plain
 
@@ -215,9 +216,10 @@ def device_work_list(router_w, d: int) -> WorkList:
         raise ValueError("router_w: expected a contiguous f32 tensor")
     lay = _layout(T, d, E)
     ws = torch.empty(lay["total"], dtype=torch.uint8, device=router_w.device)
-    rc = _lib().moe_dense_plan(
-        router_w.data_ptr(), ws.data_ptr(), T, d, E,
-        torch._C._cuda_getCurrentRawStream(router_w.get_device()))
+    with on_card(router_w):
+        rc = _lib().moe_dense_plan(
+            router_w.data_ptr(), ws.data_ptr(), T, d, E,
+            torch._C._cuda_getCurrentRawStream(router_w.get_device()))
     if rc:
         raise RuntimeError(f"moe_dense_plan failed: cudaError {rc}")
     ws = ws.cpu()
@@ -352,10 +354,12 @@ def _launch(x, router_w, wi, wg, wo, *, act):
     y = torch.empty_like(x)
     ws = torch.empty(_layout(T, d, E)["total"], dtype=torch.uint8,
                      device=x.device)
-    rc = _lib().moe_dense(x.data_ptr(), router_w.data_ptr(), wi.data_ptr(),
-                          wg.data_ptr(), wo.data_ptr(), y.data_ptr(),
-                          ws.data_ptr(), T, d, E, f, int(act == "gelu"),
-                          torch._C._cuda_getCurrentRawStream(x.get_device()))
+    with on_card(x):
+        rc = _lib().moe_dense(x.data_ptr(), router_w.data_ptr(), wi.data_ptr(),
+                              wg.data_ptr(), wo.data_ptr(), y.data_ptr(),
+                              ws.data_ptr(), T, d, E, f, int(act == "gelu"),
+                              torch._C._cuda_getCurrentRawStream(
+                                  x.get_device()))
     if rc:
         raise RuntimeError(f"moe_dense launch failed: cudaError {rc}")
     launches += 1

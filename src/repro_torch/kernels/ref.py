@@ -26,9 +26,17 @@ def stash_dtype(name) -> torch.dtype:
                          f"{sorted(_STASH)}") from None
 
 
-def _per_time(w):
-    """A (L, D, N) stacked weight broadcast against (L, B, T, D)."""
-    return w if w.dim() == 2 else w.unsqueeze(-3)
+def _rows_matmul(x, w):
+    """x (..., T, D) @ w (D, N); or, for a stacked weight w (L, D, N) and
+    x (L, B, T, D), one product over each learner's B·T rows.  A
+    learner's rows so give the same bits whatever the number of learners
+    in the stack: a broadcast product folds a lone learner's rows into
+    one matrix, which rounds otherwise than a stack's per-row
+    products."""
+    if w.dim() == 2:
+        return x @ w
+    return torch.bmm(x.reshape(w.shape[0], -1, x.shape[-1]), w).reshape(
+        *x.shape[:-1], w.shape[-1])
 
 
 def _per_row(v):
@@ -83,7 +91,7 @@ def lstm_direction_train_ref(wx, wh, b, x, lengths=None, *, reverse=False,
     sdt = stash_dtype(stash)
     T = x.shape[-2]
     H = wh.shape[-2]
-    gx = x.float() @ _per_time(wx).float()            # (..., B, T, 4H) f32
+    gx = _rows_matmul(x.float(), wx.float())          # (..., B, T, 4H) f32
     whf = wh.float()
     bf = _per_row(b).float()
     lead = x.shape[:-2]                                # (..., B)
@@ -189,7 +197,8 @@ def lstm_direction_bwd_ref(wx, wh, x, y, acts, cseq, dy, lengths=None, *,
             dh_new = torch.where(v, dh_new, dh_c)
             dc_new = torch.where(v, dc_new, dc_c)
         dh_c, dc_c = dh_new, dc_new
-    dx = (dgates @ _per_time(wx).float().transpose(-1, -2)).to(x.dtype)
+    dx = _rows_matmul(dgates, wx.float().transpose(-1, -2)).to(
+        x.dtype)
     rows = dgates.flatten(-3, -2)                     # (..., B*T, 4H)
     dwx = x.float().flatten(-3, -2).transpose(-1, -2) @ rows
     dwh = hprev.flatten(-3, -2).transpose(-1, -2) @ rows
@@ -217,7 +226,7 @@ def lstm_direction_chunk_fwd_ref(wx, wh, b, x, lengths, *, chunk,
     K = chunk
     n = -(-T // K)
     Tp = n * K
-    gx = _pad_time(x, Tp).float() @ _per_time(wx).float()
+    gx = _rows_matmul(_pad_time(x, Tp).float(), wx.float())
     whf = wh.float()
     bf = _per_row(b).float()
     lead = x.shape[:-2]
@@ -265,7 +274,7 @@ def lstm_direction_bwd_chunked_ref(wx, wh, b, x, dy, hb, cb, lengths, *,
         raise ValueError(f"{n} entry carries for T={T}, K={K}")
     xp = _pad_time(x, Tp)
     dyp = _pad_time(dy, Tp)
-    wxf = _per_time(wx).float()
+    wxf = wx.float()
     whf = wh.float()
     bf = _per_row(b).float()
     lead = x.shape[:-2]
@@ -280,7 +289,7 @@ def lstm_direction_bwd_chunked_ref(wx, wh, b, x, dy, hb, cb, lengths, *,
         times = order[r * K:(r + 1) * K]          # recurrence order
         lo = min(times)                            # the chunk's frames
         xc = xp[..., lo:lo + K, :].float()
-        gx = xc @ wxf
+        gx = _rows_matmul(xc, wxf)
         acts = torch.empty(*lead, K, 4 * H, dtype=torch.float32,
                            device=x.device)
         c_after = torch.empty(*lead, K, H, dtype=torch.float32,
@@ -317,7 +326,8 @@ def lstm_direction_bwd_chunked_ref(wx, wh, b, x, dy, hb, cb, lengths, *,
             dg[..., k, :] = dgk
             dh_c = torch.where(v, dgk @ whf.transpose(-1, -2), dh_c)
             dc_c = torch.where(v, dc * f, dc_c)
-        dx[..., lo:lo + K, :] = (dg @ wxf.transpose(-1, -2)).to(x.dtype)
+        dx[..., lo:lo + K, :] = _rows_matmul(
+            dg, wxf.transpose(-1, -2)).to(x.dtype)
         rows = dg.flatten(-3, -2)                  # (..., B*K, 4H)
         dwx += xc.flatten(-3, -2).transpose(-1, -2) @ rows
         dwh += h_prev.flatten(-3, -2).transpose(-1, -2) @ rows

@@ -31,8 +31,9 @@ import functools
 
 import torch
 
-from repro_torch.device import (plain_path, require_kernel_device,
-                                require_no_grad, wants_grad)
+from repro_torch.device import (on_card, plain_path,
+                                 require_kernel_device,
+                                 require_no_grad, wants_grad)
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ssd_plain
 
@@ -176,19 +177,21 @@ def _launch(x, dt, A, Bm, Cm, chunk):
     for name, t, dtype in (("x", x, x.dtype), ("dt", dt, torch.float32),
                            ("A", A, torch.float32), ("Bm", Bm, x.dtype),
                            ("Cm", Cm, x.dtype)):
-        if t.dtype != dtype or t.get_device() != 0 or not t.is_contiguous():
+        if (t.dtype != dtype or t.get_device() != x.get_device()
+                or not t.is_contiguous()):
             raise ValueError(f"{name}: expected contiguous {dtype} on "
-                             f"cuda:0, got {t.dtype} on {t.device}")
+                             f"{x.device}, got {t.dtype} on {t.device}")
     fn = _entry or _ssd_entry()
     plan = ssd_plan(Bsz, S, H, P, G, N, Q, _n_sm)
     y = torch.empty_like(x)
     state = x.new_empty(Bsz, H, N, P, dtype=torch.float32)
     scratch = x.new_empty(plan["scratch_bytes"] // 4, dtype=torch.float32)
-    rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), y.data_ptr(), state.data_ptr(),
-            scratch.data_ptr(), Bsz, S, H, P, G, N, Q, plan["p_tile"],
-            int(x.dtype == torch.float32),
-            _raw_stream(0))                      # cuda:0, checked above
+    with on_card(x):
+        rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                Cm.data_ptr(), y.data_ptr(), state.data_ptr(),
+                scratch.data_ptr(), Bsz, S, H, P, G, N, Q, plan["p_tile"],
+                int(x.dtype == torch.float32),
+                _raw_stream(x.get_device()))
     if rc:
         raise RuntimeError(f"ssd_scan launch failed: cudaError {rc}")
     launches += 1

@@ -3,12 +3,16 @@
 The reference lays its programs over TPU meshes: one pod (16, 16) = 256
 chips, axes ('data', 'model'), or two pods (2, 16, 16) = 512, axes
 ('pod', 'data', 'model'), with the learner ring of AD-PSGD on 'data'
-(one pod) or 'pod' (the H-ring).  The port runs on one H100, so a
-:class:`Mesh` here is a description: axis names and sizes, and the
-devices it is laid over — none for the production geometries, which
-exist only for the dry-run's per-device accounting
-(``launch/dryrun.py --mesh pod|multipod``), and the local cards (or the
-CPU) for :func:`make_local_mesh`.  Nothing is placed by it.
+(one pod) or 'pod' (the H-ring).  A :class:`Mesh` here is a description:
+axis names and sizes, the devices it is laid over and this process's own
+— none for the production geometries, which exist only for the
+dry-run's per-device accounting (``launch/dryrun.py --mesh
+pod|multipod``).  :func:`make_local_mesh` describes the world of ranks:
+'data' is the W processes of a ``torchrun`` launch (each holding a block
+of the learner axis, ``core/collective.py``), their cards (or the CPU)
+the devices.  Nothing is placed by it: each rank's tensors live on its
+own device, and the learner axis crosses ranks through
+``core/collective.py``.
 """
 from __future__ import annotations
 
@@ -23,11 +27,13 @@ from repro_torch.sharding import MeshRules, default_rules, multipod_rules
 @dataclass(frozen=True)
 class Mesh:
     """Axis names and sizes (``shape``, as ``jax.sharding.Mesh.shape``),
-    and the devices of a mesh laid over real ones (empty: abstract)."""
+    the devices of a mesh laid over real ones (empty: abstract), one a
+    rank along 'data', and this process's own device."""
 
     axis_names: tuple
     axis_sizes: tuple
     devices: tuple = field(default=(), compare=False)
+    device: torch.device = field(default=None, compare=False)
 
     @property
     def shape(self) -> dict:
@@ -46,8 +52,8 @@ class Mesh:
 
 
 def use_mesh(mesh):
-    """The reference's mesh context; on one card there is nothing to
-    activate, so a no-op context."""
+    """The reference's mesh context; each rank's tensors already live on
+    its device, so there is nothing to activate: a no-op context."""
     return contextlib.nullcontext(mesh)
 
 
@@ -61,10 +67,19 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
 
 
 def make_local_mesh(data: int = 1, model: int = 1, *, device=None) -> Mesh:
-    """A (data, model) mesh over the local devices: the CUDA cards, or the
-    CPU where ``device`` is 'cpu' or no card is present (one device).  As
-    the reference's, ``data`` is clamped to the devices there are and
-    'model' takes the rest; ``model`` is accepted for its signature."""
+    """The (data, model) mesh of this run: 'data' = the W ranks of the
+    process group (1 in a single process), ``devices`` each rank's device
+    and ``device`` this rank's, as ``multihost.placement()`` gives them.  In
+    one process the devices are the local CUDA cards, or the CPU where
+    ``device`` is 'cpu' or no card is present, and, as the reference's,
+    ``data`` is clamped to the devices there are and 'model' takes the
+    rest; ``model`` is accepted for its signature."""
+    from repro_torch.launch import multihost
+
+    place = multihost.placement()
+    if place is not None:
+        return Mesh(("data", "model"), (place.world, 1), place.devices,
+                    place.device)
     dev = torch.device(device) if device is not None else None
     if dev is None and torch.cuda.is_available():
         dev = torch.device("cuda")
@@ -75,7 +90,8 @@ def make_local_mesh(data: int = 1, model: int = 1, *, device=None) -> Mesh:
                         for i in range(torch.cuda.device_count()))
     n = len(devices)
     data = min(data, n)
-    return Mesh(("data", "model"), (data, max(n // data, 1)), devices)
+    return Mesh(("data", "model"), (data, max(n // data, 1)), devices,
+                devices[0])
 
 
 def rules_for(cfg, mesh, *, multi_pod: bool = False) -> MeshRules:

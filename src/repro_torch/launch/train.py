@@ -42,6 +42,15 @@ for any arch under one strategy; :func:`run` drives the loop
         --fault-departures 1:3:6 --comm-staleness-lambda 0.2 --steps 8 \\
         --log-every 1
 
+    # decentralized training across ranks: the learner axis split over
+    # 2 CPU processes (gloo), or over 4 cards, one rank a card (nccl)
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \\
+        -m repro_torch.launch.train --reduced --device cpu --learners 4 \\
+        --var-len --steps 3 --log-every 1
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
+        -m repro_torch.launch.train --arch swb2000-blstm --learners 16 \\
+        --batch 256 --var-len --steps 20 --log-every 1
+
 ``--ckpt-dir`` restores the latest checkpoint there at start, when one
 exists, and the step count goes on from it; ``--ckpt-every`` saves every
 that many steps; ``--resume`` requires a checkpoint (the optimizer state,
@@ -56,6 +65,17 @@ this run: a resumed run takes that many more from the restored step.
 (``core/strategies.make_elastic_train_step``) under one deterministic
 ``core/faults.FaultPlan``, whose inputs at the global step number drive
 each step, so a resumed run sees the faults an uninterrupted one would.
+Under ``torchrun`` (W processes, ``launch/multihost.initialize``) each
+rank holds a contiguous block of L/W learners (ValueError unless W
+divides L) on its card (``cuda:LOCAL_RANK`` over nccl; ranks that share a
+card, or ``--device cpu``, over gloo), takes its rows of every global
+batch, and the mixes cross ranks (``core/collective.py``); rank 0 prints
+the header line with the backend and placement, the log, timing and
+``final loss`` lines (the globally reduced metrics: a W = 4 run prints
+W = 1's loss lines), writes ``--trace-out``, and saves the gathered
+state, so a checkpoint resumes at any W that divides L.  The elastic
+step (``--fault-*``) and the coded or bucketed wires run in one process
+only (ValueError across ranks).
 ``--trace-out`` turns observability on (``repro_torch.obs``): every
 step's metrics as a ``train/step`` event (the gradient norm included),
 ``train/fetch`` spans, the step's first-call and steady wall time
@@ -66,12 +86,12 @@ wall-clock fields, byte-identical between two seeded runs).  ``--seq-len``
 defaults to 21 frames for the lstm family and 128 positions otherwise
 (an encdec batch splits them evenly between frames and tokens, a vlm
 batch gives ``vlm_patch_frac`` of them to patches); ``--var-len`` and
-``--bucket`` are the lstm family's alone.  ``--mesh local`` is the one
-card, and ``pod``/``multipod`` (256 and 512 devices) raise, pointing to
-``repro_torch.launch.dryrun``.  Three of the reference's flags have no
-counterpart: ``--kernel-impl`` (the card always runs the kernels and
-``--device cpu`` their plain versions), and ``--block-b`` and
-``--vmem-budget-mb``, which size TPU VMEM tiles.
+``--bucket`` are the lstm family's alone.  ``--mesh local`` is the world
+of ranks (one process: the one card), and ``pod``/``multipod`` (256 and
+512 devices) raise, pointing to ``repro_torch.launch.dryrun``.  Three of
+the reference's flags have no counterpart: ``--kernel-impl`` (the card
+always runs the kernels and ``--device cpu`` their plain versions), and
+``--block-b`` and ``--vmem-budget-mb``, which size TPU VMEM tiles.
 """
 from __future__ import annotations
 
@@ -85,12 +105,14 @@ import torch
 from repro_torch import obs
 from repro_torch.checkpoint import restore, save
 from repro_torch.configs import get_arch
+from repro_torch.core import collective as C
 from repro_torch.core import strategies as ST
 from repro_torch.core.faults import (FaultPlan, parse_departures,
                                      parse_stragglers)
 from repro_torch.data import Prefetcher, make_dataset
 from repro_torch.device import resolve_device
 from repro_torch.kernels.lstm_cell import chunk_length, stash_bytes
+from repro_torch.launch import multihost
 from repro_torch.models import build_model
 from repro_torch.optim.optimizers import get_optimizer
 from repro_torch.optim.schedules import paper_recipe, warmup_then_anneal
@@ -106,12 +128,14 @@ def setup_training(cfg, *, strategy_name: str = None, n_learners: int = None,
     ``build_model(cfg)``'s ``param_specs`` and ``loss_fn``.
 
     Weights are drawn from ``seed`` (:func:`repro_torch.params.
-    init_params`) and copied to every learner.  ``device`` defaults to
-    the CUDA card and raises without one; ``device="cpu"`` runs the plain
-    PyTorch path.  The default schedule is the reference's
-    (``repro/launch/train.py:71``); microbatches and the mixing
-    transport come from ``cfg`` (its ``comm_*`` knobs).  ``with_consensus``
-    and ``with_grad_norm`` add those metrics to every step.
+    init_params`) and copied to every learner (under a process group,
+    to this rank's block of them: every rank draws the same weights).
+    ``device`` defaults to the CUDA card and raises without one;
+    ``device="cpu"`` runs the plain PyTorch path.  The default schedule
+    is the reference's (``repro/launch/train.py:71``); microbatches and
+    the mixing transport come from ``cfg`` (its ``comm_*`` knobs).
+    ``with_consensus`` and ``with_grad_norm`` add those metrics to every
+    step.
     ``elastic=True`` builds the fault-tolerant step
     (``ST.make_elastic_train_step``, with ``fault_seed`` and
     ``with_corruption``) and its state (``ST.init_elastic_state``): the
@@ -155,13 +179,15 @@ MESH_DEVICES = {"pod": 256, "multipod": 512}
 
 
 def check_mesh(mesh: str) -> None:
-    """``--mesh local`` (the one card) runs; the reference's pod meshes
-    need 256 or 512 devices, which a one-card port has not: ValueError,
-    naming the dry-run that accounts for them."""
+    """``--mesh local`` (the local ranks: one process, or the cards of a
+    ``torchrun`` launch) runs; the reference's pod meshes need 256 or 512
+    devices, which one host has not: ValueError, naming the dry-run that
+    accounts for them."""
     if mesh in MESH_DEVICES:
         raise ValueError(
             f"--mesh {mesh} lays the step over {MESH_DEVICES[mesh]} "
-            f"devices; the port trains on one card (--mesh local).  "
+            f"devices; the port trains on the local cards (--mesh "
+            f"local).  "
             f"python -m repro_torch.launch.dryrun --mesh {mesh} gives its "
             f"per-device bytes")
     if mesh != "local":
@@ -233,6 +259,22 @@ def _record_step(k: int, metrics, strategy: str, valid: int, padded: int):
         obs.gauge("train/pad_eff").set(valid / padded)
 
 
+def save_state(ckpt_dir: str, step: int, state, *,
+               replicated: bool = True) -> None:
+    """``checkpoint.save`` of the train state; under a process group the
+    learner-stacked leaves are gathered (to the host, a leaf at a time)
+    and rank 0 writes what one process writes, the others waiting for
+    it."""
+    rank, W = C.world()
+    if W > 1 and replicated:
+        state = {k: C.gather_tree(v, "cpu") if k != "step" else v
+                 for k, v in state.items()}
+    if rank == 0:
+        save(ckpt_dir, step, state)
+    if W > 1:
+        torch.distributed.barrier()
+
+
 def run(state, step_fn, dataset, *, steps: int, device, start: int = 0,
         log_every: int = 0, label: str = "", ckpt_dir: str = "",
         ckpt_every: int = 0, plan: FaultPlan = None, strategy: str = ""):
@@ -298,7 +340,9 @@ def run(state, step_fn, dataset, *, steps: int, device, start: int = 0,
                     line += f" grad_norm {float(metrics['grad_norm']):.4g}"
                 print(label + line, flush=True)
             if ckpt_dir and ckpt_every and (k + 1) % ckpt_every == 0:
-                save(ckpt_dir, k + 1, state)
+                known = ST.STRATEGIES.get(strategy)
+                save_state(ckpt_dir, k + 1, state,
+                           replicated=known is None or known.replicated)
     finally:
         pf.close()
     return state, metrics, records
@@ -434,15 +478,20 @@ def main(argv=None):
                          "two seeded runs emit byte-identical traces")
     ap.add_argument("--mesh", default="local",
                     choices=("local", "pod", "multipod"),
-                    help="local: the one card; pod (256 devices) and "
-                         "multipod (512) are the reference's TPU meshes, "
-                         "which the port only accounts for "
+                    help="local: the local ranks (one process: the one "
+                         "card; under torchrun one rank a card); pod (256 "
+                         "devices) and multipod (512) are the reference's "
+                         "TPU meshes, which the port only accounts for "
                          "(repro_torch.launch.dryrun --mesh pod)")
     args = ap.parse_args(argv)
     check_mesh(args.mesh)
 
-    device = resolve_device(args.device)
-    if args.trace_out:
+    multihost.initialize(device=args.device)
+    place = multihost.placement()
+    rank, world = C.world()
+    say = print if rank == 0 else _quiet
+    device = place.device if place else resolve_device(args.device)
+    if args.trace_out and rank == 0:
         obs.configure()
     cfg = get_arch(args.arch)
     if args.reduced:
@@ -467,6 +516,13 @@ def main(argv=None):
     if not strategy.replicated:
         n_learners = 1
     batch = args.batch or max(8, 2 * n_learners)
+    if world > 1:
+        if strategy.replicated:
+            C.learner_block(n_learners)      # ValueError unless W | L
+        multihost.host_batch_slice(batch)    # ValueError unless W | B
+        say(f"world: {world} ranks over {place.backend}, {n_learners} "
+            f"learners ({n_learners // world if strategy.replicated else 1}"
+            f" a rank); {place.describe()}", flush=True)
 
     # any --fault-* flag switches to the elastic step under one
     # deterministic fault plan
@@ -482,13 +538,17 @@ def main(argv=None):
             stall_prob=args.fault_stall_prob,
             corrupt_prob=args.fault_corrupt_prob,
             corrupt_scale=args.fault_corrupt_scale)
+        if world > 1:
+            raise ValueError("the --fault-* flags (the elastic step) run "
+                             "in one process; the learner axis is split "
+                             f"over {world} ranks")
         print(plan.describe(), flush=True)
 
     state, step_fn, meta = setup_training(
         cfg, strategy_name=strategy.name, n_learners=n_learners,
         optimizer_name=args.optimizer, seed=args.seed, device=device,
         with_consensus=args.consensus,
-        with_grad_norm=args.grad_norm or obs.enabled(),
+        with_grad_norm=args.grad_norm or bool(args.trace_out),
         lr_schedule=paper_recipe(steps_per_epoch=max(args.steps // 16, 1),
                                  base_lr=0.05, peak_lr=0.2),
         elastic=plan is not None, fault_seed=args.fault_seed,
@@ -497,9 +557,13 @@ def main(argv=None):
         raise SystemExit("--resume needs --ckpt-dir")
     start = 0
     if args.ckpt_dir:
+        block = None
+        if world > 1 and strategy.replicated:
+            block = (*C.learner_block(n_learners), n_learners)
         try:
-            state, start = restore(args.ckpt_dir, state)
-            print(f"restored checkpoint at step {start}")
+            state, start = restore(args.ckpt_dir, state,
+                                   learner_block=block)
+            say(f"restored checkpoint at step {start}")
         except FileNotFoundError:
             if args.resume:
                 raise SystemExit(
@@ -508,7 +572,7 @@ def main(argv=None):
                       var_len=args.var_len or args.bucket,
                       bucket=args.bucket)
     if lstm:
-        print(stash_line(cfg, batch, seq_len), flush=True)
+        say(stash_line(cfg, batch, seq_len), flush=True)
     if lstm and obs.enabled():
         # the stash of one learner's share of the batch, at the
         # per-direction width and the resolved chunk length
@@ -525,24 +589,29 @@ def main(argv=None):
     del state
     state, metrics, records = run(box.pop(), step_fn, ds, steps=args.steps,
                                   device=device, start=start,
-                                  log_every=args.log_every,
+                                  log_every=args.log_every if rank == 0
+                                  else 0,
                                   ckpt_dir=args.ckpt_dir,
                                   ckpt_every=args.ckpt_every, plan=plan,
                                   strategy=meta["strategy"].name)
     if metrics is not None:
-        print(f"final loss {float(metrics['loss']):.6f}")
-    print(f"done: {args.steps} steps in {time.time() - t0:.1f}s "
-          f"[{meta['strategy'].name}, L={meta['n_learners']}, {device}]")
+        say(f"final loss {float(metrics['loss']):.6f}")
+    say(f"done: {args.steps} steps in {time.time() - t0:.1f}s "
+        f"[{meta['strategy'].name}, L={meta['n_learners']}, {device}]")
     if records:
-        print(timing_line(records, "valid frames" if lstm else "tokens"),
-              flush=True)
-    if args.trace_out:
+        say(timing_line(records, "valid frames" if lstm else "tokens"),
+            flush=True)
+    if args.trace_out and rank == 0:
         n = obs.dump(args.trace_out,
                      deterministic=args.trace_deterministic)
         print(f"trace: {n} events -> {args.trace_out}")
         obs.reset()
     meta["plan"] = plan
     return dict(state=state, metrics=metrics, records=records, meta=meta)
+
+
+def _quiet(*args, **kwargs):
+    """The print of a rank other than 0: rank 0 speaks for the run."""
 
 
 if __name__ == "__main__":

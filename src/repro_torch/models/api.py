@@ -58,17 +58,21 @@ class Model:
             return LS.param_specs(self.cfg)
         return TF.param_specs(self.cfg)
 
-    def loss_fn(self, params, batch):
+    def loss_fn(self, params, batch, *, denominator=None):
         """The family's training loss (``models/transformer.loss_train``,
         ``models/encdec.loss_train`` or ``models/lstm.loss_train``, the
-        last on the device the params lie on)."""
+        last on the device the params lie on); ``denominator``: see
+        ``models/common.cross_entropy``."""
         fam = self.cfg.family
         if fam == "encdec":
-            return ED.loss_train(self.cfg, params, batch)
+            return ED.loss_train(self.cfg, params, batch,
+                                 denominator=denominator)
         if fam == "lstm":
             dev = params["softmax_b"].device
-            return LS.loss_train(self.cfg, params, batch, device=dev)
-        return TF.loss_train(self.cfg, params, batch, keep=self.folds)
+            return LS.loss_train(self.cfg, params, batch, device=dev,
+                                 denominator=denominator)
+        return TF.loss_train(self.cfg, params, batch, keep=self.folds,
+                             denominator=denominator)
 
     def _decoder(self):
         if not self.cfg.supports_decode:

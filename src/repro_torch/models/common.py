@@ -135,7 +135,7 @@ def sequence_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
 
 
 def cross_entropy(logits, labels, z_loss: float = 0.0, mask=None, *,
-                  per_learner: bool = False):
+                  per_learner: bool = False, denominator=None):
     """Token-level CE (``repro.models.common.cross_entropy``); logits
     (..., V) any float dtype, labels (...) int.
 
@@ -143,7 +143,9 @@ def cross_entropy(logits, labels, z_loss: float = 0.0, mask=None, *,
     labels) the loss is the sum over valid positions divided by
     max(valid count, 1) — not the padded mean — so padded frames neither
     dilute the loss nor leak into gradients.  ``per_learner=True`` keeps
-    the leading (learner) axis: one loss per learner."""
+    the leading (learner) axis: one loss per learner.  ``denominator``
+    replaces the count of positions: the loss is then this batch's term
+    of a mean over a larger one (a rank's rows of the global batch)."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     ll = torch.gather(lf, -1, labels[..., None].long())[..., 0]
@@ -151,7 +153,11 @@ def cross_entropy(logits, labels, z_loss: float = 0.0, mask=None, *,
     if z_loss:
         loss = loss + z_loss * torch.square(lse)
     dims = tuple(range(1 if per_learner else 0, loss.dim()))
+    if mask is not None:
+        loss = loss * mask.float()
+    if denominator is not None:
+        return loss.sum(dim=dims) / denominator
     if mask is None:
         return loss.mean(dim=dims)
-    m = mask.float()
-    return (loss * m).sum(dim=dims) / torch.clamp(m.sum(dim=dims), min=1.0)
+    return loss.sum(dim=dims) / torch.clamp(mask.float().sum(dim=dims),
+                                            min=1.0)

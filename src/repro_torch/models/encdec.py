@@ -157,7 +157,7 @@ def decode_seq(cfg, params, tokens, enc_out, *, collect_cache: bool = False,
                (torch.stack(cks), torch.stack(cvs)))
 
 
-def loss_train(cfg, params, batch):
+def loss_train(cfg, params, batch, *, denominator=None):
     """The reference's ``loss_train``: encode ``frames``, the teacher-
     forced decoder over ``tokens``, tied logits, cross entropy against
     ``labels``.  Over learner-stacked params and a batch split over
@@ -165,7 +165,8 @@ def loss_train(cfg, params, batch):
     per-learner losses; for one model (frames (B, S_enc, d)) the scalar.
     Every encoder layer is recomputed in the backward (the reference's
     encoder is ``jax.checkpoint``-ed whatever the config says), every
-    decoder layer when ``cfg.remat`` is set."""
+    decoder layer when ``cfg.remat`` is set.  ``denominator``: see
+    ``cross_entropy``."""
     params, batch, one = learner_batch(params, batch, "frames")
     enc_out = encode(cfg, params, batch["frames"], remat=True)
     x = _add_positions(embed_rows(params["embed"], batch["tokens"]))
@@ -174,7 +175,8 @@ def loss_train(cfg, params, batch):
               remat=cfg.remat)
     x = apply_norm(params["dec_norm"], x)
     logits = linear(x, params["embed"].transpose(-1, -2))
-    loss = cross_entropy(logits, batch["labels"], per_learner=True)
+    loss = cross_entropy(logits, batch["labels"], per_learner=True,
+                         denominator=denominator)
     return loss[0] if one else loss
 
 

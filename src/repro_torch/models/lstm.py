@@ -161,10 +161,12 @@ def forward(cfg, params, features, lengths=None, *, device=None,
     return _rows(x, params["softmax_w"]).float() + b
 
 
-def loss_train(cfg, params, batch, *, device=None, plain=False):
+def loss_train(cfg, params, batch, *, device=None, plain=False,
+               denominator=None):
     """Frame-level CE (``repro.models.lstm.loss_train``).  If the batch
     carries ``lengths``, padded frames are excluded and the loss
-    normalises by the valid-frame count.  Over stacked learners (features
+    normalises by the valid-frame count (by ``denominator`` where one is
+    given: see ``cross_entropy``).  Over stacked learners (features
     (L, B/L, T, D)) it returns the (L,) per-learner losses."""
     lengths = batch.get("lengths")
     logits = forward(cfg, params, batch["features"], lengths,
@@ -173,4 +175,5 @@ def loss_train(cfg, params, batch, *, device=None, plain=False):
     mask = (None if lengths is None else sequence_mask(
         torch.as_tensor(lengths, device=logits.device), logits.shape[-2]))
     return cross_entropy(logits, labels, mask=mask,
-                         per_learner=logits.dim() == 4)
+                         per_learner=logits.dim() == 4,
+                         denominator=denominator)

@@ -325,14 +325,17 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def loss_train(cfg, params, batch, *, keep=None):
+def loss_train(cfg, params, batch, *, keep=None, denominator=None):
     """The reference's ``loss_train``: batch {'tokens', 'labels'} (+
     'patches' for vlm: the loss is over the text positions alone), over
     learner-stacked params and a batch split over learners (tokens (L,
     B, S), patches (L, B, S_patch, d)) -> the (L,) per-learner losses:
     next-token cross entropy, plus ``aux_loss_weight`` times the summed
     load-balance loss for moe.  Params and a batch for one model (tokens
-    (B, S)) give the scalar loss.  ``keep``: see :func:`forward_train`."""
+    (B, S)) give the scalar loss.  ``keep``: see :func:`forward_train`.
+    ``denominator`` (a rank's term of the global batch's mean, see
+    ``cross_entropy``) also weights the load-balance loss by this batch's
+    share of the positions."""
     params, batch, one = learner_batch(params, batch, "tokens")
     x = embed_rows(params["embed"], batch["tokens"])
     patches = batch.get("patches")
@@ -343,8 +346,11 @@ def loss_train(cfg, params, batch, *, keep=None):
     if patches is not None:
         x = x[:, :, patches.shape[2]:]
     logits = learner_logits(cfg, params, x)
-    loss = cross_entropy(logits, batch["labels"], per_learner=True)
+    loss = cross_entropy(logits, batch["labels"], per_learner=True,
+                         denominator=denominator)
     if cfg.moe is not None:
+        if denominator is not None:
+            aux = aux * (batch["labels"][0].numel() / denominator)
         loss = loss + cfg.moe.aux_loss_weight * aux
     return loss[0] if one else loss
 

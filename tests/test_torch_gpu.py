@@ -1720,3 +1720,29 @@ def test_raw_launches_refuse_grad_inputs(cuda):
     with pytest.raises(RuntimeError, match="raw launch"):
         MD._launch(xm, rw, w, w, w.transpose(1, 2).contiguous(),
                    act="swiglu")
+
+
+def test_stash_kernel_launches_on_a_second_card(cuda):
+    """K1-stash on tensors of cuda:1 while cuda:0 is current: the launch
+    runs on the tensors' card (``device.on_card``), its outputs lie there,
+    bit-identical to the same launch on cuda:0, and the caller's current
+    device is kept.  Skipped on a machine with one card."""
+    from repro_torch.kernels import lstm_cell
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("one CUDA card: no second card to launch on")
+    second = torch.device("cuda", 1)
+    L, B, T, D, H, lengths = TRAIN_SHAPES[3]
+    ws, x, lens = _stacked(cuda, L, B, T, D, H, lengths, seed=7)
+    want = lstm_cell.blstm_layer_train(*ws, x, lens, stash="float32")
+    torch.cuda.set_device(0)
+    moved = [w.to(second) for w in ws]
+    before = lstm_cell.stash_launches
+    got = lstm_cell.blstm_layer_train(*moved, x.to(second),
+                                      lens.to(second), stash="float32")
+    torch.cuda.synchronize(second)
+    assert lstm_cell.stash_launches == before + 1
+    assert torch.cuda.current_device() == 0
+    for g_, w_ in zip(got, want):
+        assert g_.device == second
+        assert torch.equal(g_.cpu(), w_.cpu())
