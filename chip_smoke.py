@@ -122,18 +122,25 @@ Phases, each of which fails the run (nonzero exit, no result line):
    two ranks that share the one card (``torch.multiprocessing`` spawn, a
    file rendezvous, gloo: each rank's payloads staged through host
    memory; ``launch.multihost.initialize`` places both on cuda:0): the §V
-   step at full width from the train phase's seed-0 init, ad_psgd x 16
-   learners (8 a rank, batch 256, T = 21, var-len) for 3 steps, hring
-   with pods of 8 (one pod a rank: the pod mean local, the ring of pod
-   means across ranks) and sc_psgd_replicated (the ordered chain) for 2
-   each, each first in one process, the ranks' launch counters set to 0
-   just before their steps and read just after (K1-stash and K2 6 times a
-   step in every rank); every leaf of params and prev_params and every
-   loss of the ranks bit-identical to the one-process run, whose ad_psgd
-   losses equal the train phase's first three; ms/step at W = 1 and W =
-   2, the exchange alone (the transport's mix of the final params) and
-   the bytes each rank sends a step, by primitive, beside the card's name
-   and power limit.  A rank that raises fails the run;
+   step at full width from the train phase's seed-0 init, 16 learners (8
+   a rank, batch 256, T = 21, var-len), the gradient norm on: ad_psgd for
+   3 steps, hring with pods of 8 (one pod a rank: the pod mean local, the
+   ring of pod means across ranks) and sc_psgd_replicated (the ordered
+   chain) for 2 each; the coded wires of 7a-comm, ad_psgd_q8 with 4 MB
+   buckets and hring with bf16 intra-pod and top-k inter-pod (1 %, 4 MB
+   buckets, pods of 4), 3 steps each; the elastic step under 7a-elastic's
+   plan (a) for 7 steps (through the rejoin at step 6) and plan (b) over
+   int8 (a pod down) for 4.  Each runs first in one process, then in the
+   ranks, their launch counters and sent bytes set to 0 just before their
+   steps and read just after (K1-stash and K2 6 times a step in every
+   rank); every state leaf (params, prev_params, the EF residual and
+   estimate, the staleness counters), every loss and the last step's
+   metrics of the ranks bit-identical to the one-process run (leaves by
+   SHA-256 digest, row by row), whose ad_psgd losses equal the train
+   phase's first three; ms/step at W = 1 and W = 2, the exchange alone
+   (the run's own mix of its final params) and the bytes each rank sends
+   a step, by primitive, beside the analytic ``wire_bytes``, beside the
+   card's name and power limit.  A rank that raises fails the run;
 7b. k3 — the long-utterance slice's kernels against their plain versions
    and against the unchunked pair: K1's chunk-entry variant and the
    chunked-recompute backward (K3 port) at 4 learners x 2 rows, T = 300,
@@ -1489,9 +1496,13 @@ def phase_train():
 
 
 def _named_leaves(tree, prefix=""):
+    """(path, leaf) of every leaf of a tree of dicts, tuples and lists."""
     if isinstance(tree, dict):
         for k in tree:
             yield from _named_leaves(tree[k], f"{prefix}/{k}")
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from _named_leaves(v, f"{prefix}/{i}")
     else:
         yield prefix, tree
 
@@ -1654,40 +1665,58 @@ def phase_evaluate(state):
 
 # ------------------------------------------------------- phase 7a-multirank
 MULTIRANK_MIX_CALLS = 3      # timed calls of the exchange alone, after one
-MULTIRANK_S = 240            # the most the ranks may take, or one wait
+MULTIRANK_S = 420            # the most the ranks may take, or one wait
+ELASTIC_REJOIN = 6           # plan (a)'s rejoin step
 
 
 def _multirank_runs(world: int) -> tuple:
-    """(strategy, extra config, steps): the §V step over a learner axis
-    split across ``world`` ranks, each held bit for bit against the same
-    steps in one process.  hring's pods are the ranks' blocks (the paper's
-    H-ring: the pod mean local, the ring of pod means across ranks);
-    sc_psgd_replicated mixes through the ordered chain."""
-    return (("ad_psgd", {}, 3),
-            ("hring", {"comm_pod_size": TRAIN_L // world}, 2),
-            ("sc_psgd_replicated", {}, 2))
+    """(name, strategy, extra config, steps, fault plan): the §V step
+    over a learner axis split across ``world`` ranks, each held bit for
+    bit against the same steps in one process.  hring's pods are the
+    ranks' blocks (the paper's H-ring: the pod mean local, the ring of
+    pod means across ranks); sc_psgd_replicated mixes through the ordered
+    chain; 7a-comm's coded wires (ad_psgd_q8 with 4 MB buckets, hring
+    with a bf16 intra-pod and a top-k inter-pod wire, pods of 4 inside
+    the blocks); 7a-elastic's plans, (a) through its rejoin and (b) over
+    int8 with a pod down (``_elastic_plan``)."""
+    coded_hring = dict(comm_pod_size=4, comm_intra_wire="bf16",
+                       comm_wire="topk", comm_topk_frac=0.01,
+                       comm_bucket_mb=4)
+    return (("ad_psgd", "ad_psgd", {}, 3, None),
+            ("hring", "hring", {"comm_pod_size": TRAIN_L // world}, 2, None),
+            ("sc_psgd_replicated", "sc_psgd_replicated", {}, 2, None),
+            ("ad_psgd_q8", "ad_psgd_q8", {"comm_bucket_mb": 4}, 3, None),
+            ("hring-bf16-topk", "hring", coded_hring, 3, None),
+            ("elastic-a", "ad_psgd",
+             {"comm_staleness_lambda": ELASTIC_LAMBDA}, ELASTIC_REJOIN + 1,
+             "a"),
+            ("elastic-b", "hring", {"comm_pod_size": 4, "comm_wire": "int8"},
+             ELASTIC_HRING_STEPS, "b"))
 
 
-def _exchange_ms(mix, params, device) -> float:
-    """Mean host ms of the transport's mix of ``params`` (one warm-up,
-    then :data:`MULTIRANK_MIX_CALLS` calls, each rank in step)."""
+def _exchange_ms(mix, device) -> float:
+    """Mean host ms of ``mix(k)``, the transport's mix of the final
+    params (one warm-up, then :data:`MULTIRANK_MIX_CALLS` calls, each
+    rank in step)."""
     import torch
 
-    mix(params, 0, {})
+    mix(0)
     if torch.distributed.is_initialized():
         torch.distributed.barrier()
     torch.cuda.synchronize(device)
     t0 = time.perf_counter()
     for k in range(MULTIRANK_MIX_CALLS):
-        mix(params, k, {})
+        mix(k)
     torch.cuda.synchronize(device)
     return 1e3 * (time.perf_counter() - t0) / MULTIRANK_MIX_CALLS
 
 
-def _multirank_setup(strategy, knobs, device):
+def _multirank_setup(strategy, knobs, device, plan):
     """The train phase's set-up for one run of :func:`_multirank_runs`:
     seed-0 weights, ``strategy`` over TRAIN_L learners (this rank's block
-    of them under a process group), the §V data."""
+    of them under a process group), the gradient norm on, the §V data;
+    the elastic step under ``plan`` ('a' or 'b': ``_elastic_plan``).
+    Returns (state, step, meta, data, FaultPlan or None)."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -1695,18 +1724,92 @@ def _multirank_setup(strategy, knobs, device):
     from repro_torch.launch.train import setup_training
 
     cfg = dataclasses.replace(get_arch("swb2000-blstm"), **knobs)
-    state, step, meta = setup_training(cfg, strategy_name=strategy,
-                                       n_learners=TRAIN_L, seed=SEED,
-                                       device=device)
+    faults = _elastic_plan(TRAIN_L, plan == "b") if plan else None
+    state, step, meta = setup_training(
+        cfg, strategy_name=strategy, n_learners=TRAIN_L, seed=SEED,
+        device=device, with_grad_norm=True, elastic=faults is not None,
+        fault_seed=faults.seed if faults else 0,
+        with_corruption=bool(faults and faults.corrupt_prob > 0))
     ds = make_dataset(cfg, seq_len=TRAIN_T, batch=TRAIN_L * TRAIN_B,
                       seed=SEED, var_len=True)
-    return state, step, meta, ds
+    return state, step, meta, ds, faults
 
 
-def _stale_trees(state) -> dict:
-    """The state's params (and prev_params where kept) on the host."""
-    return {k: _to_cpu(state[k]) for k in ("params", "prev_params")
-            if k in state}
+def _state_digests(state, whole) -> dict:
+    """The bits of every state leaf but ``step``, as SHA-256 digests:
+    path -> (dtype, trailing shape, [digest of each learner row]) for a
+    leaf split over ranks, and [the digest of the whole leaf] for one
+    under the keys every rank holds whole (``whole``).  Equal digests are
+    equal bits; the ranks' rows in order are one process's stack, and no
+    copy of a full-width state is kept."""
+    import hashlib
+
+    import torch
+
+    out = {}
+    for key, tree in state.items():
+        if key == "step":
+            continue
+        for path, leaf in _named_leaves(tree, key):
+            t = leaf.detach().contiguous().cpu()
+            rows = ([t] if key in whole or t.dim() == 0
+                    else list(t.unbind(0)))
+            out[path] = (str(t.dtype), tuple(t.shape[1:]), [
+                hashlib.sha256(r.contiguous().reshape(-1).view(
+                    torch.uint8).numpy().tobytes()).hexdigest()
+                for r in rows])
+    return out
+
+
+def _multirank_mixer(state, meta, faults, steps):
+    """``mix(k)``: the run's own mix of its final params at step k (the
+    elastic one under the last step's masks and the final counters)."""
+    t = meta["transport"]
+    params = state["params"]
+    if faults is None:
+        mix = t.make_mixer(TRAIN_L)
+        return lambda k: mix(params, k, state.get("comm", {}))
+    emix = t.make_elastic_mixer(TRAIN_L, fault_seed=faults.seed,
+                                with_corruption=faults.corrupt_prob > 0)
+    f = faults.step_inputs(steps - 1)
+    stale = state["staleness"].numpy()
+    return lambda k: emix(params, k, f["active"], stale, f["edge_ok"],
+                          f["corrupt"])
+
+
+def _multirank_run(name, strategy, knobs, steps, plan, dev):
+    """One run of :func:`_multirank_runs` on this process's block (the
+    whole stack in one process), the launch counters and the sent bytes
+    set to 0 just before its steps and read just after, then the
+    exchange alone.  Returns its record."""
+    import torch
+
+    from repro_torch.core import collective as C
+    from repro_torch.core import strategies as ST
+    from repro_torch.launch.train import run
+
+    state, step, meta, ds, faults = _multirank_setup(strategy, knobs, dev,
+                                                     plan)
+    torch.cuda.synchronize(dev)
+    if torch.distributed.is_initialized():
+        torch.distributed.barrier()
+    _zero_counts()
+    C.reset_sent()
+    state, metrics, records = run(state, step, ds, steps=steps, device=dev,
+                                  plan=faults)
+    counts = _train_counts()
+    sent = dict(C.sent_bytes)
+    whole = ST.whole_keys(state, meta["transport"])
+    out = dict(digests=_state_digests(state, whole), counts=counts,
+               sent=sent, whole=whole,
+               losses=[float(r[3]) for r in records],
+               metrics={k: float(v) for k, v in metrics.items()},
+               step_ms=[1e3 * r[0] for r in records], steps=steps,
+               mix_ms=_exchange_ms(_multirank_mixer(state, meta, faults,
+                                                    steps), dev))
+    del state, step, meta
+    torch.cuda.empty_cache()
+    return out
 
 
 def _multirank_rank(rank, world, rdv, out_dir, backend):
@@ -1714,15 +1817,12 @@ def _multirank_rank(rank, world, rdv, out_dir, backend):
     file rendezvous) through ``launch.multihost.initialize``, which takes
     its card (the shared card under gloo, ``cuda:rank`` under nccl) and
     picks the backend, held to ``backend``; runs every
-    :func:`_multirank_runs` entry on its block with the launch counters set
-    to 0 just before and read just after, times the exchange alone, and
-    writes its blocks, losses, times, sent bytes and counts to
-    ``out_dir``."""
+    :func:`_multirank_runs` entry on its block (:func:`_multirank_run`)
+    and writes its blocks, losses, metrics, times, sent bytes and counts
+    to ``out_dir``."""
     import torch
 
-    from repro_torch.core import collective as C
     from repro_torch.launch import multihost
-    from repro_torch.launch.train import run
 
     # a collective that waits past MULTIRANK_S raises in the rank
     if not multihost.initialize(init_method=f"file://{rdv}",
@@ -1733,41 +1833,37 @@ def _multirank_rank(rank, world, rdv, out_dir, backend):
         place = multihost.placement()
         if place.device.type != "cuda" or place.backend != backend:
             raise RuntimeError(f"rank {rank} placed as {place}")
-        dev = place.device
         result = {"placement": place.describe()}
-        for strategy, knobs, steps in _multirank_runs(world):
-            state, step, meta, ds = _multirank_setup(strategy, knobs, dev)
-            torch.cuda.synchronize(dev)
-            torch.distributed.barrier()
-            _zero_counts()
-            C.reset_sent()
-            state, _, records = run(state, step, ds, steps=steps,
-                                    device=dev)
-            counts = _train_counts()
-            sent = dict(C.sent_bytes)
-            # the exchange alone: the transport's mix of the new params
-            mix_ms = _exchange_ms(meta["transport"].make_mixer(TRAIN_L),
-                                  state["params"], dev)
-            result[strategy] = dict(
-                trees=_stale_trees(state), counts=counts, sent=sent,
-                losses=[float(r[3]) for r in records],
-                step_ms=[1e3 * r[0] for r in records], mix_ms=mix_ms,
-                steps=steps)
-            del state, step, meta
-            torch.cuda.empty_cache()
+        for name, strategy, knobs, steps, plan in _multirank_runs(world):
+            result[name] = _multirank_run(name, strategy, knobs, steps,
+                                          plan, place.device)
         torch.save(result, f"{out_dir}/rank{rank}.pt")
     finally:
         torch.distributed.destroy_process_group()
 
 
-def _same_trees(name, want, got) -> None:
-    """Every leaf of ``got`` (the ranks' blocks, concatenated) equal to
-    ``want``'s bit for bit; fails the run naming the first that is not."""
-    import torch
-
-    for (key, a), (_, b) in zip(_named_leaves(want), _named_leaves(got)):
-        if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
-            _fail(f"[multirank] {name}: {key} differs from the one-process "
+def _same_state(name, one, parts) -> None:
+    """The ranks' state digests (:func:`_state_digests`) against one
+    process's: the same leaves, dtypes and trailing shapes; a split
+    leaf's rows over the ranks in order, a whole one's on every rank.
+    Fails the run naming the first leaf that differs."""
+    if parts[0]["whole"] != one["whole"]:
+        _fail(f"[multirank] {name}: the ranks hold {parts[0]['whole']} "
+              f"whole, one process {one['whole']}")
+    want = one["digests"]
+    for r, p in enumerate(parts):
+        if list(p["digests"]) != list(want):
+            _fail(f"[multirank] {name}: rank {r}'s state has other leaves "
+                  f"than the one-process run's")
+    for path, (dtype, shape, rows) in want.items():
+        got = [p["digests"][path] for p in parts]
+        if any(g[:2] != (dtype, shape) for g in got):
+            _fail(f"[multirank] {name}: {path} has another dtype or shape "
+                  f"than the one-process run's")
+        whole = path.split("/")[0] in one["whole"]
+        if (any(g[2] != rows for g in got) if whole
+                else [d for g in got for d in g[2]] != rows):
+            _fail(f"[multirank] {name}: {path} differs from the one-process "
                   f"run")
 
 
@@ -1776,33 +1872,25 @@ def phase_multirank(train_losses, *, backend="gloo", world=2):
     ranks (two ranks sharing the one card over gloo, payloads staged
     through host memory; or, from ``tools/multicard_smoke.py``, one rank a
     card over nccl): each run of :func:`_multirank_runs` in one process
-    first (its ms/step, the exchange's ms), then in the ranks, every leaf
-    of params and prev_params and every loss held bit for bit; the ad_psgd
-    run's losses also equal the train phase's first steps.  Prints ms/step
-    at W = 1 and W = ``world``, the exchange's ms and the bytes each rank
-    sends a step.  Returns the ranks' K1-stash and K2 launches."""
+    first (its ms/step, the exchange's ms), then in the ranks; every state
+    leaf (params, prev_params, the optimizer's, the EF residual and
+    estimate, the staleness counters: the split ones concatenated over the
+    ranks, those every rank holds whole equal on each), every loss and
+    the last step's metrics held bit for bit; the ad_psgd run's losses
+    also equal the train phase's first steps.  Prints ms/step at W = 1
+    and W = ``world``, the exchange's ms, the bytes each rank sends a step
+    by primitive beside ``wire_bytes`` (the analytic bytes a learner
+    sends a round).  Returns the ranks' K1-stash and K2 launches."""
     import tempfile
 
     import torch
     import torch.multiprocessing as mp
 
-    from repro_torch.core import strategies as ST
-    from repro_torch.launch.train import run
-
     dev = torch.device("cuda")
     print(f"[multirank] {_card_line()}", flush=True)
     t_phase = time.perf_counter()
-    ref = {}
-    for strategy, knobs, steps in _multirank_runs(world):
-        state, step, meta, ds = _multirank_setup(strategy, knobs, dev)
-        state, _, records = run(state, step, ds, steps=steps, device=dev)
-        ref[strategy] = dict(
-            trees=_stale_trees(state), losses=[float(r[3]) for r in records],
-            step_ms=[1e3 * r[0] for r in records],
-            mix_ms=_exchange_ms(meta["transport"].make_mixer(TRAIN_L),
-                                state["params"], dev))
-        del state, step, meta
-        torch.cuda.empty_cache()
+    runs = _multirank_runs(world)
+    ref = {r[0]: _multirank_run(*r, dev) for r in runs}
     got = ref["ad_psgd"]["losses"]
     if got != list(train_losses[:len(got)]):
         _fail(f"[multirank] the one-process ad_psgd losses {got} are not "
@@ -1831,51 +1919,45 @@ def phase_multirank(train_losses, *, backend="gloo", world=2):
         ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
                  for r in range(world)]
     counts = {"blstm_layer_train": 0, "blstm_layer_bwd": 0}
-    for strategy, knobs, steps in _multirank_runs(world):
-        parts = [r[strategy] for r in ranks]
-        whole = {k: _cat_trees([p["trees"][k] for p in parts])
-                 for k in parts[0]["trees"]}
-        _same_trees(strategy, ref[strategy]["trees"], whole)
+    summary = []
+    for name, strategy, knobs, steps, plan in runs:
+        parts = [r[name] for r in ranks]
+        one = ref[name]
+        _same_state(name, one, parts)
         for r, p in enumerate(parts):
-            if p["losses"] != ref[strategy]["losses"]:
-                _fail(f"[multirank] {strategy}: rank {r}'s losses "
-                      f"{p['losses']} != one process's "
-                      f"{ref[strategy]['losses']}")
-            for name, n in p["counts"].items():
+            if p["losses"] != one["losses"] or p["metrics"] != one["metrics"]:
+                _fail(f"[multirank] {name}: rank {r}'s losses "
+                      f"{p['losses']} and last metrics {p['metrics']} != "
+                      f"one process's {one['losses']}, {one['metrics']}")
+            for kname, n in p["counts"].items():
                 if n != 6 * steps:
-                    _fail(f"[multirank] {strategy}: rank {r} launched "
-                          f"{name} {n} times in {steps} steps, not "
-                          f"{6 * steps}")
-                counts[name] += n
-        one = ref[strategy]
+                    _fail(f"[multirank] {name}: rank {r} launched {kname} "
+                          f"{n} times in {steps} steps, not {6 * steps}")
+                counts[kname] += n
         w1 = sum(one["step_ms"][1:]) / (steps - 1)
         wn = sum(parts[0]["step_ms"][1:]) / (steps - 1)
-        sent = [p["sent"] for p in parts]
-        print(f"[multirank] {strategy}: {steps} steps at W = 1 and W = "
-              f"{world} ({backend}) bit-identical (params, prev_params, "
-              f"losses {one['losses']}); ms/step after the first: W = 1 "
-              f"{w1:.2f}, W = {world} {wn:.2f} (rank 0; first "
-              f"{one['step_ms'][0]:.1f} / {parts[0]['step_ms'][0]:.1f}); "
-              f"exchange alone {one['mix_ms']:.2f} ms at W = 1, "
-              f"{parts[0]['mix_ms']:.2f} at W = {world}; bytes sent a step "
-              f"by each rank "
-              f"{[{k: v // steps for k, v in s.items()} for s in sent]}",
-              flush=True)
+        sent = [{k: v // steps for k, v in p["sent"].items()} for p in parts]
+        row = dict(name=name, steps=steps, ms_w1=w1, ms_wn=wn,
+                   mix_ms_w1=one["mix_ms"], mix_ms_wn=parts[0]["mix_ms"],
+                   sent_per_step=sent,
+                   wire_bytes=one["metrics"]["wire_bytes"])
+        summary.append(row)
+        print(f"[multirank] {name}: {steps} steps at W = 1 and W = {world} "
+              f"({backend}) bit-identical (every state leaf, losses "
+              f"{one['losses']}, last metrics {one['metrics']}); ms/step "
+              f"after the first: W = 1 {w1:.2f}, W = {world} {wn:.2f} "
+              f"(rank 0; first {one['step_ms'][0]:.1f} / "
+              f"{parts[0]['step_ms'][0]:.1f}); exchange alone "
+              f"{one['mix_ms']:.2f} ms at W = 1, {parts[0]['mix_ms']:.2f} "
+              f"at W = {world}; bytes sent a step by each rank {sent} "
+              f"beside wire_bytes {row['wire_bytes']:.0f} (a learner a "
+              f"round, analytic)", flush=True)
+    print(f"[multirank] summary {json.dumps(summary)}", flush=True)
     print(f"[multirank] ranks: {[r['placement'] for r in ranks]}; spawn "
           f"and runs {spawn_s:.1f}s, phase "
           f"{time.perf_counter() - t_phase:.1f}s; K1-stash and K2 launches "
           f"by the ranks {counts}", flush=True)
     return counts
-
-
-def _cat_trees(trees):
-    """Leafwise concatenation along axis 0 of the ranks' blocks."""
-    import torch
-
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _cat_trees([t[k] for t in trees]) for k in first}
-    return torch.cat(trees, dim=0)
 
 
 # ------------------------------------------------------------- phase 7a-comm

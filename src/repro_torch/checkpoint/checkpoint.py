@@ -27,8 +27,11 @@ checkpoint has no ``tree.json``, a port checkpoint no
 * **Any world size** — a learner-stacked state is saved whole (the train
   CLI's rank 0 gathers every rank's block first, so W ranks write the
   files one process writes), and :func:`restore` with ``learner_block``
-  keeps one rank's rows of each stacked leaf: a checkpoint resumes at any
-  W that divides its learners.
+  keeps one rank's rows of each stacked leaf (its learners', or its
+  hierarchical pods' of a split error-feedback state), and restores the
+  leaves every rank holds whole (``whole``: the elastic staleness
+  counters, a straddling H-ring's EF state) as saved: a checkpoint
+  resumes at any W that divides its learners.
 """
 from __future__ import annotations
 
@@ -169,8 +172,13 @@ def _from_numpy(a: np.ndarray, dtype: str, ref):
     return t.to(ref.device)
 
 
+def _under(path: str, keys) -> bool:
+    """Whether the leaf path lies under one of the top-level ``keys``."""
+    return any(path.startswith(f"[{k!r}]") for k in keys)
+
+
 def restore(directory: str, state_like, step: int = None, *,
-            learner_block: tuple = None):
+            learner_block: tuple = None, whole=()):
     """Restore into the structure of ``state_like``; returns (state,
     step).  Tensors land on the device of their ``state_like`` leaf.
 
@@ -180,8 +188,12 @@ def restore(directory: str, state_like, step: int = None, *,
     checkpoint of another strategy, config or learner count fails loudly
     instead of restoring into the wrong slot.  ``learner_block`` (start,
     count, total): ``state_like`` is one rank's block of a learner-stacked
-    state, every tensor leaf of which was saved with ``total`` learners;
-    rows [start, start + count) of each are restored."""
+    state of ``total`` learners, saved whole, W = total / count ranks
+    holding ``count`` each; a tensor leaf of n rows here was saved with
+    n·W (its learners, or the pods of a split EF state), of which rows
+    [r·n, (r+1)·n) are restored, r = start / count.  The leaves under a
+    top-level key in ``whole`` are held whole by every rank and restored
+    as saved."""
     step = step if step is not None else latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {directory}")
@@ -205,11 +217,13 @@ def restore(directory: str, state_like, step: int = None, *,
             dt = meta["dtypes"][i]
             expect_shape = tuple(np.shape(ref))
             if learner_block is not None and isinstance(ref, torch.Tensor) \
-                    and ref.dim() > 0:
+                    and ref.dim() > 0 and not _under(name, whole):
                 start, count, total = learner_block
-                expect_shape = (total,) + expect_shape[1:]
+                W, n = total // count, expect_shape[0]
+                expect_shape = (n * W,) + expect_shape[1:]
                 if tuple(a.shape) == expect_shape:
-                    a = a[start:start + count]
+                    r = start // count
+                    a = a[r * n:(r + 1) * n]
                     expect_shape = tuple(np.shape(ref))
             if tuple(a.shape) != expect_shape:
                 raise ValueError(

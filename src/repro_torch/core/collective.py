@@ -16,6 +16,12 @@ the global stack, restricted to the block, with the same bits:
   partial to rank 1, which adds its own, and so on; the last rank
   broadcasts the total.  An all-reduce would add in another order.
 
+A coded payload is several tensors a row (an int8 row and its
+buckets' f32 scales): :func:`pack_rows` lays each row's bytes of them
+side by side in one uint8 row, so that a row travels as one message
+through any of the above, and :func:`unpack_rows` takes them apart where
+it arrives.
+
 With no process group (W = 1) each is the plain torch op it replaces,
 and no ``torch.distributed`` call is made.  ``sent_bytes`` counts the
 payload bytes this rank has sent, by primitive (a broadcast's root
@@ -214,6 +220,25 @@ def ordered_sum_learners(x: torch.Tensor) -> torch.Tensor:
         total = _count("sum", _out(total), W - 1)
     dist.broadcast(total, W - 1)
     return total.to(x.device)
+
+
+def pack_rows(*parts: torch.Tensor) -> torch.Tensor:
+    """One uint8 payload (n, bytes) of tensors that share their leading
+    rows: row i holds the bytes of row i of every part, in order."""
+    return torch.cat([p.contiguous().reshape(p.shape[0], -1).view(
+        torch.uint8) for p in parts], dim=1)
+
+
+def unpack_rows(buf: torch.Tensor, likes) -> list:
+    """The parts of a :func:`pack_rows` payload: ``likes`` gives each
+    part's (dtype, shape of one row), in the packing order."""
+    out, at = [], 0
+    for dtype, shape in likes:
+        nbytes = int(torch.Size(shape).numel()) * dtype.itemsize
+        part = buf[:, at:at + nbytes].contiguous().view(dtype)
+        out.append(part.reshape((buf.shape[0],) + tuple(shape)))
+        at += nbytes
+    return out
 
 
 def ordered_sum_ranks(x: torch.Tensor) -> torch.Tensor:

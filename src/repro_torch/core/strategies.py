@@ -62,7 +62,10 @@ process to rounding, not bit for bit.
 :class:`~repro_torch.core.faults.FaultPlan` step's host masks say who is
 alive, who contributes a gradient, who rejoins, which gossip edges
 deliver and whose payloads are corrupted, and the strategy runs over the
-live set through the elastic mixing matrices.
+live set through the elastic mixing matrices.  It splits over ranks as
+the plain step does: the masks and the staleness counters stay global on
+every rank, each rank selects with its block of them, and its sums run
+over every learner in the one-process order.
 """
 from __future__ import annotations
 
@@ -374,10 +377,21 @@ def _grad_norm(g):
 
 
 def _grad_norm_stacked(g_l):
-    """(L,) per-learner L2 norms of a stacked gradient tree."""
-    return torch.sqrt(sum(
-        torch.sum(torch.square(w.float()), dim=tuple(range(1, w.dim())))
-        for w in _leaves(g_l)))
+    """(L,) per-learner L2 norms of a stacked gradient tree.  On the card
+    a stacked reduction's order within a row depends on its count of
+    rows, so a stack's norms would round otherwise than a rank's block
+    of them; there every learner's row of every leaf is normed in one
+    multi-tensor reduction (``torch._foreach_norm``, whose order within a
+    tensor is fixed by its own size), and each learner's norms over the
+    leaves in a second."""
+    leaves = [w.float() for w in _leaves(g_l)]
+    if not leaves[0].is_cuda:
+        return torch.sqrt(sum(
+            torch.sum(torch.square(w), dim=tuple(range(1, w.dim())))
+            for w in leaves))
+    rows = torch._foreach_norm([r for w in leaves for r in w])
+    per_leaf = torch.stack(rows).reshape(len(leaves), -1)
+    return torch.stack(torch._foreach_norm(list(per_leaf.t().contiguous())))
 
 
 def _to_device(batch, device):
@@ -539,12 +553,21 @@ def _positions(batch):
 # Elastic (fault-tolerant) train step
 # ---------------------------------------------------------------------------
 
+def _mine(v) -> np.ndarray:
+    """This rank's block of a global host (L,) vector (all of it in one
+    process)."""
+    v = np.asarray(v)
+    start, n = C.learner_block(v.shape[0])
+    return v[start:start + n]
+
+
 def _sel(mask, a, b):
     """Per-learner select over stacked trees: rows where the host (L,)
-    ``mask`` is set come from ``a``, the rest from ``b``.  An all-set or
-    all-clear mask returns ``a`` or ``b`` itself (the select would copy
-    it bit for bit)."""
-    m = np.asarray(mask) > 0
+    ``mask`` is set come from ``a``, the rest from ``b`` (this rank's
+    block of the mask on a split learner axis).  An all-set or all-clear
+    mask returns ``a`` or ``b`` itself (the select would copy it bit for
+    bit)."""
+    m = _mine(mask) > 0
     if m.all():
         return a
     if not m.any():
@@ -569,29 +592,31 @@ def _map2(fn, a, b):
 
 
 def _column(v: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    """A host (L,) f32 vector on ``like``'s device, broadcastable against
-    it."""
-    return _per_learner(torch.as_tensor(v, dtype=torch.float32,
+    """This rank's block of a host (L,) f32 vector on ``like``'s device,
+    broadcastable against it."""
+    return _per_learner(torch.as_tensor(_mine(v), dtype=torch.float32,
                                         device=like.device), like)
 
 
 def _reseed_rejoiners(params, rejoin, incumbent):
     """Rejoining learners re-enter at the incumbents' f32 mean (the sum
-    over learners in order, divided by their count); elastic membership
-    never resurrects a crashed learner's dead weights.  Rows that do not
-    rejoin keep their bits (f32 -> dtype of an upcast is exact), so a
-    step with no rejoiner returns ``params`` itself."""
-    rj = np.nonzero(np.asarray(rejoin) > 0)[0]
-    if rj.size == 0:
+    over every learner in order, across ranks on a split axis, divided
+    by their count); elastic membership never resurrects a crashed
+    learner's dead weights.  Rows that do not rejoin keep their bits (f32
+    -> dtype of an upcast is exact), so a step with no rejoiner returns
+    ``params`` itself."""
+    if not (np.asarray(rejoin) > 0).any():
         return params
     n_inc = float(max(np.float32(np.asarray(incumbent, np.float32).sum()),
                       np.float32(1.0)))
-    idx = torch.as_tensor(rj)
+    idx = torch.as_tensor(np.nonzero(_mine(rejoin) > 0)[0])
 
     def one(w):
         wf = w.float()
-        mu = mixing.div(mixing.ordered_sum(wf * _column(incumbent, w), 0),
-                        n_inc)
+        mu = mixing.div(mixing.ordered_sum(wf * _column(incumbent, w), 0,
+                                           learners=True), n_inc)
+        if not idx.numel():          # no rejoiner in this rank's block
+            return w
         out = w.clone()
         out[idx.to(w.device)] = mu.to(w.dtype)
         return out
@@ -601,16 +626,18 @@ def _reseed_rejoiners(params, rejoin, incumbent):
 
 def _masked_consensus(params, active):
     """Consensus distance over the ACTIVE learners only (a crashed
-    learner's frozen replica is cluster weather, not disagreement)."""
+    learner's frozen replica is cluster weather, not disagreement).  On
+    a split learner axis each leaf is gathered first, so every rank
+    reduces the global stack in the one-process order."""
     a = np.asarray(active, np.float32)
     n_act = max(np.float32(a.sum()), np.float32(1.0))
     num, den = None, np.float32(0.0)
     for w in _leaves(params):
-        if w.dim() == 0 or w.shape[0] == 1:
+        if w.dim() == 0 or C.global_count(w.shape[0]) == 1:
             part, d = torch.zeros((), device=w.device), np.float32(1.0)
         else:
-            wf = w.float()
-            col = _column(a, w)
+            wf = C.gather_learners(w).float()
+            col = _per_learner(torch.as_tensor(a, device=w.device), wf)
             mu = mixing.div(mixing.ordered_sum(wf * col, 0), float(n_act))
             part = torch.sum(torch.square(wf - mu) * col)
             d = n_act * (np.float32(wf.numel()) / np.float32(wf.shape[0]))
@@ -627,11 +654,28 @@ def init_elastic_state(strategy: Strategy, params, optimizer: Optimizer,
     The counters live on the host (a CPU tensor, whatever the params'
     device): every input they depend on is a host mask, and the mixing
     matrix they damp is built on the host, so the step never reads the
-    card for them.  The checkpoint saves and restores them there."""
+    card for them.  The checkpoint saves and restores them there.  On a
+    learner axis split over ranks every rank holds all L of them."""
     state = init_state(strategy, params, optimizer, transport)
-    state["staleness"] = torch.zeros((_learner_dim(params),),
-                                     dtype=torch.int32)
+    state["staleness"] = torch.zeros(
+        (C.global_count(_learner_dim(params)),), dtype=torch.int32)
     return state
+
+
+def whole_keys(state, transport: Transport) -> tuple:
+    """The keys of a train state (this rank's, of a learner axis split
+    over ranks) whose leaves every rank holds whole instead of its block:
+    ``step``, the elastic ``staleness`` counters (every learner's: the
+    mixing matrix reads them all) and ``comm`` where hierarchical pods
+    straddle the blocks (:meth:`Transport.comm_whole`).  The checkpoint
+    writes these once and gathers the rest."""
+    keys = ["step"]
+    if "staleness" in state:
+        keys.append("staleness")
+    if "comm" in state and transport.comm_whole(
+            _learner_dim(state["params"])):
+        keys.append("comm")
+    return tuple(keys)
 
 
 def make_elastic_train_step(strategy: Strategy, loss_fn: Callable,
@@ -672,17 +716,22 @@ def make_elastic_train_step(strategy: Strategy, loss_fn: Callable,
     With the trivial masks the trajectory matches :func:`make_train_step`
     to f32 rounding (a matrix product where the plain path rolls).
     Non-replicated strategies are refused (no learner axis to mask), and
-    difference-coded wires by :meth:`Transport.make_elastic_mixer`."""
+    difference-coded wires by :meth:`Transport.make_elastic_mixer`.
+
+    Under a process group of W ranks, as in :func:`make_train_step`, the
+    state holds this rank's block of the ``n_learners`` learners and the
+    step takes its rows of the global batch; the host masks stay global
+    (a ``FaultPlan`` is a pure function of its seed), each select takes
+    the rank's block of them, and the incumbents' mean, the
+    contributors' frame sum and loss, ``grad_norm`` and the masked
+    consensus are reduced over every learner in the one-process order,
+    so every leaf and metric has one process's bits."""
     if not strategy.replicated:
         raise ValueError(
             f"strategy {strategy.name!r} is not replicated: elastic "
             f"membership needs a stacked learner axis to mask — use "
             f"'sc_psgd_replicated' for an elastic allreduce baseline")
-    if C.world()[1] > 1:
-        raise ValueError(
-            f"the elastic step runs in one process: its membership "
-            f"masks and matrices span every learner, and the learner "
-            f"axis is split over {C.world()[1]} ranks")
+    n_local = C.learner_block(n_learners)[1]
     transport = transport if transport is not None \
         else default_transport(strategy)
     mix = transport.make_elastic_mixer(
@@ -694,7 +743,7 @@ def make_elastic_train_step(strategy: Strategy, loss_fn: Callable,
     def step(state, batch, faults):
         lr = lr_schedule(state["step"])
         device = next(_leaves(state["params"])).device
-        batch = _to_device(batch, device)
+        batch = _to_device(rank_rows(batch), device)
         metrics = {}
         f32 = np.float32
         active = np.asarray(faults["active"], f32)
@@ -708,13 +757,13 @@ def make_elastic_train_step(strategy: Strategy, loss_fn: Callable,
         opt = state["opt"]
         if rejoin.any():
             opt = _sel(rejoin, optimizer.init(
-                params, n_learners if n_learners > 1 else None), opt)
+                params, n_local if n_learners > 1 else None), opt)
         staleness = np.where(rejoin > 0, 0,
                              state["staleness"].cpu().numpy()).astype(
                                  np.int32)
 
         lbatch = batch if pre_split else split_learner_batch(batch,
-                                                             n_learners)
+                                                             n_local)
         grad_at = params
         if strategy.stale:
             grad_at = _reseed_rejoiners(state["prev_params"], rejoin,
@@ -723,20 +772,22 @@ def make_elastic_train_step(strategy: Strategy, loss_fn: Callable,
 
         frames = _valid_frames(lbatch)
         if frames is None:
-            frames = torch.ones(n_learners, device=device)
-        gm = torch.as_tensor(gmask, device=device)
+            frames = torch.ones(n_local, device=device)
+        gm = torch.as_tensor(_mine(gmask), device=device)
         cframes = gm * frames
-        csum = torch.clamp(mixing.ordered_sum(cframes, 0), min=1e-6)
+        csum = torch.clamp(mixing.ordered_sum(cframes, 0, learners=True),
+                           min=1e-6)
         # the mean over the active learners of the applied gradients is
         # the global masked gradient over the contributors
         w = torch.as_tensor(n_act, device=device) * cframes / csum
         g_l = tree_map(lambda g: (g.float() * _per_learner(w, g)).to(
             g.dtype), g_l)
-        metrics["loss"] = mixing.ordered_sum(loss_l * cframes, 0) / csum
+        metrics["loss"] = mixing.ordered_sum(loss_l * cframes, 0,
+                                             learners=True) / csum
         if with_grad_norm:
             norms = _grad_norm_stacked(g_l)
             metrics["grad_norm"] = mixing.div(
-                mixing.ordered_sum(norms * gm, 0),
+                mixing.ordered_sum(norms * gm, 0, learners=True),
                 float(max(f32(gmask.sum()), f32(1.0))))
 
         wire_bytes = float(f32(transport.wire_bytes(params)) * n_act

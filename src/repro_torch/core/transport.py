@@ -7,8 +7,16 @@ the balance between communication and computation".  A
 codec of what crosses the wire (``wire``); every mixing site of the
 strategies goes through it.  On one card the learners are one stacked
 axis, so a mixing round is a tensor op over that axis; under
-``torchrun`` that axis is split over the ranks and the f32 fast paths
-exchange the rows that cross a block boundary (``core/collective.py``).
+``torchrun`` that axis is split over the ranks and every path exchanges
+the rows that cross a block boundary (``core/collective.py``): bf16 and
+int8 payloads in their coded form, decoded where they arrive, top-k's
+f32 estimate rows, the uniform means through the ordered chain, so that
+every wire, bucketing and topology keeps one process's bits.  The
+error-feedback state is split with the blocks (a rank's learners, or its
+pods where the pods lie inside the blocks); where hierarchical pods
+straddle the blocks, each leaf is mixed as one process mixes the gathered
+stack and every rank holds the pod-domain EF state whole
+(:meth:`Transport.comm_whole`).
 
 * ``topology`` — doubly-stochastic mixing over the learner axis (Eq. 14):
   ``uniform`` (T_u, the allreduce realization of a parameter server),
@@ -74,16 +82,6 @@ def _leaves(tree):
 def decode_payload(wire: str, x: torch.Tensor, topk_frac: float = 0.01):
     """What the receivers see of the (G, n) f32 payload ``x``: each of the
     G senders' rows is coded independently (per-sender scales/top-k)."""
-    if wire == "f32":
-        return x
-    if wire == "bf16":
-        return x.to(torch.bfloat16).float()
-    if wire == "int8":
-        amax = x.abs().amax(dim=1, keepdim=True)
-        scale = torch.where(amax > 0, mixing.div(amax, 127.0),
-                            torch.ones_like(amax))
-        q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
-        return q.float() * scale
     if wire == "topk":
         n = x.shape[1]
         k = _topk_k(n, topk_frac)
@@ -94,7 +92,56 @@ def decode_payload(wire: str, x: torch.Tensor, topk_frac: float = 0.01):
         # >= keeps ties (may ship slightly more than k on degenerate
         # inputs); the wire accounting uses the nominal k
         return torch.where(mag >= kth, x, torch.zeros((), device=x.device))
+    return _decode(wire, encode_payload(wire, x))
+
+
+def encode_payload(wire: str, x: torch.Tensor, bucket_bytes: int = 0):
+    """What crosses a wire without error feedback of the (G, n) f32
+    payload ``x``, one row a sender, as a list of tensors that share their
+    G rows: the f32 rows, the bf16 rows, or for int8 each column bucket's
+    codes and its senders' f32 scales (G, 1), bucket after bucket.
+    :func:`_decode` gives the receivers' view of it."""
+    if wire == "f32":
+        return [x]
+    if wire == "bf16":
+        return [x.to(torch.bfloat16)]
+    if wire == "int8":
+        return [part for c in _split_cols(x, bucket_bytes)
+                for part in _int8_code(c)]
+    if wire in WIRES:
+        raise ValueError(f"wire {wire!r} codes a difference against its "
+                         f"error-feedback estimate, not a payload alone")
     raise ValueError(f"unknown wire {wire!r}; expected one of {WIRES}")
+
+
+def _decode(wire: str, coded: list):
+    """The (G, n) f32 peer view of an :func:`encode_payload` list; each
+    element is decoded from its own row's codes."""
+    if wire != "int8":
+        return coded[0].float()
+    parts = [q.float() * scale for q, scale in zip(coded[::2], coded[1::2])]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def _int8_code(x: torch.Tensor) -> list:
+    """[q, scale]: the int8 codes of the (G, n) f32 ``x`` and each
+    sender's f32 scale (G, 1)."""
+    amax = x.abs().amax(dim=1, keepdim=True)
+    scale = torch.where(amax > 0, mixing.div(amax, 127.0),
+                        torch.ones_like(amax))
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return [q, scale]
+
+
+def _across(move, coded: list) -> list:
+    """An :func:`encode_payload` list after ``move``, a collective over
+    the learner rows: one tensor moves as it is; several (int8's codes
+    and scales) travel as one uint8 row a sender
+    (``collective.pack_rows``), so one process (W = 1) packs nothing."""
+    if len(coded) == 1 or collective.world()[1] == 1:
+        return [move(c) for c in coded]
+    likes = [(c.dtype, tuple(c.shape[1:])) for c in coded]
+    return collective.unpack_rows(move(collective.pack_rows(*coded)), likes)
 
 
 def _topk_k(n: int, frac: float) -> int:
@@ -111,29 +158,59 @@ def _ring_sends(G: int) -> float:
 # Topology combines: local replica w (full precision) + decoded peers d
 # ---------------------------------------------------------------------------
 
-def _combine_ring(w, d):
-    G = w.shape[0]
+class _Peers:
+    """The peer view ``d`` (G, n) f32 of one exchange, on this rank's rows,
+    and how its rows reach the other learners.  On a learner axis split
+    over ranks (``split``) G is the global count and :meth:`roll` moves
+    the ``coded`` payload (an :func:`encode_payload` list of ``wire``)
+    across ranks, decoded where it arrives: the decode is elementwise, so
+    the rows keep the sender's bits; an exchange with no coded form moves
+    its f32 rows."""
+
+    def __init__(self, d, split: bool, coded=None, wire: str = "f32"):
+        self.d, self.split = d, split
+        self.coded, self.wire = coded, wire
+        self.G = collective.global_count(d.shape[0]) if split \
+            else d.shape[0]
+
+    def roll(self, shift: int):
+        """``torch.roll(d, shift, 0)`` over every learner, these rows."""
+        if not self.split or collective.world()[1] == 1:
+            return torch.roll(self.d, shift, dims=0)
+        if self.coded is None:
+            return collective.roll_learners(self.d, shift)
+        return _decode(self.wire, _across(
+            lambda c: collective.roll_learners(c, shift), self.coded))
+
+    def sum(self):
+        return mixing.ordered_sum(self.d, 0, learners=self.split)
+
+    def mean(self):
+        return mixing.ordered_mean(self.d, 0, learners=self.split)
+
+
+def _combine_ring(w, d: _Peers):
+    G = d.G
     if G == 1:
         return w
     if G == 2:
-        return mixing.div(2.0 * w + torch.roll(d, 1, dims=0), 3.0)
-    return mixing.div(w + torch.roll(d, 1, dims=0) + torch.roll(d, -1, dims=0),
-                      3.0)
+        return mixing.div(2.0 * w + d.roll(1), 3.0)
+    return mixing.div(w + d.roll(1) + d.roll(-1), 3.0)
 
 
-def _combine_uniform(w, d):
-    G = w.shape[0]
+def _combine_uniform(w, d: _Peers):
+    G = d.G
     if G == 1:
         return w
     # own contribution stays exact; peers' arrive decoded
-    return mixing.div(w - d + mixing.ordered_sum(d, 0)[None], G)
+    return mixing.div(w - d.d + d.sum()[None], G)
 
 
-def _combine_exp(w, d, step: int, G: int):
+def _combine_exp(w, d: _Peers, step: int):
+    G = d.G
     if G == 1:
         return w
-    return mixing.div(w + torch.roll(d, mixing.exp_shift(step, G), dims=0),
-                      2.0)
+    return mixing.div(w + d.roll(mixing.exp_shift(step, G)), 2.0)
 
 
 def noise_seed(fault_seed: int, step: int, leaf: int, row: int) -> int:
@@ -218,17 +295,33 @@ class Transport:
         live in the strategy state (threaded through the train step)."""
         return _needs_ef(self.wire)
 
+    def comm_whole(self, n_local: int) -> bool:
+        """Whether every rank holds the error-feedback state whole: the
+        hierarchical topology's pod-domain rows when the pods straddle
+        the ranks' blocks of ``n_local`` learners (``pod_size`` does not
+        divide L/W), which no one rank owns; each rank then updates every
+        pod's row alike, and the checkpoint writes them once.  Otherwise
+        the EF rows are split with the blocks: a rank holds its learners'
+        rows, or its pods' (pods inside the blocks)."""
+        return bool(_needs_ef(self.wire) and self.topology == "hierarchical"
+                    and collective.world()[1] > 1
+                    and n_local % self.pod_size)
+
     def init_comm(self, params) -> dict:
         """Error-feedback state: per-sender residual + shared public
         estimate, f32 zeros whatever the parameter dtype (a bf16 running
         sum stops absorbing residuals below its ulp); the hierarchical
-        one lives in the pod-mean domain, (L / pod_size, ...)."""
+        one lives in the pod-mean domain, (L / pod_size, ...): this
+        rank's pods of a split learner axis, or every pod where the pods
+        straddle the blocks (:meth:`comm_whole`)."""
         comm = {}
         if _needs_ef(self.wire):
             def main_shape(w):
                 s = tuple(w.shape)
                 if self.topology == "hierarchical":
-                    s = (s[0] // self.pod_size,) + s[1:]
+                    n = (collective.global_count(s[0])
+                         if self.comm_whole(s[0]) else s[0])
+                    s = (n // self.pod_size,) + s[1:]
                 return torch.zeros(s, dtype=torch.float32, device=w.device)
             comm["residual"] = tree_map(main_shape, params)
             comm["estimate"] = tree_map(main_shape, params)
@@ -241,8 +334,8 @@ class Transport:
         bucketing the fast path delegates to the pure-topology mixers of
         :mod:`repro_torch.core.mixing`, as the reference does; they also
         run over a learner axis split across ranks (``n_learners`` is the
-        global L).  The coded and bucketed path runs in one process only:
-        ValueError naming the wire on a split axis."""
+        global L), as does the coded and bucketed path, whose coded rows
+        cross ranks as they cross the wire (:class:`_Peers`)."""
         t = self
         if t.topology == "hierarchical" and n_learners % t.pod_size:
             raise ValueError(
@@ -277,11 +370,6 @@ class Transport:
                 exp = mixing.make_exp_mixer(n_learners)
                 return lambda p, step, comm: (exp(p, step), comm)
 
-        if collective.world()[1] > 1:
-            raise ValueError(
-                f"wire {t.wire!r} (intra-pod {t.intra_wire!r}, buckets of "
-                f"{t.bucket_bytes} B) runs in one process only: across "
-                f"ranks the port mixes over the plain f32 wire, unbucketed")
         return lambda p, step, comm: _general_mix(t, p, step, comm)
 
     def make_elastic_mixer(self, n_learners: int, *, fault_seed: int = 0,
@@ -303,6 +391,11 @@ class Transport:
         view is coded by ``wire`` (``intra_wire`` does not apply: the
         hierarchical stages are one matrix) and mixed as ``off @ d +
         diag * w``, the local replica exact, the product in full f32.
+        On a learner axis split over ranks every rank builds the same
+        matrix from the global masks, gathers every learner's coded
+        payload of a leaf (decoded where it arrives, then corrupted),
+        runs one process's full product and keeps its rows, so that the
+        bits are one process's.
 
         Difference-coded wires (topk) are refused: their shared public
         estimate desynchronizes when learners crash or rejoin.  With
@@ -341,15 +434,21 @@ class Transport:
             _require_full_f32(dev)
             diag = torch.diagonal(T).clone()
             off = (T - torch.diag(diag)).to(dev)
-            diag = diag.to(dev)[:, None]
+            diag = collective.block_rows(diag.to(dev))[:, None]
             hit = (np.nonzero(np.asarray(corrupt) > 0)[0]
                    if with_corruption else ())
             scale = np.asarray(corrupt, np.float32)
             leaves = list(_leaves(params))
 
             def one(i, w):
-                wf = w.float().reshape(n_learners, -1)
-                d = _coded(t, t.wire, wf)
+                wf = w.float().reshape(w.shape[0], -1)
+                # every learner's coded payload, decoded where it arrives:
+                # on a learner axis split over ranks each rank runs one
+                # process's full product and keeps its rows (a product
+                # over a block of rows may round otherwise)
+                d = _decode(t.wire, _across(
+                    collective.gather_learners,
+                    encode_payload(t.wire, wf, t.bucket_bytes)))
                 if len(hit):
                     d = d.clone()
                     for r in hit:
@@ -361,7 +460,7 @@ class Transport:
                         d[r] = d[r] + float(scale[r]) * rms * noise
                 # peers arrive through the (coded, possibly corrupted)
                 # wire; the local replica contributes exactly
-                out = off @ d + diag * wf
+                out = collective.block_rows(off @ d) + diag * wf
                 return out.reshape(w.shape).to(w.dtype)
 
             mixed = iter([one(i, w) for i, w in enumerate(leaves)])
@@ -440,23 +539,28 @@ def _split_cols(x, bucket_bytes: int):
 
 
 def _coded(t: Transport, wire: str, x):
-    """Bucket-wise decode; returns the decoded full (G, n) tensor."""
+    """The decoded full (G, n) peer view of the payload ``x``, coded
+    bucket by bucket."""
+    if wire != "topk":
+        return _decode(wire, encode_payload(wire, x, t.bucket_bytes))
     parts = [decode_payload(wire, c, t.topk_frac)
              for c in _split_cols(x, t.bucket_bytes)]
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
-def _wire_stage(t: Transport, wire: str, x, ef):
+def _wire_stage(t: Transport, wire: str, x, ef, split: bool):
     """One coded exchange of the (G, n) payload ``x``.
 
-    Returns ``(peer_view, ef')``: what the receivers hold for each sender
-    afterwards, and the updated error-feedback state.  Without error
-    feedback the peer view is the decoded payload.  With it (topk),
-    difference coding against the shared estimate [CHOCO-SGD]: payload =
-    C(x − ŵ); every tracker applies ŵ ← ŵ + payload; the dropped mass
-    (the residual) stays inside the next round's difference."""
+    Returns ``(peers, ef')``: what the receivers hold for each sender
+    afterwards (a :class:`_Peers`), and the updated error-feedback state.
+    Without error feedback the peer view is the decoded payload, which
+    crosses ranks coded.  With it (topk), difference coding against the
+    shared estimate [CHOCO-SGD]: payload = C(x − ŵ); every tracker
+    applies ŵ ← ŵ + payload; the dropped mass (the residual) stays inside
+    the next round's difference; the estimate's f32 rows cross ranks."""
     if not _needs_ef(wire):
-        return _coded(t, wire, x), ef
+        coded = encode_payload(wire, x, t.bucket_bytes)
+        return _Peers(_decode(wire, coded), split, coded, wire), ef
     if ef is None:
         raise ValueError(
             f"wire {wire!r} carries error-feedback state: pass the same "
@@ -466,7 +570,7 @@ def _wire_stage(t: Transport, wire: str, x, ef):
     delta = x - est
     d = _coded(t, wire, delta)
     est = est + d
-    return est, (delta - d, est)
+    return _Peers(est, split), (delta - d, est)
 
 
 def _general_mix(t: Transport, params, step, comm):
@@ -503,19 +607,19 @@ def _shaped_ef(ef_new, ef_orig):
     return tuple(a.reshape(o.shape) for a, o in zip(ef_new, ef_orig))
 
 
-def _combine(t: Transport, topology: str, ef_wire: bool, local, d, step):
+def _combine(t: Transport, topology: str, ef_wire: bool, local,
+             d: _Peers, step):
     """Topology combine of the local (full-precision) value with the peer
     view ``d``.  Exact wires substitute peers' decoded payloads directly;
     difference-coded wires use the γ-damped CHOCO gossip
     ``local + γ·(T·ŵ − ŵ)``, which preserves the replica mean."""
-    G = local.shape[0]
     if ef_wire:
         if topology == "ring":
-            gossip = _combine_ring(d, d) - d
+            gossip = _combine_ring(d.d, d) - d.d
         elif topology == "uniform":
-            gossip = mixing.ordered_mean(d, 0)[None] - d
+            gossip = d.mean()[None] - d.d
         elif topology == "exp":
-            gossip = _combine_exp(d, d, step, G) - d
+            gossip = _combine_exp(d.d, d, step) - d.d
         else:
             raise ValueError(topology)
         return local + t.resolved_gamma * gossip
@@ -524,41 +628,53 @@ def _combine(t: Transport, topology: str, ef_wire: bool, local, d, step):
     if topology == "uniform":
         return _combine_uniform(local, d)
     if topology == "exp":
-        return _combine_exp(local, d, step, G)
+        return _combine_exp(local, d, step)
     raise ValueError(topology)
 
 
-def _mix_leaf(t: Transport, w, step: int, ef_main):
-    """One leaf through the coded substrate.  Returns
-    (mixed, residual', estimate')."""
-    L = w.shape[0]
+def _mix_leaf(t: Transport, w, step: int, ef_main, split: bool = True):
+    """One leaf through the coded substrate: ``w`` is this rank's block
+    of a learner axis split over the ranks (``split``; the whole stack in
+    one process) or a whole stack.  Returns (mixed, residual',
+    estimate')."""
+    n = w.shape[0]
+    G = collective.global_count(n) if split else n
     new_main = None
 
-    if L == 1 or t.topology == "none":
+    if G == 1 or t.topology == "none":
         mixed = w
     elif t.topology == "hierarchical":
-        wf = w.float().reshape(L, -1)
         p = t.pod_size
-        pods = L // p
+        if split and collective.world()[1] > 1 and n % p:
+            # pods straddle the ranks' blocks: the one-process mix of the
+            # gathered stack, whose pod-domain EF state every rank holds
+            # whole (Transport.comm_whole); this rank's rows of it
+            mixed, rm, em = _mix_leaf(t, collective.gather_learners(w),
+                                      step, ef_main, split=False)
+            return collective.block_rows(mixed).clone(), rm, em
+        wf = w.float().reshape(n, -1)
+        pods = n // p
         # intra-pod allreduce: contributions are reduced remotely, so the
-        # pod mean is over coded payloads, own included
+        # pod mean is over coded payloads, own included; a pod lies in
+        # one rank's block, so its mean is local
         if p == 1:
             pm = wf
         else:
             di = _coded(t, t.intra_wire, wf)
             pm = mixing.ordered_mean(di.reshape(pods, p, -1), 1)
-        # inter-pod ring on the pod means
-        if pods == 1:
+        # inter-pod ring on the pod means, across ranks
+        if G // p == 1:
             mixed_pm = pm
         else:
             d2, new_main = _wire_stage(t, t.wire, pm,
-                                       _flat_ef(ef_main, pods))
+                                       _flat_ef(ef_main, pods), split)
             mixed_pm = _combine(t, "ring", _needs_ef(t.wire), pm, d2, step)
         out = mixed_pm[:, None, :].expand(pods, p, mixed_pm.shape[-1])
         mixed = out.reshape(w.shape).to(w.dtype)
     else:
-        wf = w.float().reshape(L, -1)
-        d, new_main = _wire_stage(t, t.wire, wf, _flat_ef(ef_main, L))
+        wf = w.float().reshape(n, -1)
+        d, new_main = _wire_stage(t, t.wire, wf, _flat_ef(ef_main, n),
+                                  split)
         mixed = _combine(t, t.topology, _needs_ef(t.wire), wf, d, step)
         mixed = mixed.reshape(w.shape).to(w.dtype)
 

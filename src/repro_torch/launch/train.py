@@ -51,6 +51,16 @@ for any arch under one strategy; :func:`run` drives the loop
         -m repro_torch.launch.train --arch swb2000-blstm --learners 16 \\
         --batch 256 --var-len --steps 20 --log-every 1
 
+    # ... with an int8 wire in 4 MB buckets, or under a fault plan
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
+        -m repro_torch.launch.train --arch swb2000-blstm --learners 16 \\
+        --batch 256 --var-len --steps 20 --log-every 1 \\
+        --strategy ad_psgd_q8 --comm-bucket-mb 4
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \\
+        -m repro_torch.launch.train --reduced --device cpu --learners 4 \\
+        --var-len --steps 8 --log-every 1 --fault-stragglers 0:4 \\
+        --fault-departures 1:3:6 --comm-wire int8
+
 ``--ckpt-dir`` restores the latest checkpoint there at start, when one
 exists, and the step count goes on from it; ``--ckpt-every`` saves every
 that many steps; ``--resume`` requires a checkpoint (the optimizer state,
@@ -73,9 +83,14 @@ batch, and the mixes cross ranks (``core/collective.py``); rank 0 prints
 the header line with the backend and placement, the log, timing and
 ``final loss`` lines (the globally reduced metrics: a W = 4 run prints
 W = 1's loss lines), writes ``--trace-out``, and saves the gathered
-state, so a checkpoint resumes at any W that divides L.  The elastic
-step (``--fault-*``) and the coded or bucketed wires run in one process
-only (ValueError across ranks).
+state, so a checkpoint resumes at any W that divides L.  Every
+``--comm-*`` wire, bucketing and topology and the elastic step
+(``--fault-*``) run across ranks with one process's bits: coded payloads
+cross ranks coded, the fault plan's masks and the staleness counters are
+global on every rank, and the elastic mix gathers each leaf's coded
+payloads for one process's full product.  The checkpoint writes the
+staleness counters, and a straddling H-ring's pod-domain EF state
+(``--comm-pod-size`` not dividing L/W), once, as every rank holds them.
 ``--trace-out`` turns observability on (``repro_torch.obs``): every
 step's metrics as a ``train/step`` event (the gradient norm included),
 ``train/fetch`` spans, the step's first-call and steady wall time
@@ -260,14 +275,15 @@ def _record_step(k: int, metrics, strategy: str, valid: int, padded: int):
 
 
 def save_state(ckpt_dir: str, step: int, state, *,
-               replicated: bool = True) -> None:
+               replicated: bool = True, whole=("step",)) -> None:
     """``checkpoint.save`` of the train state; under a process group the
     learner-stacked leaves are gathered (to the host, a leaf at a time)
-    and rank 0 writes what one process writes, the others waiting for
-    it."""
+    but those under the keys in ``whole``, which every rank holds whole
+    (``ST.whole_keys``), and rank 0 writes what one process writes, the
+    others waiting for it."""
     rank, W = C.world()
     if W > 1 and replicated:
-        state = {k: C.gather_tree(v, "cpu") if k != "step" else v
+        state = {k: C.gather_tree(v, "cpu") if k not in whole else v
                  for k, v in state.items()}
     if rank == 0:
         save(ckpt_dir, step, state)
@@ -277,7 +293,8 @@ def save_state(ckpt_dir: str, step: int, state, *,
 
 def run(state, step_fn, dataset, *, steps: int, device, start: int = 0,
         log_every: int = 0, label: str = "", ckpt_dir: str = "",
-        ckpt_every: int = 0, plan: FaultPlan = None, strategy: str = ""):
+        ckpt_every: int = 0, plan: FaultPlan = None, strategy: str = "",
+        whole=("step",)):
     """Run ``steps`` steps, numbered from ``start``, on prefetched batches
     of ``dataset`` (the data is a pure function of the step number, so a
     run restored at ``start`` sees the batches an uninterrupted one would).
@@ -287,7 +304,8 @@ def run(state, step_fn, dataset, *, steps: int, device, start: int = 0,
 
     Prints the reference's ``step k loss ...`` line every ``log_every``
     steps (0 = never), and saves the state to ``ckpt_dir`` after every
-    ``ckpt_every``-th step (0 = never).  Each step is timed on the host clock between two
+    ``ckpt_every``-th step (0 = never; :func:`save_state`, ``whole`` the
+    state's keys that are not split over ranks).  Each step is timed on the host clock between two
     ``torch.cuda.synchronize`` calls.  While observability is on, each
     step lands in the flight recorder (:func:`_record_step`, ``strategy``
     tagging the wire bytes) and the step is wrapped in a compile/steady
@@ -342,7 +360,8 @@ def run(state, step_fn, dataset, *, steps: int, device, start: int = 0,
             if ckpt_dir and ckpt_every and (k + 1) % ckpt_every == 0:
                 known = ST.STRATEGIES.get(strategy)
                 save_state(ckpt_dir, k + 1, state,
-                           replicated=known is None or known.replicated)
+                           replicated=known is None or known.replicated,
+                           whole=whole)
     finally:
         pf.close()
     return state, metrics, records
@@ -538,11 +557,7 @@ def main(argv=None):
             stall_prob=args.fault_stall_prob,
             corrupt_prob=args.fault_corrupt_prob,
             corrupt_scale=args.fault_corrupt_scale)
-        if world > 1:
-            raise ValueError("the --fault-* flags (the elastic step) run "
-                             "in one process; the learner axis is split "
-                             f"over {world} ranks")
-        print(plan.describe(), flush=True)
+        say(plan.describe(), flush=True)
 
     state, step_fn, meta = setup_training(
         cfg, strategy_name=strategy.name, n_learners=n_learners,
@@ -556,13 +571,15 @@ def main(argv=None):
     if args.resume and not args.ckpt_dir:
         raise SystemExit("--resume needs --ckpt-dir")
     start = 0
+    whole = (ST.whole_keys(state, meta["transport"]) if strategy.replicated
+             else ("step",))
     if args.ckpt_dir:
         block = None
         if world > 1 and strategy.replicated:
             block = (*C.learner_block(n_learners), n_learners)
         try:
             state, start = restore(args.ckpt_dir, state,
-                                   learner_block=block)
+                                   learner_block=block, whole=whole)
             say(f"restored checkpoint at step {start}")
         except FileNotFoundError:
             if args.resume:
@@ -593,7 +610,8 @@ def main(argv=None):
                                   else 0,
                                   ckpt_dir=args.ckpt_dir,
                                   ckpt_every=args.ckpt_every, plan=plan,
-                                  strategy=meta["strategy"].name)
+                                  strategy=meta["strategy"].name,
+                                  whole=whole)
     if metrics is not None:
         say(f"final loss {float(metrics['loss']):.6f}")
     say(f"done: {args.steps} steps in {time.time() - t0:.1f}s "

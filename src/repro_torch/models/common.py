@@ -8,6 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import collective
 from repro_torch.params import ParamSpec
 
 
@@ -134,6 +135,18 @@ def sequence_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     return t < lengths[..., None]
 
 
+class _ValueOf(torch.autograd.Function):
+    """``value``'s bits forward, ``x``'s gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, value):
+        return value.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
 def cross_entropy(logits, labels, z_loss: float = 0.0, mask=None, *,
                   per_learner: bool = False, denominator=None):
     """Token-level CE (``repro.models.common.cross_entropy``); logits
@@ -153,11 +166,23 @@ def cross_entropy(logits, labels, z_loss: float = 0.0, mask=None, *,
     if z_loss:
         loss = loss + z_loss * torch.square(lse)
     dims = tuple(range(1 if per_learner else 0, loss.dim()))
+
+    def reduce(x, op):
+        r = getattr(x, op)(dim=dims)
+        if not (per_learner and x.is_cuda and collective.world()[1] > 1):
+            return r
+        # a rank's block of learners on the card: CUDA sizes a reduction's
+        # blocks by its count of outputs, so the block's losses take their
+        # values from the gathered stack's reduction (one process's bits)
+        # and their gradient from the block's own
+        whole = getattr(collective.gather_learners(x.detach()), op)(dim=dims)
+        return _ValueOf.apply(r, collective.block_rows(whole))
+
     if mask is not None:
         loss = loss * mask.float()
     if denominator is not None:
         return loss.sum(dim=dims) / denominator
     if mask is None:
-        return loss.mean(dim=dims)
-    return loss.sum(dim=dims) / torch.clamp(mask.float().sum(dim=dims),
-                                            min=1.0)
+        return reduce(loss, "mean")
+    return reduce(loss, "sum") / torch.clamp(mask.float().sum(dim=dims),
+                                             min=1.0)
